@@ -5,26 +5,36 @@ Run from the root of a checkout on a machine with one CUDA GPU:
 
     python3 chip_smoke.py
 
-Phases (any failure exits nonzero; nothing carries on after one):
+Three hand-written kernels are checked: K1 ``sa_metropolis`` (annealed
+Metropolis), K2 ``sa_heatbath`` (annealed heat-bath, single/pair/quad
+updates) and K3 ``pt_heatbath`` (parallel tempering).  Phases (any failure
+exits nonzero; nothing carries on after one):
 
 1. device: the GPU's name, ``nvidia-smi`` name and power limit, torch and nvcc versions;
-2. build: the CUDA kernel from ``qbmx_torch/csrc`` (seconds);
-3. kernel vs plain PyTorch under the same numpy-seeded host variates, at the
-   flagship structured shape (G=2, B=60, n=6, R=1000, S=1000) and the dense
-   CDQBM bench shape (B=60, n=41, R=100, S=1000): at most 1% of chains may
-   end in another state (a near-tie flip from a differently rounded field
-   sum diverges that one chain);
-4. the kernel's own Philox streams vs the exact Boltzmann oracle (marginals
-   within 0.12 at the cold beta), decorrelated chains, per-problem streams,
-   and the plain version driven by those same draws written out on the host
-   (``sa_torch.philox_variates``; the 1% bound of phase 3);
-5. the slice: ``qbmx_torch.cli.qbm_main.main`` on ``cuda`` (synthetic data,
+2. build: the kernels from ``qbmx_torch/csrc``, one ``nvcc`` per source at once (seconds);
+3. kernel vs plain PyTorch under the same numpy-seeded host variates: K1 and
+   K2 pair at the flagship structured shape (G=2, B=60, n=6, R=1000,
+   S=1000), K1 and K2 single and quad at the dense CDQBM bench shape (B=60,
+   n=41, R=100, S=1000), K3 at the flagship shape densified (120 problems,
+   n=6, M=8 rungs, R=1000, S=100): at most 1% of chains may end in another
+   state (a near-tie decision from a differently rounded sum diverges that
+   one chain);
+4. the kernels' own Philox streams: vs the exact Boltzmann oracle (K1
+   marginals within 0.12 at the cold beta; K2 and K3 within 0.08 single /
+   0.05 pair and quad, pair moments within 0.07, at beta 1), decorrelated
+   chains, per-problem streams, and the plain versions driven by those same
+   draws written out on the host (``sa_torch.philox_variates``,
+   ``sa_torch.pt_philox_variates``; the 1% bound of phase 3);
+5. the slices: ``qbmx_torch.cli.qbm_main.main`` on ``cuda`` (synthetic data,
    dim_input 784, H=5, 1000 reads, 1000 sweeps, bs60, one epoch = 10 steps
-   plus validation and test prediction) must launch the kernel on every
-   sampler call, give finite nll and move the parameters; per-step time by
-   CUDA events after a warm-up step;
-6. kernel and plain times (CUDA events, median of 5 after a warm-up) at the
-   two phase-3 shapes in generator mode.
+   plus validation and test prediction) with ``--solver`` SA, BMS and PT in
+   turn; each must launch its kernel on every sampler call (the launch
+   counts are zeroed just before each run and read just after), give
+   finite nll and move the parameters; per-step time by CUDA events after a
+   warm-up step;
+6. kernel and plain times (CUDA events; kernels median of 5 after a
+   warm-up, the slower plain versions of K2 and K3 median of 3) at the
+   phase-3 shapes in generator mode (K3 at S=1000).
 
 The last three lines are the ``nvidia-smi`` line, one JSON object with the
 kernel records, and ``{"ok": true, "device": {...}}``.
@@ -44,8 +54,12 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-MAX_DIFF_FRAC = 0.01  # phase 3: chains allowed to end in another state
+MAX_DIFF_FRAC = 0.01  # phases 3-4: chains allowed to end in another state
 ORACLE_ATOL = 0.12  # phase 4: |SA marginal − exact marginal| at the cold beta
+# phase 4, heat-bath and PT at beta 1 (tests/test_gibbs_pt_pallas_debug.py's
+# bars): marginals, joint-update marginals, joint-update pair moments
+HB_ATOL, JOINT_ATOL, MOMENT_ATOL = 0.08, 0.05, 0.07
+WIDTHS = {"single": dict(), "pair": dict(pair=True), "quad": dict(quad=True)}
 
 
 def fail(msg: str) -> None:
@@ -74,40 +88,59 @@ def cuda_ms(fn, runs: int) -> float:
     return statistics.median(times)
 
 
+def uniforms(rng, shape, dev):
+    u = rng.random(shape, dtype=np.float32)
+    np.clip(u, 1e-6, 1.0 - 1e-6, out=u)
+    return torch.as_tensor(u, device=dev)
+
+
+def bits(rng, shape, dev):
+    return torch.as_tensor((rng.random(shape, dtype=np.float32) < 0.5).astype(np.float32),
+                           device=dev)
+
+
 def structured_problem(rng, G, B, n, R, S, dev):
     from qbmx_torch.core.qubo import random_qubo_batch
 
     Qg = random_qubo_batch(rng, G, n).to(dev)
     h_extra = torch.as_tensor(rng.normal(size=(G, B, n)).astype(np.float32), device=dev)
-    init01 = torch.as_tensor((rng.random((G, B, R, n), dtype=np.float32) < 0.5)
-                             .astype(np.float32), device=dev)
-    u = rng.random((S, G, B, n, R), dtype=np.float32)
-    np.clip(u, 1e-6, 1.0 - 1e-6, out=u)
-    return Qg, h_extra, init01, torch.as_tensor(u, device=dev)
+    return Qg, h_extra, bits(rng, (G, B, R, n), dev), uniforms(rng, (S, G, B, n, R), dev)
 
 
 def dense_problem(rng, B, n, R, S, dev):
     from qbmx_torch.core.qubo import random_qubo_batch
 
     Q = random_qubo_batch(rng, B, n).to(dev)
-    init01 = torch.as_tensor((rng.random((B, R, n), dtype=np.float32) < 0.5)
-                             .astype(np.float32), device=dev)
-    u = rng.random((S, B, n, R), dtype=np.float32)
-    np.clip(u, 1e-6, 1.0 - 1e-6, out=u)
-    return Q, init01, torch.as_tensor(u, device=dev)
+    return Q, bits(rng, (B, R, n), dev), uniforms(rng, (S, B, n, R), dev)
 
 
-def compare(kernel_out, plain_out, label):
+def differing(kernel_out, plain_out) -> float:
+    n = kernel_out.shape[-1]
+    return (kernel_out != plain_out).reshape(-1, n).any(dim=1).float().mean().item()
+
+
+def compare(kernel_out, plain_out, label, phase=3):
     n = kernel_out.shape[-1]
     differ = (kernel_out != plain_out).reshape(-1, n).any(dim=1)
     frac = differ.float().mean().item()
     err = (kernel_out - plain_out).abs().max().item()
     binary = bool(((kernel_out == 0) | (kernel_out == 1)).all())
-    print(f"phase 3 {label}: chains {differ.numel()}, differing {int(differ.sum())} "
+    print(f"phase {phase} {label}: chains {differ.numel()}, differing {int(differ.sum())} "
           f"({frac:.6f}; limit {MAX_DIFF_FRAC}), max_abs_err {err}, binary {binary}")
     check(binary, f"{label}: kernel output is not in {{0, 1}}")
     check(frac <= MAX_DIFF_FRAC, f"{label}: {frac:.4%} of chains differ from the plain version")
     return frac, err
+
+
+def oracle_error(s, Q, *, joint: bool) -> tuple[float, float]:
+    """(marginal error, pair-moment error) of samples ``s`` (R, n) against
+    the exact Boltzmann distribution of ``Q`` at beta 1."""
+    from qbmx_torch.samplers.exact import exact_boltzmann
+
+    _, _, marg, pair_m = exact_boltzmann(Q, beta=1.0)
+    err = (s.mean(0) - marg).abs().max().item()
+    moment = ((s.T @ s) / s.shape[0] - pair_m).abs().max().item() if joint else 0.0
+    return err, moment
 
 
 def main() -> None:
@@ -119,7 +152,8 @@ def main() -> None:
     from qbmx_torch import _build
     from qbmx_torch.core.qubo import default_beta_range, random_qubo_batch
     from qbmx_torch.core.rng import draw_seed
-    from qbmx_torch.samplers import sa_cuda, sa_torch
+    from qbmx_torch.samplers import gibbs, gibbs_cuda, pt_cuda, sa_cuda, sa_torch, tempering
+    from qbmx_torch.samplers.api import densify_groups
     from qbmx_torch.samplers.exact import exact_boltzmann
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain version in full float32
@@ -143,22 +177,51 @@ def main() -> None:
 
     # -- 3. kernel vs plain under host variates ------------------------------
     rng = np.random.default_rng(2024)
+    errs = {"sa_metropolis": [], "sa_heatbath": [], "pt_heatbath": []}
+    fracs = {k: [] for k in errs}
+
+    def record(kernel, frac_err):
+        fracs[kernel].append(frac_err[0])
+        errs[kernel].append(frac_err[1])
+
     SG = dict(G=2, B=60, n=6, R=1000, S=1000)
     Qg, h_extra, init01, u = structured_problem(rng, *SG.values(), dev)
-    args = (Qg, h_extra, SG["R"], SG["S"])
-    k_out = sa_cuda.sa_sample_groups_cuda(*args, host_variates=(init01, u))
-    p_out = sa_torch.sa_sample_groups_plain(*args, host_variates=(init01, u))
-    torch.cuda.synchronize()
-    frac_g, err_g = compare(k_out, p_out, "structured G=2 B=60 n=6 R=1000 S=1000")
-    del u, init01, k_out, p_out
+    args, hv = (Qg, h_extra, SG["R"], SG["S"]), (init01, u)
+    record("sa_metropolis", compare(sa_cuda.sa_sample_groups_cuda(*args, host_variates=hv),
+                                    sa_torch.sa_sample_groups_plain(*args, host_variates=hv),
+                                    "K1 structured G=2 B=60 n=6 R=1000 S=1000"))
+    record("sa_heatbath", compare(
+        gibbs_cuda.gibbs_sample_groups_cuda(*args, pair=True, host_variates=hv),
+        gibbs.gibbs_sample_groups_plain(*args, pair=True, host_variates=hv),
+        "K2 pair structured G=2 B=60 n=6 R=1000 S=1000"))
+    del hv, init01, u
 
     SD = dict(B=60, n=41, R=100, S=1000)
     Qd, init_d, u_d = dense_problem(rng, *SD.values(), dev)
-    k_out = sa_cuda.sa_sample_batch_cuda(Qd, SD["R"], SD["S"], host_variates=(init_d, u_d))
-    p_out = sa_torch.sa_sample_batch_plain(Qd, SD["R"], SD["S"], host_variates=(init_d, u_d))
+    args, hv = (Qd, SD["R"], SD["S"]), (init_d, u_d)
+    record("sa_metropolis", compare(sa_cuda.sa_sample_batch_cuda(*args, host_variates=hv),
+                                    sa_torch.sa_sample_batch_plain(*args, host_variates=hv),
+                                    "K1 dense B=60 n=41 R=100 S=1000"))
+    for width in ("single", "quad"):
+        record("sa_heatbath", compare(
+            gibbs_cuda.gibbs_sample_batch_cuda(*args, **WIDTHS[width], host_variates=hv),
+            gibbs.gibbs_sample_batch_plain(*args, **WIDTHS[width], host_variates=hv),
+            f"K2 {width} dense B=60 n=41 R=100 S=1000"))
+    del hv, init_d, u_d
+
+    Qpt = densify_groups(Qg, h_extra)  # (120, 6, 6): the PT slice's sampler input
+    SP = dict(B=120, M=8, n=6, R=1000, S=100)
+    BM = SP["B"] * SP["M"]
+    hv = (bits(rng, (BM, SP["R"], SP["n"]), dev),
+          uniforms(rng, (SP["S"], BM, SP["n"], SP["R"]), dev),
+          uniforms(rng, (SP["S"], BM, SP["R"]), dev))
+    args = (Qpt, SP["R"], SP["S"])
+    record("pt_heatbath", compare(
+        pt_cuda.pt_sample_batch_cuda(*args, num_replicas=SP["M"], host_variates=hv),
+        tempering.pt_sample_batch_plain(*args, num_replicas=SP["M"], host_variates=hv),
+        "K3 densified B=120 n=6 M=8 R=1000 S=100"))
+    del hv
     torch.cuda.synchronize()
-    frac_d, err_d = compare(k_out, p_out, "dense B=60 n=41 R=100 S=1000")
-    del u_d, init_d, k_out, p_out
     torch.cuda.empty_cache()
 
     # -- 4. Philox path vs the exact oracle -----------------------------------
@@ -175,39 +238,87 @@ def main() -> None:
         err = (s[0].mean(0) - marg).abs().max().item()
         worst = max(worst, err)
         check(err <= ORACLE_ATOL, f"oracle n={n}: marginals off by {err:.4f}")
+    # K2 and K3 at beta 1 (tests/test_gibbs_pt_pallas_debug.py's problems)
+    oracle = {}
+    for width in WIDTHS:
+        seed, reads, sweeps, bar = (9, 384, 48, HB_ATOL) if width == "single" else \
+            (11, 2048, 64, JOINT_ATOL)
+        Q = torch.as_tensor(np.triu(np.random.default_rng(seed).uniform(-1, 1, (1, 6, 6)))
+                            .astype(np.float32), device=dev)
+        s = gibbs_cuda.gibbs_sample_batch_cuda(Q, reads, sweeps, **WIDTHS[width],
+                                               generator=torch.Generator().manual_seed(4))[0]
+        err, moment = oracle_error(s, Q[0], joint=width != "single")
+        oracle[f"K2 {width}"] = (err, moment)
+        check(err <= bar and moment <= MOMENT_ATOL,
+              f"K2 {width} oracle: marginals off by {err:.4f}, moments by {moment:.4f}")
+    Q = torch.as_tensor(np.triu(np.random.default_rng(3).uniform(-1.5, 1.5, (1, 5, 5)))
+                        .astype(np.float32), device=dev)
+    s = pt_cuda.pt_sample_batch_cuda(Q, 384, 24, num_replicas=4,
+                                     generator=torch.Generator().manual_seed(0))[0]
+    oracle["K3"] = oracle_error(s, Q[0], joint=False)
+    check(oracle["K3"][0] <= HB_ATOL, f"K3 oracle: marginals off by {oracle['K3'][0]:.4f}")
     # weak couplings and a mild schedule keep the samples diffuse, so equal
     # samples can only come from equal streams
     Qa = random_qubo_batch(rng, 3, 6, scale=0.2).to(dev)
     Qb = Qa.clone()
     Qb[1:] = random_qubo_batch(rng, 2, 6, scale=0.2).to(dev)
     zeros = torch.zeros((3, 1, 6), device=dev)
-    run = lambda Q, seed: sa_cuda.sa_sample_groups_cuda(
-        Q, zeros, 64, 50, generator=torch.Generator().manual_seed(seed),
-        beta_hot=0.5, beta_cold=1.0)[:, 0]
-    sa, sb, sc = run(Qa, 7), run(Qb, 7), run(Qa, 8)
-    distinct = len({tuple(r) for r in sa[0].cpu().tolist()})
-    check(distinct > 5, f"chains look like copies: {distinct} distinct states of 64")
-    check(torch.equal(sa[0], sb[0]), "problem 0's samples changed with its batch-mates")
-    check(not torch.equal(sa[0], sc[0]), "another seed gave the same samples")
-    # the kernel's own draws, written out on the host, drive the plain
-    # version to the kernel's samples (flagship widths, 100 sweeps)
+    gen = lambda seed: torch.Generator().manual_seed(seed)
+    runs = {
+        "K1": lambda Q, seed: sa_cuda.sa_sample_groups_cuda(
+            Q, zeros, 64, 50, generator=gen(seed), beta_hot=0.5, beta_cold=1.0)[:, 0],
+        "K2": lambda Q, seed: gibbs_cuda.gibbs_sample_batch_cuda(
+            Q, 64, 20, pair=True, beta=0.5, generator=gen(seed)),
+        "K3": lambda Q, seed: pt_cuda.pt_sample_batch_cuda(
+            Q, 64, 10, num_replicas=4, beta_target=0.5, generator=gen(seed)),
+    }
+    distinct = {}
+    for name, run in runs.items():
+        sa, sb, sc = run(Qa, 7), run(Qb, 7), run(Qa, 8)
+        distinct[name] = len({tuple(r) for r in sa[0].cpu().tolist()})
+        check(distinct[name] > 5, f"{name}: chains look like copies: {distinct[name]} "
+              "distinct states of 64")
+        check(torch.equal(sa[0], sb[0]), f"{name}: problem 0's samples changed with its "
+              "batch-mates")
+        check(not torch.equal(sa[0], sc[0]), f"{name}: another seed gave the same samples")
+    # the kernels' own draws, written out on the host, drive the plain
+    # versions to the kernels' samples (flagship widths, 100 sweeps; K3 20)
     G, B, n, R, S = 2, 60, 6, 1000, 100
-    seed = draw_seed(torch.Generator().manual_seed(5))
-    k_out = sa_cuda.sa_sample_groups_cuda(Qg, h_extra, R, S,
-                                          generator=torch.Generator().manual_seed(5))
+    seed = draw_seed(gen(5))
     hv = tuple(torch.as_tensor(a, device=dev)
                for a in sa_torch.philox_variates(seed, G, B, R, n, S))
+    k_out = sa_cuda.sa_sample_groups_cuda(Qg, h_extra, R, S, generator=gen(5))
     p_out = sa_torch.sa_sample_groups_plain(Qg, h_extra, R, S, host_variates=hv)
-    frac_p = (k_out != p_out).reshape(-1, n).any(dim=1).float().mean().item()
-    check(frac_p <= MAX_DIFF_FRAC, f"Philox mode: {frac_p:.4%} of chains differ from the "
-          "plain version on the kernel's own draws")
+    philox = {"K1": differing(k_out, p_out)}
+    for width in WIDTHS:  # K2 draws K1's streams: the same seed, the same arrays
+        k_out = gibbs_cuda.gibbs_sample_groups_cuda(Qg, h_extra, R, S, **WIDTHS[width],
+                                                    generator=gen(5))
+        p_out = gibbs.gibbs_sample_groups_plain(Qg, h_extra, R, S, **WIDTHS[width],
+                                                host_variates=hv)
+        philox[f"K2 {width}"] = differing(k_out, p_out)
+    del hv
+    S_pt = 20
+    seed = draw_seed(gen(6))
+    hv = tuple(torch.as_tensor(a, device=dev) for a in sa_torch.pt_philox_variates(
+        seed, SP["B"], SP["M"], SP["R"], SP["n"], S_pt))
+    k_out = pt_cuda.pt_sample_batch_cuda(Qpt, SP["R"], S_pt, num_replicas=SP["M"],
+                                         generator=gen(6))
+    p_out = tempering.pt_sample_batch_plain(Qpt, SP["R"], S_pt, num_replicas=SP["M"],
+                                            host_variates=hv)
+    philox["K3"] = differing(k_out, p_out)
     del hv, k_out, p_out
-    print(f"phase 4 oracle: n in (2, 5, 8), 512 reads, 200 sweeps, worst marginal "
-          f"error {worst:.4f} (limit {ORACLE_ATOL}); distinct states {distinct}/64; "
-          "per-problem streams independent of batch-mates; Philox draws vs plain at "
-          f"G=2 B=60 n=6 R=1000 S=100: differing chains {frac_p:.6f}")
+    for name, frac in philox.items():
+        check(frac <= MAX_DIFF_FRAC, f"Philox mode {name}: {frac:.4%} of chains differ from "
+              "the plain version on the kernel's own draws")
+    beta1 = ", ".join(f"{k} {a:.4f}/{b:.4f}" for k, (a, b) in oracle.items())
+    print(f"phase 4 oracle: K1 n in (2, 5, 8), 512 reads, 200 sweeps, worst marginal "
+          f"error {worst:.4f} (limit {ORACLE_ATOL}); at beta 1 marginal/moment errors "
+          f"{beta1} (limits {HB_ATOL} single and PT, {JOINT_ATOL} pair and quad, moments "
+          f"{MOMENT_ATOL}); distinct states of 64 {distinct}; per-problem streams "
+          "independent of batch-mates; Philox draws vs plain at G=2 B=60 n=6 R=1000 S=100 "
+          f"(K3: B=120 M=8 S={S_pt}): differing chains {philox}")
 
-    # -- 5. the slice: qbm_main on cuda ---------------------------------------
+    # -- 5. the slices: qbm_main on cuda, one solver at a time ------------------
     import qbmx_torch.cli.qbm_main as qm
     from qbmx_torch.models.dqbm import params_to_numpy
 
@@ -221,60 +332,99 @@ def main() -> None:
 
     qm.DiscQBM = RecordedDiscQBM
     steps, predictions = math.ceil(600 / 60), 2  # 600 synthetic train images; val + test
-    sa_cuda.reset_launch_counts()
-    t0 = time.perf_counter()
-    acc, f1, precision, recall, auc = qm.main(
-        device="cuda", data_set="synthetic", n_hidden_nodes=5, sample_count=1000,
-        anneal=1000, batch_size=60, learning_rate=0.307, epochs=1, restricted=False,
-        save="")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = sa_cuda.launch_counts["sa_metropolis"]
-    model = made[-1]
-    nlls = model.training_history.nll_per_batch
-    moved = max(float(np.abs(v - model.initial_params[k]).max())
-                for k, v in params_to_numpy(model.params).items())
-    check(launches >= steps + predictions,
-          f"kernel launched {launches} times for {steps} steps + {predictions} predictions")
-    check(len(nlls) == steps and all(math.isfinite(v) for v in nlls), f"nll {nlls}")
-    check(moved > 0.0, "training did not move the parameters")
-    check(all(0.0 <= v <= 1.0 for v in (acc, f1, precision, recall, auc)), "metrics out of range")
+    counters = (sa_cuda, gibbs_cuda, pt_cuda)
     x = torch.as_tensor(np.random.default_rng(0).random((60, 784), dtype=np.float32), device=dev)
     y = torch.as_tensor(np.arange(60) % 2, device=dev)
     mask = torch.ones(60, device=dev)
-    step_ms = cuda_ms(lambda: model._step(x, y, mask, 0.307), runs=5)
-    print(f"phase 5 slice: qbm_main cuda synthetic dim_input 784 H=5 sc1000 anneal1000 "
-          f"bs60 e1: {steps} steps, kernel launches {launches}, nll {nlls[0]:.4f} -> "
-          f"{nlls[-1]:.4f}, max param change {moved:.4f}, test acc {acc:.4f} auc {auc:.4f}, "
-          f"wall {wall:.2f} s, step {step_ms:.3f} ms (CUDA events, median of 5)")
+    launches, step_ms = {}, {}
+    for solver, module, kernel in (("SA", sa_cuda, "sa_metropolis"),
+                                   ("BMS", gibbs_cuda, "sa_heatbath"),
+                                   ("PT", pt_cuda, "pt_heatbath")):
+        for c in counters:
+            c.reset_launch_counts()
+        t0 = time.perf_counter()
+        acc, f1, precision, recall, auc = qm.main(
+            device="cuda", data_set="synthetic", n_hidden_nodes=5, sample_count=1000,
+            anneal=1000, batch_size=60, learning_rate=0.307, epochs=1, restricted=False,
+            save="", solver=solver)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v for c in counters for k, v in c.launch_counts.items()}
+        launches[kernel] = counts[kernel]
+        model = made[-1]
+        nlls = model.training_history.nll_per_batch
+        moved = max(float(np.abs(v - model.initial_params[k]).max())
+                    for k, v in params_to_numpy(model.params).items())
+        check(launches[kernel] >= steps + predictions,
+              f"{solver}: {kernel} launched {launches[kernel]} times for {steps} steps + "
+              f"{predictions} predictions")
+        check(len(nlls) == steps and all(math.isfinite(v) for v in nlls), f"{solver}: nll {nlls}")
+        check(moved > 0.0, f"{solver}: training did not move the parameters")
+        check(all(0.0 <= v <= 1.0 for v in (acc, f1, precision, recall, auc)),
+              f"{solver}: metrics out of range")
+        step_ms[solver] = cuda_ms(lambda: model._step(x, y, mask, 0.307), runs=5)
+        print(f"phase 5 slice {solver}: qbm_main cuda synthetic dim_input 784 H=5 sc1000 "
+              f"anneal1000 bs60 e1: {steps} steps, launch counts {counts}, nll {nlls[0]:.4f} "
+              f"-> {nlls[-1]:.4f}, max param change {moved:.4f}, test acc {acc:.4f} auc "
+              f"{auc:.4f}, wall {wall:.2f} s, step {step_ms[solver]:.3f} ms (CUDA events, "
+              "median of 5)")
 
     # -- 6. kernel and plain times, generator mode -----------------------------
-    gen = torch.Generator().manual_seed(1)
+    g1 = torch.Generator().manual_seed(1)
     times = {}
-    for label, kern, plain in (
-        ("structured G=2 B=60 n=6 R=1000 S=1000",
-         lambda: sa_cuda.sa_sample_groups_cuda(Qg, h_extra, 1000, 1000, generator=gen),
-         lambda: sa_torch.sa_sample_groups_plain(Qg, h_extra, 1000, 1000)),
-        ("dense B=60 n=41 R=100 S=1000",
-         lambda: sa_cuda.sa_sample_batch_cuda(Qd, 100, 1000, generator=gen),
-         lambda: sa_torch.sa_sample_batch_plain(Qd, 100, 1000)),
+    for label, kern, plain, plain_runs in (
+        ("K1 structured G=2 B=60 n=6 R=1000 S=1000",
+         lambda: sa_cuda.sa_sample_groups_cuda(Qg, h_extra, 1000, 1000, generator=g1),
+         lambda: sa_torch.sa_sample_groups_plain(Qg, h_extra, 1000, 1000), 5),
+        ("K1 dense B=60 n=41 R=100 S=1000",
+         lambda: sa_cuda.sa_sample_batch_cuda(Qd, 100, 1000, generator=g1),
+         lambda: sa_torch.sa_sample_batch_plain(Qd, 100, 1000), 5),
+        ("K2 pair structured G=2 B=60 n=6 R=1000 S=1000",
+         lambda: gibbs_cuda.gibbs_sample_groups_cuda(Qg, h_extra, 1000, 1000, pair=True,
+                                                     generator=g1),
+         lambda: gibbs.gibbs_sample_groups_plain(Qg, h_extra, 1000, 1000, pair=True), 3),
+        ("K2 single dense B=60 n=41 R=100 S=1000",
+         lambda: gibbs_cuda.gibbs_sample_batch_cuda(Qd, 100, 1000, generator=g1),
+         lambda: gibbs.gibbs_sample_batch_plain(Qd, 100, 1000), 3),
+        ("K2 quad dense B=60 n=41 R=100 S=1000",
+         lambda: gibbs_cuda.gibbs_sample_batch_cuda(Qd, 100, 1000, quad=True, generator=g1),
+         lambda: gibbs.gibbs_sample_batch_plain(Qd, 100, 1000, quad=True), 3),
+        ("K3 densified B=120 n=6 M=8 R=1000 S=1000",
+         lambda: pt_cuda.pt_sample_batch_cuda(Qpt, 1000, 1000, num_replicas=8, generator=g1),
+         lambda: tempering.pt_sample_batch_plain(Qpt, 1000, 1000, num_replicas=8), 3),
     ):
-        k_ms, p_ms = cuda_ms(kern, runs=5), cuda_ms(plain, runs=5)
+        k_ms, p_ms = cuda_ms(kern, runs=5), cuda_ms(plain, runs=plain_runs)
         times[label] = (k_ms, p_ms)
         print(f"phase 6 time {label}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
-              f"(CUDA events, median of 5; {smi})")
+              f"(CUDA events, kernel median of 5, plain median of {plain_runs}; {smi})")
 
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s")
-    k_ms, p_ms = times["structured G=2 B=60 n=6 R=1000 S=1000"]
-    kd_ms, pd_ms = times["dense B=60 n=41 R=100 S=1000"]
-    record = {"kernels": [{
-        "name": "sa_metropolis", "route": "cuda", "source": "qbmx_torch/csrc/sa_metropolis.cu",
-        "replaces": "qbmx/samplers/sa_lane.py:144",
-        "also_replaces": "qbmx/samplers/sa_pallas.py:196",
-        "launches": launches, "max_abs_err": max(err_g, err_d),
-        "differing_chains": max(frac_g, frac_d), "differing_chains_limit": MAX_DIFF_FRAC,
-        "ms": k_ms, "plain_ms": p_ms, "dense_ms": kd_ms, "dense_plain_ms": pd_ms,
-    }]}
+    t = lambda prefix: next(v for k, v in times.items() if k.startswith(prefix))
+    record = {"kernels": [
+        {"name": "sa_metropolis", "route": "cuda", "source": "qbmx_torch/csrc/sa_metropolis.cu",
+         "replaces": "qbmx/samplers/sa_lane.py:144",
+         "also_replaces": "qbmx/samplers/sa_pallas.py:196",
+         "launches": launches["sa_metropolis"], "max_abs_err": max(errs["sa_metropolis"]),
+         "differing_chains": max(fracs["sa_metropolis"]),
+         "differing_chains_limit": MAX_DIFF_FRAC,
+         "ms": t("K1 structured")[0], "plain_ms": t("K1 structured")[1],
+         "dense_ms": t("K1 dense")[0], "dense_plain_ms": t("K1 dense")[1]},
+        {"name": "sa_heatbath", "route": "cuda", "source": "qbmx_torch/csrc/sa_heatbath.cu",
+         "replaces": "qbmx/samplers/sa_lane.py:144",
+         "also_replaces": "qbmx/samplers/sa_pallas.py:196",
+         "launches": launches["sa_heatbath"], "max_abs_err": max(errs["sa_heatbath"]),
+         "differing_chains": max(fracs["sa_heatbath"]),
+         "differing_chains_limit": MAX_DIFF_FRAC,
+         "ms": t("K2 pair")[0], "plain_ms": t("K2 pair")[1],
+         "single_dense_ms": t("K2 single")[0], "single_dense_plain_ms": t("K2 single")[1],
+         "quad_dense_ms": t("K2 quad")[0], "quad_dense_plain_ms": t("K2 quad")[1]},
+        {"name": "pt_heatbath", "route": "cuda", "source": "qbmx_torch/csrc/pt_heatbath.cu",
+         "replaces": "qbmx/samplers/sa_pallas.py:196",
+         "launches": launches["pt_heatbath"], "max_abs_err": max(errs["pt_heatbath"]),
+         "differing_chains": max(fracs["pt_heatbath"]),
+         "differing_chains_limit": MAX_DIFF_FRAC,
+         "ms": t("K3")[0], "plain_ms": t("K3")[1]},
+    ], "step_ms": step_ms}
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

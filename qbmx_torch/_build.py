@@ -1,9 +1,10 @@
 """Build the port's CUDA sources into a shared library on first use.
 
-Runs ``nvcc`` on every ``qbmx_torch/csrc/*.cu`` into ``build/kernels/`` at
-the root of the checkout (a plain C interface, no PyTorch headers, so the
-build takes seconds) and loads the result with ``ctypes``.  The library's
-name carries a content hash of the sources and flags, so editing a source
+Runs one ``nvcc`` per ``qbmx_torch/csrc/*.cu``, all at once, and links the
+objects into one library in ``build/kernels/`` at the root of the checkout
+(a plain C interface, no PyTorch headers, so the build takes seconds); the
+library is loaded with ``ctypes``.  Its name carries a content hash of
+every source and header in ``csrc/`` and of the flags, so editing either
 rebuilds it and an unchanged tree reuses the last build.
 """
 
@@ -21,7 +22,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 # no --use_fast_math: the kernels' thresholds need IEEE logf/expf and
 # division to agree with their plain PyTorch versions
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 
 class BuildInfo:
@@ -52,13 +53,41 @@ def _nvcc() -> str:
 
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.qbmx_sa_metropolis.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
-                                       ctypes.c_float, ctypes.c_ulonglong, p]
-    lib.qbmx_sa_metropolis.restype = i
-    lib.qbmx_sa_metropolis_max_n.argtypes = []
-    lib.qbmx_sa_metropolis_max_n.restype = i
+    p, i, f, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_ulonglong
+    entries = {
+        # J, h, hot, logr, init01, uniforms, out, G, B, R, n, S, inv_span, seed, stream
+        "qbmx_sa_metropolis": [p] * 7 + [i] * 5 + [f, u64, p],
+        # ... seed, width, stream
+        "qbmx_sa_heatbath": [p] * 7 + [i] * 5 + [f, u64, i, p],
+        # J, h, betas, dbeta, init01, uniforms, swap_u, out, B, M, R, n, S, seed, stream
+        "qbmx_pt_heatbath": [p] * 8 + [i] * 5 + [u64, p],
+    }
+    for name, argtypes in entries.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = i
+    for name in ("qbmx_sa_metropolis_max_n", "qbmx_sa_heatbath_max_n", "qbmx_pt_heatbath_max_n",
+                 "qbmx_pt_heatbath_max_rungs", "qbmx_pt_heatbath_max_state"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i
     return lib
+
+
+def source_digest(csrc: Path = CSRC) -> str:
+    """Hash of the flags and of every ``*.cu`` and ``*.cuh`` under ``csrc``."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted([*csrc.glob("*.cu"), *csrc.glob("*.cuh")]):
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    return digest.hexdigest()[:16]
+
+
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands at once; raise with the output of the first failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]  # waits for every process
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
 
 
 def load_kernels() -> ctypes.CDLL:
@@ -67,21 +96,21 @@ def load_kernels() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    sources = sorted(CSRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        digest.update(src.name.encode() + src.read_bytes())
-    so = BUILD_DIR / f"libqbmx_kernels_{digest.hexdigest()[:16]}.so"
+    so = BUILD_DIR / f"libqbmx_kernels_{source_digest()}.so"
     t0 = time.perf_counter()
     info.built = not so.exists()
     if info.built:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                               f"{res.stdout}{res.stderr}")
+        nvcc, tmp = _nvcc(), so.with_suffix(f".{os.getpid()}.tmp")
+        srcs = sorted(CSRC.glob("*.cu"))
+        objs = [tmp.with_suffix(f".{src.stem}.o") for src in srcs]
+        try:
+            _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                      for src, o in zip(srcs, objs)])
+            _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+        finally:
+            for o in objs:
+                o.unlink(missing_ok=True)
         os.replace(tmp, so)  # atomic: a concurrent build never loads a partial file
     _lib = _declare(ctypes.CDLL(str(so)))
     info.seconds = time.perf_counter() - t0

@@ -2,9 +2,13 @@
 ``qbmx.cli.qbm_main`` plus ``--device`` (default ``cuda``; a missing GPU
 raises, the run never falls back to the CPU).
 
-Not ported yet, and refused with a pointer to the ROADMAP item:
-``--seed_sweep`` (Queue 1 item 11), ``--resume``/``--checkpoint_every``
-(item 8) and the QPU solvers (item 17).  ``--track_distribution`` records
+Solvers: ``SA`` (annealed Metropolis), ``BMS`` (annealed heat-bath, with
+pair updates on the GPU) and ``PT`` (parallel tempering, 8 rungs), each
+through its CUDA kernel on ``--device cuda`` and its plain PyTorch version
+on ``--device cpu``; ``SA-TORCH`` and ``EXACT``.  Not ported yet, and
+refused with a pointer to the ROADMAP item: ``--seed_sweep`` (Queue 1 item
+11), ``--resume``/``--checkpoint_every`` (item 8), ``SA-NATIVE`` (item 16)
+and the QPU solvers (item 17).  ``--track_distribution`` records
 the per-epoch distribution in the history but draws no figure.
 """
 
@@ -124,10 +128,13 @@ def build_parser():
     p.add_argument("-s", "--seed", metavar="INT", type=int, default=3492574433)
     p.add_argument("-sc", "--sample_count", metavar="INT", type=int, default=100,
                    help="Number of samples (annealing reads) per QUBO")
-    p.add_argument("--anneal", type=int, default=1000, help="SA sweeps per read")
+    p.add_argument("--anneal", type=int, default=1000,
+                   help="sweeps per read (SA anneal, BMS warm-up, PT sweeps)")
     p.add_argument("--solver", type=str, default="SA",
-                   help="Solver: 'SA' / 'SA-PALLAS' (CUDA kernel on a GPU), "
-                        "'SA-JAX' / 'SA-TORCH' (plain PyTorch), 'EXACT'")
+                   help="Solver: 'SA' / 'SA-PALLAS' (annealed Metropolis), 'BMS' "
+                        "(annealed heat-bath), 'PT' (parallel tempering) -- each a "
+                        "CUDA kernel on a GPU; 'SA-JAX' / 'SA-TORCH' (plain "
+                        "PyTorch), 'EXACT'")
     p.add_argument("--data_set", type=str, default="pneumoniamnist",
                    help="'mnist', 'breastmnist', 'pneumoniamnist', 'fashionmnist', 'synthetic'")
     p.add_argument("--num_classes", type=int, default=2)

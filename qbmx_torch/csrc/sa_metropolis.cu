@@ -25,10 +25,10 @@
 // per-thread array bounded by the template parameter NMAX.
 //
 // Random numbers: with null variate pointers every chain draws from a
-// Philox4x32-10 stream keyed by (seed, problem id) with the counter over
-// (read, variable/4, sweep), so a problem's samples do not depend on its
-// batch-mates.  Uniforms are (bits >> 8) * 2^-24; the initial state takes
-// the low bit.  With non-null pointers the initial state init01 (G,B,R,n)
+// Philox4x32-10 stream (philox.cuh) keyed by (seed, problem id) with the
+// counter over (read, variable/4, sweep), so a problem's samples do not
+// depend on its batch-mates.  Uniforms are (bits >> 8) * 2^-24; the initial
+// state takes the low bit.  With non-null pointers the initial state init01 (G,B,R,n)
 // and the uniforms (S,G,B,n,R) come from the host.
 //
 // Build without --use_fast_math: the thresholds need IEEE logf/expf and
@@ -37,28 +37,16 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "philox.cuh"
+
 namespace {
 
+using qbmx::kInitTag;
+using qbmx::philox4x32_10;
+using qbmx::uniform_of;
+using qbmx::word;
+
 constexpr int kThreads = 128;
-constexpr uint32_t kInitTag = 0xFFFFFFFFu;  // sweep slot of the init bits
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-  const uint32_t M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
-  const uint32_t W0 = 0x9E3779B9u, W1 = 0xBB67AE85u;
-#pragma unroll
-  for (int round = 0; round < 10; ++round) {
-    const uint32_t hi0 = __umulhi(M0, c.x), lo0 = M0 * c.x;
-    const uint32_t hi1 = __umulhi(M1, c.z), lo1 = M1 * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-    k.x += W0;
-    k.y += W1;
-  }
-  return c;
-}
-
-__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
 
 template <int NMAX>
 __global__ void __launch_bounds__(kThreads)
@@ -107,7 +95,7 @@ sa_metropolis_kernel(const float* __restrict__ J, const float* __restrict__ h,
       } else {
         if ((i & 3) == 0)
           bits = philox4x32_10(make_uint4((uint32_t)r, (uint32_t)(i >> 2), (uint32_t)t, seed_hi), key);
-        u = (float)(word(bits, i & 3) >> 8) * (1.0f / 16777216.0f);
+        u = uniform_of(word(bits, i & 3));
       }
       const float thr = -logf(u) / beta;
       const float* Ji = Js + i * n;

@@ -1,5 +1,5 @@
-"""Sampler interface and solver-string registry (SA subset of
-``qbmx.samplers.api``).
+"""Sampler interface and solver-string registry (the on-device solvers of
+``qbmx.samplers.api``: SA, BMS, PT and the exact oracle).
 
 A sampler is a small config object with
 
@@ -8,9 +8,9 @@ A sampler is a small config object with
 for a batch ``Q`` (B, n, n) of dense QUBOs, and optionally
 ``sample_groups(generator, Q_shared, h_extra, num_reads)`` for the
 structured shared-coupling form every model uses.  Routing is by tensor
-device: ``"SA"``/``"SA-PALLAS"`` launch the CUDA kernel on CUDA tensors and
-run its plain version on CPU tensors; ``"SA-JAX"`` (alias ``"SA-TORCH"``)
-always runs the plain version.
+device: ``"SA"``/``"SA-PALLAS"``, ``"BMS"`` and ``"PT"`` launch their CUDA
+kernel on CUDA tensors and run its plain version on CPU tensors;
+``"SA-JAX"`` (alias ``"SA-TORCH"``) always runs the plain version.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from typing import Protocol
 import torch
 
 from qbmx_torch.samplers import exact as _exact
-from qbmx_torch.samplers import sa_cuda, sa_torch
+from qbmx_torch.samplers import gibbs_cuda, pt_cuda, sa_cuda, sa_torch
 
 
 class Sampler(Protocol):
@@ -71,6 +71,61 @@ class SASampler:
 
 
 @dataclasses.dataclass(frozen=True)
+class GibbsSampler:
+    """Annealed heat-bath sampler — the "BMS" solver: each read is a chain
+    warmed up over ``num_warmup`` sweeps from ``min(default_hot, beta)`` to
+    ``beta``, then read out once.
+
+    ``pair_updates``: draw consecutive variable pairs from their exact
+    4-state conditional.  ``None`` (the default) means pairs where the
+    kernel runs (CUDA tensors) and single-variable sweeps on the plain
+    route, as ``qbmx``'s kernel and XLA routes do.  ``quad_updates=True``
+    draws variable quadruples from their exact 16-state conditional on both
+    routes and both entries, and wins over ``pair_updates``."""
+
+    num_warmup: int = 64
+    beta: float = 1.0
+    pair_updates: bool | None = None
+    quad_updates: bool | None = None
+
+    def widths(self, on_kernel: bool) -> tuple[bool, bool]:
+        """``(pair, quad)`` on the kernel route or the plain one."""
+        quad = self.quad_updates is True
+        pair = not quad and (self.pair_updates is not False if on_kernel
+                             else bool(self.pair_updates))
+        return pair, quad
+
+    def sample_batch(self, generator, Q, num_reads):
+        pair, quad = self.widths(Q.device.type == "cuda")
+        return gibbs_cuda.gibbs_sample_batch_cuda(
+            Q, num_reads, self.num_warmup, generator=generator, beta=self.beta, pair=pair,
+            quad=quad)
+
+    def sample_groups(self, generator, Q_shared, h_extra, num_reads):
+        pair, quad = self.widths(Q_shared.device.type == "cuda")
+        return gibbs_cuda.gibbs_sample_groups_cuda(
+            Q_shared, h_extra, num_reads, self.num_warmup, generator=generator,
+            beta=self.beta, pair=pair, quad=quad)
+
+
+@dataclasses.dataclass(frozen=True)
+class PTSampler:
+    """Parallel-tempering (replica exchange) sampler at ``beta_target``:
+    per read, ``num_replicas`` rungs on a geometric β grid run heat-bath
+    sweeps with alternating-parity exchanges, and the target rung is read
+    out.  As in ``qbmx`` it has no structured entry: structured calls reach
+    it densified (:func:`sampler_sample_groups`)."""
+
+    num_sweeps: int = 64
+    num_replicas: int = 8
+    beta_target: float = 1.0
+
+    def sample_batch(self, generator, Q, num_reads):
+        return pt_cuda.pt_sample_batch_cuda(Q, num_reads, self.num_sweeps, num_replicas=self.num_replicas,
+                  beta_target=self.beta_target, generator=generator)
+
+
+@dataclasses.dataclass(frozen=True)
 class ExactSampler:
     """Exact enumeration oracle (n ≤ 20) — the test anchor."""
 
@@ -82,20 +137,29 @@ class ExactSampler:
 
 
 _NOT_PORTED = {
-    "BMS": "the heat-bath sampler (ROADMAP Queue 1 item 14 / Queue 2 items 3-4)",
-    "PT": "parallel tempering (ROADMAP Queue 1 item 14 / Queue 2 item 5)",
     "SA-NATIVE": "the native C++ sampler (ROADMAP Queue 1 item 16)",
     "QPU": "QPU solvers (ROADMAP Queue 1 item 17)",
 }
 
 
 def get_sampler(solver: str, num_sweeps: int = 1000, **kwargs) -> Sampler:
-    """Solver-string registry; ``num_sweeps`` is sweeps per read."""
+    """Solver-string registry; ``num_sweeps`` is sweeps per read for every
+    solver (SA anneal sweeps, BMS warm-up sweeps, PT sweeps).  The legacy
+    ``num_warmup`` kwarg overrides it for BMS and PT, as in ``qbmx``."""
     s = solver.upper()
     if s in ("SA", "SA-PALLAS"):
         return SASampler(num_sweeps=num_sweeps)
     if s in ("SA-JAX", "SA-TORCH"):
         return SASampler(num_sweeps=num_sweeps, use_kernel=False)
+    if s == "BMS":
+        return GibbsSampler(num_warmup=kwargs.get("num_warmup", num_sweeps),
+                            beta=kwargs.get("beta", 1.0),
+                            pair_updates=kwargs.get("pair_updates"),
+                            quad_updates=kwargs.get("quad_updates"))
+    if s == "PT":
+        return PTSampler(num_sweeps=kwargs.get("num_warmup", num_sweeps),
+                         num_replicas=kwargs.get("num_replicas", 8),
+                         beta_target=kwargs.get("beta", 1.0))
     if s == "EXACT":
         return ExactSampler(beta=kwargs.get("beta", 1.0))
     if s.startswith(("ADVANTAGE", "DW_")) or s == "FUJITSUDAU":
@@ -105,4 +169,4 @@ def get_sampler(solver: str, num_sweeps: int = 1000, **kwargs) -> Sampler:
             f"solver {solver!r}: qbmx_torch does not have {_NOT_PORTED[s]} yet")
     raise ValueError(
         f'Unknown solver {solver!r}. Valid: "SA", "SA-PALLAS", "SA-JAX" '
-        '("SA-TORCH"), "EXACT".')
+        '("SA-TORCH"), "BMS", "PT", "EXACT".')

@@ -52,9 +52,12 @@ def _require(t: torch.Tensor, name: str, shape: tuple, device: torch.device) -> 
 
 
 def _launch(J, h, hot, logr, num_reads: int, num_sweeps: int, generator,
-            host_variates) -> torch.Tensor:
-    """Launch the kernel on ``J`` (G, n, n), ``h`` (G, B, n), ``hot``/``logr``
-    (G, B) → (G, B, R, n)."""
+            host_variates, kernel: str = "sa_metropolis", extra: tuple = (),
+            counts: dict = launch_counts) -> torch.Tensor:
+    """Launch an anneal kernel of the structured form (``sa_metropolis``, or
+    ``sa_heatbath`` with ``extra = (width,)``) on ``J`` (G, n, n), ``h``
+    (G, B, n), ``hot``/``logr`` (G, B) → (G, B, R, n); counts the launch
+    in ``counts[kernel]``."""
     from qbmx_torch._build import load_kernels
 
     G, B, n = h.shape
@@ -64,11 +67,12 @@ def _launch(J, h, hot, logr, num_reads: int, num_sweeps: int, generator,
                            (hot, "beta_hot", (G, B)), (logr, "logr", (G, B))):
         _require(t, name, shape, dev)
     lib = load_kernels()
-    if n > lib.qbmx_sa_metropolis_max_n() or 4 * n * n > _SMEM_BYTES:
-        raise ValueError(f"sa_metropolis kernel: n={n} exceeds its bound "
-                         f"(n ≤ {lib.qbmx_sa_metropolis_max_n()} and J_g in shared memory)")
+    max_n = getattr(lib, f"qbmx_{kernel}_max_n")()
+    if n > max_n or 4 * n * n > _SMEM_BYTES:
+        raise ValueError(f"{kernel} kernel: n={n} exceeds its bound "
+                         f"(n ≤ {max_n} and J_g in shared memory)")
     if G > 65535:
-        raise ValueError(f"sa_metropolis kernel: {G} groups exceed the grid's 65535")
+        raise ValueError(f"{kernel} kernel: {G} groups exceed the grid's 65535")
     init_p = u_p = None
     if host_variates is not None:
         init01, uniforms = host_variates
@@ -78,12 +82,12 @@ def _launch(J, h, hot, logr, num_reads: int, num_sweeps: int, generator,
     seed = draw_seed(generator) if host_variates is None else 0
     out = torch.empty((G, B, R, n), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.qbmx_sa_metropolis(
+    rc = getattr(lib, f"qbmx_{kernel}")(
         J.data_ptr(), h.data_ptr(), hot.data_ptr(), logr.data_ptr(), init_p, u_p,
-        out.data_ptr(), G, B, R, n, S, ctypes.c_float(inv_span(S)), seed, stream)
+        out.data_ptr(), G, B, R, n, S, ctypes.c_float(inv_span(S)), seed, *extra, stream)
     if rc != 0:
-        raise RuntimeError(f"sa_metropolis kernel launch failed: cudaError {rc}")
-    launch_counts["sa_metropolis"] += 1
+        raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
+    counts[kernel] += 1
     return out
 
 

@@ -14,6 +14,10 @@ group ``g`` sharing couplings ``J_g`` while problem ``(g, b)`` has linear
 terms ``diag(Q_shared[g]) + h_extra[g, b]``.  A dense batch is G = B groups
 of one problem each.
 
+``philox_variates`` and ``pt_philox_variates`` write out on the host the
+Philox draws of the three kernels (``sa_metropolis.cu``,
+``sa_heatbath.cu``, ``pt_heatbath.cu``) in generator mode.
+
 ``host_variates`` replaces the generator with host-supplied arrays of the
 shapes of the JAX kernels' ``debug_randoms``, so the same arrays drive both
 packages: structured ``(init01 (G,B,R,n), uniforms (S,G,B,n,R))``
@@ -93,28 +97,68 @@ def philox4x32_10(counter, key):
     return c
 
 
-def philox_variates(seed: int, G: int, B: int, R: int, n: int, S: int):
-    """The ``(init01 (G,B,R,n), uniforms (S,G,B,n,R))`` float32 arrays the
-    kernel draws in generator mode from ``seed``: key ``(seed low word,
-    problem g·B+b)``, counter ``(read, variable // 4, sweep, seed high
-    word)`` with sweep slot 2^32−1 for the initial bits; a bit is the low
-    bit of a word, a uniform ``(word >> 8)·2^-24``."""
+def _words(seed: int, streams, R: int, n: int, slot: int, y_base: int = 0):
+    """(len(streams), R, n) uint64 Philox words of variables 0..n−1: key
+    ``(seed low word, stream)``, counter ``(read, y_base | variable // 4,
+    slot, seed high word)``, word ``variable % 4``."""
     nq = -(-n // 4)
     r = np.arange(R, dtype=np.uint64)[:, None]
-    q = np.arange(nq, dtype=np.uint64)[None, :]
-    key = (np.uint64(seed & 0xFFFFFFFF), np.arange(G * B, dtype=np.uint64)[:, None, None])
-    hi = np.uint64(seed >> 32)
+    y = np.uint64(y_base) | np.arange(nq, dtype=np.uint64)[None, :]
+    key = (np.uint64(seed & 0xFFFFFFFF), np.asarray(streams, np.uint64)[:, None, None])
+    out = philox4x32_10((r, y, np.uint64(slot), np.uint64(seed >> 32)), key)
+    words = np.stack(np.broadcast_arrays(*out), axis=-1)
+    return words.reshape(len(streams), R, 4 * nq)[..., :n]
 
-    def words(slot):  # (G·B, R, n)
-        out = philox4x32_10((r, q, np.uint64(slot), hi), key)
-        return np.stack(np.broadcast_arrays(*out), axis=-1).reshape(G * B, R, 4 * nq)[..., :n]
 
-    init01 = (words(0xFFFFFFFF) & np.uint64(1)).astype(np.float32).reshape(G, B, R, n)
+def _uniform(words):
+    return (words >> np.uint64(8)).astype(np.float32) * np.float32(2.0**-24)
+
+
+_INIT_SLOT = 0xFFFFFFFF  # sweep slot of the initial bits
+
+
+def philox_variates(seed: int, G: int, B: int, R: int, n: int, S: int):
+    """The ``(init01 (G,B,R,n), uniforms (S,G,B,n,R))`` float32 arrays the
+    anneal kernels (``sa_metropolis.cu``, ``sa_heatbath.cu``) draw in
+    generator mode from ``seed``: key ``(seed low word, problem g·B+b)``,
+    counter ``(read, variable // 4, sweep, seed high word)`` with sweep slot
+    2^32−1 for the initial bits; a bit is the low bit of a word, a uniform
+    ``(word >> 8)·2^-24``."""
+    streams = np.arange(G * B)
+    init01 = (_words(seed, streams, R, n, _INIT_SLOT) & np.uint64(1)).astype(np.float32)
     uniforms = np.empty((S, G, B, n, R), np.float32)
     for t in range(S):
-        u = (words(t) >> np.uint64(8)).astype(np.float32) * np.float32(2.0**-24)
-        uniforms[t] = u.reshape(G, B, R, n).transpose(0, 1, 3, 2)
-    return init01, uniforms
+        uniforms[t] = _uniform(_words(seed, streams, R, n, t)).reshape(G, B, R, n) \
+            .transpose(0, 1, 3, 2)
+    return init01.reshape(G, B, R, n), uniforms
+
+
+def pt_philox_variates(seed: int, B: int, M: int, R: int, n: int, S: int):
+    """The ``(init01 (B·M,R,n), uniforms (S,B·M,n,R), swap_u (S,B·M,R))``
+    float32 arrays the tempering kernel (``pt_heatbath.cu``) draws in
+    generator mode from ``seed``, slot ``b·M + m``: key ``(seed low word,
+    problem b)``; variable draws at counter ``(read, (m << 8) | variable //
+    4, sweep, seed high word)`` (sweep slot 2^32−1 for the initial bits);
+    the swap uniform of rung m at counter ``(read, ((m // 4) << 8) | 0xFF,
+    sweep, seed high word)``, word ``m % 4``."""
+    streams = np.arange(B)
+    init01 = np.empty((B, M, R, n), np.float32)
+    uniforms = np.empty((S, B, M, n, R), np.float32)
+    swap_u = np.empty((S, B, M, R), np.float32)
+    key = (np.uint64(seed & 0xFFFFFFFF), streams.astype(np.uint64)[:, None])
+    r = np.arange(R, dtype=np.uint64)
+    for m in range(M):
+        init01[:, m] = _words(seed, streams, R, n, _INIT_SLOT, m << 8) & np.uint64(1)
+        for t in range(S):
+            uniforms[t, :, m] = _uniform(_words(seed, streams, R, n, t, m << 8)).transpose(0, 2, 1)
+    for t in range(S):
+        for mq in range(-(-M // 4)):
+            out = philox4x32_10((r, np.uint64((mq << 8) | 0xFF), np.uint64(t),
+                                 np.uint64(seed >> 32)), key)
+            for w in range(min(4, M - 4 * mq)):
+                swap_u[t, :, 4 * mq + w] = _uniform(np.broadcast_to(out[w], (B, R)))
+    return (init01.reshape(B * M, R, n), uniforms.reshape(S, B * M, n, R),
+            swap_u.reshape(S, B * M, R))
 
 
 def _check_variates(host_variates, init_shape, u_shape):

@@ -1,7 +1,9 @@
-"""The CUDA Metropolis kernel (qbmx_torch/csrc/sa_metropolis.cu) on the card,
-at small shapes: against its plain PyTorch version under host variates,
-its own Philox streams against the exact oracle, the launch counter, and
-the wrappers' refusals.  ``chip_smoke.py`` runs the same checks at the
+"""The CUDA kernels on the card -- Metropolis (qbmx_torch/csrc/sa_metropolis.cu),
+heat-bath (sa_heatbath.cu, each update width) and parallel tempering
+(pt_heatbath.cu) -- at small shapes: each against its plain PyTorch version
+under host variates and on its own Philox draws written out, its Philox
+streams against the exact oracle, the launch counters, and the wrappers'
+refusals.  ``chip_smoke.py`` runs the same checks at the
 main path's shapes.
 
 Run on a machine with a CUDA GPU:  python -m pytest --noconftest tests/test_torch_cuda.py
@@ -17,7 +19,7 @@ import torch
 
 from qbmx_torch.core.qubo import default_beta_range, random_qubo_batch
 from qbmx_torch.core.rng import draw_seed
-from qbmx_torch.samplers import sa_cuda, sa_torch
+from qbmx_torch.samplers import gibbs, gibbs_cuda, pt_cuda, sa_cuda, sa_torch, tempering
 from qbmx_torch.samplers.exact import exact_boltzmann
 
 pytestmark = pytest.mark.cuda
@@ -144,4 +146,188 @@ def test_model_steps_launch_the_kernel(dev):
     nlls, _ = m.train_epoch(x, y, 10, 0.3)
     preds, probs = m.predict_batch(x)
     assert sa_cuda.launch_counts["sa_metropolis"] == 5  # 4 steps + 1 prediction
+    assert np.isfinite(nlls).all() and preds.shape == (40,) and probs.shape == (40, 2)
+
+
+# -- the heat-bath kernel (qbmx_torch/csrc/sa_heatbath.cu) --------------------
+
+WIDTHS = {1: dict(), 2: dict(pair=True), 4: dict(quad=True)}
+
+
+@pytest.mark.parametrize("width", [1, 2, 4])
+@pytest.mark.parametrize("G,B,n,R,S", [(2, 3, 6, 40, 7), (1, 2, 41, 33, 5),
+                                       (3, 2, 11, 130, 6), (1, 1, 199, 4, 2)])
+def test_heatbath_groups_kernel_matches_plain(dev, width, G, B, n, R, S):
+    rng = np.random.default_rng(n + width)
+    Q = random_qubo_batch(rng, G, n).to(dev)
+    h_extra = torch.as_tensor(rng.normal(size=(G, B, n)).astype(np.float32), device=dev)
+    hv = _variates(rng, (G, B), n, R, S, dev)
+    gibbs_cuda.reset_launch_counts()
+    got = gibbs_cuda.gibbs_sample_groups_cuda(Q, h_extra, R, S, beta=1.5, host_variates=hv,
+                                              **WIDTHS[width])
+    torch.cuda.synchronize()
+    assert gibbs_cuda.launch_counts["sa_heatbath"] == 1
+    want = gibbs.gibbs_sample_groups_plain(Q, h_extra, R, S, beta=1.5, host_variates=hv,
+                                           **WIDTHS[width])
+    assert got.shape == (G, B, R, n) and got.device.type == "cuda"
+    assert _differ(got, want) <= MAX_DIFF_FRAC
+
+
+@pytest.mark.parametrize("width", [1, 2, 4])
+@pytest.mark.parametrize("B,n,R,S", [(3, 7, 16, 8), (2, 41, 20, 6), (2, 6, 8, 1)])
+def test_heatbath_batch_kernel_matches_plain(dev, width, B, n, R, S):
+    rng = np.random.default_rng(200 + n + width)
+    Q = random_qubo_batch(rng, B, n, scale=2.0).to(dev)
+    hv = _variates(rng, (B,), n, R, S, dev)
+    got = gibbs_cuda.gibbs_sample_batch_cuda(Q, R, S, host_variates=hv, **WIDTHS[width])
+    want = gibbs.gibbs_sample_batch_plain(Q, R, S, host_variates=hv, **WIDTHS[width])
+    assert got.shape == (B, R, n)
+    assert _differ(got, want) <= MAX_DIFF_FRAC
+
+
+@pytest.mark.parametrize("width", [1, 2, 4])
+def test_heatbath_philox_path_matches_plain_on_its_variates(dev, width):
+    """The kernel's draws are those of the Metropolis kernel's streams."""
+    G, B, n, R, S = 2, 3, 7, 40, 6
+    rng = np.random.default_rng(width)
+    Q = random_qubo_batch(rng, G, n).to(dev)
+    h_extra = torch.as_tensor(rng.normal(size=(G, B, n)).astype(np.float32), device=dev)
+    seed = draw_seed(torch.Generator().manual_seed(12))
+    got = gibbs_cuda.gibbs_sample_groups_cuda(Q, h_extra, R, S, **WIDTHS[width],
+                                              generator=torch.Generator().manual_seed(12))
+    hv = tuple(torch.as_tensor(a, device=dev) for a in sa_torch.philox_variates(seed, G, B, R, n, S))
+    want = gibbs.gibbs_sample_groups_plain(Q, h_extra, R, S, host_variates=hv, **WIDTHS[width])
+    assert _differ(got, want) <= MAX_DIFF_FRAC
+
+
+@pytest.mark.parametrize("width", [1, 2, 4])
+def test_heatbath_philox_path_matches_oracle(dev, width):
+    """tests/test_gibbs_pt_pallas_debug.py's problems and bars."""
+    seed, reads, sweeps, atol = (9, 384, 48, 0.08) if width == 1 else (11, 2048, 64, 0.05)
+    rng = np.random.default_rng(seed)
+    Q = torch.as_tensor(np.triu(rng.uniform(-1, 1, (1, 6, 6))).astype(np.float32), device=dev)
+    s = gibbs_cuda.gibbs_sample_batch_cuda(Q, reads, sweeps, **WIDTHS[width],
+                                           generator=torch.Generator().manual_seed(4))[0]
+    _, _, marg, pair_m = exact_boltzmann(Q[0], beta=1.0)
+    assert set(s.unique().tolist()) <= {0.0, 1.0}
+    assert torch.allclose(s.mean(0), marg, atol=atol)
+    if width > 1:
+        assert torch.allclose(s.T @ s / reads, pair_m, atol=0.07)
+
+
+def test_heatbath_streams_are_per_problem(dev):
+    rng = np.random.default_rng(1)
+    Qa = random_qubo_batch(rng, 3, 6, scale=0.2).to(dev)
+    Qb = Qa.clone()
+    Qb[1:] = random_qubo_batch(rng, 2, 6, scale=0.2).to(dev)
+    run = lambda Q, seed: gibbs_cuda.gibbs_sample_batch_cuda(
+        Q, 64, 20, pair=True, beta=0.5, generator=torch.Generator().manual_seed(seed))
+    a, b, c = run(Qa, 7), run(Qb, 7), run(Qa, 8)
+    assert len({tuple(r) for r in a[0].tolist()}) > 5
+    assert torch.equal(a[0], b[0]) and torch.equal(a, run(Qa, 7))
+    assert not torch.equal(a[0], c[0])
+
+
+def test_heatbath_wrappers_refuse_what_the_kernel_does_not_take(dev):
+    Q = torch.zeros((1, 4, 4), device=dev)
+    h = torch.zeros((1, 2, 4), device=dev)
+    init01, u = _variates(np.random.default_rng(2), (1, 2), 4, 3, 2, dev)
+    with pytest.raises(ValueError, match="uniforms"):
+        gibbs_cuda.gibbs_sample_groups_cuda(Q, h, 3, 2, host_variates=(init01, u[..., :2]))
+    with pytest.raises(ValueError, match="init01"):
+        gibbs_cuda.gibbs_sample_groups_cuda(Q, h, 3, 2, host_variates=(init01.transpose(2, 3), u))
+    with pytest.raises(ValueError, match="exceeds its bound"):
+        gibbs_cuda.gibbs_sample_batch_cuda(torch.zeros((1, 257, 257), device=dev), 2, 2, quad=True)
+
+
+# -- the tempering kernel (qbmx_torch/csrc/pt_heatbath.cu) --------------------
+
+
+def _pt_variates(rng, B, M, n, R, S, dev):
+    init01 = (rng.random((B * M, R, n)) < 0.5).astype(np.float32)
+    u = np.clip(rng.random((S, B * M, n, R)), 1e-6, 1 - 1e-6).astype(np.float32)
+    sw = np.clip(rng.random((S, B * M, R)), 1e-6, 1 - 1e-6).astype(np.float32)
+    return tuple(torch.as_tensor(a, device=dev) for a in (init01, u, sw))
+
+
+@pytest.mark.parametrize("B,n,M,R,S", [(3, 6, 8, 200, 20), (2, 41, 4, 33, 5),
+                                       (2, 5, 3, 130, 6), (1, 7, 1, 16, 3), (1, 30, 60, 8, 2)])
+def test_pt_kernel_matches_plain(dev, B, n, M, R, S):
+    rng = np.random.default_rng(300 + n + M)
+    Q = random_qubo_batch(rng, B, n).to(dev)
+    hv = _pt_variates(rng, B, M, n, R, S, dev)
+    pt_cuda.reset_launch_counts()
+    got = pt_cuda.pt_sample_batch_cuda(Q, R, S, num_replicas=M, host_variates=hv)
+    torch.cuda.synchronize()
+    assert pt_cuda.launch_counts["pt_heatbath"] == 1
+    want = tempering.pt_sample_batch_plain(Q, R, S, num_replicas=M, host_variates=hv)
+    assert got.shape == (B, R, n) and got.device.type == "cuda"
+    assert _differ(got, want) <= MAX_DIFF_FRAC
+
+
+def test_pt_philox_path_matches_plain_on_its_variates(dev):
+    B, n, M, R, S = 3, 6, 5, 64, 8
+    Q = random_qubo_batch(np.random.default_rng(5), B, n).to(dev)
+    seed = draw_seed(torch.Generator().manual_seed(13))
+    got = pt_cuda.pt_sample_batch_cuda(Q, R, S, num_replicas=M,
+                                       generator=torch.Generator().manual_seed(13))
+    hv = tuple(torch.as_tensor(a, device=dev)
+               for a in sa_torch.pt_philox_variates(seed, B, M, R, n, S))
+    want = tempering.pt_sample_batch_plain(Q, R, S, num_replicas=M, host_variates=hv)
+    assert _differ(got, want) <= MAX_DIFF_FRAC
+
+
+def test_pt_philox_path_matches_oracle(dev):
+    rng = np.random.default_rng(3)
+    Q = torch.as_tensor(np.triu(rng.uniform(-1.5, 1.5, (1, 5, 5))).astype(np.float32),
+                        device=dev)
+    s = pt_cuda.pt_sample_batch_cuda(Q, 384, 24, num_replicas=4,
+                                     generator=torch.Generator().manual_seed(0))[0]
+    _, _, marg, _ = exact_boltzmann(Q[0], beta=1.0)
+    assert set(s.unique().tolist()) <= {0.0, 1.0}
+    assert torch.allclose(s.mean(0), marg, atol=0.08)
+
+
+def test_pt_streams_are_per_ladder(dev):
+    rng = np.random.default_rng(2)
+    Qa = random_qubo_batch(rng, 3, 6, scale=0.2).to(dev)
+    Qb = Qa.clone()
+    Qb[1:] = random_qubo_batch(rng, 2, 6, scale=0.2).to(dev)
+    run = lambda Q, seed: pt_cuda.pt_sample_batch_cuda(
+        Q, 64, 10, num_replicas=4, beta_target=0.5, generator=torch.Generator().manual_seed(seed))
+    a, b, c = run(Qa, 7), run(Qb, 7), run(Qa, 8)
+    assert len({tuple(r) for r in a[0].tolist()}) > 5
+    assert torch.equal(a[0], b[0]) and torch.equal(a, run(Qa, 7))
+    assert not torch.equal(a[0], c[0])
+
+
+def test_pt_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    Q = torch.zeros((1, 4, 4), device=dev)
+    init01, u, sw = _pt_variates(np.random.default_rng(2), 1, 2, 4, 3, 2, dev)
+    with pytest.raises(ValueError, match="swap_u"):
+        pt_cuda.pt_sample_batch_cuda(Q, 3, 2, num_replicas=2, host_variates=(init01, u, sw[:1]))
+    with pytest.raises(ValueError, match="uniforms"):
+        pt_cuda.pt_sample_batch_cuda(Q, 3, 2, num_replicas=2,
+                                     host_variates=(init01, u.transpose(2, 3), sw))
+    for n, M in ((257, 2), (4, 65), (64, 33)):
+        with pytest.raises(ValueError, match="exceed its bound"):
+            pt_cuda.pt_sample_batch_cuda(torch.zeros((1, n, n), device=dev), 2, 2,
+                                         num_replicas=M)
+
+
+@pytest.mark.parametrize("solver,counts,kernel", [
+    ("BMS", gibbs_cuda.launch_counts, "sa_heatbath"),
+    ("PT", pt_cuda.launch_counts, "pt_heatbath"),
+])
+def test_model_steps_launch_the_solver_kernel(dev, solver, counts, kernel):
+    from qbmx_torch.models.dqbm import DiscQBM
+
+    m = DiscQBM(dim_input=16, n_hidden_nodes=3, sample_count=32, anneal_steps=20,
+                restricted=False, solver=solver, device=dev)
+    x = np.random.default_rng(3).random((40, 16)).astype(np.float32)
+    y = np.arange(40) % 2
+    counts[kernel] = 0
+    nlls, _ = m.train_epoch(x, y, 10, 0.3)
+    preds, probs = m.predict_batch(x)
+    assert counts[kernel] == 5  # 4 steps + 1 prediction
     assert np.isfinite(nlls).all() and preds.shape == (40,) and probs.shape == (40, 2)

@@ -1,0 +1,230 @@
+"""The plain PyTorch parallel tempering (qbmx_torch.samplers.tempering) and
+the PT registry entry against qbmx.
+
+Under host variates ``(init01, uniforms, swap_u)`` the plain version must
+equal the TPU kernel's PT mode run in interpret mode
+(``pt_sample_batch_pallas`` with ``debug_randoms``) EXACTLY, at the shapes
+and seeds of tests/test_gibbs_pt_pallas_debug.py, and that file's mirror of
+the PT semantics for ladders the packed kernel does not take.  The
+generator path is held against the exact oracle with the same bar (0.08).
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_gibbs_pt_pallas_debug import _pt_reference_trajectory
+
+from qbmx.core.qubo import default_beta_range as j_default_beta_range
+from qbmx.samplers.sa_pallas import pt_sample_batch_pallas
+from qbmx_torch.samplers import api, pt_cuda, sa_torch, tempering
+from qbmx_torch.samplers.exact import exact_boltzmann
+
+torch.set_num_threads(1)
+T = torch.as_tensor
+
+
+def _problem(n, B, M, reads, sweeps):
+    rng = np.random.default_rng(n * 100 + B * 10 + M)
+    Bx = B * M
+    Q = np.triu(rng.uniform(-2, 2, (B, n, n)).astype(np.float32))
+    init01 = (rng.uniform(0, 1, (Bx, reads, n)) < 0.5).astype(np.float32)
+    uniforms = rng.uniform(0, 1, (sweeps, Bx, n, reads)).astype(np.float32)
+    swap_u = rng.uniform(0, 1, (sweeps, Bx, reads)).astype(np.float32)
+    return Q, init01, uniforms, swap_u
+
+
+@pytest.mark.parametrize("n,B,M,reads,sweeps", [
+    (5, 2, 4, 8, 6),
+    (20, 1, 8, 8, 5),
+    (10, 3, 2, 8, 4),
+    (6, 2, 8, 16, 1),   # one sweep: a single exchange round
+])
+def test_matches_packed_kernel(n, B, M, reads, sweeps):
+    Q, init01, uniforms, swap_u = _problem(n, B, M, reads, sweeps)
+    want = pt_sample_batch_pallas(
+        jax.random.key(0), jnp.asarray(Q), reads, sweeps, num_replicas=M, beta_target=1.0,
+        interpret=True, debug_randoms=tuple(map(jnp.asarray, (init01, uniforms, swap_u))))
+    got = tempering.pt_sample_batch_plain(T(Q), reads, sweeps, num_replicas=M,
+                                          host_variates=(T(init01), T(uniforms), T(swap_u)))
+    assert tuple(got.shape) == (B, reads, n)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("n,B,M,reads,sweeps,beta", [
+    (6, 2, 3, 8, 5, 1.0),   # a ladder that is not a power of two
+    (7, 1, 5, 6, 4, 2.0),
+    (5, 2, 1, 8, 3, 1.0),   # one rung: no exchange, the rung at beta_hot
+])
+def test_matches_mirror_for_any_ladder(n, B, M, reads, sweeps, beta):
+    Q, init01, uniforms, swap_u = _problem(n, B, M, reads, sweeps)
+    want = _pt_reference_trajectory(Q, init01, uniforms, swap_u, M, sweeps, beta)
+    got = tempering.pt_sample_batch_plain(T(Q), reads, sweeps, num_replicas=M,
+                                          beta_target=beta,
+                                          host_variates=(T(init01), T(uniforms), T(swap_u)))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("M,beta", [(8, 1.0), (2, 0.3), (1, 1.0), (5, 4.0)])
+def test_ladder_betas_match_the_kernels_grid(M, beta):
+    """sa_pallas.py:820-826: from min(default_hot, β/2) to β."""
+    Q, _, _, _ = _problem(6, 3, M, 1, 1)
+    betas, dbeta = tempering.ladder_betas(T(Q), M, beta)
+    hot0, _ = j_default_beta_range(jnp.asarray(Q))
+    bt = jnp.asarray(beta, jnp.float32)
+    bh = jnp.minimum(hot0.astype(jnp.float32), bt * 0.5)
+    t = jnp.arange(M, dtype=jnp.float32) / max(M - 1, 1)
+    log_hot = jnp.log(bh)[:, None]
+    want = jnp.exp(log_hot + t[None, :] * (jnp.log(bt) - log_hot))
+    # rtol 1e-6: torch's and XLA's float32 exp/log differ in the last bits
+    # (a few ulp here); the trajectories above still agree exactly
+    np.testing.assert_allclose(betas.numpy(), np.asarray(want), rtol=1e-6)
+    np.testing.assert_array_equal(dbeta[:, :-1].numpy(), (betas[:, 1:] - betas[:, :-1]).numpy())
+    assert torch.all(dbeta[:, -1] == 0)
+    top = torch.full((3,), beta) if M > 1 else torch.minimum(betas[:, 0], torch.tensor(beta / 2))
+    assert torch.allclose(betas[:, -1], top)
+
+
+def test_generator_path_matches_oracle():
+    """tests/test_gibbs_pt_pallas_debug.py's problem and bar (0.08)."""
+    rng = np.random.default_rng(3)
+    Q = T(np.triu(rng.uniform(-1.5, 1.5, (1, 5, 5))).astype(np.float32))
+    s = tempering.pt_sample_batch_plain(Q, 384, 24, num_replicas=4,
+                                        generator=torch.Generator().manual_seed(0))[0]
+    _, _, marg, _ = exact_boltzmann(Q[0], beta=1.0)
+    assert set(s.unique().tolist()) <= {0.0, 1.0}
+    assert torch.allclose(s.mean(0), marg, atol=0.08)
+
+
+def test_generator_path_is_reproducible():
+    Q, _, _, _ = _problem(5, 2, 3, 1, 1)
+    run = lambda seed: tempering.pt_sample_batch_plain(
+        T(Q), 16, 5, num_replicas=3, generator=torch.Generator().manual_seed(seed))
+    assert torch.equal(run(1), run(1)) and not torch.equal(run(1), run(2))
+
+
+def test_host_variates_shape_is_checked():
+    Q, init01, uniforms, swap_u = _problem(5, 2, 4, 8, 3)
+    with pytest.raises(ValueError, match="host_variates"):
+        tempering.pt_sample_batch_plain(T(Q), 8, 3, num_replicas=4,
+                                        host_variates=(T(init01), T(uniforms), T(swap_u[:2])))
+
+
+def test_pt_philox_variates_layout():
+    """Per-ladder streams with the rung in the counter: a ladder's draws
+    depend on (seed, problem index) only; swap uniforms get their own
+    counter slots; everything lies on the 2^-24 grid."""
+    init01, u, sw = sa_torch.pt_philox_variates(2**40 + 3, 3, 5, 4, 6, 2)
+    assert init01.shape == (15, 4, 6) and u.shape == (2, 15, 6, 4) and sw.shape == (2, 15, 4)
+    assert set(np.unique(init01)) == {0.0, 1.0}
+    for a in (u, sw):
+        assert a.min() >= 0.0 and a.max() < 1.0 and np.all(a * 2**24 == np.round(a * 2**24))
+    i2, u2, s2 = sa_torch.pt_philox_variates(2**40 + 3, 2, 5, 4, 6, 2)  # ladders 0, 1
+    np.testing.assert_array_equal(i2, init01[:10])
+    np.testing.assert_array_equal(u2, u[:, :10])
+    np.testing.assert_array_equal(s2, sw[:, :10])
+    assert not np.array_equal(u[:, 0], u[:, 1])  # rungs draw differently
+    # the same words as the anneal kernels' draws of rung 0 (counter y = q)
+    _, u_sa = sa_torch.philox_variates(2**40 + 3, 1, 3, 4, 6, 2)
+    np.testing.assert_array_equal(u_sa[:, 0], u.reshape(2, 3, 5, 6, 4)[:, :, 0])
+
+
+def test_wrapper_runs_the_plain_version_on_cpu():
+    Q, init01, uniforms, swap_u = _problem(5, 2, 3, 8, 3)
+    hv = (T(init01), T(uniforms), T(swap_u))
+    pt_cuda.reset_launch_counts()
+    got = pt_cuda.pt_sample_batch_cuda(T(Q), 8, 3, num_replicas=3, host_variates=hv)
+    assert torch.equal(got, tempering.pt_sample_batch_plain(T(Q), 8, 3, num_replicas=3,
+                                                            host_variates=hv))
+    assert pt_cuda.launch_counts == {"pt_heatbath": 0}
+
+
+def test_registry_pt_takes_qbmx_kwargs():
+    s = api.get_sampler("PT", num_sweeps=9)
+    assert isinstance(s, api.PTSampler)
+    assert (s.num_sweeps, s.num_replicas, s.beta_target) == (9, 8, 1.0)
+    s = api.get_sampler("pt", num_sweeps=9, num_warmup=4, num_replicas=3, beta=2.0)
+    assert (s.num_sweeps, s.num_replicas, s.beta_target) == (4, 3, 2.0)
+    assert not hasattr(s, "sample_groups")  # structured calls densify, as in qbmx
+
+
+def test_structured_calls_densify():
+    """``sampler_sample_groups`` on PT equals ``sample_batch`` on the
+    densified batch from the same generator state."""
+    rng = np.random.default_rng(4)
+    Qg = T(np.triu(rng.uniform(-1, 1, (2, 5, 5))).astype(np.float32))
+    h_extra = T(rng.normal(size=(2, 3, 5)).astype(np.float32))
+    s = api.get_sampler("PT", num_sweeps=4, num_replicas=3)
+    grp = api.sampler_sample_groups(s, torch.Generator().manual_seed(1), Qg, h_extra, 6)
+    flat = s.sample_batch(torch.Generator().manual_seed(1), api.densify_groups(Qg, h_extra), 6)
+    assert tuple(grp.shape) == (2, 3, 6, 5) and torch.equal(grp, flat.reshape(2, 3, 6, 5))
+
+
+# -- the slice: matched-variate Disc_QBM steps with PT ------------------------
+
+
+class _JaxPTReplay:
+    """qbmx sampler that hands the TPU kernel's PT mode (interpret mode) the
+    next set of host variates.  Like qbmx's PTSampler it has no structured
+    entry, so the model's calls reach it densified."""
+
+    jit_safe = False
+
+    def __init__(self, variates, sweeps, M):
+        self.variates, self.sweeps, self.M = list(variates), sweeps, M
+
+    def sample_batch(self, key, Q, num_reads):
+        return pt_sample_batch_pallas(
+            jax.random.key(0), Q, num_reads, self.sweeps, num_replicas=self.M, interpret=True,
+            debug_randoms=tuple(map(jnp.asarray, self.variates.pop(0))))
+
+
+class _TorchPTReplay:
+    def __init__(self, variates, sweeps, M):
+        self.variates, self.sweeps, self.M = list(variates), sweeps, M
+
+    def sample_batch(self, generator, Q, num_reads):
+        return tempering.pt_sample_batch_plain(
+            Q, num_reads, self.sweeps, num_replicas=self.M,
+            host_variates=tuple(map(T, self.variates.pop(0))))
+
+
+@pytest.mark.parametrize("one_hot,restricted,shortcut", [
+    (False, False, False),
+    (True, False, False),
+    (False, True, True),    # linear shortcut: only the unclamped group is sampled
+])
+def test_three_pt_steps_and_predict_match(one_hot, restricted, shortcut):
+    import qbmx.models.dqbm as jd
+    import qbmx_torch.models.dqbm as td
+    from test_torch_dqbm import _batch, _close, _close_tree, _jparams, _params
+
+    D, H, B, R, S, N, M = 10, 3, 4, 8, 4, 6, 4
+    O = 2 if one_hot else 1
+    n_u, G = O + H, 1 if shortcut else 2
+    rng = np.random.default_rng(19)
+    variates = [((rng.random((p * M, R, n_u)) < 0.5).astype(np.float32),
+                 rng.random((S, p * M, n_u, R)).astype(np.float32),
+                 rng.random((S, p * M, R)).astype(np.float32))
+                for p in [G * B] * 3 + [N]]
+    kw = dict(dim_input=D, n_hidden_nodes=H, sample_count=R, anneal_steps=S,
+              restricted=restricted, use_one_hot_encoding=one_hot, use_linear_shortcut=shortcut)
+    jm = jd.DiscQBM(sampler=_JaxPTReplay(variates, S, M), **kw)
+    tm = td.DiscQBM(sampler=_TorchPTReplay(variates, S, M), device="cpu", **kw)
+    d = _params(20, D, H, O, restricted)
+    jm.params, tm.params = _jparams(d), td.params_from_numpy(d)
+    for step in range(3):
+        x, y, _ = _batch(40 + step, B, D, O, one_hot)
+        mask = np.asarray([1, 1, 1, step != 2], np.float32)
+        jerr, jnll = jm.train_for_one_iteration(x, y, 0.3, mask=mask)
+        terr, tnll = tm.train_for_one_iteration(x, y, 0.3, mask=mask)
+        _close(float(tnll), float(jnll), rtol=0, atol=1e-5)
+        _close(float(terr), float(jerr), rtol=0, atol=1e-5)
+        _close_tree(tm.params, jm.params, rtol=0, atol=1e-5)
+    X = np.random.default_rng(22).random((N, D)).astype(np.float32)
+    (tpred, tprob), (jpred, jprob) = tm.predict_batch(X), jm.predict_batch(X)
+    np.testing.assert_array_equal(tpred, jpred)
+    _close(tprob, jprob, rtol=0, atol=1e-5)

@@ -246,11 +246,25 @@ def test_registry_sa_names(name, use_kernel):
     assert isinstance(s, api.SASampler) and s.num_sweeps == 7 and s.use_kernel is use_kernel
 
 
-@pytest.mark.parametrize("name", ["BMS", "PT", "SA-NATIVE", "Advantage_system4.1",
-                                  "DW_2000Q_6", "FujitsuDAU"])
+@pytest.mark.parametrize("name", ["SA-NATIVE", "Advantage_system4.1", "DW_2000Q_6",
+                                  "FujitsuDAU"])
 def test_registry_refuses_unported_solvers(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         api.get_sampler(name)
+
+
+@pytest.mark.parametrize("name,kind", [("BMS", api.GibbsSampler), ("PT", api.PTSampler)])
+def test_registry_runs_the_ported_solvers(name, kind):
+    """BMS and PT, once refused, now sample: binary (G, B, R, n) from the
+    structured entry, reproducible from the generator."""
+    s = api.get_sampler(name, num_sweeps=6)
+    assert isinstance(s, kind)
+    Qg, h_extra, _, _ = _structured(13, 2, 3, 5, 1, 1)
+    run = lambda: api.sampler_sample_groups(s, torch.Generator().manual_seed(0), T(Qg),
+                                            T(h_extra), 8)
+    out = run()
+    assert tuple(out.shape) == (2, 3, 8, 5) and set(out.unique().tolist()) <= {0.0, 1.0}
+    assert torch.equal(out, run())
 
 
 def test_registry_unknown_solver():

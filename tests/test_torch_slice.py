@@ -57,11 +57,22 @@ def test_parser_has_the_reference_flags_and_defaults():
     (dict(seed_sweep=[1, 2]), NotImplementedError),
     (dict(resume="state.npz"), NotImplementedError),
     (dict(checkpoint_every=1), NotImplementedError),
-    (dict(solver="BMS"), NotImplementedError),
+    (dict(solver="SA-NATIVE"), NotImplementedError),
 ])
 def test_unported_options_raise(kw, err):
     with pytest.raises(err, match="ROADMAP"):
         tmain.main(save="", **{**SMALL, **kw})
+
+
+@pytest.mark.parametrize("solver", ["BMS", "PT"])
+def test_main_runs_each_solver_and_is_reproducible(solver, capsys):
+    """``--solver BMS|PT`` runs end to end on the plain route and repeats
+    itself from its seed."""
+    kw = {**SMALL, "solver": solver, "seed": 3}
+    first = tmain.main(save="", **kw)
+    assert all(0.0 <= v <= 1.0 for v in first)
+    assert "Epoch 1/1" in capsys.readouterr().out
+    assert tmain.main(save="", **kw) == first
 
 
 def test_cuda_without_a_gpu_raises(monkeypatch):
@@ -71,13 +82,17 @@ def test_cuda_without_a_gpu_raises(monkeypatch):
 
 
 def test_port_imports_no_jax_sklearn_or_qbmx():
-    """In a fresh interpreter: import the port, run the slice, and find
-    none of jax, sklearn or qbmx loaded."""
+    """In a fresh interpreter: import the port and every sampler module, run
+    the slice with each on-device solver, and find none of jax, sklearn or
+    qbmx loaded."""
     code = (
         "import sys, torch; torch.set_num_threads(1)\n"
         "import qbmx_torch\n"
+        "from qbmx_torch.samplers import (api, exact, gibbs, gibbs_cuda, pt_cuda, sa_cuda,\n"
+        "                                 sa_torch, tempering)\n"
+        "from qbmx_torch import _build\n"
         "from qbmx_torch.cli import qbm_main\n"
-        f"qbm_main.main(save='', **{SMALL!r})\n"
+        f"for solver in ('SA', 'BMS', 'PT'): qbm_main.main(save='', **{{**{SMALL!r}, 'solver': solver}})\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'sklearn', 'qbmx'))\n"
         "print('LOADED', bad)\n"
     )
