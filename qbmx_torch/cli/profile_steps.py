@@ -1,0 +1,135 @@
+"""Where a Disc_QBM training step's time goes, per solver.
+
+    python -m qbmx_torch.cli.profile_steps                   # flagship width: h5 sc1000 bs60
+    python -m qbmx_torch.cli.profile_steps --hidden 2 --reads 100 --batch 73   # CLI defaults
+
+For each solver: ``DiscQBM`` on the synthetic training split (600
+images, 784 inputs), one warm-up epoch, then ``--epochs`` unprofiled
+epochs timed on the host clock after ``synchronize()`` (their median,
+divided by the steps, is ms/step), then on a GPU one more epoch under
+``torch.profiler``.  Its device events give the device's busy time (the
+union of their intervals), the solver kernel's time per launch and the
+device operations per step; idle share = 1 − busy ÷ the median
+unprofiled epoch.  On ``--device cpu`` the device columns are ``None``.
+
+Prints one line per solver, then on a GPU the ``nvidia-smi`` name and
+power limit, and last one JSON object with every record.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import statistics
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from qbmx_torch.cli._common import load_dataset
+from qbmx_torch.cli.qbm_main import resolve_device
+from qbmx_torch.data import loaders
+from qbmx_torch.models.dqbm import DiscQBM
+
+#: the kernel each solver's sampler launches on a GPU
+SOLVER_KERNELS = {"SA": "sa_metropolis", "BMS": "sa_heatbath", "PT": "pt_heatbath"}
+SEED, LEARNING_RATE = 19, 0.307  # the flagship run's learning rate
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _union_us(intervals: list[tuple[float, float]]) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, -math.inf
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def device_breakdown(epoch, kernel: str) -> dict:
+    """Run ``epoch()`` under ``torch.profiler`` and read its device events:
+    busy ms (union), the operations, and ``kernel``'s launches and ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        epoch()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        raise RuntimeError("torch.profiler recorded no device events: time the device "
+                           "with CUDA events instead")
+    spans = [(e.time_range.start, e.time_range.end) for e in events]
+    mine = [e.time_range.elapsed_us() for e in events if kernel in e.name]
+    return {"busy_ms": _union_us(spans) / 1e3, "device_ops": len(events),
+            "kernel_launches": len(mine), "kernel_ms": sum(mine) / 1e3}
+
+
+def profile_solver(solver: str, train_X, train_y, *, hidden: int, reads: int, sweeps: int,
+                   batch: int, epochs: int, dev: torch.device) -> dict:
+    model = DiscQBM(dim_input=train_X.shape[1], n_hidden_nodes=hidden, seed=SEED,
+                    solver=solver, restricted=False, sample_count=reads,
+                    anneal_steps=sweeps, device=dev)
+    steps = math.ceil(len(train_X) / batch)
+
+    def epoch():
+        model.train_epoch(train_X, train_y, batch, LEARNING_RATE)
+        _sync(dev)
+
+    epoch()  # warm-up: first launches, device copies of the batches
+    walls = []
+    for _ in range(epochs):
+        t0 = time.perf_counter()
+        epoch()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(walls)
+    rec = {"solver": solver, "kernel": SOLVER_KERNELS.get(solver), "steps": steps,
+           "epoch_ms": wall, "ms_per_step": wall / steps, "epoch_ms_runs": walls,
+           "busy_ms": None, "idle_share": None, "ops_per_step": None,
+           "kernel_ms_per_launch": None, "kernel_share": None, "kernel_launches": None}
+    if dev.type == "cuda":
+        d = device_breakdown(epoch, rec["kernel"])
+        rec.update(busy_ms=d["busy_ms"], idle_share=1.0 - d["busy_ms"] / wall,
+                   ops_per_step=d["device_ops"] / steps,
+                   kernel_launches=d["kernel_launches"], kernel_share=d["kernel_ms"] / wall,
+                   kernel_ms_per_launch=d["kernel_ms"] / max(d["kernel_launches"], 1))
+    return rec
+
+
+def main(argv=None) -> list[dict]:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--solver", nargs="+", default=["SA", "BMS", "PT"])
+    p.add_argument("--hidden", type=int, default=5)
+    p.add_argument("--reads", type=int, default=1000)
+    p.add_argument("--sweeps", type=int, default=1000)
+    p.add_argument("--batch", type=int, default=60)
+    p.add_argument("--epochs", type=int, default=3, help="unprofiled epochs timed")
+    p.add_argument("--device", default="cuda")
+    a = p.parse_args(argv)
+    dev = resolve_device(a.device)
+    (train_X, train_y), (val_X, _), (test_X, _) = load_dataset("synthetic", seed=SEED)
+    train_X, _, _ = loaders.preprocess_images(train_X, test_X, val_X)
+    records = []
+    for solver in a.solver:
+        rec = profile_solver(solver, train_X, np.asarray(train_y), hidden=a.hidden,
+                             reads=a.reads, sweeps=a.sweeps, batch=a.batch,
+                             epochs=a.epochs, dev=dev)
+        records.append(rec)
+        print(f"{solver} h{a.hidden} sc{a.reads} anneal{a.sweeps} bs{a.batch} on {dev}: "
+              + ", ".join(f"{k} {v}" for k, v in rec.items() if k not in ("solver",)))
+    if dev.type == "cuda":
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60, check=True).stdout.strip().splitlines()[0])
+    print(json.dumps({"device": str(dev), "records": records}))
+    return records
+
+
+if __name__ == "__main__":
+    main()

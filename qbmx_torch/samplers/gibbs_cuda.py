@@ -18,12 +18,14 @@ the same numbers.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from qbmx_torch.core.qubo import split_qubo
-from qbmx_torch.samplers import gibbs
-from qbmx_torch.samplers.sa_cuda import _launch
-from qbmx_torch.samplers.sa_torch import _check_variates
+from qbmx_torch.core.rng import draw_seed
+from qbmx_torch.samplers import gibbs, kernel_call
+from qbmx_torch.samplers.sa_torch import _check_variates, inv_span
 
 #: launches of the heat-bath kernel since the last reset (one per call that
 #: reached the GPU)
@@ -41,12 +43,25 @@ def _width(pair: bool, quad: bool) -> int:
 
 def _run(Q_shared, h_extra, num_reads, num_warmup, generator, beta, pair, quad,
          host_variates):
+    """Launch K2 on the structured form → (G, B, R, n)."""
+    from qbmx_torch._build import load_kernels
+
     hs, J = split_qubo(Q_shared.to(torch.float32))
+    J = J.contiguous()
     h = (hs[:, None, :] + h_extra.to(torch.float32)).contiguous()
     hot, logr = gibbs.heat_bath_schedule(h, J[:, None], num_warmup, beta)
-    return _launch(J.contiguous(), h, hot, logr, num_reads, num_warmup, generator,
-                   host_variates, kernel="sa_heatbath", extra=(_width(pair, quad),),
-                   counts=launch_counts)
+    lib = load_kernels()
+    G, B, n = h.shape
+    R, S = num_reads, num_warmup
+    ptrs = kernel_call.structured_ptrs("sa_heatbath", lib.qbmx_sa_heatbath_max_n(),
+                                       J, h, hot, logr, R, S, host_variates)
+    seed = draw_seed(generator) if host_variates is None else 0
+    out = torch.empty((G, B, R, n), dtype=torch.float32, device=h.device)
+    kernel_call.check_rc("sa_heatbath", lib.qbmx_sa_heatbath(
+        *ptrs, out.data_ptr(), G, B, R, n, S, ctypes.c_float(inv_span(S)), seed,
+        _width(pair, quad), kernel_call.stream(h.device)))
+    launch_counts["sa_heatbath"] += 1
+    return out
 
 
 def gibbs_sample_groups_cuda(Q_shared: torch.Tensor, h_extra: torch.Tensor,

@@ -19,8 +19,7 @@ import torch
 
 from qbmx_torch.core.qubo import split_qubo
 from qbmx_torch.core.rng import draw_seed
-from qbmx_torch.samplers import tempering
-from qbmx_torch.samplers.sa_cuda import _SMEM_BYTES, _require
+from qbmx_torch.samplers import kernel_call, tempering
 
 #: launches of the tempering kernel since the last reset (one per call that
 #: reached the GPU)
@@ -51,28 +50,20 @@ def pt_sample_batch_cuda(Q: torch.Tensor, num_reads: int, num_sweeps: int = 64, 
     lib = load_kernels()
     max_n, max_m = lib.qbmx_pt_heatbath_max_n(), lib.qbmx_pt_heatbath_max_rungs()
     max_state = lib.qbmx_pt_heatbath_max_state()
-    if n > max_n or 4 * n * n > _SMEM_BYTES or M > max_m or M * n > max_state:
+    if n > max_n or 4 * n * n > kernel_call.SMEM_BYTES or M > max_m or M * n > max_state:
         raise ValueError(f"pt_heatbath kernel: n={n}, M={M} exceed its bound (n ≤ {max_n}, "
                          f"M ≤ {max_m}, M·n ≤ {max_state}, J in shared memory)")
     if B > 65535:
         raise ValueError(f"pt_heatbath kernel: {B} problems exceed the grid's 65535")
-    ptrs = (None, None, None)
-    if host_variates is not None:
-        if len(host_variates) != 3:
-            raise ValueError("host_variates: need (init01, uniforms, swap_u)")
-        for t, name, shape in zip(host_variates, ("init01", "uniforms", "swap_u"),
-                                  ((B * M, R, n), (S, B * M, n, R), (S, B * M, R))):
-            _require(t, name, shape, dev)
-        ptrs = tuple(t.data_ptr() for t in host_variates)
+    variates = kernel_call.variate_ptrs(
+        host_variates, (("init01", (B * M, R, n)), ("uniforms", (S, B * M, n, R)),
+                        ("swap_u", (S, B * M, R))), dev)
     h, J = (t.contiguous() for t in split_qubo(Q))
     betas, dbeta = tempering.ladder_betas(Q, M, beta_target)
     seed = draw_seed(generator) if host_variates is None else 0
     out = torch.empty((B, R, n), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.qbmx_pt_heatbath(
-        J.data_ptr(), h.data_ptr(), betas.data_ptr(),
-        dbeta.data_ptr(), *ptrs, out.data_ptr(), B, M, R, n, S, seed, stream)
-    if rc != 0:
-        raise RuntimeError(f"pt_heatbath kernel launch failed: cudaError {rc}")
+    kernel_call.check_rc("pt_heatbath", lib.qbmx_pt_heatbath(
+        J.data_ptr(), h.data_ptr(), betas.data_ptr(), dbeta.data_ptr(), *variates,
+        out.data_ptr(), B, M, R, n, S, seed, kernel_call.stream(dev)))
     launch_counts["pt_heatbath"] += 1
     return out

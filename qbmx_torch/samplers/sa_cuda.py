@@ -21,6 +21,7 @@ import torch
 
 from qbmx_torch.core.qubo import split_qubo
 from qbmx_torch.core.rng import draw_seed
+from qbmx_torch.samplers import kernel_call
 from qbmx_torch.samplers.sa_torch import (
     _check_variates,
     inv_span,
@@ -33,61 +34,29 @@ from qbmx_torch.samplers.sa_torch import (
 #: that reached the GPU)
 launch_counts = {"sa_metropolis": 0}
 
-# J_g must fit one block's shared memory (227 KB on Hopper) as float32
-_SMEM_BYTES = 232_448
-
 
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
 
 
-def _require(t: torch.Tensor, name: str, shape: tuple, device: torch.device) -> None:
-    if t.device != device or t.dtype != torch.float32 or tuple(t.shape) != shape \
-            or not t.is_contiguous():
-        raise ValueError(
-            f"{name}: need a contiguous float32 tensor of shape {shape} on {device}; "
-            f"got {t.dtype} {tuple(t.shape)} on {t.device}"
-            f"{'' if t.is_contiguous() else ' (not contiguous)'}")
-
-
 def _launch(J, h, hot, logr, num_reads: int, num_sweeps: int, generator,
-            host_variates, kernel: str = "sa_metropolis", extra: tuple = (),
-            counts: dict = launch_counts) -> torch.Tensor:
-    """Launch an anneal kernel of the structured form (``sa_metropolis``, or
-    ``sa_heatbath`` with ``extra = (width,)``) on ``J`` (G, n, n), ``h``
-    (G, B, n), ``hot``/``logr`` (G, B) → (G, B, R, n); counts the launch
-    in ``counts[kernel]``."""
+            host_variates) -> torch.Tensor:
+    """Launch K1 on the structured form, ``J`` (G, n, n), ``h`` (G, B, n),
+    ``hot``/``logr`` (G, B) → (G, B, R, n)."""
     from qbmx_torch._build import load_kernels
 
+    lib = load_kernels()
     G, B, n = h.shape
     R, S = num_reads, num_sweeps
-    dev = h.device
-    for t, name, shape in ((J, "J", (G, n, n)), (h, "h", (G, B, n)),
-                           (hot, "beta_hot", (G, B)), (logr, "logr", (G, B))):
-        _require(t, name, shape, dev)
-    lib = load_kernels()
-    max_n = getattr(lib, f"qbmx_{kernel}_max_n")()
-    if n > max_n or 4 * n * n > _SMEM_BYTES:
-        raise ValueError(f"{kernel} kernel: n={n} exceeds its bound "
-                         f"(n ≤ {max_n} and J_g in shared memory)")
-    if G > 65535:
-        raise ValueError(f"{kernel} kernel: {G} groups exceed the grid's 65535")
-    init_p = u_p = None
-    if host_variates is not None:
-        init01, uniforms = host_variates
-        _require(init01, "init01", (G, B, R, n), dev)
-        _require(uniforms, "uniforms", (S, G, B, n, R), dev)
-        init_p, u_p = init01.data_ptr(), uniforms.data_ptr()
+    ptrs = kernel_call.structured_ptrs("sa_metropolis", lib.qbmx_sa_metropolis_max_n(),
+                                       J, h, hot, logr, R, S, host_variates)
     seed = draw_seed(generator) if host_variates is None else 0
-    out = torch.empty((G, B, R, n), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = getattr(lib, f"qbmx_{kernel}")(
-        J.data_ptr(), h.data_ptr(), hot.data_ptr(), logr.data_ptr(), init_p, u_p,
-        out.data_ptr(), G, B, R, n, S, ctypes.c_float(inv_span(S)), seed, *extra, stream)
-    if rc != 0:
-        raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
-    counts[kernel] += 1
+    out = torch.empty((G, B, R, n), dtype=torch.float32, device=h.device)
+    kernel_call.check_rc("sa_metropolis", lib.qbmx_sa_metropolis(
+        *ptrs, out.data_ptr(), G, B, R, n, S, ctypes.c_float(inv_span(S)), seed,
+        kernel_call.stream(h.device)))
+    launch_counts["sa_metropolis"] += 1
     return out
 
 

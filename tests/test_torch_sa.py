@@ -23,7 +23,7 @@ from qbmx.samplers.sa_jax import _metropolis_sweep
 from qbmx.samplers.sa_lane import lane_sample_groups
 from qbmx.samplers.sa_pallas import sa_sample_batch_pallas
 from qbmx_torch.core.qubo import default_beta_range, qubo_energies, random_qubo_batch
-from qbmx_torch.samplers import api, sa_cuda, sa_torch
+from qbmx_torch.samplers import api, kernel_call, sa_cuda, sa_torch
 from qbmx_torch.samplers.exact import enumerate_states, exact_boltzmann
 
 torch.set_num_threads(1)
@@ -233,10 +233,31 @@ def test_host_variates_shape_is_checked():
 
 def test_require_refuses_what_the_kernel_does_not_take():
     ok = torch.zeros((2, 3))
-    sa_cuda._require(ok, "x", (2, 3), ok.device)
+    kernel_call.require(ok, "x", (2, 3), ok.device)
     for bad in (ok.double(), ok.t(), torch.zeros((3, 2))):
         with pytest.raises(ValueError):
-            sa_cuda._require(bad, "x", (2, 3), ok.device)
+            kernel_call.require(bad, "x", (2, 3), ok.device)
+
+
+def test_structured_checks_of_the_anneal_kernels():
+    """The argument checks K1 and K2 share (they need no GPU)."""
+    G, B, n, R, S = 2, 3, 4, 5, 6
+    J, h, hot = torch.zeros((G, n, n)), torch.zeros((G, B, n)), torch.zeros((G, B))
+    hv = (torch.zeros((G, B, R, n)), torch.zeros((S, G, B, n, R)))
+    ptrs = kernel_call.structured_ptrs("k", 256, J, h, hot, hot, R, S, hv)
+    assert len(ptrs) == 6 and None not in ptrs
+    assert kernel_call.structured_ptrs("k", 256, J, h, hot, hot, R, S, None)[4:] == (None, None)
+    with pytest.raises(ValueError, match="uniforms"):
+        kernel_call.structured_ptrs("k", 256, J, h, hot, hot, R, S + 1, hv)
+    with pytest.raises(ValueError, match="host_variates"):
+        kernel_call.structured_ptrs("k", 256, J, h, hot, hot, R, S, hv[:1])
+    with pytest.raises(ValueError, match="logr"):
+        kernel_call.structured_ptrs("k", 256, J, h, hot, hot[:1], R, S, None)
+    with pytest.raises(ValueError, match="exceeds its bound"):
+        kernel_call.structured_ptrs("k", 3, J, h, hot, hot, R, S, None)
+    kernel_call.check_rc("k", 0)
+    with pytest.raises(RuntimeError, match="cudaError 700"):
+        kernel_call.check_rc("k", 700)
 
 
 @pytest.mark.parametrize("name,use_kernel", [("SA", True), ("sa-pallas", True),

@@ -88,10 +88,10 @@ def test_port_imports_no_jax_sklearn_or_qbmx():
     code = (
         "import sys, torch; torch.set_num_threads(1)\n"
         "import qbmx_torch\n"
-        "from qbmx_torch.samplers import (api, exact, gibbs, gibbs_cuda, pt_cuda, sa_cuda,\n"
-        "                                 sa_torch, tempering)\n"
+        "from qbmx_torch.samplers import (api, exact, gibbs, gibbs_cuda, kernel_call, pt_cuda,\n"
+        "                                 sa_cuda, sa_torch, tempering)\n"
         "from qbmx_torch import _build\n"
-        "from qbmx_torch.cli import qbm_main\n"
+        "from qbmx_torch.cli import profile_steps, qbm_main\n"
         f"for solver in ('SA', 'BMS', 'PT'): qbm_main.main(save='', **{{**{SMALL!r}, 'solver': solver}})\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'sklearn', 'qbmx'))\n"
         "print('LOADED', bad)\n"
@@ -101,6 +101,28 @@ def test_port_imports_no_jax_sklearn_or_qbmx():
                          cwd=ROOT, env=env, timeout=300)
     assert res.returncode == 0, res.stderr
     assert "LOADED []" in res.stdout
+
+
+@pytest.mark.parametrize("solver", ["SA", "BMS", "PT"])
+def test_profile_steps_runs_each_solver_on_cpu(solver):
+    """The step profiler times every solver; the device columns stay empty
+    where there is no device to profile."""
+    from qbmx_torch.cli import profile_steps
+
+    (rec,) = profile_steps.main(["--device", "cpu", "--solver", solver, "--hidden", "2",
+                                 "--reads", "8", "--sweeps", "4", "--batch", "200",
+                                 "--epochs", "1"])
+    assert rec["solver"] == solver and rec["steps"] == 3
+    assert rec["ms_per_step"] > 0 and rec["epoch_ms"] == rec["epoch_ms_runs"][0]
+    assert rec["kernel"] == profile_steps.SOLVER_KERNELS[solver]
+    assert rec["busy_ms"] is None and rec["idle_share"] is None
+
+
+def test_profile_steps_busy_time_is_the_union_of_spans():
+    from qbmx_torch.cli.profile_steps import _union_us
+
+    assert _union_us([(0, 2), (1, 3), (5, 6)]) == 4
+    assert _union_us([(4, 5), (0, 10)]) == 10 and _union_us([]) == 0
 
 
 def test_train_model_reinit_counter_persists_on_the_model():
