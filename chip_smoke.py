@@ -5,10 +5,12 @@ Run from the root of a checkout on a machine with one CUDA GPU:
 
     python3 chip_smoke.py
 
-Three hand-written kernels are checked: K1 ``sa_metropolis`` (annealed
+Four hand-written kernels are checked: K1 ``sa_metropolis`` (annealed
 Metropolis), K2 ``sa_heatbath`` (annealed heat-bath, single/pair/quad
-updates) and K3 ``pt_heatbath`` (parallel tempering).  Phases (any failure
-exits nonzero; nothing carries on after one):
+updates), K3 ``pt_heatbath`` (parallel tempering) and K4 ``anneal_wide``
+(both anneal rules for QUBOs whose couplings exceed shared memory, n > 241,
+which the K1/K2 wrappers route to it).  Phases (any failure exits nonzero;
+nothing carries on after one):
 
 1. device: the GPU's name, ``nvidia-smi`` name and power limit, torch and nvcc versions;
 2. build: the kernels from ``qbmx_torch/csrc``, one ``nvcc`` per source at once (seconds);
@@ -17,24 +19,34 @@ exits nonzero; nothing carries on after one):
    S=1000), K1 and K2 single and quad at the dense CDQBM bench shape (B=60,
    n=41, R=100, S=1000), K3 at the flagship shape densified (120 problems,
    n=6, M=8 rungs) at R=1000, S=100 and at the main path's S=1000 with
-   R=100: at most 1% of chains may end in another state (a near-tie decision from a differently rounded sum diverges that
-   one chain);
+   R=100; K4 Metropolis and pair at the CDQBM probabilistic-pooling shape
+   (G=2, B=20, n=717, R=100, S=10) and on its dense entry (B=32, n=717):
+   at most 1% of chains may end in another state (a near-tie decision from
+   a differently rounded sum diverges that one chain);
 4. the kernels' own Philox streams: vs the exact Boltzmann oracle (K1
    marginals within 0.12 at the cold beta; K2 and K3 within 0.08 single /
    0.05 pair and quad, pair moments within 0.07, at beta 1), decorrelated
    chains, per-problem streams, and the plain versions driven by those same
    draws written out on the host (``sa_torch.philox_variates``,
-   ``sa_torch.pt_philox_variates``; the 1% bound of phase 3);
+   ``sa_torch.pt_philox_variates``; the 1% bound of phase 3); K4 launched
+   directly (past the routing) against the oracle at n in (2, 5, 8), and on
+   its own Philox draws at the CDQBM shape (S=3);
 5. the slices: ``qbmx_torch.cli.qbm_main.main`` on ``cuda`` (synthetic data,
    dim_input 784, H=5, 1000 reads, 1000 sweeps, bs60, one epoch = 10 steps
    plus validation and test prediction) with ``--solver`` SA, BMS and PT in
    turn; each must launch its kernel on every sampler call (the launch
    counts are zeroed just before each run and read just after), give
    finite nll and move the parameters; per-step time by CUDA events after a
-   warm-up step;
+   warm-up step; then ``qbmx_torch.cli.cdqbm_main.main`` on ``cuda``, one
+   epoch (30 or 200 steps and 4 prediction chunks of 32) at both full-width
+   configurations on synthetic 28×28 images: (a) probabilistic pooling 4,
+   ``--seq_sizes 4``, sc100, anneal 1000, beta_eff 5, bs20, lr 0.02 -- a
+   717-variable QUBO that must launch K4 on every step and prediction --
+   and (b) the CLI defaults (deterministic pooling 4, 41 variables, bs3) on
+   K1; the same checks and step times;
 6. kernel and plain times (CUDA events; kernels median of 5 after a
-   warm-up, the slower plain versions of K2 and K3 median of 3) at the
-   phase-3 shapes in generator mode (K3 at S=1000).
+   warm-up, the slower plain versions of K2, K3 and K4 median of 3) at the
+   phase-3 shapes in generator mode (K3 at S=1000, K4 at S=10).
 
 The last three lines are the ``nvidia-smi`` line, one JSON object with the
 kernel records, and ``{"ok": true, "device": {...}}``.
@@ -150,9 +162,10 @@ def main() -> None:
         fail(f"{ROOT} is not a qbmx checkout (qbmx_torch/csrc is missing)")
     sys.path.insert(0, str(ROOT))
     from qbmx_torch import _build
-    from qbmx_torch.core.qubo import default_beta_range, random_qubo_batch
+    from qbmx_torch.core.qubo import default_beta_range, random_qubo_batch, split_qubo
     from qbmx_torch.core.rng import draw_seed
-    from qbmx_torch.samplers import gibbs, gibbs_cuda, pt_cuda, sa_cuda, sa_torch, tempering
+    from qbmx_torch.samplers import (gibbs, gibbs_cuda, kernel_call, pt_cuda, sa_cuda, sa_torch,
+                                     tempering, wide_cuda)
     from qbmx_torch.samplers.api import densify_groups
     from qbmx_torch.samplers.exact import exact_boltzmann
 
@@ -177,7 +190,7 @@ def main() -> None:
 
     # -- 3. kernel vs plain under host variates ------------------------------
     rng = np.random.default_rng(2024)
-    errs = {"sa_metropolis": [], "sa_heatbath": [], "pt_heatbath": []}
+    errs = {"sa_metropolis": [], "sa_heatbath": [], "pt_heatbath": [], "anneal_wide": []}
     fracs = {k: [] for k in errs}
 
     def record(kernel, frac_err):
@@ -223,6 +236,43 @@ def main() -> None:
             tempering.pt_sample_batch_plain(Qpt, R, S, num_replicas=SP["M"], host_variates=hv),
             f"K3 densified B=120 n=6 M=8 R={R} S={S}"))
         del hv
+
+    # K4 at the CDQBM probabilistic-pooling shape: the K1/K2 wrappers route
+    # n = 717 to it (kernel_call.fits_shared), which the counts confirm
+    SW = dict(G=2, B=20, n=717, R=100, S=10)
+    check(not kernel_call.fits_shared(SW["n"]), "n=717 should not fit shared memory")
+    Qw, hw, init_w, u_w = structured_problem(rng, *SW.values(), dev)
+    args, hv = (Qw, hw, SW["R"], SW["S"]), (init_w, u_w)
+    for width, kern, plain in (
+            ("Metropolis", lambda: sa_cuda.sa_sample_groups_cuda(*args, host_variates=hv),
+             lambda: sa_torch.sa_sample_groups_plain(*args, host_variates=hv)),
+            ("pair", lambda: gibbs_cuda.gibbs_sample_groups_cuda(*args, pair=True, host_variates=hv),
+             lambda: gibbs.gibbs_sample_groups_plain(*args, pair=True, host_variates=hv))):
+        for c in (sa_cuda, gibbs_cuda, wide_cuda):
+            c.reset_launch_counts()
+        out = kern()
+        torch.cuda.synchronize()
+        check(wide_cuda.launch_counts["anneal_wide"] == 1
+              and sa_cuda.launch_counts["sa_metropolis"] == 0
+              and gibbs_cuda.launch_counts["sa_heatbath"] == 0,
+              f"K4 {width}: n=717 was not served by K4 alone")
+        record("anneal_wide", compare(out, plain(), f"K4 {width} structured G=2 B=20 n=717 "
+                                                    "R=100 S=10"))
+    del hv, init_w, u_w
+    SWD = dict(B=32, n=717, R=100, S=10)
+    Qwd, init_wd, u_wd = dense_problem(rng, *SWD.values(), dev)
+    args, hv = (Qwd, SWD["R"], SWD["S"]), (init_wd, u_wd)
+    wide_cuda.reset_launch_counts()
+    record("anneal_wide", compare(sa_cuda.sa_sample_batch_cuda(*args, host_variates=hv),
+                                  sa_torch.sa_sample_batch_plain(*args, host_variates=hv),
+                                  "K4 Metropolis dense B=32 n=717 R=100 S=10"))
+    record("anneal_wide", compare(gibbs_cuda.gibbs_sample_batch_cuda(*args, pair=True,
+                                                                     host_variates=hv),
+                                  gibbs.gibbs_sample_batch_plain(*args, pair=True,
+                                                                 host_variates=hv),
+                                  "K4 pair dense B=32 n=717 R=100 S=10"))
+    check(wide_cuda.launch_counts["anneal_wide"] == 2, "K4 dense: not launched by the wrappers")
+    del hv, init_wd, u_wd
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -309,6 +359,42 @@ def main() -> None:
                                             host_variates=hv)
     philox["K3"] = differing(k_out, p_out)
     del hv, k_out, p_out
+    S_w = 3
+    seed = draw_seed(gen(7))
+    hv = tuple(torch.as_tensor(a, device=dev)
+               for a in sa_torch.philox_variates(seed, SW["G"], SW["B"], SW["R"], SW["n"], S_w))
+    k_out = sa_cuda.sa_sample_groups_cuda(Qw, hw, SW["R"], S_w, generator=gen(7))
+    p_out = sa_torch.sa_sample_groups_plain(Qw, hw, SW["R"], S_w, host_variates=hv)
+    philox["K4"] = differing(k_out, p_out)
+    k_out = gibbs_cuda.gibbs_sample_groups_cuda(Qw, hw, SW["R"], S_w, pair=True, generator=gen(7))
+    p_out = gibbs.gibbs_sample_groups_plain(Qw, hw, SW["R"], S_w, pair=True, host_variates=hv)
+    philox["K4 pair"] = differing(k_out, p_out)
+    del hv, k_out, p_out
+
+    def forced_wide(Q, R, S, rule, seed):
+        """K4 launched directly on a dense batch, past the routing."""
+        h, J = split_qubo(Q)
+        h = h[:, None].contiguous()
+        hot, logr = (sa_torch.schedule_params(h, J[:, None], S) if rule == wide_cuda.METROPOLIS
+                     else gibbs.heat_bath_schedule(h, J[:, None], S, 1.0))
+        return wide_cuda.launch(J.contiguous(), h, hot, logr, R, S, rule, generator=gen(seed))[:, 0]
+
+    worst_wide = {"Metropolis": 0.0, "pair": 0.0, "pair moments": 0.0}
+    for n in (2, 5, 8):
+        Q = random_qubo_batch(np.random.default_rng(0), 1, n, scale=0.5).to(dev)
+        s = forced_wide(Q, 512, 200, wide_cuda.METROPOLIS, n)
+        _, cold = default_beta_range(Q[0])
+        _, _, marg, _ = exact_boltzmann(Q[0], beta=float(cold))
+        worst_wide["Metropolis"] = max(worst_wide["Metropolis"],
+                                       (s[0].mean(0) - marg).abs().max().item())
+        Q = torch.as_tensor(np.triu(np.random.default_rng(11).uniform(-1, 1, (1, n, n)))
+                            .astype(np.float32), device=dev)
+        err, moment = oracle_error(forced_wide(Q, 2048, 64, wide_cuda.PAIR, 4)[0], Q[0], joint=True)
+        worst_wide["pair"] = max(worst_wide["pair"], err)
+        worst_wide["pair moments"] = max(worst_wide["pair moments"], moment)
+    check(worst_wide["Metropolis"] <= ORACLE_ATOL and worst_wide["pair"] <= JOINT_ATOL
+          and worst_wide["pair moments"] <= MOMENT_ATOL,
+          f"K4 forced oracle: worst errors {worst_wide}")
     for name, frac in philox.items():
         check(frac <= MAX_DIFF_FRAC, f"Philox mode {name}: {frac:.4%} of chains differ from "
               "the plain version on the kernel's own draws")
@@ -318,7 +404,10 @@ def main() -> None:
           f"{beta1} (limits {HB_ATOL} single and PT, {JOINT_ATOL} pair and quad, moments "
           f"{MOMENT_ATOL}); distinct states of 64 {distinct}; per-problem streams "
           "independent of batch-mates; Philox draws vs plain at G=2 B=60 n=6 R=1000 S=100 "
-          f"(K3: B=120 M=8 S={S_pt}): differing chains {philox}")
+          f"(K3: B=120 M=8 S={S_pt}; K4: G=2 B=20 n=717 R=100 S={S_w}): differing chains "
+          f"{philox}; K4 forced at n in (2, 5, 8): worst oracle errors {worst_wide} (limits "
+          f"{ORACLE_ATOL} Metropolis at the cold beta, {JOINT_ATOL} pair and {MOMENT_ATOL} "
+          "pair moments at beta 1)")
 
     # -- 5. the slices: qbm_main on cuda, one solver at a time ------------------
     import qbmx_torch.cli.qbm_main as qm
@@ -334,7 +423,7 @@ def main() -> None:
 
     qm.DiscQBM = RecordedDiscQBM
     steps, predictions = math.ceil(600 / 60), 2  # 600 synthetic train images; val + test
-    counters = (sa_cuda, gibbs_cuda, pt_cuda)
+    counters = (sa_cuda, gibbs_cuda, pt_cuda, wide_cuda)
     x = torch.as_tensor(np.random.default_rng(0).random((60, 784), dtype=np.float32), device=dev)
     y = torch.as_tensor(np.arange(60) % 2, device=dev)
     mask = torch.ones(60, device=dev)
@@ -371,6 +460,64 @@ def main() -> None:
               f"{auc:.4f}, wall {wall:.2f} s, step {step_ms[solver]:.3f} ms (CUDA events, "
               "median of 5)")
 
+    # the CDQBM slice: cdqbm_main on cuda at its two full-width configurations
+    import qbmx_torch.cli.cdqbm_main as cm
+    from qbmx_torch.models import cdqbm
+
+    cmade = []
+
+    class RecordedCDQBM(cm.CDQBM):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.initial_params = cdqbm.params_to_numpy(self.params)
+            cmade.append(self)
+
+    def flat(d):
+        """Every array of a ``params_to_numpy`` dict."""
+        return [a for v in d.values() if v is not None
+                for a in (v if isinstance(v, tuple) else (v,))]
+
+    cm.CDQBM = RecordedCDQBM
+    cdqbm_launches = {}
+    for label, kernel, n_total, kw in (
+        ("a", "anneal_wide", 717, dict(pooling_type="probabilistic", beta_eff=5.0,
+                                       batch_size=20, learning_rate=0.02)),
+        ("b", "sa_metropolis", 41, dict()),
+    ):
+        for c in counters:
+            c.reset_launch_counts()
+        t0 = time.perf_counter()
+        acc, f1, precision, recall, auc = cm.main(
+            device="cuda", data_set="synthetic", pooling_size=4, sequential_layer_sizes=(4,),
+            sample_count=100, anneal=1000, epochs=1, save="", **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v for c in counters for k, v in c.launch_counts.items()}
+        model = cmade[-1]
+        bs = kw.get("batch_size", 3)
+        steps = math.ceil(600 / bs)
+        cdqbm_launches[label] = counts
+        check(model.geo.n_total == n_total, f"CDQBM ({label}): n_total {model.geo.n_total}")
+        check(counts[kernel] >= steps + 4 and sum(counts.values()) == counts[kernel],
+              f"CDQBM ({label}): launch counts {counts} for {steps} steps + 4 predictions")
+        nlls = model.training_history.nll_per_batch
+        moved = max(float(np.abs(a - b).max()) for a, b in
+                    zip(flat(cdqbm.params_to_numpy(model.params)), flat(model.initial_params)))
+        check(len(nlls) == steps and all(math.isfinite(v) for v in nlls),
+              f"CDQBM ({label}): nll {nlls[:5]}")
+        check(moved > 0.0, f"CDQBM ({label}): training did not move the parameters")
+        check(all(0.0 <= v <= 1.0 for v in (acc, f1, precision, recall, auc)),
+              f"CDQBM ({label}): metrics out of range")
+        ximg = torch.as_tensor(np.random.default_rng(1).random((bs, 28, 28), dtype=np.float32),
+                               device=dev)
+        yb, mb = torch.as_tensor(np.arange(bs) % 2, device=dev), torch.ones(bs, device=dev)
+        step_ms[f"CDQBM {label}"] = cuda_ms(lambda: model._step(ximg, yb, mb, 0.01), runs=5)
+        print(f"phase 5 slice CDQBM ({label}): cdqbm_main cuda synthetic {kw or 'defaults'} "
+              f"n_total {n_total}: {steps} steps, launch counts {counts}, nll {nlls[0]:.4f} -> "
+              f"{nlls[-1]:.4f}, max param change {moved:.4f}, test acc {acc:.4f} auc {auc:.4f}, "
+              f"wall {wall:.2f} s, step {step_ms[f'CDQBM {label}']:.3f} ms (CUDA events, "
+              "median of 5)")
+
     # -- 6. kernel and plain times, generator mode -----------------------------
     g1 = torch.Generator().manual_seed(1)
     times = {}
@@ -394,11 +541,23 @@ def main() -> None:
         ("K3 densified B=120 n=6 M=8 R=1000 S=1000",
          lambda: pt_cuda.pt_sample_batch_cuda(Qpt, 1000, 1000, num_replicas=8, generator=g1),
          lambda: tempering.pt_sample_batch_plain(Qpt, 1000, 1000, num_replicas=8), 3),
+        ("K4 Metropolis structured G=2 B=20 n=717 R=100 S=10",
+         lambda: sa_cuda.sa_sample_groups_cuda(Qw, hw, 100, 10, generator=g1),
+         lambda: sa_torch.sa_sample_groups_plain(Qw, hw, 100, 10), 3),
+        ("K4 pair structured G=2 B=20 n=717 R=100 S=10",
+         lambda: gibbs_cuda.gibbs_sample_groups_cuda(Qw, hw, 100, 10, pair=True, generator=g1),
+         lambda: gibbs.gibbs_sample_groups_plain(Qw, hw, 100, 10, pair=True), 3),
     ):
         k_ms, p_ms = cuda_ms(kern, runs=5), cuda_ms(plain, runs=plain_runs)
         times[label] = (k_ms, p_ms)
         print(f"phase 6 time {label}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
               f"(CUDA events, kernel median of 5, plain median of {plain_runs}; {smi})")
+
+    k4_full_ms = cuda_ms(lambda: sa_cuda.sa_sample_groups_cuda(Qw, hw, 100, 1000, generator=g1),
+                         runs=3)
+    print(f"phase 6 time K4 Metropolis structured G=2 B=20 n=717 R=100 S=1000: kernel "
+          f"{k4_full_ms:.3f} ms (CUDA events, median of 3; the plain version is not run at "
+          f"this depth; {smi})")
 
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s")
     t = lambda prefix: next(v for k, v in times.items() if k.startswith(prefix))
@@ -426,7 +585,16 @@ def main() -> None:
          "differing_chains": max(fracs["pt_heatbath"]),
          "differing_chains_limit": MAX_DIFF_FRAC,
          "ms": t("K3")[0], "plain_ms": t("K3")[1]},
-    ], "step_ms": step_ms}
+        {"name": "anneal_wide", "route": "cuda", "source": "qbmx_torch/csrc/anneal_wide.cu",
+         "replaces": "qbmx/samplers/sa_lane.py:144",
+         "also_replaces": "qbmx/samplers/sa_pallas.py:196",
+         "launches": cdqbm_launches["a"]["anneal_wide"], "max_abs_err": max(errs["anneal_wide"]),
+         "differing_chains": max(fracs["anneal_wide"]),
+         "differing_chains_limit": MAX_DIFF_FRAC,
+         "ms": t("K4 Metropolis")[0], "plain_ms": t("K4 Metropolis")[1],
+         "pair_ms": t("K4 pair")[0], "pair_plain_ms": t("K4 pair")[1],
+         "full_depth_ms": k4_full_ms},
+    ], "step_ms": step_ms, "cdqbm_launches": cdqbm_launches}
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -59,14 +59,17 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         "qbmx_sa_metropolis": [p] * 7 + [i] * 5 + [f, u64, p],
         # ... seed, width, stream
         "qbmx_sa_heatbath": [p] * 7 + [i] * 5 + [f, u64, i, p],
+        # ... seed, rule, stream
+        "qbmx_anneal_wide": [p] * 7 + [i] * 5 + [f, u64, i, p],
         # J, h, betas, dbeta, init01, uniforms, swap_u, out, B, M, R, n, S, seed, stream
         "qbmx_pt_heatbath": [p] * 8 + [i] * 5 + [u64, p],
     }
     for name, argtypes in entries.items():
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = i
-    for name in ("qbmx_sa_metropolis_max_n", "qbmx_sa_heatbath_max_n", "qbmx_pt_heatbath_max_n",
-                 "qbmx_pt_heatbath_max_rungs", "qbmx_pt_heatbath_max_state"):
+    for name in ("qbmx_sa_metropolis_max_n", "qbmx_sa_heatbath_max_n", "qbmx_anneal_wide_max_n",
+                 "qbmx_pt_heatbath_max_n", "qbmx_pt_heatbath_max_rungs",
+                 "qbmx_pt_heatbath_max_state"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
     return lib

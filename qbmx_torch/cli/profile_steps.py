@@ -1,10 +1,15 @@
-"""Where a Disc_QBM training step's time goes, per solver.
+"""Where a Disc_QBM or CDQBM training step's time goes, per solver.
 
     python -m qbmx_torch.cli.profile_steps                   # flagship width: h5 sc1000 bs60
     python -m qbmx_torch.cli.profile_steps --hidden 2 --reads 100 --batch 73   # CLI defaults
+    python -m qbmx_torch.cli.profile_steps --cdqbm probabilistic --solver SA --reads 100
+    python -m qbmx_torch.cli.profile_steps --cdqbm deterministic --solver SA --reads 100
 
 For each solver: ``DiscQBM`` on the synthetic training split (600
-images, 784 inputs), one warm-up epoch, then ``--epochs`` unprofiled
+images, 784 inputs) -- or with ``--cdqbm`` a ``CDQBM`` on the same images
+at 28×28 in one of ``CDQBM_CONFIGS`` (the parity run's probabilistic
+settings, or the CLI defaults, each with its own batch size; pass
+``--reads 100``, their sample count) -- one warm-up epoch, then ``--epochs`` unprofiled
 epochs timed on the host clock after ``synchronize()`` (their median,
 divided by the steps, is ms/step), then on a GPU one more epoch under
 ``torch.profiler``.  Its device events give the device's busy time (the
@@ -31,11 +36,29 @@ import torch
 from qbmx_torch.cli._common import load_dataset
 from qbmx_torch.cli.qbm_main import resolve_device
 from qbmx_torch.data import loaders
+from qbmx_torch.models.cdqbm import CDQBM
 from qbmx_torch.models.dqbm import DiscQBM
+from qbmx_torch.samplers.kernel_call import fits_shared
 
-#: the kernel each solver's sampler launches on a GPU
+#: the kernel each solver's sampler launches on a GPU (SA and BMS: while the
+#: QUBO's couplings fit shared memory; "anneal_wide" above)
 SOLVER_KERNELS = {"SA": "sa_metropolis", "BMS": "sa_heatbath", "PT": "pt_heatbath"}
 SEED, LEARNING_RATE = 19, 0.307  # the flagship run's learning rate
+#: CDQBM settings: the probabilistic parity run (``out/parity/cdqbm_breast_prob.log``:
+#: sc100 b5.0 bs20 l0.02) and ``cdqbm_main``'s defaults, both at pooling 4, --seq_sizes 4
+CDQBM_CONFIGS = {
+    "probabilistic": dict(model=dict(pooling_type="probabilistic", beta_eff=5.0),
+                          batch=20, lr=0.02),
+    "deterministic": dict(model=dict(pooling_type="deterministic", beta_eff=1.0),
+                          batch=3, lr=0.01),
+}
+
+
+def solver_kernel(solver: str, n: int) -> str:
+    """The kernel a solver's sampler launches on a GPU for an n-variable QUBO."""
+    if solver in ("SA", "BMS") and not fits_shared(n):
+        return "anneal_wide"
+    return SOLVER_KERNELS[solver]
 
 
 def _sync(dev: torch.device) -> None:
@@ -72,14 +95,23 @@ def device_breakdown(epoch, kernel: str) -> dict:
 
 
 def profile_solver(solver: str, train_X, train_y, *, hidden: int, reads: int, sweeps: int,
-                   batch: int, epochs: int, dev: torch.device) -> dict:
-    model = DiscQBM(dim_input=train_X.shape[1], n_hidden_nodes=hidden, seed=SEED,
-                    solver=solver, restricted=False, sample_count=reads,
-                    anneal_steps=sweeps, device=dev)
+                   batch: int, epochs: int, dev: torch.device, cdqbm: str | None = None) -> dict:
+    lr = LEARNING_RATE
+    if cdqbm:
+        cfg = CDQBM_CONFIGS[cdqbm]
+        model = CDQBM(image_shape=(28, 28), seed=SEED, pooling_size=4,
+                      sequential_layer_sizes=[4], hidden_bias_type="shared", solver=solver,
+                      anneal=sweeps, sample_count=reads, device=dev, **cfg["model"])
+        batch, lr, n = cfg["batch"], cfg["lr"], model.geo.n_total
+    else:
+        model = DiscQBM(dim_input=train_X.shape[1], n_hidden_nodes=hidden, seed=SEED,
+                        solver=solver, restricted=False, sample_count=reads,
+                        anneal_steps=sweeps, device=dev)
+        n = hidden + 1
     steps = math.ceil(len(train_X) / batch)
 
     def epoch():
-        model.train_epoch(train_X, train_y, batch, LEARNING_RATE)
+        model.train_epoch(train_X, train_y, batch, lr)
         _sync(dev)
 
     epoch()  # warm-up: first launches, device copies of the batches
@@ -89,7 +121,8 @@ def profile_solver(solver: str, train_X, train_y, *, hidden: int, reads: int, sw
         epoch()
         walls.append((time.perf_counter() - t0) * 1e3)
     wall = statistics.median(walls)
-    rec = {"solver": solver, "kernel": SOLVER_KERNELS.get(solver), "steps": steps,
+    rec = {"solver": solver, "model": f"CDQBM {cdqbm}" if cdqbm else "DiscQBM", "n": n,
+           "kernel": solver_kernel(solver, n), "steps": steps,
            "epoch_ms": wall, "ms_per_step": wall / steps, "epoch_ms_runs": walls,
            "busy_ms": None, "idle_share": None, "ops_per_step": None,
            "kernel_ms_per_launch": None, "kernel_share": None, "kernel_launches": None}
@@ -111,6 +144,8 @@ def main(argv=None) -> list[dict]:
     p.add_argument("--batch", type=int, default=60)
     p.add_argument("--epochs", type=int, default=3, help="unprofiled epochs timed")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--cdqbm", choices=sorted(CDQBM_CONFIGS), default=None,
+                   help="profile a CDQBM in this configuration instead of the DiscQBM")
     a = p.parse_args(argv)
     dev = resolve_device(a.device)
     (train_X, train_y), (val_X, _), (test_X, _) = load_dataset("synthetic", seed=SEED)
@@ -119,9 +154,11 @@ def main(argv=None) -> list[dict]:
     for solver in a.solver:
         rec = profile_solver(solver, train_X, np.asarray(train_y), hidden=a.hidden,
                              reads=a.reads, sweeps=a.sweeps, batch=a.batch,
-                             epochs=a.epochs, dev=dev)
+                             epochs=a.epochs, dev=dev, cdqbm=a.cdqbm)
         records.append(rec)
-        print(f"{solver} h{a.hidden} sc{a.reads} anneal{a.sweeps} bs{a.batch} on {dev}: "
+        shape = f"CDQBM {a.cdqbm}" if a.cdqbm else \
+            f"h{a.hidden} sc{a.reads} anneal{a.sweeps} bs{a.batch}"
+        print(f"{solver} {shape} on {dev}: "
               + ", ".join(f"{k} {v}" for k, v in rec.items() if k not in ("solver",)))
     if dev.type == "cuda":
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,0 +1,135 @@
+// The update rules of the anneal kernels, each on fields already summed, and
+// a chain's per-sweep uniforms.  sa_metropolis.cu (K1), sa_heatbath.cu (K2)
+// and anneal_wide.cu (K4) form their fields differently but take every
+// decision through these, so the float operations of a decision are the
+// same in all three and in the plain versions (qbmx_torch/samplers/
+// sa_torch.py, gibbs.py), whose association order they copy.
+//
+// Build without --use_fast_math: the thresholds need IEEE logf/expf and
+// division, and expf must overflow to inf where torch.exp does.
+
+#pragma once
+
+#include <cstdint>
+
+#include "philox.cuh"
+
+namespace qbmx {
+
+// One chain's uniforms for one sweep: from the host (stride R) or drawn
+// from its Philox stream four variables at a time.
+struct SweepUniforms {
+  const float* ut;  // host: &uniforms[t, p, 0, r]; null in Philox mode
+  int R;
+  uint2 key;
+  uint32_t r, t, seed_hi;
+  int cached = -1;
+  uint4 bits;
+
+  __device__ __forceinline__ float operator()(int i) {
+    if (ut != nullptr) return ut[(size_t)i * R];
+    if ((i >> 2) != cached) {
+      cached = i >> 2;
+      bits = philox4x32_10(make_uint4(r, (uint32_t)cached, t, seed_hi), key);
+    }
+    return uniform_of(word(bits, i & 3));
+  }
+};
+
+// Metropolis: flip iff (1 - 2 s) * field < -logf(u) / beta.
+__device__ __forceinline__ float metropolis_rule(float field, float s, float beta, float u) {
+  const float thr = -logf(u) / beta;
+  return (1.0f - 2.0f * s) * field < thr ? 1.0f - s : s;
+}
+
+// Heat-bath, width 1: 1 iff field < (logf(1 - u) - logf(u)) / beta.
+__device__ __forceinline__ float heatbath_rule(float field, float beta, float u) {
+  const float thr = (logf(1.0f - u) - logf(u)) / beta;
+  return field < thr ? 1.0f : 0.0f;
+}
+
+// The trailing single of a pair or quad sweep: u < sigmoid(-beta f), i.e.
+// u * (1 + expf(beta f)) < 1 (inf-safe: an overflow keeps it 0).
+__device__ __forceinline__ float single_rule(float field, float beta, float u) {
+  const float w = expf(beta * field);
+  return u * (1.0f + w) < 1.0f ? 1.0f : 0.0f;
+}
+
+// Variables (i, i+1) from their exact 4-state conditional: f1, f2 are their
+// full fields (partner included), c = J[i][i+1], s1, s2 their states.
+__device__ __forceinline__ void pair_rule(float f1, float f2, float c, float s1, float s2,
+                                          float beta, float u, float& o1, float& o2) {
+  const float f1p = f1 - c * s2;  // fields excluding the partner
+  const float f2p = f2 - c * s1;
+  const float e01 = -beta * f2p;
+  const float e10 = -beta * f1p;
+  const float e11 = -beta * (f1p + f2p + c);
+  const float m = fmaxf(fmaxf(e01, e10), fmaxf(e11, 0.0f));
+  const float w00 = expf(-m);
+  const float w01 = expf(e01 - m);
+  const float w10 = expf(e10 - m);
+  const float w11 = expf(e11 - m);
+  const float Z = w00 + w01 + w10 + w11;
+  const float t = u * Z;
+  const float cum2 = w00 + w01;
+  const float cum3 = cum2 + w10;
+  o1 = t >= cum2 ? 1.0f : 0.0f;
+  o2 = ((t >= w00 && t < cum2) || t >= cum3) ? 1.0f : 0.0f;
+}
+
+// Variables i..i+3 from their exact 16-state conditional: f their full
+// fields, c[a][b] = J[i+a][i+b] for a < b, s their states.  State index
+// idx = b0*8 + b1*4 + b2*2 + b3 (bit 3-a is variable i+a); coupling pairs in
+// lexicographic order (0,1),(0,2),(0,3),(1,2),(1,3),(2,3).
+__device__ __forceinline__ void quad_rule(const float f[4], const float c[4][4],
+                                          const float s[4], float beta, float u,
+                                          float o[4]) {
+  float fp[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    float fa = f[a];
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      if (b != a) fa = fa - c[a < b ? a : b][a < b ? b : a] * s[b];
+    fp[a] = fa;
+  }
+  float es[16];
+  es[0] = 0.0f;
+#pragma unroll
+  for (int idx = 1; idx < 16; ++idx) {
+    float acc = 0.0f;
+    bool first = true;
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+      if ((idx >> (3 - a)) & 1) {
+        acc = first ? fp[a] : acc + fp[a];
+        first = false;
+      }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = a + 1; b < 4; ++b)
+        if (((idx >> (3 - a)) & 1) && ((idx >> (3 - b)) & 1)) acc = acc + c[a][b];
+    es[idx] = -beta * acc;
+  }
+  float m = es[1];
+#pragma unroll
+  for (int idx = 2; idx < 16; ++idx) m = fmaxf(m, es[idx]);
+  m = fmaxf(m, 0.0f);
+  float cums[16];
+  float cum = expf(es[0] - m);
+  cums[0] = cum;
+#pragma unroll
+  for (int idx = 1; idx < 16; ++idx) {
+    cum = cum + expf(es[idx] - m);
+    cums[idx] = cum;
+  }
+  const float t = u * cums[15];
+  int sel = 0;
+#pragma unroll
+  for (int idx = 0; idx < 15; ++idx) sel += t >= cums[idx] ? 1 : 0;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) o[a] = (float)((sel >> (3 - a)) & 1);
+}
+
+}  // namespace qbmx

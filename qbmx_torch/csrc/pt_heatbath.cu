@@ -52,6 +52,9 @@ using qbmx::word;
 
 constexpr int kThreads = 128;
 constexpr int kMaxRungs = 64;
+// Largest n whose J_b (4·n² bytes) fits one block's 232,448 bytes of shared
+// memory.
+constexpr int kMaxN = 241;
 constexpr uint32_t kSwapTag = 0xFFu;  // variable-block slot of the swap draws
 
 __device__ __forceinline__ float dot(const float* Ji, const float* s, int n) {
@@ -179,9 +182,8 @@ cudaError_t launch(const float* J, const float* h, const float* betas, const flo
 }  // namespace
 
 // Bounds of the kernel: n (J_b and a rung), the rungs of a ladder, and the
-// state of a whole ladder (M*n floats per thread).  The wrapper also
-// refuses an n whose J_b exceeds a block's shared memory.
-extern "C" int qbmx_pt_heatbath_max_n() { return 256; }
+// state of a whole ladder (M*n floats per thread).
+extern "C" int qbmx_pt_heatbath_max_n() { return kMaxN; }
 extern "C" int qbmx_pt_heatbath_max_rungs() { return kMaxRungs; }
 extern "C" int qbmx_pt_heatbath_max_state() { return 2048; }
 
@@ -194,7 +196,7 @@ extern "C" int qbmx_pt_heatbath(const float* J, const float* h, const float* bet
                                 void* stream) {
   const bool some = init01 != nullptr || uniforms != nullptr || swap_u != nullptr;
   const bool all = init01 != nullptr && uniforms != nullptr && swap_u != nullptr;
-  if (B <= 0 || M <= 0 || R <= 0 || n <= 0 || S <= 0 || B > 65535 || n > 256 ||
+  if (B <= 0 || M <= 0 || R <= 0 || n <= 0 || S <= 0 || B > 65535 || n > kMaxN ||
       M > kMaxRungs || M * n > 2048 || some != all)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -44,36 +44,23 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "philox.cuh"
+#include "anneal_rules.cuh"
 
 namespace {
 
+using qbmx::heatbath_rule;
 using qbmx::kInitTag;
+using qbmx::pair_rule;
 using qbmx::philox4x32_10;
-using qbmx::uniform_of;
+using qbmx::quad_rule;
+using qbmx::single_rule;
+using qbmx::SweepUniforms;
 using qbmx::word;
 
 constexpr int kThreads = 128;
-
-// One chain's uniforms for one sweep: from the host (stride R) or drawn
-// from its Philox stream four variables at a time.
-struct SweepUniforms {
-  const float* ut;  // host: &uniforms[t, p, 0, r]; null in Philox mode
-  int R;
-  uint2 key;
-  uint32_t r, t, seed_hi;
-  int cached = -1;
-  uint4 bits;
-
-  __device__ __forceinline__ float operator()(int i) {
-    if (ut != nullptr) return ut[(size_t)i * R];
-    if ((i >> 2) != cached) {
-      cached = i >> 2;
-      bits = philox4x32_10(make_uint4(r, (uint32_t)cached, t, seed_hi), key);
-    }
-    return uniform_of(word(bits, i & 3));
-  }
-};
+// Largest n whose J_g (4·n² bytes) fits one block's 232,448 bytes of shared
+// memory; the wrappers send wider problems to anneal_wide.cu (K4).
+constexpr int kMaxN = 241;
 
 __device__ __forceinline__ float field(const float* Js, const float* hp, const float* s,
                                        int n, int i) {
@@ -85,89 +72,30 @@ __device__ __forceinline__ float field(const float* Js, const float* hp, const f
 
 __device__ __forceinline__ void single_update(float* s, const float* Js, const float* hp,
                                               int n, int i, float beta, float u) {
-  const float w = expf(beta * field(Js, hp, s, n, i));
-  s[i] = u * (1.0f + w) < 1.0f ? 1.0f : 0.0f;
+  s[i] = single_rule(field(Js, hp, s, n, i), beta, u);
 }
 
 __device__ __forceinline__ void pair_update(float* s, const float* Js, const float* hp,
                                             int n, int i, float beta, float u) {
-  const float f1 = field(Js, hp, s, n, i);
-  const float f2 = field(Js, hp, s, n, i + 1);
-  const float c = Js[i * n + i + 1];
-  const float f1p = f1 - c * s[i + 1];  // fields excluding the partner
-  const float f2p = f2 - c * s[i];
-  const float e01 = -beta * f2p;
-  const float e10 = -beta * f1p;
-  const float e11 = -beta * (f1p + f2p + c);
-  const float m = fmaxf(fmaxf(e01, e10), fmaxf(e11, 0.0f));
-  const float w00 = expf(-m);
-  const float w01 = expf(e01 - m);
-  const float w10 = expf(e10 - m);
-  const float w11 = expf(e11 - m);
-  const float Z = w00 + w01 + w10 + w11;
-  const float t = u * Z;
-  const float cum2 = w00 + w01;
-  const float cum3 = cum2 + w10;
-  s[i] = t >= cum2 ? 1.0f : 0.0f;
-  s[i + 1] = ((t >= w00 && t < cum2) || t >= cum3) ? 1.0f : 0.0f;
+  pair_rule(field(Js, hp, s, n, i), field(Js, hp, s, n, i + 1), Js[i * n + i + 1], s[i],
+            s[i + 1], beta, u, s[i], s[i + 1]);
 }
 
-// quad state index idx = b0*8 + b1*4 + b2*2 + b3 (bit 3-a is variable i+a);
-// coupling pairs in lexicographic order (0,1),(0,2),(0,3),(1,2),(1,3),(2,3)
 __device__ __forceinline__ void quad_update(float* s, const float* Js, const float* hp,
                                             int n, int i, float beta, float u) {
-  float f[4], c[4][4], fp[4];
+  float f[4], c[4][4], sv[4], o[4];
 #pragma unroll
-  for (int a = 0; a < 4; ++a) f[a] = field(Js, hp, s, n, i + a);
+  for (int a = 0; a < 4; ++a) {
+    f[a] = field(Js, hp, s, n, i + a);
+    sv[a] = s[i + a];
+  }
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
     for (int b = a + 1; b < 4; ++b) c[a][b] = Js[(i + a) * n + i + b];
+  quad_rule(f, c, sv, beta, u, o);
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    float fa = f[a];
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-      if (b != a) fa = fa - c[a < b ? a : b][a < b ? b : a] * s[i + b];
-    fp[a] = fa;
-  }
-  float es[16];
-  es[0] = 0.0f;
-#pragma unroll
-  for (int idx = 1; idx < 16; ++idx) {
-    float acc = 0.0f;
-    bool first = true;
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-      if ((idx >> (3 - a)) & 1) {
-        acc = first ? fp[a] : acc + fp[a];
-        first = false;
-      }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = a + 1; b < 4; ++b)
-        if (((idx >> (3 - a)) & 1) && ((idx >> (3 - b)) & 1)) acc = acc + c[a][b];
-    es[idx] = -beta * acc;
-  }
-  float m = es[1];
-#pragma unroll
-  for (int idx = 2; idx < 16; ++idx) m = fmaxf(m, es[idx]);
-  m = fmaxf(m, 0.0f);
-  float cums[16];
-  float cum = expf(es[0] - m);
-  cums[0] = cum;
-#pragma unroll
-  for (int idx = 1; idx < 16; ++idx) {
-    cum = cum + expf(es[idx] - m);
-    cums[idx] = cum;
-  }
-  const float t = u * cums[15];
-  int sel = 0;
-#pragma unroll
-  for (int idx = 0; idx < 15; ++idx) sel += t >= cums[idx] ? 1 : 0;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) s[i + a] = (float)((sel >> (3 - a)) & 1);
+  for (int a = 0; a < 4; ++a) s[i + a] = o[a];
 }
 
 template <int NMAX, int WIDTH>
@@ -211,11 +139,7 @@ sa_heatbath_kernel(const float* __restrict__ J, const float* __restrict__ h,
     SweepUniforms u{host ? uniforms + (size_t)t * u_sweep + p * n * R + r : nullptr, R, key,
                     (uint32_t)r, (uint32_t)t, seed_hi};
     if (WIDTH == 1) {
-      for (int i = 0; i < n; ++i) {
-        const float ui = u(i);
-        const float thr = (logf(1.0f - ui) - logf(ui)) / beta;
-        s[i] = field(Js, hp, s, n, i) < thr ? 1.0f : 0.0f;
-      }
+      for (int i = 0; i < n; ++i) s[i] = heatbath_rule(field(Js, hp, s, n, i), beta, u(i));
     } else {
       int i = 0;
       if (WIDTH == 4)
@@ -263,9 +187,8 @@ cudaError_t dispatch(const float* J, const float* h, const float* hot, const flo
 
 }  // namespace
 
-// Largest n the kernel takes: the state bound of the widest instantiation.
-// The wrapper also refuses an n whose J_g exceeds a block's shared memory.
-extern "C" int qbmx_sa_heatbath_max_n() { return 256; }
+// Largest n the kernel takes: J_g must fit one block's shared memory.
+extern "C" int qbmx_sa_heatbath_max_n() { return kMaxN; }
 
 // Returns the cudaError_t of the launch (0 = success).  init01/uniforms are
 // both null (Philox mode) or both set (host-variate mode); width is 1, 2 or 4.
@@ -274,7 +197,7 @@ extern "C" int qbmx_sa_heatbath(const float* J, const float* h, const float* hot
                                 const float* uniforms, float* out, int G, int B, int R,
                                 int n, int S, float inv_span, unsigned long long seed,
                                 int width, void* stream) {
-  if (G <= 0 || B <= 0 || R <= 0 || n <= 0 || n > 256 || S <= 0 || G > 65535 ||
+  if (G <= 0 || B <= 0 || R <= 0 || n <= 0 || n > kMaxN || S <= 0 || G > 65535 ||
       (init01 == nullptr) != (uniforms == nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

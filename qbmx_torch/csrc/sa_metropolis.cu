@@ -37,16 +37,20 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "philox.cuh"
+#include "anneal_rules.cuh"
 
 namespace {
 
 using qbmx::kInitTag;
+using qbmx::metropolis_rule;
 using qbmx::philox4x32_10;
-using qbmx::uniform_of;
+using qbmx::SweepUniforms;
 using qbmx::word;
 
 constexpr int kThreads = 128;
+// Largest n whose J_g (4·n² bytes) fits one block's 232,448 bytes of shared
+// memory; the wrappers send wider problems to anneal_wide.cu (K4).
+constexpr int kMaxN = 241;
 
 template <int NMAX>
 __global__ void __launch_bounds__(kThreads)
@@ -87,23 +91,13 @@ sa_metropolis_kernel(const float* __restrict__ J, const float* __restrict__ h,
   const size_t u_sweep = (size_t)G * B * n * R;  // uniforms per sweep
   for (int t = 0; t < S; ++t) {
     const float beta = hot_p * expf(logr_p * ((float)t * inv_span));
-    const float* ut = host ? uniforms + (size_t)t * u_sweep + p * n * R + r : nullptr;
+    SweepUniforms u{host ? uniforms + (size_t)t * u_sweep + p * n * R + r : nullptr, R, key,
+                    (uint32_t)r, (uint32_t)t, seed_hi};
     for (int i = 0; i < n; ++i) {
-      float u;
-      if (host) {
-        u = ut[(size_t)i * R];
-      } else {
-        if ((i & 3) == 0)
-          bits = philox4x32_10(make_uint4((uint32_t)r, (uint32_t)(i >> 2), (uint32_t)t, seed_hi), key);
-        u = uniform_of(word(bits, i & 3));
-      }
-      const float thr = -logf(u) / beta;
       const float* Ji = Js + i * n;
       float acc = 0.0f;
       for (int j = 0; j < n; ++j) acc += Ji[j] * s[j];
-      const float field = hp[i] + acc;
-      const float si = s[i];
-      if ((1.0f - 2.0f * si) * field < thr) s[i] = 1.0f - si;
+      s[i] = metropolis_rule(hp[i] + acc, s[i], beta, u(i));
     }
   }
 
@@ -132,9 +126,8 @@ cudaError_t launch(const float* J, const float* h, const float* hot, const float
 
 }  // namespace
 
-// Largest n the kernel takes: the state bound of the widest instantiation.
-// The wrapper also refuses an n whose J_g exceeds a block's shared memory.
-extern "C" int qbmx_sa_metropolis_max_n() { return 256; }
+// Largest n the kernel takes: J_g must fit one block's shared memory.
+extern "C" int qbmx_sa_metropolis_max_n() { return kMaxN; }
 
 // Returns the cudaError_t of the launch (0 = success).  init01/uniforms are
 // both null (Philox mode) or both set (host-variate mode).
@@ -151,7 +144,7 @@ extern "C" int qbmx_sa_metropolis(const float* J, const float* h, const float* h
     return (int)launch<8>(J, h, hot, logr, init01, uniforms, out, G, B, R, n, S, inv_span, seed, st);
   if (n <= 64)
     return (int)launch<64>(J, h, hot, logr, init01, uniforms, out, G, B, R, n, S, inv_span, seed, st);
-  if (n <= 256)
+  if (n <= kMaxN)
     return (int)launch<256>(J, h, hot, logr, init01, uniforms, out, G, B, R, n, S, inv_span, seed, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -16,10 +16,11 @@ import torch
 
 def save_weight_pickle(objs: list, title: str, path: str = "out") -> None:
     """Write a reference-format weight list pickle (``<path>/<title>.pkl``,
-    a list of numpy arrays — the format ``qbmx`` reads and writes)."""
+    the list as given: numpy arrays, lists of them and ``None`` — the format
+    ``qbmx`` reads and writes)."""
     Path(path).mkdir(parents=True, exist_ok=True)
     with open(f"{path}/{title}.pkl", "wb") as f:
-        pickle.dump([np.asarray(o) for o in objs], f)
+        pickle.dump(list(objs), f)
 
 
 def load_weight_pickle(file_path, missing_msg: str = "params file not found"):
@@ -33,14 +34,26 @@ def load_weight_pickle(file_path, missing_msg: str = "params file not found"):
 
 
 def tree_map(fn, *trees):
-    """Apply ``fn`` field-wise over dataclass parameter trees of one type."""
+    """Apply ``fn`` leaf-wise over parameter trees of one structure:
+    dataclasses of tensors, tuples of tensors (per-layer weights) and
+    ``None`` (an absent optional parameter, left as it is)."""
     first = trees[0]
-    return type(first)(**{f.name: fn(*(getattr(t, f.name) for t in trees))
-                          for f in dataclasses.fields(first)})
+    if dataclasses.is_dataclass(first):
+        return type(first)(**{f.name: tree_map(fn, *(getattr(t, f.name) for t in trees))
+                              for f in dataclasses.fields(first)})
+    if isinstance(first, tuple):
+        return tuple(tree_map(fn, *leaves) for leaves in zip(*trees))
+    return None if first is None else fn(*trees)
 
 
 def tree_leaves(tree) -> list:
-    return [getattr(tree, f.name) for f in dataclasses.fields(tree)]
+    """The tensors of a parameter tree in field order (``None`` skipped) —
+    ``jax.tree.leaves``' order for the same dataclass."""
+    if dataclasses.is_dataclass(tree):
+        return [leaf for f in dataclasses.fields(tree) for leaf in tree_leaves(getattr(tree, f.name))]
+    if isinstance(tree, tuple):
+        return [leaf for t in tree for leaf in tree_leaves(t)]
+    return [] if tree is None else [tree]
 
 
 def pad_rows(x: torch.Tensor, total: int) -> torch.Tensor:
@@ -96,6 +109,11 @@ class EpochLaunchMixin:
     Requirements on the host class: ``device`` and ``_step``.
     """
 
+    def _prepare_inputs(self, x: np.ndarray) -> np.ndarray:
+        """Hook: host inputs in the layout ``_step`` takes (identity here;
+        the CDQBM reshapes flat rows to images)."""
+        return x
+
     # Caches are keyed by WEAK references to the host objects: id() alone can
     # be recycled by a new same-length array after the old one is freed.
 
@@ -122,7 +140,8 @@ class EpochLaunchMixin:
         validation inputs), cached by identity of the host object."""
         x = self._cache_lookup("_predict_data", (X,), None)
         if x is None:
-            x = torch.as_tensor(np.asarray(X, dtype="float32"), device=self.device)
+            x = torch.as_tensor(self._prepare_inputs(np.asarray(X, dtype="float32")),
+                                device=self.device)
             self._cache_store("_predict_data", (X,), None, x)
         return x
 
@@ -135,7 +154,7 @@ class EpochLaunchMixin:
         if cached is None:
             from qbmx_torch.train.loop import _pad_batch
 
-            xh = np.asarray(x, dtype="float32")
+            xh = self._prepare_inputs(np.asarray(x, dtype="float32"))
             nb = -(-len(xh) // batch_size)
             xp, yp, mask = _pad_batch(xh, np.asarray(y), nb * batch_size)
             dev = self.device

@@ -5,9 +5,11 @@
 ``gibbs_sample_batch_cuda`` of ``qbmx.samplers.sa_pallas.
 gibbs_sample_batch_pallas``; both launch the same kernel (a dense batch is
 G = B groups of one problem), with the update width (single, pair, quad)
-as asked.  On CUDA tensors they launch the kernel or raise; on CPU tensors
-they run the plain version (``gibbs``) — the tensor's device is the only
-thing that decides.
+as asked: K2 while a group's couplings fit shared memory
+(``kernel_call.fits_shared``), K4 (``wide_cuda``, ``anneal_wide.cu``)
+above.  On CUDA tensors they launch a kernel or raise; on CPU tensors they
+run the plain version (``gibbs``) — the tensor's device is the only thing
+that decides.
 
 In generator mode the kernel draws the Philox streams of the Metropolis
 kernel, keyed by a seed taken from ``generator`` and the problem's index;
@@ -24,7 +26,7 @@ import torch
 
 from qbmx_torch.core.qubo import split_qubo
 from qbmx_torch.core.rng import draw_seed
-from qbmx_torch.samplers import gibbs, kernel_call
+from qbmx_torch.samplers import gibbs, kernel_call, wide_cuda
 from qbmx_torch.samplers.sa_torch import _check_variates, inv_span
 
 #: launches of the heat-bath kernel since the last reset (one per call that
@@ -43,15 +45,19 @@ def _width(pair: bool, quad: bool) -> int:
 
 def _run(Q_shared, h_extra, num_reads, num_warmup, generator, beta, pair, quad,
          host_variates):
-    """Launch K2 on the structured form → (G, B, R, n)."""
+    """Launch K2 on the structured form → (G, B, R, n); K4 where ``J_g``
+    does not fit shared memory."""
     from qbmx_torch._build import load_kernels
 
     hs, J = split_qubo(Q_shared.to(torch.float32))
     J = J.contiguous()
     h = (hs[:, None, :] + h_extra.to(torch.float32)).contiguous()
     hot, logr = gibbs.heat_bath_schedule(h, J[:, None], num_warmup, beta)
-    lib = load_kernels()
     G, B, n = h.shape
+    if not kernel_call.fits_shared(n):
+        return wide_cuda.launch(J, h, hot, logr, num_reads, num_warmup, _width(pair, quad),
+                                generator=generator, host_variates=host_variates)
+    lib = load_kernels()
     R, S = num_reads, num_warmup
     ptrs = kernel_call.structured_ptrs("sa_heatbath", lib.qbmx_sa_heatbath_max_n(),
                                        J, h, hot, logr, R, S, host_variates)

@@ -1,14 +1,23 @@
-"""What the CUDA kernel wrappers (``sa_cuda``, ``gibbs_cuda``, ``pt_cuda``)
-share: the checks of the arguments they pass, the shared-memory bound on a
-problem's width, the stream, and the launch's return code.  Each wrapper
-makes its own launch call and counts its own launches."""
+"""What the CUDA kernel wrappers (``sa_cuda``, ``gibbs_cuda``, ``wide_cuda``,
+``pt_cuda``) share: the checks of the arguments they pass, the boundary
+between the anneal kernels that hold a group's couplings in shared memory
+and the one that streams them, the stream, and the launch's return code.
+Each wrapper makes its own launch call and counts its own launches."""
 
 from __future__ import annotations
 
 import torch
 
-# J (n, n) must fit one block's shared memory (227 KB on Hopper) as float32
+# one block's shared memory on Hopper (227 KB)
 SMEM_BYTES = 232_448
+
+
+def fits_shared(n: int) -> bool:
+    """Whether a group's couplings J_g ((n, n) float32) fit one block's
+    shared memory, i.e. n ≤ 241.  The anneal wrappers launch K1
+    (``sa_metropolis.cu``) or K2 (``sa_heatbath.cu``) when they do and K4
+    (``anneal_wide.cu``), which streams J_g in row tiles, when they do not."""
+    return 4 * n * n <= SMEM_BYTES
 
 
 def require(t: torch.Tensor, name: str, shape: tuple, device: torch.device) -> None:
@@ -44,9 +53,8 @@ def structured_ptrs(kernel: str, max_n: int, J, h, hot, logr, num_reads: int,
     for t, name, shape in ((J, "J", (G, n, n)), (h, "h", (G, B, n)),
                            (hot, "beta_hot", (G, B)), (logr, "logr", (G, B))):
         require(t, name, shape, dev)
-    if n > max_n or 4 * n * n > SMEM_BYTES:
-        raise ValueError(f"{kernel} kernel: n={n} exceeds its bound "
-                         f"(n ≤ {max_n} and J_g in shared memory)")
+    if n > max_n:
+        raise ValueError(f"{kernel} kernel: n={n} exceeds its bound (n ≤ {max_n})")
     if G > 65535:
         raise ValueError(f"{kernel} kernel: {G} groups exceed the grid's 65535")
     R, S = num_reads, num_sweeps

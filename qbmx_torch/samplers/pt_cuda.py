@@ -50,9 +50,9 @@ def pt_sample_batch_cuda(Q: torch.Tensor, num_reads: int, num_sweeps: int = 64, 
     lib = load_kernels()
     max_n, max_m = lib.qbmx_pt_heatbath_max_n(), lib.qbmx_pt_heatbath_max_rungs()
     max_state = lib.qbmx_pt_heatbath_max_state()
-    if n > max_n or 4 * n * n > kernel_call.SMEM_BYTES or M > max_m or M * n > max_state:
+    if n > max_n or M > max_m or M * n > max_state:
         raise ValueError(f"pt_heatbath kernel: n={n}, M={M} exceed its bound (n ≤ {max_n}, "
-                         f"M ≤ {max_m}, M·n ≤ {max_state}, J in shared memory)")
+                         f"M ≤ {max_m}, M·n ≤ {max_state})")
     if B > 65535:
         raise ValueError(f"pt_heatbath kernel: {B} problems exceed the grid's 65535")
     variates = kernel_call.variate_ptrs(

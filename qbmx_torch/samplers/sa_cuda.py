@@ -3,9 +3,11 @@
 ``sa_sample_groups_cuda`` is the counterpart of
 ``qbmx.samplers.sa_lane.lane_sample_groups`` and ``sa_sample_batch_cuda``
 of ``qbmx.samplers.sa_pallas.sa_sample_batch_pallas``; both launch the same
-kernel (a dense batch is G = B groups of one problem).  On CUDA tensors
-they launch the kernel or raise; on CPU tensors they run the plain version
-(``sa_torch``) — the tensor's device is the only thing that decides.
+kernel (a dense batch is G = B groups of one problem): K1 while a group's
+couplings fit shared memory (``kernel_call.fits_shared``), K4
+(``wide_cuda``, ``anneal_wide.cu``) above.  On CUDA tensors they launch a
+kernel or raise; on CPU tensors they run the plain version (``sa_torch``)
+— the tensor's device is the only thing that decides.
 
 In generator mode the kernel draws its own Philox streams, keyed by a seed
 taken from ``generator`` and the problem's index, so its samples are not
@@ -21,7 +23,7 @@ import torch
 
 from qbmx_torch.core.qubo import split_qubo
 from qbmx_torch.core.rng import draw_seed
-from qbmx_torch.samplers import kernel_call
+from qbmx_torch.samplers import kernel_call, wide_cuda
 from qbmx_torch.samplers.sa_torch import (
     _check_variates,
     inv_span,
@@ -43,11 +45,15 @@ def reset_launch_counts() -> None:
 def _launch(J, h, hot, logr, num_reads: int, num_sweeps: int, generator,
             host_variates) -> torch.Tensor:
     """Launch K1 on the structured form, ``J`` (G, n, n), ``h`` (G, B, n),
-    ``hot``/``logr`` (G, B) → (G, B, R, n)."""
+    ``hot``/``logr`` (G, B) → (G, B, R, n); K4 where ``J_g`` does not fit
+    shared memory."""
     from qbmx_torch._build import load_kernels
 
-    lib = load_kernels()
     G, B, n = h.shape
+    if not kernel_call.fits_shared(n):
+        return wide_cuda.launch(J, h, hot, logr, num_reads, num_sweeps, wide_cuda.METROPOLIS,
+                                generator=generator, host_variates=host_variates)
+    lib = load_kernels()
     R, S = num_reads, num_sweeps
     ptrs = kernel_call.structured_ptrs("sa_metropolis", lib.qbmx_sa_metropolis_max_n(),
                                        J, h, hot, logr, R, S, host_variates)

@@ -1,6 +1,7 @@
 """The CUDA kernels on the card -- Metropolis (qbmx_torch/csrc/sa_metropolis.cu),
-heat-bath (sa_heatbath.cu, each update width) and parallel tempering
-(pt_heatbath.cu) -- at small shapes: each against its plain PyTorch version
+heat-bath (sa_heatbath.cu, each update width), the wide anneal
+(anneal_wide.cu, both rules, for couplings beyond shared memory) and
+parallel tempering (pt_heatbath.cu) -- at small shapes: each against its plain PyTorch version
 under host variates and on its own Philox draws written out, its Philox
 streams against the exact oracle, the launch counters, and the wrappers'
 refusals.  ``chip_smoke.py`` runs the same checks at the
@@ -17,9 +18,10 @@ import numpy as np
 import pytest
 import torch
 
-from qbmx_torch.core.qubo import default_beta_range, random_qubo_batch
+from qbmx_torch.core.qubo import default_beta_range, random_qubo_batch, split_qubo
 from qbmx_torch.core.rng import draw_seed
-from qbmx_torch.samplers import gibbs, gibbs_cuda, pt_cuda, sa_cuda, sa_torch, tempering
+from qbmx_torch.samplers import (gibbs, gibbs_cuda, kernel_call, pt_cuda, sa_cuda, sa_torch,
+                                 tempering, wide_cuda)
 from qbmx_torch.samplers.exact import exact_boltzmann
 
 pytestmark = pytest.mark.cuda
@@ -131,8 +133,9 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(dev):
         sa_cuda.sa_sample_groups_cuda(Q, h, 3, 2, host_variates=(init01, u.double()))
     with pytest.raises(ValueError, match="init01"):
         sa_cuda.sa_sample_groups_cuda(Q, h, 3, 2, host_variates=(init01.transpose(2, 3), u))
+    n = wide_cuda_max_n() + 1  # beyond K1 and K4 both
     with pytest.raises(ValueError, match="exceeds its bound"):
-        sa_cuda.sa_sample_batch_cuda(torch.zeros((1, 257, 257), device=dev), 2, 2)
+        sa_cuda.sa_sample_batch_cuda(torch.zeros((1, n, n), device=dev), 2, 2)
 
 
 def test_model_steps_launch_the_kernel(dev):
@@ -236,8 +239,154 @@ def test_heatbath_wrappers_refuse_what_the_kernel_does_not_take(dev):
         gibbs_cuda.gibbs_sample_groups_cuda(Q, h, 3, 2, host_variates=(init01, u[..., :2]))
     with pytest.raises(ValueError, match="init01"):
         gibbs_cuda.gibbs_sample_groups_cuda(Q, h, 3, 2, host_variates=(init01.transpose(2, 3), u))
+    n = wide_cuda_max_n() + 1  # beyond K2 and K4 both
     with pytest.raises(ValueError, match="exceeds its bound"):
-        gibbs_cuda.gibbs_sample_batch_cuda(torch.zeros((1, 257, 257), device=dev), 2, 2, quad=True)
+        gibbs_cuda.gibbs_sample_batch_cuda(torch.zeros((1, n, n), device=dev), 2, 2, quad=True)
+
+
+# -- the wide anneal kernel (qbmx_torch/csrc/anneal_wide.cu) -------------------
+
+RULES = {"metropolis": None, "single": dict(), "pair": dict(pair=True), "quad": dict(quad=True)}
+
+
+def wide_cuda_max_n() -> int:
+    from qbmx_torch._build import load_kernels
+
+    return load_kernels().qbmx_anneal_wide_max_n()
+
+
+def _structured(rng, G, B, n, dev):
+    Q = random_qubo_batch(rng, G, n).to(dev)
+    return Q, torch.as_tensor(rng.normal(size=(G, B, n)).astype(np.float32), device=dev)
+
+
+def _kernel_groups(rule, Q, h_extra, R, S, **kw):
+    """The structured wrapper of ``rule`` (K1/K2's, routed to K4 when wide)."""
+    if rule == "metropolis":
+        return sa_cuda.sa_sample_groups_cuda(Q, h_extra, R, S, **kw)
+    return gibbs_cuda.gibbs_sample_groups_cuda(Q, h_extra, R, S, beta=1.5, **RULES[rule], **kw)
+
+
+def _plain_groups(rule, Q, h_extra, R, S, hv):
+    """Its plain version on host variates ``hv``."""
+    if rule == "metropolis":
+        return sa_torch.sa_sample_groups_plain(Q, h_extra, R, S, host_variates=hv)
+    return gibbs.gibbs_sample_groups_plain(Q, h_extra, R, S, beta=1.5, **RULES[rule],
+                                           host_variates=hv)
+
+
+def test_shared_memory_bounds_match_the_boundary(dev):
+    """K1, K2 and K3 take exactly the widths ``kernel_call.fits_shared``
+    admits (n ≤ 241); K4 takes every width up to at least 2048."""
+    from qbmx_torch._build import load_kernels
+
+    lib = load_kernels()
+    last = max(n for n in range(1, 300) if kernel_call.fits_shared(n))
+    assert last == 241
+    assert lib.qbmx_sa_metropolis_max_n() == lib.qbmx_sa_heatbath_max_n() == last
+    assert lib.qbmx_pt_heatbath_max_n() == last
+    assert wide_cuda_max_n() >= 2048
+
+
+@pytest.mark.parametrize("rule", list(RULES))
+@pytest.mark.parametrize("G,B,n,R,S", [(2, 2, 300, 40, 3), (1, 3, 717, 20, 2),
+                                       (2, 1, 243, 70, 2)])
+def test_wide_kernel_matches_plain(dev, rule, G, B, n, R, S):
+    """Above n = 241 the wrappers launch K4, never K1 or K2."""
+    rng = np.random.default_rng(n + len(rule))
+    Q, h_extra = _structured(rng, G, B, n, dev)
+    hv = _variates(rng, (G, B), n, R, S, dev)
+    for mod in (sa_cuda, gibbs_cuda, wide_cuda):
+        mod.reset_launch_counts()
+    got = _kernel_groups(rule, Q, h_extra, R, S, host_variates=hv)
+    torch.cuda.synchronize()
+    assert wide_cuda.launch_counts["anneal_wide"] == 1
+    assert sa_cuda.launch_counts["sa_metropolis"] == gibbs_cuda.launch_counts["sa_heatbath"] == 0
+    assert got.shape == (G, B, R, n) and got.device.type == "cuda"
+    assert _differ(got, _plain_groups(rule, Q, h_extra, R, S, hv)) <= MAX_DIFF_FRAC
+
+
+@pytest.mark.parametrize("rule", list(RULES))
+def test_wide_dense_entry_matches_plain(dev, rule):
+    B, n, R, S = 3, 260, 24, 2
+    rng = np.random.default_rng(7 + len(rule))
+    Q = random_qubo_batch(rng, B, n, scale=2.0).to(dev)
+    hv = _variates(rng, (B,), n, R, S, dev)
+    wide_cuda.reset_launch_counts()
+    if rule == "metropolis":
+        got = sa_cuda.sa_sample_batch_cuda(Q, R, S, host_variates=hv)
+        want = sa_torch.sa_sample_batch_plain(Q, R, S, host_variates=hv)
+    else:
+        got = gibbs_cuda.gibbs_sample_batch_cuda(Q, R, S, host_variates=hv, **RULES[rule])
+        want = gibbs.gibbs_sample_batch_plain(Q, R, S, host_variates=hv, **RULES[rule])
+    assert wide_cuda.launch_counts["anneal_wide"] == 1
+    assert got.shape == (B, R, n)
+    assert _differ(got, want) <= MAX_DIFF_FRAC
+
+
+@pytest.mark.parametrize("rule", list(RULES))
+def test_wide_philox_path_matches_plain_on_its_variates(dev, rule):
+    """K4 draws the streams of K1 and K2."""
+    G, B, n, R, S = 2, 2, 250, 16, 3
+    rng = np.random.default_rng(21)
+    Q, h_extra = _structured(rng, G, B, n, dev)
+    seed = draw_seed(torch.Generator().manual_seed(14))
+    got = _kernel_groups(rule, Q, h_extra, R, S, generator=torch.Generator().manual_seed(14))
+    hv = tuple(torch.as_tensor(a, device=dev) for a in sa_torch.philox_variates(seed, G, B, R, n, S))
+    assert _differ(got, _plain_groups(rule, Q, h_extra, R, S, hv)) <= MAX_DIFF_FRAC
+
+
+def _forced_wide(Q, R, S, rule, generator=None, host_variates=None, beta=1.0):
+    """K4 launched directly on a dense batch, past the routing."""
+    h, J = split_qubo(Q)
+    h = h[:, None].contiguous()
+    if rule == wide_cuda.METROPOLIS:
+        hot, logr = sa_torch.schedule_params(h, J[:, None], S)
+    else:
+        hot, logr = gibbs.heat_bath_schedule(h, J[:, None], S, beta)
+    return wide_cuda.launch(J.contiguous(), h, hot, logr, R, S, rule, generator=generator,
+                            host_variates=host_variates)[:, 0]
+
+
+@pytest.mark.parametrize("n", [2, 5, 8])
+def test_forced_wide_kernel_matches_oracle(dev, n):
+    """K4 at narrow widths, past the routing: the oracle bounds of K1
+    (Metropolis, cold beta) and K2 (pair heat-bath, beta 1)."""
+    Q = random_qubo_batch(np.random.default_rng(0), 1, n, scale=0.5).to(dev)
+    s = _forced_wide(Q, 512, 200, wide_cuda.METROPOLIS, torch.Generator().manual_seed(n))
+    _, cold = default_beta_range(Q[0])
+    _, _, marg, _ = exact_boltzmann(Q[0], beta=float(cold))
+    assert set(s.unique().tolist()) <= {0.0, 1.0}
+    assert torch.allclose(s[0].mean(0), marg, atol=0.12)
+    Q = torch.as_tensor(np.triu(np.random.default_rng(11).uniform(-1, 1, (1, n, n)))
+                        .astype(np.float32), device=dev)
+    s = _forced_wide(Q, 2048, 64, wide_cuda.PAIR, torch.Generator().manual_seed(4))[0]
+    _, _, marg, pair_m = exact_boltzmann(Q[0], beta=1.0)
+    assert torch.allclose(s.mean(0), marg, atol=0.05)
+    assert torch.allclose(s.T @ s / 2048, pair_m, atol=0.07)
+
+
+@pytest.mark.parametrize("rule", [0, 1, 2, 4])
+def test_forced_wide_kernel_matches_plain_at_narrow_width(dev, rule):
+    """n = 41, where K1 and K2 serve the wrappers: K4 forced gives the plain
+    version's samples too."""
+    B, n, R, S = 2, 41, 33, 5
+    rng = np.random.default_rng(40 + rule)
+    Q = random_qubo_batch(rng, B, n, scale=2.0).to(dev)
+    init01, u = _variates(rng, (B,), n, R, S, dev)
+    got = _forced_wide(Q, R, S, rule, host_variates=(init01[:, None], u[:, :, None]))
+    if rule == wide_cuda.METROPOLIS:
+        want = sa_torch.sa_sample_batch_plain(Q, R, S, host_variates=(init01, u))
+    else:
+        want = gibbs.gibbs_sample_batch_plain(Q, R, S, host_variates=(init01, u), pair=rule == 2,
+                                              quad=rule == 4)
+    assert _differ(got, want) <= MAX_DIFF_FRAC
+
+
+def test_wide_launch_refuses_an_unknown_rule(dev):
+    J, h, hot = (torch.zeros(s, device=dev) for s in ((1, 4, 4), (1, 1, 4), (1, 1)))
+    with pytest.raises(ValueError, match="rule"):
+        wide_cuda.launch(J, h, hot, hot, 2, 2, 3)
 
 
 # -- the tempering kernel (qbmx_torch/csrc/pt_heatbath.cu) --------------------

@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from qbmx.samplers import gibbs as jgibbs
-from qbmx.samplers.sa_lane import lane_sample_groups
+from qbmx.samplers.sa_lane import lane_geometry, lane_sample_groups
 from qbmx.samplers.sa_pallas import gibbs_sample_batch_pallas
 from qbmx_torch.core.qubo import split_qubo
 from qbmx_torch.samplers import api, gibbs, gibbs_cuda
@@ -90,6 +90,23 @@ def test_groups_match_lane_kernel(G, B, n, R, S, pair):
     got = gibbs.gibbs_sample_groups_plain(T(Qg), T(h_extra), R, S, beta=beta, pair=pair,
                                           host_variates=(T(init01), T(u)))
     assert tuple(got.shape) == (G, B, R, n)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("pair", [False, True])
+def test_wide_groups_match_lane_kernel(pair):
+    """n = 300, above the 241 where the card switches from K2 to K4: the
+    plain heat-bath equals the lane kernel (fold 2) in interpret mode
+    exactly."""
+    G, B, n, R, S = 2, 2, 300, 4, 3
+    assert lane_geometry(n, B, R, groups=G)[3] == 2
+    Qg, h_extra, init01, u = _structured(7 + pair, G, B, n, R, S)
+    want = lane_sample_groups(
+        jax.random.key(0), jnp.asarray(Qg), jnp.asarray(h_extra), R, S, rule="heatbath",
+        beta_cold=jnp.full((G, B), 1.5, jnp.float32), pair=pair, interpret=True,
+        debug_randoms=(jnp.asarray(init01), jnp.asarray(u)))
+    got = gibbs.gibbs_sample_groups_plain(T(Qg), T(h_extra), R, S, beta=1.5, pair=pair,
+                                          host_variates=(T(init01), T(u)))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 

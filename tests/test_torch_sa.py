@@ -20,10 +20,10 @@ import torch
 from qbmx.core.qubo import default_beta_range as j_default_beta_range
 from qbmx.samplers import api as japi
 from qbmx.samplers.sa_jax import _metropolis_sweep
-from qbmx.samplers.sa_lane import lane_sample_groups
+from qbmx.samplers.sa_lane import lane_geometry, lane_sample_groups
 from qbmx.samplers.sa_pallas import sa_sample_batch_pallas
 from qbmx_torch.core.qubo import default_beta_range, qubo_energies, random_qubo_batch
-from qbmx_torch.samplers import api, kernel_call, sa_cuda, sa_torch
+from qbmx_torch.samplers import api, kernel_call, sa_cuda, sa_torch, wide_cuda
 from qbmx_torch.samplers.exact import enumerate_states, exact_boltzmann
 
 torch.set_num_threads(1)
@@ -71,6 +71,39 @@ def test_groups_match_lane_kernel(G, B, n, R, S, schedule):
         **{k: T(v) for k, v in betas.items()})
     assert tuple(got.shape) == (G, B, R, n)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("n,fold", [(300, 2), (243, 4)])
+def test_wide_groups_match_lane_kernel(n, fold):
+    """Above n = 241, where the card runs K4 (``anneal_wide.cu``) instead of
+    K1: the plain anneal still equals the lane kernel in interpret mode, at
+    the lane folds of such widths, exactly."""
+    G, B, R, S = 2, 2, 4, 3
+    assert lane_geometry(n, B, R, groups=G)[3] == fold
+    Qg, h_extra, init01, u = _structured(n, G, B, n, R, S)
+    want = lane_sample_groups(jax.random.key(0), jnp.asarray(Qg), jnp.asarray(h_extra), R, S,
+                              rule="metropolis", interpret=True,
+                              debug_randoms=(jnp.asarray(init01), jnp.asarray(u)))
+    got = sa_torch.sa_sample_groups_plain(T(Qg), T(h_extra), R, S,
+                                          host_variates=(T(init01), T(u)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_fits_shared_is_the_boundary_of_the_anneal_kernels():
+    """n ≤ 241 runs K1/K2 (J_g in one block's 232,448 bytes of shared
+    memory), wider n K4; on CPU tensors every width runs the plain version
+    and launches nothing."""
+    assert kernel_call.fits_shared(1) and kernel_call.fits_shared(241)
+    assert not kernel_call.fits_shared(242) and not kernel_call.fits_shared(717)
+    assert 4 * 241 ** 2 <= kernel_call.SMEM_BYTES < 4 * 242 ** 2
+    Q, init01, u = _dense(12, 1, 250, 2, 2)
+    sa_cuda.reset_launch_counts()
+    wide_cuda.reset_launch_counts()
+    got = sa_cuda.sa_sample_batch_cuda(T(Q), 2, 2, host_variates=(T(init01), T(u)))
+    assert torch.equal(got, sa_torch.sa_sample_batch_plain(T(Q), 2, 2,
+                                                           host_variates=(T(init01), T(u))))
+    assert sa_cuda.launch_counts == {"sa_metropolis": 0}
+    assert wide_cuda.launch_counts == {"anneal_wide": 0}
 
 
 @pytest.mark.parametrize("B,n,R,S", [

@@ -81,18 +81,26 @@ def test_cuda_without_a_gpu_raises(monkeypatch):
         tmain.main(save="", **{**SMALL, "device": "cuda"})
 
 
+CDQBM_SMALL = dict(data_set="synthetic", kernel_size=20, pooling_size=3, sample_count=4,
+                   anneal=3, batch_size=200, epochs=1, device="cpu",
+                   pooling_type="probabilistic", save="")
+
+
 def test_port_imports_no_jax_sklearn_or_qbmx():
     """In a fresh interpreter: import the port and every sampler module, run
-    the slice with each on-device solver, and find none of jax, sklearn or
-    qbmx loaded."""
+    the flat slice with each on-device solver and a tiny CDQBM run, and find
+    none of jax, sklearn or qbmx loaded."""
     code = (
         "import sys, torch; torch.set_num_threads(1)\n"
         "import qbmx_torch\n"
         "from qbmx_torch.samplers import (api, exact, gibbs, gibbs_cuda, kernel_call, pt_cuda,\n"
-        "                                 sa_cuda, sa_torch, tempering)\n"
+        "                                 sa_cuda, sa_torch, tempering, wide_cuda)\n"
         "from qbmx_torch import _build\n"
-        "from qbmx_torch.cli import profile_steps, qbm_main\n"
+        "from qbmx_torch.models import cdqbm, geometry\n"
+        "from qbmx_torch.data import coreset\n"
+        "from qbmx_torch.cli import cdqbm_main, profile_steps, qbm_main\n"
         f"for solver in ('SA', 'BMS', 'PT'): qbm_main.main(save='', **{{**{SMALL!r}, 'solver': solver}})\n"
+        f"cdqbm_main.main(**{CDQBM_SMALL!r})\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'sklearn', 'qbmx'))\n"
         "print('LOADED', bad)\n"
     )
@@ -116,6 +124,21 @@ def test_profile_steps_runs_each_solver_on_cpu(solver):
     assert rec["ms_per_step"] > 0 and rec["epoch_ms"] == rec["epoch_ms_runs"][0]
     assert rec["kernel"] == profile_steps.SOLVER_KERNELS[solver]
     assert rec["busy_ms"] is None and rec["idle_share"] is None
+
+
+@pytest.mark.parametrize("pooling,n,steps,kernel", [
+    ("probabilistic", 717, 30, "anneal_wide"),
+    ("deterministic", 41, 200, "sa_metropolis"),
+])
+def test_profile_steps_runs_each_cdqbm_config_on_cpu(pooling, n, steps, kernel):
+    """The CDQBM configurations at their widths and batch sizes; the kernel
+    column names the one a GPU would launch at that width."""
+    from qbmx_torch.cli import profile_steps
+
+    (rec,) = profile_steps.main(["--device", "cpu", "--solver", "SA", "--cdqbm", pooling,
+                                 "--reads", "2", "--sweeps", "1", "--epochs", "1"])
+    assert rec["model"] == f"CDQBM {pooling}" and rec["n"] == n and rec["steps"] == steps
+    assert rec["kernel"] == kernel and rec["ms_per_step"] > 0
 
 
 def test_profile_steps_busy_time_is_the_union_of_spans():
