@@ -14,15 +14,17 @@ nothing carries on after one):
 
 1. device: the GPU's name, ``nvidia-smi`` name and power limit, torch and nvcc versions;
 2. build: the kernels from ``qbmx_torch/csrc``, one ``nvcc`` per source at once (seconds);
-3. kernel vs plain PyTorch under the same numpy-seeded host variates: K1 and
-   K2 pair at the flagship structured shape (G=2, B=60, n=6, R=1000,
-   S=1000), K1 and K2 single and quad at the dense CDQBM bench shape (B=60,
-   n=41, R=100, S=1000), K3 at the flagship shape densified (120 problems,
-   n=6, M=8 rungs) at R=1000, S=100 and at the main path's S=1000 with
-   R=100; K4 Metropolis and pair at the CDQBM probabilistic-pooling shape
-   (G=2, B=20, n=717, R=100, S=10) and on its dense entry (B=32, n=717):
-   at most 1% of chains may end in another state (a near-tie decision from
-   a differently rounded sum diverges that one chain);
+3. kernel vs plain PyTorch under the same numpy-seeded host variates: K1
+   (a thread a chain) and K2 pair at the flagship structured shape (G=2,
+   B=60, n=6, R=1000, S=1000), K1 (a warp a chain) and K2 single and quad
+   at the dense CDQBM bench shape (B=60, n=41, R=100, S=1000), K1 (a warp a
+   chain) at the CDQBM default call (G=2, B=3, n=41, R=100, S=1000), K3 at
+   the flagship shape densified (120 problems, n=6, M=8 rungs) at R=1000,
+   S=100 and at the main path's S=1000 with R=100; K4 Metropolis and pair
+   at the CDQBM probabilistic-pooling shape (G=2, B=20, n=717, R=100,
+   S=10), on its dense entry (B=32, n=717) and at the widest n it takes
+   (R=200, S=2): at most 1% of chains may end in another state (a near-tie
+   decision from a differently rounded field diverges that one chain);
 4. the kernels' own Philox streams: vs the exact Boltzmann oracle (K1
    marginals within 0.12 at the cold beta; K2 and K3 within 0.08 single /
    0.05 pair and quad, pair moments within 0.07, at beta 1), decorrelated
@@ -30,7 +32,12 @@ nothing carries on after one):
    draws written out on the host (``sa_torch.philox_variates``,
    ``sa_torch.pt_philox_variates``; the 1% bound of phase 3); K4 launched
    directly (past the routing) against the oracle at n in (2, 5, 8), and on
-   its own Philox draws at the CDQBM shape (S=3);
+   its own Philox draws at the CDQBM shape (S=3); K4's incremental fields
+   after the main path's S=1000 at the CDQBM shape, for every rule, against
+   h + J·s in float64, within the statistical rounding limit of the adds
+   since their last recomputation (``wide_cuda.field_drift_bound``), and
+   the same check failing on one chain's fields each one add of their
+   row's median |J_jk| short (a planted fault: the limit has teeth);
 5. the slices: ``qbmx_torch.cli.qbm_main.main`` on ``cuda`` (synthetic data,
    dim_input 784, H=5, 1000 reads, 1000 sweeps, bs60, one epoch = 10 steps
    plus validation and test prediction) with ``--solver`` SA, BMS and PT in
@@ -45,11 +52,15 @@ nothing carries on after one):
    and (b) the CLI defaults (deterministic pooling 4, 41 variables, bs3) on
    K1; the same checks and step times;
 6. kernel and plain times (CUDA events; kernels median of 5 after a
-   warm-up, the slower plain versions of K2, K3 and K4 median of 3) at the
-   phase-3 shapes in generator mode (K3 at S=1000, K4 at S=10).
+   warm-up, the slower plain versions median of 3) at the phase-3 shapes in
+   generator mode (K3 at S=1000, K4 at S=10, and K4 alone at S=1000), and
+   each kernel's bound (``qbmx_torch/utils/roofline.py``: K1's and K4's from
+   the flips their inputs make, counted by one more launch; K2's and K3's
+   from their decisions alone).
 
 The last three lines are the ``nvidia-smi`` line, one JSON object with the
-kernel records, and ``{"ok": true, "device": {...}}``.
+kernel records (time, plain time, bound, launches on the main path), and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -126,6 +137,18 @@ def dense_problem(rng, B, n, R, S, dev):
     return Q, bits(rng, (B, R, n), dev), uniforms(rng, (S, B, n, R), dev)
 
 
+def structured_form(Q, h_extra, S, rule=0):
+    """(J, h, hot, logr) as the SA (rule 0) or BMS wrappers hand them to a kernel."""
+    from qbmx_torch.core.qubo import split_qubo
+    from qbmx_torch.samplers import gibbs, sa_torch
+
+    hs, J = split_qubo(Q)
+    h = (hs[:, None, :] + h_extra).contiguous()
+    hot, logr = (sa_torch.schedule_params(h, J[:, None], S) if rule == 0
+                 else gibbs.heat_bath_schedule(h, J[:, None], S, 1.0))
+    return J.contiguous(), h, hot, logr
+
+
 def differing(kernel_out, plain_out) -> float:
     """Fraction of chains that end in another state."""
     n = kernel_out.shape[-1]
@@ -162,12 +185,13 @@ def main() -> None:
         fail(f"{ROOT} is not a qbmx checkout (qbmx_torch/csrc is missing)")
     sys.path.insert(0, str(ROOT))
     from qbmx_torch import _build
-    from qbmx_torch.core.qubo import default_beta_range, random_qubo_batch, split_qubo
+    from qbmx_torch.core.qubo import default_beta_range, random_qubo_batch
     from qbmx_torch.core.rng import draw_seed
     from qbmx_torch.samplers import (gibbs, gibbs_cuda, kernel_call, pt_cuda, sa_cuda, sa_torch,
                                      tempering, wide_cuda)
     from qbmx_torch.samplers.api import densify_groups
     from qbmx_torch.samplers.exact import exact_boltzmann
+    from qbmx_torch.utils.roofline import anneal_bound
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain version in full float32
     dev = torch.device("cuda:0")
@@ -222,6 +246,20 @@ def main() -> None:
             f"K2 {width} dense B=60 n=41 R=100 S=1000"))
     del hv, init_d, u_d
 
+    # K1's few-chain layout (a warp a chain) at the CDQBM (b) call
+    SB = dict(G=2, B=3, n=41, R=100, S=1000)
+    layouts = {label: sa_cuda.k1_layout(G, B, R, n).lanes for label, (G, B, R, n) in (
+        ("flagship", (2, 60, 1000, 6)), ("dense bench", (60, 1, 100, 41)),
+        ("CDQBM (b)", (SB["G"], SB["B"], SB["R"], SB["n"])))}
+    check(layouts == {"flagship": 1, "dense bench": 32, "CDQBM (b)": 32},
+          f"K1 layouts (lanes a chain) {layouts}")
+    Qcb, hcb, init_b, u_b = structured_problem(rng, *SB.values(), dev)
+    args, hv = (Qcb, hcb, SB["R"], SB["S"]), (init_b, u_b)
+    record("sa_metropolis", compare(sa_cuda.sa_sample_groups_cuda(*args, host_variates=hv),
+                                    sa_torch.sa_sample_groups_plain(*args, host_variates=hv),
+                                    "K1 structured G=2 B=3 n=41 R=100 S=1000 (a warp a chain)"))
+    del hv, init_b, u_b
+
     Qpt = densify_groups(Qg, h_extra)  # (120, 6, 6): the PT slice's sampler input
     SP = dict(B=120, M=8, n=6, R=1000)
     BM = SP["B"] * SP["M"]
@@ -273,6 +311,18 @@ def main() -> None:
                                   "K4 pair dense B=32 n=717 R=100 S=10"))
     check(wide_cuda.launch_counts["anneal_wide"] == 2, "K4 dense: not launched by the wrappers")
     del hv, init_wd, u_wd
+    # K4 at the widest n it takes (one chain a block)
+    SX = dict(G=1, B=1, n=wide_cuda.max_n(), R=200, S=2)
+    Qx, hx, init_x, u_x = structured_problem(rng, *SX.values(), dev)
+    args, hv = (Qx, hx, SX["R"], SX["S"]), (init_x, u_x)
+    record("anneal_wide", compare(sa_cuda.sa_sample_groups_cuda(*args, host_variates=hv),
+                                  sa_torch.sa_sample_groups_plain(*args, host_variates=hv),
+                                  f"K4 Metropolis structured at its widest n={SX['n']} R=200 S=2"))
+    record("anneal_wide", compare(
+        gibbs_cuda.gibbs_sample_groups_cuda(*args, pair=True, host_variates=hv),
+        gibbs.gibbs_sample_groups_plain(*args, pair=True, host_variates=hv),
+        f"K4 pair structured at its widest n={SX['n']} R=200 S=2"))
+    del Qx, hx, hv, init_x, u_x
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -373,11 +423,8 @@ def main() -> None:
 
     def forced_wide(Q, R, S, rule, seed):
         """K4 launched directly on a dense batch, past the routing."""
-        h, J = split_qubo(Q)
-        h = h[:, None].contiguous()
-        hot, logr = (sa_torch.schedule_params(h, J[:, None], S) if rule == wide_cuda.METROPOLIS
-                     else gibbs.heat_bath_schedule(h, J[:, None], S, 1.0))
-        return wide_cuda.launch(J.contiguous(), h, hot, logr, R, S, rule, generator=gen(seed))[:, 0]
+        form = structured_form(Q, torch.zeros((Q.shape[0], 1, Q.shape[-1]), device=dev), S, rule)
+        return wide_cuda.launch(*form, R, S, rule, generator=gen(seed))[:, 0]
 
     worst_wide = {"Metropolis": 0.0, "pair": 0.0, "pair moments": 0.0}
     for n in (2, 5, 8):
@@ -398,6 +445,36 @@ def main() -> None:
     for name, frac in philox.items():
         check(frac <= MAX_DIFF_FRAC, f"Philox mode {name}: {frac:.4%} of chains differ from "
               "the plain version on the kernel's own draws")
+    # K4's incremental fields at the main path's depth (CDQBM (a), S=1000),
+    # every rule, against h + J·s recomputed in float64, within the limit
+    # of the adds since the last refresh (wide_cuda.field_drift_bound); then
+    # chain (0, 0, 0)'s fields each one add of their row's median |J_jk|
+    # short must all fail it
+    drift_max, drift_ratio, planted_ratio = {}, {}, math.inf
+    for rule_name, rule in (("Metropolis", wide_cuda.METROPOLIS), ("single", wide_cuda.HEATBATH),
+                            ("pair", wide_cuda.PAIR), ("quad", wide_cuda.QUAD)):
+        Jw, hw_eff, hot_w, logr_w = structured_form(Qw, hw, 1000, rule)
+        fields = torch.empty((SW["G"], SW["B"], SW["R"], SW["n"]), device=dev)
+        flips_w = torch.zeros(1, dtype=torch.int64, device=dev)
+        s_w = wide_cuda.launch(Jw, hw_eff, hot_w, logr_w, SW["R"], 1000, rule,
+                               generator=gen(8), fields_out=fields, flips=flips_w)
+        exact = hw_eff.double()[:, :, None] + torch.einsum("gbrj,gij->gbri", s_w.double(),
+                                                          Jw.double())
+        drift = (fields.double() - exact).abs()
+        bound = wide_cuda.field_drift_bound(hw_eff, Jw, 1000)
+        drift_max[rule_name] = drift.max().item()
+        drift_ratio[rule_name] = (drift / bound).max().item()
+        check(bool(torch.isfinite(fields).all()) and drift_ratio[rule_name] <= 1.0,
+              f"K4 {rule_name} field drift at S=1000: max {drift_max[rule_name]:.3e}, "
+              f"{drift_ratio[rule_name]:.3e} of its limit")
+        if rule == wide_cuda.METROPOLIS:
+            flips_full = int(flips_w.item())
+            typical = Jw[0].abs().masked_fill(Jw[0] == 0, math.nan).nanmedian(dim=1).values
+            lost = fields[0, 0, 0].double() - typical.double()
+            planted_ratio = ((lost - exact[0, 0, 0]).abs() / bound[0, 0, 0]).min().item()
+            check(planted_ratio > 1.0, f"K4 field drift check: a field one add short reads "
+                  f"only {planted_ratio:.3f} of the limit")
+        del fields, exact, drift, bound, s_w
     beta1 = ", ".join(f"{k} {a:.4f}/{b:.4f}" for k, (a, b) in oracle.items())
     print(f"phase 4 oracle: K1 n in (2, 5, 8), 512 reads, 200 sweeps, worst marginal "
           f"error {worst:.4f} (limit {ORACLE_ATOL}); at beta 1 marginal/moment errors "
@@ -407,7 +484,10 @@ def main() -> None:
           f"(K3: B=120 M=8 S={S_pt}; K4: G=2 B=20 n=717 R=100 S={S_w}): differing chains "
           f"{philox}; K4 forced at n in (2, 5, 8): worst oracle errors {worst_wide} (limits "
           f"{ORACLE_ATOL} Metropolis at the cold beta, {JOINT_ATOL} pair and {MOMENT_ATOL} "
-          "pair moments at beta 1)")
+          "pair moments at beta 1); K4 fields after S=1000 at G=2 B=20 n=717 R=100 vs h + J·s "
+          f"in float64: max drift {drift_max}, of the limit at most {drift_ratio}; one "
+          f"add of the row's median |J_jk| short reads at least {planted_ratio:.3f} of the "
+          f"limit (must exceed 1); {flips_full} variables changed (Metropolis)")
 
     # -- 5. the slices: qbm_main on cuda, one solver at a time ------------------
     import qbmx_torch.cli.qbm_main as qm
@@ -528,6 +608,9 @@ def main() -> None:
         ("K1 dense B=60 n=41 R=100 S=1000",
          lambda: sa_cuda.sa_sample_batch_cuda(Qd, 100, 1000, generator=g1),
          lambda: sa_torch.sa_sample_batch_plain(Qd, 100, 1000), 5),
+        ("K1 CDQBM (b) G=2 B=3 n=41 R=100 S=1000",
+         lambda: sa_cuda.sa_sample_groups_cuda(Qcb, hcb, 100, 1000, generator=g1),
+         lambda: sa_torch.sa_sample_groups_plain(Qcb, hcb, 100, 1000), 3),
         ("K2 pair structured G=2 B=60 n=6 R=1000 S=1000",
          lambda: gibbs_cuda.gibbs_sample_groups_cuda(Qg, h_extra, 1000, 1000, pair=True,
                                                      generator=g1),
@@ -559,8 +642,30 @@ def main() -> None:
           f"{k4_full_ms:.3f} ms (CUDA events, median of 3; the plain version is not run at "
           f"this depth; {smi})")
 
+    # the bounds (qbmx_torch/utils/roofline.py): K1 and K4 from the flips
+    # their inputs make, counted by one more launch each; K2 and K3 from
+    # their decisions alone
+    def counted(launch, *args, **kw):
+        flips = torch.zeros(1, dtype=torch.int64, device=dev)
+        launch(*args, generator=g1, flips=flips, **kw)
+        return int(flips.item())
+
+    bounds = {
+        "sa_metropolis": anneal_bound(2, 60, 1000, 6, 1000, flips=counted(
+            sa_cuda.launch, *structured_form(Qg, h_extra, 1000), 1000, 1000)),
+        "sa_heatbath": anneal_bound(2, 60, 1000, 6, 1000, decisions=2 * 60 * 1000 * 3 * 1000),
+        "pt_heatbath": anneal_bound(120, 1, 1000, 6, 1000, decisions=120 * 8 * 1000 * 6 * 1000),
+        "anneal_wide": anneal_bound(2, 20, 100, 717, 10, flips=counted(
+            wide_cuda.launch, *structured_form(Qw, hw, 10), 100, 10, wide_cuda.METROPOLIS)),
+        "anneal_wide full depth": anneal_bound(2, 20, 100, 717, 1000, flips=flips_full),
+    }
+    print(f"phase 6 bounds (H100 SXM peaks, {smi}): "
+          + "; ".join(f"{k} {b['bound_ms']:.4f} ms by {b['bound_by']}" for k, b in bounds.items()))
+
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s")
     t = lambda prefix: next(v for k, v in times.items() if k.startswith(prefix))
+    bound_keys = lambda name: {"bound_ms": bounds[name]["bound_ms"],
+                               "bound_by": bounds[name]["bound_by"], "library_ms": None}
     record = {"kernels": [
         {"name": "sa_metropolis", "route": "cuda", "source": "qbmx_torch/csrc/sa_metropolis.cu",
          "replaces": "qbmx/samplers/sa_lane.py:144",
@@ -569,14 +674,16 @@ def main() -> None:
          "differing_chains": max(fracs["sa_metropolis"]),
          "differing_chains_limit": MAX_DIFF_FRAC,
          "ms": t("K1 structured")[0], "plain_ms": t("K1 structured")[1],
-         "dense_ms": t("K1 dense")[0], "dense_plain_ms": t("K1 dense")[1]},
+         **bound_keys("sa_metropolis"), "layouts_lanes": layouts,
+         "dense_ms": t("K1 dense")[0], "dense_plain_ms": t("K1 dense")[1],
+         "cdqbm_b_ms": t("K1 CDQBM (b)")[0], "cdqbm_b_plain_ms": t("K1 CDQBM (b)")[1]},
         {"name": "sa_heatbath", "route": "cuda", "source": "qbmx_torch/csrc/sa_heatbath.cu",
          "replaces": "qbmx/samplers/sa_lane.py:144",
          "also_replaces": "qbmx/samplers/sa_pallas.py:196",
          "launches": launches["sa_heatbath"], "max_abs_err": max(errs["sa_heatbath"]),
          "differing_chains": max(fracs["sa_heatbath"]),
          "differing_chains_limit": MAX_DIFF_FRAC,
-         "ms": t("K2 pair")[0], "plain_ms": t("K2 pair")[1],
+         "ms": t("K2 pair")[0], "plain_ms": t("K2 pair")[1], **bound_keys("sa_heatbath"),
          "single_dense_ms": t("K2 single")[0], "single_dense_plain_ms": t("K2 single")[1],
          "quad_dense_ms": t("K2 quad")[0], "quad_dense_plain_ms": t("K2 quad")[1]},
         {"name": "pt_heatbath", "route": "cuda", "source": "qbmx_torch/csrc/pt_heatbath.cu",
@@ -584,7 +691,7 @@ def main() -> None:
          "launches": launches["pt_heatbath"], "max_abs_err": max(errs["pt_heatbath"]),
          "differing_chains": max(fracs["pt_heatbath"]),
          "differing_chains_limit": MAX_DIFF_FRAC,
-         "ms": t("K3")[0], "plain_ms": t("K3")[1]},
+         "ms": t("K3")[0], "plain_ms": t("K3")[1], **bound_keys("pt_heatbath")},
         {"name": "anneal_wide", "route": "cuda", "source": "qbmx_torch/csrc/anneal_wide.cu",
          "replaces": "qbmx/samplers/sa_lane.py:144",
          "also_replaces": "qbmx/samplers/sa_pallas.py:196",
@@ -592,8 +699,12 @@ def main() -> None:
          "differing_chains": max(fracs["anneal_wide"]),
          "differing_chains_limit": MAX_DIFF_FRAC,
          "ms": t("K4 Metropolis")[0], "plain_ms": t("K4 Metropolis")[1],
+         **bound_keys("anneal_wide"),
          "pair_ms": t("K4 pair")[0], "pair_plain_ms": t("K4 pair")[1],
-         "full_depth_ms": k4_full_ms},
+         "full_depth_ms": k4_full_ms,
+         "full_depth_bound_ms": bounds["anneal_wide full depth"]["bound_ms"],
+         "field_drift_max": drift_max, "field_drift_of_limit": drift_ratio,
+         "field_one_add_short_of_limit": planted_ratio},
     ], "step_ms": step_ms, "cdqbm_launches": cdqbm_launches}
     print(smi)
     print(json.dumps(record))

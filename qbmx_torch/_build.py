@@ -55,12 +55,14 @@ def _nvcc() -> str:
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_ulonglong
     entries = {
-        # J, h, hot, logr, init01, uniforms, out, G, B, R, n, S, inv_span, seed, stream
-        "qbmx_sa_metropolis": [p] * 7 + [i] * 5 + [f, u64, p],
-        # ... seed, width, stream
+        # J, h, hot, logr, init01, uniforms, out, flips, G, B, R, n, S, inv_span, seed,
+        # lanes, stream
+        "qbmx_sa_metropolis": [p] * 8 + [i] * 5 + [f, u64, i, p],
+        # J, h, hot, logr, init01, uniforms, out, G, B, R, n, S, inv_span, seed, width, stream
         "qbmx_sa_heatbath": [p] * 7 + [i] * 5 + [f, u64, i, p],
-        # ... seed, rule, stream
-        "qbmx_anneal_wide": [p] * 7 + [i] * 5 + [f, u64, i, p],
+        # J, h, hot, logr, init01, uniforms, out, fields_out, flips, G, B, R, n, S,
+        # inv_span, seed, rule, chains, stream
+        "qbmx_anneal_wide": [p] * 9 + [i] * 5 + [f, u64, i, i, p],
         # J, h, betas, dbeta, init01, uniforms, swap_u, out, B, M, R, n, S, seed, stream
         "qbmx_pt_heatbath": [p] * 8 + [i] * 5 + [u64, p],
     }
@@ -72,6 +74,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                  "qbmx_pt_heatbath_max_state"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
+    lib.qbmx_anneal_wide_smem.argtypes = [i, i]
+    lib.qbmx_anneal_wide_smem.restype = ctypes.c_ulonglong
     return lib
 
 

@@ -36,16 +36,28 @@ struct SweepUniforms {
   }
 };
 
-// Metropolis: flip iff (1 - 2 s) * field < -logf(u) / beta.
+// Metropolis: flip iff (1 - 2 s) * field < -logf(u) / beta.  The threshold
+// depends on the uniform and beta alone, so a kernel may compute it ahead of
+// the state-dependent comparison.
+__device__ __forceinline__ float metropolis_threshold(float u, float beta) {
+  return -logf(u) / beta;
+}
+
+__device__ __forceinline__ bool metropolis_accept(float field, float s, float thr) {
+  return (1.0f - 2.0f * s) * field < thr;
+}
+
 __device__ __forceinline__ float metropolis_rule(float field, float s, float beta, float u) {
-  const float thr = -logf(u) / beta;
-  return (1.0f - 2.0f * s) * field < thr ? 1.0f - s : s;
+  return metropolis_accept(field, s, metropolis_threshold(u, beta)) ? 1.0f - s : s;
 }
 
 // Heat-bath, width 1: 1 iff field < (logf(1 - u) - logf(u)) / beta.
+__device__ __forceinline__ float heatbath_threshold(float u, float beta) {
+  return (logf(1.0f - u) - logf(u)) / beta;
+}
+
 __device__ __forceinline__ float heatbath_rule(float field, float beta, float u) {
-  const float thr = (logf(1.0f - u) - logf(u)) / beta;
-  return field < thr ? 1.0f : 0.0f;
+  return field < heatbath_threshold(u, beta) ? 1.0f : 0.0f;
 }
 
 // The trailing single of a pair or quad sweep: u < sigmoid(-beta f), i.e.

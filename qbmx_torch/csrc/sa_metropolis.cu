@@ -1,5 +1,5 @@
 // Annealed single-flip Metropolis over the structured shared-coupling form,
-// for NVIDIA Hopper (sm_90a).
+// for NVIDIA Hopper (sm_90a) (K1).
 //
 // Replaces the Metropolis mode of both TPU kernels of qbmx:
 //   * qbmx/samplers/sa_lane.py   _lane_kernel (entry lane_sample_groups,
@@ -15,21 +15,40 @@
 // each sweep visits variables 0..n-1 and flips variable i iff
 // (1 - 2 s_i) * (h_i + sum_j J_ij s_j) < -logf(u) / beta_t.
 //
-// What bounds it on this card: each chain is a sequential dependency chain of
-// n*S sub-steps (every flip decision needs the state left by the previous
-// one), each costing an n-term dot product whose J_g row is read from shared
-// memory.  The design runs the chains in parallel instead: one thread per
-// chain (g, b, r), r fastest, so a warp reads the same J_g[i, j] (a shared-
-// memory broadcast) and the host-variate reads u[t, g, b, i, r] coalesce.
-// J_g is staged once per block in shared memory; the chain state lives in a
-// per-thread array bounded by the template parameter NMAX.
+// What bounds it on this card: each chain is a strictly sequential chain of
+// n*S decisions.  J_g sits whole in one block's shared memory (n <= 241).
+// Two layouts, chosen on the host (samplers/sa_cuda.py::k1_layout):
+//   * THREAD (n <= 8, many chains: the flagship's 120,000): one thread per
+//     chain, r fastest, so a warp reads the same J_g[i][j] (a broadcast).
+//     The width is a template parameter and every loop is unrolled, so the
+//     state, h and the fields live in registers.  A field is the serial
+//     dot product acc = sum_{j=0..n-1} J_ij s_j, then h_i + acc: at n <= 8
+//     it costs what an incremental update would, and it rounds as the
+//     earlier one-layout kernel did.
+//   * LANES (n > 8, or few chains: 600 at the CDQBM defaults): a chain
+//     spread over a warp, so that a decision's latency, not a dot product,
+//     sets a variable's cost, and a launch occupies many SMs.
+//     Lane l owns variables i = 32*k + l (slot k < K, K a template bound):
+//     their fields, thresholds and state bits stay in its registers.  Per
+//     sweep every lane first computes its variables' thresholds (Philox,
+//     logf, division: off the chain of decisions).  Variable i's owner then
+//     compares, shuffles the change d in {-1, 0, +1} to the chain's lanes,
+//     and every lane adds d * J_ij to the fields it owns (incremental
+//     fields: one FMA per owned field, no branch, no dot product).
+// Fields of the LANES layout: recomputed from the state at sweep 0 and
+// every kRefreshPeriod sweeps (the full state gathered by ballots; each
+// field summed serially j = 0..n-1, then h_i + acc, the THREAD order), and
+// between refreshes updated by f_j = fmaf(d, J_ij, f_j), which is f_j +/- J_ij
+// rounded once, in the order of the decisions.  So a field rounds at most
+// kRefreshPeriod*n times more than a recomputed one.
 //
 // Random numbers: with null variate pointers every chain draws from a
 // Philox4x32-10 stream (philox.cuh) keyed by (seed, problem id) with the
 // counter over (read, variable/4, sweep), so a problem's samples do not
 // depend on its batch-mates.  Uniforms are (bits >> 8) * 2^-24; the initial
 // state takes the low bit.  With non-null pointers the initial state init01 (G,B,R,n)
-// and the uniforms (S,G,B,n,R) come from the host.
+// and the uniforms (S,G,B,n,R) come from the host.  A non-null `flips`
+// receives the number of flips the launch made (for the bound of PERF.md).
 //
 // Build without --use_fast_math: the thresholds need IEEE logf/expf and
 // division to agree with the plain version.
@@ -42,7 +61,9 @@
 namespace {
 
 using qbmx::kInitTag;
+using qbmx::metropolis_accept;
 using qbmx::metropolis_rule;
+using qbmx::metropolis_threshold;
 using qbmx::philox4x32_10;
 using qbmx::SweepUniforms;
 using qbmx::word;
@@ -51,20 +72,38 @@ constexpr int kThreads = 128;
 // Largest n whose J_g (4·n² bytes) fits one block's 232,448 bytes of shared
 // memory; the wrappers send wider problems to anneal_wide.cu (K4).
 constexpr int kMaxN = 241;
+constexpr int kThreadMaxN = 8;  // widest THREAD layout (fully unrolled)
+constexpr int kChains = kThreads / 32;  // chains a block of the LANES layout
+// LANES layout: a refresh costs a lane K·n FMAs, about one sweep's worth of
+// its incremental updates, so refreshing every 16th sweep adds at most ~6%
+// while a field's extra rounding stays under 16·n adds of +/- J_ij.
+constexpr int kRefreshPeriod = 16;
 
-template <int NMAX>
-__global__ void __launch_bounds__(kThreads)
-sa_metropolis_kernel(const float* __restrict__ J, const float* __restrict__ h,
-                     const float* __restrict__ hot, const float* __restrict__ logr,
-                     const float* __restrict__ init01,
-                     const float* __restrict__ uniforms, float* __restrict__ out,
-                     int G, int B, int R, int n, int S, float inv_span,
-                     uint32_t seed_lo, uint32_t seed_hi) {
-  extern __shared__ float Js[];  // J_g, n*n row-major
-  const int g = blockIdx.y;
+__device__ __forceinline__ void stage_J(float* Js, const float* J, int g, int n) {
   const int nn = n * n;
   for (int k = threadIdx.x; k < nn; k += blockDim.x) Js[k] = J[(size_t)g * nn + k];
   __syncthreads();
+}
+
+__device__ __forceinline__ bool init_bit(const float* init01, size_t p, int R, int r, int n,
+                                         int i, uint2 key, uint32_t seed_hi) {
+  if (init01 != nullptr) return init01[(p * R + r) * n + i] != 0.0f;
+  const uint4 bits =
+      philox4x32_10(make_uint4((uint32_t)r, (uint32_t)(i >> 2), kInitTag, seed_hi), key);
+  return (word(bits, i & 3) & 1u) != 0u;
+}
+
+// THREAD layout: one chain per thread, width N = n.
+template <int N>
+__global__ void __launch_bounds__(kThreads)
+sa_metropolis_thread_kernel(const float* __restrict__ J, const float* __restrict__ h,
+                 const float* __restrict__ hot, const float* __restrict__ logr,
+                 const float* __restrict__ init01, const float* __restrict__ uniforms,
+                 float* __restrict__ out, unsigned long long* __restrict__ flips, int G,
+                 int B, int R, int S, float inv_span, uint32_t seed_lo, uint32_t seed_hi) {
+  extern __shared__ float Js[];  // J_g, N*N row-major
+  const int g = blockIdx.y;
+  stage_J(Js, J, g, N);
 
   const long long chain = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (chain >= (long long)B * R) return;
@@ -74,54 +113,210 @@ sa_metropolis_kernel(const float* __restrict__ J, const float* __restrict__ h,
   const uint2 key = make_uint2(seed_lo, (uint32_t)p);
   const bool host = uniforms != nullptr;
 
-  float s[NMAX];
-  const float* hp = h + p * n;
-  uint4 bits = make_uint4(0u, 0u, 0u, 0u);
-  for (int i = 0; i < n; ++i) {
-    if (host) {
-      s[i] = init01[(p * R + r) * n + i];
-    } else {
-      if ((i & 3) == 0)
-        bits = philox4x32_10(make_uint4((uint32_t)r, (uint32_t)(i >> 2), kInitTag, seed_hi), key);
-      s[i] = (float)(word(bits, i & 3) & 1u);
+  float s[N], hv[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    s[i] = init_bit(init01, p, R, r, N, i, key, seed_hi) ? 1.0f : 0.0f;
+    hv[i] = h[p * N + i];
+  }
+
+  const float hot_p = hot[p], logr_p = logr[p];
+  const size_t u_sweep = (size_t)G * B * N * R;  // uniforms per sweep
+  unsigned long long nflip = 0;
+  for (int t = 0; t < S; ++t) {
+    const float beta = hot_p * expf(logr_p * ((float)t * inv_span));
+    SweepUniforms u{host ? uniforms + (size_t)t * u_sweep + p * N * R + r : nullptr, R, key,
+                    (uint32_t)r, (uint32_t)t, seed_hi};
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int j = 0; j < N; ++j) acc += Js[i * N + j] * s[j];
+      const float o = metropolis_rule(hv[i] + acc, s[i], beta, u(i));
+      nflip += o != s[i];
+      s[i] = o;
+    }
+  }
+
+  float* op = out + (p * R + r) * N;
+#pragma unroll
+  for (int i = 0; i < N; ++i) op[i] = s[i];
+  if (flips != nullptr) atomicAdd(flips, nflip);
+}
+
+// LANES layout: a warp a chain, K slots a lane (32*K >= n).
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+sa_metropolis_lanes_kernel(const float* __restrict__ J, const float* __restrict__ h,
+                const float* __restrict__ hot, const float* __restrict__ logr,
+                const float* __restrict__ init01, const float* __restrict__ uniforms,
+                float* __restrict__ out, unsigned long long* __restrict__ flips, int G, int B,
+                int R, int n, int S, float inv_span, uint32_t seed_lo, uint32_t seed_hi) {
+  extern __shared__ float Js[];  // J_g, n*n row-major
+  const int g = blockIdx.y;
+  stage_J(Js, J, g, n);
+
+  const int c = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long chains = (long long)B * R;
+  const long long chain = (long long)blockIdx.x * kChains + c;
+  const bool active = chain < chains;
+  // spare chains of the last block repeat the group's last chain, so that
+  // every lane of the warp takes part in the shuffles and ballots; they
+  // write nothing
+  const long long ch = active ? chain : chains - 1;
+  const int b = (int)(ch / R);
+  const int r = (int)(ch % R);
+  const size_t p = (size_t)g * B + b;  // problem id
+  const uint2 key = make_uint2(seed_lo, (uint32_t)p);
+  const bool host = uniforms != nullptr;
+
+  float f[K], thr[K], hv[K];
+  uint32_t mine = 0;  // bit k: the state of variable 32*k + lane
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int i = 32 * k + lane;
+    hv[k] = 0.0f;
+    f[k] = 0.0f;
+    if (i < n) {
+      hv[k] = h[p * n + i];
+      if (init_bit(init01, p, R, r, n, i, key, seed_hi)) mine |= 1u << k;
     }
   }
 
   const float hot_p = hot[p], logr_p = logr[p];
   const size_t u_sweep = (size_t)G * B * n * R;  // uniforms per sweep
+  unsigned long long nflip = 0;
   for (int t = 0; t < S; ++t) {
+    if (t % kRefreshPeriod == 0) {
+      uint32_t words[K];  // bit l of words[k]: the state of variable 32*k + l
+#pragma unroll
+      for (int k = 0; k < K; ++k) words[k] = __ballot_sync(0xFFFFFFFFu, (mine >> k) & 1u);
+      float acc[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) acc[k] = 0.0f;
+#pragma unroll
+      for (int kj = 0; kj < K; ++kj) {
+        for (int l = 0; l < 32; ++l) {
+          const int j = 32 * kj + l;
+          if (j >= n) break;
+          const bool on = (words[kj] >> l) & 1u;
+#pragma unroll
+          for (int k = 0; k < K; ++k) {  // row j of the symmetric J_g: lanes read adjacent words
+            const int i = 32 * k + lane;
+            if (i < n) acc[k] += on ? Js[j * n + i] : 0.0f;
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k) f[k] = hv[k] + acc[k];
+    }
+
     const float beta = hot_p * expf(logr_p * ((float)t * inv_span));
     SweepUniforms u{host ? uniforms + (size_t)t * u_sweep + p * n * R + r : nullptr, R, key,
                     (uint32_t)r, (uint32_t)t, seed_hi};
-    for (int i = 0; i < n; ++i) {
-      const float* Ji = Js + i * n;
-      float acc = 0.0f;
-      for (int j = 0; j < n; ++j) acc += Ji[j] * s[j];
-      s[i] = metropolis_rule(hp[i] + acc, s[i], beta, u(i));
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int i = 32 * k + lane;
+      thr[k] = i < n ? metropolis_threshold(u(i), beta) : 0.0f;
+    }
+
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      for (int l = 0; l < 32; ++l) {
+        const int i = 32 * k + l;
+        if (i >= n) break;
+        // every lane weighs its own slot-k variable; the owner's verdict counts
+        const float s = (float)((mine >> k) & 1u);
+        const float d_own = metropolis_accept(f[k], s, thr[k]) ? 1.0f - 2.0f * s : 0.0f;
+        const float d = __shfl_sync(0xFFFFFFFFu, d_own, l);
+        if (lane == l && d != 0.0f) {
+          mine ^= 1u << k;
+          ++nflip;
+        }
+        const float* Ji = Js + i * n;
+#pragma unroll
+        for (int k2 = 0; k2 < K; ++k2) {
+          const int j = 32 * k2 + lane;
+          if (j < n) f[k2] = fmaf(d, Ji[j], f[k2]);
+        }
+      }
     }
   }
 
-  float* op = out + (p * R + r) * n;
-  for (int i = 0; i < n; ++i) op[i] = s[i];
+  if (active) {
+    float* op = out + (p * R + r) * n;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int i = 32 * k + lane;
+      if (i < n) op[i] = (float)((mine >> k) & 1u);
+    }
+    if (flips != nullptr && nflip != 0) atomicAdd(flips, nflip);
+  }
 }
 
-template <int NMAX>
-cudaError_t launch(const float* J, const float* h, const float* hot, const float* logr,
-                   const float* init01, const float* uniforms, float* out, int G, int B,
-                   int R, int n, int S, float inv_span, unsigned long long seed,
-                   cudaStream_t stream) {
-  const size_t smem = (size_t)n * n * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        sa_metropolis_kernel<NMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  const long long chains = (long long)B * R;
-  const dim3 grid((unsigned)((chains + kThreads - 1) / kThreads), (unsigned)G);
-  sa_metropolis_kernel<NMAX><<<grid, kThreads, smem, stream>>>(
-      J, h, hot, logr, init01, uniforms, out, G, B, R, n, S, inv_span,
-      (uint32_t)(seed & 0xFFFFFFFFull), (uint32_t)(seed >> 32));
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+struct Args {
+  const float *J, *h, *hot, *logr, *init01, *uniforms;
+  float* out;
+  unsigned long long* flips;
+  int G, B, R, n, S;
+  float inv_span;
+  uint32_t seed_lo, seed_hi;
+};
+
+template <int N>
+cudaError_t launch_thread(const Args& a, cudaStream_t stream) {
+  const size_t smem = (size_t)N * N * sizeof(float);
+  const cudaError_t e = set_smem(sa_metropolis_thread_kernel<N>, smem);
+  if (e != cudaSuccess) return e;
+  const long long chains = (long long)a.B * a.R;
+  const dim3 grid((unsigned)((chains + kThreads - 1) / kThreads), (unsigned)a.G);
+  sa_metropolis_thread_kernel<N><<<grid, kThreads, smem, stream>>>(
+      a.J, a.h, a.hot, a.logr, a.init01, a.uniforms, a.out, a.flips, a.G, a.B, a.R, a.S,
+      a.inv_span, a.seed_lo, a.seed_hi);
   return cudaGetLastError();
+}
+
+template <int K>
+cudaError_t launch_lanes(const Args& a, cudaStream_t stream) {
+  const size_t smem = (size_t)a.n * a.n * sizeof(float);
+  const cudaError_t e = set_smem(sa_metropolis_lanes_kernel<K>, smem);
+  if (e != cudaSuccess) return e;
+  const long long chains = (long long)a.B * a.R;
+  const dim3 grid((unsigned)((chains + kChains - 1) / kChains), (unsigned)a.G);
+  sa_metropolis_lanes_kernel<K><<<grid, kThreads, smem, stream>>>(
+      a.J, a.h, a.hot, a.logr, a.init01, a.uniforms, a.out, a.flips, a.G, a.B, a.R, a.n, a.S,
+      a.inv_span, a.seed_lo, a.seed_hi);
+  return cudaGetLastError();
+}
+
+// The slot bound K of the LANES layout: ceil(n/32) rounded up to a power of
+// 2 (8 slots cover kMaxN).
+cudaError_t dispatch_lanes(const Args& a, cudaStream_t st) {
+  const int k = (a.n + 31) / 32;
+  if (k <= 1) return launch_lanes<1>(a, st);
+  if (k <= 2) return launch_lanes<2>(a, st);
+  if (k <= 4) return launch_lanes<4>(a, st);
+  return launch_lanes<8>(a, st);
+}
+
+cudaError_t dispatch_thread(const Args& a, cudaStream_t st) {
+  switch (a.n) {
+    case 1: return launch_thread<1>(a, st);
+    case 2: return launch_thread<2>(a, st);
+    case 3: return launch_thread<3>(a, st);
+    case 4: return launch_thread<4>(a, st);
+    case 5: return launch_thread<5>(a, st);
+    case 6: return launch_thread<6>(a, st);
+    case 7: return launch_thread<7>(a, st);
+    case 8: return launch_thread<8>(a, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -130,21 +325,23 @@ cudaError_t launch(const float* J, const float* h, const float* hot, const float
 extern "C" int qbmx_sa_metropolis_max_n() { return kMaxN; }
 
 // Returns the cudaError_t of the launch (0 = success).  init01/uniforms are
-// both null (Philox mode) or both set (host-variate mode).
+// both null (Philox mode) or both set (host-variate mode); lanes is 1 for
+// the THREAD layout (n <= 8) or 32 for the LANES layout; flips may be null.
 extern "C" int qbmx_sa_metropolis(const float* J, const float* h, const float* hot,
                                   const float* logr, const float* init01,
-                                  const float* uniforms, float* out, int G, int B, int R,
-                                  int n, int S, float inv_span, unsigned long long seed,
+                                  const float* uniforms, float* out,
+                                  unsigned long long* flips, int G, int B, int R, int n,
+                                  int S, float inv_span, unsigned long long seed, int lanes,
                                   void* stream) {
-  if (G <= 0 || B <= 0 || R <= 0 || n <= 0 || S <= 0 || G > 65535 ||
+  if (G <= 0 || B <= 0 || R <= 0 || n <= 0 || n > kMaxN || S <= 0 || G > 65535 ||
       (init01 == nullptr) != (uniforms == nullptr))
     return (int)cudaErrorInvalidValue;
+  const Args a{J, h, hot, logr, init01, uniforms, out, flips, G, B, R, n, S, inv_span,
+               (uint32_t)(seed & 0xFFFFFFFFull), (uint32_t)(seed >> 32)};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n <= 8)
-    return (int)launch<8>(J, h, hot, logr, init01, uniforms, out, G, B, R, n, S, inv_span, seed, st);
-  if (n <= 64)
-    return (int)launch<64>(J, h, hot, logr, init01, uniforms, out, G, B, R, n, S, inv_span, seed, st);
-  if (n <= kMaxN)
-    return (int)launch<256>(J, h, hot, logr, init01, uniforms, out, G, B, R, n, S, inv_span, seed, st);
-  return (int)cudaErrorInvalidValue;
+  switch (lanes) {
+    case 1: return (int)(n <= kThreadMaxN ? dispatch_thread(a, st) : cudaErrorInvalidValue);
+    case 32: return (int)dispatch_lanes(a, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -10,6 +10,9 @@ import torch
 
 # one block's shared memory on Hopper (227 KB)
 SMEM_BYTES = 232_448
+# streaming multiprocessors of an H100 SXM: the launch-geometry rules
+# (sa_cuda.k1_layout, wide_cuda.wide_geometry) size their layouts by it
+NUM_SMS = 132
 
 
 def fits_shared(n: int) -> bool:
@@ -20,13 +23,15 @@ def fits_shared(n: int) -> bool:
     return 4 * n * n <= SMEM_BYTES
 
 
-def require(t: torch.Tensor, name: str, shape: tuple, device: torch.device) -> None:
+def require(t: torch.Tensor, name: str, shape: tuple, device: torch.device,
+            dtype: torch.dtype = torch.float32) -> None:
     """Refuse what a kernel cannot read: another device, dtype, shape or a
     non-contiguous layout."""
-    if t.device != device or t.dtype != torch.float32 or tuple(t.shape) != shape \
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
             or not t.is_contiguous():
         raise ValueError(
-            f"{name}: need a contiguous float32 tensor of shape {shape} on {device}; "
+            f"{name}: need a contiguous {str(dtype).removeprefix('torch.')} tensor of shape "
+            f"{shape} on {device}; "
             f"got {t.dtype} {tuple(t.shape)} on {t.device}"
             f"{'' if t.is_contiguous() else ' (not contiguous)'}")
 
@@ -61,6 +66,15 @@ def structured_ptrs(kernel: str, max_n: int, J, h, hot, logr, num_reads: int,
     variates = variate_ptrs(host_variates, (("init01", (G, B, R, n)),
                                             ("uniforms", (S, G, B, n, R))), dev)
     return (J.data_ptr(), h.data_ptr(), hot.data_ptr(), logr.data_ptr(), *variates)
+
+
+def optional_ptr(t: torch.Tensor | None, name: str, shape: tuple, dtype: torch.dtype,
+                 device: torch.device):
+    """Device pointer of an optional output of a kernel (null for None)."""
+    if t is None:
+        return None
+    require(t, name, shape, device, dtype)
+    return t.data_ptr()
 
 
 def stream(device: torch.device) -> int:

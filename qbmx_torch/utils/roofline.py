@@ -1,0 +1,51 @@
+"""The least time an anneal launch could take on one NVIDIA H100 SXM: the
+larger of the bytes it must move over the memory rate and the operations
+it must do over the rate the card can issue them (NVIDIA's data sheet: 3.35
+TB/s of HBM3 and 67 TFLOP/s float32 outside the tensor cores, at the full
+700 W).
+
+Bytes: each input read once, the output written once (Philox mode: no
+variates).  Operations, counted from the run's inputs:
+
+* every decision draws a uniform -- Philox4x32-10 spends 10 rounds of two
+  ``mul.hi``, two ``mul.lo``, four xors and two key adds on four draws, 25
+  operations a draw, 10 of them int32 multiplies -- and turns it into a
+  verdict (a logarithm, a division, a product and a comparison: 4 more),
+  :data:`OPS_PER_DECISION`;
+* every change of a variable adds ±J_ij to the n fields (n FMAs), when
+  the launch's flips were counted (``flips``); a kernel that does not count
+  them is bounded by its decisions alone, a lower bound still.
+
+The 67 TFLOP/s count an FMA as two flops, so the card issues at most 33.5e12
+float32 instructions a second (4 schedulers × 32 lanes × 132 SMs at 1.98
+GHz), an FMA one of them; an add, xor or comparison takes an issue slot as
+well, so every operation above is taken at that rate.  Int32 multiplies
+issue at half of it, 16.75e12 a second, which bounds the Philox draws
+apart.  The operations' time is the larger of the two.
+"""
+
+from __future__ import annotations
+
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+ISSUE_PER_S = FP32_FLOPS_PER_S / 2  # instructions a second; an FMA is two flops
+IMUL_PER_S = ISSUE_PER_S / 2  # int32 multiplies a second
+PHILOX_OPS, PHILOX_IMULS = 25, 10  # a draw's operations, and its int32 multiplies
+OPS_PER_DECISION = PHILOX_OPS + 4
+
+
+def anneal_bound(G: int, B: int, R: int, n: int, S: int, *, decisions: int | None = None,
+                 flips: int | None = None, J_groups: int | None = None) -> dict:
+    """``{"bound_ms", "bound_by", "bytes", "ops"}`` of one launch over G
+    groups of B problems (couplings of ``J_groups`` problems, default G;
+    linear terms and schedule per problem), R reads, width n, S sweeps;
+    ``decisions`` defaults to G·B·R·n·S."""
+    J_groups = G if J_groups is None else J_groups
+    nbytes = 4 * (J_groups * n * n + G * B * n + 2 * G * B + G * B * R * n)
+    decisions = G * B * R * n * S if decisions is None else decisions
+    ops = decisions * OPS_PER_DECISION + (flips or 0) * n
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(ops / ISSUE_PER_S, decisions * PHILOX_IMULS / IMUL_PER_S)
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "bytes": nbytes, "ops": ops}

@@ -480,3 +480,178 @@ def test_model_steps_launch_the_solver_kernel(dev, solver, counts, kernel):
     preds, probs = m.predict_batch(x)
     assert counts[kernel] == 5  # 4 steps + 1 prediction
     assert np.isfinite(nlls).all() and preds.shape == (40,) and probs.shape == (40, 2)
+
+
+# -- the layouts of K1 and the geometries of K4 ---------------------------------
+
+
+def _structured_form(Q, h_extra, S, rule=wide_cuda.METROPOLIS, beta=1.5):
+    """(J, h, hot, logr) as the wrappers hand them to the kernels."""
+    hs, J = split_qubo(Q)
+    h = (hs[:, None, :] + h_extra).contiguous()
+    if rule == wide_cuda.METROPOLIS:
+        hot, logr = sa_torch.schedule_params(h, J[:, None], S)
+    else:
+        hot, logr = gibbs.heat_bath_schedule(h, J[:, None], S, beta)
+    return J.contiguous(), h, hot, logr
+
+
+def test_geometry_rules_match_the_kernels(dev):
+    """The host's bounds are the kernels': K4's widest n and shared bytes,
+    K1's widest n."""
+    from qbmx_torch._build import load_kernels
+
+    lib = load_kernels()
+    assert lib.qbmx_anneal_wide_max_n() == wide_cuda.max_n() >= 2400
+    for n in (242, 717, 2400, wide_cuda.max_n()):
+        for c in (1, 7, 32):
+            assert lib.qbmx_anneal_wide_smem(n, c) == wide_cuda.smem_bytes(n, c)
+    assert lib.qbmx_sa_metropolis_max_n() == 241
+    with pytest.raises(ValueError, match="exceeds its bound"):
+        wide_cuda.wide_geometry(1, 1, 1, wide_cuda.max_n() + 1)
+
+
+K1_SHAPES = [(2, 3, 6, 37, 5), (1, 2, 8, 45, 4), (2, 2, 41, 35, 6), (1, 2, 128, 9, 3),
+             (1, 3, 241, 11, 2)]
+K1_MAX_N = {1: sa_cuda.THREAD_MAX_N, 32: 241}
+
+
+@pytest.mark.parametrize("lanes,G,B,n,R,S", [(lanes, *shape) for lanes in (1, 32)
+                                             for shape in K1_SHAPES
+                                             if shape[2] <= K1_MAX_N[lanes]])
+def test_k1_layouts_match_plain(dev, lanes, G, B, n, R, S):
+    """Each layout, forced, against the plain version under host variates;
+    B·R is no multiple of a block's chains (4 at a warp a chain)."""
+    rng = np.random.default_rng(n + lanes)
+    Q, h_extra = _structured(rng, G, B, n, dev)
+    hv = _variates(rng, (G, B), n, R, S, dev)
+    J, h, hot, logr = _structured_form(Q, h_extra, S)
+    flips = torch.zeros(1, dtype=torch.int64, device=dev)
+    got = sa_cuda.launch(J, h, hot, logr, R, S, host_variates=hv, lanes=lanes, flips=flips)
+    want = sa_torch.sa_sample_groups_plain(Q, h_extra, R, S, host_variates=hv)
+    assert got.shape == (G, B, R, n)
+    assert _differ(got, want) <= MAX_DIFF_FRAC
+    assert 0 < flips.item() <= G * B * R * n * S
+
+
+@pytest.mark.parametrize("lanes", [1, 32])
+@pytest.mark.parametrize("n", [2, 5, 8])
+def test_k1_layouts_match_oracle(dev, lanes, n):
+    """tests/test_samplers.py's problems and bound, for each layout."""
+    Q = random_qubo_batch(np.random.default_rng(0), 1, n, scale=0.5).to(dev)
+    J, h, hot, logr = _structured_form(Q, torch.zeros((1, 1, n), device=dev), 200)
+    s = sa_cuda.launch(J, h, hot, logr, 512, 200, lanes=lanes,
+                       generator=torch.Generator().manual_seed(n))[0, 0]
+    _, cold = default_beta_range(Q[0])
+    _, _, marg, _ = exact_boltzmann(Q[0], beta=float(cold))
+    assert set(s.unique().tolist()) <= {0.0, 1.0}
+    assert torch.allclose(s.mean(0), marg, atol=0.12)
+
+
+@pytest.mark.parametrize("lanes", [1, 32])
+def test_k1_layouts_on_their_philox_draws(dev, lanes):
+    """Each layout draws the same streams: ``philox_variates`` writes them out."""
+    G, B, n, R, S = 2, 3, 7, 40, 6
+    rng = np.random.default_rng(31)
+    Q, h_extra = _structured(rng, G, B, n, dev)
+    J, h, hot, logr = _structured_form(Q, h_extra, S)
+    seed = draw_seed(torch.Generator().manual_seed(15))
+    got = sa_cuda.launch(J, h, hot, logr, R, S, lanes=lanes,
+                         generator=torch.Generator().manual_seed(15))
+    hv = tuple(torch.as_tensor(a, device=dev) for a in sa_torch.philox_variates(seed, G, B, R, n, S))
+    assert _differ(got, sa_torch.sa_sample_groups_plain(Q, h_extra, R, S, host_variates=hv)) \
+        <= MAX_DIFF_FRAC
+
+
+CHAINS_PER_BLOCK = [1, 3, 5, 31, 32]
+
+
+@pytest.mark.parametrize("rule,chains,G,B,n,R,S", [
+    (rule, chains, *shape) for rule in RULES for chains in CHAINS_PER_BLOCK
+    for shape in [(2, 2, 242, 23, 3), (1, 3, 717, 13, 2), (1, 2, 301, 101, 70)]
+    if shape[-1] < 64 or rule != "quad"])
+def test_wide_geometries_match_plain(dev, rule, chains, G, B, n, R, S):
+    """K4 at several chains per block, every rule; B·R is no
+    multiple of the block's chains, so the last block has spare chains;
+    n = 301 (a ragged last tile) over more sweeps than one refresh period,
+    on 202 chains, so that the 1% bound allows the near-tie divergence of
+    two.  Quad heat-bath stays at the short shapes here: at this depth the
+    incremental fields' rounding diverges 0.8% of its chains on average
+    (up to 3% of 202), where a kernel that recomputes every field before
+    its decision diverges 0.1% (``cli/compare_kernels.py``'s agreement
+    part); ``test_wide_fields_stay_near_a_recompute`` holds quad's fields
+    at this shape within their limit, which one lost add would exceed."""
+    rng = np.random.default_rng(n + 32 + chains + len(rule))
+    Q, h_extra = _structured(rng, G, B, n, dev)
+    hv = _variates(rng, (G, B), n, R, S, dev)
+    code = {"metropolis": 0, "single": 1, "pair": 2, "quad": 4}[rule]
+    J, h, hot, logr = _structured_form(Q, h_extra, S, code)
+    geo = wide_cuda.WideGeometry.of(G, B, R, n, chains)
+    got = wide_cuda.launch(J, h, hot, logr, R, S, code, host_variates=hv, geometry=geo)
+    assert got.shape == (G, B, R, n)
+    assert _differ(got, _plain_groups(rule, Q, h_extra, R, S, hv)) <= MAX_DIFF_FRAC
+
+
+@pytest.mark.parametrize("rule", list(RULES))
+def test_wide_kernel_at_its_widest_n(dev, rule):
+    n = wide_cuda.max_n()
+    G, B, R, S = 1, 1, 5, 2
+    rng = np.random.default_rng(60 + len(rule))
+    Q, h_extra = _structured(rng, G, B, n, dev)
+    hv = _variates(rng, (G, B), n, R, S, dev)
+    wide_cuda.reset_launch_counts()
+    got = _kernel_groups(rule, Q, h_extra, R, S, host_variates=hv)
+    assert wide_cuda.launch_counts["anneal_wide"] == 1
+    assert _differ(got, _plain_groups(rule, Q, h_extra, R, S, hv)) <= MAX_DIFF_FRAC
+
+
+@pytest.mark.parametrize("chains", [4, 32])
+@pytest.mark.parametrize("n", [2, 5, 8])
+def test_wide_geometries_match_oracle(dev, chains, n):
+    """K4 forced, 4 and 32 chains a block: K1's and K2's oracle bounds."""
+    def geo(R):
+        return wide_cuda.WideGeometry.of(1, 1, R, n, chains)
+
+    Q = random_qubo_batch(np.random.default_rng(0), 1, n, scale=0.5).to(dev)
+    R, S = 512, 200
+    J, h, hot, logr = _structured_form(Q, torch.zeros((1, 1, n), device=dev), S)
+    s = wide_cuda.launch(J, h, hot, logr, R, S, wide_cuda.METROPOLIS, geometry=geo(R),
+                         generator=torch.Generator().manual_seed(n))[0, 0]
+    _, cold = default_beta_range(Q[0])
+    _, _, marg, _ = exact_boltzmann(Q[0], beta=float(cold))
+    assert torch.allclose(s.mean(0), marg, atol=0.12)
+    Q = torch.as_tensor(np.triu(np.random.default_rng(11).uniform(-1, 1, (1, n, n)))
+                        .astype(np.float32), device=dev)
+    R, S = 2048, 64
+    J, h, hot, logr = _structured_form(Q, torch.zeros((1, 1, n), device=dev), S,
+                                       wide_cuda.PAIR, 1.0)
+    s = wide_cuda.launch(J, h, hot, logr, R, S, wide_cuda.PAIR, geometry=geo(R),
+                         generator=torch.Generator().manual_seed(4))[0, 0]
+    _, _, marg, pair_m = exact_boltzmann(Q[0], beta=1.0)
+    assert torch.allclose(s.mean(0), marg, atol=0.05)
+    assert torch.allclose(s.T @ s / R, pair_m, atol=0.07)
+
+
+@pytest.mark.parametrize("rule", [0, 1, 2, 4])
+@pytest.mark.parametrize("G,B,n,R,S", [(2, 2, 300, 16, 100), (1, 2, 301, 101, 70)])
+def test_wide_fields_stay_near_a_recompute(dev, rule, G, B, n, R, S):
+    """The final incremental fields against h + J·s in float64, after more
+    sweeps than one refresh period, within ``wide_cuda.field_drift_bound``
+    (chip_smoke.py checks the main path's depth), for every rule, quad at
+    the deep shape of ``test_wide_geometries_match_plain`` included; one
+    field that lost one add of its row's median |J_jk| would not be."""
+    rng = np.random.default_rng(70 + rule + n)
+    Q, h_extra = _structured(rng, G, B, n, dev)
+    J, h, hot, logr = _structured_form(Q, h_extra, S, rule)
+    fields = torch.empty((G, B, R, n), device=dev)
+    flips = torch.zeros(1, dtype=torch.int64, device=dev)
+    s = wide_cuda.launch(J, h, hot, logr, R, S, rule, fields_out=fields, flips=flips,
+                         generator=torch.Generator().manual_seed(3))
+    exact = h.double()[:, :, None] + torch.einsum("gbrj,gij->gbri", s.double(), J.double())
+    bound = wide_cuda.field_drift_bound(h, J, S)
+    assert ((fields.double() - exact).abs() <= bound).all()
+    assert 0 < flips.item() <= G * B * R * n * S
+    typical = J[0].abs().masked_fill(J[0] == 0, float("nan")).nanmedian(dim=1).values
+    lost = fields.double().clone()
+    lost[0, 0, 0] -= typical.double()  # every field of one chain, one add short
+    assert ((lost - exact).abs()[0, 0, 0] > bound[0, 0, 0]).all()
