@@ -9,35 +9,42 @@ Four hand-written kernels are checked: K1 ``sa_metropolis`` (annealed
 Metropolis), K2 ``sa_heatbath`` (annealed heat-bath, single/pair/quad
 updates), K3 ``pt_heatbath`` (parallel tempering) and K4 ``anneal_wide``
 (both anneal rules for QUBOs whose couplings exceed shared memory, n > 241,
-which the K1/K2 wrappers route to it).  Phases (any failure exits nonzero;
-nothing carries on after one):
+which the K1/K2 wrappers route to it).  K1 and K2 each run a thread a
+chain or a warp a chain, by one rule (``kernel_call.chain_layout``); K3 a
+rung a thread or a rung a warp (``pt_cuda.pt_layout``).  Phases (any
+failure exits nonzero; nothing carries on after one):
 
 1. device: the GPU's name, ``nvidia-smi`` name and power limit, torch and nvcc versions;
 2. build: the kernels from ``qbmx_torch/csrc``, one ``nvcc`` per source at once (seconds);
 3. kernel vs plain PyTorch under the same numpy-seeded host variates: K1
-   (a thread a chain) and K2 pair at the flagship structured shape (G=2,
-   B=60, n=6, R=1000, S=1000), K1 (a warp a chain) and K2 single and quad
-   at the dense CDQBM bench shape (B=60, n=41, R=100, S=1000), K1 (a warp a
-   chain) at the CDQBM default call (G=2, B=3, n=41, R=100, S=1000), K3 at
+   and K2 pair (a thread a chain) at the flagship structured shape (G=2,
+   B=60, n=6, R=1000, S=1000), K1 and K2 single and quad (a warp a chain)
+   at the dense CDQBM bench shape (B=60, n=41, R=100, S=1000), K1 and K2
+   pair (a warp a chain) at the CDQBM default call (G=2, B=3, n=41, R=100,
+   S=1000), with the layouts the rule picks there; K3 (a rung a thread) at
    the flagship shape densified (120 problems, n=6, M=8 rungs) at R=1000,
-   S=100 and at the main path's S=1000 with R=100; K4 Metropolis and pair
-   at the CDQBM probabilistic-pooling shape (G=2, B=20, n=717, R=100,
-   S=10), on its dense entry (B=32, n=717) and at the widest n it takes
-   (R=200, S=2): at most 1% of chains may end in another state (a near-tie
-   decision from a differently rounded field diverges that one chain);
+   S=100 and at the main path's S=1000 with R=100, and (a rung a warp)
+   beyond the first design's M·n ≤ 2048 at B=4, n=241, M=12, R=32, S=20;
+   K4 Metropolis and pair at the CDQBM probabilistic-pooling shape (G=2,
+   B=20, n=717, R=100, S=10), on its dense entry (B=32, n=717) and at the
+   widest n it takes (R=200, S=2): at most 1% of chains may end in another
+   state (a near-tie decision from a differently rounded field diverges
+   that one chain);
 4. the kernels' own Philox streams: vs the exact Boltzmann oracle (K1
-   marginals within 0.12 at the cold beta; K2 and K3 within 0.08 single /
-   0.05 pair and quad, pair moments within 0.07, at beta 1), decorrelated
-   chains, per-problem streams, and the plain versions driven by those same
-   draws written out on the host (``sa_torch.philox_variates``,
-   ``sa_torch.pt_philox_variates``; the 1% bound of phase 3); K4 launched
-   directly (past the routing) against the oracle at n in (2, 5, 8), and on
-   its own Philox draws at the CDQBM shape (S=3); K4's incremental fields
-   after the main path's S=1000 at the CDQBM shape, for every rule, against
-   h + J·s in float64, within the statistical rounding limit of the adds
-   since their last recomputation (``wide_cuda.field_drift_bound``), and
-   the same check failing on one chain's fields each one add of their
-   row's median |J_jk| short (a planted fault: the limit has teeth);
+   marginals within 0.12 at the cold beta; K2 at each layout and K3 at
+   each layout within 0.08 single / 0.05 pair and quad, pair moments
+   within 0.07, at beta 1), decorrelated chains, per-problem streams, and
+   the plain versions driven by those same draws written out on the host
+   (``sa_torch.philox_variates``, ``sa_torch.pt_philox_variates``; the 1%
+   bound of phase 3; K2 and K3 in both layouts); K4 launched directly (past
+   the routing) against the oracle at n in (2, 5, 8), and on its own Philox
+   draws at the CDQBM shape (S=3); the incremental fields of K4 after the
+   main path's S=1000 at the CDQBM (a) shape and of K2's warp-a-chain
+   layout at the CDQBM (b) call, for every rule, against h + J·s in
+   float64, within the statistical rounding limit of the adds since their
+   last recomputation (``wide_cuda.field_drift_bound``), and the same check
+   failing on one chain's fields each one add of their row's median |J_jk|
+   short (a planted fault: the limit has teeth);
 5. the slices: ``qbmx_torch.cli.qbm_main.main`` on ``cuda`` (synthetic data,
    dim_input 784, H=5, 1000 reads, 1000 sweeps, bs60, one epoch = 10 steps
    plus validation and test prediction) with ``--solver`` SA, BMS and PT in
@@ -50,13 +57,16 @@ nothing carries on after one):
    ``--seq_sizes 4``, sc100, anneal 1000, beta_eff 5, bs20, lr 0.02 -- a
    717-variable QUBO that must launch K4 on every step and prediction --
    and (b) the CLI defaults (deterministic pooling 4, 41 variables, bs3) on
-   K1; the same checks and step times;
+   K1, and again with ``--solver BMS`` on K2; the same checks and step
+   times;
 6. kernel and plain times (CUDA events; kernels median of 5 after a
-   warm-up, the slower plain versions median of 3) at the phase-3 shapes in
-   generator mode (K3 at S=1000, K4 at S=10, and K4 alone at S=1000), and
-   each kernel's bound (``qbmx_torch/utils/roofline.py``: K1's and K4's from
-   the flips their inputs make, counted by one more launch; K2's and K3's
-   from their decisions alone).
+   warm-up, the slower plain versions median of 3, or 1 for K2 pair at the
+   CDQBM (b) call) at the phase-3 shapes in generator mode (K3 at S=1000
+   and at the flat CLI defaults' PT call, 146 problems, n=3, M=8, R=100;
+   K4 at S=10, and K4 alone at S=1000), and each kernel's bound
+   (``qbmx_torch/utils/roofline.py``: K1's, K2's and K4's from the flips
+   their inputs make, counted by one more launch, K2's at the flagship and
+   the CDQBM (b) call; K3's from its decisions alone).
 
 The last three lines are the ``nvidia-smi`` line, one JSON object with the
 kernel records (time, plain time, bound, launches on the main path), and
@@ -83,6 +93,7 @@ ORACLE_ATOL = 0.12  # phase 4: |SA marginal − exact marginal| at the cold beta
 # bars): marginals, joint-update marginals, joint-update pair moments
 HB_ATOL, JOINT_ATOL, MOMENT_ATOL = 0.08, 0.05, 0.07
 WIDTHS = {"single": dict(), "pair": dict(pair=True), "quad": dict(quad=True)}
+WIDTH_OF = {"single": 1, "pair": 2, "quad": 4}  # K2's update width (gibbs_cuda.launch)
 
 
 def fail(msg: str) -> None:
@@ -191,7 +202,7 @@ def main() -> None:
                                      tempering, wide_cuda)
     from qbmx_torch.samplers.api import densify_groups
     from qbmx_torch.samplers.exact import exact_boltzmann
-    from qbmx_torch.utils.roofline import anneal_bound
+    from qbmx_torch.utils.roofline import anneal_bound, heatbath_units
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain version in full float32
     dev = torch.device("cuda:0")
@@ -246,18 +257,23 @@ def main() -> None:
             f"K2 {width} dense B=60 n=41 R=100 S=1000"))
     del hv, init_d, u_d
 
-    # K1's few-chain layout (a warp a chain) at the CDQBM (b) call
+    # the few-chain layout of K1 and K2 (a warp a chain) at the CDQBM (b)
+    # call; the layout rule is the two kernels' one kernel_call.chain_layout
     SB = dict(G=2, B=3, n=41, R=100, S=1000)
-    layouts = {label: sa_cuda.k1_layout(G, B, R, n).lanes for label, (G, B, R, n) in (
+    layouts = {label: kernel_call.chain_layout(G, B, R, n).lanes for label, (G, B, R, n) in (
         ("flagship", (2, 60, 1000, 6)), ("dense bench", (60, 1, 100, 41)),
         ("CDQBM (b)", (SB["G"], SB["B"], SB["R"], SB["n"])))}
     check(layouts == {"flagship": 1, "dense bench": 32, "CDQBM (b)": 32},
-          f"K1 layouts (lanes a chain) {layouts}")
+          f"K1/K2 layouts (lanes a chain) {layouts}")
     Qcb, hcb, init_b, u_b = structured_problem(rng, *SB.values(), dev)
     args, hv = (Qcb, hcb, SB["R"], SB["S"]), (init_b, u_b)
     record("sa_metropolis", compare(sa_cuda.sa_sample_groups_cuda(*args, host_variates=hv),
                                     sa_torch.sa_sample_groups_plain(*args, host_variates=hv),
                                     "K1 structured G=2 B=3 n=41 R=100 S=1000 (a warp a chain)"))
+    record("sa_heatbath", compare(
+        gibbs_cuda.gibbs_sample_groups_cuda(*args, pair=True, host_variates=hv),
+        gibbs.gibbs_sample_groups_plain(*args, pair=True, host_variates=hv),
+        "K2 pair structured G=2 B=3 n=41 R=100 S=1000 (a warp a chain)"))
     del hv, init_b, u_b
 
     Qpt = densify_groups(Qg, h_extra)  # (120, 6, 6): the PT slice's sampler input
@@ -272,8 +288,24 @@ def main() -> None:
         record("pt_heatbath", compare(
             pt_cuda.pt_sample_batch_cuda(Qpt, R, S, num_replicas=SP["M"], host_variates=hv),
             tempering.pt_sample_batch_plain(Qpt, R, S, num_replicas=SP["M"], host_variates=hv),
-            f"K3 densified B=120 n=6 M=8 R={R} S={S}"))
+            f"K3 densified B=120 n=6 M=8 R={R} S={S} (a rung a thread)"))
         del hv
+    # K3 beyond the one-thread design's M·n ≤ 2048: a rung a warp at n = 241
+    SPW = dict(B=4, M=12, n=241, R=32, S=20)  # M·n = 2,892; 30 MB of uniforms
+    pt_layouts = {label: pt_cuda.pt_layout(*shape).kind for label, shape in (
+        ("flagship", (120, 8, 1000, 6)), ("CLI defaults", (146, 8, 100, 3)),
+        ("n=241 M=12", (SPW["B"], SPW["M"], SPW["R"], SPW["n"])))}
+    check(pt_layouts == {"flagship": pt_cuda.RUNG, "CLI defaults": pt_cuda.RUNG,
+                         "n=241 M=12": pt_cuda.WARP}, f"K3 layouts {pt_layouts}")
+    Qp3 = random_qubo_batch(rng, SPW["B"], SPW["n"]).to(dev)
+    BM3, R3, S3, n3 = SPW["B"] * SPW["M"], SPW["R"], SPW["S"], SPW["n"]
+    hv = (bits(rng, (BM3, R3, n3), dev), uniforms(rng, (S3, BM3, n3, R3), dev),
+          uniforms(rng, (S3, BM3, R3), dev))
+    record("pt_heatbath", compare(
+        pt_cuda.pt_sample_batch_cuda(Qp3, R3, S3, num_replicas=SPW["M"], host_variates=hv),
+        tempering.pt_sample_batch_plain(Qp3, R3, S3, num_replicas=SPW["M"], host_variates=hv),
+        "K3 B=4 n=241 M=12 R=32 S=20 (M·n = 2892; a rung a warp)"))
+    del hv
 
     # K4 at the CDQBM probabilistic-pooling shape: the K1/K2 wrappers route
     # n = 717 to it (kernel_call.fits_shared), which the counts confirm
@@ -340,25 +372,31 @@ def main() -> None:
         err = (s[0].mean(0) - marg).abs().max().item()
         worst = max(worst, err)
         check(err <= ORACLE_ATOL, f"oracle n={n}: marginals off by {err:.4f}")
-    # K2 and K3 at beta 1 (tests/test_gibbs_pt_pallas_debug.py's problems)
+    # K2 and K3 at beta 1 (tests/test_gibbs_pt_pallas_debug.py's problems),
+    # each layout forced: K2 a thread or a warp a chain, K3 a rung a thread
+    # or a rung a warp
     oracle = {}
     for width in WIDTHS:
         seed, reads, sweeps, bar = (9, 384, 48, HB_ATOL) if width == "single" else \
             (11, 2048, 64, JOINT_ATOL)
         Q = torch.as_tensor(np.triu(np.random.default_rng(seed).uniform(-1, 1, (1, 6, 6)))
                             .astype(np.float32), device=dev)
-        s = gibbs_cuda.gibbs_sample_batch_cuda(Q, reads, sweeps, **WIDTHS[width],
-                                               generator=torch.Generator().manual_seed(4))[0]
-        err, moment = oracle_error(s, Q[0], joint=width != "single")
-        oracle[f"K2 {width}"] = (err, moment)
-        check(err <= bar and moment <= MOMENT_ATOL,
-              f"K2 {width} oracle: marginals off by {err:.4f}, moments by {moment:.4f}")
+        form = structured_form(Q, torch.zeros((1, 1, 6), device=dev), sweeps, WIDTH_OF[width])
+        for lanes in (1, 32):
+            s = gibbs_cuda.launch(*form, reads, sweeps, WIDTH_OF[width], lanes=lanes,
+                                  generator=torch.Generator().manual_seed(4))[0, 0]
+            err, moment = oracle_error(s, Q[0], joint=width != "single")
+            oracle[f"K2 {width} lanes {lanes}"] = (err, moment)
+            check(err <= bar and moment <= MOMENT_ATOL, f"K2 {width} oracle at {lanes} lanes a "
+                  f"chain: marginals off by {err:.4f}, moments by {moment:.4f}")
     Q = torch.as_tensor(np.triu(np.random.default_rng(3).uniform(-1.5, 1.5, (1, 5, 5)))
                         .astype(np.float32), device=dev)
-    s = pt_cuda.pt_sample_batch_cuda(Q, 384, 24, num_replicas=4,
-                                     generator=torch.Generator().manual_seed(0))[0]
-    oracle["K3"] = oracle_error(s, Q[0], joint=False)
-    check(oracle["K3"][0] <= HB_ATOL, f"K3 oracle: marginals off by {oracle['K3'][0]:.4f}")
+    for layout, name in ((pt_cuda.RUNG, "a rung a thread"), (pt_cuda.WARP, "a rung a warp")):
+        s = pt_cuda.pt_sample_batch_cuda(Q, 384, 24, num_replicas=4, _layout=layout,
+                                         generator=torch.Generator().manual_seed(0))[0]
+        oracle[f"K3 {name}"] = oracle_error(s, Q[0], joint=False)
+        check(oracle[f"K3 {name}"][0] <= HB_ATOL,
+              f"K3 oracle, {name}: marginals off by {oracle[f'K3 {name}'][0]:.4f}")
     # weak couplings and a mild schedule keep the samples diffuse, so equal
     # samples can only come from equal streams
     Qa = random_qubo_batch(rng, 3, 6, scale=0.2).to(dev)
@@ -398,16 +436,20 @@ def main() -> None:
         p_out = gibbs.gibbs_sample_groups_plain(Qg, h_extra, R, S, **WIDTHS[width],
                                                 host_variates=hv)
         philox[f"K2 {width}"] = differing(k_out, p_out)
+        k_out = gibbs_cuda.launch(*structured_form(Qg, h_extra, S, WIDTH_OF[width]), R, S,
+                                  WIDTH_OF[width], lanes=32, generator=gen(5))
+        philox[f"K2 {width} a warp a chain"] = differing(k_out, p_out)
     del hv
     S_pt = 20
     seed = draw_seed(gen(6))
     hv = tuple(torch.as_tensor(a, device=dev) for a in sa_torch.pt_philox_variates(
         seed, SP["B"], SP["M"], SP["R"], SP["n"], S_pt))
-    k_out = pt_cuda.pt_sample_batch_cuda(Qpt, SP["R"], S_pt, num_replicas=SP["M"],
-                                         generator=gen(6))
     p_out = tempering.pt_sample_batch_plain(Qpt, SP["R"], S_pt, num_replicas=SP["M"],
                                             host_variates=hv)
-    philox["K3"] = differing(k_out, p_out)
+    for layout, name in ((None, "K3"), (pt_cuda.WARP, "K3 a rung a warp")):
+        k_out = pt_cuda.pt_sample_batch_cuda(Qpt, SP["R"], S_pt, num_replicas=SP["M"],
+                                             generator=gen(6), _layout=layout)
+        philox[name] = differing(k_out, p_out)
     del hv, k_out, p_out
     S_w = 3
     seed = draw_seed(gen(7))
@@ -475,11 +517,36 @@ def main() -> None:
             check(planted_ratio > 1.0, f"K4 field drift check: a field one add short reads "
                   f"only {planted_ratio:.3f} of the limit")
         del fields, exact, drift, bound, s_w
+    # K2's incremental fields (its LANES layout) after the main path's S=1000
+    # at the CDQBM (b) call, every width, against h + J·s in float64, within
+    # the limit of the adds since its last refresh (every 16th sweep); the
+    # planted fault as for K4
+    k2_drift_ratio, k2_planted = {}, math.inf
+    for width in WIDTHS:
+        Jb, hb_eff, hot_b, logr_b = structured_form(Qcb, hcb, 1000, WIDTH_OF[width])
+        fields = torch.empty((SB["G"], SB["B"], SB["R"], SB["n"]), device=dev)
+        s_b = gibbs_cuda.launch(Jb, hb_eff, hot_b, logr_b, SB["R"], 1000, WIDTH_OF[width],
+                                generator=gen(9), fields_out=fields)
+        exact = hb_eff.double()[:, :, None] + torch.einsum("gbrj,gij->gbri", s_b.double(),
+                                                           Jb.double())
+        bound = wide_cuda.field_drift_bound(hb_eff, Jb, 1000, gibbs_cuda.REFRESH_PERIOD)
+        drift = (fields.double() - exact).abs()
+        k2_drift_ratio[width] = (drift / bound).max().item()
+        check(bool(torch.isfinite(fields).all()) and k2_drift_ratio[width] <= 1.0,
+              f"K2 {width} field drift at S=1000: {k2_drift_ratio[width]:.3e} of its limit")
+        typical = Jb[0].abs().masked_fill(Jb[0] == 0, math.nan).nanmedian(dim=1).values
+        lost = fields[0, 0, 0].double() - typical.double()
+        k2_planted = min(k2_planted,
+                         ((lost - exact[0, 0, 0]).abs() / bound[0, 0, 0]).min().item())
+        del fields, exact, drift, bound, s_b
+    check(k2_planted > 1.0, f"K2 field drift check: a field one add short reads only "
+          f"{k2_planted:.3f} of the limit")
     beta1 = ", ".join(f"{k} {a:.4f}/{b:.4f}" for k, (a, b) in oracle.items())
     print(f"phase 4 oracle: K1 n in (2, 5, 8), 512 reads, 200 sweeps, worst marginal "
           f"error {worst:.4f} (limit {ORACLE_ATOL}); at beta 1 marginal/moment errors "
           f"{beta1} (limits {HB_ATOL} single and PT, {JOINT_ATOL} pair and quad, moments "
-          f"{MOMENT_ATOL}); distinct states of 64 {distinct}; per-problem streams "
+          f"{MOMENT_ATOL}; K2 at 1 and 32 lanes a chain, K3 a rung a thread and a warp); "
+          f"distinct states of 64 {distinct}; per-problem streams "
           "independent of batch-mates; Philox draws vs plain at G=2 B=60 n=6 R=1000 S=100 "
           f"(K3: B=120 M=8 S={S_pt}; K4: G=2 B=20 n=717 R=100 S={S_w}): differing chains "
           f"{philox}; K4 forced at n in (2, 5, 8): worst oracle errors {worst_wide} (limits "
@@ -487,7 +554,9 @@ def main() -> None:
           "pair moments at beta 1); K4 fields after S=1000 at G=2 B=20 n=717 R=100 vs h + J·s "
           f"in float64: max drift {drift_max}, of the limit at most {drift_ratio}; one "
           f"add of the row's median |J_jk| short reads at least {planted_ratio:.3f} of the "
-          f"limit (must exceed 1); {flips_full} variables changed (Metropolis)")
+          f"limit (must exceed 1); {flips_full} variables changed (Metropolis); K2 fields "
+          f"after S=1000 at G=2 B=3 n=41 R=100, of their limit at most {k2_drift_ratio}, one "
+          f"add short at least {k2_planted:.3f}")
 
     # -- 5. the slices: qbm_main on cuda, one solver at a time ------------------
     import qbmx_torch.cli.qbm_main as qm
@@ -563,6 +632,7 @@ def main() -> None:
         ("a", "anneal_wide", 717, dict(pooling_type="probabilistic", beta_eff=5.0,
                                        batch_size=20, learning_rate=0.02)),
         ("b", "sa_metropolis", 41, dict()),
+        ("b BMS", "sa_heatbath", 41, dict(solver="BMS")),
     ):
         for c in counters:
             c.reset_launch_counts()
@@ -600,6 +670,7 @@ def main() -> None:
 
     # -- 6. kernel and plain times, generator mode -----------------------------
     g1 = torch.Generator().manual_seed(1)
+    Qcli = random_qubo_batch(rng, 146, 3).to(dev)  # the flat CLI defaults' PT call, densified
     times = {}
     for label, kern, plain, plain_runs in (
         ("K1 structured G=2 B=60 n=6 R=1000 S=1000",
@@ -615,6 +686,10 @@ def main() -> None:
          lambda: gibbs_cuda.gibbs_sample_groups_cuda(Qg, h_extra, 1000, 1000, pair=True,
                                                      generator=g1),
          lambda: gibbs.gibbs_sample_groups_plain(Qg, h_extra, 1000, 1000, pair=True), 3),
+        ("K2 pair CDQBM (b) G=2 B=3 n=41 R=100 S=1000",
+         lambda: gibbs_cuda.gibbs_sample_groups_cuda(Qcb, hcb, 100, 1000, pair=True,
+                                                     generator=g1),
+         lambda: gibbs.gibbs_sample_groups_plain(Qcb, hcb, 100, 1000, pair=True), 1),
         ("K2 single dense B=60 n=41 R=100 S=1000",
          lambda: gibbs_cuda.gibbs_sample_batch_cuda(Qd, 100, 1000, generator=g1),
          lambda: gibbs.gibbs_sample_batch_plain(Qd, 100, 1000), 3),
@@ -624,6 +699,9 @@ def main() -> None:
         ("K3 densified B=120 n=6 M=8 R=1000 S=1000",
          lambda: pt_cuda.pt_sample_batch_cuda(Qpt, 1000, 1000, num_replicas=8, generator=g1),
          lambda: tempering.pt_sample_batch_plain(Qpt, 1000, 1000, num_replicas=8), 3),
+        ("K3 CLI defaults B=146 n=3 M=8 R=100 S=1000",
+         lambda: pt_cuda.pt_sample_batch_cuda(Qcli, 100, 1000, num_replicas=8, generator=g1),
+         lambda: tempering.pt_sample_batch_plain(Qcli, 100, 1000, num_replicas=8), 3),
         ("K4 Metropolis structured G=2 B=20 n=717 R=100 S=10",
          lambda: sa_cuda.sa_sample_groups_cuda(Qw, hw, 100, 10, generator=g1),
          lambda: sa_torch.sa_sample_groups_plain(Qw, hw, 100, 10), 3),
@@ -650,11 +728,23 @@ def main() -> None:
         launch(*args, generator=g1, flips=flips, **kw)
         return int(flips.item())
 
+    pair = WIDTH_OF["pair"]
     bounds = {
         "sa_metropolis": anneal_bound(2, 60, 1000, 6, 1000, flips=counted(
             sa_cuda.launch, *structured_form(Qg, h_extra, 1000), 1000, 1000)),
-        "sa_heatbath": anneal_bound(2, 60, 1000, 6, 1000, decisions=2 * 60 * 1000 * 3 * 1000),
+        "sa_heatbath": anneal_bound(
+            2, 60, 1000, 6, 1000, decisions=2 * 60 * 1000 * heatbath_units(6, pair) * 1000,
+            flips=counted(gibbs_cuda.launch, *structured_form(Qg, h_extra, 1000, pair), 1000,
+                          1000, pair)),
+        "sa_heatbath CDQBM (b), decisions only": anneal_bound(
+            2, 3, 100, 41, 1000, decisions=2 * 3 * 100 * heatbath_units(41, pair) * 1000),
+        "sa_heatbath CDQBM (b)": anneal_bound(
+            2, 3, 100, 41, 1000, decisions=2 * 3 * 100 * heatbath_units(41, pair) * 1000,
+            flips=counted(gibbs_cuda.launch, *structured_form(Qcb, hcb, 1000, pair), 100, 1000,
+                          pair)),
         "pt_heatbath": anneal_bound(120, 1, 1000, 6, 1000, decisions=120 * 8 * 1000 * 6 * 1000),
+        "pt_heatbath CLI defaults": anneal_bound(146, 1, 100, 3, 1000,
+                                                 decisions=146 * 8 * 100 * 3 * 1000),
         "anneal_wide": anneal_bound(2, 20, 100, 717, 10, flips=counted(
             wide_cuda.launch, *structured_form(Qw, hw, 10), 100, 10, wide_cuda.METROPOLIS)),
         "anneal_wide full depth": anneal_bound(2, 20, 100, 717, 1000, flips=flips_full),
@@ -683,15 +773,26 @@ def main() -> None:
          "launches": launches["sa_heatbath"], "max_abs_err": max(errs["sa_heatbath"]),
          "differing_chains": max(fracs["sa_heatbath"]),
          "differing_chains_limit": MAX_DIFF_FRAC,
-         "ms": t("K2 pair")[0], "plain_ms": t("K2 pair")[1], **bound_keys("sa_heatbath"),
+         "ms": t("K2 pair structured")[0], "plain_ms": t("K2 pair structured")[1],
+         **bound_keys("sa_heatbath"), "layouts_lanes": layouts,
+         "cdqbm_b_ms": t("K2 pair CDQBM (b)")[0], "cdqbm_b_plain_ms": t("K2 pair CDQBM (b)")[1],
+         "cdqbm_b_bound_ms": bounds["sa_heatbath CDQBM (b)"]["bound_ms"],
+         "cdqbm_b_bound_decisions_only_ms":
+             bounds["sa_heatbath CDQBM (b), decisions only"]["bound_ms"],
+         "cdqbm_b_launches": cdqbm_launches["b BMS"]["sa_heatbath"],
          "single_dense_ms": t("K2 single")[0], "single_dense_plain_ms": t("K2 single")[1],
-         "quad_dense_ms": t("K2 quad")[0], "quad_dense_plain_ms": t("K2 quad")[1]},
+         "quad_dense_ms": t("K2 quad")[0], "quad_dense_plain_ms": t("K2 quad")[1],
+         "field_drift_of_limit": k2_drift_ratio, "field_one_add_short_of_limit": k2_planted},
         {"name": "pt_heatbath", "route": "cuda", "source": "qbmx_torch/csrc/pt_heatbath.cu",
          "replaces": "qbmx/samplers/sa_pallas.py:196",
          "launches": launches["pt_heatbath"], "max_abs_err": max(errs["pt_heatbath"]),
          "differing_chains": max(fracs["pt_heatbath"]),
          "differing_chains_limit": MAX_DIFF_FRAC,
-         "ms": t("K3")[0], "plain_ms": t("K3")[1], **bound_keys("pt_heatbath")},
+         "ms": t("K3 densified")[0], "plain_ms": t("K3 densified")[1],
+         **bound_keys("pt_heatbath"), "layouts": pt_layouts,
+         "cli_defaults_ms": t("K3 CLI defaults")[0],
+         "cli_defaults_plain_ms": t("K3 CLI defaults")[1],
+         "cli_defaults_bound_ms": bounds["pt_heatbath CLI defaults"]["bound_ms"]},
         {"name": "anneal_wide", "route": "cuda", "source": "qbmx_torch/csrc/anneal_wide.cu",
          "replaces": "qbmx/samplers/sa_lane.py:144",
          "also_replaces": "qbmx/samplers/sa_pallas.py:196",

@@ -58,24 +58,27 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # J, h, hot, logr, init01, uniforms, out, flips, G, B, R, n, S, inv_span, seed,
         # lanes, stream
         "qbmx_sa_metropolis": [p] * 8 + [i] * 5 + [f, u64, i, p],
-        # J, h, hot, logr, init01, uniforms, out, G, B, R, n, S, inv_span, seed, width, stream
-        "qbmx_sa_heatbath": [p] * 7 + [i] * 5 + [f, u64, i, p],
+        # J, h, hot, logr, init01, uniforms, out, fields_out, flips, G, B, R, n, S,
+        # inv_span, seed, width, lanes, stream
+        "qbmx_sa_heatbath": [p] * 9 + [i] * 5 + [f, u64, i, i, p],
         # J, h, hot, logr, init01, uniforms, out, fields_out, flips, G, B, R, n, S,
         # inv_span, seed, rule, chains, stream
         "qbmx_anneal_wide": [p] * 9 + [i] * 5 + [f, u64, i, i, p],
-        # J, h, betas, dbeta, init01, uniforms, swap_u, out, B, M, R, n, S, seed, stream
-        "qbmx_pt_heatbath": [p] * 8 + [i] * 5 + [u64, p],
+        # J, h, betas, dbeta, init01, uniforms, swap_u, out, B, M, R, n, S, seed, layout,
+        # stream
+        "qbmx_pt_heatbath": [p] * 8 + [i] * 5 + [u64, i, p],
     }
     for name, argtypes in entries.items():
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = i
     for name in ("qbmx_sa_metropolis_max_n", "qbmx_sa_heatbath_max_n", "qbmx_anneal_wide_max_n",
-                 "qbmx_pt_heatbath_max_n", "qbmx_pt_heatbath_max_rungs",
-                 "qbmx_pt_heatbath_max_state"):
+                 "qbmx_pt_heatbath_max_n", "qbmx_pt_heatbath_max_rungs"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
-    lib.qbmx_anneal_wide_smem.argtypes = [i, i]
-    lib.qbmx_anneal_wide_smem.restype = ctypes.c_ulonglong
+    lib.qbmx_anneal_wide_smem.argtypes = [i, i]  # n, chains
+    lib.qbmx_pt_heatbath_smem.argtypes = [i, i, i]  # layout, n, M
+    for fn in (lib.qbmx_anneal_wide_smem, lib.qbmx_pt_heatbath_smem):
+        fn.restype = ctypes.c_ulonglong
     return lib
 
 

@@ -1,9 +1,10 @@
 // The update rules of the anneal kernels, each on fields already summed, and
-// a chain's per-sweep uniforms.  sa_metropolis.cu (K1), sa_heatbath.cu (K2)
-// and anneal_wide.cu (K4) form their fields differently but take every
-// decision through these, so the float operations of a decision are the
-// same in all three and in the plain versions (qbmx_torch/samplers/
-// sa_torch.py, gibbs.py), whose association order they copy.
+// a chain's per-sweep uniforms.  sa_metropolis.cu (K1), sa_heatbath.cu (K2),
+// pt_heatbath.cu (K3) and anneal_wide.cu (K4) form their fields differently
+// but take every decision through these, so the float operations of a
+// decision are the same in all four and in the plain versions
+// (qbmx_torch/samplers/sa_torch.py, gibbs.py, tempering.py), whose
+// association order they copy.
 //
 // Build without --use_fast_math: the thresholds need IEEE logf/expf and
 // division, and expf must overflow to inf where torch.exp does.
@@ -17,12 +18,14 @@
 namespace qbmx {
 
 // One chain's uniforms for one sweep: from the host (stride R) or drawn
-// from its Philox stream four variables at a time.
+// from its Philox stream four variables at a time, at counter (r, y_base |
+// variable/4, t, seed_hi); pt_heatbath.cu puts a rung in y_base.
 struct SweepUniforms {
   const float* ut;  // host: &uniforms[t, p, 0, r]; null in Philox mode
   int R;
   uint2 key;
   uint32_t r, t, seed_hi;
+  uint32_t y_base = 0;
   int cached = -1;
   uint4 bits;
 
@@ -30,7 +33,7 @@ struct SweepUniforms {
     if (ut != nullptr) return ut[(size_t)i * R];
     if ((i >> 2) != cached) {
       cached = i >> 2;
-      bits = philox4x32_10(make_uint4(r, (uint32_t)cached, t, seed_hi), key);
+      bits = philox4x32_10(make_uint4(r, y_base | (uint32_t)cached, t, seed_hi), key);
     }
     return uniform_of(word(bits, i & 3));
   }
@@ -140,6 +143,60 @@ __device__ __forceinline__ void quad_rule(const float f[4], const float c[4][4],
   int sel = 0;
 #pragma unroll
   for (int idx = 0; idx < 15; ++idx) sel += t >= cums[idx] ? 1 : 0;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) o[a] = (float)((sel >> (3 - a)) & 1);
+}
+
+// quad_rule spread over a warp whose 32 lanes all call it with the same
+// values (a chain on a warp): lane l forms the energy and weight of joint
+// state idx = l % 16 alone, by quad_rule's operations for that state; the
+// maximum is taken by a butterfly (fmaxf is exact, so its order does not
+// matter); lane l sums the weights of states 0..idx in quad_rule's order,
+// and a ballot counts the running sums that t reaches.  So every lane
+// returns quad_rule's o, bit for bit, at a sixteenth of its expf and
+// energy arithmetic.
+__device__ __forceinline__ void quad_rule_warp(const float f[4], const float c[4][4],
+                                               const float s[4], float beta, float u,
+                                               int lane, float o[4]) {
+  const unsigned full = 0xFFFFFFFFu;
+  const int idx = lane & 15;
+  float fp[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    float fa = f[a];
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      if (b != a) fa = fa - c[a < b ? a : b][a < b ? b : a] * s[b];
+    fp[a] = fa;
+  }
+  float acc = 0.0f;
+  bool first = true;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+    if ((idx >> (3 - a)) & 1) {
+      acc = first ? fp[a] : acc + fp[a];
+      first = false;
+    }
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = a + 1; b < 4; ++b)
+      if (((idx >> (3 - a)) & 1) && ((idx >> (3 - b)) & 1)) acc = acc + c[a][b];
+  const float es = idx == 0 ? 0.0f : -beta * acc;
+  float m = es;  // the maximum of es[0..15], es[0] = 0: quad_rule's m
+#pragma unroll
+  for (int d = 1; d < 16; d <<= 1) m = fmaxf(m, __shfl_xor_sync(full, m, d));
+  m = fmaxf(m, 0.0f);
+  const float w = expf(es - m);
+  float cum = __shfl_sync(full, w, 0);  // this lane's running sum, to state idx
+#pragma unroll
+  for (int k = 1; k < 16; ++k) {
+    const float wk = __shfl_sync(full, w, k);
+    if (k <= idx) cum = cum + wk;
+  }
+  const float t = u * __shfl_sync(full, cum, 15);
+  // sel counts the running sums 0..14 that t reaches
+  const int sel = __popc(__ballot_sync(full, idx < 15 && t >= cum) & 0x7FFFu);
 #pragma unroll
   for (int a = 0; a < 4; ++a) o[a] = (float)((sel >> (3 - a)) & 1);
 }

@@ -17,7 +17,8 @@
 //
 // What bounds it on this card: each chain is a strictly sequential chain of
 // n*S decisions.  J_g sits whole in one block's shared memory (n <= 241).
-// Two layouts, chosen on the host (samplers/sa_cuda.py::k1_layout):
+// Two layouts, chosen on the host (samplers/kernel_call.py::chain_layout,
+// the rule K2 shares):
 //   * THREAD (n <= 8, many chains: the flagship's 120,000): one thread per
 //     chain, r fastest, so a warp reads the same J_g[i][j] (a broadcast).
 //     The width is a template parameter and every loop is unrolled, so the

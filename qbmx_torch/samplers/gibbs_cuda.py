@@ -11,6 +11,9 @@ above.  On CUDA tensors they launch a kernel or raise; on CPU tensors they
 run the plain version (``gibbs``) — the tensor's device is the only thing
 that decides.
 
+K2 has K1's two layouts, one thread per chain or a chain spread over a
+warp, chosen by the rule the two share (``kernel_call.chain_layout``).
+
 In generator mode the kernel draws the Philox streams of the Metropolis
 kernel, keyed by a seed taken from ``generator`` and the problem's index;
 ``sa_torch.philox_variates`` writes them out.  ``host_variates`` (the JAX
@@ -43,31 +46,55 @@ def _width(pair: bool, quad: bool) -> int:
     return 4 if quad else 2 if pair else 1
 
 
-def _run(Q_shared, h_extra, num_reads, num_warmup, generator, beta, pair, quad,
-         host_variates):
-    """Launch K2 on the structured form → (G, B, R, n); K4 where ``J_g``
-    does not fit shared memory."""
+#: sweeps between recomputations of the LANES layout's fields
+#: (``sa_heatbath.cu`` kRefreshPeriod), for ``wide_cuda.field_drift_bound``
+REFRESH_PERIOD = 16
+
+
+def launch(J, h, hot, logr, num_reads: int, num_sweeps: int, width: int, *, generator=None,
+           host_variates=None, lanes: int | None = None, flips: torch.Tensor | None = None,
+           fields_out: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch K2 on the structured form, ``J`` (G, n, n), ``h`` (G, B, n),
+    ``hot``/``logr`` (G, B) → (G, B, R, n), update ``width`` 1, 2 or 4, in
+    the layout ``kernel_call.chain_layout`` chooses (``lanes`` forces one).
+    ``flips`` ((1,) int64) is added the number of variables changed;
+    ``fields_out`` ((G, B, R, n) float32) receives the LANES layout's final
+    fields.  The sampler paths pass none of the three."""
     from qbmx_torch._build import load_kernels
 
+    if width not in (1, 2, 4):
+        raise ValueError(f"sa_heatbath kernel: unknown update width {width}")
+    lib = load_kernels()
+    G, B, n = h.shape
+    R, S = num_reads, num_sweeps
+    ptrs = kernel_call.structured_ptrs("sa_heatbath", lib.qbmx_sa_heatbath_max_n(),
+                                       J, h, hot, logr, R, S, host_variates)
+    layout = kernel_call.chain_layout(G, B, R, n, lanes)
+    if fields_out is not None and layout.lanes == 1:
+        raise ValueError("fields_out: the THREAD layout of sa_heatbath keeps no fields")
+    seed = draw_seed(generator) if host_variates is None else 0
+    out = torch.empty((G, B, R, n), dtype=torch.float32, device=h.device)
+    fptr = kernel_call.optional_ptr(fields_out, "fields_out", (G, B, R, n), torch.float32,
+                                    h.device)
+    cptr = kernel_call.optional_ptr(flips, "flips", (1,), torch.int64, h.device)
+    kernel_call.check_rc("sa_heatbath", lib.qbmx_sa_heatbath(
+        *ptrs, out.data_ptr(), fptr, cptr, G, B, R, n, S, ctypes.c_float(inv_span(S)), seed,
+        width, layout.lanes, kernel_call.stream(h.device)))
+    launch_counts["sa_heatbath"] += 1
+    return out
+
+
+def _run(Q_shared, h_extra, num_reads, num_warmup, generator, beta, pair, quad,
+         host_variates):
+    """K2 on the structured form → (G, B, R, n); K4 where ``J_g`` does not
+    fit shared memory."""
     hs, J = split_qubo(Q_shared.to(torch.float32))
     J = J.contiguous()
     h = (hs[:, None, :] + h_extra.to(torch.float32)).contiguous()
     hot, logr = gibbs.heat_bath_schedule(h, J[:, None], num_warmup, beta)
-    G, B, n = h.shape
-    if not kernel_call.fits_shared(n):
-        return wide_cuda.launch(J, h, hot, logr, num_reads, num_warmup, _width(pair, quad),
-                                generator=generator, host_variates=host_variates)
-    lib = load_kernels()
-    R, S = num_reads, num_warmup
-    ptrs = kernel_call.structured_ptrs("sa_heatbath", lib.qbmx_sa_heatbath_max_n(),
-                                       J, h, hot, logr, R, S, host_variates)
-    seed = draw_seed(generator) if host_variates is None else 0
-    out = torch.empty((G, B, R, n), dtype=torch.float32, device=h.device)
-    kernel_call.check_rc("sa_heatbath", lib.qbmx_sa_heatbath(
-        *ptrs, out.data_ptr(), G, B, R, n, S, ctypes.c_float(inv_span(S)), seed,
-        _width(pair, quad), kernel_call.stream(h.device)))
-    launch_counts["sa_heatbath"] += 1
-    return out
+    launcher = launch if kernel_call.fits_shared(h.shape[-1]) else wide_cuda.launch
+    return launcher(J, h, hot, logr, num_reads, num_warmup, _width(pair, quad),
+                    generator=generator, host_variates=host_variates)
 
 
 def gibbs_sample_groups_cuda(Q_shared: torch.Tensor, h_extra: torch.Tensor,

@@ -1,18 +1,25 @@
 """What the CUDA kernel wrappers (``sa_cuda``, ``gibbs_cuda``, ``wide_cuda``,
 ``pt_cuda``) share: the checks of the arguments they pass, the boundary
 between the anneal kernels that hold a group's couplings in shared memory
-and the one that streams them, the stream, and the launch's return code.
-Each wrapper makes its own launch call and counts its own launches."""
+and the one that streams them, the layout rule of the two that hold them
+(K1 and K2, :func:`chain_layout`), the stream, and the launch's return
+code.  Each wrapper makes its own launch call and counts its own launches."""
 
 from __future__ import annotations
+
+import dataclasses
+import math
 
 import torch
 
 # one block's shared memory on Hopper (227 KB)
 SMEM_BYTES = 232_448
 # streaming multiprocessors of an H100 SXM: the launch-geometry rules
-# (sa_cuda.k1_layout, wide_cuda.wide_geometry) size their layouts by it
+# (chain_layout, wide_cuda.wide_geometry, pt_cuda.pt_layout) size their
+# layouts by it
 NUM_SMS = 132
+THREADS = 128  # threads a block of K1 and K2 (sa_metropolis.cu, sa_heatbath.cu kThreads)
+THREAD_MAX_N = 8  # widest THREAD layout: fully unrolled, state and fields in registers
 
 
 def fits_shared(n: int) -> bool:
@@ -21,6 +28,39 @@ def fits_shared(n: int) -> bool:
     (``sa_metropolis.cu``) or K2 (``sa_heatbath.cu``) when they do and K4
     (``anneal_wide.cu``), which streams J_g in row tiles, when they do not."""
     return 4 * n * n <= SMEM_BYTES
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainLayout:
+    lanes: int  # threads per chain: 1 (THREAD layout) or 32 (LANES layout)
+    slots: int  # variables a thread owns: n (THREAD), else ⌈n / lanes⌉ up to a power of 2
+    chains_per_block: int
+    smem: int  # bytes per block: J_g
+    grid: tuple  # (blocks per group, groups)
+
+
+def chain_layout(G: int, B: int, R: int, n: int, lanes: int | None = None) -> ChainLayout:
+    """The layout of K1 (``sa_metropolis.cu``) and K2 (``sa_heatbath.cu``)
+    for G groups of B problems, R reads, width n: one rule for both.
+
+    Rule: one thread per chain (``lanes`` 1, the THREAD layout) at n ≤ 8
+    when the chains are many, G·B·R > 4,224 (= 32·132: more than a warp a
+    chain could place at 32 warps per SM); it does the least work a
+    decision while the chains fill the card's issue slots.  Otherwise a
+    chain is spread over a warp (``lanes`` 32, the LANES layout), so that
+    a decision's latency, not a dot product, sets a variable's cost.
+    ``lanes`` overrides the choice (for checks of a layout; the sampler
+    paths never pass it).  Both layouts hold J_g (4n² bytes ≤ 232,448:
+    n ≤ 241) in shared memory, in blocks of 128 threads."""
+    if not fits_shared(n):
+        raise ValueError(f"K1/K2 layout: n={n} exceeds its bound (n ≤ 241)")
+    if lanes is None:
+        lanes = 1 if n <= THREAD_MAX_N and G * B * R > 32 * NUM_SMS else 32
+    if lanes not in (1, 32) or (lanes == 1 and n > THREAD_MAX_N):
+        raise ValueError(f"K1/K2 layout: no layout with {lanes} lanes at n={n}")
+    slots = n if lanes == 1 else 1 << (math.ceil(n / lanes) - 1).bit_length()
+    per_block = THREADS // lanes
+    return ChainLayout(lanes, slots, per_block, 4 * n * n, (math.ceil(B * R / per_block), G))
 
 
 def require(t: torch.Tensor, name: str, shape: tuple, device: torch.device,

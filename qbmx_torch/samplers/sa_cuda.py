@@ -10,7 +10,8 @@ kernel or raise; on CPU tensors they run the plain version (``sa_torch``)
 — the tensor's device is the only thing that decides.
 
 K1 has two layouts, one thread per chain or a chain spread over a warp;
-:func:`k1_layout` chooses between them from the launch's shape.
+``kernel_call.chain_layout``, the rule K2 shares, chooses between them
+from the launch's shape.
 
 In generator mode the kernel draws its own Philox streams, keyed by a seed
 taken from ``generator`` and the problem's index, so its samples are not
@@ -21,8 +22,6 @@ the plain version's draws; ``host_variates`` (the JAX kernels'
 from __future__ import annotations
 
 import ctypes
-import dataclasses
-import math
 
 import torch
 
@@ -47,50 +46,14 @@ def reset_launch_counts() -> None:
         launch_counts[k] = 0
 
 
-THREADS = 128  # threads per block of either layout (sa_metropolis.cu kThreads)
-THREAD_MAX_N = 8  # widest THREAD layout: fully unrolled, state and fields in registers
-
-
-@dataclasses.dataclass(frozen=True)
-class K1Layout:
-    lanes: int  # threads per chain: 1 (THREAD layout) or 32 (LANES layout)
-    slots: int  # variables a thread owns: n (THREAD), else ⌈n / lanes⌉ up to a power of 2
-    chains_per_block: int
-    smem: int  # bytes per block: J_g
-    grid: tuple  # (blocks per group, groups)
-
-
-def k1_layout(G: int, B: int, R: int, n: int, lanes: int | None = None) -> K1Layout:
-    """K1's layout for G groups of B problems, R reads, width n.
-
-    Rule: one thread per chain (``lanes`` 1, the THREAD layout) at n ≤ 8
-    when the chains are many, G·B·R > 4,224 (= 32·132: more than a warp a
-    chain could place at 32 warps per SM); it does the least work a
-    decision while the chains fill the card's issue slots.  Otherwise a
-    chain is spread over a warp (``lanes`` 32, the LANES layout), so that
-    a decision's latency, not a dot product, sets a variable's cost.
-    ``lanes`` overrides the choice (for checks of a layout; the sampler
-    paths never pass it).  Both layouts hold J_g (4n² bytes ≤ 232,448:
-    n ≤ 241) in shared memory, in blocks of 128 threads.
-    """
-    if not kernel_call.fits_shared(n):
-        raise ValueError(f"sa_metropolis kernel: n={n} exceeds its bound (n ≤ 241)")
-    if lanes is None:
-        lanes = 1 if n <= THREAD_MAX_N and G * B * R > 32 * kernel_call.NUM_SMS else 32
-    if lanes not in (1, 32) or (lanes == 1 and n > THREAD_MAX_N):
-        raise ValueError(f"sa_metropolis kernel: no layout with {lanes} lanes at n={n}")
-    slots = n if lanes == 1 else 1 << (math.ceil(n / lanes) - 1).bit_length()
-    per_block = THREADS // lanes
-    return K1Layout(lanes, slots, per_block, 4 * n * n, (math.ceil(B * R / per_block), G))
-
-
 def launch(J, h, hot, logr, num_reads: int, num_sweeps: int, *, generator=None,
            host_variates=None, lanes: int | None = None,
            flips: torch.Tensor | None = None) -> torch.Tensor:
     """Launch K1 on the structured form, ``J`` (G, n, n), ``h`` (G, B, n),
-    ``hot``/``logr`` (G, B) → (G, B, R, n), in the layout :func:`k1_layout`
-    chooses (``lanes`` forces one).  ``flips`` ((1,) int64) is added the
-    number of flips the launch made; the sampler paths pass neither."""
+    ``hot``/``logr`` (G, B) → (G, B, R, n), in the layout
+    ``kernel_call.chain_layout`` chooses (``lanes`` forces one).  ``flips``
+    ((1,) int64) is added the number of flips the launch made; the sampler
+    paths pass neither."""
     from qbmx_torch._build import load_kernels
 
     lib = load_kernels()
@@ -98,7 +61,7 @@ def launch(J, h, hot, logr, num_reads: int, num_sweeps: int, *, generator=None,
     R, S = num_reads, num_sweeps
     ptrs = kernel_call.structured_ptrs("sa_metropolis", lib.qbmx_sa_metropolis_max_n(),
                                        J, h, hot, logr, R, S, host_variates)
-    layout = k1_layout(G, B, R, n, lanes)
+    layout = kernel_call.chain_layout(G, B, R, n, lanes)
     seed = draw_seed(generator) if host_variates is None else 0
     out = torch.empty((G, B, R, n), dtype=torch.float32, device=h.device)
     cptr = kernel_call.optional_ptr(flips, "flips", (1,), torch.int64, h.device)

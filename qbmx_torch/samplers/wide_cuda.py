@@ -47,9 +47,12 @@ def reset_launch_counts() -> None:
         launch_counts[k] = 0
 
 
-def field_drift_bound(h: torch.Tensor, J: torch.Tensor, num_sweeps: int) -> torch.Tensor:
+def field_drift_bound(h: torch.Tensor, J: torch.Tensor, num_sweeps: int,
+                      period: int = REFRESH_PERIOD) -> torch.Tensor:
     """(G, B, 1, n) float64 limit on |f_j − (h_j + Σ_k J_jk s_k)| for the
-    final fields of a K4 run of ``num_sweeps`` sweeps, √A·2^-24·M_j.
+    final fields of a K4 run of ``num_sweeps`` sweeps, √A·2^-24·M_j; with
+    ``period`` the refresh period of another kernel with incremental fields
+    (K2's LANES layout: ``gibbs_cuda.REFRESH_PERIOD``), for its run.
 
     A field is recomputed at the last refresh sweep (n terms and h) and then
     takes at most one add of ±J_jk per decision since (n a sweep): at most
@@ -62,7 +65,7 @@ def field_drift_bound(h: torch.Tensor, J: torch.Tensor, num_sweeps: int) -> torc
     of |J_jk| exceeds it unless |J_jk| < √A·2^-24·M_j (at n=717 and 40
     sweeps since the refresh, ~1% of a typical |J_jk|)."""
     n = h.shape[-1]
-    since = num_sweeps - REFRESH_PERIOD * ((num_sweeps - 1) // REFRESH_PERIOD)
+    since = num_sweeps - period * ((num_sweeps - 1) // period)
     scale = h.double().abs() + J.double().abs().sum(-1)[:, None, :]
     return (math.sqrt(n + 1 + n * since) * 2.0**-24 * scale)[:, :, None, :]
 

@@ -34,6 +34,20 @@ PHILOX_OPS, PHILOX_IMULS = 25, 10  # a draw's operations, and its int32 multipli
 OPS_PER_DECISION = PHILOX_OPS + 4
 
 
+def heatbath_units(n: int, width: int) -> int:
+    """Decisions (one draw each) of a heat-bath sweep of n variables at
+    update width 1, 2 or 4: singles; pairs and a trailing single; quads,
+    then a remainder pair and/or single (``samplers/gibbs.py``'s schedule)."""
+    if width == 1:
+        return n
+    if width == 2:
+        return n // 2 + n % 2
+    if width == 4:
+        r = n % 4
+        return n // 4 + (r >= 2) + r % 2
+    raise ValueError(f"no heat-bath update of width {width}")
+
+
 def anneal_bound(G: int, B: int, R: int, n: int, S: int, *, decisions: int | None = None,
                  flips: int | None = None, J_groups: int | None = None) -> dict:
     """``{"bound_ms", "bound_by", "bytes", "ops"}`` of one launch over G

@@ -1,10 +1,11 @@
 """The CUDA kernels on the card -- Metropolis (qbmx_torch/csrc/sa_metropolis.cu),
 heat-bath (sa_heatbath.cu, each update width), the wide anneal
 (anneal_wide.cu, both rules, for couplings beyond shared memory) and
-parallel tempering (pt_heatbath.cu) -- at small shapes: each against its plain PyTorch version
+parallel tempering (pt_heatbath.cu) -- at small shapes, each layout of each
+kernel forced as well as chosen: each against its plain PyTorch version
 under host variates and on its own Philox draws written out, its Philox
-streams against the exact oracle, the launch counters, and the wrappers'
-refusals.  ``chip_smoke.py`` runs the same checks at the
+streams against the exact oracle, the launch counters, the incremental
+fields of K2 and K4, and the wrappers' refusals.  ``chip_smoke.py`` runs the same checks at the
 main path's shapes.
 
 Run on a machine with a CUDA GPU:  python -m pytest --noconftest tests/test_torch_cuda.py
@@ -159,7 +160,8 @@ WIDTHS = {1: dict(), 2: dict(pair=True), 4: dict(quad=True)}
 
 @pytest.mark.parametrize("width", [1, 2, 4])
 @pytest.mark.parametrize("G,B,n,R,S", [(2, 3, 6, 40, 7), (1, 2, 41, 33, 5),
-                                       (3, 2, 11, 130, 6), (1, 1, 199, 4, 2)])
+                                       (3, 2, 11, 130, 6), (1, 1, 199, 4, 2),
+                                       (2, 3, 41, 100, 30)])  # the CDQBM default call
 def test_heatbath_groups_kernel_matches_plain(dev, width, G, B, n, R, S):
     rng = np.random.default_rng(n + width)
     Q = random_qubo_batch(rng, G, n).to(dev)
@@ -400,7 +402,11 @@ def _pt_variates(rng, B, M, n, R, S, dev):
 
 
 @pytest.mark.parametrize("B,n,M,R,S", [(3, 6, 8, 200, 20), (2, 41, 4, 33, 5),
-                                       (2, 5, 3, 130, 6), (1, 7, 1, 16, 3), (1, 30, 60, 8, 2)])
+                                       (2, 5, 3, 130, 6), (1, 7, 1, 16, 3), (1, 30, 60, 8, 2),
+                                       (2, 100, 32, 8, 4),  # M·n = 3,200
+                                       (2, 241, 8, 6, 3), (1, 241, 15, 3, 2),  # n = 241
+                                       (1, 64, 33, 6, 3),  # two rungs a warp
+                                       (3, 8, 32, 20, 6)])  # a ladder a warp's lanes
 def test_pt_kernel_matches_plain(dev, B, n, M, R, S):
     rng = np.random.default_rng(300 + n + M)
     Q = random_qubo_batch(rng, B, n).to(dev)
@@ -458,7 +464,7 @@ def test_pt_wrapper_refuses_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="uniforms"):
         pt_cuda.pt_sample_batch_cuda(Q, 3, 2, num_replicas=2,
                                      host_variates=(init01, u.transpose(2, 3), sw))
-    for n, M in ((257, 2), (4, 65), (64, 33)):
+    for n, M in ((257, 2), (4, 65), (241, 16)):  # J_b and 2·M energies beyond shared memory
         with pytest.raises(ValueError, match="exceed its bound"):
             pt_cuda.pt_sample_batch_cuda(torch.zeros((1, n, n), device=dev), 2, 2,
                                          num_replicas=M)
@@ -509,11 +515,16 @@ def test_geometry_rules_match_the_kernels(dev):
     assert lib.qbmx_sa_metropolis_max_n() == 241
     with pytest.raises(ValueError, match="exceeds its bound"):
         wide_cuda.wide_geometry(1, 1, 1, wide_cuda.max_n() + 1)
+    assert (lib.qbmx_pt_heatbath_max_n(), lib.qbmx_pt_heatbath_max_rungs()) == \
+        (pt_cuda.MAX_N, pt_cuda.MAX_RUNGS)
+    for kind in (pt_cuda.RUNG, pt_cuda.WARP):
+        for n, M in ((6, 8), (41, 32), (241, 15), (240, 64)):
+            assert lib.qbmx_pt_heatbath_smem(kind, n, M) == pt_cuda.smem_bytes(kind, n, M)
 
 
 K1_SHAPES = [(2, 3, 6, 37, 5), (1, 2, 8, 45, 4), (2, 2, 41, 35, 6), (1, 2, 128, 9, 3),
              (1, 3, 241, 11, 2)]
-K1_MAX_N = {1: sa_cuda.THREAD_MAX_N, 32: 241}
+K1_MAX_N = {1: kernel_call.THREAD_MAX_N, 32: 241}
 
 
 @pytest.mark.parametrize("lanes,G,B,n,R,S", [(lanes, *shape) for lanes in (1, 32)
@@ -655,3 +666,135 @@ def test_wide_fields_stay_near_a_recompute(dev, rule, G, B, n, R, S):
     lost = fields.double().clone()
     lost[0, 0, 0] -= typical.double()  # every field of one chain, one add short
     assert ((lost - exact).abs()[0, 0, 0] > bound[0, 0, 0]).all()
+
+
+# -- the layouts of K2 and K3 ----------------------------------------------------
+
+K2_SHAPES = [(2, 3, 6, 37, 5), (1, 2, 7, 45, 4), (2, 3, 41, 100, 12), (1, 2, 128, 9, 3),
+             (1, 3, 241, 11, 2)]
+
+
+@pytest.mark.parametrize("lanes,width,G,B,n,R,S", [
+    (lanes, width, *shape) for lanes in (1, 32) for width in (1, 2, 4) for shape in K2_SHAPES
+    if shape[2] <= K1_MAX_N[lanes]])
+def test_k2_layouts_match_plain(dev, lanes, width, G, B, n, R, S):
+    """Each K2 layout, forced, against the plain version under host
+    variates; B·R is no multiple of a block's chains (4 at a warp a chain)."""
+    rng = np.random.default_rng(n + lanes + width)
+    Q, h_extra = _structured(rng, G, B, n, dev)
+    hv = _variates(rng, (G, B), n, R, S, dev)
+    J, h, hot, logr = _structured_form(Q, h_extra, S, width)
+    flips = torch.zeros(1, dtype=torch.int64, device=dev)
+    got = gibbs_cuda.launch(J, h, hot, logr, R, S, width, host_variates=hv, lanes=lanes,
+                            flips=flips)
+    want = gibbs.gibbs_sample_groups_plain(Q, h_extra, R, S, beta=1.5, host_variates=hv,
+                                           **WIDTHS[width])
+    assert got.shape == (G, B, R, n)
+    assert _differ(got, want) <= MAX_DIFF_FRAC
+    assert 0 < flips.item() <= G * B * R * n * S
+
+
+@pytest.mark.parametrize("lanes", [1, 32])
+@pytest.mark.parametrize("width", [1, 2, 4])
+def test_k2_layouts_match_oracle(dev, lanes, width):
+    """tests/test_gibbs_pt_pallas_debug.py's problems and bars, each layout."""
+    seed, reads, sweeps, atol = (9, 384, 48, 0.08) if width == 1 else (11, 2048, 64, 0.05)
+    Q = torch.as_tensor(np.triu(np.random.default_rng(seed).uniform(-1, 1, (1, 6, 6)))
+                        .astype(np.float32), device=dev)
+    J, h, hot, logr = _structured_form(Q, torch.zeros((1, 1, 6), device=dev), sweeps, width, 1.0)
+    s = gibbs_cuda.launch(J, h, hot, logr, reads, sweeps, width, lanes=lanes,
+                          generator=torch.Generator().manual_seed(4))[0, 0]
+    _, _, marg, pair_m = exact_boltzmann(Q[0], beta=1.0)
+    assert set(s.unique().tolist()) <= {0.0, 1.0}
+    assert torch.allclose(s.mean(0), marg, atol=atol)
+    if width > 1:
+        assert torch.allclose(s.T @ s / reads, pair_m, atol=0.07)
+
+
+@pytest.mark.parametrize("lanes", [1, 32])
+@pytest.mark.parametrize("width", [1, 2, 4])
+def test_k2_layouts_on_their_philox_draws(dev, lanes, width):
+    """Each layout draws K1's streams: ``philox_variates`` writes them out."""
+    G, B, n, R, S = 2, 3, 7, 40, 6
+    rng = np.random.default_rng(33 + width)
+    Q, h_extra = _structured(rng, G, B, n, dev)
+    J, h, hot, logr = _structured_form(Q, h_extra, S, width)
+    seed = draw_seed(torch.Generator().manual_seed(16))
+    got = gibbs_cuda.launch(J, h, hot, logr, R, S, width, lanes=lanes,
+                            generator=torch.Generator().manual_seed(16))
+    hv = tuple(torch.as_tensor(a, device=dev) for a in sa_torch.philox_variates(seed, G, B, R, n, S))
+    want = gibbs.gibbs_sample_groups_plain(Q, h_extra, R, S, beta=1.5, host_variates=hv,
+                                           **WIDTHS[width])
+    assert _differ(got, want) <= MAX_DIFF_FRAC
+
+
+@pytest.mark.parametrize("width", [1, 2, 4])
+def test_k2_fields_stay_near_a_recompute(dev, width):
+    """The LANES layout's final incremental fields at the CDQBM default
+    call's width against h + J·s in float64, after more sweeps than one
+    refresh period, within ``wide_cuda.field_drift_bound`` at K2's period;
+    one field that lost one add of its row's median |J_jk| would not be.
+    The THREAD layout keeps no fields and refuses ``fields_out``."""
+    G, B, n, R, S = 2, 3, 41, 100, 40
+    rng = np.random.default_rng(80 + width)
+    Q, h_extra = _structured(rng, G, B, n, dev)
+    J, h, hot, logr = _structured_form(Q, h_extra, S, width)
+    fields = torch.empty((G, B, R, n), device=dev)
+    s = gibbs_cuda.launch(J, h, hot, logr, R, S, width, fields_out=fields,
+                          generator=torch.Generator().manual_seed(3))
+    exact = h.double()[:, :, None] + torch.einsum("gbrj,gij->gbri", s.double(), J.double())
+    bound = wide_cuda.field_drift_bound(h, J, S, gibbs_cuda.REFRESH_PERIOD)
+    assert ((fields.double() - exact).abs() <= bound).all()
+    typical = J[0].abs().masked_fill(J[0] == 0, float("nan")).nanmedian(dim=1).values
+    lost = fields.double().clone()
+    lost[0, 0, 0] -= typical.double()
+    assert ((lost - exact).abs()[0, 0, 0] > bound[0, 0, 0]).all()
+    with pytest.raises(ValueError, match="keeps no fields"):
+        gibbs_cuda.launch(J[:, :6, :6].contiguous(), h[..., :6].contiguous(), hot, logr, R, S,
+                          width, lanes=1, fields_out=fields[..., :6].contiguous())
+
+
+PT_LAYOUTS = {"rung": pt_cuda.RUNG, "warp": pt_cuda.WARP}
+
+
+@pytest.mark.parametrize("layout", list(PT_LAYOUTS))
+@pytest.mark.parametrize("B,n,M,R,S", [(3, 6, 8, 70, 12), (2, 5, 3, 33, 6), (1, 7, 1, 16, 3),
+                                       (2, 8, 32, 9, 5), (1, 4, 5, 13, 40)])
+def test_pt_layouts_match_plain(dev, layout, B, n, M, R, S):
+    """Each K3 layout, forced, against the plain version under host
+    variates; R is no multiple of a RUNG block's ladders, nor of a warp's."""
+    rng = np.random.default_rng(400 + n + M)
+    Q = random_qubo_batch(rng, B, n).to(dev)
+    hv = _pt_variates(rng, B, M, n, R, S, dev)
+    got = pt_cuda.pt_sample_batch_cuda(Q, R, S, num_replicas=M, host_variates=hv,
+                                       _layout=PT_LAYOUTS[layout])
+    want = tempering.pt_sample_batch_plain(Q, R, S, num_replicas=M, host_variates=hv)
+    assert got.shape == (B, R, n)
+    assert _differ(got, want) <= MAX_DIFF_FRAC
+
+
+@pytest.mark.parametrize("layout", list(PT_LAYOUTS))
+def test_pt_layouts_match_oracle(dev, layout):
+    rng = np.random.default_rng(3)
+    Q = torch.as_tensor(np.triu(rng.uniform(-1.5, 1.5, (1, 5, 5))).astype(np.float32),
+                        device=dev)
+    s = pt_cuda.pt_sample_batch_cuda(Q, 384, 24, num_replicas=4, _layout=PT_LAYOUTS[layout],
+                                     generator=torch.Generator().manual_seed(0))[0]
+    _, _, marg, _ = exact_boltzmann(Q[0], beta=1.0)
+    assert set(s.unique().tolist()) <= {0.0, 1.0}
+    assert torch.allclose(s.mean(0), marg, atol=0.08)
+
+
+@pytest.mark.parametrize("layout,B,n,M,R,S", [("rung", 3, 6, 5, 64, 8), ("warp", 3, 6, 5, 64, 8),
+                                              ("warp", 2, 41, 8, 16, 6),
+                                              ("warp", 1, 20, 40, 8, 4)])
+def test_pt_layouts_on_their_philox_draws(dev, layout, B, n, M, R, S):
+    """Each layout draws the streams ``pt_philox_variates`` writes out."""
+    Q = random_qubo_batch(np.random.default_rng(5 + n), B, n).to(dev)
+    seed = draw_seed(torch.Generator().manual_seed(13))
+    got = pt_cuda.pt_sample_batch_cuda(Q, R, S, num_replicas=M, _layout=PT_LAYOUTS[layout],
+                                       generator=torch.Generator().manual_seed(13))
+    hv = tuple(torch.as_tensor(a, device=dev)
+               for a in sa_torch.pt_philox_variates(seed, B, M, R, n, S))
+    want = tempering.pt_sample_batch_plain(Q, R, S, num_replicas=M, host_variates=hv)
+    assert _differ(got, want) <= MAX_DIFF_FRAC

@@ -1,10 +1,13 @@
-"""The launch-geometry rules of the anneal kernels, on the CPU: K1's layout
-choice (``sa_cuda.k1_layout``: one thread per chain, or a chain spread over
-a warp) and K4's geometry (``wide_cuda.wide_geometry``: chains per block, a
-warp each, and shared memory) at the shapes the main paths launch, at the
-K1/K4 boundary and at K4's widest n; K4's field-drift limit and the
-roofline bound.  ``test_torch_cuda.py`` checks on the card that the kernels
-accept what these rules report."""
+"""The launch-geometry rules of the anneal kernels, on the CPU: the layout
+choice K1 and K2 share (``kernel_call.chain_layout``: one thread per
+chain, or a chain spread over a warp), K4's geometry
+(``wide_cuda.wide_geometry``: chains per block, a warp each, and shared
+memory) and K3's layout (``pt_cuda.pt_layout``: a rung a thread or a rung
+a warp, and the kernel's bounds) at the shapes the main paths launch, at
+the K1/K4 boundary and at the kernels' widest shapes; the field-drift
+limit of K4 and of K2's LANES layout, and the roofline bound.
+``test_torch_cuda.py`` checks on the card that the kernels accept what
+these rules report."""
 
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import pytest
 import torch
 
 from qbmx_torch.core.qubo import random_qubo_batch, split_qubo
-from qbmx_torch.samplers import kernel_call, sa_cuda, wide_cuda
+from qbmx_torch.samplers import gibbs_cuda, kernel_call, pt_cuda, sa_cuda, wide_cuda
 from qbmx_torch.utils import roofline
 
 GRID_X, GRID_Y = 2**31 - 1, 65535
@@ -42,10 +45,10 @@ def _within_limits(smem: int, threads: int, grid: tuple) -> None:
 @pytest.mark.parametrize("name", [k for k, v in SHAPES.items() if v[3] <= 241])
 def test_k1_layout_within_the_card_limits(name):
     G, B, R, n = SHAPES[name]
-    lay = sa_cuda.k1_layout(G, B, R, n)
-    _within_limits(lay.smem, sa_cuda.THREADS, lay.grid)
+    lay = kernel_call.chain_layout(G, B, R, n)
+    _within_limits(lay.smem, kernel_call.THREADS, lay.grid)
     assert lay.smem == 4 * n * n
-    assert lay.chains_per_block * lay.lanes == sa_cuda.THREADS
+    assert lay.chains_per_block * lay.lanes == kernel_call.THREADS
     assert lay.grid == (math.ceil(B * R / lay.chains_per_block), G)
     assert lay.grid[0] * lay.chains_per_block >= B * R  # every chain has a place
     if lay.lanes > 1:
@@ -63,28 +66,28 @@ def test_k1_layout_within_the_card_limits(name):
     ("n=241 many chains", 32),  # 60,000 chains
 ])
 def test_k1_layout_chosen(name, lanes):
-    assert sa_cuda.k1_layout(*SHAPES[name]).lanes == lanes
+    assert kernel_call.chain_layout(*SHAPES[name]).lanes == lanes
 
 
 def test_k1_layout_boundaries():
     few = 32 * kernel_call.NUM_SMS  # 4,224 chains
-    assert sa_cuda.k1_layout(1, 1, few, 8).lanes == 32
-    assert sa_cuda.k1_layout(1, 1, few + 1, 8).lanes == 1
-    assert sa_cuda.k1_layout(1, 1, few + 1, 9).lanes == 32
-    assert sa_cuda.k1_layout(1, 1, few, 9).lanes == 32
+    assert kernel_call.chain_layout(1, 1, few, 8).lanes == 32
+    assert kernel_call.chain_layout(1, 1, few + 1, 8).lanes == 1
+    assert kernel_call.chain_layout(1, 1, few + 1, 9).lanes == 32
+    assert kernel_call.chain_layout(1, 1, few, 9).lanes == 32
     # a forced layout, as the checks of each layout ask for it
-    assert sa_cuda.k1_layout(1, 1, 512, 5, lanes=1).lanes == 1
-    assert sa_cuda.k1_layout(2, 60, 1000, 6, lanes=32).slots == 1
-    assert sa_cuda.k1_layout(1, 1, 8, 128, lanes=32).slots == 4
-    assert sa_cuda.k1_layout(1, 1, 8, 241, lanes=32).slots == 8
+    assert kernel_call.chain_layout(1, 1, 512, 5, lanes=1).lanes == 1
+    assert kernel_call.chain_layout(2, 60, 1000, 6, lanes=32).slots == 1
+    assert kernel_call.chain_layout(1, 1, 8, 128, lanes=32).slots == 4
+    assert kernel_call.chain_layout(1, 1, 8, 241, lanes=32).slots == 8
     with pytest.raises(ValueError, match="no layout"):
-        sa_cuda.k1_layout(1, 1, 8, 41, lanes=8)
+        kernel_call.chain_layout(1, 1, 8, 41, lanes=8)
     with pytest.raises(ValueError, match="no layout"):
-        sa_cuda.k1_layout(1, 1, 8, 9, lanes=1)
+        kernel_call.chain_layout(1, 1, 8, 9, lanes=1)
     with pytest.raises(ValueError, match="no layout"):
-        sa_cuda.k1_layout(1, 1, 8, 9, lanes=16)
+        kernel_call.chain_layout(1, 1, 8, 9, lanes=16)
     with pytest.raises(ValueError, match="exceeds its bound"):
-        sa_cuda.k1_layout(1, 1, 8, 242)
+        kernel_call.chain_layout(1, 1, 8, 242)
 
 
 @pytest.mark.parametrize("name", [k for k, v in SHAPES.items() if v[3] > 241])
@@ -138,7 +141,7 @@ def test_wide_layout_strides(n, jrow, frow):
 def test_k1_k4_boundary():
     """K1 (J_g in shared memory) up to n = 241, K4 above."""
     assert kernel_call.fits_shared(241) and not kernel_call.fits_shared(242)
-    assert sa_cuda.k1_layout(2, 3, 100, 241).smem <= kernel_call.SMEM_BYTES
+    assert kernel_call.chain_layout(2, 3, 100, 241).smem <= kernel_call.SMEM_BYTES
     assert wide_cuda.wide_geometry(2, 3, 100, 242).threads == 32 * 5  # 600 chains, 5 a block
 
 
@@ -190,3 +193,141 @@ def test_roofline_bound_counts_issue_slots():
     b = roofline.anneal_bound(1, 1, 1, 2000, 1)  # a 16 MB J_g read for 2,000 decisions
     assert b["bound_by"] == "bytes"
     assert b["bytes"] == 4 * (2000 * 2000 + 2000 + 2 + 2000)
+
+
+class _Picked(Exception):
+    """Raised by a stand-in layout rule once a wrapper has asked it."""
+
+
+@pytest.mark.parametrize("name", ["flagship", "dense bench", "CDQBM (b)"])
+def test_k1_and_k2_take_their_layout_from_one_rule(monkeypatch, name):
+    """The launches of K1 (``sa_cuda.launch``) and K2 (``gibbs_cuda.launch``)
+    ask the one rule, ``kernel_call.chain_layout``, with the same
+    arguments, so at every shape both pick the same layout."""
+    from qbmx_torch import _build
+
+    G, B, R, n = SHAPES[name]
+    asked = []
+
+    def rule(*args):
+        asked.append(args)
+        raise _Picked
+
+    class Lib:  # the bound each wrapper reads before its layout
+        qbmx_sa_metropolis_max_n = qbmx_sa_heatbath_max_n = staticmethod(lambda: 241)
+
+    monkeypatch.setattr(_build, "load_kernels", lambda: Lib)
+    monkeypatch.setattr(kernel_call, "chain_layout", rule)
+    J, h = torch.zeros((G, n, n)), torch.zeros((G, B, n))
+    hot, logr = torch.ones((G, B)), torch.zeros((G, B))
+    with pytest.raises(_Picked):
+        sa_cuda.launch(J, h, hot, logr, R, 10)
+    for width in (1, 2, 4):
+        with pytest.raises(_Picked):
+            gibbs_cuda.launch(J, h, hot, logr, R, 10, width)
+    assert asked == [(G, B, R, n, None)] * 4
+
+
+PT_SHAPES = {  # (B, M, R, n)
+    "flagship PT": (120, 8, 1000, 6),  # the flat Disc_QBM densified at H=5
+    "CLI defaults PT": (146, 8, 100, 3),
+    "one rung": (3, 1, 100, 5),
+    "odd ladder": (3, 5, 100, 7),
+    "32 rungs": (2, 32, 50, 8),
+    "33 rungs": (2, 33, 50, 8),
+    "n=41": (60, 8, 100, 41),
+    "n=100 M=32": (2, 32, 8, 100),  # M·n = 3,200
+    "n=240 M=64": (1, 64, 10, 240),  # M·n = 15,360
+    "n=241 M=8": (4, 8, 32, 241),
+    "n=241 M=15": (1, 15, 4, 241),  # the widest ladder at n = 241
+}
+
+
+@pytest.mark.parametrize("name", list(PT_SHAPES))
+def test_pt_layout_within_the_card_limits(name):
+    B, M, R, n = PT_SHAPES[name]
+    lay = pt_cuda.pt_layout(B, M, R, n)
+    _within_limits(lay.smem, lay.threads, lay.grid)
+    assert lay.grid[1] == B and lay.grid[0] * lay.ladders_per_block >= R  # every ladder placed
+    assert lay.smem == pt_cuda.smem_bytes(lay.kind, n, M)
+    if lay.kind == pt_cuda.RUNG:
+        assert n <= 8 and M <= 32 and lay.threads == 128 and lay.smem == 4 * n * n
+        assert lay.ladders_per_block == 4 * (32 // M)  # a ladder within one warp's lanes
+    else:
+        assert lay.rungs_per_warp == (1 if M <= 32 else 2) and lay.ladders_per_block == 1
+        assert lay.threads == 32 * math.ceil(M / lay.rungs_per_warp)
+        assert lay.smem == 4 * (n * n + 2 * M) and lay.grid == (R, B)
+
+
+@pytest.mark.parametrize("name,kind", [
+    ("flagship PT", pt_cuda.RUNG), ("CLI defaults PT", pt_cuda.RUNG), ("one rung", pt_cuda.RUNG),
+    ("odd ladder", pt_cuda.RUNG), ("32 rungs", pt_cuda.RUNG),
+    ("33 rungs", pt_cuda.WARP),  # more rungs than a warp has lanes
+    ("n=41", pt_cuda.WARP), ("n=100 M=32", pt_cuda.WARP), ("n=241 M=8", pt_cuda.WARP),
+])
+def test_pt_layout_chosen(name, kind):
+    assert pt_cuda.pt_layout(*PT_SHAPES[name]).kind == kind
+
+
+def test_pt_layout_bounds():
+    """Every ladder the one-thread design took (n ≤ 241, M ≤ 64, M·n ≤
+    2048) and more: M·n is not bounded, every M ≤ 64 up to n = 240 and
+    M ≤ 15 at n = 241, where J_b and the exchanged energies fill shared
+    memory."""
+    for n in range(1, 242):
+        for M in sorted({1, 2, 8, min(64, 2048 // n)}):
+            pt_cuda.pt_layout(2, M, 10, n)
+    for n in (9, 100, 240):
+        assert pt_cuda.pt_layout(1, 64, 1, n).kind == pt_cuda.WARP
+    assert pt_cuda.pt_layout(1, 15, 1, 241).smem <= kernel_call.SMEM_BYTES
+    assert 241 * 9 > 2048 and pt_cuda.pt_layout(1, 9, 1, 241).kind == pt_cuda.WARP
+    for n, M in ((242, 1), (4, 65), (241, 16), (0, 4), (4, 0)):
+        with pytest.raises(ValueError, match="exceed its bound"):
+            pt_cuda.pt_layout(1, M, 1, n)
+    with pytest.raises(ValueError, match="grid"):
+        pt_cuda.pt_layout(65536, 8, 1, 6)
+    # a forced layout, as the checks of each layout ask for it
+    assert pt_cuda.pt_layout(120, 8, 1000, 6, pt_cuda.WARP).kind == pt_cuda.WARP
+    for n, M in ((9, 8), (6, 33)):
+        with pytest.raises(ValueError, match="no RUNG layout"):
+            pt_cuda.pt_layout(1, M, 1, n, pt_cuda.RUNG)
+
+
+def test_k2_field_drift_limit_catches_one_lost_add():
+    """K2's LANES layout refreshes its fields every 16th sweep: at the
+    CDQBM default call (n = 41, S = 1000) its drift limit lies below every
+    row's median |J_jk|, and covers the adds of the 8 sweeps since the
+    last refresh."""
+    n, S = 41, 1000
+    rng = np.random.default_rng(n)
+    hs, J = split_qubo(random_qubo_batch(rng, 2, n))
+    h = hs[:, None, :] + torch.as_tensor(rng.normal(size=(2, 3, n)).astype(np.float32))
+    bound = wide_cuda.field_drift_bound(h, J, S, gibbs_cuda.REFRESH_PERIOD)
+    typical = J.abs().masked_fill(J == 0, float("nan")).nanmedian(dim=2).values  # (2, n)
+    assert (bound[:, :, 0] < typical[:, None].double()).all()
+    scale = h.double().abs() + J.double().abs().sum(-1)[:, None, :]
+    assert torch.allclose(bound[:, :, 0], math.sqrt(n + 1 + n * 8) * 2.0**-24 * scale)
+    assert (bound < wide_cuda.field_drift_bound(h, J, S)).all()  # K4's period, 40 sweeps since
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 6, 7, 41, 42, 43, 241])
+def test_heatbath_units_count_the_sweep(n):
+    """A heat-bath sweep's decisions (one draw each) at every width: n
+    singles; ⌈n/2⌉ pairs and a trailing single; quads, then a remainder pair
+    and/or single -- the plain version's schedule."""
+    assert roofline.heatbath_units(n, 1) == n
+    assert roofline.heatbath_units(n, 2) == n // 2 + n % 2
+    r = n % 4
+    assert roofline.heatbath_units(n, 4) == n // 4 + (r >= 2) + r % 2
+    with pytest.raises(ValueError):
+        roofline.heatbath_units(n, 3)
+
+
+def test_k2_bound_at_the_cdqbm_default_call():
+    """K2 pair at G=2 B=3 n=41 R=100 S=1000: 21 draws a sweep, bounded by
+    operations at ~0.011 ms on the H100's issue rate."""
+    b = roofline.anneal_bound(2, 3, 100, 41, 1000,
+                              decisions=2 * 3 * 100 * roofline.heatbath_units(41, 2) * 1000)
+    assert b["bound_by"] == "operations"
+    assert b["bound_ms"] == pytest.approx(1e3 * 2 * 3 * 100 * 21 * 1000 * 29 / 33.5e12)
+    assert round(b["bound_ms"], 3) == 0.011

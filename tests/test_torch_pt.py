@@ -228,3 +228,66 @@ def test_three_pt_steps_and_predict_match(one_hot, restricted, shortcut):
     (tpred, tprob), (jpred, jprob) = tm.predict_batch(X), jm.predict_batch(X)
     np.testing.assert_array_equal(tpred, jpred)
     _close(tprob, jprob, rtol=0, atol=1e-5)
+
+
+def _pt_by_temperatures(Q, num_reads, num_sweeps, M, host_variates, beta_target=1.0):
+    """PT as the CUDA kernel runs it: every state stays where it starts and
+    carries its energy and the index ``rho`` of the rung it sits at; a swap
+    exchanges two states' rungs.  The state at rung m draws rung m's
+    variates (slot b·M + m) at ``betas[m]``.  Returns the target rung's
+    states and the final rungs (B, M, R)."""
+    from qbmx_torch.core.qubo import split_qubo
+
+    B, n = Q.shape[0], Q.shape[-1]
+    R = num_reads
+    init01, uniforms, swap_u = host_variates
+    h, J = split_qubo(Q)
+    h, J = h[:, None], J[:, None]
+    betas, dbeta = tempering.ladder_betas(Q, M, beta_target)
+    s = init01.reshape(B, M, R, n).clone()  # by state; state w starts at rung w
+    rungs = torch.arange(M)[None, :, None].expand(B, M, R)
+    rho = rungs.clone()
+    for t in range(num_sweeps):
+        u = uniforms[t].reshape(B, M, n, R)
+        u_by_state = torch.gather(u, 1, rho[:, :, None, :].expand(B, M, n, R))
+        beta_by_state = torch.gather(betas[:, :, None].expand(B, M, R), 1, rho)
+        thresh = (torch.log(1 - u_by_state) - torch.log(u_by_state)) / beta_by_state[:, :, None]
+        for i in range(n):
+            field = h[..., i, None] + torch.matmul(s, J[..., i, :, None])[..., 0]
+            s[..., i] = (field < thresh[..., i, :]).to(s.dtype)
+        if t % 2 >= M - 1:
+            continue
+        E = (s @ h[..., None])[..., 0] + 0.5 * ((s @ J) * s).sum(-1)  # by state
+        at = torch.empty_like(rho).scatter_(1, rho, rungs)
+        E_rung = torch.gather(E, 1, at)  # at[:, m]: the state at rung m
+        lo = torch.arange(t % 2, M - 1, 2)
+        usw = swap_u[t].reshape(B, M, R)[:, lo]
+        swap = dbeta[:, lo, None] * (E_rung[:, lo] - E_rung[:, lo + 1]) < -torch.log(usw)
+        new_at = at.clone()
+        new_at[:, lo] = torch.where(swap, at[:, lo + 1], at[:, lo])
+        new_at[:, lo + 1] = torch.where(swap, at[:, lo], at[:, lo + 1])
+        rho = torch.empty_like(rho).scatter_(1, new_at, rungs)
+    target = rho.eq(M - 1).to(torch.int64).argmax(1, keepdim=True)  # (B, 1, R): its state
+    out = torch.gather(s, 1, target[..., None].expand(B, 1, R, n))[:, 0]
+    return out, rho
+
+
+@pytest.mark.parametrize("n,B,M,reads,sweeps", [
+    (5, 2, 4, 8, 6),
+    (6, 3, 8, 16, 12),
+    (7, 1, 5, 6, 9),    # a ladder that is not a power of two
+    (10, 2, 2, 8, 4),
+    (5, 2, 1, 8, 3),    # one rung: no exchange
+])
+def test_swapping_temperatures_equals_swapping_states(n, B, M, reads, sweeps):
+    """The CUDA kernel's design, emulated here: exchanging the rungs of two
+    states gives exactly the plain version's samples, which exchanges the
+    states, on the same host variates (slot b·M + m keyed by the rung)."""
+    Q, init01, uniforms, swap_u = _problem(n, B, M, reads, sweeps)
+    hv = (T(init01), T(uniforms), T(swap_u))
+    got, rho = _pt_by_temperatures(T(Q), reads, sweeps, M, hv)
+    want = tempering.pt_sample_batch_plain(T(Q), reads, sweeps, num_replicas=M, host_variates=hv)
+    assert torch.equal(got, want)
+    assert torch.equal(rho.sort(1).values, torch.arange(M)[None, :, None].expand_as(rho))
+    if M > 2:  # the emulation did move states between rungs
+        assert not torch.equal(rho, torch.arange(M)[None, :, None].expand_as(rho))
