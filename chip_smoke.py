@@ -5,11 +5,13 @@ Run from the root of a checkout on a machine with one CUDA GPU:
 
     python3 chip_smoke.py
 
-Four hand-written kernels are checked: K1 ``sa_metropolis`` (annealed
+Five hand-written kernels are checked: K1 ``sa_metropolis`` (annealed
 Metropolis), K2 ``sa_heatbath`` (annealed heat-bath, single/pair/quad
-updates), K3 ``pt_heatbath`` (parallel tempering) and K4 ``anneal_wide``
+updates), K3 ``pt_heatbath`` (parallel tempering), K4 ``anneal_wide``
 (both anneal rules for QUBOs whose couplings exceed shared memory, n > 241,
-which the K1/K2 wrappers route to it).  K1 and K2 each run a thread a
+which the K1/K2 wrappers route to it) and K5 ``pt_wide`` (parallel
+tempering where K3 cannot hold J_b: n > 241, or M ≥ 16 at n = 241, which
+``pt_wide_cuda.pt_route`` sends to it).  K1 and K2 each run a thread a
 chain or a warp a chain, by one rule (``kernel_call.chain_layout``); K3 a
 rung a thread or a rung a warp (``pt_cuda.pt_layout``).  Phases (any
 failure exits nonzero; nothing carries on after one):
@@ -27,9 +29,14 @@ failure exits nonzero; nothing carries on after one):
    beyond the first design's M·n ≤ 2048 at B=4, n=241, M=12, R=32, S=20;
    K4 Metropolis and pair at the CDQBM probabilistic-pooling shape (G=2,
    B=20, n=717, R=100, S=10), on its dense entry (B=32, n=717) and at the
-   widest n it takes (R=200, S=2): at most 1% of chains may end in another
-   state (a near-tie decision from a differently rounded field diverges
-   that one chain);
+   widest n it takes (R=200, S=2); K5 through the sampler's structured entry
+   against the plain version on the densified batch at (G=2, B=4, n=300,
+   M=8, R=16, S=20), (G=2, B=2, n=717, M=8, R=8, S=10), (n, M) = (241,
+   16) and the CDQBM (a) PT call (G=2, B=20, n=717, M=8, R=100, S=10: four
+   ladders a block), and launched directly with three ladders a block at
+   the n=300 shape, where the last block holds spare ladders: at most 1%
+   of chains may end in another state (a near-tie decision
+   from a differently rounded field or energy diverges that one chain);
 4. the kernels' own Philox streams: vs the exact Boltzmann oracle (K1
    marginals within 0.12 at the cold beta; K2 at each layout and K3 at
    each layout within 0.08 single / 0.05 pair and quad, pair moments
@@ -44,7 +51,12 @@ failure exits nonzero; nothing carries on after one):
    float64, within the statistical rounding limit of the adds since their
    last recomputation (``wide_cuda.field_drift_bound``), and the same check
    failing on one chain's fields each one add of their row's median |J_jk|
-   short (a planted fault: the limit has teeth);
+   short (a planted fault: the limit has teeth); K5 launched directly at n in
+   (2, 5, 8) against the oracle (K3's bar), on its own Philox draws at the
+   n=300 shape (``pt_philox_variates(..., var_shift=10)``), and every
+   rung's fields and energy after S=1000 at the CDQBM (a) PT call's shape
+   within ``field_drift_bound`` and ``energy_drift_bound``, with one add
+   (fields) or one flip (energies) short planted to fail them;
 5. the slices: ``qbmx_torch.cli.qbm_main.main`` on ``cuda`` (synthetic data,
    dim_input 784, H=5, 1000 reads, 1000 sweeps, bs60, one epoch = 10 steps
    plus validation and test prediction) with ``--solver`` SA, BMS and PT in
@@ -57,16 +69,23 @@ failure exits nonzero; nothing carries on after one):
    ``--seq_sizes 4``, sc100, anneal 1000, beta_eff 5, bs20, lr 0.02 -- a
    717-variable QUBO that must launch K4 on every step and prediction --
    and (b) the CLI defaults (deterministic pooling 4, 41 variables, bs3) on
-   K1, and again with ``--solver BMS`` on K2; the same checks and step
-   times;
+   K1, and again with ``--solver BMS`` on K2, and (a) with ``--solver PT``
+   at anneal 100 on K5 (never K3), then 3 of its steps at anneal 1000; the
+   same checks and step times; then ``qbm_main --seed_sweep 0..9`` (the
+   10-seed flagship: the flat widths above, one epoch) for SA, BMS and PT:
+   exactly one sampler launch a step at G=20 groups of 60 and one
+   validation launch, every seed's parameters moved and its nll finite, 10
+   best-model pickles that load back into ``DiscQBM``, the sweep's step
+   time and its epoch a seed beside a single model's epoch;
 6. kernel and plain times (CUDA events; kernels median of 5 after a
    warm-up, the slower plain versions median of 3, or 1 for K2 pair at the
    CDQBM (b) call) at the phase-3 shapes in generator mode (K3 at S=1000
    and at the flat CLI defaults' PT call, 146 problems, n=3, M=8, R=100;
-   K4 at S=10, and K4 alone at S=1000), and each kernel's bound
+   K4 and K5 at S=10, and K4 and K5 alone at S=1000), and each kernel's bound
    (``qbmx_torch/utils/roofline.py``: K1's, K2's and K4's from the flips
    their inputs make, counted by one more launch, K2's at the flagship and
-   the CDQBM (b) call; K3's from its decisions alone).
+   the CDQBM (b) call; K5's from its decisions G·B·M·R·n·S and its counted
+   flips; K3's from its decisions alone).
 
 The last three lines are the ``nvidia-smi`` line, one JSON object with the
 kernel records (time, plain time, bound, launches on the main path), and
@@ -75,11 +94,13 @@ kernel records (time, plain time, bound, launches on the main path), and
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -198,8 +219,8 @@ def main() -> None:
     from qbmx_torch import _build
     from qbmx_torch.core.qubo import default_beta_range, random_qubo_batch
     from qbmx_torch.core.rng import draw_seed
-    from qbmx_torch.samplers import (gibbs, gibbs_cuda, kernel_call, pt_cuda, sa_cuda, sa_torch,
-                                     tempering, wide_cuda)
+    from qbmx_torch.samplers import (gibbs, gibbs_cuda, kernel_call, pt_cuda, pt_wide_cuda, sa_cuda,
+                                     sa_torch, tempering, wide_cuda)
     from qbmx_torch.samplers.api import densify_groups
     from qbmx_torch.samplers.exact import exact_boltzmann
     from qbmx_torch.utils.roofline import anneal_bound, heatbath_units
@@ -225,7 +246,8 @@ def main() -> None:
 
     # -- 3. kernel vs plain under host variates ------------------------------
     rng = np.random.default_rng(2024)
-    errs = {"sa_metropolis": [], "sa_heatbath": [], "pt_heatbath": [], "anneal_wide": []}
+    errs = {"sa_metropolis": [], "sa_heatbath": [], "pt_heatbath": [], "anneal_wide": [],
+            "pt_wide": []}
     fracs = {k: [] for k in errs}
 
     def record(kernel, frac_err):
@@ -355,6 +377,65 @@ def main() -> None:
         gibbs.gibbs_sample_groups_plain(*args, pair=True, host_variates=hv),
         f"K4 pair structured at its widest n={SX['n']} R=200 S=2"))
     del Qx, hx, hv, init_x, u_x
+    # K5 at the shapes K3 cannot hold (pt_wide_cuda.pt_route), through the
+    # sampler's structured entry, against the plain version on the densified
+    # batch; the launch counts show K5 alone served each.  The first three
+    # shapes place one ladder a block; the main path's CDQBM (a) PT call
+    # places four (pt_wide_geometry), so the ladders of a block share its
+    # energies there
+    SK5 = {"n=300": dict(G=2, B=4, n=300, M=8, R=16, S=20),
+           "n=717": dict(G=2, B=2, n=717, M=8, R=8, S=10),
+           "n=241 M=16": dict(G=1, B=4, n=241, M=16, R=16, S=20),
+           "CDQBM (a) PT": dict(G=2, B=20, n=717, M=8, R=100, S=10)}  # 0.9 GB of uniforms
+    k5_problems, k5_ladders = {}, {}
+    for label, (G, B, n, M, R, S) in ((k, tuple(v.values())) for k, v in SK5.items()):
+        check(pt_wide_cuda.pt_route(G, B, M, R, n) == "pt_wide", f"K5 {label}: not routed to K5")
+        k5_ladders[label] = pt_wide_cuda.pt_wide_geometry(G, B, M, R, n).ladders_per_block
+        Qk = random_qubo_batch(rng, G, n).to(dev)
+        hk = torch.as_tensor(rng.normal(size=(G, B, n)).astype(np.float32), device=dev)
+        k5_problems[label] = (Qk, hk)
+        GBM = G * B * M
+        hv = (bits(rng, (GBM, R, n), dev), uniforms(rng, (S, GBM, n, R), dev),
+              uniforms(rng, (S, GBM, R), dev))
+        pt_cuda.reset_launch_counts()
+        pt_wide_cuda.reset_launch_counts()
+        out = pt_wide_cuda.pt_sample_groups(Qk, hk, R, S, num_replicas=M, host_variates=hv)
+        torch.cuda.synchronize()
+        check(pt_wide_cuda.launch_counts["pt_wide"] == 1
+              and pt_cuda.launch_counts["pt_heatbath"] == 0, f"K5 {label}: not served by K5 alone")
+        want = tempering.pt_sample_batch_plain(densify_groups(Qk, hk), R, S, num_replicas=M,
+                                               host_variates=hv).reshape(G, B, R, n)
+        record("pt_wide", compare(out, want, f"K5 structured G={G} B={B} n={n} M={M} R={R} "
+                                             f"S={S} ({label}; {k5_ladders[label]} ladders a "
+                                             "block)"))
+        del hv, out, want
+    check(k5_ladders == {"n=300": 1, "n=717": 1, "n=241 M=16": 1, "CDQBM (a) PT": 4},
+          f"K5 ladders a block {k5_ladders}")
+    # K5's ladders are the plain version's, bit for bit, on the card too
+    for label, (Qk, hk) in k5_problems.items():
+        M = SK5[label]["M"]
+        _, _, bk, dk = pt_wide_cuda.structured_form(Qk, hk, M)
+        want_b, want_d = tempering.ladder_betas(densify_groups(Qk, hk), M)
+        check(torch.equal(bk, want_b) and torch.equal(dk, want_d),
+              f"K5 {label}: its ladders are not the plain version's bit for bit")
+    print(f"phase 3 K5 ladders a block {k5_ladders}; the ladder betas equal "
+          "tempering.ladder_betas on the densified batch bit for bit at each shape")
+    # a block's spare ladders (B·R no multiple of its ladders L) run only
+    # with a geometry forced past the rule: L=3 at the n=300 problems puts
+    # ladder 63 of each group beside two spares
+    G, B, n, M, R, S = SK5["n=300"].values()
+    Qk, hk = k5_problems["n=300"]
+    check(B * R % 3 != 0, "K5 forced geometry: no spare ladder")
+    GBM = G * B * M
+    hv = (bits(rng, (GBM, R, n), dev), uniforms(rng, (S, GBM, n, R), dev),
+          uniforms(rng, (S, GBM, R), dev))
+    out = pt_wide_cuda.launch(*pt_wide_cuda.structured_form(Qk, hk, M), R, S, host_variates=hv,
+                              geometry=pt_wide_cuda.PTWideGeometry.of(G, B, M, R, n, 3))
+    want = tempering.pt_sample_batch_plain(densify_groups(Qk, hk), R, S, num_replicas=M,
+                                           host_variates=hv).reshape(G, B, R, n)
+    record("pt_wide", compare(out, want, f"K5 G={G} B={B} n={n} M={M} R={R} S={S}, 3 ladders "
+                                         "a block forced (spare ladders)"))
+    del hv, out, want
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -484,6 +565,28 @@ def main() -> None:
     check(worst_wide["Metropolis"] <= ORACLE_ATOL and worst_wide["pair"] <= JOINT_ATOL
           and worst_wide["pair moments"] <= MOMENT_ATOL,
           f"K4 forced oracle: worst errors {worst_wide}")
+    # K5 launched directly (past the routing) against the exact oracle at
+    # beta 1: K3's problems and bar; then on its own Philox draws, written
+    # out on the host, at the phase-3 n=300 shape
+    worst_k5 = 0.0
+    for n in (2, 5, 8):
+        Q = torch.as_tensor(np.triu(np.random.default_rng(3).uniform(-1.5, 1.5, (1, n, n)))
+                            .astype(np.float32), device=dev)
+        form = pt_wide_cuda.structured_form(Q, torch.zeros((1, 1, n), device=dev), 4)
+        s = pt_wide_cuda.launch(*form, 384, 24, generator=gen(0))[0, 0]
+        worst_k5 = max(worst_k5, oracle_error(s, Q[0], joint=False)[0])
+    oracle["K5 forced"] = (worst_k5, 0.0)
+    check(worst_k5 <= HB_ATOL, f"K5 forced oracle: marginals off by {worst_k5:.4f}")
+    G, B, n, M, R, S = SK5["n=300"].values()
+    Qk, hk = k5_problems["n=300"]
+    seed = draw_seed(gen(10))
+    hv = tuple(torch.as_tensor(a, device=dev) for a in sa_torch.pt_philox_variates(
+        seed, G * B, M, R, n, S, var_shift=pt_wide_cuda.VAR_SHIFT))
+    k_out = pt_wide_cuda.pt_sample_groups(Qk, hk, R, S, num_replicas=M, generator=gen(10))
+    p_out = tempering.pt_sample_batch_plain(densify_groups(Qk, hk), R, S, num_replicas=M,
+                                            host_variates=hv)
+    philox["K5"] = differing(k_out, p_out.reshape(G, B, R, n))
+    del hv, k_out, p_out
     for name, frac in philox.items():
         check(frac <= MAX_DIFF_FRAC, f"Philox mode {name}: {frac:.4%} of chains differ from "
               "the plain version on the kernel's own draws")
@@ -541,6 +644,40 @@ def main() -> None:
         del fields, exact, drift, bound, s_b
     check(k2_planted > 1.0, f"K2 field drift check: a field one add short reads only "
           f"{k2_planted:.3f} of the limit")
+    # K5's fields and energies after the main path's S=1000 at the CDQBM (a)
+    # PT call's shape (G=2 B=20 M=8 R=100 n=717, the K4 check's problem),
+    # every rung's, against h + J·s and h·s + ½ sᵀJs in float64, within
+    # field_drift_bound and energy_drift_bound; then one chain's fields each
+    # one median |J_jk| short, and its energy one flip's median |f_i| short,
+    # must fail them
+    G, B, M, R, n = SW["G"], SW["B"], 8, SW["R"], SW["n"]
+    Jk, hk5, bk, dk = pt_wide_cuda.structured_form(Qw, hw, M)
+    states = torch.empty((G * B * M, R, n), device=dev)
+    fields = torch.empty_like(states)
+    energy = torch.empty((G * B * M, R), device=dev)
+    flips_k5 = torch.zeros(1, dtype=torch.int64, device=dev)
+    pt_wide_cuda.launch(Jk, hk5, bk, dk, R, 1000, generator=gen(11), states_out=states,
+                        fields_out=fields, energy_out=energy, flips=flips_k5)
+    s64 = states.double().reshape(G, B, M, R, n)
+    exact_f = hk5.double()[:, :, None, None] + torch.einsum("gbmrj,gij->gbmri", s64, Jk.double())
+    exact_e = 0.5 * (s64 * (hk5.double()[:, :, None, None] + exact_f)).sum(-1)
+    fb = wide_cuda.field_drift_bound(hk5, Jk, 1000)[:, :, None]  # (G, B, 1, 1, n)
+    eb = pt_wide_cuda.energy_drift_bound(hk5, Jk, 1000)  # (G, B, 1, 1)
+    f64, e64 = fields.double().reshape(G, B, M, R, n), energy.double().reshape(G, B, M, R)
+    k5_drift = {"fields": ((f64 - exact_f).abs() / fb).max().item(),
+                "energies": ((e64 - exact_e).abs() / eb).max().item()}
+    check(bool(torch.isfinite(fields).all() and torch.isfinite(energy).all())
+          and max(k5_drift.values()) <= 1.0, f"K5 drift at S=1000, of its limit: {k5_drift}")
+    typical = Jk[0].abs().masked_fill(Jk[0] == 0, math.nan).nanmedian(dim=1).values
+    k5_planted = {
+        "fields": ((f64[0, 0, 0, 0] - typical.double() - exact_f[0, 0, 0, 0]).abs()
+                   / fb[0, 0, 0, 0]).min().item(),
+        "energies": ((e64[0, 0, 0, 0] - exact_f[0, 0, 0, 0].abs().median() - exact_e[0, 0, 0, 0])
+                     .abs() / eb[0, 0, 0, 0]).item()}
+    check(min(k5_planted.values()) > 1.0, f"K5 drift check: one add or flip short reads only "
+          f"{k5_planted} of the limit")
+    k5_flips_full = int(flips_k5.item())
+    del states, fields, energy, s64, exact_f, exact_e, f64, e64
     beta1 = ", ".join(f"{k} {a:.4f}/{b:.4f}" for k, (a, b) in oracle.items())
     print(f"phase 4 oracle: K1 n in (2, 5, 8), 512 reads, 200 sweeps, worst marginal "
           f"error {worst:.4f} (limit {ORACLE_ATOL}); at beta 1 marginal/moment errors "
@@ -556,7 +693,10 @@ def main() -> None:
           f"add of the row's median |J_jk| short reads at least {planted_ratio:.3f} of the "
           f"limit (must exceed 1); {flips_full} variables changed (Metropolis); K2 fields "
           f"after S=1000 at G=2 B=3 n=41 R=100, of their limit at most {k2_drift_ratio}, one "
-          f"add short at least {k2_planted:.3f}")
+          f"add short at least {k2_planted:.3f}; K5 forced at n in (2, 5, 8): worst marginal "
+          f"error {worst_k5:.4f} (limit {HB_ATOL}); K5 fields and energies after S=1000 at G=2 "
+          f"B=20 M=8 R=100 n=717, of their limits at most {k5_drift}, one add (fields) or flip "
+          f"(energies) short at least {k5_planted}; {k5_flips_full} variables changed")
 
     # -- 5. the slices: qbm_main on cuda, one solver at a time ------------------
     import qbmx_torch.cli.qbm_main as qm
@@ -572,14 +712,12 @@ def main() -> None:
 
     qm.DiscQBM = RecordedDiscQBM
     steps, predictions = math.ceil(600 / 60), 2  # 600 synthetic train images; val + test
-    counters = (sa_cuda, gibbs_cuda, pt_cuda, wide_cuda)
+    counters = (sa_cuda, gibbs_cuda, pt_cuda, wide_cuda, pt_wide_cuda)
     x = torch.as_tensor(np.random.default_rng(0).random((60, 784), dtype=np.float32), device=dev)
     y = torch.as_tensor(np.arange(60) % 2, device=dev)
     mask = torch.ones(60, device=dev)
-    launches, step_ms = {}, {}
-    for solver, module, kernel in (("SA", sa_cuda, "sa_metropolis"),
-                                   ("BMS", gibbs_cuda, "sa_heatbath"),
-                                   ("PT", pt_cuda, "pt_heatbath")):
+    launches, step_ms, singles = {}, {}, {}
+    for solver, kernel in (("SA", "sa_metropolis"), ("BMS", "sa_heatbath"), ("PT", "pt_heatbath")):
         for c in counters:
             c.reset_launch_counts()
         t0 = time.perf_counter()
@@ -591,7 +729,7 @@ def main() -> None:
         wall = time.perf_counter() - t0
         counts = {k: v for c in counters for k, v in c.launch_counts.items()}
         launches[kernel] = counts[kernel]
-        model = made[-1]
+        model = singles[solver] = made[-1]
         nlls = model.training_history.nll_per_batch
         moved = max(float(np.abs(v - model.initial_params[k]).max())
                     for k, v in params_to_numpy(model.params).items())
@@ -627,10 +765,12 @@ def main() -> None:
                 for a in (v if isinstance(v, tuple) else (v,))]
 
     cm.CDQBM = RecordedCDQBM
-    cdqbm_launches = {}
+    cdqbm_launches, cmodels = {}, {}
+    prob = dict(pooling_type="probabilistic", beta_eff=5.0, batch_size=20, learning_rate=0.02)
     for label, kernel, n_total, kw in (
-        ("a", "anneal_wide", 717, dict(pooling_type="probabilistic", beta_eff=5.0,
-                                       batch_size=20, learning_rate=0.02)),
+        ("a", "anneal_wide", 717, prob),
+        # PT at 717 variables on K5, at 100 sweeps (3 steps at 1000 below)
+        ("a PT", "pt_wide", 717, dict(prob, solver="PT", anneal=100)),
         ("b", "sa_metropolis", 41, dict()),
         ("b BMS", "sa_heatbath", 41, dict(solver="BMS")),
     ):
@@ -639,11 +779,11 @@ def main() -> None:
         t0 = time.perf_counter()
         acc, f1, precision, recall, auc = cm.main(
             device="cuda", data_set="synthetic", pooling_size=4, sequential_layer_sizes=(4,),
-            sample_count=100, anneal=1000, epochs=1, save="", **kw)
+            sample_count=100, epochs=1, save="", **{"anneal": 1000, **kw})
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {k: v for c in counters for k, v in c.launch_counts.items()}
-        model = cmade[-1]
+        model = cmodels[label] = cmade[-1]
         bs = kw.get("batch_size", 3)
         steps = math.ceil(600 / bs)
         cdqbm_launches[label] = counts
@@ -667,6 +807,119 @@ def main() -> None:
               f"{nlls[-1]:.4f}, max param change {moved:.4f}, test acc {acc:.4f} auc {auc:.4f}, "
               f"wall {wall:.2f} s, step {step_ms[f'CDQBM {label}']:.3f} ms (CUDA events, "
               "median of 5)")
+    # the CDQBM (a) PT step at the main path's depth: 3 steps at anneal 1000,
+    # each timed by CUDA events
+    model = cmodels["a PT"]
+    model.sampler = dataclasses.replace(model.sampler, num_sweeps=1000)
+    ximg = torch.as_tensor(np.random.default_rng(1).random((20, 28, 28), dtype=np.float32),
+                           device=dev)
+    yb, mb = torch.as_tensor(np.arange(20) % 2, device=dev), torch.ones(20, device=dev)
+    pt_wide_cuda.reset_launch_counts()
+    pt_steps = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        nll, _ = model._step(ximg, yb, mb, 0.02)
+        end.record()
+        end.synchronize()
+        pt_steps.append(start.elapsed_time(end))
+        check(math.isfinite(float(nll)), f"CDQBM (a) PT at anneal 1000: nll {float(nll)}")
+    check(pt_wide_cuda.launch_counts["pt_wide"] == 3, "CDQBM (a) PT at anneal 1000: K5 did not "
+          "serve every step")
+    step_ms["CDQBM a PT anneal1000"] = statistics.median(pt_steps)
+    print(f"phase 5 slice CDQBM (a) PT at anneal 1000 (K5: G=2 B=20 M=8 R=100 n=717 S=1000): "
+          f"steps {pt_steps} ms, median {step_ms['CDQBM a PT anneal1000']:.3f} ms (CUDA events)")
+
+    # the 10-seed flagship sweep: qbm_main --seed_sweep, one sampler launch a
+    # step for all ten seeds (G=20 groups of B=60), per solver
+    from qbmx_torch.cli._common import load_dataset
+    from qbmx_torch.data import loaders
+    from qbmx_torch.samplers.api import sampler_sample_groups
+
+    class ShapeLog:
+        """A sweep's sampler, recording each call's (groups, problems, n)."""
+
+        def __init__(self, inner):
+            self.inner, self.calls = inner, []
+
+        def sample_groups(self, generator, Q_shared, h_extra, num_reads):
+            self.calls.append(tuple(h_extra.shape))
+            return sampler_sample_groups(self.inner, generator, Q_shared, h_extra, num_reads)
+
+    sweeps = []
+
+    class RecordedSweep(qm.SeedParallelDQBM):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.sampler = ShapeLog(self.sampler)
+            self.initial = params_to_numpy(self.params)
+            sweeps.append(self)
+
+        def train(self, *a, **k):
+            self.histories = super().train(*a, **k)
+            return self.histories
+
+    qm.SeedParallelDQBM = RecordedSweep
+    seeds10, steps = list(range(10)), math.ceil(600 / 60)
+    (train_X, train_y), (val_X, _), (test_X, _) = load_dataset("synthetic", seed=19)
+    train_X, _, _ = loaders.preprocess_images(train_X, test_X, val_X)
+    train_y = np.asarray(train_y)
+    sweep_rec = {}
+    for solver, kernel in (("SA", "sa_metropolis"), ("BMS", "sa_heatbath"), ("PT", "pt_heatbath")):
+        with tempfile.TemporaryDirectory() as tmp:
+            for c in counters:
+                c.reset_launch_counts()
+            t0 = time.perf_counter()
+            accs, aucs = qm.main(
+                device="cuda", data_set="synthetic", n_hidden_nodes=5, sample_count=1000,
+                anneal=1000, batch_size=60, learning_rate=0.307, epochs=1, restricted=False,
+                save=f"{tmp}/", name="sweep", solver=solver, seed_sweep=seeds10)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {k: v for c in counters for k, v in c.launch_counts.items()}
+            sw = sweeps[-1]
+            check(sw.sampler.calls == [(20, 60, 6)] * steps + [(10, 100, 6)],
+                  f"sweep {solver}: sampler calls {sw.sampler.calls}")
+            check(counts[kernel] == steps + 1 and sum(counts.values()) == counts[kernel],
+                  f"sweep {solver}: launch counts {counts} for {steps} steps + 1 validation")
+            moved = [max(float(np.abs(v[i] - sw.initial[k][i]).max())
+                         for k, v in params_to_numpy(sw.params).items())
+                     for i in range(10)]
+            check(min(moved) > 0.0, f"sweep {solver}: a seed's parameters did not move: {moved}")
+            check(all(len(h.nll_per_batch) == steps and all(map(math.isfinite, h.nll_per_batch))
+                      for h in sw.histories), f"sweep {solver}: nll not finite")
+            check(all(0.0 <= v <= 1.0 for v in accs + aucs), f"sweep {solver}: metrics {accs}")
+            pkls = sorted(Path(tmp, "best_model").glob("sweep_se*_best.pkl"))
+            check(len(pkls) == 10, f"sweep {solver}: {len(pkls)} best-model pickles")
+            for i, pkl in enumerate(sorted(pkls, key=lambda q: int(q.name.split("_se")[1]
+                                                                   .split("_")[0]))):
+                m = qm.DiscQBM(dim_input=784, n_hidden_nodes=5, restricted=False,
+                               load_path=str(pkl), device=dev)
+                best = params_to_numpy(sw.best_params_for_seed(i))
+                check(all(np.array_equal(v, best[k]) for k, v in params_to_numpy(m.params).items()),
+                      f"sweep {solver}: {pkl.name} does not load back into DiscQBM")
+        step_ms[f"sweep {solver}"] = cuda_ms(lambda: sw._step(x, y, mask, 0.307), runs=5)
+        t0 = time.perf_counter()
+        sw.train(train_X, train_y, epochs=1, batch_size=60, learning_rate=0.307, verbose=False)
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        singles[solver].train_epoch(train_X, train_y, 60, 0.307)
+        torch.cuda.synchronize()
+        single_s = time.perf_counter() - t0
+        sweep_rec[solver] = {"step_ms": step_ms[f"sweep {solver}"], "epoch_s": sweep_s,
+                             "epoch_s_a_seed": sweep_s / 10, "single_model_epoch_s": single_s,
+                             "launches": counts[kernel], "best_acc": accs, "best_auc": aucs,
+                             "wall_s": wall}
+        print(f"phase 5 sweep {solver}: qbm_main --seed_sweep 0..9 cuda synthetic H=5 sc1000 "
+              f"anneal1000 bs60 e1: {steps} steps of one launch at G=20 B=60 n=6 + 1 "
+              f"validation launch at G=10 B=100, launch counts {counts}, every seed moved "
+              f"(min {min(moved):.4f}), best acc {min(accs):.4f}..{max(accs):.4f}, 10 best-model "
+              f"pickles loaded back, wall {wall:.2f} s; step {step_ms[f'sweep {solver}']:.3f} ms "
+              f"(CUDA events, median of 5) = {step_ms[f'sweep {solver}'] / 10:.3f} ms a seed "
+              f"against a single-model step of {step_ms[solver]:.3f} ms; a training epoch "
+              f"{sweep_s:.3f} s = {sweep_s / 10:.4f} s a seed, against {single_s:.4f} s for a "
+              f"single model's ({10 * single_s:.3f} s for ten)")
 
     # -- 6. kernel and plain times, generator mode -----------------------------
     g1 = torch.Generator().manual_seed(1)
@@ -708,6 +961,10 @@ def main() -> None:
         ("K4 pair structured G=2 B=20 n=717 R=100 S=10",
          lambda: gibbs_cuda.gibbs_sample_groups_cuda(Qw, hw, 100, 10, pair=True, generator=g1),
          lambda: gibbs.gibbs_sample_groups_plain(Qw, hw, 100, 10, pair=True), 3),
+        ("K5 CDQBM (a) PT G=2 B=20 M=8 n=717 R=100 S=10",
+         lambda: pt_wide_cuda.pt_sample_groups(Qw, hw, 100, 10, num_replicas=8, generator=g1),
+         lambda: tempering.pt_sample_batch_plain(densify_groups(Qw, hw), 100, 10,
+                                                 num_replicas=8), 3),
     ):
         k_ms, p_ms = cuda_ms(kern, runs=5), cuda_ms(plain, runs=plain_runs)
         times[label] = (k_ms, p_ms)
@@ -718,6 +975,11 @@ def main() -> None:
                          runs=3)
     print(f"phase 6 time K4 Metropolis structured G=2 B=20 n=717 R=100 S=1000: kernel "
           f"{k4_full_ms:.3f} ms (CUDA events, median of 3; the plain version is not run at "
+          f"this depth; {smi})")
+    k5_full_ms = cuda_ms(lambda: pt_wide_cuda.pt_sample_groups(Qw, hw, 100, 1000, num_replicas=8,
+                                                               generator=g1), runs=3)
+    print(f"phase 6 time K5 CDQBM (a) PT G=2 B=20 M=8 n=717 R=100 S=1000: kernel "
+          f"{k5_full_ms:.3f} ms (CUDA events, median of 3; the plain version is not run at "
           f"this depth; {smi})")
 
     # the bounds (qbmx_torch/utils/roofline.py): K1 and K4 from the flips
@@ -748,6 +1010,9 @@ def main() -> None:
         "anneal_wide": anneal_bound(2, 20, 100, 717, 10, flips=counted(
             wide_cuda.launch, *structured_form(Qw, hw, 10), 100, 10, wide_cuda.METROPOLIS)),
         "anneal_wide full depth": anneal_bound(2, 20, 100, 717, 1000, flips=flips_full),
+        "pt_wide": anneal_bound(2, 20, 100, 717, 10, rungs=8, flips=counted(
+            pt_wide_cuda.launch, *pt_wide_cuda.structured_form(Qw, hw, 8), 100, 10)),
+        "pt_wide full depth": anneal_bound(2, 20, 100, 717, 1000, rungs=8, flips=k5_flips_full),
     }
     print(f"phase 6 bounds (H100 SXM peaks, {smi}): "
           + "; ".join(f"{k} {b['bound_ms']:.4f} ms by {b['bound_by']}" for k, b in bounds.items()))
@@ -806,7 +1071,17 @@ def main() -> None:
          "full_depth_bound_ms": bounds["anneal_wide full depth"]["bound_ms"],
          "field_drift_max": drift_max, "field_drift_of_limit": drift_ratio,
          "field_one_add_short_of_limit": planted_ratio},
-    ], "step_ms": step_ms, "cdqbm_launches": cdqbm_launches}
+        {"name": "pt_wide", "route": "cuda", "source": "qbmx_torch/csrc/pt_wide.cu",
+         "replaces": "qbmx/samplers/sa_pallas.py:196",
+         "launches": cdqbm_launches["a PT"]["pt_wide"], "max_abs_err": max(errs["pt_wide"]),
+         "differing_chains": max(fracs["pt_wide"]),
+         "differing_chains_limit": MAX_DIFF_FRAC,
+         "ms": t("K5")[0], "plain_ms": t("K5")[1], **bound_keys("pt_wide"),
+         "full_depth_ms": k5_full_ms,
+         "full_depth_bound_ms": bounds["pt_wide full depth"]["bound_ms"],
+         "cdqbm_a_pt_step_ms": step_ms["CDQBM a PT anneal1000"],
+         "drift_of_limit": k5_drift, "one_add_or_flip_short_of_limit": k5_planted},
+    ], "step_ms": step_ms, "cdqbm_launches": cdqbm_launches, "sweeps": sweep_rec}
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

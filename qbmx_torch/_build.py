@@ -67,17 +67,23 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # J, h, betas, dbeta, init01, uniforms, swap_u, out, B, M, R, n, S, seed, layout,
         # stream
         "qbmx_pt_heatbath": [p] * 8 + [i] * 5 + [u64, i, p],
+        # J, h, betas, dbeta, init01, uniforms, swap_u, out, states_out, fields_out,
+        # energy_out, flips, G, B, M, R, n, S, seed, ladders, stream
+        "qbmx_pt_wide": [p] * 12 + [i] * 6 + [u64, i, p],
     }
     for name, argtypes in entries.items():
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = i
     for name in ("qbmx_sa_metropolis_max_n", "qbmx_sa_heatbath_max_n", "qbmx_anneal_wide_max_n",
-                 "qbmx_pt_heatbath_max_n", "qbmx_pt_heatbath_max_rungs"):
+                 "qbmx_pt_heatbath_max_n", "qbmx_pt_heatbath_max_rungs", "qbmx_pt_wide_max_n"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
     lib.qbmx_anneal_wide_smem.argtypes = [i, i]  # n, chains
     lib.qbmx_pt_heatbath_smem.argtypes = [i, i, i]  # layout, n, M
-    for fn in (lib.qbmx_anneal_wide_smem, lib.qbmx_pt_heatbath_smem):
+    lib.qbmx_pt_wide_smem.argtypes = [i, i]  # n, chains
+    lib.qbmx_pt_wide_max_rungs.argtypes = [i]  # n
+    lib.qbmx_pt_wide_max_rungs.restype = i
+    for fn in (lib.qbmx_anneal_wide_smem, lib.qbmx_pt_heatbath_smem, lib.qbmx_pt_wide_smem):
         fn.restype = ctypes.c_ulonglong
     return lib
 

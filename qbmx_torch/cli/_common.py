@@ -4,6 +4,10 @@
 from __future__ import annotations
 
 import argparse
+import pickle
+from pathlib import Path
+
+import numpy as np
 
 from qbmx_torch.data import loaders
 
@@ -60,7 +64,7 @@ def load_dataset(data_set: str, seed: int = 42, samples_per_class=None,
         return train, (None, None), test
     if data_set == "cifar-10":
         raise NotImplementedError(
-            "qbmx_torch: the CIFAR-10 loader is not ported yet (ROADMAP Queue 1 item 18)")
+            "qbmx_torch: the CIFAR-10 loader is not ported yet (ROADMAP Queue 1 item 8)")
     if data_set == "synthetic":
         x, y = loaders.synthetic_images(800, num_classes=num_classes, seed=seed)
         return (x[:600], y[:600]), (x[600:700], y[600:700]), (x[700:], y[700:])
@@ -86,3 +90,31 @@ def qpu_sampler_kwargs(qpu_copies=1, qpu_embedding="first_party", embedding_cach
 def param_string(**kw) -> str:
     """Run-identity filename encoding (reference ``qbm_main.py:57-58``)."""
     return "".join(f"_{k}{v}" for k, v in kw.items())
+
+
+def finish_seed_sweep(sweep, seeds, hists, save, name):
+    """Shared tail of a ``--seed_sweep`` run: each seed's best-epoch summary,
+    the reference-style per-seed acc/auc pickles, the best-epoch weight
+    pickles under ``best_model/`` and the mean ± std line.  Returns ``(accs,
+    aucs)``, one best-epoch value a seed."""
+    from qbmx_torch.train.loop import get_best_combined_acc_auc
+
+    accs, aucs = [], []
+    for s, h in zip(seeds, hists):
+        _, acc, auc, _ = get_best_combined_acc_auc(h)
+        accs.append(acc)
+        aucs.append(auc)
+        if save:
+            out = Path(save)
+            out.mkdir(parents=True, exist_ok=True)
+            with open(out / f"{name}acc_per_epoch{s}.pkl", "wb") as f:
+                pickle.dump(h.acc_per_epoch, f)
+            with open(out / f"{name}auc_per_epoch{s}.pkl", "wb") as f:
+                pickle.dump(h.auc_per_epoch, f)
+        print(f"seed {s}: best acc {acc:.4f} auc {auc:.4f}")
+    if save:
+        paths = sweep.save_best_models(save, name_fn=lambda s_, e_: f"{name}_se{s_}_e{e_}_best")
+        print(f"best-epoch checkpoints: {len(paths)} pickles under {Path(save) / 'best_model'}")
+    print(f"MEAN acc {np.mean(accs):.4f}±{np.std(accs):.4f} "
+          f"auc {np.mean(aucs):.4f}±{np.std(aucs):.4f}")
+    return accs, aucs

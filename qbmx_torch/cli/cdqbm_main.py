@@ -7,8 +7,8 @@ The samplers run their CUDA kernels on ``--device cuda``: the CLI defaults
 probabilistic pooling (``--pooling_type probabilistic``, 717 variables at
 28×28) on K4, whose couplings exceed a block's shared memory; their plain
 PyTorch versions on ``--device cpu``.  Not ported yet, and refused with a
-pointer to the ROADMAP item: ``--seed_sweep`` (Queue 1 items 11 and 15,
-``SeedParallelCDQBM``) and ``--resume``/``--checkpoint_every`` (item 8).
+pointer to the ROADMAP item: ``--seed_sweep`` (Queue 1 item 4,
+``SeedParallelCDQBM``) and ``--resume``/``--checkpoint_every`` (item 3).
 """
 
 from __future__ import annotations
@@ -20,8 +20,8 @@ import random
 import numpy as np
 
 from qbmx_torch.cli._common import load_dataset, param_string, qpu_sampler_kwargs, str2bool
-from qbmx_torch.cli.qbm_main import resolve_device
 from qbmx_torch.data import loaders
+from qbmx_torch.models.base import resolve_device
 from qbmx_torch.models.cdqbm import CDQBM
 from qbmx_torch.train.loop import train_model
 from qbmx_torch.utils import metrics
@@ -57,11 +57,11 @@ def main(
     if seed_sweep:
         raise NotImplementedError(
             "qbmx_torch: --seed_sweep waits for the SeedParallelCDQBM port "
-            "(ROADMAP Queue 1 items 11 and 15)")
+            "(ROADMAP Queue 1 item 4)")
     if resume or checkpoint_every:
         raise NotImplementedError(
             "qbmx_torch: --resume/--checkpoint_every wait for the utils/checkpoint "
-            "port (ROADMAP Queue 1 item 8)")
+            "port (ROADMAP Queue 1 item 3)")
     dev = resolve_device(device)
     print("Start")
     random.seed(seed)
@@ -208,11 +208,11 @@ def build_parser():
     p.add_argument("--reinit_on_collapse", type=int, default=0,
                    help="seed-sweep only (refused on the single-model path)")
     p.add_argument("--seed_sweep", type=int, nargs="+", default=None,
-                   help="not ported yet (ROADMAP Queue 1 items 11 and 15)")
+                   help="not ported yet (ROADMAP Queue 1 item 4)")
     p.add_argument("--checkpoint_every", type=int, default=0,
-                   help="not ported yet (ROADMAP Queue 1 item 8)")
+                   help="not ported yet (ROADMAP Queue 1 item 3)")
     p.add_argument("--resume", type=str, default="",
-                   help="not ported yet (ROADMAP Queue 1 item 8)")
+                   help="not ported yet (ROADMAP Queue 1 item 3)")
     p.add_argument("--qpu_copies", type=int, default=1,
                    help="QPU solvers only (not ported yet)")
     p.add_argument("--qpu_embedding", choices=["first_party", "composite"],

@@ -1,6 +1,8 @@
-"""Time the heat-bath kernel K2 (``sa_heatbath.cu``) and the tempering
-kernel K3 (``pt_heatbath.cu``) of this tree against their sources at commit
-64a1153 (one thread a chain, one thread a ladder), on one GPU, in one
+"""Time the heat-bath kernel K2 (``sa_heatbath.cu``), the tempering
+kernel K3 (``pt_heatbath.cu``) and the wide anneal K4 (``anneal_wide.cu``)
+of this tree against their sources at commit 64a1153 (one thread a chain,
+one thread a ladder; K4 as it was before its tiles moved into
+``anneal_tiles.cuh``, the code it shares with K5), on one GPU, in one
 process, in turns (old, new, new, old).
 
     mkdir -p build/old && git archive 64a1153 qbmx_torch/csrc | tar -x -C build/old
@@ -16,7 +18,8 @@ sources only; they are built with the same ``nvcc`` flags into
    (G=2, B=60, n=6, R=1000, S=1000), K2 single and quad at the dense bench
    shape (B=60 groups of one, n=41, R=100, S=1000), K3 at the flagship PT
    call (120 problems, n=6, M=8, R=1000, S=1000) and at the flat CLI
-   defaults' (146 problems, n=3, M=8, R=100, S=1000); and K1 at its two
+   defaults' (146 problems, n=3, M=8, R=100, S=1000), K4 Metropolis and
+   pair at the CDQBM (a) call (G=2, B=20, n=717, R=100, S=1000); and K1 at its two
    main-path shapes, the same code on both sides (a control of the spread
    between turns).  Each turn is the median of ``--runs`` CUDA-event
    timings after a warm-up; each new K1 and K2 launch also counts its
@@ -67,6 +70,8 @@ SHAPES = {  # label: (kernel, width, G, B, n, R, S); K3: (B, M) in (G, B), probl
     "K2 quad dense bench B=60 n=41 R=100 S=1000": ("K2", 4, 60, 1, 41, 100, 1000),
     "K3 flagship B=120 n=6 M=8 R=1000 S=1000": ("K3", 1, 120, 8, 6, 1000, 1000),
     "K3 CLI defaults B=146 n=3 M=8 R=100 S=1000": ("K3", 1, 146, 8, 3, 100, 1000),
+    "K4 Metropolis CDQBM (a) G=2 B=20 n=717 R=100 S=1000": ("K4", 0, 2, 20, 717, 100, 1000),
+    "K4 pair CDQBM (a) G=2 B=20 n=717 R=100 S=1000": ("K4", 2, 2, 20, 717, 100, 1000),
     "K1 flagship G=2 B=60 n=6 R=1000 S=1000 (control)": ("K1", 0, 2, 60, 6, 1000, 1000),
     "K1 CDQBM (b) G=2 B=3 n=41 R=100 S=1000 (control)": ("K1", 0, 2, 3, 41, 100, 1000),
 }
@@ -93,8 +98,9 @@ def build(name: str, sources: list[Path],
 
 
 def build_libs(old_csrc: Path) -> tuple[ctypes.CDLL, ctypes.CDLL]:
-    """The old K2 and K3, and this K4 refreshing its fields every sweep."""
-    jobs = [build("kernels_old", [old_csrc / "sa_heatbath.cu", old_csrc / "pt_heatbath.cu"]),
+    """The old K2, K3 and K4, and this K4 refreshing its fields every sweep."""
+    jobs = [build("kernels_old", [old_csrc / "sa_heatbath.cu", old_csrc / "pt_heatbath.cu",
+                                  old_csrc / "anneal_wide.cu"]),
             build("kernels_refresh1", [_build.CSRC / "anneal_wide.cu"],
                   ("-DQBMX_K4_REFRESH_PERIOD=1",))]
     _build._run_all([c for compile_, _ in jobs for c in compile_])
@@ -103,8 +109,10 @@ def build_libs(old_csrc: Path) -> tuple[ctypes.CDLL, ctypes.CDLL]:
     p, i, f, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_ulonglong
     old.qbmx_sa_heatbath.argtypes = [p] * 7 + [i] * 5 + [f, u64, i, p]
     old.qbmx_pt_heatbath.argtypes = [p] * 8 + [i] * 5 + [u64, p]
-    refresh1.qbmx_anneal_wide.argtypes = [p] * 9 + [i] * 5 + [f, u64, i, i, p]
-    for fn in (old.qbmx_sa_heatbath, old.qbmx_pt_heatbath, refresh1.qbmx_anneal_wide):
+    for lib in (old, refresh1):  # K4's C interface is the same on both sides
+        lib.qbmx_anneal_wide.argtypes = [p] * 9 + [i] * 5 + [f, u64, i, i, p]
+    for fn in (old.qbmx_sa_heatbath, old.qbmx_pt_heatbath, old.qbmx_anneal_wide,
+               refresh1.qbmx_anneal_wide):
         fn.restype = i
     return old, refresh1
 
@@ -159,6 +167,19 @@ def old_k2(old, J, h, hot, logr, R, S, width, out, seed=7, init01=None, uniforms
     return out
 
 
+def lib_k4(lib, J, h, hot, logr, R, S, rule, out, seed=7, init01=None, uniforms=None):
+    """K4 from another build of its source, by the C interface they share."""
+    G, B, n = h.shape
+    Jp = F.pad(J, (0, wide_cuda.row_floats(n) - n)).contiguous()
+    kernel_call.check_rc("anneal_wide", lib.qbmx_anneal_wide(
+        Jp.data_ptr(), h.data_ptr(), hot.data_ptr(), logr.data_ptr(),
+        None if init01 is None else init01.data_ptr(),
+        None if uniforms is None else uniforms.data_ptr(), out.data_ptr(), None, None,
+        G, B, R, n, S, ctypes.c_float(sa_torch.inv_span(S)), seed, rule,
+        wide_cuda.wide_geometry(G, B, R, n).chains_per_block, kernel_call.stream(h.device)))
+    return out
+
+
 def time_old_new(old, runs, dev) -> dict:
     records = {}
     rng = np.random.default_rng(2024)
@@ -179,10 +200,16 @@ def time_old_new(old, runs, dev) -> dict:
         else:
             _, (J, h, hot, logr) = problem(rng, width, G, B, n, S, dev)
             out = torch.empty((G, B, R, n), device=dev)
+            geometry = kernel_call.chain_layout(G, B, R, n) if kernel != "K4" else \
+                wide_cuda.wide_geometry(G, B, R, n)
             if kernel == "K2":
                 run_old = lambda: old_k2(old, J, h, hot, logr, R, S, width, out)
                 run_new = lambda **kw: gibbs_cuda.launch(J, h, hot, logr, R, S, width,
                                                          generator=gen(), **kw)
+            elif kernel == "K4":
+                run_old = lambda: lib_k4(old, J, h, hot, logr, R, S, width, out)
+                run_new = lambda **kw: wide_cuda.launch(J, h, hot, logr, R, S, width,
+                                                        generator=gen(), **kw)
             else:  # K1, the same code on both sides
                 run_old = run_new = lambda **kw: sa_cuda.launch(J, h, hot, logr, R, S,
                                                                 generator=gen(), **kw)
@@ -190,9 +217,8 @@ def time_old_new(old, runs, dev) -> dict:
             run_new(flips=flips)
             torch.cuda.synchronize()
             counted = int(flips.item())
-            units = n if kernel == "K1" else heatbath_units(n, width)
+            units = n if width == 0 else heatbath_units(n, width)
             bound = anneal_bound(G, B, R, n, S, decisions=G * B * R * units * S, flips=counted)
-            geometry = kernel_call.chain_layout(G, B, R, n)
         old_ms, new_ms = turns(run_old, run_new, runs)
         records[label] = {"old_ms": old_ms, "new_ms": new_ms, "flips": counted,
                           "geometry": str(geometry), **bound}
@@ -268,8 +294,6 @@ def k2_agreement(old, dev) -> dict:
 
 def k4_agreement(refresh1, dev) -> dict:
     G, B, n, R, S, beta = (K4_AGREE[k] for k in ("G", "B", "n", "R", "S", "beta"))
-    span, st = ctypes.c_float(sa_torch.inv_span(S)), kernel_call.stream(dev)
-    geo = wide_cuda.wide_geometry(G, B, R, n)
     records = {}
     for name, rule in RULES.items():
         counts = {"new": 0.0, "refresh1": 0.0, "new vs refresh1": 0.0}
@@ -287,12 +311,8 @@ def k4_agreement(refresh1, dev) -> dict:
                     Q, h_extra, R, S, beta=beta, pair=rule == 2, quad=rule == 4,
                     host_variates=(init01, u))
             new = wide_cuda.launch(J, h, hot, logr, R, S, rule, host_variates=(init01, u))
-            out_r1 = torch.empty_like(new)
-            Jp = F.pad(J, (0, wide_cuda.row_floats(n) - n)).contiguous()
-            kernel_call.check_rc("anneal_wide refresh 1", refresh1.qbmx_anneal_wide(
-                Jp.data_ptr(), h.data_ptr(), hot.data_ptr(), logr.data_ptr(), init01.data_ptr(),
-                u.data_ptr(), out_r1.data_ptr(), None, None, G, B, R, n, S, span, 0, rule,
-                geo.chains_per_block, st))
+            out_r1 = lib_k4(refresh1, J, h, hot, logr, R, S, rule, torch.empty_like(new), 0,
+                            init01, u)
             torch.cuda.synchronize()
             for key, a, b in (("new", new, plain), ("refresh1", out_r1, plain),
                               ("new vs refresh1", new, out_r1)):

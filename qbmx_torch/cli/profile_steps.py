@@ -4,12 +4,16 @@
     python -m qbmx_torch.cli.profile_steps --hidden 2 --reads 100 --batch 73   # CLI defaults
     python -m qbmx_torch.cli.profile_steps --cdqbm probabilistic --solver SA --reads 100
     python -m qbmx_torch.cli.profile_steps --cdqbm deterministic --solver SA --reads 100
+    python -m qbmx_torch.cli.profile_steps --seed_sweep 0 1 2 3 4 5 6 7 8 9   # the 10-seed sweep
 
 For each solver: ``DiscQBM`` on the synthetic training split (600
 images, 784 inputs) -- or with ``--cdqbm`` a ``CDQBM`` on the same images
 at 28×28 in one of ``CDQBM_CONFIGS`` (the parity run's probabilistic
 settings, or the CLI defaults, each with its own batch size; pass
-``--reads 100``, their sample count) -- one warm-up epoch, then ``--epochs`` unprofiled
+``--reads 100``, their sample count), or with ``--seed_sweep`` a
+``SeedParallelDQBM`` over those seeds at the flat widths (one sampler
+launch a step for every seed; ``ms_per_seed_step`` is a step ÷ seeds,
+against a single model's ms/step) -- one warm-up epoch, then ``--epochs`` unprofiled
 epochs timed on the host clock after ``synchronize()`` (their median,
 divided by the steps, is ms/step), then on a GPU one more epoch under
 ``torch.profiler``.  Its device events give the device's busy time (the
@@ -34,15 +38,18 @@ import numpy as np
 import torch
 
 from qbmx_torch.cli._common import load_dataset
-from qbmx_torch.cli.qbm_main import resolve_device
 from qbmx_torch.data import loaders
+from qbmx_torch.models.base import resolve_device
 from qbmx_torch.models.cdqbm import CDQBM
 from qbmx_torch.models.dqbm import DiscQBM
 from qbmx_torch.samplers.kernel_call import fits_shared
+from qbmx_torch.train.sweep import SeedParallelDQBM
 
-#: the kernel each solver's sampler launches on a GPU (SA and BMS: while the
-#: QUBO's couplings fit shared memory; "anneal_wide" above)
+#: the kernel each solver's sampler launches on a GPU while the QUBO's
+#: couplings fit shared memory (above: "anneal_wide" for SA and BMS,
+#: "pt_wide" for PT at 8 rungs)
 SOLVER_KERNELS = {"SA": "sa_metropolis", "BMS": "sa_heatbath", "PT": "pt_heatbath"}
+WIDE_KERNELS = {"SA": "anneal_wide", "BMS": "anneal_wide", "PT": "pt_wide"}
 SEED, LEARNING_RATE = 19, 0.307  # the flagship run's learning rate
 #: CDQBM settings: the probabilistic parity run (``out/parity/cdqbm_breast_prob.log``:
 #: sc100 b5.0 bs20 l0.02) and ``cdqbm_main``'s defaults, both at pooling 4, --seq_sizes 4
@@ -56,9 +63,7 @@ CDQBM_CONFIGS = {
 
 def solver_kernel(solver: str, n: int) -> str:
     """The kernel a solver's sampler launches on a GPU for an n-variable QUBO."""
-    if solver in ("SA", "BMS") and not fits_shared(n):
-        return "anneal_wide"
-    return SOLVER_KERNELS[solver]
+    return SOLVER_KERNELS[solver] if fits_shared(n) else WIDE_KERNELS[solver]
 
 
 def _sync(dev: torch.device) -> None:
@@ -95,23 +100,36 @@ def device_breakdown(epoch, kernel: str) -> dict:
 
 
 def profile_solver(solver: str, train_X, train_y, *, hidden: int, reads: int, sweeps: int,
-                   batch: int, epochs: int, dev: torch.device, cdqbm: str | None = None) -> dict:
+                   batch: int, epochs: int, dev: torch.device, cdqbm: str | None = None,
+                   seeds: list[int] | None = None) -> dict:
     lr = LEARNING_RATE
-    if cdqbm:
-        cfg = CDQBM_CONFIGS[cdqbm]
-        model = CDQBM(image_shape=(28, 28), seed=SEED, pooling_size=4,
-                      sequential_layer_sizes=[4], hidden_bias_type="shared", solver=solver,
-                      anneal=sweeps, sample_count=reads, device=dev, **cfg["model"])
-        batch, lr, n = cfg["batch"], cfg["lr"], model.geo.n_total
+    n = hidden + 1
+    if seeds:
+        sweep = SeedParallelDQBM(seeds, dim_input=train_X.shape[1], n_hidden_nodes=hidden,
+                                 solver=solver, restricted=False, sample_count=reads,
+                                 anneal_steps=sweeps, device=dev)
+
+        def run():
+            sweep.train(train_X, train_y, epochs=1, batch_size=batch, learning_rate=lr,
+                        verbose=False)
     else:
-        model = DiscQBM(dim_input=train_X.shape[1], n_hidden_nodes=hidden, seed=SEED,
-                        solver=solver, restricted=False, sample_count=reads,
-                        anneal_steps=sweeps, device=dev)
-        n = hidden + 1
+        if cdqbm:
+            cfg = CDQBM_CONFIGS[cdqbm]
+            model = CDQBM(image_shape=(28, 28), seed=SEED, pooling_size=4,
+                          sequential_layer_sizes=[4], hidden_bias_type="shared", solver=solver,
+                          anneal=sweeps, sample_count=reads, device=dev, **cfg["model"])
+            batch, lr, n = cfg["batch"], cfg["lr"], model.geo.n_total
+        else:
+            model = DiscQBM(dim_input=train_X.shape[1], n_hidden_nodes=hidden, seed=SEED,
+                            solver=solver, restricted=False, sample_count=reads,
+                            anneal_steps=sweeps, device=dev)
+
+        def run():
+            model.train_epoch(train_X, train_y, batch, lr)
     steps = math.ceil(len(train_X) / batch)
 
     def epoch():
-        model.train_epoch(train_X, train_y, batch, lr)
+        run()
         _sync(dev)
 
     epoch()  # warm-up: first launches, device copies of the batches
@@ -121,9 +139,12 @@ def profile_solver(solver: str, train_X, train_y, *, hidden: int, reads: int, sw
         epoch()
         walls.append((time.perf_counter() - t0) * 1e3)
     wall = statistics.median(walls)
-    rec = {"solver": solver, "model": f"CDQBM {cdqbm}" if cdqbm else "DiscQBM", "n": n,
+    name = (f"SeedParallelDQBM {len(seeds)} seeds" if seeds else
+            f"CDQBM {cdqbm}" if cdqbm else "DiscQBM")
+    rec = {"solver": solver, "model": name, "n": n, "seeds": len(seeds) if seeds else 1,
            "kernel": solver_kernel(solver, n), "steps": steps,
            "epoch_ms": wall, "ms_per_step": wall / steps, "epoch_ms_runs": walls,
+           "ms_per_seed_step": wall / steps / (len(seeds) if seeds else 1),
            "busy_ms": None, "idle_share": None, "ops_per_step": None,
            "kernel_ms_per_launch": None, "kernel_share": None, "kernel_launches": None}
     if dev.type == "cuda":
@@ -146,6 +167,8 @@ def main(argv=None) -> list[dict]:
     p.add_argument("--device", default="cuda")
     p.add_argument("--cdqbm", choices=sorted(CDQBM_CONFIGS), default=None,
                    help="profile a CDQBM in this configuration instead of the DiscQBM")
+    p.add_argument("--seed_sweep", type=int, nargs="+", default=None,
+                   help="profile a SeedParallelDQBM over these seeds instead of the DiscQBM")
     a = p.parse_args(argv)
     dev = resolve_device(a.device)
     (train_X, train_y), (val_X, _), (test_X, _) = load_dataset("synthetic", seed=SEED)
@@ -154,10 +177,12 @@ def main(argv=None) -> list[dict]:
     for solver in a.solver:
         rec = profile_solver(solver, train_X, np.asarray(train_y), hidden=a.hidden,
                              reads=a.reads, sweeps=a.sweeps, batch=a.batch,
-                             epochs=a.epochs, dev=dev, cdqbm=a.cdqbm)
+                             epochs=a.epochs, dev=dev, cdqbm=a.cdqbm, seeds=a.seed_sweep)
         records.append(rec)
         shape = f"CDQBM {a.cdqbm}" if a.cdqbm else \
             f"h{a.hidden} sc{a.reads} anneal{a.sweeps} bs{a.batch}"
+        if a.seed_sweep:
+            shape += f" sweep of {len(a.seed_sweep)} seeds"
         print(f"{solver} {shape} on {dev}: "
               + ", ".join(f"{k} {v}" for k, v in rec.items() if k not in ("solver",)))
     if dev.type == "cuda":

@@ -5,11 +5,13 @@ raises, the run never falls back to the CPU).
 Solvers: ``SA`` (annealed Metropolis), ``BMS`` (annealed heat-bath, with
 pair updates on the GPU) and ``PT`` (parallel tempering, 8 rungs), each
 through its CUDA kernel on ``--device cuda`` and its plain PyTorch version
-on ``--device cpu``; ``SA-TORCH`` and ``EXACT``.  Not ported yet, and
-refused with a pointer to the ROADMAP item: ``--seed_sweep`` (Queue 1 item
-11), ``--resume``/``--checkpoint_every`` (item 8), ``SA-NATIVE`` (item 16)
-and the QPU solvers (item 17).  ``--track_distribution`` records
-the per-epoch distribution in the history but draws no figure.
+on ``--device cpu``; ``SA-TORCH`` and ``EXACT``.  ``--seed_sweep`` trains
+every listed seed as one batched sweep (``train/sweep.SeedParallelDQBM``:
+one sampler launch a step for all seeds).  Not ported yet, and refused
+with a pointer to the ROADMAP item: ``--resume``/``--checkpoint_every``
+(Queue 1 item 3), ``SA-NATIVE`` (item 9) and the QPU solvers (item 10).
+``--track_distribution`` records the per-epoch distribution in the
+history but draws no figure.
 """
 
 from __future__ import annotations
@@ -19,23 +21,15 @@ import random
 import time
 
 import numpy as np
-import torch
 
-from qbmx_torch.cli._common import (load_dataset, param_string, qpu_sampler_kwargs,
-                                    str2bool)
+from qbmx_torch.cli._common import (finish_seed_sweep, load_dataset, param_string,
+                                    qpu_sampler_kwargs, str2bool)
 from qbmx_torch.data import loaders
+from qbmx_torch.models.base import resolve_device
 from qbmx_torch.models.dqbm import DiscQBM
 from qbmx_torch.train.loop import train_model
+from qbmx_torch.train.sweep import SeedParallelDQBM
 from qbmx_torch.utils import metrics
-
-
-def resolve_device(device) -> torch.device:
-    """``torch.device(device)``, refusing a CUDA device that is not there."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {device}: no CUDA device is available "
-                           "(pass --device cpu to run the plain PyTorch path)")
-    return dev
 
 
 def main(
@@ -48,15 +42,25 @@ def main(
     seed_sweep=None, track_distribution=False, device="cuda",
 ):
     """Train, validate per epoch, predict on the test split; returns
-    (acc, f1, precision, recall, auc)."""
-    if seed_sweep:
-        raise NotImplementedError(
-            "qbmx_torch: --seed_sweep waits for the SeedParallelDQBM port "
-            "(ROADMAP Queue 1 item 11)")
+    (acc, f1, precision, recall, auc), or with ``seed_sweep`` the per-seed
+    best-epoch ``(accs, aucs)`` of one batched sweep over those seeds."""
+    if seed_sweep and (resume or checkpoint_every):
+        # qbmx's guards: silently ignoring these would lose checkpoints /
+        # retrain from scratch while the user believes the flags took effect
+        raise ValueError("--resume/--checkpoint_every need the "
+                         "single-model path (omit --seed_sweep)")
+    if seed_sweep and load_path:
+        # every sweep seed re-derives its own init stream; a loaded
+        # checkpoint would be silently discarded
+        raise ValueError("--load_path needs the single-model path "
+                         "(omit --seed_sweep)")
+    if resume and load_path:
+        raise ValueError("--load_path and --resume both set initial "
+                         "params; pass exactly one")
     if resume or checkpoint_every:
         raise NotImplementedError(
             "qbmx_torch: --resume/--checkpoint_every wait for the utils/checkpoint "
-            "port (ROADMAP Queue 1 item 8)")
+            "port (ROADMAP Queue 1 item 3)")
     dev = resolve_device(device)
     print("Start")
     random.seed(seed)
@@ -73,6 +77,19 @@ def main(
         e=epochs, bs=batch_size, l=learning_rate, r=restricted, data=data_set, n_=name,
     )
     print(pstr)
+
+    class_titles = ["0", "1"] if num_classes == 2 else [str(i) for i in range(num_classes)]
+    if seed_sweep:
+        return _seed_sweep(
+            seed_sweep, train_X, train_y, test_X, test_y,
+            n_hidden_nodes=n_hidden_nodes, num_classes=num_classes,
+            restricted=restricted, sample_count=sample_count, anneal=anneal,
+            beta_eff=beta_eff, use_one_hot_encoding=use_one_hot_encoding,
+            solver=solver, grad_clip=grad_clip, epochs=epochs,
+            batch_size=batch_size, learning_rate=learning_rate, save=save,
+            name=name, class_titles=class_titles,
+            reinit_on_collapse=reinit_on_collapse, device=dev,
+        )
 
     print(f"Creating QBM on {dev}...")
     dqbm = DiscQBM(
@@ -97,7 +114,6 @@ def main(
 
     print("Predict on test data...")
     predictions, _ = dqbm.predict_batch(test_X)
-    class_titles = ["0", "1"] if num_classes == 2 else [str(i) for i in range(num_classes)]
     if save:
         acc, f1, precision, recall, auc = metrics.save_result(
             save + name, dqbm, history, dqbm.weight_objects(), test_y, predictions,
@@ -112,6 +128,28 @@ def main(
     print("Recall: ", recall)
     print("AUC Score: ", auc)
     return acc, f1, precision, recall, auc
+
+
+def _seed_sweep(seeds, train_X, train_y, test_X, test_y, *, n_hidden_nodes,
+                num_classes, restricted, sample_count, anneal, beta_eff,
+                use_one_hot_encoding, solver, grad_clip, epochs, batch_size,
+                learning_rate, save, name, class_titles, reinit_on_collapse=0,
+                device="cuda"):
+    """Every seed as ONE batched sweep (``SeedParallelDQBM``): per-seed
+    per-epoch pickles and reference-format best-epoch weights under
+    ``best_model/`` (``_common.finish_seed_sweep``)."""
+    sweep = SeedParallelDQBM(
+        seeds, dim_input=train_X.shape[1], num_classes=num_classes,
+        n_hidden_nodes=n_hidden_nodes, restricted=restricted,
+        sample_count=sample_count, anneal_steps=anneal, beta_eff=beta_eff,
+        use_one_hot_encoding=use_one_hot_encoding, solver=solver,
+        grad_clip=grad_clip, device=device,
+    )
+    hists = sweep.train(train_X, train_y, test_X, test_y, epochs=epochs,
+                        batch_size=batch_size, learning_rate=learning_rate,
+                        class_titles=tuple(class_titles), verbose=True,
+                        reinit_on_collapse=reinit_on_collapse)
+    return finish_seed_sweep(sweep, seeds, hists, save, name)
 
 
 def build_parser():
@@ -155,11 +193,13 @@ def build_parser():
                    help="after N epochs, re-draw the params if val accuracy "
                         "is stuck at the majority-class prediction")
     p.add_argument("--checkpoint_every", type=int, default=0,
-                   help="not ported yet (ROADMAP Queue 1 item 8)")
+                   help="not ported yet (ROADMAP Queue 1 item 3)")
     p.add_argument("--resume", type=str, default="",
-                   help="not ported yet (ROADMAP Queue 1 item 8)")
+                   help="not ported yet (ROADMAP Queue 1 item 3)")
     p.add_argument("--seed_sweep", type=int, nargs="+", default=None,
-                   help="not ported yet (ROADMAP Queue 1 item 11)")
+                   help="train ALL listed seeds as one batched sweep "
+                        "(qbmx_torch.train.sweep.SeedParallelDQBM); writes per-seed "
+                        "per-epoch pickles and best_model/ checkpoints")
     p.add_argument("--qpu_copies", type=int, default=1,
                    help="QPU solvers only (not ported yet)")
     p.add_argument("--qpu_embedding", choices=["first_party", "composite"],

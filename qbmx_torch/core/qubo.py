@@ -30,6 +30,14 @@ def split_qubo(Q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return h, off + off.transpose(-1, -2)
 
 
+def densify_groups(Q_shared: torch.Tensor, h_extra: torch.Tensor) -> torch.Tensor:
+    """(G, n, n) shared QUBOs + (G, B, n) per-problem linear terms → the
+    (G*B, n, n) dense batch they represent."""
+    n = Q_shared.shape[-1]
+    diag = torch.diag_embed(h_extra.to(torch.float32))
+    return (Q_shared[:, None] + diag).reshape(-1, n, n)
+
+
 def qubo_energy(Q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """Energy of one configuration ``s`` (n,) under ``Q`` (n, n)."""
     h, J = split_qubo(Q)

@@ -67,6 +67,9 @@
 // the main path: fields_out (G,B,R,n) the final fields, flips the number of
 // variables changed (for chip_smoke.py's drift check and bound).
 //
+// The tiles, fields and units live in anneal_tiles.cuh, which pt_wide.cu
+// (K5, parallel tempering past shared memory) shares.
+//
 // Build without --use_fast_math (anneal_rules.cuh).
 
 #include <climits>
@@ -74,23 +77,21 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
-#include "anneal_rules.cuh"
+#include "anneal_tiles.cuh"
 
 namespace {
 
-using qbmx::heatbath_threshold;
 using qbmx::kInitTag;
-using qbmx::metropolis_accept;
-using qbmx::metropolis_threshold;
-using qbmx::pair_rule;
+using qbmx::kLanes;
+using qbmx::kRows;
+using qbmx::Layout;
+using qbmx::layout_of;
+using qbmx::load_tile;
 using qbmx::philox4x32_10;
-using qbmx::quad_rule;
-using qbmx::single_rule;
+using qbmx::sweep_tiles;
 using qbmx::SweepUniforms;
 using qbmx::word;
 
-constexpr int kRows = 8;             // J rows per tile
-constexpr int kLanes = 32;           // threads a chain: a warp
 constexpr int kMaxChains = 32;       // chains per block: 1024 threads
 constexpr size_t kSmemMax = 232448;  // a block's shared memory on Hopper
 // A refresh sweep costs what a sweep cost before the fields were incremental
@@ -104,240 +105,6 @@ constexpr size_t kSmemMax = 232448;  // a block's shared memory on Hopper
 #define QBMX_K4_REFRESH_PERIOD 64
 #endif
 constexpr int kRefreshPeriod = QBMX_K4_REFRESH_PERIOD;
-
-// Shared-memory layout of a block at width n: two J tiles, then C rows of
-// fields, then C rows of state words.  A chain's rows cover whole tiles (n
-// rounded up to 8), since a tile's 8 fields and states are read at once,
-// the last tile's too.  A warp touches one chain's rows only, at
-// consecutive words, so the rows need no padding against bank conflicts.
-struct Layout {
-  int jrow;  // floats per (padded) J row and tile row: n rounded up to 4
-  int frow;  // floats per chain's fields: n rounded up to 8
-
-  __host__ __device__ int words() const { return frow / 4; }  // state words per chain
-  __host__ __device__ size_t bytes(int chains) const {
-    return 4 * ((size_t)2 * kRows * jrow + (size_t)chains * (frow + words()));
-  }
-};
-
-__host__ __device__ inline Layout layout_of(int n) {
-  return Layout{(n + 3) / 4 * 4, (n + kRows - 1) / kRows * kRows};
-}
-
-// Rows [8·tile, 8·tile + 8) of the padded J_g into a tile buffer, as
-// asynchronous 16-byte copies.
-__device__ __forceinline__ void load_tile(float* dst, const float* Jg, int tile, int n,
-                                          int jrow) {
-  const int i0 = tile * kRows;
-  const int count = min(kRows, n - i0) * jrow / 4;
-  const float4* src = reinterpret_cast<const float4*>(Jg + (size_t)i0 * jrow);
-  float4* d4 = reinterpret_cast<float4*>(dst);
-  for (int q = threadIdx.x; q < count; q += blockDim.x)
-    __pipeline_memcpy_async(d4 + q, src + q, sizeof(float4));
-}
-
-__device__ __forceinline__ float masked(float x, uint32_t mask) {
-  return __uint_as_float(__float_as_uint(x) & mask);
-}
-
-// Fields of variables i..i+M-1 (tile rows Ji, row stride jrow) recomputed
-// on the chain's state st; every lane of the chain gets the same M values.
-template <int M>
-__device__ __forceinline__ void fields(const float* Ji, int jrow, const uint32_t* st,
-                                       int lane, const float* hp, float f[M]) {
-  float acc[M];
-#pragma unroll
-  for (int a = 0; a < M; ++a) acc[a] = 0.0f;
-  const int q4 = jrow / 4;
-  const float4* T = reinterpret_cast<const float4*>(Ji);
-  for (int w = lane; w < q4; w += kLanes) {
-    const uint32_t s = st[w];
-    const uint32_t m0 = __byte_perm(s, 0, 0x0000), m1 = __byte_perm(s, 0, 0x1111);
-    const uint32_t m2 = __byte_perm(s, 0, 0x2222), m3 = __byte_perm(s, 0, 0x3333);
-#pragma unroll
-    for (int a = 0; a < M; ++a) {
-      const float4 v = T[a * q4 + w];
-      acc[a] += masked(v.x, m0);
-      acc[a] += masked(v.y, m1);
-      acc[a] += masked(v.z, m2);
-      acc[a] += masked(v.w, m3);
-    }
-  }
-#pragma unroll
-  for (int a = 0; a < M; ++a) {
-#pragma unroll
-    for (int d = 1; d < kLanes; d <<= 1) acc[a] += __shfl_xor_sync(0xFFFFFFFFu, acc[a], d);
-    f[a] = hp[a] + acc[a];
-  }
-}
-
-// Variables i..i+M-1's new values o by RULE -- 0 Metropolis, 1 heat-bath;
-// M = 2 or 4 the joint pair or quad draw, M = 1 under RULE 2 or 4 the
-// trailing single -- from their fields f and states s, the couplings among
-// them (tile rows rr.., row stride jrow) and v, the first variable's
-// threshold (RULE 0, 1) or uniform (RULE 2, 4).
-template <int RULE, int M>
-__device__ __forceinline__ void decide(const float f[M], const float s[M], const float* tile,
-                                       int rr, int jrow, int i, float beta, float v,
-                                       float o[M]) {
-  if constexpr (M == 4) {
-    float c[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = a + 1; b < 4; ++b) c[a][b] = tile[(rr + a) * jrow + i + b];
-    quad_rule(f, c, s, beta, v, o);
-  } else if constexpr (M == 2) {
-    pair_rule(f[0], f[1], tile[rr * jrow + i + 1], s[0], s[1], beta, v, o[0], o[1]);
-  } else if constexpr (RULE == 0) {
-    o[0] = metropolis_accept(f[0], s[0], v) ? 1.0f - s[0] : s[0];
-  } else if constexpr (RULE == 1) {
-    o[0] = f[0] < v ? 1.0f : 0.0f;
-  } else {
-    o[0] = single_rule(f[0], beta, v);
-  }
-}
-
-// Adds d[a]·J_{i+a, j} (tile rows rr.., a in increasing order) to the
-// chain's fields fr, each lane to its float4 chunks q ≡ lane (mod 32).
-template <int M>
-__device__ __forceinline__ void add_rows(float* fr, const float* tile, int rr, int jrow,
-                                         int lane, const float d[M]) {
-  const int q4 = jrow / 4;
-  const float4* T = reinterpret_cast<const float4*>(tile + rr * jrow);
-  float4* F = reinterpret_cast<float4*>(fr);
-#pragma unroll 4
-  for (int q = lane; q < q4; q += kLanes) {
-    float4 x = F[q];
-#pragma unroll
-    for (int a = 0; a < M; ++a) {
-      if (d[a] != 0.0f) {
-        const float4 t = T[a * q4 + q];
-        x.x = fmaf(d[a], t.x, x.x);
-        x.y = fmaf(d[a], t.y, x.y);
-        x.z = fmaf(d[a], t.z, x.z);
-        x.w = fmaf(d[a], t.w, x.w);
-      }
-    }
-    F[q] = x;
-  }
-}
-
-// A unit of a refresh sweep: the fields of variables i..i+M-1 recomputed
-// from the state in shared memory, the decision, and its change applied to
-// the state and every field.  Returns the number of variables changed.
-template <int RULE, int M>
-__device__ __forceinline__ int refresh_unit(const float* tile, int rr, int jrow, float* fr,
-                                            uint32_t* st, int lane, const float* hp, int i,
-                                            float beta, float v) {
-  float f[M], s[M], o[M], d[M];
-  unsigned char* sb = reinterpret_cast<unsigned char*>(st);
-  fields<M>(tile + rr * jrow, jrow, st, lane, hp + i, f);
-#pragma unroll
-  for (int a = 0; a < M; ++a) s[a] = sb[i + a] ? 1.0f : 0.0f;
-  decide<RULE, M>(f, s, tile, rr, jrow, i, beta, v, o);
-  int changed = 0;
-#pragma unroll
-  for (int a = 0; a < M; ++a) {
-    d[a] = o[a] - s[a];
-    changed += d[a] != 0.0f;
-  }
-  __syncwarp();  // every lane has read the state
-  if (lane == 0) {
-#pragma unroll
-    for (int a = 0; a < M; ++a) {
-      fr[i + a] = f[a];
-      sb[i + a] = o[a] != 0.0f ? 0xFF : 0x00;
-    }
-  }
-  __syncwarp();  // ... and sees the refreshed fields before adding to them
-  if (changed != 0) add_rows<M>(fr, tile, rr, jrow, lane, d);  // the same on the chain's lanes
-  __syncwarp();  // ... and sees the new fields and state before the next unit
-  return changed;
-}
-
-// A unit of any other sweep, at tile row rr (a constant once the tile's
-// units are unrolled).  Every lane holds the tile's 8 fields ft and states
-// sv in registers, so a decision waits on no memory: a change adds
-// d·J_ij to the tile's later fields there, by the same fmaf, in the same
-// order, as add_rows adds it to their copies in shared memory, and the
-// state byte is written for the next tile.  Within a tile no lane reads
-// what another writes, so no barrier is needed until the tile's end.
-template <int RULE, int M>
-__device__ __forceinline__ int tile_unit(const float* tile, int rr, int jrow, float* fr,
-                                         unsigned char* sb, int lane, int i0, float beta,
-                                         float v, float ft[8], float sv[8]) {
-  float f[M], s[M], o[M], d[M];
-#pragma unroll
-  for (int a = 0; a < M; ++a) {
-    f[a] = ft[rr + a];
-    s[a] = sv[rr + a];
-  }
-  decide<RULE, M>(f, s, tile, rr, jrow, i0 + rr, beta, v, o);
-  int changed = 0;
-#pragma unroll
-  for (int a = 0; a < M; ++a) {
-    d[a] = o[a] - s[a];
-    changed += d[a] != 0.0f;
-  }
-  if (changed != 0) {  // the same on the chain's lanes
-#pragma unroll
-    for (int a = 0; a < M; ++a) {
-      sv[rr + a] = o[a];
-      if (lane == 0) sb[i0 + rr + a] = o[a] != 0.0f ? 0xFF : 0x00;
-    }
-#pragma unroll
-    for (int r2 = rr + M; r2 < kRows; ++r2)
-#pragma unroll
-      for (int a = 0; a < M; ++a)
-        if (d[a] != 0.0f) ft[r2] = fmaf(d[a], tile[(rr + a) * jrow + i0 + r2], ft[r2]);
-    add_rows<M>(fr, tile, rr, jrow, lane, d);
-  }
-  return changed;
-}
-
-template <int M>
-struct Width {
-  static constexpr int value = M;
-};
-
-// The units of one tile (variables i0..i0+7, i0 a multiple of 8) in sweep
-// order, unit(rr, Width<M>{}) for each: singles (RULE 0, 1); pairs, then a
-// trailing single (RULE 2); quads, then a remainder pair and/or a single
-// (RULE 4).  rr is a constant once the loops are unrolled.  Returns the sum
-// of the units' results.
-template <int RULE, typename Unit>
-__device__ __forceinline__ int tile_schedule(int i0, int n, Unit&& unit) {
-  int sum = 0;
-  if constexpr (RULE <= 1) {
-#pragma unroll
-    for (int rr = 0; rr < kRows; ++rr)
-      if (i0 + rr < n) sum += unit(rr, Width<1>{});
-  } else if constexpr (RULE == 2) {
-#pragma unroll
-    for (int rr = 0; rr < kRows; rr += 2) {
-      if (i0 + rr + 2 <= n)
-        sum += unit(rr, Width<2>{});
-      else if (i0 + rr < n)
-        sum += unit(rr, Width<1>{});
-    }
-  } else {
-    const int n4 = n & ~3;
-#pragma unroll
-    for (int rr = 0; rr < kRows; rr += 4) {
-      const int i = i0 + rr;
-      if (i + 4 <= n4) {
-        sum += unit(rr, Width<4>{});
-      } else if (i + 2 <= n) {  // the remainder n4..n-1 starts here
-        sum += unit(rr, Width<2>{});
-        if (i + 3 <= n) sum += unit(rr + 2, Width<1>{});
-      } else if (i < n) {
-        sum += unit(rr, Width<1>{});
-      }
-    }
-  }
-  return sum;
-}
 
 template <int RULE>
 __global__ void __launch_bounds__(kMaxChains * kLanes)
@@ -388,66 +155,16 @@ anneal_wide_kernel(const float* __restrict__ J, const float* __restrict__ h,
 
   const float hot_p = hot[p], logr_p = logr[p];
   const size_t u_sweep = (size_t)G * B * n * R;  // uniforms per sweep
-  const int ntiles = (n + kRows - 1) / kRows;
-  const int tile_floats = kRows * L.jrow;
   int changed = 0;
-  float mine = 0.0f;  // this lane's threshold or uniform of the current batch
   load_tile(tiles, Jg, 0, n, L.jrow);
   __pipeline_commit();
   int buf = 0;
   for (int t = 0; t < S; ++t) {
-    const bool refresh = t % kRefreshPeriod == 0;
     const float beta = hot_p * expf(logr_p * ((float)t * inv_span));
     SweepUniforms u{host ? uniforms + (size_t)t * u_sweep + p * n * R + r : nullptr, R, key,
                     (uint32_t)r, (uint32_t)t, seed_hi};
-    for (int k = 0; k < ntiles; ++k) {
-      if (t + 1 < S || k + 1 < ntiles)  // prefetch the next tile, wrapping to the next sweep
-        load_tile(tiles + (buf ^ 1) * tile_floats, Jg, k + 1 < ntiles ? k + 1 : 0, n, L.jrow);
-      __pipeline_commit();
-      const int i0 = k * kRows;
-      const int base = i0 - i0 % kLanes;  // first variable of the lanes' batch
-      if (base == i0) {  // every 4th tile
-        // lane l draws variable i0 + l's uniform and, for RULE 0 and 1,
-        // turns it into its threshold; the units shuffle it from there
-        mine = 0.0f;
-        if (i0 + lane < n) {
-          const float uu = u(i0 + lane);
-          mine = RULE == 0 ? metropolis_threshold(uu, beta)
-                 : RULE == 1 ? heatbath_threshold(uu, beta) : uu;
-        }
-      }
-      __pipeline_wait_prior(1);  // this thread's copies of tile k have landed
-      __syncthreads();           // ... and every thread's, and the last tile's writes
-      const float* tile = tiles + buf * tile_floats;
-      auto v_at = [&](int rr) { return __shfl_sync(0xFFFFFFFFu, mine, i0 + rr - base); };
-      if (refresh) {
-        changed += tile_schedule<RULE>(i0, n, [&](int rr, auto w) {
-          constexpr int M = decltype(w)::value;
-          return refresh_unit<RULE, M>(tile, rr, L.jrow, fr, st, lane, hp, i0 + rr, beta,
-                                          v_at(rr));
-        });
-      } else {
-        // the tile's 8 fields and states, into every lane's registers
-        float ft[kRows], sv[kRows];
-        const float4 f0 = *reinterpret_cast<const float4*>(fr + i0);
-        const float4 f1 = *reinterpret_cast<const float4*>(fr + i0 + 4);
-        const uint32_t w0 = st[i0 / 4], w1 = st[i0 / 4 + 1];
-        ft[0] = f0.x, ft[1] = f0.y, ft[2] = f0.z, ft[3] = f0.w;
-        ft[4] = f1.x, ft[5] = f1.y, ft[6] = f1.z, ft[7] = f1.w;
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          sv[b] = (w0 >> (8 * b)) & 0xFFu ? 1.0f : 0.0f;
-          sv[b + 4] = (w1 >> (8 * b)) & 0xFFu ? 1.0f : 0.0f;
-        }
-        changed += tile_schedule<RULE>(i0, n, [&](int rr, auto w) {
-          constexpr int M = decltype(w)::value;
-          return tile_unit<RULE, M>(tile, rr, L.jrow, fr, sb, lane, i0, beta, v_at(rr), ft,
-                                       sv);
-        });
-      }
-      __syncthreads();  // tile buffer buf is free for the prefetch after next
-      buf ^= 1;
-    }
+    changed += sweep_tiles<RULE>(tiles, buf, Jg, L, n, t + 1 == S, t % kRefreshPeriod == 0,
+                                 beta, u, fr, st, lane, hp);
   }
 
   if (active) {

@@ -1,7 +1,7 @@
 """Dataset ingest in numpy (the subset of ``qbmx.data.loaders`` the flat
 Disc_QBM path calls): MNIST idx.gz, FashionMNIST raw idx, MedMNIST .npz,
 synthetic images, shuffling and flattening.  Resizing and PCA are not
-ported yet (ROADMAP Queue 1 item 18)."""
+ported yet (ROADMAP Queue 1 item 8)."""
 
 from __future__ import annotations
 
@@ -137,7 +137,7 @@ def preprocess_images(train_x, test_x, val_x=None, outputshape=None,
     if outputshape is not None or pca_n_components is not None:
         raise NotImplementedError(
             "qbmx_torch: resize and PCA preprocessing are not ported yet "
-            "(ROADMAP Queue 1 item 18)")
+            "(ROADMAP Queue 1 item 8)")
     if do_flatten:
         flat = lambda a: (np.ascontiguousarray(np.asarray(a).reshape(len(a), -1))
                           if a is not None else None)

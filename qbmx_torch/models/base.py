@@ -14,6 +14,16 @@ import numpy as np
 import torch
 
 
+def resolve_device(device) -> torch.device:
+    """``torch.device(device)``, refusing a CUDA device that is not there:
+    a model or CLI asked for the card never carries on on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r}: no CUDA device is available "
+                           "(pass device='cpu' / --device cpu to run the plain PyTorch path)")
+    return dev
+
+
 def save_weight_pickle(objs: list, title: str, path: str = "out") -> None:
     """Write a reference-format weight list pickle (``<path>/<title>.pkl``,
     the list as given: numpy arrays, lists of them and ``None`` — the format

@@ -44,6 +44,7 @@ from qbmx_torch.models.base import (
     clip_by_global_norm,
     load_weight_pickle,
     pad_rows,
+    resolve_device,
     tree_map,
 )
 from qbmx_torch.models.geometry import StackGeometry, patch_index_grid
@@ -229,7 +230,7 @@ class CDQBM(EpochLaunchMixin, QBMModel):
         learn_penalty: bool = False,
         sampler_kwargs: dict | None = None,
         n_kernels: int = 1,
-        device="cpu",
+        device="cuda",
     ):
         """Flag-gated extensions, off by default (reference parity), as in
         ``qbmx``: ``pool_select`` ("max"/"absmax" deterministic-pooling
@@ -266,7 +267,7 @@ class CDQBM(EpochLaunchMixin, QBMModel):
         self.grad_clip = float(grad_clip)
         self.learn_penalty = bool(learn_penalty)
         self.solver_string = solver
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.sampler = sampler if sampler is not None else get_sampler(
             solver, num_sweeps=anneal, **(sampler_kwargs or {}))
 

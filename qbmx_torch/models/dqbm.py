@@ -33,6 +33,7 @@ from qbmx_torch.models.base import (
     QBMModel,
     clip_by_global_norm,
     load_weight_pickle,
+    resolve_device,
     tree_map,
 )
 from qbmx_torch.samplers.api import Sampler, get_sampler, sampler_sample_groups
@@ -98,18 +99,23 @@ def unclamped_qubo(params: DQBMParams, x, beta_eff: float):
 
 
 def _unclamped_couplings(params: DQBMParams):
-    n_out = params.b_o.shape[0]
-    H = params.b_h.shape[0]
-    Q = params.b_h.new_zeros((n_out + H, n_out + H))
-    Q[:n_out, :n_out] = torch.triu(params.w_oo, 1)
-    Q[:n_out, n_out:] = params.w_vh[:n_out]
-    Q[n_out:, n_out:] = torch.triu(params.w_hh, 1)
+    n_out = params.b_o.shape[-1]
+    H = params.b_h.shape[-1]
+    Q = params.b_h.new_zeros(params.b_h.shape[:-1] + (n_out + H, n_out + H))
+    Q[..., :n_out, :n_out] = torch.triu(params.w_oo, 1)
+    Q[..., :n_out, n_out:] = params.w_vh[..., :n_out, :]
+    Q[..., n_out:, n_out:] = torch.triu(params.w_hh, 1)
     return Q
+
+
+# The shared parts and the fields also take parameters stacked over a
+# leading seed axis (``train/sweep.py``): (S, ...) parameters give (S, ...)
+# QUBOs and (S, B, ...) fields.
 
 
 def clamped_qubo_shared(params: DQBMParams, beta_eff: float):
     """(H, H) example-independent part of the clamped QUBO."""
-    return (torch.diag(params.b_h) + torch.triu(params.w_hh, 1)) / beta_eff
+    return (torch.diag_embed(params.b_h) + torch.triu(params.w_hh, 1)) / beta_eff
 
 
 def clamped_fields(params: DQBMParams, x, y_vec, beta_eff: float):
@@ -119,14 +125,14 @@ def clamped_fields(params: DQBMParams, x, y_vec, beta_eff: float):
 
 def unclamped_qubo_shared(params: DQBMParams, beta_eff: float):
     """((O+H), (O+H)) example-independent part of the unclamped QUBO."""
-    diag = torch.diag(torch.cat([params.b_o, params.b_h]))
+    diag = torch.diag_embed(torch.cat([params.b_o, params.b_h], dim=-1))
     return (diag + _unclamped_couplings(params)) / beta_eff
 
 
 def unclamped_fields(params: DQBMParams, x, beta_eff: float):
     """(B, O+H) per-example linear terms of the unclamped QUBO."""
-    n_out = params.b_o.shape[0]
-    return torch.cat([x @ params.w_vo, x @ params.w_vh[n_out:]], dim=-1) / beta_eff
+    n_out = params.b_o.shape[-1]
+    return torch.cat([x @ params.w_vo, x @ params.w_vh[..., n_out:, :]], dim=-1) / beta_eff
 
 
 # ---------------------------------------------------------------------------
@@ -233,7 +239,7 @@ class DiscQBM(EpochLaunchMixin, QBMModel):
         use_linear_shortcut: bool = False,
         grad_clip: float = 0.0,
         sampler_kwargs: dict | None = None,
-        device="cpu",
+        device="cuda",
     ):
         """``use_linear_shortcut``: when restricted, the clamped QUBO is
         diagonal and its ground state closed-form — skip sampling that
@@ -251,7 +257,7 @@ class DiscQBM(EpochLaunchMixin, QBMModel):
         self.seed = seed
         self.grad_clip = float(grad_clip)
         self.solver_string = solver
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.sampler = sampler if sampler is not None else get_sampler(
             solver, num_sweeps=anneal_steps, **(sampler_kwargs or {}))
         self.reinit_params(attempt=0)

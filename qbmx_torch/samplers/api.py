@@ -20,8 +20,9 @@ from typing import Protocol
 
 import torch
 
+from qbmx_torch.core.qubo import densify_groups
 from qbmx_torch.samplers import exact as _exact
-from qbmx_torch.samplers import gibbs_cuda, pt_cuda, sa_cuda, sa_torch
+from qbmx_torch.samplers import gibbs_cuda, pt_wide_cuda, sa_cuda, sa_torch
 
 
 class Sampler(Protocol):
@@ -29,14 +30,6 @@ class Sampler(Protocol):
                      num_reads: int) -> torch.Tensor:
         """(B, n, n) QUBOs → (B, num_reads, n) binary samples."""
         ...
-
-
-def densify_groups(Q_shared: torch.Tensor, h_extra: torch.Tensor) -> torch.Tensor:
-    """(G, n, n) shared QUBOs + (G, B, n) per-problem linear terms → the
-    (G*B, n, n) dense batch they represent."""
-    n = Q_shared.shape[-1]
-    diag = torch.diag_embed(h_extra.to(torch.float32))
-    return (Q_shared[:, None] + diag).reshape(-1, n, n)
 
 
 def sampler_sample_groups(sampler, generator, Q_shared, h_extra, num_reads):
@@ -113,16 +106,25 @@ class PTSampler:
     """Parallel-tempering (replica exchange) sampler at ``beta_target``:
     per read, ``num_replicas`` rungs on a geometric β grid run heat-bath
     sweeps with alternating-parity exchanges, and the target rung is read
-    out.  As in ``qbmx`` it has no structured entry: structured calls reach
-    it densified (:func:`sampler_sample_groups`)."""
+    out.  On CUDA tensors ``pt_wide_cuda.pt_route`` picks the kernel: K3 on
+    the densified batch where it holds J_b in shared memory, else K5 on the
+    structured form (a dense batch is G = B groups of one).  On CPU
+    tensors both entries run the plain version on the densified batch, as
+    ``qbmx`` densifies every structured PT call."""
 
     num_sweeps: int = 64
     num_replicas: int = 8
     beta_target: float = 1.0
 
     def sample_batch(self, generator, Q, num_reads):
-        return pt_cuda.pt_sample_batch_cuda(Q, num_reads, self.num_sweeps, num_replicas=self.num_replicas,
-                  beta_target=self.beta_target, generator=generator)
+        return pt_wide_cuda.pt_sample_batch(
+            Q, num_reads, self.num_sweeps, num_replicas=self.num_replicas,
+            beta_target=self.beta_target, generator=generator)
+
+    def sample_groups(self, generator, Q_shared, h_extra, num_reads):
+        return pt_wide_cuda.pt_sample_groups(
+            Q_shared, h_extra, num_reads, self.num_sweeps, num_replicas=self.num_replicas,
+            beta_target=self.beta_target, generator=generator)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,8 +139,8 @@ class ExactSampler:
 
 
 _NOT_PORTED = {
-    "SA-NATIVE": "the native C++ sampler (ROADMAP Queue 1 item 16)",
-    "QPU": "QPU solvers (ROADMAP Queue 1 item 17)",
+    "SA-NATIVE": "the native C++ sampler (ROADMAP Queue 1 item 9)",
+    "QPU": "QPU solvers (ROADMAP Queue 1 item 10)",
 }
 
 

@@ -133,27 +133,31 @@ def philox_variates(seed: int, G: int, B: int, R: int, n: int, S: int):
     return init01.reshape(G, B, R, n), uniforms
 
 
-def pt_philox_variates(seed: int, B: int, M: int, R: int, n: int, S: int):
+def pt_philox_variates(seed: int, B: int, M: int, R: int, n: int, S: int, var_shift: int = 8):
     """The ``(init01 (B·M,R,n), uniforms (S,B·M,n,R), swap_u (S,B·M,R))``
-    float32 arrays the tempering kernel (``pt_heatbath.cu``) draws in
-    generator mode from ``seed``, slot ``b·M + m``: key ``(seed low word,
-    problem b)``; variable draws at counter ``(read, (m << 8) | variable //
-    4, sweep, seed high word)`` (sweep slot 2^32−1 for the initial bits);
-    the swap uniform of rung m at counter ``(read, ((m // 4) << 8) | 0xFF,
-    sweep, seed high word)``, word ``m % 4``."""
+    float32 arrays the tempering kernels draw in generator mode from
+    ``seed``, slot ``b·M + m``: key ``(seed low word, problem b)``; variable
+    draws at counter ``(read, (m << var_shift) | variable // 4, sweep, seed
+    high word)`` (sweep slot 2^32−1 for the initial bits); the swap uniform
+    of rung m at counter ``(read, ((m // 4) << var_shift) | (2^var_shift −
+    1), sweep, seed high word)``, word ``m % 4``.  ``var_shift`` is 8 for
+    ``pt_heatbath.cu`` (K3) and 10 for ``pt_wide.cu`` (K5, whose problems
+    are numbered g·B + b on the structured form)."""
     streams = np.arange(B)
     init01 = np.empty((B, M, R, n), np.float32)
     uniforms = np.empty((S, B, M, n, R), np.float32)
     swap_u = np.empty((S, B, M, R), np.float32)
     key = (np.uint64(seed & 0xFFFFFFFF), streams.astype(np.uint64)[:, None])
     r = np.arange(R, dtype=np.uint64)
+    swap_tag = (1 << var_shift) - 1
     for m in range(M):
-        init01[:, m] = _words(seed, streams, R, n, _INIT_SLOT, m << 8) & np.uint64(1)
+        y = m << var_shift
+        init01[:, m] = _words(seed, streams, R, n, _INIT_SLOT, y) & np.uint64(1)
         for t in range(S):
-            uniforms[t, :, m] = _uniform(_words(seed, streams, R, n, t, m << 8)).transpose(0, 2, 1)
+            uniforms[t, :, m] = _uniform(_words(seed, streams, R, n, t, y)).transpose(0, 2, 1)
     for t in range(S):
         for mq in range(-(-M // 4)):
-            out = philox4x32_10((r, np.uint64((mq << 8) | 0xFF), np.uint64(t),
+            out = philox4x32_10((r, np.uint64((mq << var_shift) | swap_tag), np.uint64(t),
                                  np.uint64(seed >> 32)), key)
             for w in range(min(4, M - 4 * mq)):
                 swap_u[t, :, 4 * mq + w] = _uniform(np.broadcast_to(out[w], (B, R)))

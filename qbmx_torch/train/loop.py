@@ -40,15 +40,29 @@ def output_patterns(model):
     return ["0", "1"]
 
 
-def _maybe_reinit(model, history, val_Y, window: int, verbose: bool) -> None:
-    """Flatline recovery: re-draw the model if the validation accuracy stayed
-    at or below the majority-class fraction over the last ``window``
-    epochs.  The attempt counter lives on the model, so every re-draw takes
-    a fresh stream."""
+def majority_fraction(val_Y) -> float:
+    """The share of the most frequent class in ``val_Y``: the accuracy of
+    always predicting it."""
     vy = np.asarray(val_Y)
-    maj = max(float(np.mean(vy == c)) for c in np.unique(vy))
-    if max(history.acc_per_epoch[-window:]) > maj + 1e-9:
+    return max(float(np.mean(vy == c)) for c in np.unique(vy))
+
+
+def flatlined(acc_per_epoch, val_Y, window: int) -> bool:
+    """The collapse rule of flatline recovery: the validation accuracy
+    stayed at or below the majority-class fraction over the last
+    ``window`` epochs (only those, so a recovered model is never re-drawn).
+    The single-model loop and the seed sweep (``train/sweep.py``) both ask
+    it."""
+    return max(acc_per_epoch[-window:]) <= majority_fraction(val_Y) + 1e-9
+
+
+def _maybe_reinit(model, history, val_Y, window: int, verbose: bool) -> None:
+    """Flatline recovery: re-draw the model if it :func:`flatlined`.  The
+    attempt counter lives on the model, so every re-draw takes a fresh
+    stream."""
+    if not flatlined(history.acc_per_epoch, val_Y, window):
         return
+    maj = majority_fraction(val_Y)
     model._reinit_attempt = int(getattr(model, "_reinit_attempt", 0)) + 1
     model.reinit_params(attempt=model._reinit_attempt)
     if verbose:
@@ -84,7 +98,7 @@ def train_model(
     if checkpoint_every:
         raise NotImplementedError(
             "qbmx_torch: full-state checkpoints (checkpoint_every) wait for the "
-            "utils/checkpoint port (ROADMAP Queue 1 item 8)")
+            "utils/checkpoint port (ROADMAP Queue 1 item 3)")
     train_X = np.asarray(train_X, dtype="float32")
     train_Y = np.asarray(train_Y)
     epochs = epochs if epochs is not None else getattr(model, "epochs", 1)

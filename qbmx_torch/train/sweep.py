@@ -1,0 +1,347 @@
+"""Seed-parallel flat Disc_QBM training: S models, one per seed, trained as
+one batched program (counterpart of ``qbmx.train.sweep.SeedParallelDQBM``).
+
+The parameters are one ``DQBMParams`` stacked over a leading seed axis.
+Each step is ONE structured sampler call over 2·S groups of B problems --
+every seed's clamped group first, then every seed's unclamped group, as
+``qbmx`` orders them -- so at the 10-seed flagship (H=5, batch 60, 1000
+reads) a step is one launch of 20 groups of 60 problems.  The QUBO
+builders take the stacked parameters (``models/dqbm.py``); the moments are
+the single model's functions over the seeds × examples flattened; the
+masked mean, clipping and update are batched over the seed axis.  An
+epoch is a Python loop of steps whose nlls stay on the device until its
+end: one host sync an epoch.
+
+Streams: seed s's parameters come from ``make_generator(s, attempt)``, as
+``DiscQBM(seed=s)`` draws its own, so its initial parameters are equal.
+The samplers' random numbers come from one sweep-level generator, a pure
+function of the seed list: the kernels key their Philox streams per
+problem from its draws, so a seed's samples do not depend on its
+batch-mates, but they do not reproduce a single-model run's stream
+either (neither does ``qbmx``'s packed route).
+
+Left out, because they serve the TPU's compiler: the scanned and unrolled
+epoch launches, ``epoch_segment`` and the ``mesh`` argument with its
+sharded row scatter (ROADMAP Queue 1 item 11); a plain row write re-draws
+a seed.
+"""
+
+from __future__ import annotations
+
+import pickle
+from pathlib import Path
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from qbmx_torch.core.rng import make_generator
+from qbmx_torch.models.base import resolve_device, tree_leaves, tree_map
+from qbmx_torch.models.dqbm import (
+    DQBMParams,
+    clamped_fields,
+    clamped_moments,
+    clamped_qubo_shared,
+    init_params,
+    output_probs_from_samples,
+    params_from_numpy,
+    params_to_numpy,
+    unclamped_fields,
+    unclamped_moments,
+    unclamped_qubo_shared,
+)
+from qbmx_torch.samplers.api import Sampler, get_sampler, sampler_sample_groups
+from qbmx_torch.train.loop import _pad_batch, flatlined
+from qbmx_torch.utils.metrics import History, get_metrics, prob_scored_auc
+
+
+# ``dqbm.params_from_numpy`` and ``params_to_numpy`` take any leading axes,
+# so they carry stacked parameters (a stacked ``qbmx`` ``DQBMParams``
+# fetched to the host, seed axis first) as they are
+sweep_params_from_numpy = params_from_numpy
+sweep_params_to_numpy = params_to_numpy
+
+
+def _seed_streams(seeds: Sequence[int], dims: tuple, restricted: bool, device,
+                  attempt: int = 0) -> DQBMParams:
+    """Stacked initial parameters: seed s's from ``make_generator(s,
+    attempt)``, the stream ``DiscQBM(seed=s).reinit_params(attempt)`` draws
+    them from, so they are equal (attempt 0: its construction)."""
+    return tree_map(lambda *a: torch.stack(a),
+                    *(init_params(make_generator(s, attempt), *dims, restricted, device)
+                      for s in seeds))
+
+
+def _pad_to_batches(x: np.ndarray, y: np.ndarray, batch_size: int, device):
+    """A ragged dataset padded to whole batches → (xb, yb, maskb, nb) on
+    ``device``; the mask zeros the padded examples out of every statistic."""
+    nb = -(-len(x) // batch_size)
+    xp, yp, mask = _pad_batch(x, y, nb * batch_size)
+    return (torch.as_tensor(xp.reshape((nb, batch_size) + x.shape[1:]), device=device),
+            torch.as_tensor(yp.reshape(nb, batch_size), device=device),
+            torch.as_tensor(mask.reshape(nb, batch_size), device=device), nb)
+
+
+def _seed_mean(tree, mask):
+    """Per-seed batch average of (S, B, ...) statistics honoring the
+    validity mask (B,) (``dqbm._masked_mean`` over axis 1)."""
+    denom = torch.clamp(mask.sum(), min=1.0)
+
+    def avg(leaf):
+        m = mask.reshape((1, -1) + (1,) * (leaf.dim() - 2))
+        return (leaf * m).sum(dim=1) / denom
+
+    return tree_map(avg, tree)
+
+
+def _clip_per_seed(tree, max_norm: float):
+    """Each seed's gradient scaled so its global L2 norm is at most
+    ``max_norm`` (``base.clip_by_global_norm`` per seed)."""
+    gnorm = torch.sqrt(sum(torch.square(leaf).flatten(1).sum(1) for leaf in tree_leaves(tree)))
+    scale = torch.clamp(torch.full_like(gnorm, max_norm) / gnorm.clamp_min(1e-12), max=1.0)
+    return tree_map(lambda leaf: leaf * scale.reshape((-1,) + (1,) * (leaf.dim() - 1)), tree)
+
+
+def _snapshot_best(best: DQBMParams, params: DQBMParams, improved: np.ndarray) -> DQBMParams:
+    """Where ``improved[s]``, seed s's parameters replace its row of the
+    stacked best-epoch parameters (on the device; no host copy until they
+    are saved)."""
+    imp = torch.as_tensor(improved, device=params.b_h.device)
+    return tree_map(lambda b, p: torch.where(imp.reshape((-1,) + (1,) * (p.dim() - 1)), p, b),
+                    best, params)
+
+
+def _track_best(sw, histories, epoch_i: int) -> None:
+    """Update ``sw.best_params`` / ``best_metric`` / ``best_epoch`` from
+    this epoch's per-seed 0.5·acc + 0.5·auc (the reference's model
+    selection); the epoch recorded counts every epoch trained so far."""
+    combined = np.asarray([h.combined_acc_auc_per_epoch[-1] for h in histories])
+    improved = combined > sw.best_metric
+    if not improved.any():
+        return
+    sw.best_metric = np.where(improved, combined, sw.best_metric)
+    sw.best_epoch = np.where(improved, sw._epochs_done + epoch_i, sw.best_epoch)
+    sw.best_params = _snapshot_best(sw.best_params if sw.best_params is not None else sw.params,
+                                    sw.params, improved)
+
+
+def _save_best_models(sw, folder, objs_for_seed, name_fn=None) -> dict:
+    """Each seed's best-epoch weight pickle under ``folder/best_model/``,
+    the reference's layout; ``objs_for_seed(numpy fields of one seed) ->
+    pickle payload``, ``name_fn(seed, best_epoch) -> file stem``.  Returns
+    {seed: path}."""
+    if sw.best_params is None:
+        raise RuntimeError("no best-epoch snapshots: train with validation data first")
+    out = Path(folder) / "best_model"
+    out.mkdir(parents=True, exist_ok=True)
+    host = sweep_params_to_numpy(sw.best_params)  # one device fetch
+    paths = {}
+    for i, seed in enumerate(sw.seeds):
+        stem = (name_fn(seed, int(sw.best_epoch[i])) if name_fn is not None
+                else f"_se{seed}_e{int(sw.best_epoch[i])}_best")
+        path = out / f"{stem}.pkl"
+        with open(path, "wb") as f:
+            pickle.dump(objs_for_seed({k: v[i] for k, v in host.items()}), f)
+        paths[seed] = str(path)
+    return paths
+
+
+class SeedParallelDQBM:
+    """Train S flat Disc_QBMs (one per seed) as a single batched program.
+
+    Hyperparameters mirror :class:`qbmx_torch.models.dqbm.DiscQBM`;
+    ``predict_sample_count`` sets the validation reads (default
+    ``sample_count``).  ``device`` defaults to the card, as the models'."""
+
+    def __init__(
+        self,
+        seeds: Sequence[int],
+        dim_input: int,
+        num_classes: int = 2,
+        n_hidden_nodes: int = 4,
+        restricted: bool = False,
+        sample_count: int = 20,
+        anneal_steps: int = 20,
+        beta_eff: float = 1.0,
+        use_one_hot_encoding: bool = False,
+        solver: str = "SA",
+        sampler: Sampler | None = None,
+        grad_clip: float = 0.0,
+        predict_sample_count: int | None = None,
+        device="cuda",
+    ):
+        self.seeds = [int(s) for s in seeds]
+        self.S = len(self.seeds)
+        self.dim_input = dim_input
+        self.n_hidden_nodes = n_hidden_nodes
+        self.n_output_nodes = num_classes if use_one_hot_encoding else 1
+        self.use_one_hot_encoding = use_one_hot_encoding
+        self.restricted = restricted
+        self.sample_count = sample_count
+        self.predict_sample_count = (sample_count if predict_sample_count is None
+                                     else int(predict_sample_count))
+        self.beta_eff = float(beta_eff)
+        self.grad_clip = float(grad_clip)
+        self.device = resolve_device(device)
+        self.sampler = sampler if sampler is not None else get_sampler(
+            solver, num_sweeps=anneal_steps)
+        self.params = _seed_streams(self.seeds, self._dims(), restricted, self.device)
+        # the samplers' draws: one generator for the sweep, from the seed list
+        state = np.random.SeedSequence(self.seeds).generate_state(1, np.uint64)
+        self.generator = torch.Generator().manual_seed(int(state[0]))
+        self.best_params = None
+        self.best_metric = np.full(self.S, -np.inf)
+        self.best_epoch = np.zeros(self.S, dtype=int)
+        # cumulative over repeated train() calls: a winner found in a later
+        # call records its total epoch; re-draws continue their attempts
+        self._epochs_done = 0
+        self._reinit_attempts = [0] * self.S
+
+    def _dims(self) -> tuple:
+        return (self.dim_input, self.n_hidden_nodes, self.n_output_nodes)
+
+    # -- batched computations ------------------------------------------------
+
+    def _y_vec(self, y):
+        if self.use_one_hot_encoding:
+            return torch.nn.functional.one_hot(y.to(torch.int64), self.n_output_nodes) \
+                .to(torch.float32)
+        return y.to(torch.float32)[:, None]
+
+    def _probs(self, s_u):
+        """(S, B, R, O+H) unclamped samples → (S, B, classes) probabilities."""
+        probs = output_probs_from_samples(s_u.flatten(0, 1), self.n_output_nodes,
+                                          self.use_one_hot_encoding)
+        return probs.unflatten(0, s_u.shape[:2])
+
+    @torch.no_grad()
+    def _step(self, x, y, mask, lr):
+        """One update of every seed's parameters from ONE sampler call;
+        returns the (S,) nlls on the device."""
+        p = self.params
+        S, O, beta = self.S, self.n_output_nodes, self.beta_eff
+        y_vec = self._y_vec(y)
+        B, H = x.shape[0], self.n_hidden_nodes
+        Qu = unclamped_qubo_shared(p, beta)  # (S, n_u, n_u)
+        n_u = Qu.shape[-1]
+        # group order: [every seed's clamped, every seed's unclamped]; the
+        # clamped groups are zero-padded to n_u (the padding couples to
+        # nothing and is sliced off)
+        Q_all = Qu.new_zeros((2 * S, n_u, n_u))
+        Q_all[:S, :H, :H] = clamped_qubo_shared(p, beta)
+        Q_all[S:] = Qu
+        h_all = Qu.new_zeros((2 * S, B, n_u))
+        h_all[:S, :, :H] = clamped_fields(p, x, y_vec, beta)
+        h_all[S:] = unclamped_fields(p, x, beta)
+        s_all = sampler_sample_groups(self.sampler, self.generator, Q_all, h_all,
+                                      self.sample_count)  # (2S, B, R, n_u)
+        s_c, s_u = s_all[:S, :, :, :H], s_all[S:]
+
+        # the single model's moments over seeds × examples, then per seed
+        xs = x.expand(S, *x.shape).flatten(0, 1)
+        ys = y_vec.expand(S, *y_vec.shape).flatten(0, 1)
+        mc = clamped_moments(s_c.flatten(0, 1), xs, ys)
+        mu = unclamped_moments(s_u.flatten(0, 1), xs, O)
+        grad = _seed_mean(tree_map(lambda a, b: (a - b).unflatten(0, (S, B)), mc, mu), mask)
+        if self.restricted:
+            grad.w_hh = torch.zeros_like(grad.w_hh)
+        if self.grad_clip > 0.0:
+            grad = _clip_per_seed(grad, self.grad_clip)
+        self.params = tree_map(lambda a, g: a - lr * g, p, grad)
+
+        probs = self._probs(s_u)
+        pick = torch.gather(probs, 2, y.to(torch.int64)[None, :, None].expand(S, B, 1))[..., 0]
+        return (-torch.log(pick + 1e-12) * mask).sum(1) / torch.clamp(mask.sum(), min=1.0)
+
+    @torch.no_grad()
+    def _predict(self, x):
+        """ONE sampler call over S groups of the inputs → (S, N, O) output
+        marginals and (S, N, classes) probabilities."""
+        p = self.params
+        s_u = sampler_sample_groups(self.sampler, self.generator,
+                                    unclamped_qubo_shared(p, self.beta_eff),
+                                    unclamped_fields(p, x, self.beta_eff),
+                                    self.predict_sample_count)  # (S, N, R, n_u)
+        return s_u[..., :self.n_output_nodes].mean(dim=2), self._probs(s_u)
+
+    def reinit_seeds(self, indices: Sequence[int], attempt: int = 1) -> None:
+        """Re-draw the listed seeds' parameters (by index) from
+        ``make_generator(seed, attempt)``: fresh, deterministic draws for
+        flatline recovery, each equal to ``DiscQBM(seed).reinit_params(
+        attempt)``'s."""
+        idx = torch.as_tensor(list(indices), dtype=torch.int64, device=self.device)
+        fresh = _seed_streams([self.seeds[i] for i in indices], self._dims(), self.restricted,
+                              self.device, attempt)
+        self.params = tree_map(lambda a, f: a.index_copy(0, idx, f), self.params, fresh)
+
+    # -- training --------------------------------------------------------------
+
+    def train(self, train_X, train_Y, val_X=None, val_Y=None, epochs: int = 1,
+              batch_size: int = 8, learning_rate: float = 0.005,
+              class_titles=("0", "1"), verbose: bool = True,
+              reinit_on_collapse: int = 0) -> list[History]:
+        """Returns one reference-style ``History`` per seed.
+        ``reinit_on_collapse`` (0 = off, needs validation data): every N
+        epochs, re-draw each seed that ``train.loop.flatlined`` over them
+        (never after the final epoch)."""
+        xb, yb, maskb, nb = _pad_to_batches(np.asarray(train_X, dtype="float32"),
+                                            np.asarray(train_Y), batch_size, self.device)
+        xv = (torch.as_tensor(np.asarray(val_X, dtype="float32"), device=self.device)
+              if val_X is not None else None)
+        histories = [History() for _ in range(self.S)]
+        for epoch_i in range(1, epochs + 1):
+            nlls = torch.stack([self._step(xb[i], yb[i], maskb[i], learning_rate)
+                                for i in range(nb)], dim=1).cpu().numpy()  # (S, nb)
+            for s, h in enumerate(histories):
+                h.nll_per_batch.extend(float(v) for v in nlls[s])
+                h.nll_per_epoch.append(float(nlls[s].sum()) / nb)
+                h.errors_per_batch.extend(0.0 for _ in range(nb))
+                h.error_per_epoch.append(0.0)
+            if xv is None:
+                continue
+            marg, probs = (t.cpu().numpy() for t in self._predict(xv))
+            for s, h in enumerate(histories):
+                preds = (np.argmax(marg[s], axis=1) if self.use_one_hot_encoding
+                         else np.round(marg[s][:, 0]).astype(int))
+                acc, _, _, _, auc = get_metrics(val_Y, preds, list(class_titles))
+                h.acc_per_epoch.append(acc)
+                h.auc_per_epoch.append(auc)
+                h.combined_acc_auc_per_epoch.append(0.5 * acc + 0.5 * auc)
+                h.prob_auc_per_epoch.append(prob_scored_auc(val_Y, probs[s]))
+            _track_best(self, histories, epoch_i)
+            if verbose:
+                accs = [h.acc_per_epoch[-1] for h in histories]
+                print(f"Epoch {epoch_i}/{epochs}  val_acc mean {np.mean(accs):.4f} "
+                      f"[{np.min(accs):.4f}, {np.max(accs):.4f}]")
+            if reinit_on_collapse and epoch_i % reinit_on_collapse == 0 and epoch_i < epochs:
+                collapsed = [s for s, h in enumerate(histories)
+                             if flatlined(h.acc_per_epoch, val_Y, reinit_on_collapse)]
+                for s in collapsed:
+                    self._reinit_attempts[s] += 1
+                    self.reinit_seeds([s], attempt=self._reinit_attempts[s])
+                if collapsed and verbose:
+                    print(f"re-initialized flatlined seeds {[self.seeds[s] for s in collapsed]}")
+        self._epochs_done += epochs
+        return histories
+
+    def params_for_seed(self, s: int) -> DQBMParams:
+        """Seed ``s``'s parameters (by index) out of the stacked ones."""
+        return tree_map(lambda a: a[s], self.params)
+
+    def best_params_for_seed(self, s: int) -> DQBMParams:
+        """Seed ``s``'s parameters at its best combined-acc/AUC epoch."""
+        if self.best_params is None:
+            raise RuntimeError("no validation epochs recorded yet")
+        return tree_map(lambda a: a[s], self.best_params)
+
+    def save_best_models(self, folder, name_fn=None) -> dict:
+        """Per-seed best-epoch weight pickles under ``folder/best_model/``
+        in the reference 5/6-tuple format ``DiscQBM.load_savepoint`` reads
+        in both packages."""
+
+        def objs(d):
+            return [d[k] for k in ("w_vh", "w_vo", "b_h", "b_o", "w_oo")] \
+                + ([] if self.restricted else [d["w_hh"]])
+
+        return _save_best_models(self, folder, objs, name_fn)
+

@@ -49,14 +49,15 @@ def heatbath_units(n: int, width: int) -> int:
 
 
 def anneal_bound(G: int, B: int, R: int, n: int, S: int, *, decisions: int | None = None,
-                 flips: int | None = None, J_groups: int | None = None) -> dict:
+                 flips: int | None = None, J_groups: int | None = None, rungs: int = 1) -> dict:
     """``{"bound_ms", "bound_by", "bytes", "ops"}`` of one launch over G
     groups of B problems (couplings of ``J_groups`` problems, default G;
-    linear terms and schedule per problem), R reads, width n, S sweeps;
-    ``decisions`` defaults to G·B·R·n·S."""
+    linear terms and two schedule floats per problem and rung), R reads
+    (of ``rungs`` chains each: a tempering ladder), width n, S sweeps;
+    ``decisions`` defaults to G·B·rungs·R·n·S."""
     J_groups = G if J_groups is None else J_groups
-    nbytes = 4 * (J_groups * n * n + G * B * n + 2 * G * B + G * B * R * n)
-    decisions = G * B * R * n * S if decisions is None else decisions
+    nbytes = 4 * (J_groups * n * n + G * B * n + 2 * G * B * rungs + G * B * R * n)
+    decisions = G * B * rungs * R * n * S if decisions is None else decisions
     ops = decisions * OPS_PER_DECISION + (flips or 0) * n
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = max(ops / ISSUE_PER_S, decisions * PHILOX_IMULS / IMUL_PER_S)

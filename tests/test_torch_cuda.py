@@ -1,11 +1,12 @@
 """The CUDA kernels on the card -- Metropolis (qbmx_torch/csrc/sa_metropolis.cu),
 heat-bath (sa_heatbath.cu, each update width), the wide anneal
 (anneal_wide.cu, both rules, for couplings beyond shared memory) and
-parallel tempering (pt_heatbath.cu) -- at small shapes, each layout of each
+parallel tempering (pt_heatbath.cu, and pt_wide.cu for couplings beyond
+shared memory) -- at small shapes, each layout of each
 kernel forced as well as chosen: each against its plain PyTorch version
 under host variates and on its own Philox draws written out, its Philox
 streams against the exact oracle, the launch counters, the incremental
-fields of K2 and K4, and the wrappers' refusals.  ``chip_smoke.py`` runs the same checks at the
+fields of K2, K4 and K5 (and K5's energies), and the wrappers' refusals.  ``chip_smoke.py`` runs the same checks at the
 main path's shapes.
 
 Run on a machine with a CUDA GPU:  python -m pytest --noconftest tests/test_torch_cuda.py
@@ -15,14 +16,16 @@ need).  Elsewhere every test skips.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import pytest
 import torch
 
 from qbmx_torch.core.qubo import default_beta_range, random_qubo_batch, split_qubo
 from qbmx_torch.core.rng import draw_seed
-from qbmx_torch.samplers import (gibbs, gibbs_cuda, kernel_call, pt_cuda, sa_cuda, sa_torch,
-                                 tempering, wide_cuda)
+from qbmx_torch.samplers import (api, gibbs, gibbs_cuda, kernel_call, pt_cuda, pt_wide_cuda,
+                                 sa_cuda, sa_torch, tempering, wide_cuda)
 from qbmx_torch.samplers.exact import exact_boltzmann
 
 pytestmark = pytest.mark.cuda
@@ -457,6 +460,9 @@ def test_pt_streams_are_per_ladder(dev):
 
 
 def test_pt_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    """K3's wrapper refuses what K3 does not take; the sampler sends the
+    shapes past J_b in shared memory to K5 and refuses only what neither
+    kernel takes, naming both bounds."""
     Q = torch.zeros((1, 4, 4), device=dev)
     init01, u, sw = _pt_variates(np.random.default_rng(2), 1, 2, 4, 3, 2, dev)
     with pytest.raises(ValueError, match="swap_u"):
@@ -464,27 +470,53 @@ def test_pt_wrapper_refuses_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="uniforms"):
         pt_cuda.pt_sample_batch_cuda(Q, 3, 2, num_replicas=2,
                                      host_variates=(init01, u.transpose(2, 3), sw))
-    for n, M in ((257, 2), (4, 65), (241, 16)):  # J_b and 2·M energies beyond shared memory
+    sampler = lambda M: api.get_sampler("PT", num_sweeps=2, num_replicas=M)
+    for n, M in ((257, 2), (241, 16)):  # J_b and 2·M energies beyond shared memory
         with pytest.raises(ValueError, match="exceed its bound"):
             pt_cuda.pt_sample_batch_cuda(torch.zeros((1, n, n), device=dev), 2, 2,
                                          num_replicas=M)
+        pt_cuda.reset_launch_counts()
+        pt_wide_cuda.reset_launch_counts()
+        out = sampler(M).sample_batch(None, torch.zeros((1, n, n), device=dev), 2)
+        torch.cuda.synchronize()
+        assert out.shape == (1, 2, n)
+        assert (pt_cuda.launch_counts["pt_heatbath"], pt_wide_cuda.launch_counts["pt_wide"]) \
+            == (0, 1)
+    for n, M in ((4, 65), (300, 33), (pt_wide_cuda.max_n() + 1, 1), (3000, 3)):
+        with pytest.raises(ValueError, match="pt_heatbath kernel.*pt_wide kernel"):
+            sampler(M).sample_batch(None, torch.zeros((1, n, n), device=dev), 2)
 
 
-@pytest.mark.parametrize("solver,counts,kernel", [
-    ("BMS", gibbs_cuda.launch_counts, "sa_heatbath"),
-    ("PT", pt_cuda.launch_counts, "pt_heatbath"),
+@pytest.mark.parametrize("solver,counts,kernel,model", [
+    ("BMS", gibbs_cuda.launch_counts, "sa_heatbath", "DiscQBM"),
+    ("PT", pt_cuda.launch_counts, "pt_heatbath", "DiscQBM"),
+    ("PT", pt_wide_cuda.launch_counts, "pt_wide", "CDQBM"),  # n = 717: K5
 ])
-def test_model_steps_launch_the_solver_kernel(dev, solver, counts, kernel):
+def test_model_steps_launch_the_solver_kernel(dev, solver, counts, kernel, model):
+    from qbmx_torch.models.cdqbm import CDQBM
     from qbmx_torch.models.dqbm import DiscQBM
 
-    m = DiscQBM(dim_input=16, n_hidden_nodes=3, sample_count=32, anneal_steps=20,
-                restricted=False, solver=solver, device=dev)
-    x = np.random.default_rng(3).random((40, 16)).astype(np.float32)
+    if model == "DiscQBM":
+        m = DiscQBM(dim_input=16, n_hidden_nodes=3, sample_count=32, anneal_steps=20,
+                    restricted=False, solver=solver, device=dev)
+        x = np.random.default_rng(3).random((40, 16)).astype(np.float32)
+    else:  # CDQBM (a)'s geometry, probabilistic pooling: a 717-variable QUBO
+        m = CDQBM(pooling_size=4, pooling_type="probabilistic", sequential_layer_sizes=[4],
+                  hidden_bias_type="shared", solver=solver, anneal=5, sample_count=8,
+                  beta_eff=5.0, device=dev)
+        assert m.geo.n_total == 717
+        x = np.random.default_rng(3).random((40, 784)).astype(np.float32)
     y = np.arange(40) % 2
+    for c in (pt_cuda.launch_counts, pt_wide_cuda.launch_counts):
+        for k in c:
+            c[k] = 0
     counts[kernel] = 0
     nlls, _ = m.train_epoch(x, y, 10, 0.3)
     preds, probs = m.predict_batch(x)
-    assert counts[kernel] == 5  # 4 steps + 1 prediction
+    torch.cuda.synchronize()
+    assert counts[kernel] == 4 + math.ceil(40 / (40 if model == "DiscQBM" else 32))
+    assert pt_cuda.launch_counts["pt_heatbath"] + pt_wide_cuda.launch_counts["pt_wide"] \
+        == (counts[kernel] if solver == "PT" else 0)
     assert np.isfinite(nlls).all() and preds.shape == (40,) and probs.shape == (40, 2)
 
 
@@ -520,6 +552,11 @@ def test_geometry_rules_match_the_kernels(dev):
     for kind in (pt_cuda.RUNG, pt_cuda.WARP):
         for n, M in ((6, 8), (41, 32), (241, 15), (240, 64)):
             assert lib.qbmx_pt_heatbath_smem(kind, n, M) == pt_cuda.smem_bytes(kind, n, M)
+    assert lib.qbmx_pt_wide_max_n() == pt_wide_cuda.max_n() == wide_cuda.max_n()
+    for n in (2, 241, 300, 717, 2400, pt_wide_cuda.max_n()):
+        assert lib.qbmx_pt_wide_max_rungs(n) == pt_wide_cuda.max_rungs(n)
+        for c in (1, 8, 32):
+            assert lib.qbmx_pt_wide_smem(n, c) == pt_wide_cuda.smem_bytes(n, c)
 
 
 K1_SHAPES = [(2, 3, 6, 37, 5), (1, 2, 8, 45, 4), (2, 2, 41, 35, 6), (1, 2, 128, 9, 3),
@@ -798,3 +835,143 @@ def test_pt_layouts_on_their_philox_draws(dev, layout, B, n, M, R, S):
                for a in sa_torch.pt_philox_variates(seed, B, M, R, n, S))
     want = tempering.pt_sample_batch_plain(Q, R, S, num_replicas=M, host_variates=hv)
     assert _differ(got, want) <= MAX_DIFF_FRAC
+
+
+# -- parallel tempering past shared memory (qbmx_torch/csrc/pt_wide.cu, K5) ------
+
+
+def _pt_groups(rng, G, B, n, dev):
+    Q = random_qubo_batch(rng, G, n).to(dev)
+    return Q, torch.as_tensor(rng.normal(size=(G, B, n)).astype(np.float32), device=dev)
+
+
+@pytest.mark.parametrize("G,B,n,M,R,S", [
+    (2, 4, 300, 8, 16, 6),   # the structured form at n = 300
+    (1, 2, 717, 8, 8, 3),    # CDQBM (a)'s width
+    (1, 1, 241, 16, 8, 4),   # a ladder K3 cannot hold at n = 241
+    (2, 3, 257, 2, 10, 5),
+    (1, 2, 300, 1, 8, 3),    # one rung: no exchange
+    (1, 1, 400, 5, 9, 4),    # an odd ladder
+    (1, 2, 242, 32, 4, 3),   # a ladder a block, 32 warps
+])
+def test_pt_wide_kernel_matches_plain(dev, G, B, n, M, R, S):
+    """K5 through the sampler's structured entry against the plain version
+    on the densified batch, under the same host variates."""
+    rng = np.random.default_rng(500 + n + M)
+    Q, h_extra = _pt_groups(rng, G, B, n, dev)
+    hv = _pt_variates(rng, G * B, M, n, R, S, dev)
+    assert pt_wide_cuda.pt_route(G, B, M, R, n) == "pt_wide"
+    pt_wide_cuda.reset_launch_counts()
+    got = pt_wide_cuda.pt_sample_groups(Q, h_extra, R, S, num_replicas=M, host_variates=hv)
+    torch.cuda.synchronize()
+    assert pt_wide_cuda.launch_counts["pt_wide"] == 1
+    want = tempering.pt_sample_batch_plain(api.densify_groups(Q, h_extra), R, S, num_replicas=M,
+                                           host_variates=hv)
+    assert got.shape == (G, B, R, n) and set(got.unique().tolist()) <= {0.0, 1.0}
+    assert _differ(got, want.reshape(G, B, R, n)) <= MAX_DIFF_FRAC
+
+
+@pytest.mark.parametrize("G,B,n,M,R,S,L", [
+    (2, 2, 300, 8, 10, 6, 3),  # 20 ladders a group: the last block holds 2 and a spare
+    (1, 3, 717, 8, 11, 4, 4),  # CDQBM (a)'s 4 ladders a block; 33 ladders: 3 spares
+    (1, 2, 301, 5, 7, 5, 6),   # 30 warps a block; 14 ladders: 4 spares
+])
+def test_pt_wide_geometries_match_plain(dev, G, B, n, M, R, S, L):
+    """K5 with L ladders a block, forced past ``pt_wide_geometry`` (which
+    gives these few ladders one a block): the ladders of a block share its
+    energies, and the last block's spare ladders repeat a ladder and write
+    nothing; against the plain version under host variates."""
+    assert B * R % L != 0 and pt_wide_cuda.pt_wide_geometry(G, B, M, R, n).ladders_per_block == 1
+    rng = np.random.default_rng(600 + n + L)
+    Q, h_extra = _pt_groups(rng, G, B, n, dev)
+    hv = _pt_variates(rng, G * B, M, n, R, S, dev)
+    got = pt_wide_cuda.launch(*pt_wide_cuda.structured_form(Q, h_extra, M), R, S,
+                              host_variates=hv,
+                              geometry=pt_wide_cuda.PTWideGeometry.of(G, B, M, R, n, L))
+    want = tempering.pt_sample_batch_plain(api.densify_groups(Q, h_extra), R, S, num_replicas=M,
+                                           host_variates=hv)
+    assert got.shape == (G, B, R, n) and set(got.unique().tolist()) <= {0.0, 1.0}
+    assert _differ(got, want.reshape(G, B, R, n)) <= MAX_DIFF_FRAC
+
+
+def test_pt_wide_dense_entry_matches_plain(dev):
+    """A dense batch is G = B groups of one problem."""
+    B, n, M, R, S = 3, 300, 4, 12, 5
+    rng = np.random.default_rng(9)
+    Q = random_qubo_batch(rng, B, n).to(dev)
+    hv = _pt_variates(rng, B, M, n, R, S, dev)
+    got = pt_wide_cuda.pt_sample_batch(Q, R, S, num_replicas=M, host_variates=hv)
+    want = tempering.pt_sample_batch_plain(Q, R, S, num_replicas=M, host_variates=hv)
+    assert got.shape == (B, R, n) and _differ(got, want) <= MAX_DIFF_FRAC
+
+
+@pytest.mark.parametrize("G,B,n,M,R,S", [(2, 2, 300, 4, 16, 6), (1, 1, 8, 5, 40, 12)])
+def test_pt_wide_on_its_philox_draws(dev, G, B, n, M, R, S):
+    """K5 draws the streams ``pt_philox_variates(..., var_shift=10)``
+    writes out (problems numbered g·B + b)."""
+    rng = np.random.default_rng(n + M)
+    Q, h_extra = _pt_groups(rng, G, B, n, dev)
+    seed = draw_seed(torch.Generator().manual_seed(21))
+    got = pt_wide_cuda.launch(*pt_wide_cuda.structured_form(Q, h_extra, M), R, S,
+                              generator=torch.Generator().manual_seed(21))
+    hv = tuple(torch.as_tensor(a, device=dev) for a in sa_torch.pt_philox_variates(
+        seed, G * B, M, R, n, S, var_shift=pt_wide_cuda.VAR_SHIFT))
+    want = tempering.pt_sample_batch_plain(api.densify_groups(Q, h_extra), R, S, num_replicas=M,
+                                           host_variates=hv)
+    assert _differ(got, want.reshape(G, B, R, n)) <= MAX_DIFF_FRAC
+
+
+@pytest.mark.parametrize("n", [2, 5, 8])
+def test_pt_wide_forced_matches_oracle(dev, n):
+    """K5 launched directly at narrow widths, past the routing: K3's bar
+    (0.08) against the exact marginals at beta 1."""
+    Q = torch.as_tensor(np.triu(np.random.default_rng(3).uniform(-1.5, 1.5, (1, n, n)))
+                        .astype(np.float32), device=dev)
+    s = pt_wide_cuda.launch(*pt_wide_cuda.structured_form(Q, torch.zeros((1, 1, n), device=dev),
+                                                          4), 384, 24,
+                            generator=torch.Generator().manual_seed(0))[0, 0]
+    _, _, marg, _ = exact_boltzmann(Q[0], beta=1.0)
+    assert set(s.unique().tolist()) <= {0.0, 1.0}
+    assert torch.allclose(s.mean(0), marg, atol=0.08)
+
+
+def test_pt_wide_streams_are_per_problem(dev):
+    rng = np.random.default_rng(2)
+    Qa = random_qubo_batch(rng, 3, 300, scale=0.02).to(dev)
+    Qb = Qa.clone()
+    Qb[1:] = random_qubo_batch(rng, 2, 300, scale=0.02).to(dev)
+    run = lambda Q, seed: pt_wide_cuda.pt_sample_batch(
+        Q, 16, 4, num_replicas=4, beta_target=0.5, generator=torch.Generator().manual_seed(seed))
+    a, b, c = run(Qa, 7), run(Qb, 7), run(Qa, 8)
+    assert torch.equal(a[0], b[0]) and torch.equal(a, run(Qa, 7))
+    assert not torch.equal(a[0], c[0])
+
+
+def test_pt_wide_fields_and_energies_stay_near_a_recompute(dev):
+    """Every rung's final fields against h + J·s and its energy against
+    h·s + ½ sᵀJs in float64, past a refresh period, within
+    ``field_drift_bound`` and ``energy_drift_bound``; a field one median
+    |J_jk| short, and an energy one flip's |f_i| short, would not be."""
+    G, B, n, M, R, S = 2, 2, 300, 4, 8, 100
+    rng = np.random.default_rng(77)
+    Q, h_extra = _pt_groups(rng, G, B, n, dev)
+    J, h, betas, dbeta = pt_wide_cuda.structured_form(Q, h_extra, M)
+    states, fields = (torch.empty((G * B * M, R, n), device=dev) for _ in range(2))
+    energy = torch.empty((G * B * M, R), device=dev)
+    flips = torch.zeros(1, dtype=torch.int64, device=dev)
+    pt_wide_cuda.launch(J, h, betas, dbeta, R, S, states_out=states, fields_out=fields,
+                        energy_out=energy, flips=flips,
+                        generator=torch.Generator().manual_seed(5))
+    s = states.double().reshape(G, B, M, R, n)
+    exact_f = h.double()[:, :, None, None] + torch.einsum("gbmrj,gij->gbmri", s, J.double())
+    exact_e = 0.5 * (s * (h.double()[:, :, None, None] + exact_f)).sum(-1)
+    fb = wide_cuda.field_drift_bound(h, J, S)[:, :, None]  # (G, B, 1, 1, n)
+    eb = pt_wide_cuda.energy_drift_bound(h, J, S)  # (G, B, 1, 1)
+    f = fields.double().reshape(G, B, M, R, n)
+    e = energy.double().reshape(G, B, M, R)
+    assert ((f - exact_f).abs() <= fb).all() and ((e - exact_e).abs() <= eb).all()
+    assert 0 < flips.item() <= G * B * M * R * n * S
+    typical = J[0].abs().masked_fill(J[0] == 0, float("nan")).nanmedian(dim=1).values
+    assert ((f[0, 0, 0, 0] - typical.double() - exact_f[0, 0, 0, 0]).abs() > fb[0, 0, 0, 0]).all()
+    flip = exact_f[0, 0, 0, 0].abs().median()
+    assert (e[0, 0, 0, 0] - flip - exact_e[0, 0, 0, 0]).abs() > eb[0, 0, 0, 0]

@@ -2,10 +2,13 @@
 choice K1 and K2 share (``kernel_call.chain_layout``: one thread per
 chain, or a chain spread over a warp), K4's geometry
 (``wide_cuda.wide_geometry``: chains per block, a warp each, and shared
-memory) and K3's layout (``pt_cuda.pt_layout``: a rung a thread or a rung
-a warp, and the kernel's bounds) at the shapes the main paths launch, at
-the K1/K4 boundary and at the kernels' widest shapes; the field-drift
-limit of K4 and of K2's LANES layout, and the roofline bound.
+memory), K3's layout (``pt_cuda.pt_layout``: a rung a thread or a rung
+a warp, and the kernel's bounds), K5's geometry
+(``pt_wide_cuda.pt_wide_geometry``) and the rule that routes a PT call to
+K3 or K5 (``pt_wide_cuda.pt_route``) at the shapes the main paths launch,
+at the K1/K4 boundary and at the kernels' widest shapes; the field-drift
+limit of K4 and of K2's LANES layout, K5's energy limit, and the roofline
+bound.
 ``test_torch_cuda.py`` checks on the card that the kernels accept what
 these rules report."""
 
@@ -18,7 +21,7 @@ import pytest
 import torch
 
 from qbmx_torch.core.qubo import random_qubo_batch, split_qubo
-from qbmx_torch.samplers import gibbs_cuda, kernel_call, pt_cuda, sa_cuda, wide_cuda
+from qbmx_torch.samplers import gibbs_cuda, kernel_call, pt_cuda, pt_wide_cuda, sa_cuda, wide_cuda
 from qbmx_torch.utils import roofline
 
 GRID_X, GRID_Y = 2**31 - 1, 65535
@@ -331,3 +334,106 @@ def test_k2_bound_at_the_cdqbm_default_call():
     assert b["bound_by"] == "operations"
     assert b["bound_ms"] == pytest.approx(1e3 * 2 * 3 * 100 * 21 * 1000 * 29 / 33.5e12)
     assert round(b["bound_ms"], 3) == 0.011
+
+
+PT_WIDE_SHAPES = {  # (G, B, M, R, n)
+    "CDQBM (a) PT": (2, 20, 8, 100, 717),
+    "CDQBM (a) PT prediction": (1, 32, 8, 100, 717),
+    "n=241 M=16": (1, 4, 16, 32, 241),
+    "n=300": (2, 4, 8, 16, 300),
+    "one ladder a block": (1, 2, 32, 4, 242),
+    "widest n": (1, 1, 1, 10, 3368),
+}
+
+
+@pytest.mark.parametrize("name", list(PT_WIDE_SHAPES))
+def test_pt_wide_geometry_within_the_card_limits(name):
+    G, B, M, R, n = PT_WIDE_SHAPES[name]
+    geo = pt_wide_cuda.pt_wide_geometry(G, B, M, R, n)
+    _within_limits(geo.smem, geo.threads, geo.grid)
+    L = geo.ladders_per_block
+    assert geo.threads == 32 * M * L <= 1024  # a warp a rung, whole ladders a block
+    assert geo.smem == pt_wide_cuda.smem_bytes(n, M * L) == wide_cuda.smem_bytes(n, M * L) + 8 * M * L
+    assert geo.grid == (math.ceil(B * R / L), G) and geo.grid[0] * L >= B * R
+
+
+def test_pt_wide_geometry_at_the_cdqbm_shape():
+    """CDQBM (a)'s PT call: 32,000 rungs, 4 ladders (32 warps) a block,
+    1,000 blocks of 161,536 bytes: one an SM."""
+    geo = pt_wide_cuda.pt_wide_geometry(*PT_WIDE_SHAPES["CDQBM (a) PT"])
+    assert (geo.ladders_per_block, geo.threads, geo.grid) == (4, 1024, (500, 2))
+    assert geo.smem == 4 * (16 * 720 + 32 * (720 + 180)) + 8 * 32 == 161_536
+    assert 2 * geo.smem > kernel_call.SMEM_BYTES
+    few = pt_wide_cuda.pt_wide_geometry(1, 1, 8, 10, 717)  # 10 ladders: one a block
+    assert few.ladders_per_block == 1 and few.grid == (10, 1)
+
+
+def test_pt_wide_bounds():
+    """K5 takes K4's widths (n ≤ 3368) and every ladder of up to 32 rungs
+    whose M warps fit one block beside two J tiles: all 32 up to n = 2600
+    or so, one rung at n = 3368."""
+    assert pt_wide_cuda.max_n() == wide_cuda.max_n() == 3368
+    assert pt_wide_cuda.max_rungs(241) == pt_wide_cuda.max_rungs(717) == 32
+    assert pt_wide_cuda.max_rungs(3368) == 1 and pt_wide_cuda.max_rungs(3369) == 0
+    for n in (242, 717, 1500, 2600, 3000, 3368):
+        M = pt_wide_cuda.max_rungs(n)
+        assert 1 <= M <= 32 and pt_wide_cuda.smem_bytes(n, M) <= kernel_call.SMEM_BYTES
+        pt_wide_cuda.pt_wide_geometry(1, 1, M, 1, n)
+        if M < 32:
+            assert pt_wide_cuda.smem_bytes(n, M + 1) > kernel_call.SMEM_BYTES
+            with pytest.raises(ValueError, match="exceed its bound"):
+                pt_wide_cuda.pt_wide_geometry(1, 1, M + 1, 1, n)
+    for n, M in ((3369, 1), (300, 33), (0, 4), (300, 0)):
+        with pytest.raises(ValueError, match="exceed its bound"):
+            pt_wide_cuda.pt_wide_geometry(1, 1, M, 1, n)
+    with pytest.raises(ValueError, match="grid"):
+        pt_wide_cuda.pt_wide_geometry(65536, 1, 8, 1, 300)
+
+
+@pytest.mark.parametrize("shape,kernel", [
+    ((2, 60, 8, 1000, 6), "pt_heatbath"),     # the flagship, densified: K3 a rung a thread
+    ((20, 60, 8, 1000, 6), "pt_heatbath"),    # the 10-seed flagship sweep
+    ((2, 73, 8, 100, 3), "pt_heatbath"),      # the flat CLI defaults
+    ((1, 4, 15, 32, 241), "pt_heatbath"),     # K3's widest ladder at n = 241
+    ((1, 1, 64, 10, 240), "pt_heatbath"),
+    ((1, 4, 16, 32, 241), "pt_wide"),         # J_b and 32 energies past shared memory
+    ((2, 20, 8, 100, 717), "pt_wide"),        # CDQBM (a)
+    ((1, 32, 8, 100, 717), "pt_wide"),        # its prediction chunk
+    ((1, 1, 2, 4, 242), "pt_wide"),
+    ((1, 1, 1, 4, 3368), "pt_wide"),
+])
+def test_pt_route(shape, kernel):
+    assert pt_wide_cuda.pt_route(*shape) == kernel
+
+
+def test_pt_route_takes_the_union_of_the_bounds():
+    """A PT call launches K3 where it takes the shape, else K5 where that
+    takes it, and raises only beyond both, naming both bounds."""
+    for n in (1, 6, 8, 9, 100, 240, 241, 242, 300, 717, 1024, 2000, 3000, 3368, 3369):
+        for M in (1, 2, 8, 15, 16, 32, 33, 64, 65):
+            k3 = n <= 241 and M <= 64 and 4 * (n * n + 2 * M) <= kernel_call.SMEM_BYTES
+            k5 = n <= 3368 and M <= pt_wide_cuda.max_rungs(n)
+            if k3 or k5:
+                assert pt_wide_cuda.pt_route(1, 2, M, 3, n) == ("pt_heatbath" if k3 else "pt_wide")
+            else:
+                with pytest.raises(ValueError, match="pt_heatbath kernel.*pt_wide kernel"):
+                    pt_wide_cuda.pt_route(1, 2, M, 3, n)
+
+
+def test_energy_drift_limit_catches_one_lost_flip():
+    """K5's energies at the CDQBM (a) depth: the limit covers the fields'
+    drift and one sum's rounding, and lies below one flip's |f_i|, the
+    energy change a lost update would leave out."""
+    n, S = 717, 1000
+    rng = np.random.default_rng(n)
+    hs, J = split_qubo(random_qubo_batch(rng, 2, n))
+    h = hs[:, None, :] + torch.as_tensor(rng.normal(size=(2, 3, n)).astype(np.float32))
+    bound = pt_wide_cuda.energy_drift_bound(h, J, S)
+    assert bound.shape == (2, 3, 1, 1) and bound.dtype == torch.float64
+    fb = wide_cuda.field_drift_bound(h, J, S)
+    scale = 2 * h.double().abs() + J.double().abs().sum(-1)[:, None, :]
+    assert torch.allclose(bound[..., 0, 0], 0.5 * fb[:, :, 0].sum(-1)
+                          + math.sqrt(n) * 2.0**-24 * scale.sum(-1))
+    s = torch.as_tensor((rng.random((n,)) < 0.5).astype(np.float64))
+    fields = h.double()[0, 0] + J.double()[0] @ s
+    assert fields.abs().median() > bound.max()

@@ -20,7 +20,7 @@ from test_gibbs_pt_pallas_debug import _pt_reference_trajectory
 
 from qbmx.core.qubo import default_beta_range as j_default_beta_range
 from qbmx.samplers.sa_pallas import pt_sample_batch_pallas
-from qbmx_torch.samplers import api, pt_cuda, sa_torch, tempering
+from qbmx_torch.samplers import api, pt_cuda, pt_wide_cuda, sa_torch, tempering
 from qbmx_torch.samplers.exact import exact_boltzmann
 
 torch.set_num_threads(1)
@@ -136,10 +136,14 @@ def test_wrapper_runs_the_plain_version_on_cpu():
     Q, init01, uniforms, swap_u = _problem(5, 2, 3, 8, 3)
     hv = (T(init01), T(uniforms), T(swap_u))
     pt_cuda.reset_launch_counts()
+    pt_wide_cuda.reset_launch_counts()
     got = pt_cuda.pt_sample_batch_cuda(T(Q), 8, 3, num_replicas=3, host_variates=hv)
-    assert torch.equal(got, tempering.pt_sample_batch_plain(T(Q), 8, 3, num_replicas=3,
-                                                            host_variates=hv))
+    want = tempering.pt_sample_batch_plain(T(Q), 8, 3, num_replicas=3, host_variates=hv)
+    assert torch.equal(got, want)
+    assert torch.equal(pt_wide_cuda.pt_sample_batch(T(Q), 8, 3, num_replicas=3,
+                                                    host_variates=hv), want)
     assert pt_cuda.launch_counts == {"pt_heatbath": 0}
+    assert pt_wide_cuda.launch_counts == {"pt_wide": 0}
 
 
 def test_registry_pt_takes_qbmx_kwargs():
@@ -148,7 +152,9 @@ def test_registry_pt_takes_qbmx_kwargs():
     assert (s.num_sweeps, s.num_replicas, s.beta_target) == (9, 8, 1.0)
     s = api.get_sampler("pt", num_sweeps=9, num_warmup=4, num_replicas=3, beta=2.0)
     assert (s.num_sweeps, s.num_replicas, s.beta_target) == (4, 3, 2.0)
-    assert not hasattr(s, "sample_groups")  # structured calls densify, as in qbmx
+    # a structured entry (K5 takes the structured form on the card); on the
+    # CPU it densifies, as qbmx does (test_structured_calls_densify)
+    assert callable(s.sample_groups)
 
 
 def test_structured_calls_densify():
@@ -291,3 +297,64 @@ def test_swapping_temperatures_equals_swapping_states(n, B, M, reads, sweeps):
     assert torch.equal(rho.sort(1).values, torch.arange(M)[None, :, None].expand_as(rho))
     if M > 2:  # the emulation did move states between rungs
         assert not torch.equal(rho, torch.arange(M)[None, :, None].expand_as(rho))
+
+
+# -- the structured entry (K5's form) on the CPU -------------------------------
+
+
+@pytest.mark.parametrize("G,B,n,M,R,S", [(2, 3, 7, 4, 8, 5), (1, 2, 12, 3, 6, 4),
+                                         (3, 1, 5, 1, 8, 3)])
+def test_structured_entry_plain_route_equals_the_densified_batch(G, B, n, M, R, S):
+    """``pt_wide_cuda.pt_sample_groups`` on CPU tensors is the plain version
+    on ``densify_groups``, exactly, under the same host variates in slot
+    order (g·B + b)·M + m."""
+    rng = np.random.default_rng(G * 100 + n)
+    Qg = T(np.triu(rng.uniform(-1, 1, (G, n, n))).astype(np.float32))
+    h_extra = T(rng.normal(size=(G, B, n)).astype(np.float32))
+    hv = (T((rng.random((G * B * M, R, n)) < 0.5).astype(np.float32)),
+          T(rng.random((S, G * B * M, n, R)).astype(np.float32)),
+          T(rng.random((S, G * B * M, R)).astype(np.float32)))
+    got = pt_wide_cuda.pt_sample_groups(Qg, h_extra, R, S, num_replicas=M, host_variates=hv)
+    want = tempering.pt_sample_batch_plain(api.densify_groups(Qg, h_extra), R, S,
+                                           num_replicas=M, host_variates=hv)
+    assert got.shape == (G, B, R, n) and torch.equal(got, want.reshape(G, B, R, n))
+
+
+def test_structured_form_is_the_densified_batch_split():
+    """K5's inputs: J_g and h = diag(Q_g) + h_extra are the split of the
+    densified batch, and the ladders are ``ladder_betas`` of it, bit for
+    bit, at CDQBM (a)'s width."""
+    from qbmx_torch.core.qubo import split_qubo
+
+    rng = np.random.default_rng(5)
+    G, B, n, M = 2, 3, 717, 8
+    Qg = T(np.triu(rng.uniform(-1, 1, (G, n, n))).astype(np.float32))
+    h_extra = T(rng.normal(size=(G, B, n)).astype(np.float32))
+    J, h, betas, dbeta = pt_wide_cuda.structured_form(Qg, h_extra, M, 1.0)
+    Qd = api.densify_groups(Qg, h_extra)
+    hd, Jd = split_qubo(Qd)
+    assert torch.equal(h.reshape(G * B, n), hd)
+    assert torch.equal(J[:, None].expand(G, B, n, n).reshape(G * B, n, n), Jd)
+    want_b, want_d = tempering.ladder_betas(Qd, M, 1.0)
+    assert torch.equal(betas, want_b) and torch.equal(dbeta, want_d)
+    assert betas.shape == (G * B, M) and betas.is_contiguous() and J.is_contiguous()
+
+
+def test_pt_philox_variates_k5_layout():
+    """K5's draws: K3's counter layout with the rung shifted 10 bits (n up
+    to 4096): rung 0's variable draws are K3's, the others' and the swap
+    draws are not."""
+    a = sa_torch.pt_philox_variates(2**33 + 5, 2, 3, 4, 6, 2)
+    b = sa_torch.pt_philox_variates(2**33 + 5, 2, 3, 4, 6, 2, var_shift=pt_wide_cuda.VAR_SHIFT)
+    rung0 = lambda arr, axis: np.take(arr.reshape(arr.shape[:axis] + (2, 3) + arr.shape[axis + 1:]),
+                                      0, axis=axis + 1)
+    np.testing.assert_array_equal(rung0(a[0], 0), rung0(b[0], 0))
+    np.testing.assert_array_equal(rung0(a[1], 1), rung0(b[1], 1))
+    assert not np.array_equal(a[1], b[1]) and not np.array_equal(a[2], b[2])
+    # the swap word of rung m at counter (read, ((m // 4) << 10) | 0x3FF, sweep)
+    key = (np.uint64(5), np.arange(2, dtype=np.uint64)[:, None])
+    words = sa_torch.philox4x32_10((np.arange(4, dtype=np.uint64), np.uint64(0x3FF), np.uint64(1),
+                                    np.uint64(2)), key)
+    np.testing.assert_array_equal(b[2][1].reshape(2, 3, 4)[:, 2],
+                                  ((words[2] >> np.uint64(8)).astype(np.float32)
+                                   * np.float32(2.0**-24)))

@@ -54,7 +54,7 @@ def test_parser_has_the_reference_flags_and_defaults():
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(seed_sweep=[1, 2]), NotImplementedError),
+    (dict(solver="Advantage_system4.1"), NotImplementedError),  # a QPU solver
     (dict(resume="state.npz"), NotImplementedError),
     (dict(checkpoint_every=1), NotImplementedError),
     (dict(solver="SA-NATIVE"), NotImplementedError),
@@ -81,6 +81,37 @@ def test_cuda_without_a_gpu_raises(monkeypatch):
         tmain.main(save="", **{**SMALL, "device": "cuda"})
 
 
+def _constructors():
+    from qbmx_torch.models.cdqbm import CDQBM
+    from qbmx_torch.models.dqbm import DiscQBM
+    from qbmx_torch.train.sweep import SeedParallelDQBM
+
+    return {"DiscQBM": (DiscQBM, dict(dim_input=4, n_hidden_nodes=2)),
+            "CDQBM": (CDQBM, dict(image_shape=(6, 6), pooling_size=2)),
+            "SeedParallelDQBM": (SeedParallelDQBM, dict(seeds=[1, 2], dim_input=4))}
+
+
+@pytest.mark.parametrize("name", ["DiscQBM", "CDQBM", "SeedParallelDQBM"])
+def test_models_default_to_the_card(name):
+    """The model classes take the card unless asked for the CPU, as the
+    CLIs do."""
+    import inspect
+
+    cls, _ = _constructors()[name]
+    assert inspect.signature(cls).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("name", ["DiscQBM", "CDQBM", "SeedParallelDQBM"])
+def test_a_model_without_a_device_never_falls_back_to_the_cpu(monkeypatch, name):
+    """Built without ``device=`` on a machine without CUDA, a model raises;
+    it does not carry on on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cls, kw = _constructors()[name]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cls(**kw)
+    assert cls(device="cpu", **kw).device == torch.device("cpu")
+
+
 CDQBM_SMALL = dict(data_set="synthetic", kernel_size=20, pooling_size=3, sample_count=4,
                    anneal=3, batch_size=200, epochs=1, device="cpu",
                    pooling_type="probabilistic", save="")
@@ -94,12 +125,14 @@ def test_port_imports_no_jax_sklearn_or_qbmx():
         "import sys, torch; torch.set_num_threads(1)\n"
         "import qbmx_torch\n"
         "from qbmx_torch.samplers import (api, exact, gibbs, gibbs_cuda, kernel_call, pt_cuda,\n"
-        "                                 sa_cuda, sa_torch, tempering, wide_cuda)\n"
+        "                                 pt_wide_cuda, sa_cuda, sa_torch, tempering, wide_cuda)\n"
+        "from qbmx_torch.train import sweep\n"
         "from qbmx_torch import _build\n"
         "from qbmx_torch.models import cdqbm, geometry\n"
         "from qbmx_torch.data import coreset\n"
         "from qbmx_torch.cli import cdqbm_main, profile_steps, qbm_main\n"
         f"for solver in ('SA', 'BMS', 'PT'): qbm_main.main(save='', **{{**{SMALL!r}, 'solver': solver}})\n"
+        f"qbm_main.main(save='', seed_sweep=[1, 2], **{SMALL!r})\n"
         f"cdqbm_main.main(**{CDQBM_SMALL!r})\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'sklearn', 'qbmx'))\n"
         "print('LOADED', bad)\n"
@@ -139,6 +172,21 @@ def test_profile_steps_runs_each_cdqbm_config_on_cpu(pooling, n, steps, kernel):
                                  "--reads", "2", "--sweeps", "1", "--epochs", "1"])
     assert rec["model"] == f"CDQBM {pooling}" and rec["n"] == n and rec["steps"] == steps
     assert rec["kernel"] == kernel and rec["ms_per_step"] > 0
+
+
+def test_profile_steps_runs_a_seed_sweep_on_cpu():
+    """``--seed_sweep``: the sweep's step over every seed, and its share a
+    seed; PT at n > 241 is K5's."""
+    from qbmx_torch.cli import profile_steps
+
+    (rec,) = profile_steps.main(["--device", "cpu", "--solver", "SA", "--hidden", "2",
+                                 "--reads", "4", "--sweeps", "2", "--batch", "200",
+                                 "--epochs", "1", "--seed_sweep", "1", "2", "3"])
+    assert rec["model"] == "SeedParallelDQBM 3 seeds" and rec["seeds"] == 3
+    assert rec["steps"] == 3 and rec["ms_per_seed_step"] == pytest.approx(rec["ms_per_step"] / 3)
+    assert rec["kernel"] == "sa_metropolis" and rec["busy_ms"] is None
+    assert profile_steps.solver_kernel("PT", 717) == "pt_wide"
+    assert profile_steps.solver_kernel("PT", 6) == "pt_heatbath"
 
 
 def test_profile_steps_busy_time_is_the_union_of_spans():
