@@ -9,9 +9,13 @@ Five hand-written kernels are checked: K1 ``sa_metropolis`` (annealed
 Metropolis), K2 ``sa_heatbath`` (annealed heat-bath, single/pair/quad
 updates), K3 ``pt_heatbath`` (parallel tempering), K4 ``anneal_wide``
 (both anneal rules for QUBOs whose couplings exceed shared memory, n > 241,
-which the K1/K2 wrappers route to it) and K5 ``pt_wide`` (parallel
-tempering where K3 cannot hold J_b: n > 241, or M ≥ 16 at n = 241, which
-``pt_wide_cuda.pt_route`` sends to it).  K1 and K2 each run a thread a
+which the K1/K2 wrappers route to it) and K5 (parallel tempering where K3
+cannot hold the call: n > 241, M ≥ 16 at n = 241, or M > 64, which
+``pt_wide_cuda.pt_route`` sends to it), in its two paths, each with its
+own launch count and record: ``pt_wide_sparse`` (J_g's nonzero rows whole
+in shared memory, where they fit a block beside its rungs: the CDQBM (a)
+PT call) and ``pt_wide`` (J_g streamed in tiles: dense QUBOs); a ladder of
+more rungs than a block holds spreads over a thread block cluster.  K1 and K2 each run a thread a
 chain or a warp a chain, by one rule (``kernel_call.chain_layout``); K3 a
 rung a thread or a rung a warp (``pt_cuda.pt_layout``).  Phases (any
 failure exits nonzero; nothing carries on after one):
@@ -29,14 +33,25 @@ failure exits nonzero; nothing carries on after one):
    beyond the first design's M·n ≤ 2048 at B=4, n=241, M=12, R=32, S=20;
    K4 Metropolis and pair at the CDQBM probabilistic-pooling shape (G=2,
    B=20, n=717, R=100, S=10), on its dense entry (B=32, n=717) and at the
-   widest n it takes (R=200, S=2); K5 through the sampler's structured entry
-   against the plain version on the densified batch at (G=2, B=4, n=300,
-   M=8, R=16, S=20), (G=2, B=2, n=717, M=8, R=8, S=10), (n, M) = (241,
-   16) and the CDQBM (a) PT call (G=2, B=20, n=717, M=8, R=100, S=10: four
-   ladders a block), and launched directly with three ladders a block at
-   the n=300 shape, where the last block holds spare ladders: at most 1%
-   of chains may end in another state (a near-tie decision
-   from a differently rounded field or energy diverges that one chain);
+   widest n it takes (R=200, S=2); K5's dense path through the sampler's
+   structured entry against the plain version on the densified batch at
+   (G=2, B=4, n=300, M=8, R=16, S=20), (G=2, B=2, n=717, M=8, R=8, S=10),
+   (n, M) = (241, 16) and the CDQBM (a) PT call's shape on random QUBOs
+   (G=2, B=20, n=717, M=8, R=100, S=10: four ladders a block), and launched
+   directly with three ladders a block at the n=300 shape, where the last
+   block holds spare ladders; K5's dense path at the flat PT step of phase
+   5 (``qbm_main --solver PT -hn 300``: G=2, B=60, n=301, M=8, R=16, S cut
+   to 20) on that step's own QUBOs (``DiscQBM.step_qubos``), with the
+   geometry the step gets (four ladders a block on a grid of (240, 2));
+   K5's sparse path at the CDQBM (a) PT call on
+   the step's own QUBOs (``CDQBM.step_qubos``: J_g 98% zeros); ladders over
+   a thread block cluster, M=65 at n=4 (sparse), M=40 at n=717 on the
+   step's QUBOs (sparse) and on random ones (dense): at most 1% of chains
+   may end in another state (a near-tie decision from a differently
+   rounded field or energy diverges that one chain); both K5 paths forced
+   on the CDQBM (a) PT call at S=70 (past a refresh) must give the same
+   samples, states, fields, energies and counters bit for bit; and the
+   clusters of 8 blocks the card holds at once;
 4. the kernels' own Philox streams: vs the exact Boltzmann oracle (K1
    marginals within 0.12 at the cold beta; K2 at each layout and K3 at
    each layout within 0.08 single / 0.05 pair and quad, pair moments
@@ -52,9 +67,10 @@ failure exits nonzero; nothing carries on after one):
    last recomputation (``wide_cuda.field_drift_bound``), and the same check
    failing on one chain's fields each one add of their row's median |J_jk|
    short (a planted fault: the limit has teeth); K5 launched directly at n in
-   (2, 5, 8) against the oracle (K3's bar), on its own Philox draws at the
-   n=300 shape (``pt_philox_variates(..., var_shift=10)``), and every
-   rung's fields and energy after S=1000 at the CDQBM (a) PT call's shape
+   (2, 5, 8) on each path against the oracle (K3's bar), on its own Philox
+   draws at the n=300 shape (``pt_philox_variates(..., var_shift=10)``,
+   dense) and at the step's QUBOs (sparse), and every rung's fields and
+   energy after S=1000 at the CDQBM (a) PT call's shape, on each path,
    within ``field_drift_bound`` and ``energy_drift_bound``, with one add
    (fields) or one flip (energies) short planted to fail them;
 5. the slices: ``qbmx_torch.cli.qbm_main.main`` on ``cuda`` (synthetic data,
@@ -70,8 +86,10 @@ failure exits nonzero; nothing carries on after one):
    717-variable QUBO that must launch K4 on every step and prediction --
    and (b) the CLI defaults (deterministic pooling 4, 41 variables, bs3) on
    K1, and again with ``--solver BMS`` on K2, and (a) with ``--solver PT``
-   at anneal 100 on K5 (never K3), then 3 of its steps at anneal 1000; the
-   same checks and step times; then ``qbm_main --seed_sweep 0..9`` (the
+   at anneal 100 on K5's sparse path (never K3, never the dense path),
+   then 3 of its steps at anneal 1000; the same checks and step times;
+   before them ``qbm_main --solver PT`` at 300 hidden nodes (n=301, a dense
+   J: K5's dense path on every step); then ``qbm_main --seed_sweep 0..9`` (the
    10-seed flagship: the flat widths above, one epoch) for SA, BMS and PT:
    exactly one sampler launch a step at G=20 groups of 60 and one
    validation launch, every seed's parameters moved and its nll finite, 10
@@ -81,11 +99,12 @@ failure exits nonzero; nothing carries on after one):
    warm-up, the slower plain versions median of 3, or 1 for K2 pair at the
    CDQBM (b) call) at the phase-3 shapes in generator mode (K3 at S=1000
    and at the flat CLI defaults' PT call, 146 problems, n=3, M=8, R=100;
-   K4 and K5 at S=10, and K4 and K5 alone at S=1000), and each kernel's bound
-   (``qbmx_torch/utils/roofline.py``: K1's, K2's and K4's from the flips
-   their inputs make, counted by one more launch, K2's at the flagship and
-   the CDQBM (b) call; K5's from its decisions G·B·M·R·n·S and its counted
-   flips; K3's from its decisions alone).
+   K4 and both K5 paths at S=10, and K4 and both K5 paths alone at S=1000,
+   K4 also on the CDQBM (a) step's QUBOs), and each kernel's bound
+   (``qbmx_torch/utils/roofline.py``: K1's and K2's from the flips their
+   inputs make, K4's and K5's from the nonzeros of the changed rows, each
+   counted by one more launch, K2's at the flagship and the CDQBM (b)
+   call; K3's from its decisions alone).
 
 The last three lines are the ``nvidia-smi`` line, one JSON object with the
 kernel records (time, plain time, bound, launches on the main path), and
@@ -181,6 +200,16 @@ def structured_form(Q, h_extra, S, rule=0):
     return J.contiguous(), h, hot, logr
 
 
+def gen_of(seed: int) -> torch.Generator:
+    return torch.Generator().manual_seed(seed)
+
+
+def pt_hv(rng, GBM, R, n, S, dev):
+    """Host variates of a tempering call: init01, uniforms, swap_u."""
+    return (bits(rng, (GBM, R, n), dev), uniforms(rng, (S, GBM, n, R), dev),
+            uniforms(rng, (S, GBM, R), dev))
+
+
 def differing(kernel_out, plain_out) -> float:
     """Fraction of chains that end in another state."""
     n = kernel_out.shape[-1]
@@ -217,7 +246,8 @@ def main() -> None:
         fail(f"{ROOT} is not a qbmx checkout (qbmx_torch/csrc is missing)")
     sys.path.insert(0, str(ROOT))
     from qbmx_torch import _build
-    from qbmx_torch.core.qubo import default_beta_range, random_qubo_batch
+    from qbmx_torch.models.cdqbm import cdqbm_a_qubos
+    from qbmx_torch.core.qubo import default_beta_range, random_qubo_batch, split_qubo
     from qbmx_torch.core.rng import draw_seed
     from qbmx_torch.samplers import (gibbs, gibbs_cuda, kernel_call, pt_cuda, pt_wide_cuda, sa_cuda,
                                      sa_torch, tempering, wide_cuda)
@@ -247,7 +277,7 @@ def main() -> None:
     # -- 3. kernel vs plain under host variates ------------------------------
     rng = np.random.default_rng(2024)
     errs = {"sa_metropolis": [], "sa_heatbath": [], "pt_heatbath": [], "anneal_wide": [],
-            "pt_wide": []}
+            "pt_wide": [], "pt_wide_sparse": []}
     fracs = {k: [] for k in errs}
 
     def record(kernel, frac_err):
@@ -436,6 +466,120 @@ def main() -> None:
     record("pt_wide", compare(out, want, f"K5 G={G} B={B} n={n} M={M} R={R} S={S}, 3 ladders "
                                          "a block forced (spare ladders)"))
     del hv, out, want
+    # K5's dense path at phase 5's flat PT step (qbm_main --solver PT -hn
+    # 300) on the step's own QUBOs (DiscQBM.step_qubos: J_g dense at n =
+    # 301), with the geometry the step gets; S cut from 100 to 20
+    from qbmx_torch.models.dqbm import DiscQBM
+
+    frng = np.random.default_rng(301)
+    G, B, M, R, S = 2, 60, 8, 16, 20
+    flat_pt = DiscQBM(dim_input=784, n_hidden_nodes=300, seed=19, solver="PT",
+                      sample_count=R, anneal_steps=S, device=dev)
+    xf = torch.as_tensor(frng.random((B, 784), dtype=np.float32), device=dev)
+    yf = (torch.arange(B, device=dev) % 2).to(torch.float32)[:, None]
+    Qf, hf = flat_pt.step_qubos(flat_pt.params, xf, yf)
+    n = Qf.shape[-1]
+    geo_f = pt_wide_cuda.pt_wide_geometry(G, B, M, R, n, pt_wide_cuda.padded(max(
+        pt_wide_cuda.group_nnz(pt_wide_cuda.row_nnz(split_qubo(Qf)[1])))))
+    check(n == 301 and geo_f.path == pt_wide_cuda.DENSE and geo_f.ladders_per_block == 4
+          and geo_f.cluster == 1 and geo_f.grid == (240, 2), f"K5 flat PT H=300: n={n}, {geo_f}")
+    hv = pt_hv(frng, G * B * M, R, n, S, dev)
+    pt_cuda.reset_launch_counts()
+    pt_wide_cuda.reset_launch_counts()
+    out = pt_wide_cuda.pt_sample_groups(Qf, hf, R, S, num_replicas=M, host_variates=hv)
+    torch.cuda.synchronize()
+    check(pt_wide_cuda.launch_counts == {"pt_wide": 1, "pt_wide_sparse": 0}
+          and pt_cuda.launch_counts["pt_heatbath"] == 0,
+          f"K5 flat PT H=300: not served by the dense path alone ({pt_wide_cuda.launch_counts})")
+    want = tempering.pt_sample_batch_plain(densify_groups(Qf, hf), R, S, num_replicas=M,
+                                           host_variates=hv).reshape(G, B, R, n)
+    record("pt_wide", compare(out, want, f"K5 dense G={G} B={B} n={n} M={M} R={R} S={S} "
+                                         "(qbm_main --solver PT -hn 300, the step's QUBOs; "
+                                         f"{geo_f.ladders_per_block} ladders a block on a grid "
+                                         f"of {geo_f.grid})"))
+    del hv, out, want, flat_pt, Qf, hf
+    # K5's sparse path: the CDQBM (a) PT call on the step's own QUBOs (J_g
+    # 98% zeros: its row lists fit a block beside 32 rungs), through the
+    # sampler's structured entry, against the plain version
+    Qs, hs = cdqbm_a_qubos(20, dev)
+    nnz_s = pt_wide_cuda.group_nnz(pt_wide_cuda.row_nnz(split_qubo(Qs)[1]))
+    G, B, n, M, R, S = 2, 20, 717, 8, 100, 10
+    geo_s = pt_wide_cuda.pt_wide_geometry(G, B, M, R, n, pt_wide_cuda.padded(max(nnz_s)))
+    check(geo_s.path == pt_wide_cuda.SPARSE and geo_s.ladders_per_block == 4,
+          f"K5 CDQBM (a) PT: {geo_s}")
+    hv = pt_hv(rng, G * B * M, R, n, S, dev)
+    pt_cuda.reset_launch_counts()
+    pt_wide_cuda.reset_launch_counts()
+    out = pt_wide_cuda.pt_sample_groups(Qs, hs, R, S, num_replicas=M, host_variates=hv)
+    torch.cuda.synchronize()
+    check(pt_wide_cuda.launch_counts == {"pt_wide": 0, "pt_wide_sparse": 1}
+          and pt_cuda.launch_counts["pt_heatbath"] == 0,
+          "K5 CDQBM (a) PT: not served by the sparse path alone")
+    want = tempering.pt_sample_batch_plain(densify_groups(Qs, hs), R, S, num_replicas=M,
+                                           host_variates=hv).reshape(G, B, R, n)
+    record("pt_wide_sparse", compare(out, want, f"K5 sparse G={G} B={B} n={n} M={M} R={R} S={S} "
+                                                f"(CDQBM (a) PT, the step's QUBOs: {nnz_s} "
+                                                "nonzeros; 4 ladders a block)"))
+    del hv, out, want
+    # ladders over a thread block cluster, on both paths: past K3's 64 rungs
+    # at n = 4, and 40 rungs at n = 717 (two blocks of 20)
+    SCL = {"M=65 n=4": (1, 2, 4, 65, 16, 20, None, pt_wide_cuda.SPARSE),
+           "M=40 n=717 CDQBM (a)": (2, 4, 717, 40, 8, 10, (Qs, hs[:, :4]), pt_wide_cuda.SPARSE),
+           "M=40 n=717": (1, 4, 717, 40, 8, 10, None, pt_wide_cuda.DENSE)}
+    clusters = {}
+    for label, (G, B, n, M, R, S, qh, path) in SCL.items():
+        Qk, hk = qh or (random_qubo_batch(rng, G, n).to(dev),
+                        torch.as_tensor(rng.normal(size=(G, B, n)).astype(np.float32),
+                                        device=dev))
+        check(pt_wide_cuda.pt_route(G, B, M, R, n) == "pt_wide", f"K5 {label}: not routed to K5")
+        hv = pt_hv(rng, G * B * M, R, n, S, dev)
+        pt_wide_cuda.reset_launch_counts()
+        out = pt_wide_cuda.pt_sample_groups(Qk, hk, R, S, num_replicas=M, host_variates=hv)
+        torch.cuda.synchronize()
+        kernel = "pt_wide_sparse" if path == pt_wide_cuda.SPARSE else "pt_wide"
+        check(pt_wide_cuda.launch_counts[kernel] == 1 and sum(pt_wide_cuda.launch_counts.values())
+              == 1, f"K5 {label}: not served by the {path} path")
+        Jk = split_qubo(Qk)[1]
+        geo = pt_wide_cuda.pt_wide_geometry(G, B, M, R, n, pt_wide_cuda.padded(
+            max(pt_wide_cuda.group_nnz(pt_wide_cuda.row_nnz(Jk)))))
+        check(geo.path == path and geo.cluster > 1, f"K5 {label}: {geo}")
+        clusters[label] = (geo.cluster, geo.warps)
+        want = tempering.pt_sample_batch_plain(densify_groups(Qk, hk), R, S, num_replicas=M,
+                                               host_variates=hv).reshape(G, B, R, n)
+        record(kernel, compare(out, want, f"K5 {path} G={G} B={B} n={n} M={M} R={R} S={S}, a "
+                                          f"ladder over a cluster of {geo.cluster} blocks of "
+                                          f"{geo.warps} warps ({label})"))
+        del hv, out, want
+    # both paths forced on the CDQBM (a) PT call's QUBOs, past the refresh at
+    # sweep 64: the same samples, states, fields, energies and counters
+    G, B, n, M, R, S = 2, 20, 717, 8, 100, 70
+    form = pt_wide_cuda.structured_form(Qs, hs, M)
+    paths = {}
+    for path in (pt_wide_cuda.DENSE, pt_wide_cuda.SPARSE):
+        outs = dict(states_out=torch.empty((G * B * M, R, n), device=dev),
+                    fields_out=torch.empty((G * B * M, R, n), device=dev),
+                    energy_out=torch.empty((G * B * M, R), device=dev),
+                    flips=torch.zeros(2, dtype=torch.int64, device=dev))
+        out = pt_wide_cuda.launch(*form, R, S, path=path, generator=gen_of(12), **outs)
+        paths[path] = dict(out=out, **outs)
+    torch.cuda.synchronize()
+    unequal = [k for k, v in paths[pt_wide_cuda.DENSE].items()
+               if not torch.equal(v, paths[pt_wide_cuda.SPARSE][k])]
+    check(not unequal, f"K5 paths forced on the CDQBM (a) PT call at S={S}: {unequal} differ")
+    equal_flips = paths[pt_wide_cuda.SPARSE]["flips"].tolist()
+    # how many clusters of 8 blocks (the largest the rule asks for) of 32
+    # warps the card holds at once at n = 717, on each path (0: refused)
+    lib = _build.load_kernels()
+    active = {path: lib.qbmx_pt_wide_max_active_clusters(
+        717, 32 * pt_wide_cuda.MAX_CLUSTER, pt_wide_cuda.MAX_CLUSTER,
+        geo_s.nnz_pad if path == pt_wide_cuda.SPARSE else 0)
+        for path in (pt_wide_cuda.DENSE, pt_wide_cuda.SPARSE)}
+    check(min(active.values()) >= 1, f"K5: a cluster of 8 blocks does not fit the card: {active}")
+    print(f"phase 3 K5 paths at G={G} B={B} n={n} M={M} R={R} S={S} (the step's QUBOs, both "
+          f"forced): samples, states, fields, energies and counters {equal_flips} equal bit for "
+          f"bit; clusters (blocks, warps a block) {clusters}; clusters of 8 32-warp blocks the "
+          f"card holds at once at n=717 (cudaOccupancyMaxActiveClusters) {active}")
+    del paths, form
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -484,7 +628,7 @@ def main() -> None:
     Qb = Qa.clone()
     Qb[1:] = random_qubo_batch(rng, 2, 6, scale=0.2).to(dev)
     zeros = torch.zeros((3, 1, 6), device=dev)
-    gen = lambda seed: torch.Generator().manual_seed(seed)
+    gen = gen_of
     runs = {
         "K1": lambda Q, seed: sa_cuda.sa_sample_groups_cuda(
             Q, zeros, 64, 50, generator=gen(seed), beta_hot=0.5, beta_cold=1.0)[:, 0],
@@ -568,15 +712,17 @@ def main() -> None:
     # K5 launched directly (past the routing) against the exact oracle at
     # beta 1: K3's problems and bar; then on its own Philox draws, written
     # out on the host, at the phase-3 n=300 shape
-    worst_k5 = 0.0
+    worst_k5 = {pt_wide_cuda.DENSE: 0.0, pt_wide_cuda.SPARSE: 0.0}
     for n in (2, 5, 8):
         Q = torch.as_tensor(np.triu(np.random.default_rng(3).uniform(-1.5, 1.5, (1, n, n)))
                             .astype(np.float32), device=dev)
         form = pt_wide_cuda.structured_form(Q, torch.zeros((1, 1, n), device=dev), 4)
-        s = pt_wide_cuda.launch(*form, 384, 24, generator=gen(0))[0, 0]
-        worst_k5 = max(worst_k5, oracle_error(s, Q[0], joint=False)[0])
-    oracle["K5 forced"] = (worst_k5, 0.0)
-    check(worst_k5 <= HB_ATOL, f"K5 forced oracle: marginals off by {worst_k5:.4f}")
+        for path in worst_k5:
+            s = pt_wide_cuda.launch(*form, 384, 24, path=path, generator=gen(0))[0, 0]
+            worst_k5[path] = max(worst_k5[path], oracle_error(s, Q[0], joint=False)[0])
+    for path, err in worst_k5.items():
+        oracle[f"K5 {path} forced"] = (err, 0.0)
+    check(max(worst_k5.values()) <= HB_ATOL, f"K5 forced oracle: marginals off by {worst_k5}")
     G, B, n, M, R, S = SK5["n=300"].values()
     Qk, hk = k5_problems["n=300"]
     seed = draw_seed(gen(10))
@@ -586,6 +732,17 @@ def main() -> None:
     p_out = tempering.pt_sample_batch_plain(densify_groups(Qk, hk), R, S, num_replicas=M,
                                             host_variates=hv)
     philox["K5"] = differing(k_out, p_out.reshape(G, B, R, n))
+    # the sparse path on its own draws, at the CDQBM (a) PT call's QUBOs
+    G, B, n, M, R, S = 2, 4, 717, 8, 16, 6
+    seed = draw_seed(gen(13))
+    hv = tuple(torch.as_tensor(a, device=dev) for a in sa_torch.pt_philox_variates(
+        seed, G * B, M, R, n, S, var_shift=pt_wide_cuda.VAR_SHIFT))
+    pt_wide_cuda.reset_launch_counts()
+    k_out = pt_wide_cuda.pt_sample_groups(Qs, hs[:, :B], R, S, num_replicas=M, generator=gen(13))
+    check(pt_wide_cuda.launch_counts["pt_wide_sparse"] == 1, "K5 sparse Philox: not launched")
+    p_out = tempering.pt_sample_batch_plain(densify_groups(Qs, hs[:, :B]), R, S, num_replicas=M,
+                                            host_variates=hv)
+    philox["K5 sparse"] = differing(k_out, p_out.reshape(G, B, R, n))
     del hv, k_out, p_out
     for name, frac in philox.items():
         check(frac <= MAX_DIFF_FRAC, f"Philox mode {name}: {frac:.4%} of chains differ from "
@@ -600,7 +757,7 @@ def main() -> None:
                             ("pair", wide_cuda.PAIR), ("quad", wide_cuda.QUAD)):
         Jw, hw_eff, hot_w, logr_w = structured_form(Qw, hw, 1000, rule)
         fields = torch.empty((SW["G"], SW["B"], SW["R"], SW["n"]), device=dev)
-        flips_w = torch.zeros(1, dtype=torch.int64, device=dev)
+        flips_w = torch.zeros(2, dtype=torch.int64, device=dev)
         s_w = wide_cuda.launch(Jw, hw_eff, hot_w, logr_w, SW["R"], 1000, rule,
                                generator=gen(8), fields_out=fields, flips=flips_w)
         exact = hw_eff.double()[:, :, None] + torch.einsum("gbrj,gij->gbri", s_w.double(),
@@ -613,7 +770,7 @@ def main() -> None:
               f"K4 {rule_name} field drift at S=1000: max {drift_max[rule_name]:.3e}, "
               f"{drift_ratio[rule_name]:.3e} of its limit")
         if rule == wide_cuda.METROPOLIS:
-            flips_full = int(flips_w.item())
+            flips_full = [int(v) for v in flips_w.tolist()]
             typical = Jw[0].abs().masked_fill(Jw[0] == 0, math.nan).nanmedian(dim=1).values
             lost = fields[0, 0, 0].double() - typical.double()
             planted_ratio = ((lost - exact[0, 0, 0]).abs() / bound[0, 0, 0]).min().item()
@@ -650,34 +807,46 @@ def main() -> None:
     # field_drift_bound and energy_drift_bound; then one chain's fields each
     # one median |J_jk| short, and its energy one flip's median |f_i| short,
     # must fail them
+    # the dense path on the random QUBOs of the K4 check, the sparse path on
+    # the step's own QUBOs (rows without nonzeros take no add to lose)
     G, B, M, R, n = SW["G"], SW["B"], 8, SW["R"], SW["n"]
-    Jk, hk5, bk, dk = pt_wide_cuda.structured_form(Qw, hw, M)
-    states = torch.empty((G * B * M, R, n), device=dev)
-    fields = torch.empty_like(states)
-    energy = torch.empty((G * B * M, R), device=dev)
-    flips_k5 = torch.zeros(1, dtype=torch.int64, device=dev)
-    pt_wide_cuda.launch(Jk, hk5, bk, dk, R, 1000, generator=gen(11), states_out=states,
-                        fields_out=fields, energy_out=energy, flips=flips_k5)
-    s64 = states.double().reshape(G, B, M, R, n)
-    exact_f = hk5.double()[:, :, None, None] + torch.einsum("gbmrj,gij->gbmri", s64, Jk.double())
-    exact_e = 0.5 * (s64 * (hk5.double()[:, :, None, None] + exact_f)).sum(-1)
-    fb = wide_cuda.field_drift_bound(hk5, Jk, 1000)[:, :, None]  # (G, B, 1, 1, n)
-    eb = pt_wide_cuda.energy_drift_bound(hk5, Jk, 1000)  # (G, B, 1, 1)
-    f64, e64 = fields.double().reshape(G, B, M, R, n), energy.double().reshape(G, B, M, R)
-    k5_drift = {"fields": ((f64 - exact_f).abs() / fb).max().item(),
-                "energies": ((e64 - exact_e).abs() / eb).max().item()}
-    check(bool(torch.isfinite(fields).all() and torch.isfinite(energy).all())
-          and max(k5_drift.values()) <= 1.0, f"K5 drift at S=1000, of its limit: {k5_drift}")
-    typical = Jk[0].abs().masked_fill(Jk[0] == 0, math.nan).nanmedian(dim=1).values
-    k5_planted = {
-        "fields": ((f64[0, 0, 0, 0] - typical.double() - exact_f[0, 0, 0, 0]).abs()
-                   / fb[0, 0, 0, 0]).min().item(),
-        "energies": ((e64[0, 0, 0, 0] - exact_f[0, 0, 0, 0].abs().median() - exact_e[0, 0, 0, 0])
-                     .abs() / eb[0, 0, 0, 0]).item()}
-    check(min(k5_planted.values()) > 1.0, f"K5 drift check: one add or flip short reads only "
-          f"{k5_planted} of the limit")
-    k5_flips_full = int(flips_k5.item())
-    del states, fields, energy, s64, exact_f, exact_e, f64, e64
+    k5_drift, k5_planted, k5_flips_full = {}, {}, {}
+    for path, (Qd5, hd5) in ((pt_wide_cuda.DENSE, (Qw, hw)), (pt_wide_cuda.SPARSE, (Qs, hs))):
+        Jk, hk5, bk, dk = pt_wide_cuda.structured_form(Qd5, hd5, M)
+        states = torch.empty((G * B * M, R, n), device=dev)
+        fields = torch.empty_like(states)
+        energy = torch.empty((G * B * M, R), device=dev)
+        flips_k5 = torch.zeros(2, dtype=torch.int64, device=dev)
+        pt_wide_cuda.launch(Jk, hk5, bk, dk, R, 1000, generator=gen(11), states_out=states,
+                            fields_out=fields, energy_out=energy, flips=flips_k5, path=path)
+        s64 = states.double().reshape(G, B, M, R, n)
+        exact_f = hk5.double()[:, :, None, None] + torch.einsum("gbmrj,gij->gbmri", s64,
+                                                                Jk.double())
+        exact_e = 0.5 * (s64 * (hk5.double()[:, :, None, None] + exact_f)).sum(-1)
+        fb = wide_cuda.field_drift_bound(hk5, Jk, 1000)[:, :, None]  # (G, B, 1, 1, n)
+        eb = pt_wide_cuda.energy_drift_bound(hk5, Jk, 1000)  # (G, B, 1, 1)
+        f64, e64 = fields.double().reshape(G, B, M, R, n), energy.double().reshape(G, B, M, R)
+        drift = (f64 - exact_f).abs()
+        # a variable without couplings or linear term (the clamped group's
+        # padding) has a limit of 0: its field must be exact
+        drift = torch.where(fb > 0, drift / fb, torch.where(drift == 0, 0.0, math.inf))
+        k5_drift[path] = {"fields": drift.max().item(),
+                          "energies": ((e64 - exact_e).abs() / eb).max().item()}
+        check(bool(torch.isfinite(fields).all() and torch.isfinite(energy).all())
+              and max(k5_drift[path].values()) <= 1.0,
+              f"K5 {path} drift at S=1000, of its limit: {k5_drift[path]}")
+        g = 1  # the unclamped group: every variable's row (the clamped pads n_out empty ones)
+        typical = Jk[g].abs().masked_fill(Jk[g] == 0, math.nan).nanmedian(dim=1).values
+        coupled = ~typical.isnan()
+        k5_planted[path] = {
+            "fields": ((f64[g, 0, 0, 0] - typical.double() - exact_f[g, 0, 0, 0]).abs()
+                       / fb[g, 0, 0, 0])[coupled].min().item(),
+            "energies": ((e64[g, 0, 0, 0] - exact_f[g, 0, 0, 0].abs().median()
+                          - exact_e[g, 0, 0, 0]).abs() / eb[g, 0, 0, 0]).item()}
+        check(min(k5_planted[path].values()) > 1.0, f"K5 {path} drift check: one add or flip "
+              f"short reads only {k5_planted[path]} of the limit")
+        k5_flips_full[path] = [int(v) for v in flips_k5.tolist()]
+        del states, fields, energy, s64, exact_f, exact_e, f64, e64, drift
     beta1 = ", ".join(f"{k} {a:.4f}/{b:.4f}" for k, (a, b) in oracle.items())
     print(f"phase 4 oracle: K1 n in (2, 5, 8), 512 reads, 200 sweeps, worst marginal "
           f"error {worst:.4f} (limit {ORACLE_ATOL}); at beta 1 marginal/moment errors "
@@ -691,12 +860,14 @@ def main() -> None:
           "pair moments at beta 1); K4 fields after S=1000 at G=2 B=20 n=717 R=100 vs h + J·s "
           f"in float64: max drift {drift_max}, of the limit at most {drift_ratio}; one "
           f"add of the row's median |J_jk| short reads at least {planted_ratio:.3f} of the "
-          f"limit (must exceed 1); {flips_full} variables changed (Metropolis); K2 fields "
+          f"limit (must exceed 1); {flips_full} variables changed and their rows' nonzeros "
+          f"(Metropolis); K2 fields "
           f"after S=1000 at G=2 B=3 n=41 R=100, of their limit at most {k2_drift_ratio}, one "
           f"add short at least {k2_planted:.3f}; K5 forced at n in (2, 5, 8): worst marginal "
-          f"error {worst_k5:.4f} (limit {HB_ATOL}); K5 fields and energies after S=1000 at G=2 "
-          f"B=20 M=8 R=100 n=717, of their limits at most {k5_drift}, one add (fields) or flip "
-          f"(energies) short at least {k5_planted}; {k5_flips_full} variables changed")
+          f"error {worst_k5} (limit {HB_ATOL}); K5 fields and energies after S=1000 at G=2 "
+          f"B=20 M=8 R=100 n=717 (dense path: a random QUBO; sparse: the step's QUBOs), of "
+          f"their limits at most {k5_drift}, one add (fields) or flip (energies) short at least "
+          f"{k5_planted}; [variables changed, nonzeros of their rows] {k5_flips_full}")
 
     # -- 5. the slices: qbm_main on cuda, one solver at a time ------------------
     import qbmx_torch.cli.qbm_main as qm
@@ -747,6 +918,29 @@ def main() -> None:
               f"{auc:.4f}, wall {wall:.2f} s, step {step_ms[solver]:.3f} ms (CUDA events, "
               "median of 5)")
 
+    # the flat Disc_QBM with PT at 300 hidden nodes (n = 301, J_g dense: past
+    # K3, and too many nonzeros for row lists): K5's dense path on every step
+    for c in counters:
+        c.reset_launch_counts()
+    t0 = time.perf_counter()
+    acc, f1, precision, recall, auc = qm.main(
+        device="cuda", data_set="synthetic", n_hidden_nodes=300, sample_count=16, anneal=100,
+        batch_size=60, learning_rate=0.307, epochs=1, restricted=False, save="", solver="PT")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for c in counters for k, v in c.launch_counts.items()}
+    launches["pt_wide"] = counts["pt_wide"]
+    model = made[-1]
+    nlls = model.training_history.nll_per_batch
+    check(counts["pt_wide"] >= steps + predictions and sum(counts.values()) == counts["pt_wide"],
+          f"PT at H=300: launch counts {counts} for {steps} steps + {predictions} predictions")
+    check(len(nlls) == steps and all(math.isfinite(v) for v in nlls), f"PT at H=300: nll {nlls}")
+    check(all(0.0 <= v <= 1.0 for v in (acc, f1, precision, recall, auc)),
+          "PT at H=300: metrics out of range")
+    print(f"phase 5 slice PT wide: qbm_main cuda synthetic dim_input 784 H=300 (n=301) sc16 "
+          f"anneal100 bs60 e1: {steps} steps, launch counts {counts}, nll {nlls[0]:.4f} -> "
+          f"{nlls[-1]:.4f}, test acc {acc:.4f}, wall {wall:.2f} s")
+
     # the CDQBM slice: cdqbm_main on cuda at its two full-width configurations
     import qbmx_torch.cli.cdqbm_main as cm
     from qbmx_torch.models import cdqbm
@@ -769,8 +963,8 @@ def main() -> None:
     prob = dict(pooling_type="probabilistic", beta_eff=5.0, batch_size=20, learning_rate=0.02)
     for label, kernel, n_total, kw in (
         ("a", "anneal_wide", 717, prob),
-        # PT at 717 variables on K5, at 100 sweeps (3 steps at 1000 below)
-        ("a PT", "pt_wide", 717, dict(prob, solver="PT", anneal=100)),
+        # PT at 717 variables on K5's sparse path, at 100 sweeps (3 steps at 1000 below)
+        ("a PT", "pt_wide_sparse", 717, dict(prob, solver="PT", anneal=100)),
         ("b", "sa_metropolis", 41, dict()),
         ("b BMS", "sa_heatbath", 41, dict(solver="BMS")),
     ):
@@ -824,10 +1018,12 @@ def main() -> None:
         end.synchronize()
         pt_steps.append(start.elapsed_time(end))
         check(math.isfinite(float(nll)), f"CDQBM (a) PT at anneal 1000: nll {float(nll)}")
-    check(pt_wide_cuda.launch_counts["pt_wide"] == 3, "CDQBM (a) PT at anneal 1000: K5 did not "
-          "serve every step")
+    check(pt_wide_cuda.launch_counts == {"pt_wide": 0, "pt_wide_sparse": 3},
+          f"CDQBM (a) PT at anneal 1000: K5's sparse path did not serve every step: "
+          f"{pt_wide_cuda.launch_counts}")
     step_ms["CDQBM a PT anneal1000"] = statistics.median(pt_steps)
-    print(f"phase 5 slice CDQBM (a) PT at anneal 1000 (K5: G=2 B=20 M=8 R=100 n=717 S=1000): "
+    print(f"phase 5 slice CDQBM (a) PT at anneal 1000 (K5 sparse: G=2 B=20 M=8 R=100 n=717 "
+          "S=1000): "
           f"steps {pt_steps} ms, median {step_ms['CDQBM a PT anneal1000']:.3f} ms (CUDA events)")
 
     # the 10-seed flagship sweep: qbm_main --seed_sweep, one sampler launch a
@@ -961,9 +1157,13 @@ def main() -> None:
         ("K4 pair structured G=2 B=20 n=717 R=100 S=10",
          lambda: gibbs_cuda.gibbs_sample_groups_cuda(Qw, hw, 100, 10, pair=True, generator=g1),
          lambda: gibbs.gibbs_sample_groups_plain(Qw, hw, 100, 10, pair=True), 3),
-        ("K5 CDQBM (a) PT G=2 B=20 M=8 n=717 R=100 S=10",
+        ("K5 dense CDQBM (a) PT shape, random QUBOs, G=2 B=20 M=8 n=717 R=100 S=10",
          lambda: pt_wide_cuda.pt_sample_groups(Qw, hw, 100, 10, num_replicas=8, generator=g1),
          lambda: tempering.pt_sample_batch_plain(densify_groups(Qw, hw), 100, 10,
+                                                 num_replicas=8), 3),
+        ("K5 sparse CDQBM (a) PT, the step's QUBOs, G=2 B=20 M=8 n=717 R=100 S=10",
+         lambda: pt_wide_cuda.pt_sample_groups(Qs, hs, 100, 10, num_replicas=8, generator=g1),
+         lambda: tempering.pt_sample_batch_plain(densify_groups(Qs, hs), 100, 10,
                                                  num_replicas=8), 3),
     ):
         k_ms, p_ms = cuda_ms(kern, runs=5), cuda_ms(plain, runs=plain_runs)
@@ -976,19 +1176,32 @@ def main() -> None:
     print(f"phase 6 time K4 Metropolis structured G=2 B=20 n=717 R=100 S=1000: kernel "
           f"{k4_full_ms:.3f} ms (CUDA events, median of 3; the plain version is not run at "
           f"this depth; {smi})")
-    k5_full_ms = cuda_ms(lambda: pt_wide_cuda.pt_sample_groups(Qw, hw, 100, 1000, num_replicas=8,
-                                                               generator=g1), runs=3)
-    print(f"phase 6 time K5 CDQBM (a) PT G=2 B=20 M=8 n=717 R=100 S=1000: kernel "
-          f"{k5_full_ms:.3f} ms (CUDA events, median of 3; the plain version is not run at "
-          f"this depth; {smi})")
+    k4_cdqbm_ms = cuda_ms(lambda: sa_cuda.sa_sample_groups_cuda(Qs, hs, 100, 1000, generator=g1),
+                          runs=3)
+    print(f"phase 6 time K4 Metropolis CDQBM (a) on the step's QUBOs G=2 B=20 n=717 R=100 "
+          f"S=1000: kernel {k4_cdqbm_ms:.3f} ms (CUDA events, median of 3; {smi})")
+    k5_full_ms = {
+        path: cuda_ms(lambda Q=Q, h=h: pt_wide_cuda.pt_sample_groups(
+            Q, h, 100, 1000, num_replicas=8, generator=g1), runs=3)
+        for path, (Q, h) in ((pt_wide_cuda.DENSE, (Qw, hw)), (pt_wide_cuda.SPARSE, (Qs, hs)))}
+    print(f"phase 6 time K5 CDQBM (a) PT G=2 B=20 M=8 n=717 R=100 S=1000: dense path (random "
+          f"QUBOs) {k5_full_ms['dense']:.3f} ms, sparse path (the step's QUBOs) "
+          f"{k5_full_ms['sparse']:.3f} ms (CUDA events, median of 3; the plain version is not "
+          f"run at this depth; {smi})")
 
-    # the bounds (qbmx_torch/utils/roofline.py): K1 and K4 from the flips
-    # their inputs make, counted by one more launch each; K2 and K3 from
-    # their decisions alone
+    # the bounds (qbmx_torch/utils/roofline.py): K1 and K2 from the flips
+    # their inputs make, K4 and K5 from the nonzeros of the changed rows,
+    # counted by one more launch each; K3 from its decisions alone
     def counted(launch, *args, **kw):
         flips = torch.zeros(1, dtype=torch.int64, device=dev)
         launch(*args, generator=g1, flips=flips, **kw)
         return int(flips.item())
+
+    def work(launch, *args, **kw):
+        """The nonzeros of the changed rows (K4's and K5's second counter)."""
+        flips = torch.zeros(2, dtype=torch.int64, device=dev)
+        launch(*args, generator=g1, flips=flips, **kw)
+        return int(flips[1].item())
 
     pair = WIDTH_OF["pair"]
     bounds = {
@@ -1007,12 +1220,19 @@ def main() -> None:
         "pt_heatbath": anneal_bound(120, 1, 1000, 6, 1000, decisions=120 * 8 * 1000 * 6 * 1000),
         "pt_heatbath CLI defaults": anneal_bound(146, 1, 100, 3, 1000,
                                                  decisions=146 * 8 * 100 * 3 * 1000),
-        "anneal_wide": anneal_bound(2, 20, 100, 717, 10, flips=counted(
+        "anneal_wide": anneal_bound(2, 20, 100, 717, 10, flip_work=work(
             wide_cuda.launch, *structured_form(Qw, hw, 10), 100, 10, wide_cuda.METROPOLIS)),
-        "anneal_wide full depth": anneal_bound(2, 20, 100, 717, 1000, flips=flips_full),
-        "pt_wide": anneal_bound(2, 20, 100, 717, 10, rungs=8, flips=counted(
+        "anneal_wide full depth": anneal_bound(2, 20, 100, 717, 1000, flip_work=flips_full[1]),
+        "anneal_wide CDQBM QUBOs full depth": anneal_bound(2, 20, 100, 717, 1000, flip_work=work(
+            wide_cuda.launch, *structured_form(Qs, hs, 1000), 100, 1000, wide_cuda.METROPOLIS)),
+        "pt_wide": anneal_bound(2, 20, 100, 717, 10, rungs=8, flip_work=work(
             pt_wide_cuda.launch, *pt_wide_cuda.structured_form(Qw, hw, 8), 100, 10)),
-        "pt_wide full depth": anneal_bound(2, 20, 100, 717, 1000, rungs=8, flips=k5_flips_full),
+        "pt_wide full depth": anneal_bound(2, 20, 100, 717, 1000, rungs=8,
+                                           flip_work=k5_flips_full["dense"][1]),
+        "pt_wide_sparse": anneal_bound(2, 20, 100, 717, 10, rungs=8, flip_work=work(
+            pt_wide_cuda.launch, *pt_wide_cuda.structured_form(Qs, hs, 8), 100, 10)),
+        "pt_wide_sparse full depth": anneal_bound(2, 20, 100, 717, 1000, rungs=8,
+                                                  flip_work=k5_flips_full["sparse"][1]),
     }
     print(f"phase 6 bounds (H100 SXM peaks, {smi}): "
           + "; ".join(f"{k} {b['bound_ms']:.4f} ms by {b['bound_by']}" for k, b in bounds.items()))
@@ -1069,18 +1289,35 @@ def main() -> None:
          "pair_ms": t("K4 pair")[0], "pair_plain_ms": t("K4 pair")[1],
          "full_depth_ms": k4_full_ms,
          "full_depth_bound_ms": bounds["anneal_wide full depth"]["bound_ms"],
+         "cdqbm_qubos_full_depth_ms": k4_cdqbm_ms,
+         "cdqbm_qubos_full_depth_bound_ms":
+             bounds["anneal_wide CDQBM QUBOs full depth"]["bound_ms"],
          "field_drift_max": drift_max, "field_drift_of_limit": drift_ratio,
          "field_one_add_short_of_limit": planted_ratio},
         {"name": "pt_wide", "route": "cuda", "source": "qbmx_torch/csrc/pt_wide.cu",
-         "replaces": "qbmx/samplers/sa_pallas.py:196",
-         "launches": cdqbm_launches["a PT"]["pt_wide"], "max_abs_err": max(errs["pt_wide"]),
-         "differing_chains": max(fracs["pt_wide"]),
+         "replaces": "qbmx/samplers/sa_pallas.py:196", "path": "dense (J_g in tiles)",
+         "launches": launches["pt_wide"], "launches_on": "qbm_main --solver PT -hn 300",
+         "max_abs_err": max(errs["pt_wide"]), "differing_chains": max(fracs["pt_wide"]),
          "differing_chains_limit": MAX_DIFF_FRAC,
-         "ms": t("K5")[0], "plain_ms": t("K5")[1], **bound_keys("pt_wide"),
-         "full_depth_ms": k5_full_ms,
+         "ms": t("K5 dense")[0], "plain_ms": t("K5 dense")[1], **bound_keys("pt_wide"),
+         "full_depth_ms": k5_full_ms["dense"],
          "full_depth_bound_ms": bounds["pt_wide full depth"]["bound_ms"],
+         "drift_of_limit": k5_drift["dense"],
+         "one_add_or_flip_short_of_limit": k5_planted["dense"]},
+        {"name": "pt_wide_sparse", "route": "cuda", "source": "qbmx_torch/csrc/pt_wide.cu",
+         "replaces": "qbmx/samplers/sa_pallas.py:196", "path": "sparse (J_g's row lists)",
+         "launches": cdqbm_launches["a PT"]["pt_wide_sparse"],
+         "launches_on": "cdqbm_main --solver PT (CDQBM (a))",
+         "max_abs_err": max(errs["pt_wide_sparse"]),
+         "differing_chains": max(fracs["pt_wide_sparse"]),
+         "differing_chains_limit": MAX_DIFF_FRAC,
+         "ms": t("K5 sparse")[0], "plain_ms": t("K5 sparse")[1], **bound_keys("pt_wide_sparse"),
+         "full_depth_ms": k5_full_ms["sparse"],
+         "full_depth_bound_ms": bounds["pt_wide_sparse full depth"]["bound_ms"],
          "cdqbm_a_pt_step_ms": step_ms["CDQBM a PT anneal1000"],
-         "drift_of_limit": k5_drift, "one_add_or_flip_short_of_limit": k5_planted},
+         "drift_of_limit": k5_drift["sparse"],
+         "one_add_or_flip_short_of_limit": k5_planted["sparse"],
+         "clusters": clusters, "active_clusters": active},
     ], "step_ms": step_ms, "cdqbm_launches": cdqbm_launches, "sweeps": sweep_rec}
     print(smi)
     print(json.dumps(record))

@@ -61,15 +61,19 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # J, h, hot, logr, init01, uniforms, out, fields_out, flips, G, B, R, n, S,
         # inv_span, seed, width, lanes, stream
         "qbmx_sa_heatbath": [p] * 9 + [i] * 5 + [f, u64, i, i, p],
-        # J, h, hot, logr, init01, uniforms, out, fields_out, flips, G, B, R, n, S,
-        # inv_span, seed, rule, chains, stream
-        "qbmx_anneal_wide": [p] * 9 + [i] * 5 + [f, u64, i, i, p],
+        # J, row_nnz, h, hot, logr, init01, uniforms, out, fields_out, flips, G, B, R, n,
+        # S, inv_span, seed, rule, chains, stream
+        "qbmx_anneal_wide": [p] * 10 + [i] * 5 + [f, u64, i, i, p],
         # J, h, betas, dbeta, init01, uniforms, swap_u, out, B, M, R, n, S, seed, layout,
         # stream
         "qbmx_pt_heatbath": [p] * 8 + [i] * 5 + [u64, i, p],
-        # J, h, betas, dbeta, init01, uniforms, swap_u, out, states_out, fields_out,
-        # energy_out, flips, G, B, M, R, n, S, seed, ladders, stream
-        "qbmx_pt_wide": [p] * 12 + [i] * 6 + [u64, i, p],
+        # J, row_nnz, h, betas, dbeta, init01, uniforms, swap_u, out, states_out,
+        # fields_out, energy_out, flips, G, B, M, R, n, S, seed, ladders, cluster, stream
+        "qbmx_pt_wide": [p] * 13 + [i] * 6 + [u64, i, i, p],
+        # vals, cols, offsets, h, betas, dbeta, init01, uniforms, swap_u, out, states_out,
+        # fields_out, energy_out, flips, G, B, M, R, n, S, seed, nnz_pad, ladders, cluster,
+        # stream
+        "qbmx_pt_wide_sparse": [p] * 14 + [i] * 6 + [u64, i, i, i, p],
     }
     for name, argtypes in entries.items():
         getattr(lib, name).argtypes = argtypes
@@ -80,10 +84,16 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         getattr(lib, name).restype = i
     lib.qbmx_anneal_wide_smem.argtypes = [i, i]  # n, chains
     lib.qbmx_pt_heatbath_smem.argtypes = [i, i, i]  # layout, n, M
-    lib.qbmx_pt_wide_smem.argtypes = [i, i]  # n, chains
-    lib.qbmx_pt_wide_max_rungs.argtypes = [i]  # n
-    lib.qbmx_pt_wide_max_rungs.restype = i
-    for fn in (lib.qbmx_anneal_wide_smem, lib.qbmx_pt_heatbath_smem, lib.qbmx_pt_wide_smem):
+    lib.qbmx_pt_wide_smem.argtypes = [i, i]  # n, warps
+    lib.qbmx_pt_wide_sparse_smem.argtypes = [i, i, i]  # n, warps, nnz_pad
+    for name, argtypes in (("qbmx_pt_wide_max_rungs", [i]),  # n
+                           ("qbmx_pt_wide_block_rungs", [i]),  # n
+                           ("qbmx_pt_wide_sparse_block_rungs", [i, i]),  # n, nnz_pad
+                           ("qbmx_pt_wide_max_active_clusters", [i, i, i, i])):  # n, M, K, nnz_pad
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = i
+    for fn in (lib.qbmx_anneal_wide_smem, lib.qbmx_pt_heatbath_smem, lib.qbmx_pt_wide_smem,
+               lib.qbmx_pt_wide_sparse_smem):
         fn.restype = ctypes.c_ulonglong
     return lib
 

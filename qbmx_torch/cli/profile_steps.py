@@ -47,7 +47,8 @@ from qbmx_torch.train.sweep import SeedParallelDQBM
 
 #: the kernel each solver's sampler launches on a GPU while the QUBO's
 #: couplings fit shared memory (above: "anneal_wide" for SA and BMS,
-#: "pt_wide" for PT at 8 rungs)
+#: "pt_wide" for PT at 8 rungs, either K5 path: the profiler names both
+#: pt_wide_kernel<...>)
 SOLVER_KERNELS = {"SA": "sa_metropolis", "BMS": "sa_heatbath", "PT": "pt_heatbath"}
 WIDE_KERNELS = {"SA": "anneal_wide", "BMS": "anneal_wide", "PT": "pt_wide"}
 SEED, LEARNING_RATE = 19, 0.307  # the flagship run's learning rate

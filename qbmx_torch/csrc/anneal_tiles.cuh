@@ -1,7 +1,7 @@
 // The tile machinery of the kernels whose couplings J_g stream through
 // shared memory in row tiles, a warp a chain: anneal_wide.cu (K4, every
-// anneal rule) and pt_wide.cu (K5, parallel tempering, the heat-bath rule).
-// Moved here from anneal_wide.cu unchanged; anneal_wide.cu's header
+// anneal rule) and pt_wide.cu (K5's dense path, parallel tempering, the
+// heat-bath rule).  Moved here from anneal_wide.cu; anneal_wide.cu's header
 // comment describes the scheme (tiles double-buffered with cp.async,
 // incremental local fields with a refresh every so many sweeps, the tile's
 // fields and states in registers, 32 thresholds drawn by a warp's lanes at
@@ -139,13 +139,27 @@ __device__ __forceinline__ void add_rows(float* fr, const float* tile, int rr, i
   }
 }
 
+// Adds to `work` the nonzeros nnz[i+a] of each changed variable's row (the
+// work a change does on a sparse J, for the bound), where COUNT: the
+// kernels' counting build, launched only for checks (the main path's
+// build has none of it).
+template <int M, bool COUNT>
+__device__ __forceinline__ void count_rows(const int* nnz, int i, const float d[M],
+                                           unsigned& work) {
+  if constexpr (!COUNT) return;
+#pragma unroll
+  for (int a = 0; a < M; ++a)
+    if (d[a] != 0.0f) work += (unsigned)nnz[i + a];
+}
+
 // A unit of a refresh sweep: the fields of variables i..i+M-1 recomputed
 // from the state in shared memory, the decision, and its change applied to
 // the state and every field.  Returns the number of variables changed.
-template <int RULE, int M>
+template <int RULE, int M, bool COUNT>
 __device__ __forceinline__ int refresh_unit(const float* tile, int rr, int jrow, float* fr,
                                             uint32_t* st, int lane, const float* hp, int i,
-                                            float beta, float v) {
+                                            float beta, float v, const int* nnz,
+                                            unsigned& work) {
   float f[M], s[M], o[M], d[M];
   unsigned char* sb = reinterpret_cast<unsigned char*>(st);
   fields<M>(tile + rr * jrow, jrow, st, lane, hp + i, f);
@@ -167,7 +181,10 @@ __device__ __forceinline__ int refresh_unit(const float* tile, int rr, int jrow,
     }
   }
   __syncwarp();  // ... and sees the refreshed fields before adding to them
-  if (changed != 0) add_rows<M>(fr, tile, rr, jrow, lane, d);  // the same on the chain's lanes
+  if (changed != 0) {  // the same on the chain's lanes
+    add_rows<M>(fr, tile, rr, jrow, lane, d);
+    count_rows<M, COUNT>(nnz, i, d, work);
+  }
   __syncwarp();  // ... and sees the new fields and state before the next unit
   return changed;
 }
@@ -179,10 +196,11 @@ __device__ __forceinline__ int refresh_unit(const float* tile, int rr, int jrow,
 // order, as add_rows adds it to their copies in shared memory, and the
 // state byte is written for the next tile.  Within a tile no lane reads
 // what another writes, so no barrier is needed until the tile's end.
-template <int RULE, int M>
+template <int RULE, int M, bool COUNT>
 __device__ __forceinline__ int tile_unit(const float* tile, int rr, int jrow, float* fr,
                                          unsigned char* sb, int lane, int i0, float beta,
-                                         float v, float ft[8], float sv[8]) {
+                                         float v, float ft[8], float sv[8], const int* nnz,
+                                         unsigned& work) {
   float f[M], s[M], o[M], d[M];
 #pragma unroll
   for (int a = 0; a < M; ++a) {
@@ -208,6 +226,7 @@ __device__ __forceinline__ int tile_unit(const float* tile, int rr, int jrow, fl
       for (int a = 0; a < M; ++a)
         if (d[a] != 0.0f) ft[r2] = fmaf(d[a], tile[(rr + a) * jrow + i0 + r2], ft[r2]);
     add_rows<M>(fr, tile, rr, jrow, lane, d);
+    count_rows<M, COUNT>(nnz, i0 + rr, d, work);
   }
   return changed;
 }
@@ -264,12 +283,13 @@ __device__ __forceinline__ int tile_schedule(int i0, int n, Unit&& unit) {
 // before its decision (`refresh`) or incremental.  Every thread of the
 // block calls it (it has a barrier a tile); the first call must follow a
 // load_tile of tile 0 into buffer `buf` and its commit.  Returns the
-// variables the chain changed.
-template <int RULE>
+// variables the chain changed, and, where COUNT, adds to `work` the
+// nonzeros of their rows (nnz: J_g's nonzeros a row).
+template <int RULE, bool COUNT>
 __device__ __forceinline__ int sweep_tiles(float* tiles, int& buf, const float* Jg, Layout L,
                                            int n, bool last, bool refresh, float beta,
                                            SweepUniforms& u, float* fr, uint32_t* st, int lane,
-                                           const float* hp) {
+                                           const float* hp, const int* nnz, unsigned& work) {
   unsigned char* sb = reinterpret_cast<unsigned char*>(st);
   const int ntiles = (n + kRows - 1) / kRows;
   const int tile_floats = kRows * L.jrow;
@@ -298,8 +318,8 @@ __device__ __forceinline__ int sweep_tiles(float* tiles, int& buf, const float* 
     if (refresh) {
       changed += tile_schedule<RULE>(i0, n, [&](int rr, auto w) {
         constexpr int M = decltype(w)::value;
-        return refresh_unit<RULE, M>(tile, rr, L.jrow, fr, st, lane, hp, i0 + rr, beta,
-                                     v_at(rr));
+        return refresh_unit<RULE, M, COUNT>(tile, rr, L.jrow, fr, st, lane, hp, i0 + rr,
+                                            beta, v_at(rr), nnz, work);
       });
     } else {
       // the tile's 8 fields and states, into every lane's registers
@@ -316,7 +336,8 @@ __device__ __forceinline__ int sweep_tiles(float* tiles, int& buf, const float* 
       }
       changed += tile_schedule<RULE>(i0, n, [&](int rr, auto w) {
         constexpr int M = decltype(w)::value;
-        return tile_unit<RULE, M>(tile, rr, L.jrow, fr, sb, lane, i0, beta, v_at(rr), ft, sv);
+        return tile_unit<RULE, M, COUNT>(tile, rr, L.jrow, fr, sb, lane, i0, beta, v_at(rr),
+                                         ft, sv, nnz, work);
       });
     }
     __syncthreads();  // tile buffer buf is free for the prefetch after next

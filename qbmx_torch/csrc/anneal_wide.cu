@@ -64,8 +64,10 @@
 // qbmx_torch/samplers/sa_torch.py::philox_variates writes out this kernel's
 // draws too.  With non-null pointers the initial state init01 (G,B,R,n) and
 // the uniforms (S,G,B,n,R) come from the host.  Optional outputs, null on
-// the main path: fields_out (G,B,R,n) the final fields, flips the number of
-// variables changed (for chip_smoke.py's drift check and bound).
+// the main path: fields_out (G,B,R,n) the final fields; flips[0] the number
+// of variables changed and flips[1] the nonzeros of their rows (row_nnz
+// (G,n), J_g's nonzeros a row, from the wrapper), the work a change takes
+// on a sparse J (for chip_smoke.py's drift check and bound).
 //
 // The tiles, fields and units live in anneal_tiles.cuh, which pt_wide.cu
 // (K5, parallel tempering past shared memory) shares.
@@ -106,14 +108,17 @@ constexpr size_t kSmemMax = 232448;  // a block's shared memory on Hopper
 #endif
 constexpr int kRefreshPeriod = QBMX_K4_REFRESH_PERIOD;
 
-template <int RULE>
+// COUNT: the build that also counts the nonzeros of the changed rows
+// (row_nnz set, for checks); the main path launches the other.
+template <int RULE, bool COUNT>
 __global__ void __launch_bounds__(kMaxChains * kLanes)
 anneal_wide_kernel(const float* __restrict__ J, const float* __restrict__ h,
                    const float* __restrict__ hot, const float* __restrict__ logr,
                    const float* __restrict__ init01, const float* __restrict__ uniforms,
                    float* __restrict__ out, float* __restrict__ fields_out,
-                   unsigned long long* __restrict__ flips, int G, int B, int R, int n, int S,
-                   float inv_span, uint32_t seed_lo, uint32_t seed_hi, int C) {
+                   unsigned long long* __restrict__ flips, const int* __restrict__ row_nnz,
+                   int G, int B, int R, int n, int S, float inv_span, uint32_t seed_lo,
+                   uint32_t seed_hi, int C) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L = layout_of(n);
   float* tiles = reinterpret_cast<float*>(smem);
@@ -135,6 +140,7 @@ anneal_wide_kernel(const float* __restrict__ J, const float* __restrict__ h,
   const bool host = uniforms != nullptr;
   const float* Jg = J + (size_t)g * n * L.jrow;
   const float* hp = h + p * n;
+  const int* nnz = row_nnz == nullptr ? nullptr : row_nnz + (size_t)g * n;
 
   for (int k = threadIdx.x; k < C * (L.frow + L.words()); k += blockDim.x) field_rows[k] = 0.0f;
   __syncthreads();
@@ -156,6 +162,7 @@ anneal_wide_kernel(const float* __restrict__ J, const float* __restrict__ h,
   const float hot_p = hot[p], logr_p = logr[p];
   const size_t u_sweep = (size_t)G * B * n * R;  // uniforms per sweep
   int changed = 0;
+  unsigned long long work = 0;  // the nonzeros of the changed variables' rows
   load_tile(tiles, Jg, 0, n, L.jrow);
   __pipeline_commit();
   int buf = 0;
@@ -163,8 +170,11 @@ anneal_wide_kernel(const float* __restrict__ J, const float* __restrict__ h,
     const float beta = hot_p * expf(logr_p * ((float)t * inv_span));
     SweepUniforms u{host ? uniforms + (size_t)t * u_sweep + p * n * R + r : nullptr, R, key,
                     (uint32_t)r, (uint32_t)t, seed_hi};
-    changed += sweep_tiles<RULE>(tiles, buf, Jg, L, n, t + 1 == S, t % kRefreshPeriod == 0,
-                                 beta, u, fr, st, lane, hp);
+    unsigned sweep_work = 0;  // at most n² a sweep
+    changed += sweep_tiles<RULE, COUNT>(tiles, buf, Jg, L, n, t + 1 == S,
+                                        t % kRefreshPeriod == 0, beta, u, fr, st, lane, hp, nnz,
+                                        sweep_work);
+    work += sweep_work;
   }
 
   if (active) {
@@ -172,8 +182,10 @@ anneal_wide_kernel(const float* __restrict__ J, const float* __restrict__ h,
     for (int i = lane; i < n; i += kLanes) out[row + i] = sb[i] ? 1.0f : 0.0f;
     if (fields_out != nullptr)
       for (int i = lane; i < n; i += kLanes) fields_out[row + i] = fr[i];
-    if (flips != nullptr && lane == 0 && changed != 0)
+    if (flips != nullptr && lane == 0 && changed != 0) {
       atomicAdd(flips, (unsigned long long)changed);
+      atomicAdd(flips + 1, work);
+    }
   }
 }
 
@@ -181,36 +193,38 @@ struct Args {
   const float *J, *h, *hot, *logr, *init01, *uniforms;
   float *out, *fields_out;
   unsigned long long* flips;
+  const int* row_nnz;
   int G, B, R, n, S;
   float inv_span;
   uint32_t seed_lo, seed_hi;
   int C;
 };
 
-template <int RULE>
+template <int RULE, bool COUNT>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const size_t smem = layout_of(a.n).bytes(a.C);
   if (a.C < 1 || a.C > kMaxChains || smem > kSmemMax) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        anneal_wide_kernel<RULE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        anneal_wide_kernel<RULE, COUNT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   const long long blocks = ((long long)a.B * a.R + a.C - 1) / a.C;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
   const dim3 grid((unsigned)blocks, (unsigned)a.G);
-  anneal_wide_kernel<RULE><<<grid, a.C * kLanes, smem, stream>>>(
-      a.J, a.h, a.hot, a.logr, a.init01, a.uniforms, a.out, a.fields_out, a.flips, a.G, a.B,
-      a.R, a.n, a.S, a.inv_span, a.seed_lo, a.seed_hi, a.C);
+  anneal_wide_kernel<RULE, COUNT><<<grid, a.C * kLanes, smem, stream>>>(
+      a.J, a.h, a.hot, a.logr, a.init01, a.uniforms, a.out, a.fields_out, a.flips, a.row_nnz,
+      a.G, a.B, a.R, a.n, a.S, a.inv_span, a.seed_lo, a.seed_hi, a.C);
   return cudaGetLastError();
 }
 
+template <bool COUNT>
 cudaError_t dispatch(const Args& a, int rule, cudaStream_t st) {
   switch (rule) {
-    case 0: return launch<0>(a, st);
-    case 1: return launch<1>(a, st);
-    case 2: return launch<2>(a, st);
-    case 4: return launch<4>(a, st);
+    case 0: return launch<0, COUNT>(a, st);
+    case 1: return launch<1, COUNT>(a, st);
+    case 2: return launch<2, COUNT>(a, st);
+    case 4: return launch<4, COUNT>(a, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -234,18 +248,20 @@ extern "C" unsigned long long qbmx_anneal_wide_smem(int n, int chains) {
 // each row padded with zeros to jrow = n rounded up to 4; init01/uniforms
 // are both null (Philox mode) or both set (host-variate mode); rule is 0 for
 // Metropolis, 1, 2 or 4 for heat-bath at that update width; chains (chains
-// per block, a warp each) is the host's geometry; fields_out and flips may
-// be null.
-extern "C" int qbmx_anneal_wide(const float* J, const float* h, const float* hot,
-                                const float* logr, const float* init01,
+// per block, a warp each) is the host's geometry; fields_out and flips (two
+// counters) may be null, and row_nnz is null unless flips is set.
+extern "C" int qbmx_anneal_wide(const float* J, const int* row_nnz, const float* h,
+                                const float* hot, const float* logr, const float* init01,
                                 const float* uniforms, float* out, float* fields_out,
                                 unsigned long long* flips, int G, int B, int R, int n, int S,
                                 float inv_span, unsigned long long seed, int rule, int chains,
                                 void* stream) {
   if (G <= 0 || B <= 0 || R <= 0 || n <= 0 || S <= 0 || G > 65535 ||
-      n > qbmx_anneal_wide_max_n() || (init01 == nullptr) != (uniforms == nullptr))
+      n > qbmx_anneal_wide_max_n() || (init01 == nullptr) != (uniforms == nullptr) ||
+      (row_nnz != nullptr && flips == nullptr))
     return (int)cudaErrorInvalidValue;
-  const Args a{J, h, hot, logr, init01, uniforms, out, fields_out, flips, G, B, R, n, S,
-               inv_span, (uint32_t)(seed & 0xFFFFFFFFull), (uint32_t)(seed >> 32), chains};
-  return (int)dispatch(a, rule, static_cast<cudaStream_t>(stream));
+  const Args a{J, h, hot, logr, init01, uniforms, out, fields_out, flips, row_nnz, G, B, R, n,
+               S, inv_span, (uint32_t)(seed & 0xFFFFFFFFull), (uint32_t)(seed >> 32), chains};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(row_nnz != nullptr ? dispatch<true>(a, rule, st) : dispatch<false>(a, rule, st));
 }

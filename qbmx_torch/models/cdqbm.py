@@ -507,6 +507,22 @@ class CDQBM(EpochLaunchMixin, QBMModel):
                 .to(torch.float32)
         return y.to(torch.float32)[:, None]
 
+    def step_qubos(self, params: CDQBMParams, x_imgs, label_vec, ctx=None):
+        """The step's one sampler call: ``(Q2 (2, n_total, n_total), h2 (2,
+        B, n_total))``, both phases as two shared-coupling groups; the
+        clamped group is zero-padded by n_out variables that couple to
+        nothing and are sliced off."""
+        geo = self.geo
+        ctx = ctx if ctx is not None else self._context(params, x_imgs)
+        nh, nt, B = geo.n_hidden, geo.n_total, x_imgs.shape[0]
+        Q2 = torch.zeros((2, nt, nt), dtype=torch.float32, device=x_imgs.device)
+        Q2[0, :nh, :nh] = self.clamped_qubo_shared(params)
+        Q2[1] = self.unclamped_qubo_shared(params)
+        h2 = torch.zeros((2, B, nt), dtype=torch.float32, device=x_imgs.device)
+        h2[0, :, :nh] = self.clamped_fields(params, x_imgs, label_vec, ctx)
+        h2[1] = self.unclamped_fields(params, x_imgs, ctx)
+        return Q2, h2
+
     @torch.no_grad()
     def _step(self, x_imgs, y, mask, lr):
         """One fused two-phase update of ``self.params`` on images (B, H, W);
@@ -514,18 +530,9 @@ class CDQBM(EpochLaunchMixin, QBMModel):
         geo = self.geo
         p = self.params
         y_vec = self._label_vec(y)
-        B = x_imgs.shape[0]
-        nh, nt = geo.n_hidden, geo.n_total
+        nh = geo.n_hidden
         ctx = self._context(p, x_imgs)
-        # both phases in ONE sampler call as two shared-coupling groups; the
-        # clamped group is zero-padded by n_out variables that couple to
-        # nothing and are sliced off
-        Q2 = torch.zeros((2, nt, nt), dtype=torch.float32, device=x_imgs.device)
-        Q2[0, :nh, :nh] = self.clamped_qubo_shared(p)
-        Q2[1] = self.unclamped_qubo_shared(p)
-        h2 = torch.zeros((2, B, nt), dtype=torch.float32, device=x_imgs.device)
-        h2[0, :, :nh] = self.clamped_fields(p, x_imgs, y_vec, ctx)
-        h2[1] = self.unclamped_fields(p, x_imgs, ctx)
+        Q2, h2 = self.step_qubos(p, x_imgs, y_vec, ctx)
         s_all = sampler_sample_groups(self.sampler, self.generator, Q2, h2, self.sample_count)
         s_c, s_u = s_all[0, :, :, :nh], s_all[1]
 
@@ -691,3 +698,15 @@ class CDQBM(EpochLaunchMixin, QBMModel):
         self.params = params_from_numpy(
             dict(kernel=kernel, w_seq=w_seq, w_seq_intra=w_intra, w_h2o=w_h2o, w_oo=w_oo,
                  b_conv=b_conv, b_seq=b_seq, b_o=b_o, pen=pen), self.device)
+
+
+def cdqbm_a_qubos(B: int, device, seed: int = 19):
+    """CDQBM (a)'s step QUBOs (probabilistic pooling 4, ``--seq_sizes 4``,
+    beta_eff 5: n = 717, J_g 98% zeros) on B random images made from
+    ``seed``: (Q2 (2, n, n), h2 (2, B, n)), the clamped and unclamped
+    groups of the step's one sampler call (:meth:`CDQBM.step_qubos`)."""
+    m = CDQBM(pooling_size=4, pooling_type="probabilistic", sequential_layer_sizes=[4],
+              hidden_bias_type="shared", solver="PT", beta_eff=5.0, seed=seed, device=device)
+    x = torch.as_tensor(np.random.default_rng(seed).random((B, 28, 28), dtype=np.float32),
+                        device=device)
+    return m.step_qubos(m.params, x, m._label_vec(torch.arange(B, device=device) % 2))

@@ -266,6 +266,23 @@ class DiscQBM(EpochLaunchMixin, QBMModel):
 
     # -- computations ---------------------------------------------------------
 
+    def step_qubos(self, params: DQBMParams, x, y_vec):
+        """The step's one sampler call (without the linear shortcut): ``(Q2
+        (2, n_u, n_u), h2 (2, B, n_u))``, both phases as two shared-coupling
+        groups; the clamped group is zero-padded to the unclamped size (the
+        padding variables couple to nothing and are sliced off)."""
+        beta, B, H = self.beta_eff, x.shape[0], params.b_h.shape[0]
+        Qu_sh = unclamped_qubo_shared(params, beta)
+        hu = unclamped_fields(params, x, beta)
+        n_u = Qu_sh.shape[-1]
+        Q2 = torch.zeros((2, n_u, n_u), dtype=Qu_sh.dtype, device=Qu_sh.device)
+        Q2[0, :H, :H] = clamped_qubo_shared(params, beta)
+        Q2[1] = Qu_sh
+        h2 = torch.zeros((2, B, n_u), dtype=hu.dtype, device=hu.device)
+        h2[0, :, :H] = clamped_fields(params, x, y_vec, beta)
+        h2[1] = hu
+        return Q2, h2
+
     @torch.no_grad()
     def _step(self, x, y, mask, lr):
         """One fused two-phase update of ``self.params``; returns device
@@ -277,9 +294,6 @@ class DiscQBM(EpochLaunchMixin, QBMModel):
         else:
             y_vec = y.to(torch.float32)[:, None]
         B, H = x.shape[0], p.b_h.shape[0]
-        Qu_sh = unclamped_qubo_shared(p, beta)
-        hu = unclamped_fields(p, x, beta)
-        n_u = Qu_sh.shape[-1]
         if self.use_linear_shortcut:
             # restricted clamped QUBO is diagonal: its ground state in closed
             # form, one fair coin per zero-bias unit, replicated across reads
@@ -287,18 +301,11 @@ class DiscQBM(EpochLaunchMixin, QBMModel):
             coin = (rand(diag.shape, self.generator, diag.device) < 0.5).to(torch.float32)
             gs = torch.where(diag < 0, 1.0, torch.where(diag > 0, 0.0, coin))
             s_c = gs[:, None, :].expand(B, reads, H)
-            s_u = sampler_sample_groups(self.sampler, self.generator, Qu_sh[None],
-                                        hu[None], reads)[0]
+            s_u = sampler_sample_groups(self.sampler, self.generator,
+                                        unclamped_qubo_shared(p, beta)[None],
+                                        unclamped_fields(p, x, beta)[None], reads)[0]
         else:
-            # both phases in ONE sampler call as two shared-coupling groups;
-            # the clamped group is zero-padded to the unclamped size (the
-            # padding variables couple to nothing and are sliced off)
-            Q2 = torch.zeros((2, n_u, n_u), dtype=Qu_sh.dtype, device=Qu_sh.device)
-            Q2[0, :H, :H] = clamped_qubo_shared(p, beta)
-            Q2[1] = Qu_sh
-            h2 = torch.zeros((2, B, n_u), dtype=hu.dtype, device=hu.device)
-            h2[0, :, :H] = clamped_fields(p, x, y_vec, beta)
-            h2[1] = hu
+            Q2, h2 = self.step_qubos(p, x, y_vec)
             s_all = sampler_sample_groups(self.sampler, self.generator, Q2, h2, reads)
             s_c, s_u = s_all[0, :, :, :H], s_all[1]
 

@@ -1,18 +1,27 @@
-"""Wrapper of the CUDA parallel-tempering kernel for couplings past shared
-memory (``qbmx_torch/csrc/pt_wide.cu``, K5), and the one rule that routes a
+"""Wrapper of the CUDA parallel-tempering kernel for the calls K3 cannot
+hold (``qbmx_torch/csrc/pt_wide.cu``, K5), and the one rule that routes a
 parallel-tempering call on a CUDA tensor to K3 or K5.
 
 K5 computes what K3 (``pt_heatbath.cu``) and the plain version
 (``tempering.pt_sample_batch_plain``) compute, on the structured form
 (``J`` (G, n, n), ``h`` (G, B, n), ladder ``betas``/``dbeta`` (G·B, M) →
 (G, B, R, n)), for the shapes K3 cannot hold: J_b past one block's shared
-memory (n > 241, or M ≥ 16 at n = 241).  :func:`pt_route` is the rule:
-K3 where ``pt_cuda.pt_layout`` takes the shape, K5 where
-:func:`pt_wide_geometry` does, and a ``ValueError`` naming both bounds
-beyond them.  :func:`pt_sample_batch` and :func:`pt_sample_groups` are the
-sampler's entries: on CPU tensors they run the plain version on the
-densified batch, on CUDA tensors they launch the kernel the rule picks or
-raise.  K5's launches are counted here, apart from K3's.
+memory (n > 241, or M ≥ 16 at n = 241), or more than 64 rungs.
+:func:`pt_route` is the rule: K3 where ``pt_cuda.pt_layout`` takes the
+shape, K5 where :func:`pt_wide_geometry` does, and a ``ValueError`` naming
+both bounds beyond them.  :func:`pt_sample_batch` and
+:func:`pt_sample_groups` are the sampler's entries: on CPU tensors they run
+the plain version on the densified batch, on CUDA tensors they launch the
+kernel the rule picks or raise.
+
+K5 has two paths, one semantics, and the same fields bit for bit: the
+sparse path holds J_g's nonzero rows (:func:`row_lists`) whole in a
+block's shared memory, the dense path streams J_g in tiles.
+:func:`pt_wide_geometry` takes the sparse path where the row lists fit a
+block beside its rungs, else the dense one; a ladder of more rungs than a
+block holds spreads over a thread block cluster.  Each path's launches
+are counted here, apart from K3's (``"pt_wide"`` dense,
+``"pt_wide_sparse"``).
 
 Host variates keep K3's layout in densified slot order ``(g·B + b)·M +
 m``: ``init01`` (G·B·M, R, n), ``uniforms`` (S, G·B·M, n, R), ``swap_u``
@@ -34,10 +43,12 @@ from qbmx_torch.core.qubo import densify_groups, split_qubo
 from qbmx_torch.core.rng import draw_seed
 from qbmx_torch.samplers import kernel_call, pt_cuda, tempering, wide_cuda
 
-#: launches of K5 since the last reset (one per call that reached the GPU)
-launch_counts = {"pt_wide": 0}
+#: launches of K5 since the last reset (one per call that reached the GPU), by path
+launch_counts = {"pt_wide": 0, "pt_wide_sparse": 0}
 
-MAX_RUNGS = 32  # a ladder a block, a warp a rung: 1024 threads (pt_wide.cu kMaxChains)
+DENSE, SPARSE = "dense", "sparse"
+MAX_WARPS = 32  # rungs a block, a warp each: 1024 threads (pt_wide.cu kMaxWarps)
+MAX_CLUSTER = 8  # blocks a ladder: the portable thread block cluster size
 VAR_SHIFT = 10  # Philox counter word y = (rung << 10) | variable/4 (pt_wide.cu kVarShift)
 
 
@@ -46,11 +57,29 @@ def reset_launch_counts() -> None:
         launch_counts[k] = 0
 
 
-def smem_bytes(n: int, chains: int) -> int:
-    """A block's shared memory at width n with ``chains`` warps: K4's layout
-    (two J tiles, each warp's fields and state bytes) and each warp's two
-    exchanged energies (``qbmx_pt_wide_smem``)."""
-    return wide_cuda.smem_bytes(n, chains) + 8 * chains
+def smem_bytes(n: int, warps: int) -> int:
+    """A dense-path block's shared memory at width n with ``warps`` warps:
+    K4's layout (two J tiles, each warp's fields and state bytes) and each
+    warp's two exchanged energies (``qbmx_pt_wide_smem``)."""
+    return wide_cuda.smem_bytes(n, warps) + 8 * warps
+
+
+def offsets_len(n: int) -> int:
+    """Ints of a group's row offsets: n + 1 rounded up to 4 (16-byte copies)."""
+    return -(-(n + 1) // 4) * 4
+
+
+def sparse_smem_bytes(n: int, warps: int, nnz_pad: int) -> int:
+    """A sparse-path block's shared memory: the group's row lists (nnz_pad
+    fp32 values and 16-bit columns, the offsets), then the rows of
+    ``warps`` warps as on the dense path (``qbmx_pt_wide_sparse_smem``)."""
+    return 6 * nnz_pad + 4 * offsets_len(n) + smem_bytes(n, warps) - smem_bytes(n, 0)
+
+
+def padded(nnz: int) -> int:
+    """Row-list entries a group holds for ``nnz`` nonzeros: a multiple of 8
+    (16-byte aligned groups), at least 8."""
+    return max(8, -(-nnz // 8) * 8)
 
 
 @functools.cache
@@ -63,15 +92,43 @@ def max_n() -> int:
     return n
 
 
+def block_rungs(n: int, nnz_pad: int | None = None) -> int:
+    """Rungs a block holds at width n, a warp each: at most 32, and what
+    shared memory holds beside two J tiles (the dense path) or beside row
+    lists of ``nnz_pad`` entries (the sparse path); 0 if none
+    (``qbmx_pt_wide_block_rungs``, ``qbmx_pt_wide_sparse_block_rungs``)."""
+    size = (lambda W: smem_bytes(n, W)) if nnz_pad is None else \
+        (lambda W: sparse_smem_bytes(n, W, nnz_pad))
+    W = 0
+    while W < MAX_WARPS and size(W + 1) <= kernel_call.SMEM_BYTES:
+        W += 1
+    return W
+
+
+def max_rungs(n: int) -> int:
+    """Largest ladder K5 takes at width n on either path: the dense path's
+    rungs a block over a cluster of 8 blocks (``qbmx_pt_wide_max_rungs``:
+    256 up to n ≈ 2600, 8 at n = 3368); 0 past n = 3368."""
+    return block_rungs(n) * MAX_CLUSTER if n <= max_n() else 0
+
+
+def bounds() -> str:
+    return (f"n ≤ {max_n()}, and a ladder within one thread block cluster of {MAX_CLUSTER} "
+            f"blocks of at most {MAX_WARPS} rungs, a warp each, the dense path's two J tiles "
+            f"beside the rungs' fields, states and energies within {kernel_call.SMEM_BYTES:,} "
+            f"bytes a block: M ≤ {max_rungs(717)} at n = 717, M ≤ {max_rungs(3000)} at "
+            f"n = 3000, M ≤ {max_rungs(max_n())} at n = {max_n()}")
+
+
 def energy_drift_bound(h: torch.Tensor, J: torch.Tensor, num_sweeps: int) -> torch.Tensor:
     """(G, B, 1, 1) float64 limit on |E − (h·s + ½ sᵀJs)| for the energies
     K5 reports after ``num_sweeps`` sweeps (``energy_out``).  K5 sums E =
     ½ Σ_i s_i (h_i + f_i) from the fields after every sweep, each field
     within ``wide_cuda.field_drift_bound`` fb_i (K5 refreshes them as K4
-    does), so E is off by at most ½ Σ_i fb_i from theirs, plus the rounding
-    of one float32 sum of n terms of size ≤ |h_i| + M_i (M_j =
-    |h_j| + Σ_k |J_jk|), taken as √n·2^-24·Σ_i (|h_i| + M_i), a statistical
-    bound as fb is."""
+    does, on either path), so E is off by at most ½ Σ_i fb_i from theirs,
+    plus the rounding of one float32 sum of n terms of size ≤ |h_i| + M_i
+    (M_j = |h_j| + Σ_k |J_jk|), taken as √n·2^-24·Σ_i (|h_i| + M_i), a
+    statistical bound as fb is."""
     n = h.shape[-1]
     fb = wide_cuda.field_drift_bound(h, J, num_sweeps)[:, :, 0]  # (G, B, n)
     scale = 2 * h.double().abs() + J.double().abs().sum(-1)[:, None, :]
@@ -79,61 +136,126 @@ def energy_drift_bound(h: torch.Tensor, J: torch.Tensor, num_sweeps: int) -> tor
     return bound[:, :, None, None]
 
 
-def max_rungs(n: int) -> int:
-    """Largest ladder K5 takes at width n: at most 32 rungs, and a whole
-    ladder in one block's shared memory (``qbmx_pt_wide_max_rungs``); 0 if
-    none."""
-    M = 0
-    while M < MAX_RUNGS and smem_bytes(n, M + 1) <= kernel_call.SMEM_BYTES:
-        M += 1
-    return M
+@dataclasses.dataclass(frozen=True)
+class RowLists:
+    """J_g's nonzero rows as the sparse path reads them: row i of group g
+    holds entries ``offsets[g, i]`` .. ``offsets[g, i+1]-1`` of ``vals`` and
+    ``cols``, columns in increasing order; each group's entries padded with
+    zeros to ``nnz_pad``, a multiple of 8, so every group starts 16-byte
+    aligned."""
+
+    vals: torch.Tensor  # (G, nnz_pad) float32: the nonzero J_ij
+    cols: torch.Tensor  # (G, nnz_pad) int16: their columns j
+    offsets: torch.Tensor  # (G, offsets_len(n)) int32, past n + 1 the group's count
+    nnz: tuple  # nonzeros a group
+
+    @property
+    def nnz_pad(self) -> int:
+        return self.vals.shape[1]
 
 
-def bounds() -> str:
-    return (f"n ≤ {max_n()}, M ≤ {MAX_RUNGS}, and a whole ladder, two J tiles beside M rows "
-            f"of fields, states and energies, within {kernel_call.SMEM_BYTES:,} bytes: "
-            f"M ≤ {max_rungs(717)} at n = 717, M ≤ {max_rungs(max_n())} at n = {max_n()}")
+def row_nnz(J: torch.Tensor) -> torch.Tensor:
+    """(G, n) int32: the nonzeros of each row of J (G, n, n)."""
+    return (J != 0).sum(-1, dtype=torch.int32)
+
+
+def group_nnz(counts: torch.Tensor) -> tuple:
+    """The nonzeros of each group from :func:`row_nnz`'s counts: the one
+    host sync of a sparse call (the largest group sizes the lists)."""
+    return tuple(counts.sum(-1).tolist())
+
+
+def row_lists(J: torch.Tensor, counts: torch.Tensor | None = None,
+              nnz: tuple | None = None) -> RowLists:
+    """J (G, n, n)'s nonzero rows, on J's device, by plain tensor code;
+    ``counts`` (:func:`row_nnz`) and ``nnz`` (:func:`group_nnz`) where the
+    caller has them."""
+    G, n, _ = J.shape
+    mask = J != 0
+    counts = row_nnz(J) if counts is None else counts  # (G, n)
+    nnz = group_nnz(counts) if nnz is None else nnz
+    ends = counts.cumsum(-1, dtype=torch.int32)
+    offsets = torch.empty((G, offsets_len(n)), dtype=torch.int32, device=J.device)
+    offsets[:, 0] = 0
+    offsets[:, 1:n + 1] = ends
+    offsets[:, n + 1:] = ends[:, -1:]
+    nnz_pad = padded(max(nnz))
+    # the nonzeros as (g, i, j) in lexicographic order: row by row, columns
+    # increasing; a group's k-th goes to column k of its padded list
+    idx = mask.nonzero()
+    g = idx[:, 0]
+    sizes = torch.as_tensor(nnz, dtype=torch.int64, device=J.device)
+    k = torch.arange(idx.shape[0], device=J.device) - (sizes.cumsum(0) - sizes)[g]
+    vals = torch.zeros((G, nnz_pad), dtype=torch.float32, device=J.device)
+    cols = torch.zeros((G, nnz_pad), dtype=torch.int16, device=J.device)
+    vals[g, k] = J.to(torch.float32)[mask]
+    cols[g, k] = idx[:, 2].to(torch.int16)
+    return RowLists(vals, cols, offsets, nnz)
 
 
 @dataclasses.dataclass(frozen=True)
 class PTWideGeometry:
+    path: str  # DENSE (J_g in tiles) or SPARSE (its row lists in shared memory)
     ladders_per_block: int
-    threads: int  # per block: a warp a rung
+    cluster: int  # blocks a ladder (a thread block cluster); 1: whole ladders a block
+    warps: int  # per block: a warp a rung
+    threads: int
     smem: int  # bytes per block
     grid: tuple  # (blocks per group, groups)
+    nnz_pad: int = 0  # the sparse path's row-list entries a group
 
     @classmethod
-    def of(cls, G: int, B: int, M: int, R: int, n: int, ladders: int) -> "PTWideGeometry":
-        return cls(ladders, 32 * ladders * M, smem_bytes(n, ladders * M),
-                   (math.ceil(B * R / ladders), G))
+    def of(cls, G: int, B: int, M: int, R: int, n: int, ladders: int, cluster: int = 1,
+           nnz_pad: int | None = None) -> "PTWideGeometry":
+        """``ladders`` whole ladders a block (``cluster`` 1), or one ladder
+        over ``cluster`` blocks of ⌈M / cluster⌉ warps; the sparse path
+        with row lists of ``nnz_pad`` entries, else the dense one."""
+        if cluster == 1:
+            warps, grid = ladders * M, (math.ceil(B * R / ladders), G)
+        else:
+            if ladders != 1:
+                raise ValueError("pt_wide kernel: a ladder over a cluster is one a cluster")
+            warps, grid = math.ceil(M / cluster), (B * R * cluster, G)
+        if nnz_pad is None:
+            return cls(DENSE, ladders, cluster, warps, 32 * warps, smem_bytes(n, warps), grid)
+        return cls(SPARSE, ladders, cluster, warps, 32 * warps,
+                   sparse_smem_bytes(n, warps, nnz_pad), grid, nnz_pad)
 
 
-def pt_wide_geometry(G: int, B: int, M: int, R: int, n: int) -> PTWideGeometry:
+def pt_wide_geometry(G: int, B: int, M: int, R: int, n: int,
+                     nnz_pad: int | None = None) -> PTWideGeometry:
     """K5's launch geometry for G groups of B problems, M rungs, R reads
-    (ladders a problem), width n.
+    (ladders a problem), width n, and J_g's row lists of ``nnz_pad``
+    entries a group (None: not built).
 
-    Rule: a rung a warp, a ladder's M warps in one block (its exchanges
-    need only the block's barrier); a block holds L ladders of one group,
-    L = ⌈G·B·R / 132⌉ (one block an SM while ladders are few), at most
-    ⌊32 / M⌋ (1024 threads) and at most what shared memory holds.  The grid
-    is (⌈B·R / L⌉, G).  Raises on what the kernel does not take
-    (:func:`bounds`)."""
+    Rule: the sparse path where the row lists fit a block beside at least
+    ⌈M / 8⌉ rungs (every ladder within a cluster), else the dense path.  A
+    rung a warp; where a block holds W ≥ M rungs, whole ladders of one
+    group a block (their exchanges need only the block's barrier), L =
+    ⌈G·B·R / 132⌉ of them (one block an SM while ladders are few), at most
+    ⌊W / M⌋, on a grid of (⌈B·R / L⌉, G); else a ladder over a cluster of
+    K = ⌈M / W⌉ ≤ 8 blocks of ⌈M / K⌉ rungs, on a grid of (B·R·K, G).
+    Raises on what the kernel does not take (:func:`bounds`)."""
     if not (1 <= n <= max_n() and 1 <= M <= max_rungs(n)):
         raise ValueError(f"pt_wide kernel: n={n}, M={M} exceed its bound ({bounds()})")
     if G > 65535:
         raise ValueError(f"pt_wide kernel: {G} groups exceed the grid's 65535")
-    fit = max(L for L in range(1, MAX_RUNGS // M + 1)
-              if smem_bytes(n, L * M) <= kernel_call.SMEM_BYTES)
-    L = max(1, min(math.ceil(G * B * R / kernel_call.NUM_SMS), fit))
-    return PTWideGeometry.of(G, B, M, R, n, L)
+    if nnz_pad is not None and M > block_rungs(n, nnz_pad) * MAX_CLUSTER:
+        nnz_pad = None  # the row lists leave too little room: the dense path
+    W = block_rungs(n, nnz_pad)
+    if M > W:
+        return PTWideGeometry.of(G, B, M, R, n, 1, math.ceil(M / W), nnz_pad)
+    L = max(1, min(math.ceil(G * B * R / kernel_call.NUM_SMS), W // M))
+    return PTWideGeometry.of(G, B, M, R, n, L, 1, nnz_pad)
 
 
 def pt_route(G: int, B: int, M: int, R: int, n: int) -> str:
     """The tempering kernel a CUDA call of G groups of B problems (a dense
     batch: G = B groups of one), M rungs, R reads and width n launches:
     ``"pt_heatbath"`` (K3, on the densified batch) where ``pt_cuda.
-    pt_layout`` takes the shape, ``"pt_wide"`` (K5, on the structured form)
-    where :func:`pt_wide_geometry` does; raises with both bounds beyond."""
+    pt_layout`` takes the shape, ``"pt_wide"`` (K5, on the structured form,
+    either path) where :func:`pt_wide_geometry` does; raises with both
+    bounds beyond."""
     try:
         pt_cuda.pt_layout(G * B, M, R, n)
         return "pt_heatbath"
@@ -150,21 +272,22 @@ def launch(J: torch.Tensor, h: torch.Tensor, betas: torch.Tensor, dbeta: torch.T
            num_reads: int, num_sweeps: int, *, generator: torch.Generator | None = None,
            host_variates=None, states_out: torch.Tensor | None = None,
            fields_out: torch.Tensor | None = None, energy_out: torch.Tensor | None = None,
-           flips: torch.Tensor | None = None,
-           geometry: PTWideGeometry | None = None) -> torch.Tensor:
+           flips: torch.Tensor | None = None, geometry: PTWideGeometry | None = None,
+           path: str | None = None) -> torch.Tensor:
     """Launch K5 on the structured form: ``J`` (G, n, n) symmetric
     zero-diagonal couplings, ``h`` (G, B, n) linear terms, ``betas`` and
     ``dbeta`` (G·B, M) each problem's ladder (``tempering.ladder_betas``) →
     (G, B, R, n) samples of the target rung.  Any shape within
     :func:`bounds`, so checks of the kernel may send it narrow problems
-    too.
+    too.  The path is :func:`pt_wide_geometry`'s choice on J's row lists.
 
     ``states_out``, ``fields_out`` ((G·B·M, R, n) float32) and
     ``energy_out`` ((G·B·M, R)) receive each rung's final state, local
-    fields and energy at slot ``p·M + m``; ``flips`` ((1,) int64, added
-    to) the number of variables changed; ``geometry`` replaces
-    :func:`pt_wide_geometry`'s choice.  All are for checks of the kernel;
-    the sampler paths pass none."""
+    fields and energy at slot ``p·M + m``; ``flips`` ((2,) int64, added
+    to) the number of variables changed and the nonzeros of their rows;
+    ``path`` (:data:`DENSE` or :data:`SPARSE`) forces a path, and
+    ``geometry`` replaces the rule's whole choice.  All are for checks of
+    the kernel; the sampler paths pass none."""
     from qbmx_torch._build import load_kernels
 
     lib = load_kernels()
@@ -175,7 +298,19 @@ def launch(J: torch.Tensor, h: torch.Tensor, betas: torch.Tensor, dbeta: torch.T
     for t, name, shape in ((J, "J", (G, n, n)), (h, "h", (G, B, n)),
                            (betas, "betas", (G * B, M)), (dbeta, "dbeta", (G * B, M))):
         kernel_call.require(t, name, shape, dev)
-    geo = geometry or pt_wide_geometry(G, B, M, R, n)
+    if path not in (None, DENSE, SPARSE):
+        raise ValueError(f"pt_wide kernel: unknown path {path!r}")
+    counts = row_nnz(J) if path != DENSE or flips is not None else None
+    nnz = group_nnz(counts) if path != DENSE and (geometry is None or geometry.path == SPARSE) \
+        else None
+    geo = geometry or pt_wide_geometry(G, B, M, R, n, nnz and padded(max(nnz)))
+    if path is not None and geo.path != path:
+        raise ValueError(f"pt_wide kernel: the {path} path does not take n={n}, M={M} "
+                         f"({geo.path} path chosen)")
+    rows = row_lists(J, counts, nnz) if geo.path == SPARSE else None
+    if rows is not None and geo.nnz_pad != rows.nnz_pad:
+        raise ValueError(f"pt_wide kernel: geometry for {geo.nnz_pad} entries a group, "
+                         f"J's row lists hold {rows.nnz_pad}")
     GBM = G * B * M
     variates = kernel_call.variate_ptrs(
         host_variates, (("init01", (GBM, R, n)), ("uniforms", (S, GBM, n, R)),
@@ -183,15 +318,22 @@ def launch(J: torch.Tensor, h: torch.Tensor, betas: torch.Tensor, dbeta: torch.T
     outs = (kernel_call.optional_ptr(states_out, "states_out", (GBM, R, n), torch.float32, dev),
             kernel_call.optional_ptr(fields_out, "fields_out", (GBM, R, n), torch.float32, dev),
             kernel_call.optional_ptr(energy_out, "energy_out", (GBM, R), torch.float32, dev),
-            kernel_call.optional_ptr(flips, "flips", (1,), torch.int64, dev))
-    Jp = F.pad(J, (0, wide_cuda.row_floats(n) - n)).contiguous()  # 16-byte rows for cp.async
+            kernel_call.optional_ptr(flips, "flips", (2,), torch.int64, dev))
     seed = draw_seed(generator) if host_variates is None else 0
     out = torch.empty((G, B, R, n), dtype=torch.float32, device=dev)
-    kernel_call.check_rc("pt_wide", lib.qbmx_pt_wide(
-        Jp.data_ptr(), h.data_ptr(), betas.data_ptr(), dbeta.data_ptr(), *variates,
-        out.data_ptr(), *outs, G, B, M, R, n, S, seed, geo.ladders_per_block,
-        kernel_call.stream(dev)))
-    launch_counts["pt_wide"] += 1
+    tail = (h.data_ptr(), betas.data_ptr(), dbeta.data_ptr(), *variates, out.data_ptr(), *outs,
+            G, B, M, R, n, S, seed)
+    if geo.path == SPARSE:
+        kernel_call.check_rc("pt_wide_sparse", lib.qbmx_pt_wide_sparse(
+            rows.vals.data_ptr(), rows.cols.data_ptr(), rows.offsets.data_ptr(), *tail,
+            geo.nnz_pad, geo.ladders_per_block, geo.cluster, kernel_call.stream(dev)))
+        launch_counts["pt_wide_sparse"] += 1
+    else:
+        Jp = F.pad(J, (0, wide_cuda.row_floats(n) - n)).contiguous()  # 16-byte rows for cp.async
+        kernel_call.check_rc("pt_wide", lib.qbmx_pt_wide(
+            Jp.data_ptr(), None if flips is None else counts.data_ptr(), *tail,
+            geo.ladders_per_block, geo.cluster, kernel_call.stream(dev)))
+        launch_counts["pt_wide"] += 1
     return out
 
 

@@ -132,7 +132,8 @@ def launch(J: torch.Tensor, h: torch.Tensor, hot: torch.Tensor, logr: torch.Tens
     (and checks of the kernel itself) may send it narrow problems too.
 
     ``fields_out`` ((G, B, R, n) float32) receives the final local fields,
-    ``flips`` ((1,) int64, added to) the number of variables changed, and
+    ``flips`` ((2,) int64, added to) the number of variables changed and
+    the nonzeros of their rows (the work of the changes on a sparse J), and
     ``geometry`` replaces :func:`wide_geometry`'s choice; all three are for
     checks of the kernel, and the sampler paths pass none."""
     from qbmx_torch._build import load_kernels
@@ -150,9 +151,11 @@ def launch(J: torch.Tensor, h: torch.Tensor, hot: torch.Tensor, logr: torch.Tens
     out = torch.empty((G, B, R, n), dtype=torch.float32, device=h.device)
     fptr = kernel_call.optional_ptr(fields_out, "fields_out", (G, B, R, n), torch.float32,
                                     h.device)
-    cptr = kernel_call.optional_ptr(flips, "flips", (1,), torch.int64, h.device)
+    cptr = kernel_call.optional_ptr(flips, "flips", (2,), torch.int64, h.device)
+    nnz = None if flips is None else (J != 0).sum(-1, dtype=torch.int32)  # (G, n)
     kernel_call.check_rc("anneal_wide", lib.qbmx_anneal_wide(
-        Jp.data_ptr(), *ptrs[1:], out.data_ptr(), fptr, cptr, G, B, R, n, S,
+        Jp.data_ptr(), None if nnz is None else nnz.data_ptr(), *ptrs[1:], out.data_ptr(), fptr,
+        cptr, G, B, R, n, S,
         ctypes.c_float(inv_span(S)), seed, rule, geo.chains_per_block,
         kernel_call.stream(h.device)))
     launch_counts["anneal_wide"] += 1

@@ -12,9 +12,13 @@ variates).  Operations, counted from the run's inputs:
   operations a draw, 10 of them int32 multiplies -- and turns it into a
   verdict (a logarithm, a division, a product and a comparison: 4 more),
   :data:`OPS_PER_DECISION`;
-* every change of a variable adds ±J_ij to the n fields (n FMAs), when
-  the launch's flips were counted (``flips``); a kernel that does not count
-  them is bounded by its decisions alone, a lower bound still.
+* every change of a variable i adds ±J_ij to the fields of row i's
+  nonzeros, one FMA each: the work the changes need, whatever implements
+  them (a kernel that adds a dense row does more, and a sparse row list no
+  less).  K4 and K5 count it (``flip_work``, their second ``flips``
+  counter: the nonzeros of the changed rows); K1 and K2 count only the
+  changes (``flips``), taken at n FMAs each, as on a dense J; a kernel that
+  counts neither is bounded by its decisions alone, a lower bound still.
 
 The 67 TFLOP/s count an FMA as two flops, so the card issues at most 33.5e12
 float32 instructions a second (4 schedulers × 32 lanes × 132 SMs at 1.98
@@ -49,16 +53,20 @@ def heatbath_units(n: int, width: int) -> int:
 
 
 def anneal_bound(G: int, B: int, R: int, n: int, S: int, *, decisions: int | None = None,
-                 flips: int | None = None, J_groups: int | None = None, rungs: int = 1) -> dict:
+                 flips: int | None = None, flip_work: int | None = None,
+                 J_groups: int | None = None, rungs: int = 1) -> dict:
     """``{"bound_ms", "bound_by", "bytes", "ops"}`` of one launch over G
     groups of B problems (couplings of ``J_groups`` problems, default G;
     linear terms and two schedule floats per problem and rung), R reads
     (of ``rungs`` chains each: a tempering ladder), width n, S sweeps;
-    ``decisions`` defaults to G·B·rungs·R·n·S."""
+    ``decisions`` defaults to G·B·rungs·R·n·S.  The changes' FMAs are
+    ``flip_work`` (the nonzeros of the changed rows) where counted, else
+    ``flips``·n."""
     J_groups = G if J_groups is None else J_groups
     nbytes = 4 * (J_groups * n * n + G * B * n + 2 * G * B * rungs + G * B * R * n)
     decisions = G * B * rungs * R * n * S if decisions is None else decisions
-    ops = decisions * OPS_PER_DECISION + (flips or 0) * n
+    fmas = flip_work if flip_work is not None else (flips or 0) * n
+    ops = decisions * OPS_PER_DECISION + fmas
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = max(ops / ISSUE_PER_S, decisions * PHILOX_IMULS / IMUL_PER_S)
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),

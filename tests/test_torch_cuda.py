@@ -6,8 +6,10 @@ shared memory) -- at small shapes, each layout of each
 kernel forced as well as chosen: each against its plain PyTorch version
 under host variates and on its own Philox draws written out, its Philox
 streams against the exact oracle, the launch counters, the incremental
-fields of K2, K4 and K5 (and K5's energies), and the wrappers' refusals.  ``chip_smoke.py`` runs the same checks at the
-main path's shapes.
+fields of K2, K4 and K5 (and K5's energies), K5's two paths (J_g's row
+lists in shared memory, or its tiles streamed) against each other bit for
+bit, its ladders over a thread block cluster, and the wrappers' refusals.
+``chip_smoke.py`` runs the same checks at the main path's shapes.
 
 Run on a machine with a CUDA GPU:  python -m pytest --noconftest tests/test_torch_cuda.py
 (``--noconftest``: ``tests/conftest.py`` imports jax, which the port does not
@@ -24,6 +26,7 @@ import torch
 
 from qbmx_torch.core.qubo import default_beta_range, random_qubo_batch, split_qubo
 from qbmx_torch.core.rng import draw_seed
+from qbmx_torch.models.cdqbm import cdqbm_a_qubos
 from qbmx_torch.samplers import (api, gibbs, gibbs_cuda, kernel_call, pt_cuda, pt_wide_cuda,
                                  sa_cuda, sa_torch, tempering, wide_cuda)
 from qbmx_torch.samplers.exact import exact_boltzmann
@@ -471,18 +474,22 @@ def test_pt_wrapper_refuses_what_the_kernel_does_not_take(dev):
         pt_cuda.pt_sample_batch_cuda(Q, 3, 2, num_replicas=2,
                                      host_variates=(init01, u.transpose(2, 3), sw))
     sampler = lambda M: api.get_sampler("PT", num_sweeps=2, num_replicas=M)
-    for n, M in ((257, 2), (241, 16)):  # J_b and 2·M energies beyond shared memory
-        with pytest.raises(ValueError, match="exceed its bound"):
-            pt_cuda.pt_sample_batch_cuda(torch.zeros((1, n, n), device=dev), 2, 2,
-                                         num_replicas=M)
+    # J_b and 2·M energies beyond shared memory; more than 64 rungs; a ladder
+    # over a cluster (ladder_bounds_match_plain holds these against plain)
+    for n, M in ((257, 2), (241, 16), (4, 65), (300, 33), (3000, 3)):
+        if M <= pt_cuda.MAX_RUNGS:
+            with pytest.raises(ValueError, match="exceed its bound"):
+                pt_cuda.pt_sample_batch_cuda(torch.zeros((1, n, n), device=dev), 2, 2,
+                                             num_replicas=M)
         pt_cuda.reset_launch_counts()
         pt_wide_cuda.reset_launch_counts()
         out = sampler(M).sample_batch(None, torch.zeros((1, n, n), device=dev), 2)
         torch.cuda.synchronize()
         assert out.shape == (1, 2, n)
-        assert (pt_cuda.launch_counts["pt_heatbath"], pt_wide_cuda.launch_counts["pt_wide"]) \
-            == (0, 1)
-    for n, M in ((4, 65), (300, 33), (pt_wide_cuda.max_n() + 1, 1), (3000, 3)):
+        assert pt_cuda.launch_counts["pt_heatbath"] == 0
+        assert sum(pt_wide_cuda.launch_counts.values()) == 1
+    # past K5's widest n, and a ladder past a cluster of 8 blocks
+    for n, M in ((pt_wide_cuda.max_n() + 1, 1), (4, 8 * 32 + 1), (3000, 17), (3368, 9)):
         with pytest.raises(ValueError, match="pt_heatbath kernel.*pt_wide kernel"):
             sampler(M).sample_batch(None, torch.zeros((1, n, n), device=dev), 2)
 
@@ -490,7 +497,7 @@ def test_pt_wrapper_refuses_what_the_kernel_does_not_take(dev):
 @pytest.mark.parametrize("solver,counts,kernel,model", [
     ("BMS", gibbs_cuda.launch_counts, "sa_heatbath", "DiscQBM"),
     ("PT", pt_cuda.launch_counts, "pt_heatbath", "DiscQBM"),
-    ("PT", pt_wide_cuda.launch_counts, "pt_wide", "CDQBM"),  # n = 717: K5
+    ("PT", pt_wide_cuda.launch_counts, "pt_wide_sparse", "CDQBM"),  # n = 717: K5's row lists
 ])
 def test_model_steps_launch_the_solver_kernel(dev, solver, counts, kernel, model):
     from qbmx_torch.models.cdqbm import CDQBM
@@ -515,7 +522,7 @@ def test_model_steps_launch_the_solver_kernel(dev, solver, counts, kernel, model
     preds, probs = m.predict_batch(x)
     torch.cuda.synchronize()
     assert counts[kernel] == 4 + math.ceil(40 / (40 if model == "DiscQBM" else 32))
-    assert pt_cuda.launch_counts["pt_heatbath"] + pt_wide_cuda.launch_counts["pt_wide"] \
+    assert pt_cuda.launch_counts["pt_heatbath"] + sum(pt_wide_cuda.launch_counts.values()) \
         == (counts[kernel] if solver == "PT" else 0)
     assert np.isfinite(nlls).all() and preds.shape == (40,) and probs.shape == (40, 2)
 
@@ -555,8 +562,18 @@ def test_geometry_rules_match_the_kernels(dev):
     assert lib.qbmx_pt_wide_max_n() == pt_wide_cuda.max_n() == wide_cuda.max_n()
     for n in (2, 241, 300, 717, 2400, pt_wide_cuda.max_n()):
         assert lib.qbmx_pt_wide_max_rungs(n) == pt_wide_cuda.max_rungs(n)
+        assert lib.qbmx_pt_wide_block_rungs(n) == pt_wide_cuda.block_rungs(n)
         for c in (1, 8, 32):
             assert lib.qbmx_pt_wide_smem(n, c) == pt_wide_cuda.smem_bytes(n, c)
+        for nnz_pad in (8, 10104, 30000):
+            assert lib.qbmx_pt_wide_sparse_block_rungs(n, nnz_pad) == \
+                pt_wide_cuda.block_rungs(n, nnz_pad)
+            for c in (1, 8, 32):
+                assert lib.qbmx_pt_wide_sparse_smem(n, c, nnz_pad) == \
+                    pt_wide_cuda.sparse_smem_bytes(n, c, nnz_pad)
+    # a ladder over the portable cluster size fits the card at both paths' widest blocks
+    assert lib.qbmx_pt_wide_max_active_clusters(717, 256, 8, 0) >= 1
+    assert lib.qbmx_pt_wide_max_active_clusters(717, 256, 8, 10104) >= 1
 
 
 K1_SHAPES = [(2, 3, 6, 37, 5), (1, 2, 8, 45, 4), (2, 2, 41, 35, 6), (1, 2, 128, 9, 3),
@@ -692,13 +709,14 @@ def test_wide_fields_stay_near_a_recompute(dev, rule, G, B, n, R, S):
     Q, h_extra = _structured(rng, G, B, n, dev)
     J, h, hot, logr = _structured_form(Q, h_extra, S, rule)
     fields = torch.empty((G, B, R, n), device=dev)
-    flips = torch.zeros(1, dtype=torch.int64, device=dev)
+    flips = torch.zeros(2, dtype=torch.int64, device=dev)
     s = wide_cuda.launch(J, h, hot, logr, R, S, rule, fields_out=fields, flips=flips,
                          generator=torch.Generator().manual_seed(3))
     exact = h.double()[:, :, None] + torch.einsum("gbrj,gij->gbri", s.double(), J.double())
     bound = wide_cuda.field_drift_bound(h, J, S)
     assert ((fields.double() - exact).abs() <= bound).all()
-    assert 0 < flips.item() <= G * B * R * n * S
+    assert 0 < flips[0].item() <= G * B * R * n * S
+    assert flips[1].item() == flips[0].item() * (n - 1)  # a random QUBO: every J_ij, i ≠ j
     typical = J[0].abs().masked_fill(J[0] == 0, float("nan")).nanmedian(dim=1).values
     lost = fields.double().clone()
     lost[0, 0, 0] -= typical.double()  # every field of one chain, one add short
@@ -921,14 +939,15 @@ def test_pt_wide_on_its_philox_draws(dev, G, B, n, M, R, S):
     assert _differ(got, want.reshape(G, B, R, n)) <= MAX_DIFF_FRAC
 
 
+@pytest.mark.parametrize("path", [pt_wide_cuda.DENSE, pt_wide_cuda.SPARSE])
 @pytest.mark.parametrize("n", [2, 5, 8])
-def test_pt_wide_forced_matches_oracle(dev, n):
-    """K5 launched directly at narrow widths, past the routing: K3's bar
-    (0.08) against the exact marginals at beta 1."""
+def test_pt_wide_forced_matches_oracle(dev, n, path):
+    """K5 launched directly at narrow widths, past the routing, on each
+    path: K3's bar (0.08) against the exact marginals at beta 1."""
     Q = torch.as_tensor(np.triu(np.random.default_rng(3).uniform(-1.5, 1.5, (1, n, n)))
                         .astype(np.float32), device=dev)
     s = pt_wide_cuda.launch(*pt_wide_cuda.structured_form(Q, torch.zeros((1, 1, n), device=dev),
-                                                          4), 384, 24,
+                                                          4), 384, 24, path=path,
                             generator=torch.Generator().manual_seed(0))[0, 0]
     _, _, marg, _ = exact_boltzmann(Q[0], beta=1.0)
     assert set(s.unique().tolist()) <= {0.0, 1.0}
@@ -947,21 +966,28 @@ def test_pt_wide_streams_are_per_problem(dev):
     assert not torch.equal(a[0], c[0])
 
 
-def test_pt_wide_fields_and_energies_stay_near_a_recompute(dev):
+@pytest.mark.parametrize("problem,S", [("dense", 100), ("CDQBM (a)", 100), ("CDQBM (a)", 1000)])
+def test_pt_wide_fields_and_energies_stay_near_a_recompute(dev, problem, S):
     """Every rung's final fields against h + J·s and its energy against
     h·s + ½ sᵀJs in float64, past a refresh period, within
-    ``field_drift_bound`` and ``energy_drift_bound``; a field one median
-    |J_jk| short, and an energy one flip's |f_i| short, would not be."""
-    G, B, n, M, R, S = 2, 2, 300, 4, 8, 100
+    ``field_drift_bound`` and ``energy_drift_bound``, on the dense path (a
+    random QUBO at n = 300) and the sparse one (CDQBM (a)'s QUBOs, also at
+    the main path's S = 1000); a field one median |J_jk| short, and an
+    energy one flip's |f_i| short, would not be."""
+    G, B, M, R = 2, 2, 4, 8
     rng = np.random.default_rng(77)
-    Q, h_extra = _pt_groups(rng, G, B, n, dev)
+    Q, h_extra = _pt_groups(rng, G, B, 300, dev) if problem == "dense" else \
+        cdqbm_a_qubos(B, dev)
+    n = Q.shape[-1]
     J, h, betas, dbeta = pt_wide_cuda.structured_form(Q, h_extra, M)
     states, fields = (torch.empty((G * B * M, R, n), device=dev) for _ in range(2))
     energy = torch.empty((G * B * M, R), device=dev)
-    flips = torch.zeros(1, dtype=torch.int64, device=dev)
+    flips = torch.zeros(2, dtype=torch.int64, device=dev)
+    pt_wide_cuda.reset_launch_counts()
     pt_wide_cuda.launch(J, h, betas, dbeta, R, S, states_out=states, fields_out=fields,
                         energy_out=energy, flips=flips,
                         generator=torch.Generator().manual_seed(5))
+    assert pt_wide_cuda.launch_counts["pt_wide" if problem == "dense" else "pt_wide_sparse"] == 1
     s = states.double().reshape(G, B, M, R, n)
     exact_f = h.double()[:, :, None, None] + torch.einsum("gbmrj,gij->gbmri", s, J.double())
     exact_e = 0.5 * (s * (h.double()[:, :, None, None] + exact_f)).sum(-1)
@@ -970,8 +996,121 @@ def test_pt_wide_fields_and_energies_stay_near_a_recompute(dev):
     f = fields.double().reshape(G, B, M, R, n)
     e = energy.double().reshape(G, B, M, R)
     assert ((f - exact_f).abs() <= fb).all() and ((e - exact_e).abs() <= eb).all()
-    assert 0 < flips.item() <= G * B * M * R * n * S
+    assert 0 < flips[0].item() <= G * B * M * R * n * S
+    assert flips[0].item() < flips[1].item() <= flips[0].item() * (n - 1)
     typical = J[0].abs().masked_fill(J[0] == 0, float("nan")).nanmedian(dim=1).values
-    assert ((f[0, 0, 0, 0] - typical.double() - exact_f[0, 0, 0, 0]).abs() > fb[0, 0, 0, 0]).all()
+    coupled = ~typical.isnan()  # a row without nonzeros takes no add to lose
+    assert ((f[0, 0, 0, 0] - typical.double() - exact_f[0, 0, 0, 0]).abs()
+            > fb[0, 0, 0, 0])[coupled].all()
     flip = exact_f[0, 0, 0, 0].abs().median()
     assert (e[0, 0, 0, 0] - flip - exact_e[0, 0, 0, 0]).abs() > eb[0, 0, 0, 0]
+
+
+# -- K5's sparse path and its ladders over a thread block cluster -----------------
+
+
+@pytest.mark.parametrize("B,M,R,S", [(2, 8, 8, 3), (3, 5, 6, 4)])
+def test_pt_wide_sparse_matches_plain(dev, B, M, R, S):
+    """The sampler's structured entry at CDQBM (a)'s width and QUBOs (J_g
+    98% zeros) launches the sparse path, against the plain version on the
+    densified batch under the same host variates."""
+    Q, h_extra = cdqbm_a_qubos(B, dev)
+    G, n = 2, Q.shape[-1]
+    hv = _pt_variates(np.random.default_rng(B + M), G * B, M, n, R, S, dev)
+    pt_wide_cuda.reset_launch_counts()
+    got = pt_wide_cuda.pt_sample_groups(Q, h_extra, R, S, num_replicas=M, host_variates=hv)
+    torch.cuda.synchronize()
+    assert pt_wide_cuda.launch_counts == {"pt_wide": 0, "pt_wide_sparse": 1}
+    want = tempering.pt_sample_batch_plain(api.densify_groups(Q, h_extra), R, S, num_replicas=M,
+                                           host_variates=hv)
+    assert got.shape == (G, B, R, n) and set(got.unique().tolist()) <= {0.0, 1.0}
+    assert _differ(got, want.reshape(G, B, R, n)) <= MAX_DIFF_FRAC
+
+
+def test_pt_wide_sparse_on_its_philox_draws(dev):
+    """The sparse path draws the streams ``pt_philox_variates(...,
+    var_shift=10)`` writes out, as the dense path does."""
+    B, M, R, S = 2, 8, 8, 4
+    Q, h_extra = cdqbm_a_qubos(B, dev, seed=1)
+    n = Q.shape[-1]
+    seed = draw_seed(torch.Generator().manual_seed(22))
+    got = pt_wide_cuda.launch(*pt_wide_cuda.structured_form(Q, h_extra, M), R, S,
+                              path=pt_wide_cuda.SPARSE, generator=torch.Generator().manual_seed(22))
+    hv = tuple(torch.as_tensor(a, device=dev) for a in sa_torch.pt_philox_variates(
+        seed, 2 * B, M, R, n, S, var_shift=pt_wide_cuda.VAR_SHIFT))
+    want = tempering.pt_sample_batch_plain(api.densify_groups(Q, h_extra), R, S, num_replicas=M,
+                                           host_variates=hv)
+    assert _differ(got, want.reshape(2, B, R, n)) <= MAX_DIFF_FRAC
+
+
+def _sparse_random(rng, G, n, density, dev):
+    """Random QUBOs with about ``density`` of their couplings nonzero."""
+    Q = random_qubo_batch(rng, G, n)
+    keep = torch.as_tensor(rng.random((G, n, n)) < density) | torch.eye(n, dtype=torch.bool)
+    return (Q * keep).to(dev), torch.as_tensor(rng.normal(size=(G, 2, n)).astype(np.float32),
+                                               device=dev)
+
+
+@pytest.mark.parametrize("problem,M,R,S", [
+    ("CDQBM (a)", 8, 4, 70),    # past the refresh at sweep 64
+    ("sparse n=300", 6, 5, 70),
+    ("CDQBM (a)", 40, 2, 66),   # a ladder over a cluster of 2 blocks on both paths
+])
+def test_pt_wide_paths_agree_bit_for_bit(dev, problem, M, R, S):
+    """The two paths, forced on one input and one seed, take the same
+    decisions from the same fields: equal samples, states, fields (a zero's
+    sign aside, which ``torch.equal`` does not see), energies and counters,
+    between refreshes and across one."""
+    if problem == "CDQBM (a)":
+        Q, h_extra = cdqbm_a_qubos(2, dev, seed=2)
+    else:
+        Q, h_extra = _sparse_random(np.random.default_rng(31), 2, 300, 0.05, dev)
+    G, B, n = h_extra.shape
+    form = pt_wide_cuda.structured_form(Q, h_extra, M)
+    runs = {}
+    for path in (pt_wide_cuda.DENSE, pt_wide_cuda.SPARSE):
+        outs = dict(states_out=torch.empty((G * B * M, R, n), device=dev),
+                    fields_out=torch.empty((G * B * M, R, n), device=dev),
+                    energy_out=torch.empty((G * B * M, R), device=dev),
+                    flips=torch.zeros(2, dtype=torch.int64, device=dev))
+        pt_wide_cuda.reset_launch_counts()
+        out = pt_wide_cuda.launch(*form, R, S, path=path, **outs,
+                                  generator=torch.Generator().manual_seed(8))
+        torch.cuda.synchronize()
+        assert pt_wide_cuda.launch_counts["pt_wide_sparse" if path == "sparse" else "pt_wide"] == 1
+        runs[path] = dict(out=out, **outs)
+    for key, dense in runs[pt_wide_cuda.DENSE].items():
+        assert torch.equal(dense, runs[pt_wide_cuda.SPARSE][key]), key
+    assert runs[pt_wide_cuda.DENSE]["flips"][0] > 0
+
+
+@pytest.mark.parametrize("G,B,n,M,R,S,problem,path", [
+    (1, 1, 4, 65, 8, 6, "random", "sparse"),     # past K3's 64 rungs: 3 blocks of 22
+    (1, 2, 300, 33, 4, 5, "random", "dense"),    # past a block's 32 warps: 2 blocks of 17
+    (1, 2, 3000, 3, 3, 3, "random", "dense"),    # past what shared memory holds: 2 blocks
+    (2, 2, 717, 40, 4, 4, "CDQBM (a)", "sparse"),
+    (1, 2, 717, 40, 4, 4, "random", "dense"),
+    (1, 1, 241, 200, 2, 3, "random", "dense"),   # 7 blocks of 29, 3 spare warps
+])
+def test_pt_wide_ladders_over_a_cluster_match_plain(dev, G, B, n, M, R, S, problem, path):
+    """A ladder of more rungs than one block holds spreads over a thread
+    block cluster (its energies through distributed shared memory): the
+    sampler's entry routes the shapes K3 and a block cannot hold to K5
+    (ROADMAP Queue 3 item 1), against the plain version on host variates."""
+    rng = np.random.default_rng(n + M)
+    Q, h_extra = cdqbm_a_qubos(B, dev, seed=3) if problem == "CDQBM (a)" else \
+        _pt_groups(rng, G, B, n, dev)
+    hv = _pt_variates(rng, G * B, M, n, R, S, dev)
+    assert pt_wide_cuda.pt_route(G, B, M, R, n) == "pt_wide"
+    pt_wide_cuda.reset_launch_counts()
+    got = pt_wide_cuda.pt_sample_groups(Q, h_extra, R, S, num_replicas=M, host_variates=hv)
+    torch.cuda.synchronize()
+    assert pt_wide_cuda.launch_counts["pt_wide_sparse" if path == "sparse" else "pt_wide"] == 1
+    J = split_qubo(Q)[1]
+    nnz = pt_wide_cuda.group_nnz(pt_wide_cuda.row_nnz(J))
+    geo = pt_wide_cuda.pt_wide_geometry(G, B, M, R, n, pt_wide_cuda.padded(max(nnz)))
+    assert geo.path == path and geo.cluster > 1
+    want = tempering.pt_sample_batch_plain(api.densify_groups(Q, h_extra), R, S, num_replicas=M,
+                                           host_variates=hv)
+    assert got.shape == (G, B, R, n) and set(got.unique().tolist()) <= {0.0, 1.0}
+    assert _differ(got, want.reshape(G, B, R, n)) <= MAX_DIFF_FRAC

@@ -4,7 +4,9 @@ chain, or a chain spread over a warp), K4's geometry
 (``wide_cuda.wide_geometry``: chains per block, a warp each, and shared
 memory), K3's layout (``pt_cuda.pt_layout``: a rung a thread or a rung
 a warp, and the kernel's bounds), K5's geometry
-(``pt_wide_cuda.pt_wide_geometry``) and the rule that routes a PT call to
+(``pt_wide_cuda.pt_wide_geometry``: its path, ladders a block or a ladder
+over a thread block cluster), its row lists (``pt_wide_cuda.row_lists``)
+and the rule that routes a PT call to
 K3 or K5 (``pt_wide_cuda.pt_route``) at the shapes the main paths launch,
 at the K1/K4 boundary and at the kernels' widest shapes; the field-drift
 limit of K4 and of K2's LANES layout, K5's energy limit, and the roofline
@@ -21,6 +23,7 @@ import pytest
 import torch
 
 from qbmx_torch.core.qubo import random_qubo_batch, split_qubo
+from qbmx_torch.models.cdqbm import cdqbm_a_qubos
 from qbmx_torch.samplers import gibbs_cuda, kernel_call, pt_cuda, pt_wide_cuda, sa_cuda, wide_cuda
 from qbmx_torch.utils import roofline
 
@@ -198,6 +201,36 @@ def test_roofline_bound_counts_issue_slots():
     assert b["bytes"] == 4 * (2000 * 2000 + 2000 + 2 + 2000)
 
 
+def _cdqbm_a_J() -> torch.Tensor:
+    """CDQBM (a)'s step couplings J (2, 717, 717), on the CPU."""
+    return split_qubo(cdqbm_a_qubos(3, torch.device("cpu"), seed=1)[0])[1]
+
+
+@pytest.mark.parametrize("problem", ["dense", "CDQBM (a)"])
+def test_roofline_counts_the_changed_rows_nonzeros(problem):
+    """The changes' FMAs are the nonzeros of the changed rows (K4's and
+    K5's second counter, from ``pt_wide_cuda.row_nnz`` on the dense paths):
+    on a J without zeros that is flips·n, the count the bound took before;
+    on CDQBM (a)'s J, each variable changed once, it is J's nonzero count,
+    a fiftieth of flips·n."""
+    rng = np.random.default_rng(4)
+    n = 717
+    J = torch.as_tensor(rng.uniform(0.5, 1.0, (2, n, n)).astype(np.float32)) \
+        if problem == "dense" else _cdqbm_a_J()
+    nnz = pt_wide_cuda.row_nnz(J)
+    changes = torch.ones((2, n), dtype=torch.int64) if problem == "CDQBM (a)" else \
+        torch.as_tensor(rng.integers(0, 5, (2, n)))
+    flips, work = int(changes.sum()), int((changes * nnz).sum())
+    if problem == "dense":
+        assert work == flips * n
+        assert roofline.anneal_bound(2, 20, 100, n, 10, rungs=8, flip_work=work) == \
+            roofline.anneal_bound(2, 20, 100, n, 10, rungs=8, flips=flips)
+    else:
+        assert work == int((J != 0).sum()) == 10_092 + 10_100 and 50 * work < flips * n
+        b = roofline.anneal_bound(2, 20, 100, n, 1000, rungs=8, flip_work=work)
+        assert b["ops"] == 2 * 20 * 8 * 100 * n * 1000 * roofline.OPS_PER_DECISION + work
+
+
 class _Picked(Exception):
     """Raised by a stand-in layout rule once a wrapper has asked it."""
 
@@ -343,51 +376,91 @@ PT_WIDE_SHAPES = {  # (G, B, M, R, n)
     "n=300": (2, 4, 8, 16, 300),
     "one ladder a block": (1, 2, 32, 4, 242),
     "widest n": (1, 1, 1, 10, 3368),
+    "65 rungs": (1, 1, 65, 8, 4),          # past K3: a cluster of 3 blocks
+    "n=300 M=33": (1, 2, 33, 4, 300),      # past a block's warps: 2 blocks
+    "n=3000 M=3": (1, 2, 3, 3, 3000),      # past what a block's memory holds
+    "widest ladder": (1, 1, 256, 2, 717),  # 8 blocks of 32 warps
+    "widest n, widest ladder": (1, 1, 8, 2, 3368),
 }
+CDQBM_A_NNZ_PAD = 10_104  # CDQBM (a)'s row lists: 10,100 nonzeros in the larger group
 
 
+@pytest.mark.parametrize("nnz_pad", [None, 8, CDQBM_A_NNZ_PAD])
 @pytest.mark.parametrize("name", list(PT_WIDE_SHAPES))
-def test_pt_wide_geometry_within_the_card_limits(name):
+def test_pt_wide_geometry_within_the_card_limits(name, nnz_pad):
     G, B, M, R, n = PT_WIDE_SHAPES[name]
-    geo = pt_wide_cuda.pt_wide_geometry(G, B, M, R, n)
+    geo = pt_wide_cuda.pt_wide_geometry(G, B, M, R, n, nnz_pad)
     _within_limits(geo.smem, geo.threads, geo.grid)
-    L = geo.ladders_per_block
-    assert geo.threads == 32 * M * L <= 1024  # a warp a rung, whole ladders a block
-    assert geo.smem == pt_wide_cuda.smem_bytes(n, M * L) == wide_cuda.smem_bytes(n, M * L) + 8 * M * L
-    assert geo.grid == (math.ceil(B * R / L), G) and geo.grid[0] * L >= B * R
+    L, K, W = geo.ladders_per_block, geo.cluster, geo.warps
+    assert geo.threads == 32 * W <= 1024  # a warp a rung
+    if geo.path == pt_wide_cuda.DENSE:
+        assert geo.smem == pt_wide_cuda.smem_bytes(n, W) == wide_cuda.smem_bytes(n, W) + 8 * W
+    else:
+        assert nnz_pad is not None and geo.nnz_pad == nnz_pad
+        assert geo.smem == pt_wide_cuda.sparse_smem_bytes(n, W, nnz_pad) \
+            == 6 * nnz_pad + 4 * pt_wide_cuda.offsets_len(n) + pt_wide_cuda.smem_bytes(n, W) \
+            - pt_wide_cuda.smem_bytes(n, 0)
+    if K == 1:  # whole ladders a block
+        assert W == M * L and geo.grid == (math.ceil(B * R / L), G) and geo.grid[0] * L >= B * R
+    else:  # one ladder over K blocks, each holding a rung, within the portable cluster size
+        assert L == 1 and 2 <= K <= pt_wide_cuda.MAX_CLUSTER and W == math.ceil(M / K)
+        assert (K - 1) * W < M <= K * W and geo.grid == (B * R * K, G)
+        assert W < M and pt_wide_cuda.block_rungs(n, geo.nnz_pad or None) < M
 
 
 def test_pt_wide_geometry_at_the_cdqbm_shape():
     """CDQBM (a)'s PT call: 32,000 rungs, 4 ladders (32 warps) a block,
-    1,000 blocks of 161,536 bytes: one an SM."""
-    geo = pt_wide_cuda.pt_wide_geometry(*PT_WIDE_SHAPES["CDQBM (a) PT"])
-    assert (geo.ladders_per_block, geo.threads, geo.grid) == (4, 1024, (500, 2))
-    assert geo.smem == 4 * (16 * 720 + 32 * (720 + 180)) + 8 * 32 == 161_536
-    assert 2 * geo.smem > kernel_call.SMEM_BYTES
-    few = pt_wide_cuda.pt_wide_geometry(1, 1, 8, 10, 717)  # 10 ladders: one a block
-    assert few.ladders_per_block == 1 and few.grid == (10, 1)
+    1,000 blocks, one an SM: on the sparse path, its row lists (60,624
+    bytes of values and columns, 2,880 of offsets) beside the rungs in
+    178,960 bytes; on the dense path (a random QUBO), two J tiles beside
+    them in 161,536."""
+    shape = PT_WIDE_SHAPES["CDQBM (a) PT"]
+    geo = pt_wide_cuda.pt_wide_geometry(*shape, CDQBM_A_NNZ_PAD)
+    assert (geo.path, geo.ladders_per_block, geo.cluster, geo.threads, geo.grid) == \
+        (pt_wide_cuda.SPARSE, 4, 1, 1024, (500, 2))
+    assert geo.smem == 6 * 10_104 + 4 * 720 + 4 * 32 * (720 + 180) + 8 * 32 == 178_960
+    dense = pt_wide_cuda.pt_wide_geometry(*shape)
+    assert (dense.path, dense.ladders_per_block, dense.threads, dense.grid) == \
+        (pt_wide_cuda.DENSE, 4, 1024, (500, 2))
+    assert dense.smem == 4 * (16 * 720 + 32 * (720 + 180)) + 8 * 32 == 161_536
+    assert 2 * geo.smem > 2 * dense.smem > kernel_call.SMEM_BYTES
+    few = pt_wide_cuda.pt_wide_geometry(1, 1, 8, 10, 717, CDQBM_A_NNZ_PAD)  # 10 ladders
+    assert few.ladders_per_block == 1 and few.grid == (10, 1) and few.path == pt_wide_cuda.SPARSE
+    # row lists too long to fit beside a rung: the dense path
+    assert pt_wide_cuda.pt_wide_geometry(*shape, 40_000).path == pt_wide_cuda.DENSE
+    assert pt_wide_cuda.pt_wide_geometry(1, 1, 256, 2, 717, 30_000).path == pt_wide_cuda.DENSE
 
 
 def test_pt_wide_bounds():
-    """K5 takes K4's widths (n ≤ 3368) and every ladder of up to 32 rungs
-    whose M warps fit one block beside two J tiles: all 32 up to n = 2600
-    or so, one rung at n = 3368."""
+    """K5 takes K4's widths (n ≤ 3368) and every ladder whose rungs fit a
+    cluster of 8 blocks, each of up to 32 warps beside two J tiles: 256
+    rungs up to n = 2600 or so, 16 at n = 3000, 8 at n = 3368."""
     assert pt_wide_cuda.max_n() == wide_cuda.max_n() == 3368
-    assert pt_wide_cuda.max_rungs(241) == pt_wide_cuda.max_rungs(717) == 32
-    assert pt_wide_cuda.max_rungs(3368) == 1 and pt_wide_cuda.max_rungs(3369) == 0
+    assert pt_wide_cuda.block_rungs(241) == pt_wide_cuda.block_rungs(717) == 32
+    assert pt_wide_cuda.max_rungs(241) == pt_wide_cuda.max_rungs(717) == 256
+    assert pt_wide_cuda.max_rungs(3000) == 16
+    assert pt_wide_cuda.max_rungs(3368) == 8 and pt_wide_cuda.max_rungs(3369) == 0
     for n in (242, 717, 1500, 2600, 3000, 3368):
+        W = pt_wide_cuda.block_rungs(n)
         M = pt_wide_cuda.max_rungs(n)
-        assert 1 <= M <= 32 and pt_wide_cuda.smem_bytes(n, M) <= kernel_call.SMEM_BYTES
-        pt_wide_cuda.pt_wide_geometry(1, 1, M, 1, n)
-        if M < 32:
-            assert pt_wide_cuda.smem_bytes(n, M + 1) > kernel_call.SMEM_BYTES
-            with pytest.raises(ValueError, match="exceed its bound"):
-                pt_wide_cuda.pt_wide_geometry(1, 1, M + 1, 1, n)
-    for n, M in ((3369, 1), (300, 33), (0, 4), (300, 0)):
+        assert M == 8 * W and 1 <= W <= 32
+        assert pt_wide_cuda.smem_bytes(n, W) <= kernel_call.SMEM_BYTES
+        assert pt_wide_cuda.pt_wide_geometry(1, 1, W, 1, n).cluster == 1
+        assert pt_wide_cuda.pt_wide_geometry(1, 1, M, 1, n).cluster == 8
+        if W < 32:
+            assert pt_wide_cuda.smem_bytes(n, W + 1) > kernel_call.SMEM_BYTES
+            assert pt_wide_cuda.pt_wide_geometry(1, 1, W + 1, 1, n).cluster == 2
+        with pytest.raises(ValueError, match="exceed its bound"):
+            pt_wide_cuda.pt_wide_geometry(1, 1, M + 1, 1, n)
+    for n, M in ((3369, 1), (300, 257), (3000, 17), (3368, 9), (0, 4), (300, 0)):
         with pytest.raises(ValueError, match="exceed its bound"):
             pt_wide_cuda.pt_wide_geometry(1, 1, M, 1, n)
     with pytest.raises(ValueError, match="grid"):
         pt_wide_cuda.pt_wide_geometry(65536, 1, 8, 1, 300)
+    # the sparse path's rungs a block, beside its row lists
+    assert pt_wide_cuda.block_rungs(717, CDQBM_A_NNZ_PAD) == 32
+    assert pt_wide_cuda.block_rungs(717, 30_000) == 13
+    assert pt_wide_cuda.block_rungs(717, 40_000) == 0
 
 
 @pytest.mark.parametrize("shape,kernel", [
@@ -401,6 +474,9 @@ def test_pt_wide_bounds():
     ((1, 32, 8, 100, 717), "pt_wide"),        # its prediction chunk
     ((1, 1, 2, 4, 242), "pt_wide"),
     ((1, 1, 1, 4, 3368), "pt_wide"),
+    ((1, 1, 65, 2, 4), "pt_wide"),            # past K3's 64 rungs: a cluster
+    ((1, 1, 33, 2, 300), "pt_wide"),
+    ((1, 1, 3, 2, 3000), "pt_wide"),
 ])
 def test_pt_route(shape, kernel):
     assert pt_wide_cuda.pt_route(*shape) == kernel
@@ -410,9 +486,9 @@ def test_pt_route_takes_the_union_of_the_bounds():
     """A PT call launches K3 where it takes the shape, else K5 where that
     takes it, and raises only beyond both, naming both bounds."""
     for n in (1, 6, 8, 9, 100, 240, 241, 242, 300, 717, 1024, 2000, 3000, 3368, 3369):
-        for M in (1, 2, 8, 15, 16, 32, 33, 64, 65):
+        for M in (1, 2, 8, 9, 15, 16, 17, 32, 33, 64, 65, 256, 257):
             k3 = n <= 241 and M <= 64 and 4 * (n * n + 2 * M) <= kernel_call.SMEM_BYTES
-            k5 = n <= 3368 and M <= pt_wide_cuda.max_rungs(n)
+            k5 = n <= 3368 and M <= 8 * pt_wide_cuda.block_rungs(n)
             if k3 or k5:
                 assert pt_wide_cuda.pt_route(1, 2, M, 3, n) == ("pt_heatbath" if k3 else "pt_wide")
             else:
@@ -437,3 +513,46 @@ def test_energy_drift_limit_catches_one_lost_flip():
     s = torch.as_tensor((rng.random((n,)) < 0.5).astype(np.float64))
     fields = h.double()[0, 0] + J.double()[0] @ s
     assert fields.abs().median() > bound.max()
+
+
+@pytest.mark.parametrize("problem", ["random sparse", "CDQBM (a)", "empty rows"])
+def test_row_lists_hold_the_nonzeros_in_order(problem):
+    """``pt_wide_cuda.row_lists`` against the dense J: each row's entries
+    are its nonzeros, bit for bit, at increasing columns; the offsets count
+    them; the padding is zeros, to a multiple of 8 entries."""
+    rng = np.random.default_rng(12)
+    if problem == "CDQBM (a)":
+        J = _cdqbm_a_J()
+    else:
+        n = 50
+        J = torch.as_tensor(rng.normal(size=(3, n, n)).astype(np.float32))
+        J = J * torch.as_tensor(rng.random((3, n, n)) < 0.1)
+        J = J + J.transpose(1, 2)
+        J[:, torch.arange(n), torch.arange(n)] = 0
+        if problem == "empty rows":
+            J[1] = 0  # a group without couplings
+            J[2, :7] = 0
+            J[2, :, :7] = 0
+            J[0, 3, 4] = J[0, 4, 3] = -0.0  # a signed zero is no nonzero
+    G, n, _ = J.shape
+    rows = pt_wide_cuda.row_lists(J)
+    counts = (J != 0).sum(-1)
+    assert rows.nnz == tuple(counts.sum(-1).tolist())
+    assert rows.nnz_pad % 8 == 0 and rows.nnz_pad >= max(8, max(rows.nnz))
+    assert rows.vals.dtype == torch.float32 and rows.cols.dtype == torch.int16
+    assert rows.offsets.dtype == torch.int32
+    assert rows.offsets.shape == (G, pt_wide_cuda.offsets_len(n))
+    assert rows.offsets.shape[1] % 4 == 0 and rows.offsets.shape[1] >= n + 1
+    for g in range(G):
+        off = rows.offsets[g].tolist()
+        assert off[0] == 0 and off[n:] == [rows.nnz[g]] * (len(off) - n)
+        for i in range(n):
+            cols = rows.cols[g, off[i]:off[i + 1]].long()
+            want = torch.nonzero(J[g, i])[:, 0]
+            assert torch.equal(cols, want)  # increasing columns
+            assert torch.equal(rows.vals[g, off[i]:off[i + 1]].view(torch.int32),
+                               J[g, i, want].view(torch.int32))  # bit for bit
+        assert not rows.vals[g, rows.nnz[g]:].any() and not rows.cols[g, rows.nnz[g]:].any()
+    if problem == "CDQBM (a)":
+        assert rows.nnz == (10_092, 10_100) and rows.nnz_pad == CDQBM_A_NNZ_PAD
+        assert int(counts.max()) == 40 and pt_wide_cuda.row_nnz(J).equal(counts.int())
