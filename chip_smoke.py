@@ -94,17 +94,38 @@ failure exits nonzero; nothing carries on after one):
    exactly one sampler launch a step at G=20 groups of 60 and one
    validation launch, every seed's parameters moved and its nll finite, 10
    best-model pickles that load back into ``DiscQBM``, the sweep's step
-   time and its epoch a seed beside a single model's epoch;
+   time and its epoch a seed beside a single model's epoch; then
+   ``cdqbm_main --seed_sweep 0..9`` (the 10-seed CDQBM sweep, one epoch):
+   at CDQBM (a)'s full widths (n=717, sc100, bs20) for SA and BMS on K4
+   and PT on K5's sparse path, the anneal cut for the epoch (20 sweeps,
+   PT 10), and at CDQBM (b) (n=41, bs3, anneal 1000) for SA on K1 and BMS
+   on K2: exactly one sampler launch a step at G=20 groups and 4
+   validation launches at G=10 groups of 32, every seed moved, finite nll,
+   10 best-model pickles that load back into ``CDQBM``, the sweep's step
+   (CUDA events) and its share a seed beside a single model's step at the
+   same anneal; against the plain version under host variates, on each
+   sweep's own step QUBOs at its G=20 call (the 1% bound of phase 3): K4
+   (Metropolis and pair) at CDQBM (a) (S cut to 5), K5's sparse path at
+   the PT sweep's (S cut to 10; its variates drawn on the card), K1 and K2
+   pair at CDQBM (b) (B=3, S cut to 100); both K5 paths forced on the PT
+   sweep's step QUBOs at G=20 (S=10), bit for bit; the CDQBM (a) sweep
+   with SA at anneal 1000 for 3 steps and a validation chunk; and resume:
+   the flagship DQBM (SA), CDQBM (b) (K1) and CDQBM (a) at anneal 10 with
+   SA (K4) and PT (K5's sparse path) trained 2 epochs straight against 1
+   epoch with ``--checkpoint_every 1`` and ``--resume`` for the second,
+   whose parameters, history and generator state must be equal bit for
+   bit, the resumed epoch launching its kernel;
 6. kernel and plain times (CUDA events; kernels median of 5 after a
-   warm-up, the slower plain versions median of 3, or 1 for K2 pair at the
-   CDQBM (b) call) at the phase-3 shapes in generator mode (K3 at S=1000
-   and at the flat CLI defaults' PT call, 146 problems, n=3, M=8, R=100;
+   warm-up, the plain versions one run after a warm-up) at the phase-3
+   shapes in generator mode (K3 at S=1000 and at the flat CLI defaults' PT
+   call, 146 problems, n=3, M=8, R=100;
    K4 and both K5 paths at S=10, and K4 and both K5 paths alone at S=1000,
    K4 also on the CDQBM (a) step's QUBOs), and each kernel's bound
    (``qbmx_torch/utils/roofline.py``: K1's and K2's from the flips their
    inputs make, K4's and K5's from the nonzeros of the changed rows, each
    counted by one more launch, K2's at the flagship and the CDQBM (b)
-   call; K3's from its decisions alone).
+   call; K3's from its decisions alone; and K4, K5's sparse path, K1 and
+   K2 at the 10-seed sweeps' calls on their own step QUBOs).
 
 The last three lines are the ``nvidia-smi`` line, one JSON object with the
 kernel records (time, plain time, bound, launches on the main path), and
@@ -208,6 +229,15 @@ def pt_hv(rng, GBM, R, n, S, dev):
     """Host variates of a tempering call: init01, uniforms, swap_u."""
     return (bits(rng, (GBM, R, n), dev), uniforms(rng, (S, GBM, n, R), dev),
             uniforms(rng, (S, GBM, R), dev))
+
+
+def card_pt_hv(seed, GBM, R, n, S, dev):
+    """``pt_hv``'s variates drawn on the card by a seeded CUDA generator:
+    the 10-seed CDQBM (a) PT call's uniforms are 9 GB at S=10."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = lambda shape: torch.rand(shape, generator=g, device=dev).clamp_(1e-6, 1.0 - 1e-6)
+    return ((torch.rand((GBM, R, n), generator=g, device=dev) < 0.5).to(torch.float32),
+            u((S, GBM, n, R)), u((S, GBM, R)))
 
 
 def differing(kernel_out, plain_out) -> float:
@@ -1117,59 +1147,355 @@ def main() -> None:
               f"{sweep_s:.3f} s = {sweep_s / 10:.4f} s a seed, against {single_s:.4f} s for a "
               f"single model's ({10 * single_s:.3f} s for ten)")
 
+    # the 10-seed CDQBM sweeps: cdqbm_main --seed_sweep 0..9, one sampler
+    # launch a step for all ten seeds. CDQBM (a) (n = 717): G=20 groups of
+    # B=20 on K4 (SA, BMS) or K5's sparse path (PT), the anneal cut for the
+    # epoch (SA and BMS 20 sweeps, PT 10), then SA at anneal 1000 for 3 steps
+    # and a validation chunk; CDQBM (b) (n = 41, bs3): G=20 groups of B=3 on
+    # K1 (SA) and K2 (BMS) at anneal 1000
+    csweeps = []
+
+    class RecordedCSweep(cm.SeedParallelCDQBM):
+        """A CDQBM sweep that logs its sampler calls' shapes and times its
+        steps by CUDA events."""
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.model.sampler = ShapeLog(self.model.sampler)
+            self.initial = cdqbm.params_to_numpy(self.params)
+            self.events = []
+            csweeps.append(self)
+
+        def _step(self, *a):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = super()._step(*a)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        def train(self, *a, **k):
+            self.histories = super().train(*a, **k)
+            return self.histories
+
+        def step_times(self) -> list:
+            torch.cuda.synchronize()
+            return [s.elapsed_time(e) for s, e in self.events]
+
+    cm.SeedParallelCDQBM = RecordedCSweep
+    sweep_qubos = {}  # each sweep's step QUBOs, for phase 6's bounds
+    cdqbm_a = dict(pooling_type="probabilistic", beta_eff=5.0, batch_size=20, learning_rate=0.02)
+    csweep_rec = {}
+    for label, solver, kernel, anneal, n_total, bs, kw in (
+            ("a", "SA", "anneal_wide", 20, 717, 20, cdqbm_a),
+            ("a", "BMS", "anneal_wide", 20, 717, 20, cdqbm_a),
+            ("a", "PT", "pt_wide_sparse", 10, 717, 20, cdqbm_a),
+            ("b", "SA", "sa_metropolis", 1000, 41, 3, {}),
+            ("b", "BMS", "sa_heatbath", 1000, 41, 3, {})):
+        steps = math.ceil(600 / bs)
+        with tempfile.TemporaryDirectory() as tmp:
+            for c in counters:
+                c.reset_launch_counts()
+            t0 = time.perf_counter()
+            accs, aucs = cm.main(
+                device="cuda", data_set="synthetic", pooling_size=4, sequential_layer_sizes=(4,),
+                sample_count=100, anneal=anneal, epochs=1, save=f"{tmp}/", name="csweep",
+                solver=solver, seed_sweep=seeds10, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {k: v for c in counters for k, v in c.launch_counts.items()}
+            sw = csweeps[-1]
+            tag = f"CDQBM ({label}) sweep {solver}"
+            check(sw.model.geo.n_total == n_total, f"{tag}: n_total {sw.model.geo.n_total}")
+            check(sw.model.sampler.calls == [(20, bs, n_total)] * steps + [(10, 32, n_total)] * 4,
+                  f"{tag}: sampler calls {sw.model.sampler.calls[:3]}... "
+                  f"({len(sw.model.sampler.calls)})")
+            check(counts[kernel] == steps + 4 and sum(counts.values()) == counts[kernel],
+                  f"{tag}: launch counts {counts} for {steps} steps + 4 validation chunks")
+            cur = cdqbm.params_to_numpy(sw.params)
+            moved = [max(float(np.abs(a[i] - b[i]).max())
+                         for a, b in zip(flat(cur), flat(sw.initial))) for i in range(10)]
+            check(min(moved) > 0.0, f"{tag}: a seed's parameters did not move: {moved}")
+            check(all(len(h.nll_per_batch) == steps and all(map(math.isfinite, h.nll_per_batch))
+                      for h in sw.histories), f"{tag}: nll not finite")
+            check(all(0.0 <= v <= 1.0 for v in accs + aucs), f"{tag}: metrics {accs} {aucs}")
+            pkls = sorted(Path(tmp, "best_model").glob("csweep_se*_best.pkl"),
+                          key=lambda q: int(q.name.split("_se")[1].split("_")[0]))
+            check(len(pkls) == 10, f"{tag}: {len(pkls)} best-model pickles")
+            m = sw.model
+            for i, pkl in enumerate(pkls):
+                back = cdqbm.CDQBM(pooling_size=4, pooling_type=m.geo.pooling_type,
+                                   sequential_layer_sizes=[4], load_path=str(pkl), device=dev)
+                check(all(np.array_equal(a, b) for a, b in zip(
+                    flat(cdqbm.params_to_numpy(back.params)),
+                    flat(cdqbm.params_to_numpy(sw.best_params_for_seed(i))))),
+                      f"{tag}: {pkl.name} does not load back into CDQBM")
+        sweep_steps = sw.step_times()[1:]  # the first step carries the warm-up
+        single = cdqbm.CDQBM(pooling_size=4, pooling_type=m.geo.pooling_type,
+                             sequential_layer_sizes=[4], hidden_bias_type="shared",
+                             solver=solver, anneal=anneal, sample_count=100,
+                             beta_eff=m.beta_eff, device=dev)
+        ximg = torch.as_tensor(np.random.default_rng(1).random((bs, 28, 28), dtype=np.float32),
+                               device=dev)
+        yb, mb = torch.as_tensor(np.arange(bs) % 2, device=dev), torch.ones(bs, device=dev)
+        single_ms = cuda_ms(lambda: single._step(ximg, yb, mb, 0.02), runs=3)
+        sweep_qubos[f"{label} {solver}"] = sw.step_qubos(ximg, yb)
+        rec = {"solver": solver, "anneal": anneal, "G": 20, "B": bs, "n": n_total,
+               "steps": steps, "launches": counts[kernel],
+               "step_ms": statistics.median(sweep_steps),
+               "seed_step_ms": statistics.median(sweep_steps) / 10,
+               "single_model_step_ms": single_ms, "best_acc": accs, "best_auc": aucs,
+               "wall_s": wall}
+        csweep_rec[f"{label} {solver}"] = rec
+        print(f"phase 5 {tag}: cdqbm_main --seed_sweep 0..9 cuda synthetic n_total {n_total} "
+              f"sc100 anneal{anneal}{' (cut for the epoch)' if anneal < 1000 else ''} bs{bs} "
+              f"e1: {steps} steps of one launch at G=20 B={bs} + 4 validation launches at G=10 "
+              f"B=32, launch counts {counts}, every seed moved (min {min(moved):.4f}), best acc "
+              f"{min(accs):.4f}..{max(accs):.4f}, 10 best-model pickles loaded back, wall "
+              f"{wall:.2f} s; step {rec['step_ms']:.3f} ms (CUDA events, median of "
+              f"{len(sweep_steps)}) = {rec['seed_step_ms']:.3f} ms a seed against a single "
+              f"model's step of {single_ms:.3f} ms at the same anneal (median of 3)")
+
+        if label == "b":
+            # K1 (SA) or K2 pair (BMS) at G=20 B=3 on the sweep's own step
+            # QUBOs, against the plain version under host variates (S cut
+            # to 100), with the layout the rule picks at that call
+            Qb, hb = sweep_qubos[f"b {solver}"]
+            Sb, lanes = 100, kernel_call.chain_layout(20, bs, 100, n_total).lanes
+            hv = (bits(rng, (20, bs, 100, n_total), dev),
+                  uniforms(rng, (Sb, 20, bs, n_total, 100), dev))
+            args = (Qb, hb, 100, Sb)
+            if solver == "SA":
+                kern = lambda: sa_cuda.sa_sample_groups_cuda(*args, host_variates=hv)
+                plain = lambda: sa_torch.sa_sample_groups_plain(*args, host_variates=hv)
+            else:
+                kern = lambda: gibbs_cuda.gibbs_sample_groups_cuda(*args, pair=True,
+                                                                   host_variates=hv)
+                plain = lambda: gibbs.gibbs_sample_groups_plain(*args, pair=True, host_variates=hv)
+            for c in counters:
+                c.reset_launch_counts()
+            out = kern()
+            torch.cuda.synchronize()
+            counts = {k: v for c in counters for k, v in c.launch_counts.items()}
+            check(counts[kernel] == 1 and sum(counts.values()) == 1,
+                  f"{tag}: the G=20 call was not served by {kernel} alone: {counts}")
+            record(kernel, compare(out, plain(), f"{'K1' if solver == 'SA' else 'K2 pair'} "
+                                                 f"structured G=20 B={bs} n={n_total} R=100 "
+                                                 f"S={Sb} (the 10-seed CDQBM (b) sweep's step "
+                                                 f"QUBOs; {lanes} lanes a chain)", phase=5))
+            del hv, out
+        if (label, solver) == ("a", "SA"):
+            # K4 at G=20 on the sweep's own step QUBOs, against the plain
+            # version under host variates (Metropolis and pair, S cut to 5)
+            xw = torch.as_tensor(np.random.default_rng(3).random((20, 28, 28), dtype=np.float32),
+                                 device=dev)
+            Qsw, hsw = sw.step_qubos(xw, torch.as_tensor(np.arange(20) % 2, device=dev))
+            geo_sw = wide_cuda.wide_geometry(20, 20, 100, 717)
+            check((geo_sw.chains_per_block, geo_sw.grid) == (32, (63, 20)),
+                  f"K4 at the sweep's call: {geo_sw}")
+            S5 = 5
+            hv = (bits(rng, (20, 20, 100, 717), dev), uniforms(rng, (S5, 20, 20, 717, 100), dev))
+            args = (Qsw, hsw, 100, S5)
+            for width, kern, plain in (
+                    ("Metropolis", lambda: sa_cuda.sa_sample_groups_cuda(*args, host_variates=hv),
+                     lambda: sa_torch.sa_sample_groups_plain(*args, host_variates=hv)),
+                    ("pair", lambda: gibbs_cuda.gibbs_sample_groups_cuda(
+                        *args, pair=True, host_variates=hv),
+                     lambda: gibbs.gibbs_sample_groups_plain(*args, pair=True,
+                                                             host_variates=hv))):
+                wide_cuda.reset_launch_counts()
+                out = kern()
+                torch.cuda.synchronize()
+                check(wide_cuda.launch_counts["anneal_wide"] == 1,
+                      f"K4 {width} at the sweep's call: not launched once")
+                record("anneal_wide", compare(
+                    out, plain(), f"K4 {width} structured G=20 B=20 n=717 R=100 S={S5} (the "
+                                  "10-seed CDQBM (a) sweep's step QUBOs; 32 chains a block on a "
+                                  f"grid of {geo_sw.grid})", phase=5))
+            del hv, out
+            # SA at the main path's anneal: 3 steps and one validation chunk
+            m.sampler = ShapeLog(dataclasses.replace(m.sampler.inner, num_sweeps=1000))
+            (tx, ty), _, (vx, vy) = load_dataset("synthetic", seed=44)
+            sw.events = []
+            wide_cuda.reset_launch_counts()
+            sw.train(tx[:60], np.asarray(ty[:60]), vx[:32], np.asarray(vy[:32]), epochs=1,
+                     batch_size=20, learning_rate=0.02, verbose=False)
+            full = sw.step_times()
+            check(m.sampler.calls == [(20, 20, 717)] * 3 + [(10, 32, 717)]
+                  and wide_cuda.launch_counts["anneal_wide"] == 4,
+                  f"CDQBM (a) sweep SA at anneal 1000: calls {m.sampler.calls}, launch counts "
+                  f"{wide_cuda.launch_counts}")
+            check(all(math.isfinite(h.nll_per_batch[-1]) for h in sw.histories),
+                  "CDQBM (a) sweep SA at anneal 1000: nll not finite")
+            rec.update(step_ms_anneal1000=statistics.median(full),
+                       seed_step_ms_anneal1000=statistics.median(full) / 10,
+                       steps_ms_anneal1000=full,
+                       single_model_step_ms_anneal1000=step_ms["CDQBM a"])
+            print(f"phase 5 CDQBM (a) sweep SA at anneal 1000 (K4: G=20 B=20 R=100 n=717 "
+                  f"S=1000): 3 steps and 1 validation chunk, launch counts "
+                  f"{wide_cuda.launch_counts}; steps {full} ms (CUDA events), median "
+                  f"{statistics.median(full):.3f} ms = {statistics.median(full) / 10:.3f} ms a "
+                  f"seed against a single model's step of {step_ms['CDQBM a']:.3f} ms")
+        if (label, solver) == ("a", "PT"):
+            # both K5 paths forced on the sweep's own step QUBOs at G=20, S=10:
+            # the same samples, states, fields, energies and counters
+            xw = torch.as_tensor(np.random.default_rng(3).random((20, 28, 28), dtype=np.float32),
+                                 device=dev)
+            Qsw, hsw = sw.step_qubos(xw, torch.as_tensor(np.arange(20) % 2, device=dev))
+            G, B, n, M, R, S = 20, 20, 717, 8, 100, 10
+            nnz = pt_wide_cuda.group_nnz(pt_wide_cuda.row_nnz(split_qubo(Qsw)[1]))
+            geo_pt = pt_wide_cuda.pt_wide_geometry(G, B, M, R, n, pt_wide_cuda.padded(max(nnz)))
+            check(geo_pt.path == pt_wide_cuda.SPARSE and geo_pt.grid == (500, 20),
+                  f"K5 at the sweep's call: {geo_pt}")
+            # the sparse path through the sampler's structured entry against
+            # the plain version on the densified batch, under the same variates
+            hv = card_pt_hv(31, G * B * M, R, n, S, dev)
+            pt_cuda.reset_launch_counts()
+            pt_wide_cuda.reset_launch_counts()
+            out = pt_wide_cuda.pt_sample_groups(Qsw, hsw, R, S, num_replicas=M, host_variates=hv)
+            torch.cuda.synchronize()
+            check(pt_wide_cuda.launch_counts == {"pt_wide": 0, "pt_wide_sparse": 1}
+                  and pt_cuda.launch_counts["pt_heatbath"] == 0,
+                  f"K5 at the sweep's call: not served by the sparse path alone "
+                  f"({pt_wide_cuda.launch_counts})")
+            want = tempering.pt_sample_batch_plain(densify_groups(Qsw, hsw), R, S,
+                                                   num_replicas=M,
+                                                   host_variates=hv).reshape(G, B, R, n)
+            record("pt_wide_sparse", compare(
+                out, want, f"K5 sparse G={G} B={B} n={n} M={M} R={R} S={S} (the 10-seed CDQBM "
+                           f"(a) PT sweep's step QUBOs; 4 ladders a block on a grid of "
+                           f"{geo_pt.grid})", phase=5))
+            del hv, out, want
+            form = pt_wide_cuda.structured_form(Qsw, hsw, M)
+            paths = {}
+            for path in (pt_wide_cuda.DENSE, pt_wide_cuda.SPARSE):
+                outs = dict(states_out=torch.empty((G * B * M, R, n), device=dev),
+                            fields_out=torch.empty((G * B * M, R, n), device=dev),
+                            energy_out=torch.empty((G * B * M, R), device=dev),
+                            flips=torch.zeros(2, dtype=torch.int64, device=dev))
+                out = pt_wide_cuda.launch(*form, R, S, path=path, generator=gen_of(21), **outs)
+                paths[path] = dict(out=out, **outs)
+            torch.cuda.synchronize()
+            unequal = [k for k, v in paths[pt_wide_cuda.DENSE].items()
+                       if not torch.equal(v, paths[pt_wide_cuda.SPARSE][k])]
+            check(not unequal, f"K5 paths forced on the sweep's call: {unequal} differ")
+            rec["k5_paths_equal_flips"] = paths[pt_wide_cuda.SPARSE]["flips"].tolist()
+            del paths, outs, out
+            print(f"phase 5 K5 paths forced at G={G} B={B} M={M} R={R} n={n} S={S} (the 10-seed "
+                  f"CDQBM (a) sweep's step QUBOs: {len(nnz)} row lists, at most {max(nnz)} "
+                  f"nonzeros; 4 ladders a block on a grid of {geo_pt.grid}): samples, states, "
+                  f"fields, energies and counters {rec['k5_paths_equal_flips']} equal bit for bit")
+
+    # resume: 2 epochs straight against 1 epoch with --checkpoint_every 1 and
+    # then --resume for the second, on the card, for the flagship DQBM (SA),
+    # CDQBM (b) and CDQBM (a) with SA (K4) and PT (K5's sparse path) at a
+    # cut anneal: the same parameters, history and random stream
+    def same_run(a, b) -> list:
+        """The fields in which two trained models differ (empty: bit for bit)."""
+        from qbmx_torch.utils.checkpoint import flatten_params
+
+        pa, pb = flatten_params(a.params), flatten_params(b.params)
+        bad = [k for k in pa if not np.array_equal(pa[k], pb[k])]
+        if not torch.equal(a.generator.get_state(), b.generator.get_state()):
+            bad.append("generator state")
+        ha, hb = dataclasses.asdict(a.training_history), dataclasses.asdict(b.training_history)
+        return bad + [k for k in ha if k != "distribution_per_epoch" and ha[k] != hb[k]]
+
+    resume_rec = {}
+    cdqbm_a10 = dict(prob, pooling_size=4, sequential_layer_sizes=(4,), sample_count=100,
+                     anneal=10)
+    for label, main, models, kernel, kw in (
+            ("flagship DQBM SA", qm.main, made, "sa_metropolis",
+             dict(n_hidden_nodes=5, sample_count=1000, anneal=1000, batch_size=60,
+                  learning_rate=0.307, restricted=False, solver="SA")),
+            ("CDQBM (b)", cm.main, cmade, "sa_metropolis",
+             dict(pooling_size=4, sequential_layer_sizes=(4,))),
+            ("CDQBM (a) SA, anneal 10", cm.main, cmade, "anneal_wide", cdqbm_a10),
+            ("CDQBM (a) PT, anneal 10", cm.main, cmade, "pt_wide_sparse",
+             dict(cdqbm_a10, solver="PT"))):
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            main(device="cuda", data_set="synthetic", epochs=2, save=f"{tmp}/a/",
+                 checkpoint_every=1, **kw)
+            whole = models[-1]
+            main(device="cuda", data_set="synthetic", epochs=1, save=f"{tmp}/b/",
+                 checkpoint_every=1, **kw)
+            (state,) = Path(tmp, "b").glob("*/state.npz")
+            for c in counters:
+                c.reset_launch_counts()
+            main(device="cuda", data_set="synthetic", epochs=2, save=f"{tmp}/c/",
+                 resume=str(state), **kw)
+            resumed = models[-1]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = {k: v for c in counters for k, v in c.launch_counts.items()}
+        steps_an_epoch = len(whole.training_history.nll_per_batch) // 2
+        check(counts[kernel] >= steps_an_epoch and sum(counts.values()) == counts[kernel],
+              f"resume {label}: the resumed epoch's launch counts {counts}")
+        differ = same_run(whole, resumed)
+        check(not differ, f"resume {label}: the resumed run differs from the uninterrupted one "
+                          f"in {differ}")
+        resume_rec[label] = {"epochs": 2, "equal": "bit for bit", "wall_s": wall,
+                             "steps_an_epoch": steps_an_epoch,
+                             "resumed_run_launches": counts[kernel]}
+        print(f"phase 5 resume {label}: 2 epochs straight against 1 epoch + --resume for the "
+              f"second on cuda: parameters, history and generator state equal bit for bit "
+              f"({steps_an_epoch} steps an epoch; the resumed run launched {kernel} "
+              f"{counts[kernel]} times; wall {wall:.2f} s)")
+
     # -- 6. kernel and plain times, generator mode -----------------------------
     g1 = torch.Generator().manual_seed(1)
     Qcli = random_qubo_batch(rng, 146, 3).to(dev)  # the flat CLI defaults' PT call, densified
     times = {}
-    for label, kern, plain, plain_runs in (
+    for label, kern, plain in (
         ("K1 structured G=2 B=60 n=6 R=1000 S=1000",
          lambda: sa_cuda.sa_sample_groups_cuda(Qg, h_extra, 1000, 1000, generator=g1),
-         lambda: sa_torch.sa_sample_groups_plain(Qg, h_extra, 1000, 1000), 5),
+         lambda: sa_torch.sa_sample_groups_plain(Qg, h_extra, 1000, 1000)),
         ("K1 dense B=60 n=41 R=100 S=1000",
          lambda: sa_cuda.sa_sample_batch_cuda(Qd, 100, 1000, generator=g1),
-         lambda: sa_torch.sa_sample_batch_plain(Qd, 100, 1000), 5),
+         lambda: sa_torch.sa_sample_batch_plain(Qd, 100, 1000)),
         ("K1 CDQBM (b) G=2 B=3 n=41 R=100 S=1000",
          lambda: sa_cuda.sa_sample_groups_cuda(Qcb, hcb, 100, 1000, generator=g1),
-         lambda: sa_torch.sa_sample_groups_plain(Qcb, hcb, 100, 1000), 3),
+         lambda: sa_torch.sa_sample_groups_plain(Qcb, hcb, 100, 1000)),
         ("K2 pair structured G=2 B=60 n=6 R=1000 S=1000",
          lambda: gibbs_cuda.gibbs_sample_groups_cuda(Qg, h_extra, 1000, 1000, pair=True,
                                                      generator=g1),
-         lambda: gibbs.gibbs_sample_groups_plain(Qg, h_extra, 1000, 1000, pair=True), 3),
+         lambda: gibbs.gibbs_sample_groups_plain(Qg, h_extra, 1000, 1000, pair=True)),
         ("K2 pair CDQBM (b) G=2 B=3 n=41 R=100 S=1000",
          lambda: gibbs_cuda.gibbs_sample_groups_cuda(Qcb, hcb, 100, 1000, pair=True,
                                                      generator=g1),
-         lambda: gibbs.gibbs_sample_groups_plain(Qcb, hcb, 100, 1000, pair=True), 1),
+         lambda: gibbs.gibbs_sample_groups_plain(Qcb, hcb, 100, 1000, pair=True)),
         ("K2 single dense B=60 n=41 R=100 S=1000",
          lambda: gibbs_cuda.gibbs_sample_batch_cuda(Qd, 100, 1000, generator=g1),
-         lambda: gibbs.gibbs_sample_batch_plain(Qd, 100, 1000), 3),
+         lambda: gibbs.gibbs_sample_batch_plain(Qd, 100, 1000)),
         ("K2 quad dense B=60 n=41 R=100 S=1000",
          lambda: gibbs_cuda.gibbs_sample_batch_cuda(Qd, 100, 1000, quad=True, generator=g1),
-         lambda: gibbs.gibbs_sample_batch_plain(Qd, 100, 1000, quad=True), 3),
+         lambda: gibbs.gibbs_sample_batch_plain(Qd, 100, 1000, quad=True)),
         ("K3 densified B=120 n=6 M=8 R=1000 S=1000",
          lambda: pt_cuda.pt_sample_batch_cuda(Qpt, 1000, 1000, num_replicas=8, generator=g1),
-         lambda: tempering.pt_sample_batch_plain(Qpt, 1000, 1000, num_replicas=8), 3),
+         lambda: tempering.pt_sample_batch_plain(Qpt, 1000, 1000, num_replicas=8)),
         ("K3 CLI defaults B=146 n=3 M=8 R=100 S=1000",
          lambda: pt_cuda.pt_sample_batch_cuda(Qcli, 100, 1000, num_replicas=8, generator=g1),
-         lambda: tempering.pt_sample_batch_plain(Qcli, 100, 1000, num_replicas=8), 3),
+         lambda: tempering.pt_sample_batch_plain(Qcli, 100, 1000, num_replicas=8)),
         ("K4 Metropolis structured G=2 B=20 n=717 R=100 S=10",
          lambda: sa_cuda.sa_sample_groups_cuda(Qw, hw, 100, 10, generator=g1),
-         lambda: sa_torch.sa_sample_groups_plain(Qw, hw, 100, 10), 3),
+         lambda: sa_torch.sa_sample_groups_plain(Qw, hw, 100, 10)),
         ("K4 pair structured G=2 B=20 n=717 R=100 S=10",
          lambda: gibbs_cuda.gibbs_sample_groups_cuda(Qw, hw, 100, 10, pair=True, generator=g1),
-         lambda: gibbs.gibbs_sample_groups_plain(Qw, hw, 100, 10, pair=True), 3),
+         lambda: gibbs.gibbs_sample_groups_plain(Qw, hw, 100, 10, pair=True)),
         ("K5 dense CDQBM (a) PT shape, random QUBOs, G=2 B=20 M=8 n=717 R=100 S=10",
          lambda: pt_wide_cuda.pt_sample_groups(Qw, hw, 100, 10, num_replicas=8, generator=g1),
          lambda: tempering.pt_sample_batch_plain(densify_groups(Qw, hw), 100, 10,
-                                                 num_replicas=8), 3),
+                                                 num_replicas=8)),
         ("K5 sparse CDQBM (a) PT, the step's QUBOs, G=2 B=20 M=8 n=717 R=100 S=10",
          lambda: pt_wide_cuda.pt_sample_groups(Qs, hs, 100, 10, num_replicas=8, generator=g1),
          lambda: tempering.pt_sample_batch_plain(densify_groups(Qs, hs), 100, 10,
-                                                 num_replicas=8), 3),
+                                                 num_replicas=8)),
     ):
-        k_ms, p_ms = cuda_ms(kern, runs=5), cuda_ms(plain, runs=plain_runs)
+        k_ms, p_ms = cuda_ms(kern, runs=5), cuda_ms(plain, runs=1)
         times[label] = (k_ms, p_ms)
         print(f"phase 6 time {label}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
-              f"(CUDA events, kernel median of 5, plain median of {plain_runs}; {smi})")
+              f"(CUDA events, kernel median of 5, plain one run after a warm-up; {smi})")
 
     k4_full_ms = cuda_ms(lambda: sa_cuda.sa_sample_groups_cuda(Qw, hw, 100, 1000, generator=g1),
                          runs=3)
@@ -1233,6 +1559,21 @@ def main() -> None:
             pt_wide_cuda.launch, *pt_wide_cuda.structured_form(Qs, hs, 8), 100, 10)),
         "pt_wide_sparse full depth": anneal_bound(2, 20, 100, 717, 1000, rungs=8,
                                                   flip_work=k5_flips_full["sparse"][1]),
+        # the 10-seed sweeps' calls, on their own step QUBOs
+        "anneal_wide CDQBM (a) sweep G=20 full depth": anneal_bound(
+            20, 20, 100, 717, 1000, flip_work=work(
+                wide_cuda.launch, *structured_form(*sweep_qubos["a SA"], 1000), 100, 1000,
+                wide_cuda.METROPOLIS)),
+        "pt_wide_sparse CDQBM (a) sweep G=20 S=100": anneal_bound(
+            20, 20, 100, 717, 100, rungs=8, flip_work=work(
+                pt_wide_cuda.launch, *pt_wide_cuda.structured_form(*sweep_qubos["a PT"], 8),
+                100, 100)),
+        "sa_metropolis CDQBM (b) sweep G=20": anneal_bound(20, 3, 100, 41, 1000, flips=counted(
+            sa_cuda.launch, *structured_form(*sweep_qubos["b SA"], 1000), 100, 1000)),
+        "sa_heatbath CDQBM (b) sweep G=20": anneal_bound(
+            20, 3, 100, 41, 1000, decisions=20 * 3 * 100 * heatbath_units(41, pair) * 1000,
+            flips=counted(gibbs_cuda.launch, *structured_form(*sweep_qubos["b BMS"], 1000, pair),
+                          100, 1000, pair)),
     }
     print(f"phase 6 bounds (H100 SXM peaks, {smi}): "
           + "; ".join(f"{k} {b['bound_ms']:.4f} ms by {b['bound_by']}" for k, b in bounds.items()))
@@ -1251,7 +1592,9 @@ def main() -> None:
          "ms": t("K1 structured")[0], "plain_ms": t("K1 structured")[1],
          **bound_keys("sa_metropolis"), "layouts_lanes": layouts,
          "dense_ms": t("K1 dense")[0], "dense_plain_ms": t("K1 dense")[1],
-         "cdqbm_b_ms": t("K1 CDQBM (b)")[0], "cdqbm_b_plain_ms": t("K1 CDQBM (b)")[1]},
+         "cdqbm_b_ms": t("K1 CDQBM (b)")[0], "cdqbm_b_plain_ms": t("K1 CDQBM (b)")[1],
+         "cdqbm_b_sweep_launches": csweep_rec["b SA"]["launches"],
+         "cdqbm_b_sweep_bound_ms": bounds["sa_metropolis CDQBM (b) sweep G=20"]["bound_ms"]},
         {"name": "sa_heatbath", "route": "cuda", "source": "qbmx_torch/csrc/sa_heatbath.cu",
          "replaces": "qbmx/samplers/sa_lane.py:144",
          "also_replaces": "qbmx/samplers/sa_pallas.py:196",
@@ -1267,7 +1610,9 @@ def main() -> None:
          "cdqbm_b_launches": cdqbm_launches["b BMS"]["sa_heatbath"],
          "single_dense_ms": t("K2 single")[0], "single_dense_plain_ms": t("K2 single")[1],
          "quad_dense_ms": t("K2 quad")[0], "quad_dense_plain_ms": t("K2 quad")[1],
-         "field_drift_of_limit": k2_drift_ratio, "field_one_add_short_of_limit": k2_planted},
+         "field_drift_of_limit": k2_drift_ratio, "field_one_add_short_of_limit": k2_planted,
+         "cdqbm_b_sweep_launches": csweep_rec["b BMS"]["launches"],
+         "cdqbm_b_sweep_bound_ms": bounds["sa_heatbath CDQBM (b) sweep G=20"]["bound_ms"]},
         {"name": "pt_heatbath", "route": "cuda", "source": "qbmx_torch/csrc/pt_heatbath.cu",
          "replaces": "qbmx/samplers/sa_pallas.py:196",
          "launches": launches["pt_heatbath"], "max_abs_err": max(errs["pt_heatbath"]),
@@ -1293,7 +1638,10 @@ def main() -> None:
          "cdqbm_qubos_full_depth_bound_ms":
              bounds["anneal_wide CDQBM QUBOs full depth"]["bound_ms"],
          "field_drift_max": drift_max, "field_drift_of_limit": drift_ratio,
-         "field_one_add_short_of_limit": planted_ratio},
+         "field_one_add_short_of_limit": planted_ratio,
+         "sweep_launches": {k: csweep_rec[f"a {k}"]["launches"] for k in ("SA", "BMS")},
+         "sweep_full_depth_bound_ms":
+             bounds["anneal_wide CDQBM (a) sweep G=20 full depth"]["bound_ms"]},
         {"name": "pt_wide", "route": "cuda", "source": "qbmx_torch/csrc/pt_wide.cu",
          "replaces": "qbmx/samplers/sa_pallas.py:196", "path": "dense (J_g in tiles)",
          "launches": launches["pt_wide"], "launches_on": "qbm_main --solver PT -hn 300",
@@ -1317,8 +1665,11 @@ def main() -> None:
          "cdqbm_a_pt_step_ms": step_ms["CDQBM a PT anneal1000"],
          "drift_of_limit": k5_drift["sparse"],
          "one_add_or_flip_short_of_limit": k5_planted["sparse"],
-         "clusters": clusters, "active_clusters": active},
-    ], "step_ms": step_ms, "cdqbm_launches": cdqbm_launches, "sweeps": sweep_rec}
+         "clusters": clusters, "active_clusters": active,
+         "sweep_launches": csweep_rec["a PT"]["launches"],
+         "sweep_s100_bound_ms": bounds["pt_wide_sparse CDQBM (a) sweep G=20 S=100"]["bound_ms"]},
+    ], "step_ms": step_ms, "cdqbm_launches": cdqbm_launches, "sweeps": sweep_rec,
+        "cdqbm_sweeps": csweep_rec, "resume": resume_rec}
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

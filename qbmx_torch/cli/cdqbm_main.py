@@ -5,10 +5,14 @@ raises, the run never falls back to the CPU).
 The samplers run their CUDA kernels on ``--device cuda``: the CLI defaults
 (deterministic pooling 4, ``--seq_sizes 4``, 41 variables) on K1/K2, and
 probabilistic pooling (``--pooling_type probabilistic``, 717 variables at
-28×28) on K4, whose couplings exceed a block's shared memory; their plain
-PyTorch versions on ``--device cpu``.  Not ported yet, and refused with a
-pointer to the ROADMAP item: ``--seed_sweep`` (Queue 1 item 4,
-``SeedParallelCDQBM``) and ``--resume``/``--checkpoint_every`` (item 3).
+28×28) on K4 (SA, BMS) or K5 (PT), whose couplings exceed a block's shared
+memory; their plain PyTorch versions on ``--device cpu``.
+``--seed_sweep`` trains every listed seed as one batched sweep
+(``train/sweep.SeedParallelCDQBM``: one sampler launch a step for all
+seeds; with ``--reinit_on_collapse`` its flatlined seeds are re-drawn).
+``--checkpoint_every N`` writes the full training state every N epochs to
+``<save><run>/state.npz``, and ``--resume <npz>`` continues from such a
+state exactly (``utils/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -19,12 +23,15 @@ import random
 
 import numpy as np
 
-from qbmx_torch.cli._common import load_dataset, param_string, qpu_sampler_kwargs, str2bool
+from qbmx_torch.cli._common import (finish_seed_sweep, load_dataset, param_string,
+                                    qpu_sampler_kwargs, str2bool)
 from qbmx_torch.data import loaders
 from qbmx_torch.models.base import resolve_device
 from qbmx_torch.models.cdqbm import CDQBM
 from qbmx_torch.train.loop import train_model
+from qbmx_torch.train.sweep import SeedParallelCDQBM
 from qbmx_torch.utils import metrics
+from qbmx_torch.utils.checkpoint import load_checkpoint
 
 
 def auc_from_probs(y_true, probs, num_classes: int) -> float:
@@ -53,15 +60,13 @@ def main(
     qpu_embedding="first_party", embedding_cache="", device="cuda",
 ):
     """Train, predict on the test split; returns (acc, f1, precision,
-    recall, auc)."""
-    if seed_sweep:
-        raise NotImplementedError(
-            "qbmx_torch: --seed_sweep waits for the SeedParallelCDQBM port "
-            "(ROADMAP Queue 1 item 4)")
-    if resume or checkpoint_every:
-        raise NotImplementedError(
-            "qbmx_torch: --resume/--checkpoint_every wait for the utils/checkpoint "
-            "port (ROADMAP Queue 1 item 3)")
+    recall, auc), or with ``seed_sweep`` the per-seed best-epoch ``(accs,
+    aucs)`` of one batched sweep over those seeds."""
+    if seed_sweep and (resume or checkpoint_every):
+        # qbmx's guard: silently ignoring these would lose checkpoints or
+        # retrain from scratch while the user believes the flags took effect
+        raise ValueError("--resume/--checkpoint_every need the "
+                         "single-model path (omit --seed_sweep)")
     dev = resolve_device(device)
     print("Start")
     random.seed(seed)
@@ -110,11 +115,19 @@ def main(
     )
     print(f"QBM created (hidden={qbm.geo.n_hidden}, total={qbm.geo.n_total})")
 
-    if reinit_on_collapse:
+    if reinit_on_collapse and not seed_sweep:
         raise ValueError(
             "--reinit_on_collapse requires --seed_sweep here: the "
             "single-model cdqbm path has no per-epoch validation for the "
             "collapse check (qbm_main wires it for single models)")
+    if seed_sweep:
+        if coreset_budget:
+            raise ValueError("--seed_sweep does not compose with "
+                             "--coreset_budget (the coreset depends on one "
+                             "model's embedding)")
+        return _seed_sweep(qbm, seed_sweep, train_x, train_y, test_x, test_y, epochs,
+                           batch_size, learning_rate, save, name, class_names,
+                           reinit_on_collapse)
 
     if coreset_budget:
         from qbmx_torch.data.coreset import downsample_kcenter_with_light_model
@@ -123,12 +136,23 @@ def main(
         train_x, train_y = downsample_kcenter_with_light_model(
             qbm, train_x, train_y, coreset_budget, seed)
 
+    # full-state resume, as in qbm_main
+    start_epoch, prev_history = 0, None
+    if resume:
+        prev_history, start_epoch = load_checkpoint(resume, qbm)
+        print(f"Resumed full state from {resume} (completed epochs: {start_epoch})")
+    if checkpoint_every and not save:
+        raise ValueError("--checkpoint_every needs --save")
+    ckpt_path = f"{save}{pstr}/state" if save and checkpoint_every else None
+
     print("Training QBM...")
     history = train_model(
         qbm, train_x, train_y, batch_size=batch_size,
         learning_rate=learning_rate, epochs=epochs,
         save_folder=f"{save}{pstr}" if save else None,
-        class_titles=class_names,
+        class_titles=class_names, history=prev_history,
+        checkpoint_every=checkpoint_every, checkpoint_path=ckpt_path,
+        start_epoch=start_epoch,
     )
     print("QBM trained")
 
@@ -150,6 +174,19 @@ def main(
     print("Recall: ", recall)
     print("AUC Score: ", auc)
     return acc, f1, precision, recall, auc
+
+
+def _seed_sweep(qbm, seeds, train_x, train_y, test_x, test_y, epochs, batch_size,
+                learning_rate, save, name, class_names, reinit_on_collapse=0):
+    """Every seed as ONE batched sweep (``SeedParallelCDQBM`` over the donor
+    ``qbm``'s geometry and flags): per-epoch test metrics a seed, per-seed
+    pickles and best-epoch weights (``_common.finish_seed_sweep``)."""
+    sweep = SeedParallelCDQBM(seeds, qbm)
+    hists = sweep.train(train_x, train_y, test_x, test_y, epochs=epochs,
+                        batch_size=batch_size, learning_rate=learning_rate,
+                        class_titles=tuple(class_names), verbose=True,
+                        reinit_on_collapse=reinit_on_collapse)
+    return finish_seed_sweep(sweep, seeds, hists, save, name)
 
 
 def build_parser():
@@ -206,13 +243,18 @@ def build_parser():
     p.add_argument("--grad_clip", type=float, default=0.0,
                    help="max gradient global L2 norm (0 = off)")
     p.add_argument("--reinit_on_collapse", type=int, default=0,
-                   help="seed-sweep only (refused on the single-model path)")
+                   help="with --seed_sweep: every N epochs re-draw each seed whose val "
+                        "accuracy is stuck at the majority-class prediction")
     p.add_argument("--seed_sweep", type=int, nargs="+", default=None,
-                   help="not ported yet (ROADMAP Queue 1 item 4)")
+                   help="train ALL listed seeds as one batched sweep "
+                        "(qbmx_torch.train.sweep.SeedParallelCDQBM); writes per-seed "
+                        "per-epoch pickles and best_model/ checkpoints")
     p.add_argument("--checkpoint_every", type=int, default=0,
-                   help="not ported yet (ROADMAP Queue 1 item 3)")
+                   help="every N epochs write the full training state (params, "
+                        "random stream, history, epoch) to <save><run>/state.npz; "
+                        "needs --save")
     p.add_argument("--resume", type=str, default="",
-                   help="not ported yet (ROADMAP Queue 1 item 3)")
+                   help="continue from a --checkpoint_every state .npz, exactly")
     p.add_argument("--qpu_copies", type=int, default=1,
                    help="QPU solvers only (not ported yet)")
     p.add_argument("--qpu_embedding", choices=["first_party", "composite"],

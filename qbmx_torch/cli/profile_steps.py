@@ -5,15 +5,18 @@
     python -m qbmx_torch.cli.profile_steps --cdqbm probabilistic --solver SA --reads 100
     python -m qbmx_torch.cli.profile_steps --cdqbm deterministic --solver SA --reads 100
     python -m qbmx_torch.cli.profile_steps --seed_sweep 0 1 2 3 4 5 6 7 8 9   # the 10-seed sweep
+    python -m qbmx_torch.cli.profile_steps --seed_sweep 0 1 2 3 4 5 6 7 8 9 \
+        --cdqbm probabilistic --solver SA --reads 100 --epochs 1   # the 10-seed CDQBM (a) sweep
 
 For each solver: ``DiscQBM`` on the synthetic training split (600
 images, 784 inputs) -- or with ``--cdqbm`` a ``CDQBM`` on the same images
 at 28×28 in one of ``CDQBM_CONFIGS`` (the parity run's probabilistic
 settings, or the CLI defaults, each with its own batch size; pass
 ``--reads 100``, their sample count), or with ``--seed_sweep`` a
-``SeedParallelDQBM`` over those seeds at the flat widths (one sampler
-launch a step for every seed; ``ms_per_seed_step`` is a step ÷ seeds,
-against a single model's ms/step) -- one warm-up epoch, then ``--epochs`` unprofiled
+``SeedParallelDQBM`` over those seeds at the flat widths, or with both a
+``SeedParallelCDQBM`` in that configuration (one sampler launch a step
+for every seed; ``ms_per_seed_step`` is a step ÷ seeds, against a single
+model's ms/step) -- one warm-up epoch, then ``--epochs`` unprofiled
 epochs timed on the host clock after ``synchronize()`` (their median,
 divided by the steps, is ms/step), then on a GPU one more epoch under
 ``torch.profiler``.  Its device events give the device's busy time (the
@@ -43,7 +46,7 @@ from qbmx_torch.models.base import resolve_device
 from qbmx_torch.models.cdqbm import CDQBM
 from qbmx_torch.models.dqbm import DiscQBM
 from qbmx_torch.samplers.kernel_call import fits_shared
-from qbmx_torch.train.sweep import SeedParallelDQBM
+from qbmx_torch.train.sweep import SeedParallelCDQBM, SeedParallelDQBM
 
 #: the kernel each solver's sampler launches on a GPU while the QUBO's
 #: couplings fit shared memory (above: "anneal_wide" for SA and BMS,
@@ -105,26 +108,26 @@ def profile_solver(solver: str, train_X, train_y, *, hidden: int, reads: int, sw
                    seeds: list[int] | None = None) -> dict:
     lr = LEARNING_RATE
     n = hidden + 1
+    if cdqbm:
+        cfg = CDQBM_CONFIGS[cdqbm]
+        model = CDQBM(image_shape=(28, 28), seed=SEED, pooling_size=4,
+                      sequential_layer_sizes=[4], hidden_bias_type="shared", solver=solver,
+                      anneal=sweeps, sample_count=reads, device=dev, **cfg["model"])
+        batch, lr, n = cfg["batch"], cfg["lr"], model.geo.n_total
+    elif not seeds:
+        model = DiscQBM(dim_input=train_X.shape[1], n_hidden_nodes=hidden, seed=SEED,
+                        solver=solver, restricted=False, sample_count=reads,
+                        anneal_steps=sweeps, device=dev)
     if seeds:
-        sweep = SeedParallelDQBM(seeds, dim_input=train_X.shape[1], n_hidden_nodes=hidden,
-                                 solver=solver, restricted=False, sample_count=reads,
-                                 anneal_steps=sweeps, device=dev)
+        sweep = (SeedParallelCDQBM(seeds, model) if cdqbm else
+                 SeedParallelDQBM(seeds, dim_input=train_X.shape[1], n_hidden_nodes=hidden,
+                                  solver=solver, restricted=False, sample_count=reads,
+                                  anneal_steps=sweeps, device=dev))
 
         def run():
             sweep.train(train_X, train_y, epochs=1, batch_size=batch, learning_rate=lr,
                         verbose=False)
     else:
-        if cdqbm:
-            cfg = CDQBM_CONFIGS[cdqbm]
-            model = CDQBM(image_shape=(28, 28), seed=SEED, pooling_size=4,
-                          sequential_layer_sizes=[4], hidden_bias_type="shared", solver=solver,
-                          anneal=sweeps, sample_count=reads, device=dev, **cfg["model"])
-            batch, lr, n = cfg["batch"], cfg["lr"], model.geo.n_total
-        else:
-            model = DiscQBM(dim_input=train_X.shape[1], n_hidden_nodes=hidden, seed=SEED,
-                            solver=solver, restricted=False, sample_count=reads,
-                            anneal_steps=sweeps, device=dev)
-
         def run():
             model.train_epoch(train_X, train_y, batch, lr)
     steps = math.ceil(len(train_X) / batch)
@@ -140,8 +143,9 @@ def profile_solver(solver: str, train_X, train_y, *, hidden: int, reads: int, sw
         epoch()
         walls.append((time.perf_counter() - t0) * 1e3)
     wall = statistics.median(walls)
-    name = (f"SeedParallelDQBM {len(seeds)} seeds" if seeds else
-            f"CDQBM {cdqbm}" if cdqbm else "DiscQBM")
+    name = f"CDQBM {cdqbm}" if cdqbm else "DiscQBM"
+    if seeds:
+        name = f"{type(sweep).__name__} {len(seeds)} seeds" + (f" ({name})" if cdqbm else "")
     rec = {"solver": solver, "model": name, "n": n, "seeds": len(seeds) if seeds else 1,
            "kernel": solver_kernel(solver, n), "steps": steps,
            "epoch_ms": wall, "ms_per_step": wall / steps, "epoch_ms_runs": walls,
@@ -169,7 +173,8 @@ def main(argv=None) -> list[dict]:
     p.add_argument("--cdqbm", choices=sorted(CDQBM_CONFIGS), default=None,
                    help="profile a CDQBM in this configuration instead of the DiscQBM")
     p.add_argument("--seed_sweep", type=int, nargs="+", default=None,
-                   help="profile a SeedParallelDQBM over these seeds instead of the DiscQBM")
+                   help="profile a seed sweep over these seeds (with --cdqbm: a "
+                        "SeedParallelCDQBM) instead of a single model")
     a = p.parse_args(argv)
     dev = resolve_device(a.device)
     (train_X, train_y), (val_X, _), (test_X, _) = load_dataset("synthetic", seed=SEED)

@@ -7,10 +7,12 @@ pair updates on the GPU) and ``PT`` (parallel tempering, 8 rungs), each
 through its CUDA kernel on ``--device cuda`` and its plain PyTorch version
 on ``--device cpu``; ``SA-TORCH`` and ``EXACT``.  ``--seed_sweep`` trains
 every listed seed as one batched sweep (``train/sweep.SeedParallelDQBM``:
-one sampler launch a step for all seeds).  Not ported yet, and refused
-with a pointer to the ROADMAP item: ``--resume``/``--checkpoint_every``
-(Queue 1 item 3), ``SA-NATIVE`` (item 9) and the QPU solvers (item 10).
-``--track_distribution`` records the per-epoch distribution in the
+one sampler launch a step for all seeds).  ``--checkpoint_every N`` writes
+the full training state every N epochs to ``<save><run>/state.npz``, and
+``--resume <npz>`` continues from such a state exactly
+(``utils/checkpoint.py``).  Not ported yet, and refused with a pointer to
+the ROADMAP item: ``SA-NATIVE`` (Queue 1 item 9) and the QPU solvers (item
+10).  ``--track_distribution`` records the per-epoch distribution in the
 history but draws no figure.
 """
 
@@ -30,6 +32,7 @@ from qbmx_torch.models.dqbm import DiscQBM
 from qbmx_torch.train.loop import train_model
 from qbmx_torch.train.sweep import SeedParallelDQBM
 from qbmx_torch.utils import metrics
+from qbmx_torch.utils.checkpoint import load_checkpoint
 
 
 def main(
@@ -55,12 +58,10 @@ def main(
         raise ValueError("--load_path needs the single-model path "
                          "(omit --seed_sweep)")
     if resume and load_path:
+        # both set the initial params: the resumed state would silently
+        # replace the loaded savepoint
         raise ValueError("--load_path and --resume both set initial "
                          "params; pass exactly one")
-    if resume or checkpoint_every:
-        raise NotImplementedError(
-            "qbmx_torch: --resume/--checkpoint_every wait for the utils/checkpoint "
-            "port (ROADMAP Queue 1 item 3)")
     dev = resolve_device(device)
     print("Start")
     random.seed(seed)
@@ -102,13 +103,27 @@ def main(
         device=dev,
     )
 
+    # full-state resume: parameters, random stream, history and completed
+    # epochs, so the continued run equals an uninterrupted one
+    start_epoch, prev_history = 0, None
+    if resume:
+        prev_history, start_epoch = load_checkpoint(resume, dqbm)
+        print(f"Resumed full state from {resume} (completed epochs: {start_epoch})")
+    if checkpoint_every and not save:
+        # checkpoints land under the run folder; with no --save the flag
+        # would silently do nothing
+        raise ValueError("--checkpoint_every needs --save")
+    ckpt_path = f"{save}{pstr}/state" if save and checkpoint_every else None
+
     print("Training QBM...")
     t0 = time.time()
     history = train_model(
         dqbm, train_X, train_y, test_X, test_y, batch_size=batch_size,
         learning_rate=learning_rate, epochs=epochs,
         save_folder=f"{save}{pstr}" if save else None,
-        reinit_on_collapse=reinit_on_collapse, track_distribution=track_distribution,
+        reinit_on_collapse=reinit_on_collapse, history=prev_history,
+        checkpoint_every=checkpoint_every, checkpoint_path=ckpt_path,
+        start_epoch=start_epoch, track_distribution=track_distribution,
     )
     print(f"QBM trained in {time.time() - t0:.1f}s")
 
@@ -193,9 +208,11 @@ def build_parser():
                    help="after N epochs, re-draw the params if val accuracy "
                         "is stuck at the majority-class prediction")
     p.add_argument("--checkpoint_every", type=int, default=0,
-                   help="not ported yet (ROADMAP Queue 1 item 3)")
+                   help="every N epochs write the full training state (params, "
+                        "random stream, history, epoch) to <save><run>/state.npz; "
+                        "needs --save")
     p.add_argument("--resume", type=str, default="",
-                   help="not ported yet (ROADMAP Queue 1 item 3)")
+                   help="continue from a --checkpoint_every state .npz, exactly")
     p.add_argument("--seed_sweep", type=int, nargs="+", default=None,
                    help="train ALL listed seeds as one batched sweep "
                         "(qbmx_torch.train.sweep.SeedParallelDQBM); writes per-seed "

@@ -13,6 +13,10 @@ The builders, the context and the moments work on a batch of images
 (B, H, W) where ``qbmx`` vmaps a per-image function; each returns what
 ``jax.vmap`` of its ``qbmx`` counterpart returns, in the same float order
 where the two packages' operations allow (``tests/test_torch_cdqbm.py``).
+They also take parameters stacked over a leading seed axis S (every leaf
+``(S, ...)``, the seed sweep's, ``train/sweep.SeedParallelCDQBM``) and
+then return a leading S axis too, with the same number of device ops: the
+images are shared, the parameters broadcast over them.
 The feature map is a patch gather plus a float32 einsum, as in ``qbmx``, and
 never ``F.conv2d``: cuDNN would run it in TF32 by default, and the argmin
 pooling picks units on exact feature-map values.
@@ -294,48 +298,53 @@ class CDQBM(EpochLaunchMixin, QBMModel):
     # -- context ---------------------------------------------------------------
 
     def _context(self, params: CDQBMParams, x_imgs: torch.Tensor):
-        """(fmap_flat (B, C·U), pooled_idx (B, n_pooled), patches (B, U, k, k))
-        for images (B, H, W) — ``qbmx``'s per-image ``_context`` batched
-        (``src/model/inference.py:16-44``)."""
+        """(fmap_flat ([S,] B, C·U), pooled_idx ([S,] B, n_pooled), patches
+        (B, U, k, k)) for images (B, H, W) — ``qbmx``'s per-image
+        ``_context`` batched (``src/model/inference.py:16-44``)."""
         geo = self.geo
         B = x_imgs.shape[0]
         patches = x_imgs.reshape(B, -1)[:, self.patch_idx]  # (B, U, k, k)
-        # (B, C, U) per-channel feature maps, flattened CHANNEL-MAJOR to match
-        # the conv-block variable layout (StackGeometry.pool_windows offsets)
-        fmap = torch.einsum("bukl,ckl->bcu", patches, params.kernel)
+        # ([S,] B, C, U) per-channel feature maps, flattened CHANNEL-MAJOR to
+        # match the conv-block variable layout (StackGeometry.pool_windows)
+        fmap = torch.einsum("bukl,...ckl->...bcu", patches, params.kernel)
         if self.center_fmap:
-            fmap = fmap - fmap.mean(dim=2, keepdim=True)
-        fmap_flat = fmap.reshape(B, -1)
+            fmap = fmap - fmap.mean(dim=-1, keepdim=True)
+        fmap_flat = fmap.flatten(-2)
         if geo.pooling_type == "deterministic" and geo.has_pooling:
-            wf = fmap_flat[:, self.windows]  # (B, n_win, p*p)
+            wf = fmap_flat[..., self.windows]  # ([S,] B, n_win, p*p)
             if self.pool_select == "max":
                 score = -wf
             elif self.pool_select == "absmax":
                 score = -torch.abs(wf)
             else:  # "min" — reference parity (src/model/layers.py:77-84)
                 score = wf
-            amin = torch.argmin(score, dim=2)  # first of equal minima, as jnp.argmin
-            pooled_idx = torch.gather(self.windows.expand(B, -1, -1), 2, amin[..., None])[..., 0]
+            amin = torch.argmin(score, dim=-1)  # first of equal minima, as jnp.argmin
+            pooled_idx = torch.gather(self.windows.expand(*amin.shape, -1), -1,
+                                      amin[..., None])[..., 0]
         else:
-            pooled_idx = torch.arange(geo.conv_units_total, device=x_imgs.device).expand(B, -1)
+            pooled_idx = torch.arange(geo.conv_units_total, device=x_imgs.device) \
+                .expand(*fmap_flat.shape[:-1], -1)
         return fmap_flat, pooled_idx, patches
 
     def _conv_linear_terms(self, params: CDQBMParams, ctx) -> torch.Tensor:
-        """(B, conv_active) linear terms of the conv block (``_conv_linear_terms``,
-        ``src/qubo/builder.py:3-19``; per-unit biases applied)."""
+        """([S,] B, conv_active) linear terms of the conv block
+        (``_conv_linear_terms``, ``src/qubo/builder.py:3-19``; per-unit biases
+        applied)."""
         fmap_flat, pooled_idx, _ = ctx
+        b_conv = params.b_conv[..., None, :]  # ([S,] 1, ·): broadcast over the examples
         if self.geo.pooling_type == "deterministic" and self.geo.has_pooling:
-            base = torch.gather(fmap_flat, 1, pooled_idx)
+            base = torch.gather(fmap_flat, -1, pooled_idx)
             if self.hidden_bias_type == "shared":
-                base = base + params.b_conv[0]
+                base = base + b_conv[..., :1]
             elif self.hidden_bias_type == "per-unit":
-                base = base + params.b_conv[pooled_idx]
+                base = base + torch.gather(b_conv.expand(*pooled_idx.shape[:-1], -1), -1,
+                                           pooled_idx)
             return base
         base = fmap_flat
         if self.hidden_bias_type == "shared":
-            base = base + params.b_conv[0]
+            base = base + b_conv[..., :1]
         elif self.hidden_bias_type == "per-unit":
-            base = base + params.b_conv
+            base = base + b_conv
         return base
 
     # -- QUBO builders -----------------------------------------------------------
@@ -344,14 +353,14 @@ class CDQBM(EpochLaunchMixin, QBMModel):
         """(..., n_hidden, n_hidden) upper-triangular hidden block: penalties,
         conv diagonal ``conv_bias`` (..., conv_active), sequential
         inter/intra-layer weights and biases, in ``qbmx``'s order of
-        additions."""
+        additions.  Stacked ``params`` take a ``conv_bias`` of (S, conv_active)."""
         geo = self.geo
         n = geo.n_hidden
         Q = torch.zeros(conv_bias.shape[:-1] + (n, n), dtype=torch.float32,
                         device=conv_bias.device)
         if self.learn_penalty:
             # learned per-window strengths scale the static unit patterns
-            Q = Q + torch.einsum("w,wij->ij", params.pen, self.pen_basis)
+            Q = Q + torch.einsum("...w,wij->...ij", params.pen, self.pen_basis)
         else:
             Q = Q + self.penalty_hidden
         Q = _add_diag(Q, geo.conv_slice.start, conv_bias)
@@ -368,8 +377,8 @@ class CDQBM(EpochLaunchMixin, QBMModel):
         return Q
 
     def _label_fields(self, params: CDQBMParams, label_vec: torch.Tensor) -> torch.Tensor:
-        """(B, last_hidden) effective fields of the clamped labels."""
-        return label_vec @ params.w_h2o.T
+        """([S,] B, last_hidden) effective fields of the clamped labels."""
+        return label_vec @ params.w_h2o.transpose(-1, -2)
 
     def _unclamped(self, params: CDQBMParams, Qh: torch.Tensor) -> torch.Tensor:
         """The (..., n_total, n_total) unclamped QUBO around hidden block ``Qh``."""
@@ -399,101 +408,107 @@ class CDQBM(EpochLaunchMixin, QBMModel):
     # Structured (shared-coupling) forms: ``<phase>_qubo(params, x, …) ==
     # <phase>_qubo_shared(params) + diag(<phase>_fields(params, x, …))``.
 
-    def _zero_conv_bias(self) -> torch.Tensor:
-        return torch.zeros(self.geo.conv_active, device=self.device)
+    def _zero_conv_bias(self, params: CDQBMParams) -> torch.Tensor:
+        """([S,] conv_active) zeros, S the seed axis of ``params``."""
+        return torch.zeros(params.b_o.shape[:-1] + (self.geo.conv_active,), device=self.device)
 
     def clamped_qubo_shared(self, params: CDQBMParams) -> torch.Tensor:
-        """(n_hidden, n_hidden) example-independent clamped-QUBO part."""
-        return self._hidden_block(params, self._zero_conv_bias()) / self.beta_eff
+        """([S,] n_hidden, n_hidden) example-independent clamped-QUBO part."""
+        return self._hidden_block(params, self._zero_conv_bias(params)) / self.beta_eff
 
     def clamped_fields(self, params: CDQBMParams, x_imgs, label_vec, ctx=None):
-        """(B, n_hidden) per-example linear terms of the clamped QUBO."""
+        """([S,] B, n_hidden) per-example linear terms of the clamped QUBO."""
         geo = self.geo
         ctx = ctx if ctx is not None else self._context(params, x_imgs)
         cb = self._conv_linear_terms(params, ctx)
-        h = torch.zeros((cb.shape[0], geo.n_hidden), dtype=torch.float32, device=cb.device)
-        h[:, geo.conv_slice] += cb
-        h[:, geo.last_hidden_slice] += self._label_fields(params, label_vec)
+        h = torch.zeros(cb.shape[:-1] + (geo.n_hidden,), dtype=torch.float32, device=cb.device)
+        h[..., geo.conv_slice] += cb
+        h[..., geo.last_hidden_slice] += self._label_fields(params, label_vec)
         return h / self.beta_eff
 
     def unclamped_qubo_shared(self, params: CDQBMParams) -> torch.Tensor:
-        """(n_total, n_total) example-independent unclamped-QUBO part."""
-        return self._unclamped(params, self._hidden_block(params, self._zero_conv_bias()))
+        """([S,] n_total, n_total) example-independent unclamped-QUBO part."""
+        return self._unclamped(params, self._hidden_block(params, self._zero_conv_bias(params)))
 
     def unclamped_fields(self, params: CDQBMParams, x_imgs, ctx=None):
-        """(B, n_total) per-example linear terms of the unclamped QUBO."""
+        """([S,] B, n_total) per-example linear terms of the unclamped QUBO."""
         geo = self.geo
         ctx = ctx if ctx is not None else self._context(params, x_imgs)
         cb = self._conv_linear_terms(params, ctx)
-        h = torch.zeros((cb.shape[0], geo.n_total), dtype=torch.float32, device=cb.device)
-        h[:, geo.conv_slice] += cb
+        h = torch.zeros(cb.shape[:-1] + (geo.n_total,), dtype=torch.float32, device=cb.device)
+        h[..., geo.conv_slice] += cb
         return h / self.beta_eff
 
     # -- moment estimation -----------------------------------------------------
 
     def _moments(self, params: CDQBMParams, samples, ctx, label_vec=None) -> CDQBMParams:
-        """Per-example expected sufficient statistics (B leading), shaped like
-        the params (``get_average_configuration_single``,
-        ``src/train/train.py:135-253``, with the probabilistic-pooling
-        semantics of ``qbmx``).  ``samples`` (B, R, n_hidden [+ n_out]);
-        ``label_vec`` None for the unclamped phase."""
+        """Per-example expected sufficient statistics (B leading, after the
+        seed axis of stacked ``params``), shaped like the params
+        (``get_average_configuration_single``, ``src/train/train.py:135-253``,
+        with the probabilistic-pooling semantics of ``qbmx``).  ``samples``
+        ([S,] B, R, n_hidden [+ n_out]); ``ctx`` of the same ``params``;
+        ``label_vec`` (B, n_out), None for the unclamped phase."""
         geo = self.geo
-        B, R = samples.shape[:2]
+        R = samples.shape[-2]
         _, pooled_idx, patches = ctx
 
         full = samples
-        stats = full[:, :, geo.stats_drop:]  # drop conv cols for probabilistic
-        E = stats.mean(dim=1)  # (B, n_stats_hidden [+ n_out])
+        stats = full[..., geo.stats_drop:]  # drop conv cols for probabilistic
+        E = stats.mean(dim=-2)  # ([S,] B, n_stats_hidden [+ n_out])
+        lead = E.shape[:-1]  # ([S,] B)
         nsh = geo.n_stats_hidden
         sizes, starts = geo.sizes_active, geo.stats_starts
 
         # conv-unit marginals over the FULL channel-major conv grid (inactive
         # deterministically pooled units contribute exactly zero)
         if geo.n_pool_vars:
-            Econv_full = full[:, :, : geo.conv_units_total].mean(dim=1)
+            Econv_full = full[..., : geo.conv_units_total].mean(dim=-2)
         else:
-            Econv_full = torch.zeros((B, geo.conv_units_total), device=samples.device) \
-                .scatter_add(1, pooled_idx, E[:, : geo.n_pooled])
+            Econv_full = torch.zeros(lead + (geo.conv_units_total,), device=samples.device) \
+                .scatter_add(-1, pooled_idx, E[..., : geo.n_pooled])
 
         # per-channel kernel gradient (patch × E[h] accumulation,
         # src/train/train.py:188-192, one kernel per channel)
-        g_kernel = torch.einsum("bukl,bcu->bckl", patches,
-                                Econv_full.reshape(B, geo.n_kernels, geo.num_conv_units))
+        g_kernel = torch.einsum("bukl,...bcu->...bckl", patches,
+                                Econv_full.unflatten(-1, (geo.n_kernels, geo.num_conv_units)))
 
         if self.hidden_bias_type == "shared":
-            g_b_conv = Econv_full.sum(dim=1, keepdim=True)
+            g_b_conv = Econv_full.sum(dim=-1, keepdim=True)
         elif self.hidden_bias_type == "none":
-            g_b_conv = torch.zeros((B,) + tuple(params.b_conv.shape), device=samples.device)
+            g_b_conv = torch.zeros(lead + params.b_conv.shape[-1:], device=samples.device)
         else:  # per-unit
             g_b_conv = Econv_full
 
-        g_b_seq = E[:, geo.n_pooled: nsh] if geo.seq_sizes else \
-            torch.zeros((B, 0), device=samples.device)
+        g_b_seq = E[..., geo.n_pooled: nsh] if geo.seq_sizes else \
+            torch.zeros(lead + (0,), device=samples.device)
 
         g_w_seq, g_w_intra = [], []
         for li in range(len(geo.seq_sizes)):
-            prev_b = stats[:, :, starts[li]: starts[li] + sizes[li]]
-            cur_b = stats[:, :, starts[li + 1]: starts[li + 1] + sizes[li + 1]]
-            g_w_seq.append(torch.einsum("brp,brc->bpc", prev_b, cur_b) / R)
-            g_w_intra.append(torch.triu(torch.einsum("brc,brd->bcd", cur_b, cur_b) / R, 1))
+            prev_b = stats[..., starts[li]: starts[li] + sizes[li]]
+            cur_b = stats[..., starts[li + 1]: starts[li + 1] + sizes[li + 1]]
+            g_w_seq.append(torch.einsum("...brp,...brc->...bpc", prev_b, cur_b) / R)
+            g_w_intra.append(torch.triu(torch.einsum("...brc,...brd->...bcd", cur_b, cur_b) / R,
+                                        1))
 
-        last = stats[:, :, nsh - geo.last_hidden_size: nsh]
+        last = stats[..., nsh - geo.last_hidden_size: nsh]
         if label_vec is None:
-            ys = stats[:, :, nsh:]
-            g_w_h2o = torch.einsum("brh,bro->bho", last, ys) / R
-            g_b_o = ys.mean(dim=1)
-            g_w_oo = torch.triu(torch.einsum("bro,brp->bop", ys, ys) / R, 1)
+            ys = stats[..., nsh:]
+            g_w_h2o = torch.einsum("...brh,...bro->...bho", last, ys) / R
+            g_b_o = ys.mean(dim=-2)
+            g_w_oo = torch.triu(torch.einsum("...bro,...brp->...bop", ys, ys) / R, 1)
         else:
-            g_w_h2o = last.mean(dim=1)[:, :, None] * label_vec[:, None, :]
-            g_b_o = label_vec
-            g_w_oo = torch.triu(label_vec[:, :, None] * label_vec[:, None, :], 1)
+            g_w_h2o = last.mean(dim=-2)[..., :, None] * label_vec[:, None, :]
+            g_b_o = label_vec.expand(lead + label_vec.shape[-1:])
+            g_w_oo = torch.triu(label_vec[:, :, None] * label_vec[:, None, :], 1) \
+                .expand(lead + 2 * label_vec.shape[-1:])
 
         g_pen = None
         if self.learn_penalty:
             # E[sᵀ M_w s] with the diagonal carrying the linear terms
-            hid = full[:, :, : geo.n_hidden]
-            g_pen = (hid.mean(dim=1) @ self.pen_basis_diag.T
-                     + torch.einsum("bri,wij,brj->bw", hid, self.pen_basis_upper, hid) / R)
+            hid = full[..., : geo.n_hidden]
+            g_pen = (hid.mean(dim=-2) @ self.pen_basis_diag.T
+                     + torch.einsum("...bri,wij,...brj->...bw", hid, self.pen_basis_upper,
+                                    hid) / R)
 
         return CDQBMParams(kernel=g_kernel, w_seq=tuple(g_w_seq), w_seq_intra=tuple(g_w_intra),
                            w_h2o=g_w_h2o, w_oo=g_w_oo, b_conv=g_b_conv, b_seq=g_b_seq,
@@ -511,17 +526,20 @@ class CDQBM(EpochLaunchMixin, QBMModel):
         """The step's one sampler call: ``(Q2 (2, n_total, n_total), h2 (2,
         B, n_total))``, both phases as two shared-coupling groups; the
         clamped group is zero-padded by n_out variables that couple to
-        nothing and are sliced off."""
+        nothing and are sliced off.  With parameters stacked over S seeds
+        ``(Q2 (2·S, ...), h2 (2·S, B, ...))``: every seed's clamped group,
+        then every seed's unclamped group, ``qbmx``'s sweep order."""
         geo = self.geo
         ctx = ctx if ctx is not None else self._context(params, x_imgs)
         nh, nt, B = geo.n_hidden, geo.n_total, x_imgs.shape[0]
-        Q2 = torch.zeros((2, nt, nt), dtype=torch.float32, device=x_imgs.device)
-        Q2[0, :nh, :nh] = self.clamped_qubo_shared(params)
+        lead = params.b_o.shape[:-1]  # the seed axis, if any
+        Q2 = torch.zeros((2,) + lead + (nt, nt), dtype=torch.float32, device=x_imgs.device)
+        Q2[0, ..., :nh, :nh] = self.clamped_qubo_shared(params)
         Q2[1] = self.unclamped_qubo_shared(params)
-        h2 = torch.zeros((2, B, nt), dtype=torch.float32, device=x_imgs.device)
-        h2[0, :, :nh] = self.clamped_fields(params, x_imgs, label_vec, ctx)
+        h2 = torch.zeros((2,) + lead + (B, nt), dtype=torch.float32, device=x_imgs.device)
+        h2[0, ..., :nh] = self.clamped_fields(params, x_imgs, label_vec, ctx)
         h2[1] = self.unclamped_fields(params, x_imgs, ctx)
-        return Q2, h2
+        return Q2.flatten(0, len(lead)), h2.flatten(0, len(lead))
 
     @torch.no_grad()
     def _step(self, x_imgs, y, mask, lr):
@@ -561,12 +579,14 @@ class CDQBM(EpochLaunchMixin, QBMModel):
         return nll, grad.b_o.mean()
 
     def _probs_from_samples(self, s_u):
+        """Unclamped samples (..., B, R, n_total) → (..., B, classes)
+        probabilities."""
         geo = self.geo
-        marg = s_u[:, :, geo.n_hidden:].mean(dim=1)  # (B, n_out)
+        marg = s_u[..., geo.n_hidden:].mean(dim=-2)  # (..., B, n_out)
         if not self.use_one_hot_encoding:
-            p1 = torch.clamp(marg[:, 0], 1e-12, 1 - 1e-12)
-            return torch.stack([1.0 - p1, p1], dim=1)
-        tot = marg.sum(dim=1, keepdim=True)
+            p1 = torch.clamp(marg[..., 0], 1e-12, 1 - 1e-12)
+            return torch.stack([1.0 - p1, p1], dim=-1)
+        tot = marg.sum(dim=-1, keepdim=True)
         return torch.where(tot > 0, marg / tot, torch.full_like(marg, 1.0 / geo.n_out))
 
     @torch.no_grad()

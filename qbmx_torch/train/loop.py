@@ -2,9 +2,11 @@
 
 Per epoch: one whole-epoch launch (``model.train_epoch``: device-cached
 padded batches, per-step losses fetched once), a weight pickle, and
-validation accuracy/AUC (+ their 50/50 combination).  On any failure the
-weights and history are saved as crash pickles and the error re-raised
-(reference ``src/model/faster_dqbm.py:1128-1132``).
+validation accuracy/AUC (+ their 50/50 combination); every N epochs a
+full-state checkpoint (``utils/checkpoint.py``).  On any failure the
+weights and history are saved as crash pickles, the full state as a
+``mid_epoch`` crash checkpoint, and the error re-raised (reference
+``src/model/faster_dqbm.py:1128-1132``).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from pathlib import Path
 
 import numpy as np
 
+from qbmx_torch.utils.checkpoint import save_checkpoint
 from qbmx_torch.utils.metrics import History, get_metrics, prob_scored_auc, save_history
 
 #: examples sampled per epoch for ``track_distribution``
@@ -85,20 +88,27 @@ def train_model(
     history: History | None = None,
     reinit_on_collapse: int = 0,
     checkpoint_every: int = 0,
+    checkpoint_path: str | None = None,
+    start_epoch: int = 0,
     track_distribution: bool = False,
 ) -> History:
-    """Train ``model`` for ``epochs`` epochs; returns the ``History``.
+    """Train ``model`` through epoch ``epochs``; returns the ``History``.
 
     ``reinit_on_collapse`` (0 = off, needs ``val_X``): every N epochs,
     re-draw a model whose validation accuracy stayed at the majority-class
     fraction (never after the final epoch).  ``track_distribution``: per
     epoch, append the unclamped output-pattern distribution on (a bounded
     slice of) the validation inputs to ``history.distribution_per_epoch``.
+
+    ``checkpoint_every``: every N epochs write the full state (parameters,
+    random stream, history, epoch) to ``checkpoint_path``; resuming from it
+    (``utils.checkpoint.load_checkpoint``, then ``start_epoch`` = its epoch
+    and ``history`` = its history) reproduces the uninterrupted run bit for
+    bit.  Epochs run from ``start_epoch + 1`` to ``epochs``.  On a crash
+    the state goes to ``<checkpoint_path>_crash``, stamped ``mid_epoch``:
+    an epoch is a loop of steps, so its parameters may be part-way through
+    one, and ``load_checkpoint`` refuses it without ``allow_mid_epoch``.
     """
-    if checkpoint_every:
-        raise NotImplementedError(
-            "qbmx_torch: full-state checkpoints (checkpoint_every) wait for the "
-            "utils/checkpoint port (ROADMAP Queue 1 item 3)")
     train_X = np.asarray(train_X, dtype="float32")
     train_Y = np.asarray(train_Y)
     epochs = epochs if epochs is not None else getattr(model, "epochs", 1)
@@ -109,13 +119,16 @@ def train_model(
         Path(save_folder).mkdir(parents=True, exist_ok=True)
     num_batches = max(-(-len(train_X) // batch_size), 1)
 
-    for epoch in range(1, epochs + 1):
+    for epoch in range(start_epoch + 1, epochs + 1):
         try:
             nlls, errs = model.train_epoch(train_X, train_Y, batch_size, learning_rate)
         except BaseException:  # incl. KeyboardInterrupt: save, then re-raise
             if save_folder:
                 model.save_weights(f"e{epoch}_crash", save_folder)
                 save_history(f"{save_folder}/", history)
+            if checkpoint_path:
+                save_checkpoint(f"{checkpoint_path}_crash", model, history, epoch - 1,
+                                mid_epoch=True)
             raise
         history.errors_per_batch.extend(float(e) for e in errs)
         history.nll_per_batch.extend(float(v) for v in nlls)
@@ -148,6 +161,8 @@ def train_model(
 
         history.error_per_epoch.append(epoch_errors / num_batches)
         history.nll_per_epoch.append(epoch_nll / num_batches)
+        if checkpoint_every and checkpoint_path and epoch % checkpoint_every == 0:
+            save_checkpoint(checkpoint_path, model, history, epoch)
 
     if save_folder:
         seed = getattr(model, "seed", 0)

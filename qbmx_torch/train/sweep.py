@@ -1,24 +1,26 @@
-"""Seed-parallel flat Disc_QBM training: S models, one per seed, trained as
-one batched program (counterpart of ``qbmx.train.sweep.SeedParallelDQBM``).
+"""Seed-parallel training: S models, one per seed, trained as one batched
+program (counterparts of ``qbmx.train.sweep.SeedParallelDQBM`` and
+``SeedParallelCDQBM``).
 
-The parameters are one ``DQBMParams`` stacked over a leading seed axis.
+The parameters are one parameter tree stacked over a leading seed axis.
 Each step is ONE structured sampler call over 2·S groups of B problems --
 every seed's clamped group first, then every seed's unclamped group, as
 ``qbmx`` orders them -- so at the 10-seed flagship (H=5, batch 60, 1000
-reads) a step is one launch of 20 groups of 60 problems.  The QUBO
-builders take the stacked parameters (``models/dqbm.py``); the moments are
-the single model's functions over the seeds × examples flattened; the
-masked mean, clipping and update are batched over the seed axis.  An
-epoch is a Python loop of steps whose nlls stay on the device until its
-end: one host sync an epoch.
+reads) a step is one launch of 20 groups of 60 problems, and at the
+10-seed CDQBM (a) (n=717, batch 20, 100 reads) one of 20 groups of 20.
+The QUBO builders take the stacked parameters (``models/dqbm.py``,
+``models/cdqbm.py``); the moments are the single model's functions over
+the seeds × examples; the masked mean, clipping and update are batched
+over the seed axis.  An epoch is a Python loop of steps whose nlls stay on
+the device until its end: one host sync an epoch.
 
 Streams: seed s's parameters come from ``make_generator(s, attempt)``, as
-``DiscQBM(seed=s)`` draws its own, so its initial parameters are equal.
-The samplers' random numbers come from one sweep-level generator, a pure
-function of the seed list: the kernels key their Philox streams per
-problem from its draws, so a seed's samples do not depend on its
-batch-mates, but they do not reproduce a single-model run's stream
-either (neither does ``qbmx``'s packed route).
+``DiscQBM(seed=s)`` and ``CDQBM(seed=s)`` draw their own, so its initial
+parameters are equal.  The samplers' random numbers come from one
+sweep-level generator, a pure function of the seed list: the kernels key
+their Philox streams per problem from its draws, so a seed's samples do
+not depend on its batch-mates, but they do not reproduce a single-model
+run's stream either (neither does ``qbmx``'s packed route).
 
 Left out, because they serve the TPU's compiler: the scanned and unrolled
 epoch launches, ``epoch_segment`` and the ``mesh`` argument with its
@@ -36,7 +38,8 @@ import numpy as np
 import torch
 
 from qbmx_torch.core.rng import make_generator
-from qbmx_torch.models.base import resolve_device, tree_leaves, tree_map
+from qbmx_torch.models.base import pad_rows, resolve_device, tree_leaves, tree_map
+from qbmx_torch.models.cdqbm import init_params as cdqbm_init
 from qbmx_torch.models.dqbm import (
     DQBMParams,
     clamped_fields,
@@ -57,19 +60,18 @@ from qbmx_torch.utils.metrics import History, get_metrics, prob_scored_auc
 
 # ``dqbm.params_from_numpy`` and ``params_to_numpy`` take any leading axes,
 # so they carry stacked parameters (a stacked ``qbmx`` ``DQBMParams``
-# fetched to the host, seed axis first) as they are
+# fetched to the host, seed axis first) as they are; so do ``cdqbm``'s
 sweep_params_from_numpy = params_from_numpy
 sweep_params_to_numpy = params_to_numpy
 
 
-def _seed_streams(seeds: Sequence[int], dims: tuple, restricted: bool, device,
-                  attempt: int = 0) -> DQBMParams:
-    """Stacked initial parameters: seed s's from ``make_generator(s,
-    attempt)``, the stream ``DiscQBM(seed=s).reinit_params(attempt)`` draws
-    them from, so they are equal (attempt 0: its construction)."""
+def _seed_streams(seeds: Sequence[int], init_fn, attempt: int = 0):
+    """Stacked initial parameters: seed s's are ``init_fn(make_generator(s,
+    attempt))``, the stream the single model of seed s draws them from
+    (``reinit_params(attempt)``; attempt 0: its construction), so they are
+    equal."""
     return tree_map(lambda *a: torch.stack(a),
-                    *(init_params(make_generator(s, attempt), *dims, restricted, device)
-                      for s in seeds))
+                    *(init_fn(make_generator(s, attempt)) for s in seeds))
 
 
 def _pad_to_batches(x: np.ndarray, y: np.ndarray, batch_size: int, device):
@@ -102,11 +104,31 @@ def _clip_per_seed(tree, max_norm: float):
     return tree_map(lambda leaf: leaf * scale.reshape((-1,) + (1,) * (leaf.dim() - 1)), tree)
 
 
-def _snapshot_best(best: DQBMParams, params: DQBMParams, improved: np.ndarray) -> DQBMParams:
+def _seed_nll(probs, y, mask):
+    """(S,) mean −log p(y) over the valid examples, from (S, B, classes)
+    probabilities."""
+    S, B = probs.shape[:2]
+    pick = torch.gather(probs, 2, y.to(torch.int64)[None, :, None].expand(S, B, 1))[..., 0]
+    return (-torch.log(pick + 1e-12) * mask).sum(1) / torch.clamp(mask.sum(), min=1.0)
+
+
+def _chunked(predict, x, chunk: int | None):
+    """``predict`` over ``x`` (N, ...) in sampler calls of ``chunk``
+    examples, each zero-padded to ``chunk``, as ``qbmx`` pads them (None:
+    one call of all N): its outputs, each (S, N, ...), as numpy arrays."""
+    n = x.shape[0]
+    if chunk is None:
+        parts = [predict(x)]
+    else:
+        parts = [predict(pad_rows(x[i: i + chunk], chunk)) for i in range(0, n, chunk)]
+    return [torch.cat(outs, dim=1)[:, :n].cpu().numpy() for outs in zip(*parts)]
+
+
+def _snapshot_best(best, params, improved: np.ndarray):
     """Where ``improved[s]``, seed s's parameters replace its row of the
     stacked best-epoch parameters (on the device; no host copy until they
     are saved)."""
-    imp = torch.as_tensor(improved, device=params.b_h.device)
+    imp = torch.as_tensor(improved, device=tree_leaves(params)[0].device)
     return tree_map(lambda b, p: torch.where(imp.reshape((-1,) + (1,) * (p.dim() - 1)), p, b),
                     best, params)
 
@@ -127,26 +149,115 @@ def _track_best(sw, histories, epoch_i: int) -> None:
 
 def _save_best_models(sw, folder, objs_for_seed, name_fn=None) -> dict:
     """Each seed's best-epoch weight pickle under ``folder/best_model/``,
-    the reference's layout; ``objs_for_seed(numpy fields of one seed) ->
-    pickle payload``, ``name_fn(seed, best_epoch) -> file stem``.  Returns
-    {seed: path}."""
+    the reference's layout; ``objs_for_seed(one seed's parameters, on the
+    host) -> pickle payload``, ``name_fn(seed, best_epoch) -> file stem``.
+    Returns {seed: path}."""
     if sw.best_params is None:
         raise RuntimeError("no best-epoch snapshots: train with validation data first")
     out = Path(folder) / "best_model"
     out.mkdir(parents=True, exist_ok=True)
-    host = sweep_params_to_numpy(sw.best_params)  # one device fetch
+    host = tree_map(lambda a: a.cpu(), sw.best_params)  # fetched once for every seed
     paths = {}
     for i, seed in enumerate(sw.seeds):
         stem = (name_fn(seed, int(sw.best_epoch[i])) if name_fn is not None
                 else f"_se{seed}_e{int(sw.best_epoch[i])}_best")
         path = out / f"{stem}.pkl"
         with open(path, "wb") as f:
-            pickle.dump(objs_for_seed({k: v[i] for k, v in host.items()}), f)
+            pickle.dump(objs_for_seed(tree_map(lambda a: a[i], host)), f)
         paths[seed] = str(path)
     return paths
 
 
-class SeedParallelDQBM:
+class _SeedSweep:
+    """The epoch loop, flatline re-draws and best-epoch bookkeeping both
+    sweeps share.  A subclass sets ``seeds``, ``S``, ``device`` and
+    ``params``, calls :meth:`_start`, and provides ``_init_params(generator)``
+    (one seed's initial parameters), ``_prepare(x)`` (host inputs in its
+    layout), ``_step(x, y, mask, lr)`` ((S,) nlls) and ``_validate(x)`` (numpy
+    (S, N) predictions and (S, N, classes) probabilities)."""
+
+    #: validation examples a sampler call (None: all of them in one call)
+    predict_chunk: int | None = None
+
+    def _start(self) -> None:
+        # the samplers' draws: one generator for the sweep, from the seed list
+        state = np.random.SeedSequence(self.seeds).generate_state(1, np.uint64)
+        self.generator = torch.Generator().manual_seed(int(state[0]))
+        self.best_params = None
+        self.best_metric = np.full(self.S, -np.inf)
+        self.best_epoch = np.zeros(self.S, dtype=int)
+        # cumulative over repeated train() calls: a winner found in a later
+        # call records its total epoch; re-draws continue their attempts
+        self._epochs_done = 0
+        self._reinit_attempts = [0] * self.S
+
+    def reinit_seeds(self, indices: Sequence[int], attempt: int = 1) -> None:
+        """Re-draw the listed seeds' parameters (by index) from
+        ``make_generator(seed, attempt)``: fresh, deterministic draws for
+        flatline recovery, each equal to the single model's
+        ``reinit_params(attempt)``."""
+        idx = torch.as_tensor(list(indices), dtype=torch.int64, device=self.device)
+        fresh = _seed_streams([self.seeds[i] for i in indices], self._init_params, attempt)
+        self.params = tree_map(lambda a, f: a.index_copy(0, idx, f), self.params, fresh)
+
+    def train(self, train_X, train_Y, val_X=None, val_Y=None, epochs: int = 1,
+              batch_size: int = 8, learning_rate: float = 0.005,
+              class_titles=("0", "1"), verbose: bool = True,
+              reinit_on_collapse: int = 0) -> list[History]:
+        """Returns one reference-style ``History`` per seed.
+        ``reinit_on_collapse`` (0 = off, needs validation data): every N
+        epochs, re-draw each seed that ``train.loop.flatlined`` over them
+        (never after the final epoch)."""
+        xb, yb, maskb, nb = _pad_to_batches(self._prepare(np.asarray(train_X, dtype="float32")),
+                                            np.asarray(train_Y), batch_size, self.device)
+        xv = (torch.as_tensor(self._prepare(np.asarray(val_X, dtype="float32")),
+                              device=self.device) if val_X is not None else None)
+        histories = [History() for _ in range(self.S)]
+        for epoch_i in range(1, epochs + 1):
+            nlls = torch.stack([self._step(xb[i], yb[i], maskb[i], learning_rate)
+                                for i in range(nb)], dim=1).cpu().numpy()  # (S, nb)
+            for s, h in enumerate(histories):
+                h.nll_per_batch.extend(float(v) for v in nlls[s])
+                h.nll_per_epoch.append(float(nlls[s].sum()) / nb)
+                h.errors_per_batch.extend(0.0 for _ in range(nb))
+                h.error_per_epoch.append(0.0)
+            if xv is None:
+                continue
+            preds, probs = self._validate(xv)
+            for s, h in enumerate(histories):
+                acc, _, _, _, auc = get_metrics(val_Y, preds[s], list(class_titles))
+                h.acc_per_epoch.append(acc)
+                h.auc_per_epoch.append(auc)
+                h.combined_acc_auc_per_epoch.append(0.5 * acc + 0.5 * auc)
+                h.prob_auc_per_epoch.append(prob_scored_auc(val_Y, probs[s]))
+            _track_best(self, histories, epoch_i)
+            if verbose:
+                accs = [h.acc_per_epoch[-1] for h in histories]
+                print(f"Epoch {epoch_i}/{epochs}  val_acc mean {np.mean(accs):.4f} "
+                      f"[{np.min(accs):.4f}, {np.max(accs):.4f}]")
+            if reinit_on_collapse and epoch_i % reinit_on_collapse == 0 and epoch_i < epochs:
+                collapsed = [s for s, h in enumerate(histories)
+                             if flatlined(h.acc_per_epoch, val_Y, reinit_on_collapse)]
+                for s in collapsed:
+                    self._reinit_attempts[s] += 1
+                    self.reinit_seeds([s], attempt=self._reinit_attempts[s])
+                if collapsed and verbose:
+                    print(f"re-initialized flatlined seeds {[self.seeds[s] for s in collapsed]}")
+        self._epochs_done += epochs
+        return histories
+
+    def params_for_seed(self, s: int):
+        """Seed ``s``'s parameters (by index) out of the stacked ones."""
+        return tree_map(lambda a: a[s], self.params)
+
+    def best_params_for_seed(self, s: int):
+        """Seed ``s``'s parameters at its best combined-acc/AUC epoch."""
+        if self.best_params is None:
+            raise RuntimeError("no validation epochs recorded yet")
+        return tree_map(lambda a: a[s], self.best_params)
+
+
+class SeedParallelDQBM(_SeedSweep):
     """Train S flat Disc_QBMs (one per seed) as a single batched program.
 
     Hyperparameters mirror :class:`qbmx_torch.models.dqbm.DiscQBM`;
@@ -185,20 +296,15 @@ class SeedParallelDQBM:
         self.device = resolve_device(device)
         self.sampler = sampler if sampler is not None else get_sampler(
             solver, num_sweeps=anneal_steps)
-        self.params = _seed_streams(self.seeds, self._dims(), restricted, self.device)
-        # the samplers' draws: one generator for the sweep, from the seed list
-        state = np.random.SeedSequence(self.seeds).generate_state(1, np.uint64)
-        self.generator = torch.Generator().manual_seed(int(state[0]))
-        self.best_params = None
-        self.best_metric = np.full(self.S, -np.inf)
-        self.best_epoch = np.zeros(self.S, dtype=int)
-        # cumulative over repeated train() calls: a winner found in a later
-        # call records its total epoch; re-draws continue their attempts
-        self._epochs_done = 0
-        self._reinit_attempts = [0] * self.S
+        self.params = _seed_streams(self.seeds, self._init_params)
+        self._start()
 
-    def _dims(self) -> tuple:
-        return (self.dim_input, self.n_hidden_nodes, self.n_output_nodes)
+    def _init_params(self, generator: torch.Generator) -> DQBMParams:
+        return init_params(generator, self.dim_input, self.n_hidden_nodes, self.n_output_nodes,
+                           self.restricted, self.device)
+
+    def _prepare(self, x: np.ndarray) -> np.ndarray:
+        return x
 
     # -- batched computations ------------------------------------------------
 
@@ -249,9 +355,7 @@ class SeedParallelDQBM:
             grad = _clip_per_seed(grad, self.grad_clip)
         self.params = tree_map(lambda a, g: a - lr * g, p, grad)
 
-        probs = self._probs(s_u)
-        pick = torch.gather(probs, 2, y.to(torch.int64)[None, :, None].expand(S, B, 1))[..., 0]
-        return (-torch.log(pick + 1e-12) * mask).sum(1) / torch.clamp(mask.sum(), min=1.0)
+        return _seed_nll(self._probs(s_u), y, mask)
 
     @torch.no_grad()
     def _predict(self, x):
@@ -264,84 +368,104 @@ class SeedParallelDQBM:
                                     self.predict_sample_count)  # (S, N, R, n_u)
         return s_u[..., :self.n_output_nodes].mean(dim=2), self._probs(s_u)
 
-    def reinit_seeds(self, indices: Sequence[int], attempt: int = 1) -> None:
-        """Re-draw the listed seeds' parameters (by index) from
-        ``make_generator(seed, attempt)``: fresh, deterministic draws for
-        flatline recovery, each equal to ``DiscQBM(seed).reinit_params(
-        attempt)``'s."""
-        idx = torch.as_tensor(list(indices), dtype=torch.int64, device=self.device)
-        fresh = _seed_streams([self.seeds[i] for i in indices], self._dims(), self.restricted,
-                              self.device, attempt)
-        self.params = tree_map(lambda a, f: a.index_copy(0, idx, f), self.params, fresh)
-
-    # -- training --------------------------------------------------------------
-
-    def train(self, train_X, train_Y, val_X=None, val_Y=None, epochs: int = 1,
-              batch_size: int = 8, learning_rate: float = 0.005,
-              class_titles=("0", "1"), verbose: bool = True,
-              reinit_on_collapse: int = 0) -> list[History]:
-        """Returns one reference-style ``History`` per seed.
-        ``reinit_on_collapse`` (0 = off, needs validation data): every N
-        epochs, re-draw each seed that ``train.loop.flatlined`` over them
-        (never after the final epoch)."""
-        xb, yb, maskb, nb = _pad_to_batches(np.asarray(train_X, dtype="float32"),
-                                            np.asarray(train_Y), batch_size, self.device)
-        xv = (torch.as_tensor(np.asarray(val_X, dtype="float32"), device=self.device)
-              if val_X is not None else None)
-        histories = [History() for _ in range(self.S)]
-        for epoch_i in range(1, epochs + 1):
-            nlls = torch.stack([self._step(xb[i], yb[i], maskb[i], learning_rate)
-                                for i in range(nb)], dim=1).cpu().numpy()  # (S, nb)
-            for s, h in enumerate(histories):
-                h.nll_per_batch.extend(float(v) for v in nlls[s])
-                h.nll_per_epoch.append(float(nlls[s].sum()) / nb)
-                h.errors_per_batch.extend(0.0 for _ in range(nb))
-                h.error_per_epoch.append(0.0)
-            if xv is None:
-                continue
-            marg, probs = (t.cpu().numpy() for t in self._predict(xv))
-            for s, h in enumerate(histories):
-                preds = (np.argmax(marg[s], axis=1) if self.use_one_hot_encoding
-                         else np.round(marg[s][:, 0]).astype(int))
-                acc, _, _, _, auc = get_metrics(val_Y, preds, list(class_titles))
-                h.acc_per_epoch.append(acc)
-                h.auc_per_epoch.append(auc)
-                h.combined_acc_auc_per_epoch.append(0.5 * acc + 0.5 * auc)
-                h.prob_auc_per_epoch.append(prob_scored_auc(val_Y, probs[s]))
-            _track_best(self, histories, epoch_i)
-            if verbose:
-                accs = [h.acc_per_epoch[-1] for h in histories]
-                print(f"Epoch {epoch_i}/{epochs}  val_acc mean {np.mean(accs):.4f} "
-                      f"[{np.min(accs):.4f}, {np.max(accs):.4f}]")
-            if reinit_on_collapse and epoch_i % reinit_on_collapse == 0 and epoch_i < epochs:
-                collapsed = [s for s, h in enumerate(histories)
-                             if flatlined(h.acc_per_epoch, val_Y, reinit_on_collapse)]
-                for s in collapsed:
-                    self._reinit_attempts[s] += 1
-                    self.reinit_seeds([s], attempt=self._reinit_attempts[s])
-                if collapsed and verbose:
-                    print(f"re-initialized flatlined seeds {[self.seeds[s] for s in collapsed]}")
-        self._epochs_done += epochs
-        return histories
-
-    def params_for_seed(self, s: int) -> DQBMParams:
-        """Seed ``s``'s parameters (by index) out of the stacked ones."""
-        return tree_map(lambda a: a[s], self.params)
-
-    def best_params_for_seed(self, s: int) -> DQBMParams:
-        """Seed ``s``'s parameters at its best combined-acc/AUC epoch."""
-        if self.best_params is None:
-            raise RuntimeError("no validation epochs recorded yet")
-        return tree_map(lambda a: a[s], self.best_params)
+    def _validate(self, x):
+        marg, probs = _chunked(self._predict, x, self.predict_chunk)
+        preds = (np.argmax(marg, axis=2) if self.use_one_hot_encoding
+                 else np.round(marg[..., 0]).astype(int))
+        return preds, probs
 
     def save_best_models(self, folder, name_fn=None) -> dict:
         """Per-seed best-epoch weight pickles under ``folder/best_model/``
         in the reference 5/6-tuple format ``DiscQBM.load_savepoint`` reads
         in both packages."""
 
-        def objs(d):
+        def objs(p):
+            d = params_to_numpy(p)
             return [d[k] for k in ("w_vh", "w_vo", "b_h", "b_o", "w_oo")] \
                 + ([] if self.restricted else [d["w_hh"]])
 
         return _save_best_models(self, folder, objs, name_fn)
 
+
+class SeedParallelCDQBM(_SeedSweep):
+    """Train S convolutional deep QBMs (one per seed) as a single batched
+    program.
+
+    A donor :class:`qbmx_torch.models.cdqbm.CDQBM` supplies the geometry,
+    flags, sampler, device and the builders, which take the stacked
+    parameters; its own parameters and generator are not used.  Seed s's
+    parameters come from ``make_generator(s, attempt)`` through
+    ``cdqbm.init_params``, equal to ``CDQBM(seed=s)``'s.  A step is one
+    sampler call of 2·S groups of B problems, the clamped groups
+    zero-padded from n_hidden to n_total (``CDQBM.step_qubos``); a
+    validation chunk of ``predict_chunk`` (32) examples one call of S
+    groups.  ``params_from_numpy`` / ``params_to_numpy`` of
+    ``models/cdqbm.py`` carry the stacked parameters to and from numpy
+    (a stacked ``qbmx`` ``CDQBMParams``, seed axis first)."""
+
+    predict_chunk = 32
+
+    def __init__(self, seeds: Sequence[int], model):
+        self.model = model
+        self.seeds = [int(s) for s in seeds]
+        self.S = len(self.seeds)
+        self.device = model.device
+        self.params = _seed_streams(self.seeds, self._init_params)
+        self._start()
+
+    def _init_params(self, generator: torch.Generator):
+        m = self.model
+        return cdqbm_init(generator, m.geo, m.hidden_bias_type, m.is_restricted,
+                          m.learn_penalty, m.prob_penalty, m.device)
+
+    def _prepare(self, x: np.ndarray) -> np.ndarray:
+        return self.model._prepare_inputs(x)
+
+    def step_qubos(self, x, y):
+        """The step's one sampler call on images ``x`` (B, H, W) and labels
+        ``y`` (B,): ``(Q_all (2·S, n_total, n_total), h_all (2·S, B,
+        n_total))``."""
+        return self.model.step_qubos(self.params, x, self.model._label_vec(y))
+
+    @torch.no_grad()
+    def _step(self, x, y, mask, lr):
+        """One update of every seed's parameters from ONE sampler call;
+        returns the (S,) nlls on the device."""
+        m, p, S = self.model, self.params, self.S
+        y_vec = m._label_vec(y)
+        ctx = m._context(p, x)
+        Q_all, h_all = m.step_qubos(p, x, y_vec, ctx)
+        s_all = sampler_sample_groups(m.sampler, self.generator, Q_all, h_all,
+                                      m.sample_count)  # (2S, B, R, n_total)
+        s_c, s_u = s_all[:S, :, :, :m.geo.n_hidden], s_all[S:]
+        mc = m._moments(p, s_c, ctx, y_vec)
+        mu = m._moments(p, s_u, ctx)
+        grad = _seed_mean(tree_map(lambda a, b: a - b, mc, mu), mask)
+        if m.is_restricted:
+            grad.w_seq_intra = tuple(torch.zeros_like(w) for w in grad.w_seq_intra)
+        if m.hidden_bias_type == "none":
+            grad.b_conv = torch.zeros_like(grad.b_conv)
+        if m.grad_clip > 0.0:
+            grad = _clip_per_seed(grad, m.grad_clip)
+        self.params = tree_map(lambda a, g: a - lr * g, p, grad)
+        return _seed_nll(m._probs_from_samples(s_u), y, mask)
+
+    @torch.no_grad()
+    def _predict(self, x):
+        """ONE sampler call over S groups of the images → ((S, N, classes)
+        probabilities,)."""
+        m, p = self.model, self.params
+        s_u = sampler_sample_groups(m.sampler, self.generator, m.unclamped_qubo_shared(p),
+                                    m.unclamped_fields(p, x), m.sample_count)
+        return (m._probs_from_samples(s_u),)
+
+    def _validate(self, x):
+        (probs,) = _chunked(self._predict, x, self.predict_chunk)
+        return np.argmax(probs, axis=2), probs
+
+    def save_best_models(self, folder, name_fn=None) -> dict:
+        """Per-seed best-epoch weight pickles under ``folder/best_model/``
+        in the reference 8/9-entry format ``CDQBM.load_params`` reads in
+        both packages."""
+        return _save_best_models(self, folder,
+                                 lambda p: self.model.weight_objects(params=p), name_fn)

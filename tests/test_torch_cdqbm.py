@@ -410,9 +410,9 @@ def test_parser_has_the_reference_flags_and_defaults():
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(seed_sweep=[1, 2]), NotImplementedError, "ROADMAP"),
-    (dict(resume="state.npz"), NotImplementedError, "ROADMAP"),
-    (dict(checkpoint_every=1), NotImplementedError, "ROADMAP"),
+    (dict(data_set="cifar-10"), NotImplementedError, "ROADMAP"),
+    (dict(solver="SA-NATIVE"), NotImplementedError, "ROADMAP"),
+    (dict(solver="Advantage_system4.1"), NotImplementedError, "ROADMAP"),
     (dict(reinit_on_collapse=2), ValueError, "seed_sweep"),
 ])
 def test_unported_and_refused_options_raise(kw, err, match):

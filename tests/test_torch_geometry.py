@@ -556,3 +556,36 @@ def test_row_lists_hold_the_nonzeros_in_order(problem):
     if problem == "CDQBM (a)":
         assert rows.nnz == (10_092, 10_100) and rows.nnz_pad == CDQBM_A_NNZ_PAD
         assert int(counts.max()) == 40 and pt_wide_cuda.row_nnz(J).equal(counts.int())
+
+
+def test_the_10_seed_cdqbm_a_sweep_call_takes_k4_and_k5s_sparse_path():
+    """The 10-seed CDQBM (a) sweep's step (``SeedParallelCDQBM.step_qubos``:
+    G=20 groups of B=20 at n=717, every seed's clamped group then every
+    unclamped one): K4 takes it at 32 chains a block on a grid of (63, 20)
+    (40,000 chains, 1,260 blocks, one an SM); PT routes to K5, whose 20
+    row lists, sized by the one host sync of the call, fit beside 4
+    ladders a block: the sparse path on a grid of (500, 20) (320,000
+    rungs, 10,000 blocks)."""
+    from qbmx_torch.models.cdqbm import CDQBM
+    from qbmx_torch.train.sweep import SeedParallelCDQBM
+
+    donor = CDQBM(pooling_size=4, pooling_type="probabilistic", sequential_layer_sizes=[4],
+                  hidden_bias_type="shared", solver="PT", beta_eff=5.0, device="cpu")
+    sweep = SeedParallelCDQBM(range(10), donor)
+    x = torch.as_tensor(np.random.default_rng(4).random((20, 28, 28), dtype=np.float32))
+    Q, h = sweep.step_qubos(x, torch.arange(20) % 2)
+    G, B, M, R, n = 20, 20, 8, 100, 717
+    assert Q.shape == (G, n, n) and h.shape == (G, B, n)
+    wide = wide_cuda.wide_geometry(G, B, R, n)
+    assert (wide.chains_per_block, wide.grid) == (32, (63, 20))
+    assert pt_wide_cuda.pt_route(G, B, M, R, n) == "pt_wide"
+    J = split_qubo(Q)[1]
+    counts = pt_wide_cuda.row_nnz(J)
+    nnz = pt_wide_cuda.group_nnz(counts)
+    assert len(nnz) == G and max(nnz) <= CDQBM_A_NNZ_PAD and int(counts.max()) <= 40
+    rows = pt_wide_cuda.row_lists(J, counts, nnz)
+    assert rows.vals.shape == (G, pt_wide_cuda.padded(max(nnz))) and rows.nnz == nnz
+    geo = pt_wide_cuda.pt_wide_geometry(G, B, M, R, n, rows.nnz_pad)
+    assert (geo.path, geo.ladders_per_block, geo.cluster, geo.threads, geo.grid) == \
+        (pt_wide_cuda.SPARSE, 4, 1, 1024, (500, 20))
+    assert geo.smem <= kernel_call.SMEM_BYTES

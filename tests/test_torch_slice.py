@@ -55,8 +55,8 @@ def test_parser_has_the_reference_flags_and_defaults():
 
 @pytest.mark.parametrize("kw,err", [
     (dict(solver="Advantage_system4.1"), NotImplementedError),  # a QPU solver
-    (dict(resume="state.npz"), NotImplementedError),
-    (dict(checkpoint_every=1), NotImplementedError),
+    (dict(data_set="cifar-10"), NotImplementedError),
+    (dict(solver="DW_2000Q_6"), NotImplementedError),  # a QPU solver by its other prefix
     (dict(solver="SA-NATIVE"), NotImplementedError),
 ])
 def test_unported_options_raise(kw, err):
