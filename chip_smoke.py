@@ -125,7 +125,28 @@ failure exits nonzero; nothing carries on after one):
    inputs make, K4's and K5's from the nonzeros of the changed rows, each
    counted by one more launch, K2's at the flagship and the CDQBM (b)
    call; K3's from its decisions alone; and K4, K5's sparse path, K1 and
-   K2 at the 10-seed sweeps' calls on their own step QUBOs).
+   K2 at the 10-seed sweeps' calls on their own step QUBOs);
+7. the RBM family (``rbm_phase``; no kernel of its own, its products are
+   cuBLAS matmuls): ``qbmx_torch.cli.rbm_main.main`` on ``cuda`` at its
+   defaults (discriminative, H=9, bs7, lr 0.0871) on synthetic data, cut
+   to 2 epochs, for 3 of its seeds in turn and ``--seed_parallel`` over
+   all 10, each seed's best accuracy and AUC printed and every pickle
+   loaded back; the card against the CPU from the same parameters (2 f32
+   discriminative epochs unshuffled, a ``ClassificationRBM`` and a
+   3-seed ``SeedParallelRBM``: parameters within 1e-4); CD-1 (bf16), PCD
+   and hybrid steps at the headline shape (batch 4096, 784 × 128):
+   parameters f32 and finite, the PCD chain binary; resume bit for bit
+   (``rbm_main --resume`` for the f32 discriminative RBM, ``train_rbm``
+   from ``load_checkpoint`` for the bf16 CD-1 RBM); the warm start: the
+   card's RBM mapped onto a ``DiscQBM`` (``models/warmstart.py``) whose
+   p(y=1|x) under the exact sampler is the RBM's within 0.06, then one
+   epoch with the SA sampler, K1 launched once a step and nothing else,
+   and K1 at that step's own call (G=2, B=60, n=10, R=100, S=1000)
+   against its plain version under variates drawn on the card (the 1%
+   bound of phase 3), timed beside its plain version and its bound;
+   and the CD-1 bf16 epoch (16 steps of 4096 binarized synthetic images)
+   at H=128 and H=9 by CUDA events, in ms and images/s, beside its bound
+   (``roofline.rbm_cd1_bound``).
 
 The last three lines are the ``nvidia-smi`` line, one JSON object with the
 kernel records (time, plain time, bound, launches on the main path), and
@@ -137,6 +158,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import pickle
 import statistics
 import subprocess
 import sys
@@ -267,6 +289,249 @@ def oracle_error(s, Q, *, joint: bool) -> tuple[float, float]:
     err = (s.mean(0) - marg).abs().max().item()
     moment = ((s.T @ s) / s.shape[0] - pair_m).abs().max().item() if joint else 0.0
     return err, moment
+
+
+def rbm_phase(dev, smi: str, counters) -> dict:
+    """Phase 7 (module docstring): the RBM family on the card; returns its
+    record."""
+    import qbmx_torch.cli.rbm_main as rm
+    from qbmx_torch.cli._common import load_dataset
+    from qbmx_torch.data import loaders
+    from qbmx_torch.models import rbm
+    from qbmx_torch.models.warmstart import warm_start_dqbm
+    from qbmx_torch.samplers.api import get_sampler
+    from qbmx_torch.train.sweep import SeedParallelRBM
+    from qbmx_torch.utils.checkpoint import load_checkpoint
+    from qbmx_torch.samplers import sa_cuda, sa_torch
+    from qbmx_torch.utils.roofline import anneal_bound, rbm_cd1_bound
+
+    rec = {}
+    t_phase = time.perf_counter()
+    made = []
+
+    class RecordedRBM(rm.ClassificationRBM):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.initial_params = rbm.params_to_numpy(self.params)
+            made.append(self)
+
+    rm.ClassificationRBM = RecordedRBM
+    (train_X, train_y), (val_X, _), (test_X, test_y) = load_dataset("synthetic", seed=0)
+    train_X, val_X, test_X = loaders.preprocess_images(train_X, val_X, test_X)
+    flags = rm.build_parser().parse_args([])
+    lr, hidden, bs = flags.lr, flags.hidden_units, flags.batch_size  # rbm_main's defaults
+
+    def finite(params) -> bool:
+        return all(bool(torch.isfinite(getattr(params, f)).all()) and
+                   getattr(params, f).dtype == torch.float32 for f in rbm.FIELDS)
+
+    # rbm_main in-process at its defaults, 2 epochs: 3 seeds in turn, then
+    # --seed_parallel over all 10; each seed's best accuracy and AUC
+    parse = rm.build_parser().parse_args
+    seeds3 = [str(s) for s in rm.DEFAULT_SEEDS[:3]]
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, extra, seeds in (("sequential", ["--seeds", *seeds3], rm.DEFAULT_SEEDS[:3]),
+                                    ("seed_parallel", ["--seed_parallel"], rm.DEFAULT_SEEDS)):
+            out = Path(tmp, label)
+            t0 = time.perf_counter()
+            rm.main(parse(["--data_set", "synthetic", "--epochs", "2", "--device", "cuda",
+                           "--out", str(out), *extra]))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            best = {}
+            for s in seeds:
+                accs = pickle.loads((out / f"acc_per_epoch{s}.pkl").read_bytes())
+                aucs = pickle.loads((out / f"auc_per_epoch{s}.pkl").read_bytes())
+                check(len(accs) == len(aucs) == 2, f"rbm_main {label} seed {s}: {accs} {aucs}")
+                e = int(np.argmax(0.5 * np.asarray(accs) + 0.5 * np.asarray(aucs)))
+                best[s] = (accs[e], aucs[e])
+            if label == "sequential":
+                for m in made[-3:]:
+                    check(m.device.type == "cuda" and finite(m.params), "rbm_main: params")
+                    check(max(float(np.abs(v - m.initial_params[k]).max())
+                              for k, v in rbm.params_to_numpy(m.params).items()) > 0.0,
+                          "rbm_main: training did not move the parameters")
+            else:
+                pkls = sorted((out / "best_model").glob("*.pkl"))
+                check(len(pkls) == 10, f"rbm_main --seed_parallel: {len(pkls)} best-model pickles")
+                for path in pkls:
+                    m = rbm.ClassificationRBM(train_X.shape[1], hidden, device=dev)
+                    m.load_params(path)
+                    acc, _ = m.run_test_set(test_X, test_y)
+                    check(finite(m.params) and 0.0 <= acc <= 1.0, f"{path.name} does not load")
+            rec[f"rbm_main {label}"] = {"seeds": len(seeds), "epochs": 2, "wall_s": wall,
+                                        "best_acc_auc": {str(s): v for s, v in best.items()}}
+            print(f"phase 7 rbm_main {label} cuda synthetic H=9 bs7 lr 0.0871 e2, {len(seeds)} "
+                  f"seeds: best (acc, auc) "
+                  + ", ".join(f"{s}: ({a:.4f}, {u:.4f})" for s, (a, u) in best.items())
+                  + f"; pickles load; wall {wall:.2f} s")
+
+    # the card against the CPU from the same parameters: 2 f32
+    # discriminative epochs unshuffled
+    diffs = {}
+    runs = {}
+    for d in ("cpu", "cuda"):
+        m = rbm.ClassificationRBM(train_X.shape[1], hidden, learning_rate=lr, seed=5, device=d)
+        m.params = rbm.params_from_numpy(made[0].initial_params, d)
+        m.train_rbm(train_X, train_y, 2, bs, test_x=test_X, test_y=test_y, shuffle=False)
+        sw = SeedParallelRBM(rm.DEFAULT_SEEDS[:3], train_X.shape[1], hidden, learning_rate=lr,
+                             device=d)
+        sw.sweep(train_X, train_y, test_X, test_y, epochs=2, batch_size=bs, shuffle=False)
+        runs[d] = (m, sw)
+    for i, label in enumerate(("ClassificationRBM", "SeedParallelRBM 3 seeds")):
+        a, b = (rbm.params_to_numpy(runs[d][i].params) for d in ("cpu", "cuda"))
+        diffs[label] = max(float(np.abs(a[k] - b[k]).max()) for k in rbm.FIELDS)
+        check(diffs[label] <= 1e-4, f"{label}: card and CPU parameters differ by {diffs[label]}")
+    rec["card_vs_cpu_max_abs_diff"] = diffs
+    print(f"phase 7 card against CPU, 2 f32 discriminative epochs unshuffled (H=9 bs7, 172 steps "
+          f"a model): largest parameter difference {diffs} (limit 1e-4)")
+
+    # CD-1 (bf16), PCD and hybrid at the headline shape, a few steps each
+    x, y = loaders.synthetic_images(4096, shape=(28, 28), num_classes=2, seed=0)
+    x = torch.as_tensor(loaders.binarize(x.reshape(len(x), -1)), device=dev)
+    y = torch.as_tensor(y, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for method, kw in (("generative", dict(compute_dtype=torch.bfloat16)), ("pcd", {}),
+                       ("hybrid", dict(generative_factor=0.01))):
+        step = rbm.make_train_step(2, method=method, **kw)
+        params = rbm.init_params(torch.Generator().manual_seed(0), 784, 128, 2, dev)
+        chain, losses = None, []
+        for _ in range(3):
+            out = step(params, x, y, 0.05, *((chain,) if method == "pcd" else ()), generator=gen)
+            params, loss = out[:2]
+            chain = out[2] if method == "pcd" else None
+            losses.append(float(loss))
+        check(finite(params) and all(map(math.isfinite, losses)), f"RBM {method}: {losses}")
+        if method == "pcd":
+            check(all(set(t.unique().tolist()) <= {0.0, 1.0} for t in chain),
+                  "RBM pcd: the chain is not binary")
+        print(f"phase 7 RBM {method} {kw or ''} 3 steps at batch 4096 784x128 on cuda: params f32 "
+              f"and finite, losses {losses}" + ("; chain binary" if method == "pcd" else ""))
+
+    # resume bit for bit: rbm_main --resume (f32 discriminative), and a bf16
+    # CD-1 ClassificationRBM through load_checkpoint
+    def same(a, b) -> list:
+        pa, pb = rbm.params_to_numpy(a.params), rbm.params_to_numpy(b.params)
+        bad = [k for k in rbm.FIELDS if not np.array_equal(pa[k], pb[k])]
+        if not torch.equal(a.generator.get_state(), b.generator.get_state()):
+            bad.append("generator state")
+        return bad + [n for n in ("acc_per_epoch_list", "auc_per_epoch_list",
+                                  "nll_per_epoch_list") if getattr(a, n) != getattr(b, n)]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        base = ["--data_set", "synthetic", "--device", "cuda", "--seeds", seeds3[0],
+                "--checkpoint_every", "1"]
+        rm.main(parse(base + ["--epochs", "2", "--out", f"{tmp}/a"]))
+        whole = made[-1]
+        rm.main(parse(base + ["--epochs", "1", "--out", f"{tmp}/b"]))
+        rm.main(parse(base + ["--epochs", "2", "--out", f"{tmp}/c",
+                              "--resume", f"{tmp}/b/state_se{seeds3[0]}.npz"]))
+        differ = same(whole, made[-1])
+        check(not differ, f"resume rbm_main f32: the resumed run differs in {differ}")
+        bf = dict(method="generative", compute_dtype=torch.bfloat16, learning_rate=0.05,
+                  seed=4, device=dev)
+        xb = loaders.binarize(train_X)
+        whole = rbm.ClassificationRBM(784, 128, **bf)
+        whole.train_rbm(xb, train_y, 2, 64, test_x=test_X, test_y=test_y)
+        first = rbm.ClassificationRBM(784, 128, **bf)
+        first.train_rbm(xb, train_y, 1, 64, test_x=test_X, test_y=test_y, checkpoint_every=1,
+                        checkpoint_path=f"{tmp}/bf16")
+        resumed = rbm.ClassificationRBM(784, 128, **bf)
+        hist, ep = load_checkpoint(f"{tmp}/bf16", resumed)
+        resumed.acc_per_epoch_list = list(hist.acc_per_epoch)
+        resumed.auc_per_epoch_list = list(hist.auc_per_epoch)
+        resumed.nll_per_epoch_list = list(hist.nll_per_epoch)
+        resumed.train_rbm(xb, train_y, 2, 64, test_x=test_X, test_y=test_y, start_epoch=ep)
+        differ = same(whole, resumed)
+        check(not differ, f"resume bf16 CD-1: the resumed run differs in {differ}")
+    rec["resume"] = {"rbm_main f32 discriminative": "bit for bit", "bf16 CD-1": "bit for bit"}
+    print("phase 7 resume on cuda, 2 epochs straight against 1 epoch + resume: rbm_main f32 "
+          "discriminative (H=9 bs7) and a bf16 CD-1 ClassificationRBM (H=128 bs64): parameters, "
+          "generator state and acc/auc/nll lists equal bit for bit")
+
+    # the warm start: the card's RBM onto a DiscQBM (n = 10), exact sampler,
+    # then one SA epoch on K1
+    trained = runs["cuda"][0]
+    xt = test_X[:32]
+    want = rbm.predict_proba(trained.params, torch.as_tensor(xt, device=dev))[:, 1].cpu().numpy()
+    exact = warm_start_dqbm(trained, seed=0, sample_count=4096, sampler=get_sampler("EXACT"))
+    _, probs = exact.predict_batch(xt)
+    p_err = float(np.abs(probs[:, 1] - want).max())
+    check(p_err <= 0.06, f"warm start: p(y=1|x) of the DQBM differs from the RBM's by {p_err}")
+    qbm = warm_start_dqbm(trained, seed=0, sample_count=100, sampler=get_sampler("SA"))
+    before = {k: v.clone() for k, v in vars(qbm.params).items()}
+    for c in counters:
+        c.reset_launch_counts()
+    nlls, _ = qbm.train_epoch(train_X, train_y, 60, 0.05)
+    torch.cuda.synchronize()
+    counts = {k: v for c in counters for k, v in c.launch_counts.items()}
+    steps = math.ceil(len(train_X) / 60)
+    check(counts["sa_metropolis"] == steps and sum(counts.values()) == steps,
+          f"warm-started DQBM, one SA epoch of {steps} steps: launch counts {counts}")
+    check(all(map(math.isfinite, nlls)) and any(
+        not torch.equal(v, getattr(qbm.params, k)) for k, v in before.items()),
+        f"warm-started DQBM: nll {nlls}, or the parameters did not move")
+    # K1 at that step's own call (G=2, B=60, n=10, R=100, S=1000): against
+    # its plain version under variates drawn on the card (phase 3's 1%
+    # bound), timed, and bounded from the flips it makes
+    n = qbm.n_hidden_nodes + qbm.n_output_nodes
+    x60 = torch.as_tensor(train_X[:60], device=dev)
+    y60 = torch.as_tensor(np.asarray(train_y[:60], np.float32), device=dev)[:, None]
+    Q2, h2 = qbm.step_qubos(qbm.params, x60, y60)
+    g = torch.Generator(device=dev).manual_seed(7)
+    hv = ((torch.rand((2, 60, 100, n), generator=g, device=dev) < 0.5).to(torch.float32),
+          torch.rand((1000, 2, 60, n, 100), generator=g, device=dev).clamp_(1e-6, 1 - 1e-6))
+    frac, err = compare(sa_cuda.sa_sample_groups_cuda(Q2, h2, 100, 1000, host_variates=hv),
+                        sa_torch.sa_sample_groups_plain(Q2, h2, 100, 1000, host_variates=hv),
+                        "K1 at the warm-started DQBM's step, its own QUBOs, G=2 B=60 n=10 "
+                        "R=100 S=1000", phase=7)
+    del hv
+    g1 = torch.Generator().manual_seed(1)
+    k1_ms = cuda_ms(lambda: sa_cuda.sa_sample_groups_cuda(Q2, h2, 100, 1000, generator=g1),
+                    runs=5)
+    plain_ms = cuda_ms(lambda: sa_torch.sa_sample_groups_plain(Q2, h2, 100, 1000), runs=1)
+    flips = torch.zeros(1, dtype=torch.int64, device=dev)
+    sa_cuda.launch(*structured_form(Q2, h2, 1000), 100, 1000, generator=g1, flips=flips)
+    bound = anneal_bound(2, 60, 100, n, 1000, flips=int(flips.item()))
+    rec["warm_start"] = {"p_y1_max_abs_err": p_err, "limit": 0.06, "examples": len(xt),
+                         "reads": 4096, "n": n, "steps": steps,
+                         "sa_metropolis_launches": counts["sa_metropolis"],
+                         "k1_differing_chains": frac, "k1_max_abs_err": err, "k1_ms": k1_ms,
+                         "k1_plain_ms": plain_ms, "k1_bound_ms": bound["bound_ms"],
+                         "k1_bound_by": bound["bound_by"]}
+    print(f"phase 7 warm start: RBM (H=9, trained on cuda) -> DiscQBM n={n}: exact-sampler "
+          f"p(y=1|x) within {p_err:.4f} of the RBM's on {len(xt)} test images (limit 0.06); one "
+          f"SA epoch (bs60, sc100, anneal 1000): {steps} steps, launch counts {counts}, nll "
+          f"{nlls[0]:.4f} -> {nlls[-1]:.4f}; K1 at the step's call {k1_ms:.3f} ms (CUDA events, "
+          f"median of 5), plain {plain_ms:.3f} ms, bound {bound['bound_ms']:.4f} ms by "
+          f"{bound['bound_by']} ({smi})")
+
+    # the CD-1 bf16 epoch at the benchmark's shapes, by CUDA events
+    images, batch = 65536, 4096
+    x16 = x.to(torch.bfloat16).repeat(images // len(x), 1).reshape(images // batch, batch, -1)
+    y16 = y.repeat(images // len(y)).reshape(images // batch, batch)
+    epoch = rbm.make_epoch_scan(rbm.make_train_step(2, method="generative",
+                                                    compute_dtype=torch.bfloat16))
+    timing = {}
+    for h in (128, 9):
+        state = [rbm.init_params(torch.Generator().manual_seed(0), 784, h, 2, dev)]
+
+        def run():
+            state[0], _ = epoch(state[0], gen, x16, y16, 0.05)
+
+        ms = cuda_ms(run, runs=5)
+        check(finite(state[0]), f"CD-1 bf16 H={h}: parameters")
+        bound = rbm_cd1_bound(images // batch, batch, 784, h)
+        timing[f"H={h}"] = {"epoch_ms": ms, "images_per_s": images / (ms / 1e3),
+                            "steps": images // batch, "bound_ms": bound["bound_ms"],
+                            "bound_by": bound["bound_by"]}
+        print(f"phase 7 time RBM CD-1 bf16 H={h} batch {batch}, {images} images "
+              f"({images // batch} steps): {ms:.3f} ms an epoch, {images / (ms / 1e3):.1f} "
+              f"images/s (CUDA events, median of 5 after a warm-up; {smi}); bound "
+              f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} (H100 SXM peaks)")
+    rec["cd1_bf16_epoch"] = timing
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
 
 
 def main() -> None:
@@ -1578,6 +1843,9 @@ def main() -> None:
     print(f"phase 6 bounds (H100 SXM peaks, {smi}): "
           + "; ".join(f"{k} {b['bound_ms']:.4f} ms by {b['bound_by']}" for k, b in bounds.items()))
 
+    # -- 7. the RBM family -------------------------------------------------------
+    rbm_rec = rbm_phase(dev, smi, counters)
+
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s")
     t = lambda prefix: next(v for k, v in times.items() if k.startswith(prefix))
     bound_keys = lambda name: {"bound_ms": bounds[name]["bound_ms"],
@@ -1594,7 +1862,12 @@ def main() -> None:
          "dense_ms": t("K1 dense")[0], "dense_plain_ms": t("K1 dense")[1],
          "cdqbm_b_ms": t("K1 CDQBM (b)")[0], "cdqbm_b_plain_ms": t("K1 CDQBM (b)")[1],
          "cdqbm_b_sweep_launches": csweep_rec["b SA"]["launches"],
-         "cdqbm_b_sweep_bound_ms": bounds["sa_metropolis CDQBM (b) sweep G=20"]["bound_ms"]},
+         "cdqbm_b_sweep_bound_ms": bounds["sa_metropolis CDQBM (b) sweep G=20"]["bound_ms"],
+         "warm_start_launches": rbm_rec["warm_start"]["sa_metropolis_launches"],
+         "warm_start_ms": rbm_rec["warm_start"]["k1_ms"],
+         "warm_start_plain_ms": rbm_rec["warm_start"]["k1_plain_ms"],
+         "warm_start_bound_ms": rbm_rec["warm_start"]["k1_bound_ms"],
+         "warm_start_differing_chains": rbm_rec["warm_start"]["k1_differing_chains"]},
         {"name": "sa_heatbath", "route": "cuda", "source": "qbmx_torch/csrc/sa_heatbath.cu",
          "replaces": "qbmx/samplers/sa_lane.py:144",
          "also_replaces": "qbmx/samplers/sa_pallas.py:196",
@@ -1669,7 +1942,7 @@ def main() -> None:
          "sweep_launches": csweep_rec["a PT"]["launches"],
          "sweep_s100_bound_ms": bounds["pt_wide_sparse CDQBM (a) sweep G=20 S=100"]["bound_ms"]},
     ], "step_ms": step_ms, "cdqbm_launches": cdqbm_launches, "sweeps": sweep_rec,
-        "cdqbm_sweeps": csweep_rec, "resume": resume_rec}
+        "cdqbm_sweeps": csweep_rec, "resume": resume_rec, "rbm": rbm_rec}
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -27,7 +27,7 @@ def str2bool(v) -> bool:
 def load_dataset(data_set: str, seed: int = 42, samples_per_class=None,
                  num_classes: int = 2):
     """Resolve a dataset by the reference CLI vocabulary: mnist /
-    breastmnist / pneumoniamnist / fashionmnist / synthetic.  Returns
+    breastmnist / pneumoniamnist / fashionmnist / cifar-10 / synthetic.  Returns
     (train, val, test) tuples of (images N×H×W, labels N); ``num_classes``
     selects the first N classes of the class-filterable datasets."""
     classes = list(range(num_classes))
@@ -63,8 +63,12 @@ def load_dataset(data_set: str, seed: int = 42, samples_per_class=None,
             classes=classes, samples_per_class=samples_per_class, seed=seed)
         return train, (None, None), test
     if data_set == "cifar-10":
-        raise NotImplementedError(
-            "qbmx_torch: the CIFAR-10 loader is not ported yet (ROADMAP Queue 1 item 8)")
+        # classes 3 and 5 (cat, dog) for a binary task
+        pick = classes if num_classes != 2 else [3, 5]
+        train = loaders.get_cifar10(classes=pick, samples_per_class=samples_per_class or 200,
+                                    seed=seed, train=True)
+        test = loaders.get_cifar10(classes=pick, samples_per_class=50, seed=seed, train=False)
+        return train, (None, None), test
     if data_set == "synthetic":
         x, y = loaders.synthetic_images(800, num_classes=num_classes, seed=seed)
         return (x[:600], y[:600]), (x[600:700], y[600:700]), (x[700:], y[700:])

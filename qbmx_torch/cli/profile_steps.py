@@ -7,6 +7,7 @@
     python -m qbmx_torch.cli.profile_steps --seed_sweep 0 1 2 3 4 5 6 7 8 9   # the 10-seed sweep
     python -m qbmx_torch.cli.profile_steps --seed_sweep 0 1 2 3 4 5 6 7 8 9 \
         --cdqbm probabilistic --solver SA --reads 100 --epochs 1   # the 10-seed CDQBM (a) sweep
+    python -m qbmx_torch.cli.profile_steps --rbm                   # the RBM rows
 
 For each solver: ``DiscQBM`` on the synthetic training split (600
 images, 784 inputs) -- or with ``--cdqbm`` a ``CDQBM`` on the same images
@@ -23,6 +24,14 @@ divided by the steps, is ms/step), then on a GPU one more epoch under
 union of their intervals), the solver kernel's time per launch and the
 device operations per step; idle share = 1 − busy ÷ the median
 unprofiled epoch.  On ``--device cpu`` the device columns are ``None``.
+
+``--rbm`` times RBM epochs the same way (``profile_rbm``): CD-1
+generative in bf16 on 65,536 binarized synthetic images at batch 4096
+(16 steps an epoch) at H=128 (``bench.py``'s headline shape) and H=9 (its
+reference shape), reported as ms an epoch and images/s; then
+``rbm_main``'s defaults (discriminative, H=9, batch 7, f32) on the
+synthetic split, one model and a 10-seed ``SeedParallelRBM``, each epoch
+with its test predictions.
 
 Prints one line per solver, then on a GPU the ``nvidia-smi`` name and
 power limit, and last one JSON object with every record.
@@ -85,9 +94,10 @@ def _union_us(intervals: list[tuple[float, float]]) -> float:
     return total
 
 
-def device_breakdown(epoch, kernel: str) -> dict:
+def device_breakdown(epoch, kernel: str | None) -> dict:
     """Run ``epoch()`` under ``torch.profiler`` and read its device events:
-    busy ms (union), the operations, and ``kernel``'s launches and ms."""
+    busy ms (union), the operations, and ``kernel``'s launches and ms
+    (none without a kernel)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -98,9 +108,30 @@ def device_breakdown(epoch, kernel: str) -> dict:
         raise RuntimeError("torch.profiler recorded no device events: time the device "
                            "with CUDA events instead")
     spans = [(e.time_range.start, e.time_range.end) for e in events]
-    mine = [e.time_range.elapsed_us() for e in events if kernel in e.name]
+    mine = [e.time_range.elapsed_us() for e in events if kernel and kernel in e.name]
     return {"busy_ms": _union_us(spans) / 1e3, "device_ops": len(events),
             "kernel_launches": len(mine), "kernel_ms": sum(mine) / 1e3}
+
+
+def time_epochs(run, epochs: int, dev: torch.device, kernel: str | None = None):
+    """``(median ms, every run's ms, device breakdown)`` of epochs of
+    ``run()``: one warm-up (first launches, device copies of the batches),
+    ``epochs`` timed on the host clock after ``synchronize()``, then on a
+    GPU one more under ``torch.profiler`` (``device_breakdown``; ``None``
+    on the CPU)."""
+
+    def epoch():
+        run()
+        _sync(dev)
+
+    epoch()
+    walls = []
+    for _ in range(epochs):
+        t0 = time.perf_counter()
+        epoch()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    breakdown = device_breakdown(epoch, kernel) if dev.type == "cuda" else None
+    return statistics.median(walls), walls, breakdown
 
 
 def profile_solver(solver: str, train_X, train_y, *, hidden: int, reads: int, sweeps: int,
@@ -131,34 +162,86 @@ def profile_solver(solver: str, train_X, train_y, *, hidden: int, reads: int, sw
         def run():
             model.train_epoch(train_X, train_y, batch, lr)
     steps = math.ceil(len(train_X) / batch)
-
-    def epoch():
-        run()
-        _sync(dev)
-
-    epoch()  # warm-up: first launches, device copies of the batches
-    walls = []
-    for _ in range(epochs):
-        t0 = time.perf_counter()
-        epoch()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    wall = statistics.median(walls)
+    kernel = solver_kernel(solver, n)
+    wall, walls, d = time_epochs(run, epochs, dev, kernel)
     name = f"CDQBM {cdqbm}" if cdqbm else "DiscQBM"
     if seeds:
         name = f"{type(sweep).__name__} {len(seeds)} seeds" + (f" ({name})" if cdqbm else "")
     rec = {"solver": solver, "model": name, "n": n, "seeds": len(seeds) if seeds else 1,
-           "kernel": solver_kernel(solver, n), "steps": steps,
+           "kernel": kernel, "steps": steps,
            "epoch_ms": wall, "ms_per_step": wall / steps, "epoch_ms_runs": walls,
            "ms_per_seed_step": wall / steps / (len(seeds) if seeds else 1),
            "busy_ms": None, "idle_share": None, "ops_per_step": None,
            "kernel_ms_per_launch": None, "kernel_share": None, "kernel_launches": None}
-    if dev.type == "cuda":
-        d = device_breakdown(epoch, rec["kernel"])
+    if d is not None:
         rec.update(busy_ms=d["busy_ms"], idle_share=1.0 - d["busy_ms"] / wall,
                    ops_per_step=d["device_ops"] / steps,
                    kernel_launches=d["kernel_launches"], kernel_share=d["kernel_ms"] / wall,
                    kernel_ms_per_launch=d["kernel_ms"] / max(d["kernel_launches"], 1))
     return rec
+
+
+RBM_IMAGES, RBM_BATCH, RBM_LR = 65536, 4096, 0.05  # bench.py's headline settings
+
+
+def _rbm_record(run, epochs: int, steps: int, images: int, dev: torch.device) -> dict:
+    wall, walls, d = time_epochs(run, epochs, dev)
+    rec = {"steps": steps, "epoch_ms": wall, "epoch_ms_runs": walls,
+           "ms_per_step": wall / steps, "images_per_s": images / (wall / 1e3),
+           "busy_ms": None, "idle_share": None, "ops_per_step": None}
+    if d is not None:
+        rec.update(busy_ms=d["busy_ms"], idle_share=1.0 - d["busy_ms"] / wall,
+                   ops_per_step=d["device_ops"] / steps)
+    return rec
+
+
+def profile_rbm(epochs: int, dev: torch.device) -> list[dict]:
+    """The RBM rows (module docstring): CD-1 bf16 at the benchmark's two
+    shapes, then ``rbm_main``'s defaults single and as a 10-seed sweep."""
+    from qbmx_torch.cli import rbm_main
+    from qbmx_torch.models import rbm
+    from qbmx_torch.train.sweep import SeedParallelRBM
+
+    records = []
+    x, y = loaders.synthetic_images(4096, shape=(28, 28), num_classes=2, seed=0)
+    x = loaders.binarize(x.reshape(len(x), -1))
+    reps = max(RBM_IMAGES // len(x), 1)
+    nb = RBM_IMAGES // RBM_BATCH
+    x, y = np.tile(x, (reps, 1))[:RBM_IMAGES], np.tile(y, reps)[:RBM_IMAGES]
+    xb = torch.as_tensor(x.reshape(nb, RBM_BATCH, -1), device=dev, dtype=torch.bfloat16)
+    yb = torch.as_tensor(y.reshape(nb, RBM_BATCH), device=dev)
+    step = rbm.make_train_step(2, method="generative", cd_k=1, compute_dtype=torch.bfloat16)
+    epoch_fn = rbm.make_epoch_scan(step)
+    for hidden in (128, 9):
+        gen = torch.Generator().manual_seed(0)
+        params = rbm.init_params(gen, xb.shape[-1], hidden, 2, dev)
+        dgen = torch.Generator(device=dev).manual_seed(1)
+        state = {"params": params}
+
+        def epoch():
+            state["params"], _ = epoch_fn(state["params"], dgen, xb, yb, RBM_LR)
+
+        rec = _rbm_record(epoch, epochs, nb, RBM_IMAGES, dev)
+        records.append({"model": f"RBM CD-1 generative bf16 H={hidden} batch {RBM_BATCH}",
+                        **rec})
+
+    (train_X, train_y), (val_X, _), (test_X, test_y) = load_dataset("synthetic", seed=SEED)
+    train_X, test_X, _ = loaders.preprocess_images(train_X, test_X, val_X)
+    flags = rbm_main.build_parser().parse_args([])
+    h, bs, lr, seeds = flags.hidden_units, flags.batch_size, flags.lr, rbm_main.DEFAULT_SEEDS
+    single = rbm.ClassificationRBM(train_X.shape[1], h, learning_rate=lr, seed=SEED, device=dev)
+    sweep = SeedParallelRBM(seeds, train_X.shape[1], h, learning_rate=lr, device=dev)
+    n = len(train_X)
+    for name, epoch, steps in (
+        ("ClassificationRBM", lambda: single.train_rbm(
+            train_X, train_y, 1, bs, test_x=test_X, test_y=test_y), -(-n // bs)),
+        (f"SeedParallelRBM {len(seeds)} seeds", lambda: sweep.sweep(
+            train_X, train_y, test_X, test_y, epochs=1, batch_size=bs), n // bs),
+    ):
+        rec = _rbm_record(epoch, epochs, steps, n, dev)
+        records.append({"model": f"{name} discriminative f32 H={h} batch {bs} (rbm_main "
+                                 "defaults)", **rec})
+    return records
 
 
 def main(argv=None) -> list[dict]:
@@ -175,22 +258,30 @@ def main(argv=None) -> list[dict]:
     p.add_argument("--seed_sweep", type=int, nargs="+", default=None,
                    help="profile a seed sweep over these seeds (with --cdqbm: a "
                         "SeedParallelCDQBM) instead of a single model")
+    p.add_argument("--rbm", action="store_true",
+                   help="profile the RBM rows instead (profile_rbm)")
     a = p.parse_args(argv)
     dev = resolve_device(a.device)
-    (train_X, train_y), (val_X, _), (test_X, _) = load_dataset("synthetic", seed=SEED)
-    train_X, _, _ = loaders.preprocess_images(train_X, test_X, val_X)
-    records = []
-    for solver in a.solver:
-        rec = profile_solver(solver, train_X, np.asarray(train_y), hidden=a.hidden,
-                             reads=a.reads, sweeps=a.sweeps, batch=a.batch,
-                             epochs=a.epochs, dev=dev, cdqbm=a.cdqbm, seeds=a.seed_sweep)
-        records.append(rec)
-        shape = f"CDQBM {a.cdqbm}" if a.cdqbm else \
-            f"h{a.hidden} sc{a.reads} anneal{a.sweeps} bs{a.batch}"
-        if a.seed_sweep:
-            shape += f" sweep of {len(a.seed_sweep)} seeds"
-        print(f"{solver} {shape} on {dev}: "
-              + ", ".join(f"{k} {v}" for k, v in rec.items() if k not in ("solver",)))
+    if a.rbm:
+        records = profile_rbm(a.epochs, dev)
+        for rec in records:
+            print(f"{rec['model']} on {dev}: "
+                  + ", ".join(f"{k} {v}" for k, v in rec.items() if k != "model"))
+    else:
+        (train_X, train_y), (val_X, _), (test_X, _) = load_dataset("synthetic", seed=SEED)
+        train_X, _, _ = loaders.preprocess_images(train_X, test_X, val_X)
+        records = []
+        for solver in a.solver:
+            rec = profile_solver(solver, train_X, np.asarray(train_y), hidden=a.hidden,
+                                 reads=a.reads, sweeps=a.sweeps, batch=a.batch,
+                                 epochs=a.epochs, dev=dev, cdqbm=a.cdqbm, seeds=a.seed_sweep)
+            records.append(rec)
+            shape = f"CDQBM {a.cdqbm}" if a.cdqbm else \
+                f"h{a.hidden} sc{a.reads} anneal{a.sweeps} bs{a.batch}"
+            if a.seed_sweep:
+                shape += f" sweep of {len(a.seed_sweep)} seeds"
+            print(f"{solver} {shape} on {dev}: "
+                  + ", ".join(f"{k} {v}" for k, v in rec.items() if k not in ("solver",)))
     if dev.type == "cuda":
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True,

@@ -1,6 +1,6 @@
 """Seed-parallel training: S models, one per seed, trained as one batched
-program (counterparts of ``qbmx.train.sweep.SeedParallelDQBM`` and
-``SeedParallelCDQBM``).
+program (counterparts of ``qbmx.train.sweep.SeedParallelDQBM``,
+``SeedParallelCDQBM`` and ``SeedParallelRBM``).
 
 The parameters are one parameter tree stacked over a leading seed axis.
 Each step is ONE structured sampler call over 2·S groups of B problems --
@@ -22,6 +22,10 @@ their Philox streams per problem from its draws, so a seed's samples do
 not depend on its batch-mates, but they do not reproduce a single-model
 run's stream either (neither does ``qbmx``'s packed route).
 
+The RBM sweep (:class:`SeedParallelRBM`) runs no sampler: its products are
+batched matmuls over the seed axis (``models/rbm.py``), and its epoch
+drops the ragged tail, as ``qbmx``'s does.
+
 Left out, because they serve the TPU's compiler: the scanned and unrolled
 epoch launches, ``epoch_segment`` and the ``mesh`` argument with its
 sharded row scatter (ROADMAP Queue 1 item 11); a plain row write re-draws
@@ -37,7 +41,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from qbmx_torch.core.rng import make_generator
+from qbmx_torch.core.rng import draw_seed, make_generator
+from qbmx_torch.models import rbm
 from qbmx_torch.models.base import pad_rows, resolve_device, tree_leaves, tree_map
 from qbmx_torch.models.cdqbm import init_params as cdqbm_init
 from qbmx_torch.models.dqbm import (
@@ -55,7 +60,7 @@ from qbmx_torch.models.dqbm import (
 )
 from qbmx_torch.samplers.api import Sampler, get_sampler, sampler_sample_groups
 from qbmx_torch.train.loop import _pad_batch, flatlined
-from qbmx_torch.utils.metrics import History, get_metrics, prob_scored_auc
+from qbmx_torch.utils.metrics import History, accuracy_and_auc, get_metrics, prob_scored_auc
 
 
 # ``dqbm.params_from_numpy`` and ``params_to_numpy`` take any leading axes,
@@ -63,6 +68,12 @@ from qbmx_torch.utils.metrics import History, get_metrics, prob_scored_auc
 # fetched to the host, seed axis first) as they are; so do ``cdqbm``'s
 sweep_params_from_numpy = params_from_numpy
 sweep_params_to_numpy = params_to_numpy
+
+
+def _sweep_generator(seeds: Sequence[int]) -> torch.Generator:
+    """A sweep's own CPU generator, a pure function of its seed list."""
+    state = np.random.SeedSequence(list(seeds)).generate_state(1, np.uint64)
+    return torch.Generator().manual_seed(int(state[0]))
 
 
 def _seed_streams(seeds: Sequence[int], init_fn, attempt: int = 0):
@@ -181,8 +192,7 @@ class _SeedSweep:
 
     def _start(self) -> None:
         # the samplers' draws: one generator for the sweep, from the seed list
-        state = np.random.SeedSequence(self.seeds).generate_state(1, np.uint64)
-        self.generator = torch.Generator().manual_seed(int(state[0]))
+        self.generator = _sweep_generator(self.seeds)
         self.best_params = None
         self.best_metric = np.full(self.S, -np.inf)
         self.best_epoch = np.zeros(self.S, dtype=int)
@@ -469,3 +479,113 @@ class SeedParallelCDQBM(_SeedSweep):
         both packages."""
         return _save_best_models(self, folder,
                                  lambda p: self.model.weight_objects(params=p), name_fn)
+
+
+class SeedParallelRBM:
+    """Train S ``ClassificationRBM``s (one per seed) as one batched program.
+
+    The parameters are stacked over a leading seed axis ((S, V, H)
+    weights); every product is a batched matmul over it, and the gradient
+    of the sum over seeds of each seed's mean nll is each seed's own
+    gradient.  Seed s's initial parameters are ``ClassificationRBM(seed=s)``'s
+    (``make_generator(s, 0)``).  Each epoch draws one seed off the sweep's
+    CPU generator (a pure function of the seed list) to key a generator on
+    the device for every seed's shuffle and CD draws.  Kept from ``qbmx``:
+    the ragged tail batch is dropped, ``pcd`` and a set smaller than a
+    batch are refused, the test probabilities are computed every epoch on
+    the device and fetched once at the end, and the best epoch is chosen
+    by 0.5·acc + 0.5·AUC, counted across ``sweep()`` calls.  Left out: the
+    ``mesh`` argument (ROADMAP Queue 1 item 11)."""
+
+    def __init__(self, seeds: Sequence[int], num_visible: int, num_hidden: int,
+                 num_classes: int = 2, k: int = 1, learning_rate: float = 0.05,
+                 method: str = "discriminative", sparse_constant: float = 0.0,
+                 generative_factor: float = 0.0, device="cuda"):
+        if method == "pcd":
+            raise ValueError("pcd carries host-side chain state; use "
+                             "ClassificationRBM per seed")
+        self.seeds = [int(s) for s in seeds]
+        self.S = len(self.seeds)
+        self.num_classes = num_classes
+        self.learning_rate = float(learning_rate)
+        self.device = resolve_device(device)
+        self.params = _seed_streams(self.seeds, lambda g: rbm.init_params(
+            g, num_visible, num_hidden, num_classes, self.device))
+        self._epoch = rbm.make_epoch_scan(rbm.make_train_step(
+            num_classes, method=method, cd_k=k, sparse_constant=sparse_constant,
+            generative_factor=generative_factor))
+        self.generator = _sweep_generator(self.seeds)
+        self.best_params = None
+        self.best_metric = np.full(self.S, -np.inf)
+        self.best_epoch = np.zeros(self.S, dtype=int)
+        # cumulative over repeated sweep() calls: a winner found in a later
+        # call records its total epoch
+        self._epochs_done = 0
+
+    def sweep(self, train_x, train_y, test_x, test_y, epochs: int, batch_size: int,
+              shuffle: bool = True):
+        """Returns (acc_lists, auc_lists): per seed, per epoch (the
+        reference ``rbm_main`` pickles)."""
+        dev, S = self.device, self.S
+        x = torch.as_tensor(rbm._host_rows(train_x), device=dev)
+        tx = torch.as_tensor(rbm._host_rows(test_x), device=dev)
+        y = torch.as_tensor(np.asarray(train_y), device=dev)
+        n = x.shape[0]
+        nb = n // batch_size
+        if nb == 0:
+            raise ValueError(
+                f"batch_size={batch_size} exceeds the {n}-example training "
+                "set: the sweep would train nothing (the per-seed "
+                "ClassificationRBM path trains the remainder batch instead)")
+        m = nb * batch_size
+        probs, per_epoch = [], []
+        for _ in range(epochs):
+            gen = torch.Generator(device=dev).manual_seed(draw_seed(self.generator))
+            order = (torch.argsort(torch.rand((S, n), generator=gen, device=dev), dim=1)
+                     if shuffle else torch.arange(n, device=dev).expand(S, n))[:, :m]
+            xb = x[order].reshape(S, nb, batch_size, -1).transpose(0, 1)  # (nb, S, bs, V)
+            yb = y[order].reshape(S, nb, batch_size).transpose(0, 1)
+            self.params, _ = self._epoch(self.params, gen, xb, yb, self.learning_rate)
+            with torch.no_grad():
+                probs.append(rbm.predict_proba(self.params, tx))  # (S, n_test, C)
+            per_epoch.append(self.params)
+        probs = torch.stack(probs).cpu().numpy()  # ONE fetch for the whole sweep
+        ty = np.asarray(test_y)
+        acc_lists = [[] for _ in range(S)]
+        auc_lists = [[] for _ in range(S)]
+        for e in range(epochs):
+            for s in range(S):
+                acc, auc = accuracy_and_auc(ty, np.argmax(probs[e, s], axis=-1))
+                acc_lists[s].append(acc)
+                auc_lists[s].append(auc)
+        # best epoch per seed (0.5·acc + 0.5·auc, the reference's selection);
+        # repeated sweep() calls keep the global winner
+        combined = 0.5 * np.asarray(acc_lists) + 0.5 * np.asarray(auc_lists)
+        best_e = np.argmax(combined, axis=1)
+        best_val = combined[np.arange(S), best_e]
+        improved = best_val > self.best_metric
+        pick = (torch.as_tensor(best_e, device=dev), torch.arange(S, device=dev))
+        run_best = tree_map(lambda *a: torch.stack(a)[pick], *per_epoch)
+        self.best_params = _snapshot_best(
+            self.best_params if self.best_params is not None else run_best, run_best, improved)
+        self.best_metric = np.where(improved, best_val, self.best_metric)
+        self.best_epoch = np.where(improved, self._epochs_done + best_e + 1, self.best_epoch)
+        self._epochs_done += epochs
+        return acc_lists, auc_lists
+
+    def params_for_seed(self, s: int):
+        """Seed ``s``'s parameters (by index) out of the stacked ones."""
+        return tree_map(lambda a: a[s], self.params)
+
+    def best_params_for_seed(self, s: int):
+        """Seed ``s``'s parameters at its best combined-acc/AUC epoch."""
+        if self.best_params is None:
+            raise RuntimeError("call sweep() first")
+        return tree_map(lambda a: a[s], self.best_params)
+
+    def save_best_models(self, folder, name_fn=None) -> dict:
+        """Per-seed best-epoch weight pickles under ``folder/best_model/``
+        in the 5-list format ``ClassificationRBM.load_params`` reads in both
+        packages."""
+        return _save_best_models(
+            self, folder, lambda p: list(rbm.params_to_numpy(p).values()), name_fn)

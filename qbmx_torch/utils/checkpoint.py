@@ -6,7 +6,10 @@ the parameter tree), the model's ``torch.Generator`` state under
 ``torch_rng_state``, and a JSON ``meta_json`` (epoch, history, model
 class, ``mid_epoch`` stamp, flatline-recovery attempt).  Resuming from it
 continues the run exactly: the same parameters, the same random stream,
-the same history.
+the same history.  One format for every model with a parameter dataclass
+and a ``generator``: ``DiscQBM``, ``CDQBM`` and ``ClassificationRBM``
+(whose keys are ``.weights``, ``.visible_bias``, ``.hidden_bias``,
+``.class_bias``, ``.class_weights``).
 
 The random stream does not cross packages: ``qbmx`` stores a jax key
 (``rng_key``), the port a torch Generator state, and no bridge maps one to

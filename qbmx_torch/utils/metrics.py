@@ -84,6 +84,14 @@ def get_metrics(y_true, y_predict, class_titles):
     return acc, f1, precision, recall, auc
 
 
+def accuracy_and_auc(y_true, y_pred):
+    """(accuracy, AUC scored on the hard predictions): the reference RBM's
+    evaluation pair (``src/ClassificationRBM.py:251-294``)."""
+    y_true = np.asarray(y_true).ravel()
+    y_pred = np.asarray(y_pred).ravel()
+    return float(np.mean(y_true == y_pred)), _safe_auc(y_true, y_pred)
+
+
 def _safe_auc(y_true, scores):
     try:
         return binary_auc(y_true, scores)

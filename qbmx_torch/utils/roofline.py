@@ -1,8 +1,8 @@
-"""The least time an anneal launch could take on one NVIDIA H100 SXM: the
-larger of the bytes it must move over the memory rate and the operations
-it must do over the rate the card can issue them (NVIDIA's data sheet: 3.35
-TB/s of HBM3 and 67 TFLOP/s float32 outside the tensor cores, at the full
-700 W).
+"""The least time an anneal launch (or an RBM epoch) could take on one
+NVIDIA H100 SXM: the larger of the bytes it must move over the memory rate
+and the operations it must do over the rate the card can issue them
+(NVIDIA's data sheet: 3.35 TB/s of HBM3, 67 TFLOP/s float32 outside the
+tensor cores and 989 TFLOP/s dense bf16 on them, at the full 700 W).
 
 Bytes: each input read once, the output written once (Philox mode: no
 variates).  Operations, counted from the run's inputs:
@@ -32,6 +32,7 @@ from __future__ import annotations
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 ISSUE_PER_S = FP32_FLOPS_PER_S / 2  # instructions a second; an FMA is two flops
 IMUL_PER_S = ISSUE_PER_S / 2  # int32 multiplies a second
 PHILOX_OPS, PHILOX_IMULS = 25, 10  # a draw's operations, and its int32 multiplies
@@ -72,3 +73,23 @@ def anneal_bound(G: int, B: int, R: int, n: int, S: int, *, decisions: int | Non
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes > t_ops else "operations",
             "bytes": nbytes, "ops": ops}
+
+
+def rbm_cd1_bound(steps: int, B: int, V: int, H: int, C: int = 2) -> dict:
+    """``{"bound_ms", "bound_by", "bytes", "flops"}`` of ``steps`` CD-1 steps
+    in bf16 compute mode (``models/rbm.py``) at batch B, V visible, H hidden
+    and C class units.  A step's products: the three whose states are cast
+    up to f32 (the data's hidden probabilities, the visible
+    reconstruction, the reconstruction's hidden probabilities: 2·B·V·H
+    flops each, and 2·B·C·H for each class term) at the f32 rate, and the
+    two bf16 statistics products (2·V·B·H, 2·C·B·H) at the bf16 rate.
+    Bytes: each step reads its bf16 batch and int64 labels and reads and
+    writes the f32 parameters once."""
+    f32_flops = steps * (3 * 2 * B * V * H + 3 * 2 * B * C * H)
+    bf16_flops = steps * 2 * B * H * (V + C)
+    nbytes = steps * (2 * B * V + 8 * B + 2 * 4 * (V * H + V + H + C + C * H))
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = f32_flops / FP32_FLOPS_PER_S + bf16_flops / BF16_FLOPS_PER_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "bytes": nbytes, "flops": f32_flops + bf16_flops}

@@ -410,7 +410,7 @@ def test_parser_has_the_reference_flags_and_defaults():
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(data_set="cifar-10"), NotImplementedError, "ROADMAP"),
+    (dict(solver="FujitsuDAU"), NotImplementedError, "ROADMAP"),  # cifar-10 is ported
     (dict(solver="SA-NATIVE"), NotImplementedError, "ROADMAP"),
     (dict(solver="Advantage_system4.1"), NotImplementedError, "ROADMAP"),
     (dict(reinit_on_collapse=2), ValueError, "seed_sweep"),

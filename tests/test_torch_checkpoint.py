@@ -3,7 +3,8 @@ qbmx.utils.checkpoint and qbmx's own loop tests (``tests/test_train_loop.py``).
 
 A run resumed from a ``checkpoint_every`` state equals the uninterrupted
 run bit for bit on the plain route: parameters, history and the model's
-``torch.Generator`` state, for the flat Disc_QBM and the CDQBM.  The
+``torch.Generator`` state, for the flat Disc_QBM, the CDQBM and the RBM
+(``ClassificationRBM.train_rbm``, f32 and bf16, and ``rbm_main --resume``).  The
 ``param:`` key names are ``qbmx``'s; parameters, history and epoch cross
 between the packages both ways, the random stream in neither (a jax key
 and a torch Generator state have no common form).  The refusals and the
@@ -25,16 +26,19 @@ import torch
 
 import qbmx.models.cdqbm as jc
 import qbmx.models.dqbm as jd
+import qbmx.models.rbm as jr
 import qbmx.train.loop as jloop
 import qbmx.utils.checkpoint as jck
 import qbmx_torch.models.cdqbm as tc
 import qbmx_torch.models.dqbm as td
+import qbmx_torch.models.rbm as tr
 import qbmx_torch.train.loop as tloop
 import qbmx_torch.utils.checkpoint as tck
 from qbmx.cli import cdqbm_main as jcmain
 from qbmx.cli import qbm_main as jmain
 from qbmx_torch.cli import cdqbm_main as tcmain
 from qbmx_torch.cli import qbm_main as tmain
+from qbmx_torch.cli import rbm_main as trmain
 from qbmx_torch.samplers.api import get_sampler
 
 torch.set_num_threads(1)
@@ -190,6 +194,7 @@ PINNED_KEYS = {
               ".w_h2o", ".w_oo", ".b_conv", ".b_seq", ".b_o"],
     "cdqbm learn_penalty": [".kernel", ".w_seq/[0]", ".w_seq_intra/[0]", ".w_h2o", ".w_oo",
                             ".b_conv", ".b_seq", ".b_o", ".pen"],
+    "rbm": [".weights", ".visible_bias", ".hidden_bias", ".class_bias", ".class_weights"],
 }
 
 
@@ -198,6 +203,9 @@ def _pair(kind):
     if kind == "dqbm":
         kw = dict(dim_input=6, n_hidden_nodes=3, restricted=False)
         return jd.DiscQBM(**kw), td.DiscQBM(device="cpu", **kw)
+    if kind == "rbm":
+        kw = dict(num_visible=7, num_hidden=3, num_classes=3)
+        return jr.ClassificationRBM(**kw), tr.ClassificationRBM(device="cpu", **kw)
     kw = dict(image_shape=(8, 8), pooling_size=2, sequential_layer_sizes=[3, 2])
     if kind == "cdqbm learn_penalty":
         kw = dict(image_shape=(8, 8), pooling_size=2, pooling_type="probabilistic",
@@ -310,3 +318,81 @@ def _assert_same_objects(a, b):
         assert b is None
     else:
         assert np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def _rbm(**kw):
+    return tr.ClassificationRBM(num_visible=6, num_hidden=3, seed=9, learning_rate=0.2,
+                                device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(method="generative", compute_dtype=torch.bfloat16),
+                                dict(method="hybrid", generative_factor=0.1)],
+                         ids=["discriminative f32", "CD-1 bf16", "hybrid"])
+def test_rbm_resume_is_bit_identical(tmp_path, kw):
+    """4 epochs straight (shuffled, every epoch checkpointed) against 2
+    epochs, then a fresh model loaded from the epoch-2 state for epochs
+    3-4: parameters, generator state and the acc/auc/nll lists equal."""
+    rng = np.random.default_rng(1)
+    x, y = (rng.random((27, 6)) > 0.5).astype("float32"), rng.integers(0, 2, 27)
+    whole = _rbm(**kw)
+    whole.train_rbm(x, y, epochs=4, batch_size=5, test_x=x, test_y=y, checkpoint_every=1,
+                    checkpoint_path=str(tmp_path / "a"))
+    first = _rbm(**kw)
+    first.train_rbm(x, y, epochs=2, batch_size=5, test_x=x, test_y=y, checkpoint_every=2,
+                    checkpoint_path=str(tmp_path / "b"))
+    resumed = _rbm(**kw)
+    hist, ep = tck.load_checkpoint(tmp_path / "b", resumed)
+    assert ep == 2 and hist.acc_per_epoch == first.acc_per_epoch_list
+    resumed.acc_per_epoch_list = list(hist.acc_per_epoch)
+    resumed.auc_per_epoch_list = list(hist.auc_per_epoch)
+    resumed.nll_per_epoch_list = list(hist.nll_per_epoch)
+    resumed.train_rbm(x, y, epochs=4, batch_size=5, test_x=x, test_y=y, start_epoch=ep)
+    for a, b in zip(_leaves(whole.params), _leaves(resumed.params), strict=True):
+        assert torch.equal(a, b)
+    assert torch.equal(whole.generator.get_state(), resumed.generator.get_state())
+    for name in ("acc_per_epoch_list", "auc_per_epoch_list", "nll_per_epoch_list"):
+        assert getattr(whole, name) == getattr(resumed, name), name
+    meta = json.loads(bytes(np.load(tmp_path / "a.npz")["meta_json"]).decode())
+    assert meta["model_class"] == "ClassificationRBM" and meta["epoch"] == 4
+
+
+def test_rbm_checkpoint_round_trip_and_refusals(tmp_path):
+    m = _rbm()
+    m.params = tr.params_from_numpy({k: v + 1.5 for k, v in tr.params_to_numpy(m.params).items()})
+    m._reinit_attempt = 3
+    tck.save_checkpoint(tmp_path / "s", m, tloop.History(nll_per_epoch=[0.5]), epoch=1)
+    fresh = _rbm()
+    hist, ep = tck.load_checkpoint(tmp_path / "s", fresh)
+    assert ep == 1 and hist.nll_per_epoch == [0.5] and fresh._reinit_attempt == 3
+    for a, b in zip(_leaves(m.params), _leaves(fresh.params), strict=True):
+        assert torch.equal(a, b)
+    assert torch.equal(m.generator.get_state(), fresh.generator.get_state())
+    with pytest.raises(ValueError, match="saved from ClassificationRBM"):
+        tck.load_checkpoint(tmp_path / "s", _dqbm())
+    with pytest.raises(ValueError, match="shape mismatch"):
+        tck.load_checkpoint(tmp_path / "s", tr.ClassificationRBM(6, 4, device="cpu"))
+    with pytest.raises(ValueError, match="pcd"):
+        _rbm(method="pcd").train_rbm(np.zeros((4, 6), "float32"), np.zeros(4), epochs=1,
+                                     batch_size=2, checkpoint_every=1, checkpoint_path="x")
+
+
+def test_rbm_main_resume_continues_exactly(tmp_path):
+    """``rbm_main --epochs 2 --checkpoint_every 1`` against ``--epochs 1
+    --checkpoint_every 1`` then ``--resume <state> --epochs 2``: the same
+    per-epoch accuracy/AUC pickles and epoch-2 state."""
+    base = ["--data_set", "synthetic", "--device", "cpu", "--seeds", "6",
+            "--hidden-units", "3"]
+    parse = trmain.build_parser().parse_args
+    trmain.main(parse(base + ["--epochs", "2", "--checkpoint_every", "1",
+                              "--out", str(tmp_path / "a")]))
+    trmain.main(parse(base + ["--epochs", "1", "--checkpoint_every", "1",
+                              "--out", str(tmp_path / "b")]))
+    trmain.main(parse(base + ["--epochs", "2", "--checkpoint_every", "1",
+                              "--resume", str(tmp_path / "b" / "state_se6.npz"),
+                              "--out", str(tmp_path / "c")]))
+    for name in ("acc_per_epoch6.pkl", "auc_per_epoch6.pkl"):
+        a, c = (pickle.load(open(tmp_path / d / name, "rb")) for d in ("a", "c"))
+        assert a == c and len(a) == 2
+    sa, sc = (np.load(tmp_path / d / "state_se6.npz") for d in ("a", "c"))
+    for k in sa.files:
+        assert np.array_equal(sa[k], sc[k]), k

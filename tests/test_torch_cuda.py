@@ -9,7 +9,8 @@ streams against the exact oracle, the launch counters, the incremental
 fields of K2, K4 and K5 (and K5's energies), K5's two paths (J_g's row
 lists in shared memory, or its tiles streamed) against each other bit for
 bit, its ladders over a thread block cluster, and the wrappers' refusals.
-``chip_smoke.py`` runs the same checks at the main path's shapes.
+The RBM (no kernel of its own: batched matmuls) on the card against the
+CPU.  ``chip_smoke.py`` runs the same checks at the main path's shapes.
 
 Run on a machine with a CUDA GPU:  python -m pytest --noconftest tests/test_torch_cuda.py
 (``--noconftest``: ``tests/conftest.py`` imports jax, which the port does not
@@ -1114,3 +1115,62 @@ def test_pt_wide_ladders_over_a_cluster_match_plain(dev, G, B, n, M, R, S, probl
                                            host_variates=hv)
     assert got.shape == (G, B, R, n) and set(got.unique().tolist()) <= {0.0, 1.0}
     assert _differ(got, want.reshape(G, B, R, n)) <= MAX_DIFF_FRAC
+
+
+# -- the RBM family: cuBLAS products, no hand-written kernel -------------------
+
+
+@pytest.mark.parametrize("method", ["discriminative", "generative", "hybrid", "pcd"])
+def test_rbm_step_on_the_card_matches_the_cpu(dev, method):
+    """One f32 step per method on the card and on the CPU from the same
+    parameters, data and host variates: within 1e-5 (float32 products
+    summed in another order); the PCD chain equal and binary."""
+    from qbmx_torch.models import rbm
+
+    rng = np.random.default_rng(11)
+    B, V, H, C = 64, 784, 9, 2
+    d = {k: (0.1 * rng.normal(size=s)).astype(np.float32) for k, s in
+         zip(rbm.FIELDS, ((V, H), (V,), (H,), (C,), (C, H)))}
+    x = (rng.random((B, V)) > 0.5).astype(np.float32)
+    y = rng.integers(0, C, B)
+    k = 2 if method == "pcd" else 1
+    variates = []
+    for _ in range(k if method == "pcd" else 0):
+        variates += [rng.random((B, H)), rng.random((B, V)), rng.gumbel(size=(B, C))]
+    variates += [] if method == "pcd" else [rng.random((B, H))]
+    step = rbm.make_train_step(C, method=method, cd_k=k, generative_factor=0.5)
+    outs = {}
+    for device in ("cpu", dev):
+        args = (rbm.params_from_numpy(d, device), torch.as_tensor(x, device=device),
+                torch.as_tensor(y, device=device), 0.0871)
+        chain = ((args[1], torch.nn.functional.one_hot(args[2], C).float()),) \
+            if method == "pcd" else ()
+        outs[str(device)] = step(*args, *chain, variates=variates)
+    cpu, card = outs["cpu"], outs[str(dev)]
+    for f in rbm.FIELDS:
+        np.testing.assert_allclose(getattr(card[0], f).cpu().numpy(),
+                                   getattr(cpu[0], f).numpy(), rtol=1e-5, atol=1e-6, err_msg=f)
+    assert float(card[1]) == pytest.approx(float(cpu[1]), rel=1e-5)
+    if method == "pcd":
+        for a, b in zip(card[2], cpu[2]):
+            assert torch.equal(a.cpu(), b) and set(a.unique().tolist()) <= {0.0, 1.0}
+
+
+def test_rbm_bf16_headline_step_on_the_card(dev):
+    """CD-1 in bf16 at the benchmark's headline shape (batch 4096, 784
+    visible, 128 hidden): parameters stay f32 and finite, the loss finite,
+    the epoch loop's steps draw on the card's generator."""
+    from qbmx_torch.models import rbm
+
+    rng = np.random.default_rng(12)
+    x = torch.as_tensor((rng.random((3, 4096, 784)) > 0.5), device=dev).to(torch.bfloat16)
+    y = torch.as_tensor(rng.integers(0, 2, (3, 4096)), device=dev)
+    params = rbm.init_params(torch.Generator().manual_seed(0), 784, 128, 2, dev)
+    epoch = rbm.make_epoch_scan(rbm.make_train_step(2, method="generative",
+                                                    compute_dtype=torch.bfloat16))
+    new, loss = epoch(params, torch.Generator(device=dev).manual_seed(1), x, y, 0.05)
+    for f in rbm.FIELDS:
+        leaf = getattr(new, f)
+        assert leaf.dtype == torch.float32 and leaf.device.type == "cuda"
+        assert bool(torch.isfinite(leaf).all()), f
+    assert not torch.equal(new.weights, params.weights) and math.isfinite(float(loss))

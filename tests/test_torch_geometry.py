@@ -589,3 +589,17 @@ def test_the_10_seed_cdqbm_a_sweep_call_takes_k4_and_k5s_sparse_path():
     assert (geo.path, geo.ladders_per_block, geo.cluster, geo.threads, geo.grid) == \
         (pt_wide_cuda.SPARSE, 4, 1, 1024, (500, 20))
     assert geo.smem <= kernel_call.SMEM_BYTES
+
+
+def test_rbm_cd1_bound_at_the_headline_shape():
+    """The CD-1 bf16 epoch at batch 4096, 784 × 128 (16 steps): bound by its
+    three f32 products, 0.60 ms; at H=9 by the same products, 0.042 ms
+    (the bf16 batches' bytes, 0.031 ms, come close)."""
+    b = roofline.rbm_cd1_bound(16, 4096, 784, 128)
+    f32 = 16 * 3 * 2 * 4096 * (784 + 2) * 128
+    assert b["bound_by"] == "operations" and b["flops"] == f32 + 16 * 2 * 4096 * 128 * 786
+    assert b["bound_ms"] == pytest.approx(1e3 * (f32 / 67e12 + 16 * 2 * 4096 * 128 * 786 / 989e12))
+    assert 0.59 < b["bound_ms"] < 0.62
+    b9 = roofline.rbm_cd1_bound(16, 4096, 784, 9)
+    assert b9["bound_by"] == "operations" and 0.04 < b9["bound_ms"] < 0.045
+    assert 0.03 < 1e3 * b9["bytes"] / 3.35e12 < b9["bound_ms"]

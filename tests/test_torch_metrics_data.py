@@ -115,9 +115,14 @@ def test_shuffle_and_preprocess_match():
         assert a.flags["C_CONTIGUOUS"]
         np.testing.assert_array_equal(a, b)
     assert tl.preprocess_images(x, x)[2] is None
+    # resize and PCA, ported: against jax.image.resize and scikit-learn
+    # within 1e-4 of the output's scale (8 rows of 784: scikit-learn's
+    # randomized solver spans the whole row space, so it is exact here)
     for kw in (dict(outputshape=(14, 14)), dict(pca_n_components=3)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tl.preprocess_images(x, x, **kw)
+        for a, b in zip(tl.preprocess_images(x[:8], x[8:], x[4:6], **kw),
+                        jl.preprocess_images(x[:8], x[8:], x[4:6], **kw)):
+            assert a.shape == b.shape and a.dtype == np.float32
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-4 * max(1.0, np.abs(b).max()))
     with pytest.raises(ValueError):
         tl.shuffle_images(x, y[:3])
 
@@ -179,3 +184,121 @@ def test_cli_helpers_match():
         assert tcommon.qpu_sampler_kwargs(*args) == jcommon.qpu_sampler_kwargs(*args)
     with pytest.raises(ValueError, match="Invalid dataset"):
         tcommon.load_dataset("nope")
+
+
+# -- the rest of qbmx.data.loaders: balancing, labels, padding, binarizing,
+# resizing, PCA and CIFAR-10 (numpy copies equal; resize and PCA computed
+# here in numpy where qbmx calls jax and scikit-learn)
+
+
+@pytest.mark.parametrize("counts", [(7, 12), (12, 7), (5, 5), (0, 4)])
+def test_balance_by_undersampling_matches(counts):
+    r = np.random.default_rng(sum(counts))
+    labels = r.permutation(np.repeat([1, 0], counts))
+    images = r.random((len(labels), 3, 3)).astype(np.float32)
+    for a, b in zip(tl.balance_by_undersampling(images, labels, seed=4),
+                    jl.balance_by_undersampling(images, labels, seed=4)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_label_padding_and_binarize_helpers_match():
+    r = np.random.default_rng(6)
+    labels = r.integers(0, 4, 9)
+    np.testing.assert_array_equal(tl.encode_labels_to_onehot(labels, 4),
+                                  jl.encode_labels_to_onehot(labels, 4))
+    flat = r.random((5, 12)).astype(np.float32)
+    np.testing.assert_array_equal(tl.reshape_pad_and_flatten(flat, (3, 4), 2),
+                                  jl.reshape_pad_and_flatten(flat, (3, 4), 2))
+    for thr in (0.5, 0.25):
+        a, b = tl.binarize(flat, thr), jl.binarize(flat, thr)
+        assert a.dtype == b.dtype == np.float32
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("shape,out", [((3, 28, 28), (14, 14)), ((2, 28, 28), (16, 9)),
+                                       ((2, 8, 12), (12, 20)), ((2, 32, 32, 3), (16, 16)),
+                                       ((2, 10, 10), (10, 7)), ((1, 7, 5), (7, 5))])
+def test_resize_images_matches_jax_image_resize(shape, out):
+    """Downsampling (antialiased), upsampling, one axis only, channels and
+    the identity, within 1e-6 of ``jax.image.resize(method="linear",
+    antialias=True)`` (the weights are built alike in float32; the
+    contractions sum in another order)."""
+    images = np.random.default_rng(len(shape)).random(shape).astype(np.float32)
+    got, want = tl.resize_images(images, out), jl.resize_images(images, out)
+    assert got.shape == want.shape == (shape[0], *out, *shape[3:]) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="N, H, W"):
+        tl.resize_images(images[0, 0], out)
+
+
+def _low_rank(n, d, k, seed):
+    """(n, d) data with k well-separated principal directions plus noise."""
+    r = np.random.default_rng(seed)
+    latent = r.normal(size=(n, k)) * (3.0 * 0.6 ** np.arange(k))
+    return (latent @ r.normal(size=(k, d)) + 0.05 * r.normal(size=(n, d)) + 1.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("n,d,k", [(60, 20, 3), (300, 400, 5), (400, 30, 4)],
+                         ids=["full small", "full at 400", "covariance_eigh (tall)"])
+def test_pca_matches_scikit_learn_where_it_is_exact(n, d, k):
+    """At shapes where scikit-learn's ``svd_solver="auto"`` picks an exact
+    solver (``full`` up to 500 rows and columns, ``covariance_eigh`` for
+    tall data of ≤ 1000 features), each projected component equals
+    scikit-learn's up to its sign, within 1e-4 of its scale; the
+    components themselves carry scikit-learn's sign rule."""
+    from sklearn.decomposition import PCA
+
+    x = _low_rank(n, d, k, seed=n)
+    test = _low_rank(20, d, k, seed=n)
+    pca = PCA(n_components=k)
+    want_train, want_test = pca.fit_transform(x), pca.transform(test)
+    assert pca._fit_svd_solver in ("full", "covariance_eigh")
+    mean, comps, got_train = tl.pca_fit(x, k)
+    np.testing.assert_allclose(mean, pca.mean_, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(np.abs(comps), np.abs(pca.components_), rtol=0, atol=1e-4)
+    signs = np.sign(np.sum(comps * pca.components_, axis=1))
+    assert np.all(signs == 1.0)  # the same sign rule
+    got_test = tl.preprocess_images(x, test, pca_n_components=k)[1]
+    for got, want in ((got_train, want_train), (got_test, want_test)):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())
+    with pytest.raises(ValueError, match="n_components"):
+        tl.pca_fit(x, min(n, d) + 1)
+
+
+def test_scikit_learn_pca_turns_randomized_past_500():
+    """The known defect of qbmx's PCA (ROADMAP Queue 3): from more than 500
+    rows or columns with fewer components than 0.8 of the smaller side
+    (unless the data is tall enough for ``covariance_eigh``), scikit-learn
+    picks its randomized solver, an approximation whose draws come from
+    numpy's global stream. The port's SVD stays exact there."""
+    from sklearn.decomposition import PCA
+
+    for shape, solver in (((546, 784), "randomized"), ((500, 500), "full"),
+                          ((501, 400), "randomized"), ((8000, 784), "covariance_eigh")):
+        pca = PCA(n_components=10).fit(_low_rank(*shape, 3, seed=1))
+        assert pca._fit_svd_solver == solver, shape
+
+
+def test_get_cifar10_and_load_dataset_match(tmp_path, monkeypatch):
+    """Over the stock-layout batches ``qbmx/data/synthesize.py`` writes:
+    the loader (grayscale, colour, class filters, subsampling) and the
+    CLI's ``cifar-10`` branch equal qbmx's; absent files raise."""
+    from qbmx.data.synthesize import synthesize_cifar10
+
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(FileNotFoundError):
+        tl.get_cifar10()
+    root = synthesize_cifar10(tmp_path / "data", n_per_train_batch=60, n_test=80, seed=2)
+    for kw in (dict(), dict(grayscale=False, train=False), dict(classes=[3, 5], size=50),
+               dict(classes=[1, 2, 7], samples_per_class=6, seed=9)):
+        got, want = tl.get_cifar10(**kw), jl.get_cifar10(str(root), **kw)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+    assert tl.get_cifar10()[0].shape[1:] == (32, 32)
+    for num_classes in (2, 3):
+        ours = tcommon.load_dataset("cifar-10", seed=4, num_classes=num_classes)
+        theirs = jcommon.load_dataset("cifar-10", seed=4, num_classes=num_classes)
+        for split_ours, split_theirs in zip(ours, theirs):
+            for a, b in zip(split_ours, split_theirs):
+                np.testing.assert_array_equal(a, b)

@@ -55,13 +55,27 @@ def test_parser_has_the_reference_flags_and_defaults():
 
 @pytest.mark.parametrize("kw,err", [
     (dict(solver="Advantage_system4.1"), NotImplementedError),  # a QPU solver
-    (dict(data_set="cifar-10"), NotImplementedError),
+    (dict(solver="FujitsuDAU"), NotImplementedError),  # cifar-10 is ported: another unported one
     (dict(solver="DW_2000Q_6"), NotImplementedError),  # a QPU solver by its other prefix
     (dict(solver="SA-NATIVE"), NotImplementedError),
 ])
 def test_unported_options_raise(kw, err):
     with pytest.raises(err, match="ROADMAP"):
         tmain.main(save="", **{**SMALL, **kw})
+
+
+def test_cifar10_loads_through_the_cli(tmp_path, monkeypatch):
+    """``--data_set cifar-10`` (classes 3 and 5, 32×32 grayscale) raises
+    as ``qbmx`` does where the batches are absent, and trains on the
+    stock-layout batches ``qbmx/data/synthesize.py`` writes."""
+    from qbmx.data.synthesize import synthesize_cifar10
+
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(FileNotFoundError):
+        tmain.main(save="", **{**SMALL, "data_set": "cifar-10"})
+    synthesize_cifar10(tmp_path / "data", n_per_train_batch=50, n_test=60, seed=1)
+    acc, *_, auc = tmain.main(save="", **{**SMALL, "data_set": "cifar-10", "batch_size": 100})
+    assert 0.0 <= acc <= 1.0 and 0.0 <= auc <= 1.0
 
 
 @pytest.mark.parametrize("solver", ["BMS", "PT"])
