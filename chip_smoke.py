@@ -146,7 +146,27 @@ failure exits nonzero; nothing carries on after one):
    bound of phase 3), timed beside its plain version and its bound;
    and the CD-1 bf16 epoch (16 steps of 4096 binarized synthetic images)
    at H=128 and H=9 by CUDA events, in ms and images/s, beside its bound
-   (``roofline.rbm_cd1_bound``).
+   (``roofline.rbm_cd1_bound``);
+8. the host seams (``host_seams_phase``; no kernel of their own, and no
+   TPU kernel behind them): (a) the native annealer built from
+   ``native/sa_sampler.cpp`` into ``build/native/`` (seconds); (b)
+   ``qbm_main --solver SA-NATIVE`` on ``cuda`` at the flagship widths (H=5,
+   sc1000, bs60; anneal cut to 100 for its epoch of 10 steps and 2
+   predictions): no kernel launched, the parameters on the card, finite nll,
+   moved parameters; the flagship step at anneal 1000 by CUDA events and by
+   the host clock beside phase 5's K1 step, with ``os.cpu_count()``; that
+   step's samples equal ``sa_sample_batch_native_seeds`` on host copies of
+   its QUBOs and seeds bit for bit, and each problem's marginals lie within
+   0.35 of the exact ones at its cold beta (``tests/test_native.py``'s
+   bound); (c) the QPU seam: a ``DiscQBM`` (H=5, bs60, sc100) on ``cuda``
+   through ``StructuredQPUSampler`` with 10 copies and an embedding cache
+   in a temporary directory, over ``CardAnnealer`` (a structured stub
+   defined here: Chimera C16, the embedded physical QUBO annealed by the
+   port's SA on the card, K1 at its 240 qubits), 3 steps: one embedding
+   search in all, none for a second model on the same cache, one K1
+   launch a stub call, ``chain_break_fraction`` printed; on the first
+   step's QUBOs, the most frequent of 200 reads is the exact ground state
+   wherever the lowest two energies stand 0.25 apart (at least 40 problems).
 
 The last three lines are the ``nvidia-smi`` line, one JSON object with the
 kernel records (time, plain time, bound, launches on the main path), and
@@ -164,6 +184,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -177,6 +198,7 @@ ORACLE_ATOL = 0.12  # phase 4: |SA marginal − exact marginal| at the cold beta
 HB_ATOL, JOINT_ATOL, MOMENT_ATOL = 0.08, 0.05, 0.07
 WIDTHS = {"single": dict(), "pair": dict(pair=True), "quad": dict(quad=True)}
 WIDTH_OF = {"single": 1, "pair": 2, "quad": 4}  # K2's update width (gibbs_cuda.launch)
+GAP = 0.25  # phase 8: the energy gap past which the QPU seam's mode is the ground state
 
 
 def fail(msg: str) -> None:
@@ -531,6 +553,245 @@ def rbm_phase(dev, smi: str, counters) -> dict:
               f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} (H100 SXM peaks)")
     rec["cd1_bf16_epoch"] = timing
     rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
+
+
+class CardAnnealer:
+    """A structured dimod-style sampler for phase 8, defined here and not in
+    the package: Chimera C16 (2048 qubits), whose ``sample_qubo`` refuses a
+    qubit or coupler off the graph, then anneals the embedded physical QUBO
+    with the port's ``SASampler`` on a CUDA tensor (K1 while the used qubits
+    are at most 241, K4 above) and answers with a dimod-shaped sampleset
+    (``record.sample``, ``variables``, ``info["timing"]``)."""
+
+    def __init__(self, dev, sweeps: int, seed: int):
+        from qbmx_torch.embedding import chimera_graph
+        from qbmx_torch.samplers.api import SASampler
+
+        self.adjacency = chimera_graph(16)
+        self.properties = {"topology": {"type": "chimera", "shape": [16, 16, 4]}}
+        self.sampler = SASampler(num_sweeps=sweeps)
+        self.generator = torch.Generator().manual_seed(seed)
+        self.dev = dev
+        self.widths = []  # qubits used, a call each
+
+    def sample_qubo(self, qdict, num_reads=1, **_):
+        variables = sorted({q for ij in qdict for q in ij})
+        col = {q: c for c, q in enumerate(variables)}
+        Q = np.zeros((len(variables), len(variables)), np.float32)
+        for (i, j), v in qdict.items():
+            if i not in self.adjacency or (i != j and j not in self.adjacency[i]):
+                raise ValueError(f"({i}, {j}) is not on the Chimera C16 graph")
+            Q[col[min(i, j)], col[max(i, j)]] += v
+        self.widths.append(len(variables))
+        t0 = time.perf_counter()
+        s = self.sampler.sample_batch(self.generator, torch.as_tensor(Q, device=self.dev)[None],
+                                      num_reads)[0].cpu().numpy()
+        us = (time.perf_counter() - t0) * 1e6
+        return types.SimpleNamespace(record=types.SimpleNamespace(sample=s.astype(np.int8)),
+                                     variables=variables, info={"timing": {"qpu_access_time": us}})
+
+
+def host_seams_phase(dev, smi: str, counters, made, batch, k1_step_ms: float) -> dict:
+    """Phase 8 (module docstring): the native annealer and the QPU seam with
+    the model on the card; returns its record."""
+    import os
+
+    import qbmx_torch.cli.qbm_main as qm
+    from qbmx_torch.core.qubo import default_beta_range, densify_groups, qubo_energies
+    from qbmx_torch.core.rng import draw_seeds
+    from qbmx_torch.models.dqbm import DiscQBM, params_to_numpy
+    from qbmx_torch.samplers import api, native
+    from qbmx_torch.samplers.exact import enumerate_states, exact_boltzmann
+    from qbmx_torch.samplers.qpu import StructuredQPUSampler
+
+    rec = {"cpu_count": os.cpu_count()}
+    t_phase = time.perf_counter()
+    x, y, mask = batch
+
+    def launches() -> dict:
+        return {k: v for c in counters for k, v in c.launch_counts.items() if v}
+
+    # (a) the native build, from native/sa_sampler.cpp into build/native/
+    so = native.library_path()
+    compiled = not so.exists()
+    t0 = time.perf_counter()
+    native.load_library()
+    rec["build_s"] = time.perf_counter() - t0
+    check(so.parent == ROOT / "build" / "native", f"native library built into {so.parent}")
+    print(f"phase 8 native build: {rec['build_s']:.2f} s ({'compiled' if compiled else 'cached'})"
+          f" -> {so}")
+
+    # (b) qbm_main --solver SA-NATIVE on cuda at the flagship widths: every
+    # call recorded (its seeds, its QUBOs on the host, the samples the model got)
+    calls = []
+
+    class RecordedNative(native.NativeSASampler):
+        def sample_batch(self, generator, Q, num_reads):
+            state = generator.get_state()
+            out = super().sample_batch(generator, Q, num_reads)
+            seeds = draw_seeds(torch.Generator().set_state(state), Q.shape[0])
+            calls.append((seeds, Q.cpu().numpy(), num_reads, self.num_sweeps, out))
+            return out
+
+    api.NativeSASampler = RecordedNative
+    steps, anneal = 10, 100
+    for c in counters:
+        c.reset_launch_counts()
+    t0 = time.perf_counter()
+    acc, f1, precision, recall, auc = qm.main(
+        device="cuda", data_set="synthetic", n_hidden_nodes=5, sample_count=1000, anneal=anneal,
+        batch_size=60, learning_rate=0.307, epochs=1, restricted=False, save="",
+        solver="SA-NATIVE")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    api.NativeSASampler = native.NativeSASampler
+    model = made[-1]
+    nlls = model.training_history.nll_per_batch
+    on_card = {k: v.device.type for k, v in vars(model.params).items()}
+    moved = max(float(np.abs(v - model.initial_params[k]).max())
+                for k, v in params_to_numpy(model.params).items())
+    check(isinstance(model.sampler, RecordedNative), "qbm_main did not build the native sampler")
+    check(launches() == {}, f"SA-NATIVE launched kernels: {launches()}")
+    check(set(on_card.values()) == {"cuda"}, f"SA-NATIVE: parameters left the card: {on_card}")
+    check(len(calls) == steps + 2 and all(o.device.type == "cuda" for *_, o in calls),
+          f"SA-NATIVE: {len(calls)} sampler calls, devices {[o.device for *_, o in calls]}")
+    check(len(nlls) == steps and all(math.isfinite(v) for v in nlls), f"SA-NATIVE: nll {nlls}")
+    check(moved > 0.0, "SA-NATIVE: training did not move the parameters")
+    check(all(0.0 <= v <= 1.0 for v in (acc, f1, precision, recall, auc)),
+          "SA-NATIVE: metrics out of range")
+    print(f"phase 8 SA-NATIVE: qbm_main cuda synthetic dim_input 784 H=5 sc1000 anneal{anneal} "
+          f"bs60 e1: {steps} steps + 2 predictions, {len(calls)} host calls, kernel launches "
+          f"{launches()}, parameters on {set(on_card.values())}, nll {nlls[0]:.4f} -> "
+          f"{nlls[-1]:.4f}, max param change {moved:.4f}, test acc {acc:.4f} auc {auc:.4f}, "
+          f"wall {wall:.2f} s")
+
+    # the flagship step at anneal 1000, by CUDA events and by the host clock
+    model.sampler = RecordedNative(num_sweeps=1000)
+    calls.clear()
+    for c in counters:
+        c.reset_launch_counts()
+    model._step(x, y, mask, 0.307)  # warm-up
+    ev_ms, host_ms = [], []
+    for _ in range(2):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        model._step(x, y, mask, 0.307)
+        end.record()
+        end.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        ev_ms.append(start.elapsed_time(end))
+    check(launches() == {}, f"SA-NATIVE step launched kernels: {launches()}")
+    rec.update(step_ms=statistics.median(ev_ms), step_host_ms=statistics.median(host_ms),
+               k1_step_ms=k1_step_ms)
+
+    # one step's samples: bit for bit the host call on host copies of its
+    # QUBOs and seeds; marginals within tests/test_native.py's 0.35 of the
+    # exact ones at each problem's cold beta
+    seeds, Qh, R, S, out = calls[-1]
+    again = native.sa_sample_batch_native_seeds(seeds, Qh, R, S)
+    rec["bit_for_bit"] = bool(np.array_equal(again, out.cpu().numpy()))
+    check(rec["bit_for_bit"], "SA-NATIVE: the step's samples differ from the host call's")
+    worst = 0.0
+    for b in range(Qh.shape[0]):
+        q = torch.as_tensor(Qh[b])
+        _, cold = default_beta_range(q)
+        _, _, marg, _ = exact_boltzmann(q, beta=float(cold))
+        worst = max(worst, float((out[b].mean(0).cpu() - marg).abs().max()))
+    rec["oracle_worst_marginal_err"] = worst
+    check(worst < 0.35, f"SA-NATIVE: marginal {worst:.4f} from the exact one (limit 0.35)")
+    print(f"phase 8 SA-NATIVE step (flagship: G=2 B=60 n=6 R=1000 S=1000, {Qh.shape[0]} problems "
+          f"on the host's {rec['cpu_count']} CPUs): {rec['step_ms']:.3f} ms by CUDA events, "
+          f"{rec['step_host_ms']:.3f} ms by the host clock (median of 2 after a warm-up), "
+          f"against phase 5's K1 step {k1_step_ms:.3f} ms; samples equal the host call on "
+          f"the step's QUBOs and seeds bit for bit: {rec['bit_for_bit']}; worst marginal error "
+          f"at the cold beta {worst:.4f} (limit 0.35); kernel launches {launches()}; {smi}")
+
+    # (c) the QPU seam: the flat DQBM (H=5) on cuda through StructuredQPUSampler
+    # with --qpu_copies 10 and an embedding cache, over CardAnnealer
+    stub_sweeps, reads, copies = 200, 100, 10
+    with tempfile.TemporaryDirectory() as cache:
+        def qpu_model(seed):
+            stub = CardAnnealer(dev, stub_sweeps, seed)
+            adapter = StructuredQPUSampler(stub, copies=copies, cache_dir=cache)
+            return stub, DiscQBM(dim_input=784, n_hidden_nodes=5, sample_count=reads,
+                                 restricted=False, seed=seed, sampler=adapter, device="cuda")
+
+        stub, m = qpu_model(1)
+        xb, yb = x.cpu().numpy(), y.cpu().numpy()
+        Q2, h2 = m.step_qubos(m.params, x, y.to(torch.float32)[:, None])  # the first step's
+        searches, nll, step_s = [], [], []
+        for c in counters:
+            c.reset_launch_counts()
+        for _ in range(3):
+            t0 = time.perf_counter()
+            _, l = m.train_for_one_iteration(xb, yb, 0.307)
+            nll.append(float(l))
+            step_s.append(time.perf_counter() - t0)
+            searches.append(m.sampler.embedding_searches)
+        counts, n_calls = launches(), len(stub.widths)
+        on_card = {v.device.type for v in vars(m.params).values()}
+        check(searches == [1, 1, 1], f"QPU seam: embedding searches after each step {searches}")
+        check(on_card == {"cuda"} and all(math.isfinite(v) for v in nll),
+              f"QPU seam: parameters on {on_card}, nll {nll}")
+        kernel = "sa_metropolis" if max(stub.widths) <= 241 else "anneal_wide"
+        check(counts.get(kernel, 0) == n_calls == 3 * 2 * 60,
+              f"QPU seam: {n_calls} stub calls, launch counts {counts}")
+        files = sorted(p.name for p in Path(cache).iterdir())
+        stub2, m2 = qpu_model(2)
+        m2.train_for_one_iteration(xb, yb, 0.307)
+        check(m2.sampler.embedding_searches == 0 and len(stub2.widths) == 120,
+              f"QPU seam: a second model on the cache searched "
+              f"{m2.sampler.embedding_searches} times")
+
+    # the seam's logical samples against the exact oracle on the first
+    # step's 120 QUBOs: where a problem's lowest two energies stand at least
+    # 0.25 apart, its most frequent of 200 reads must be the exact ground
+    # state.  Closer than that the embedded anneal may freeze in the second
+    # state: flipping a logical variable flips a chain of 4 qubits one at a
+    # time against the chain penalty (the plain SA on the CPU did so on 6 of
+    # these 60 problems, all with gaps under 0.12).  The clamped group's
+    # padding variable couples to nothing, so its ground states are
+    # degenerate and drop out; at least 40 of the 60 unclamped problems
+    # must be held (49 are, with the seed here)
+    Qd = densify_groups(Q2, h2).reshape(-1, 6, 6)
+    s = m.sampler.sample_batch(torch.Generator().manual_seed(3), Qd, 200)
+    states = enumerate_states(6, dev)
+    ground = []
+    for b in range(Qd.shape[0]):
+        E = qubo_energies(Qd[b], states)
+        order = torch.argsort(E)
+        if float(E[order[1]] - E[order[0]]) < GAP:
+            continue
+        uniq, cnt = torch.unique(s[b], dim=0, return_counts=True)
+        check(torch.equal(uniq[cnt.argmax()], states[order[0]]),
+              f"QPU seam: problem {b}'s most frequent read is not its ground state")
+        ground.append(float((s[b] == states[order[0]]).all(1).float().mean()))
+    held = len(ground)
+    check(held >= 40, f"QPU seam: only {held} problems with a gap of {GAP} (limit 40)")
+    rec["qpu"] = {"copies": copies, "reads": reads, "stub_sweeps": stub_sweeps,
+                  "qubits_used": max(stub.widths), "kernel": kernel, "launches": counts,
+                  "stub_calls": n_calls,
+                  "embedding_searches": searches, "second_model_searches":
+                      m2.sampler.embedding_searches, "cache_files": files,
+                  "chain_break_fraction": m.sampler.chain_break_fraction,
+                  "step_s": step_s, "oracle_problems": held,
+                  "oracle_ground_state_share": [min(ground), statistics.mean(ground)],
+                  "qpu_time_used_us": m.sampler.qpu_time_used}
+    print(f"phase 8 QPU seam: DiscQBM cuda dim_input 784 H=5 bs60 sc{reads}, "
+          f"StructuredQPUSampler copies {copies} over CardAnnealer (Chimera C16, SA "
+          f"{stub_sweeps} sweeps on the card): {max(stub.widths)} qubits a call -> {kernel}, "
+          f"launch counts {counts} for {n_calls} stub calls, embedding searches after "
+          f"each step {searches}, a second model on the cache {m2.sampler.embedding_searches}, "
+          f"cache {files}, chain_break_fraction {m.sampler.chain_break_fraction:.6f}, nll "
+          f"{nll}, step {[round(v, 3) for v in step_s]} s (host clock); oracle: the most "
+          f"frequent of 200 reads is the ground state for all {held} of {Qd.shape[0]} step "
+          f"QUBOs whose lowest two energies stand >= {GAP} apart (limit 40), its share of the "
+          f"reads {min(ground):.3f} at least, {statistics.mean(ground):.3f} on average")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 8 host seams: {rec['phase_s']:.1f} s")
     return rec
 
 
@@ -1846,6 +2107,9 @@ def main() -> None:
     # -- 7. the RBM family -------------------------------------------------------
     rbm_rec = rbm_phase(dev, smi, counters)
 
+    # -- 8. the host seams: the native annealer and the QPU seam -----------------
+    host_rec = host_seams_phase(dev, smi, counters, made, (x, y, mask), step_ms["SA"])
+
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s")
     t = lambda prefix: next(v for k, v in times.items() if k.startswith(prefix))
     bound_keys = lambda name: {"bound_ms": bounds[name]["bound_ms"],
@@ -1942,7 +2206,8 @@ def main() -> None:
          "sweep_launches": csweep_rec["a PT"]["launches"],
          "sweep_s100_bound_ms": bounds["pt_wide_sparse CDQBM (a) sweep G=20 S=100"]["bound_ms"]},
     ], "step_ms": step_ms, "cdqbm_launches": cdqbm_launches, "sweeps": sweep_rec,
-        "cdqbm_sweeps": csweep_rec, "resume": resume_rec, "rbm": rbm_rec}
+        "cdqbm_sweeps": csweep_rec, "resume": resume_rec, "rbm": rbm_rec,
+        "host_seams": host_rec}
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

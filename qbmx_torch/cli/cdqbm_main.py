@@ -6,7 +6,10 @@ The samplers run their CUDA kernels on ``--device cuda``: the CLI defaults
 (deterministic pooling 4, ``--seq_sizes 4``, 41 variables) on K1/K2, and
 probabilistic pooling (``--pooling_type probabilistic``, 717 variables at
 28×28) on K4 (SA, BMS) or K5 (PT), whose couplings exceed a block's shared
-memory; their plain PyTorch versions on ``--device cpu``.
+memory; their plain PyTorch versions on ``--device cpu``.  ``SA-NATIVE``
+anneals on the host in C++, and a D-Wave solver name builds a QPU adapter
+through the Ocean SDK (``--qpu_copies``, ``--qpu_embedding``,
+``--embedding_cache``).
 ``--seed_sweep`` trains every listed seed as one batched sweep
 (``train/sweep.SeedParallelCDQBM``: one sampler launch a step for all
 seeds; with ``--reinit_on_collapse`` its flatlined seeds are re-drawn).
@@ -201,7 +204,8 @@ def build_parser():
                    help="sweeps per read (SA anneal, BMS warm-up, PT sweeps)")
     p.add_argument("--solver", type=str, default="SA",
                    help="'SA' / 'SA-PALLAS', 'BMS', 'PT' -- each a CUDA kernel on a GPU; "
-                        "'SA-JAX' / 'SA-TORCH' (plain PyTorch), 'EXACT'")
+                        "'SA-JAX' / 'SA-TORCH' (plain PyTorch), 'SA-NATIVE' (C++ on the "
+                        "host), 'EXACT', or a D-Wave solver name (needs the Ocean SDK)")
     p.add_argument("--data_set", type=str, default="mnist")
     p.add_argument("--num_classes", type=int, default=2)
     p.add_argument("--save", "--out", dest="save", type=str, default="out/")
@@ -256,11 +260,16 @@ def build_parser():
     p.add_argument("--resume", type=str, default="",
                    help="continue from a --checkpoint_every state .npz, exactly")
     p.add_argument("--qpu_copies", type=int, default=1,
-                   help="QPU solvers only (not ported yet)")
+                   help="QPU solvers only: pack this many QUBO replicas into one "
+                        "anneal (partition-aware placement on the chip)")
     p.add_argument("--qpu_embedding", choices=["first_party", "composite"],
-                   default="first_party", help="QPU solvers only (not ported yet)")
+                   default="first_party",
+                   help="QPU solvers only: 'first_party' embeds with "
+                        "qbmx_torch.embedding (one cached search per QUBO structure), "
+                        "'composite' leaves it to Ocean's EmbeddingComposite")
     p.add_argument("--embedding_cache", type=str, default="",
-                   help="QPU solvers only (not ported yet)")
+                   help="QPU solvers only: directory for persisted embeddings "
+                        "(qbmx's pickle format; reused across runs)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cuda' needs a GPU (no CPU fallback)")
     return p

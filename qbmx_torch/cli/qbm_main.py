@@ -10,10 +10,13 @@ every listed seed as one batched sweep (``train/sweep.SeedParallelDQBM``:
 one sampler launch a step for all seeds).  ``--checkpoint_every N`` writes
 the full training state every N epochs to ``<save><run>/state.npz``, and
 ``--resume <npz>`` continues from such a state exactly
-(``utils/checkpoint.py``).  Not ported yet, and refused with a pointer to
-the ROADMAP item: ``SA-NATIVE`` (Queue 1 item 9) and the QPU solvers (item
-10).  ``--track_distribution`` records the per-epoch distribution in the
-history but draws no figure.
+(``utils/checkpoint.py``).  ``SA-NATIVE`` anneals on the host in C++
+(``samplers/native.py``) on either device; a D-Wave solver name
+(``Advantage*``, ``DW_*``) builds a QPU adapter through the Ocean SDK,
+shaped by ``--qpu_copies``, ``--qpu_embedding`` and ``--embedding_cache``
+(``samplers/qpu.py``).  ``--track_distribution`` records the per-epoch
+output distribution in the history and, with ``--save``, draws it to
+``<save><run>_distribution.png`` (needs matplotlib).
 """
 
 from __future__ import annotations
@@ -29,9 +32,9 @@ from qbmx_torch.cli._common import (finish_seed_sweep, load_dataset, param_strin
 from qbmx_torch.data import loaders
 from qbmx_torch.models.base import resolve_device
 from qbmx_torch.models.dqbm import DiscQBM
-from qbmx_torch.train.loop import train_model
+from qbmx_torch.train.loop import output_patterns, train_model
 from qbmx_torch.train.sweep import SeedParallelDQBM
-from qbmx_torch.utils import metrics
+from qbmx_torch.utils import metrics, plots
 from qbmx_torch.utils.checkpoint import load_checkpoint
 
 
@@ -127,6 +130,18 @@ def main(
     )
     print(f"QBM trained in {time.time() - t0:.1f}s")
 
+    if track_distribution and save and history.distribution_per_epoch:
+        # the bars of the reference's show_and_save_distribution
+        # (src/metrics.py:131-167) over the per-epoch series
+        plt = plots.pyplot()
+        fig = plots.show_and_save_distribution(
+            history.distribution_per_epoch,
+            [f"e{i + 1}" for i in range(len(history.distribution_per_epoch))],
+            f"{save}{pstr}_distribution.png", "Unclamped output distribution per epoch",
+            output_patterns(dqbm), save=True)
+        plt.close(fig)
+        print(f"Distribution figure: {save}{pstr}_distribution.png")
+
     print("Predict on test data...")
     predictions, _ = dqbm.predict_batch(test_X)
     if save:
@@ -187,7 +202,8 @@ def build_parser():
                    help="Solver: 'SA' / 'SA-PALLAS' (annealed Metropolis), 'BMS' "
                         "(annealed heat-bath), 'PT' (parallel tempering) -- each a "
                         "CUDA kernel on a GPU; 'SA-JAX' / 'SA-TORCH' (plain "
-                        "PyTorch), 'EXACT'")
+                        "PyTorch), 'SA-NATIVE' (C++ on the host), 'EXACT', or a "
+                        "D-Wave solver name (needs the Ocean SDK)")
     p.add_argument("--data_set", type=str, default="pneumoniamnist",
                    help="'mnist', 'breastmnist', 'pneumoniamnist', 'fashionmnist', 'synthetic'")
     p.add_argument("--num_classes", type=int, default=2)
@@ -218,11 +234,16 @@ def build_parser():
                         "(qbmx_torch.train.sweep.SeedParallelDQBM); writes per-seed "
                         "per-epoch pickles and best_model/ checkpoints")
     p.add_argument("--qpu_copies", type=int, default=1,
-                   help="QPU solvers only (not ported yet)")
+                   help="QPU solvers only: pack this many QUBO replicas into one "
+                        "anneal (partition-aware placement on the chip)")
     p.add_argument("--qpu_embedding", choices=["first_party", "composite"],
-                   default="first_party", help="QPU solvers only (not ported yet)")
+                   default="first_party",
+                   help="QPU solvers only: 'first_party' embeds with "
+                        "qbmx_torch.embedding (one cached search per QUBO structure), "
+                        "'composite' leaves it to Ocean's EmbeddingComposite")
     p.add_argument("--embedding_cache", type=str, default="",
-                   help="QPU solvers only (not ported yet)")
+                   help="QPU solvers only: directory for persisted embeddings "
+                        "(qbmx's pickle format; reused across runs)")
     p.add_argument("--track_distribution", action="store_true",
                    help="record the unclamped output-node distribution per "
                         "epoch (History.distribution_per_epoch)")

@@ -26,3 +26,11 @@ def draw_seed(generator: torch.Generator | None = None) -> int:
     when ``None``) — keys a kernel's counter-based Philox streams."""
     src = generator.device if generator is not None else "cpu"
     return int(torch.randint(0, 2**63 - 1, (1,), generator=generator, device=src))
+
+
+def draw_seeds(generator: torch.Generator | None, count: int) -> np.ndarray:
+    """``count`` 63-bit seeds as a (count,) uint64 array, drawn from
+    ``generator`` in one call — one a problem for the host samplers."""
+    src = generator.device if generator is not None else "cpu"
+    seeds = torch.randint(0, 2**63 - 1, (count,), generator=generator, device=src)
+    return seeds.cpu().numpy().astype(np.uint64)

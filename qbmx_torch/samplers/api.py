@@ -1,5 +1,6 @@
-"""Sampler interface and solver-string registry (the on-device solvers of
-``qbmx.samplers.api``: SA, BMS, PT and the exact oracle).
+"""Sampler interface and solver-string registry (the counterpart of
+``qbmx.samplers.api``: SA, BMS, PT, the exact oracle, the native host
+annealer and the QPU adapters).
 
 A sampler is a small config object with
 
@@ -11,6 +12,10 @@ structured shared-coupling form every model uses.  Routing is by tensor
 device: ``"SA"``/``"SA-PALLAS"``, ``"BMS"`` and ``"PT"`` launch their CUDA
 kernel on CUDA tensors and run its plain version on CPU tensors;
 ``"SA-JAX"`` (alias ``"SA-TORCH"``) always runs the plain version.
+``"SA-NATIVE"`` anneals on the host in C++ (``samplers/native.py``) on
+either device; a D-Wave solver name (``ADVANTAGE*``, ``DW_*``) builds a QPU
+adapter through the Ocean SDK (``samplers/qpu.py``), which raises with
+guidance where the SDK is not installed.
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ import torch
 from qbmx_torch.core.qubo import densify_groups
 from qbmx_torch.samplers import exact as _exact
 from qbmx_torch.samplers import gibbs_cuda, pt_wide_cuda, sa_cuda, sa_torch
+from qbmx_torch.samplers.native import NativeSASampler
+from qbmx_torch.samplers.qpu import QPUSampler, StructuredQPUSampler
 
 
 class Sampler(Protocol):
@@ -138,12 +145,6 @@ class ExactSampler:
                             for q in Q])
 
 
-_NOT_PORTED = {
-    "SA-NATIVE": "the native C++ sampler (ROADMAP Queue 1 item 9)",
-    "QPU": "QPU solvers (ROADMAP Queue 1 item 10)",
-}
-
-
 def get_sampler(solver: str, num_sweeps: int = 1000, **kwargs) -> Sampler:
     """Solver-string registry; ``num_sweeps`` is sweeps per read for every
     solver (SA anneal sweeps, BMS warm-up sweeps, PT sweeps).  The legacy
@@ -153,6 +154,8 @@ def get_sampler(solver: str, num_sweeps: int = 1000, **kwargs) -> Sampler:
         return SASampler(num_sweeps=num_sweeps)
     if s in ("SA-JAX", "SA-TORCH"):
         return SASampler(num_sweeps=num_sweeps, use_kernel=False)
+    if s == "SA-NATIVE":
+        return NativeSASampler(num_sweeps=num_sweeps)
     if s == "BMS":
         return GibbsSampler(num_warmup=kwargs.get("num_warmup", num_sweeps),
                             beta=kwargs.get("beta", 1.0),
@@ -164,11 +167,22 @@ def get_sampler(solver: str, num_sweeps: int = 1000, **kwargs) -> Sampler:
                          beta_target=kwargs.get("beta", 1.0))
     if s == "EXACT":
         return ExactSampler(beta=kwargs.get("beta", 1.0))
-    if s.startswith(("ADVANTAGE", "DW_")) or s == "FUJITSUDAU":
-        s = "QPU"
-    if s in _NOT_PORTED:
+    if s.startswith(("ADVANTAGE", "DW_")):
+        # ``embedding="first_party"`` (the default) wraps the raw structured
+        # sampler and embeds with qbmx_torch.embedding; ``"composite"``
+        # leaves the embedding to Ocean's EmbeddingComposite
+        if kwargs.get("embedding", "first_party") == "composite":
+            return QPUSampler.from_ocean(solver, token=kwargs.get("token"),
+                                         copies=kwargs.get("copies", 1))
+        return StructuredQPUSampler.from_ocean(
+            solver, token=kwargs.get("token"), copies=kwargs.get("copies", 1),
+            cache_dir=kwargs.get("cache_dir"), chain_strength=kwargs.get("chain_strength"))
+    if s == "FUJITSUDAU":
         raise NotImplementedError(
-            f"solver {solver!r}: qbmx_torch does not have {_NOT_PORTED[s]} yet")
+            f"QPU solver {solver!r}: qbmx_torch is annealer-free by design. Pass any "
+            "dimod-style sampler to qbmx_torch.samplers.qpu.QPUSampler to adapt "
+            "external hardware.")
     raise ValueError(
-        f'Unknown solver {solver!r}. Valid: "SA", "SA-PALLAS", "SA-JAX" '
-        '("SA-TORCH"), "BMS", "PT", "EXACT".')
+        f'Unknown solver {solver!r}. Valid: "SA", "SA-JAX" ("SA-TORCH"), "SA-PALLAS", '
+        '"SA-NATIVE", "BMS", "PT", "EXACT", or a D-Wave solver name with the Ocean SDK '
+        "installed.")

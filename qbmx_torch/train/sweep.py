@@ -76,6 +76,14 @@ def _sweep_generator(seeds: Sequence[int]) -> torch.Generator:
     return torch.Generator().manual_seed(int(state[0]))
 
 
+def _refuse_qpu_adapters(sampler) -> None:
+    """``qbmx``'s guard, with its message: a sampler that declares
+    ``jit_safe = False`` (the QPU adapters, one network roundtrip a
+    problem) is refused.  The native host sampler is taken."""
+    if not getattr(sampler, "jit_safe", True):
+        raise ValueError("seed-parallel sweeps need a jit-safe sampler")
+
+
 def _seed_streams(seeds: Sequence[int], init_fn, attempt: int = 0):
     """Stacked initial parameters: seed s's are ``init_fn(make_generator(s,
     attempt))``, the stream the single model of seed s draws them from
@@ -306,6 +314,7 @@ class SeedParallelDQBM(_SeedSweep):
         self.device = resolve_device(device)
         self.sampler = sampler if sampler is not None else get_sampler(
             solver, num_sweeps=anneal_steps)
+        _refuse_qpu_adapters(self.sampler)
         self.params = _seed_streams(self.seeds, self._init_params)
         self._start()
 
@@ -416,6 +425,7 @@ class SeedParallelCDQBM(_SeedSweep):
     predict_chunk = 32
 
     def __init__(self, seeds: Sequence[int], model):
+        _refuse_qpu_adapters(model.sampler)
         self.model = model
         self.seeds = [int(s) for s in seeds]
         self.S = len(self.seeds)

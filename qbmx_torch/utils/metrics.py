@@ -146,10 +146,11 @@ def get_result_as_txt(
 
 def save_result(file_path: str, model, history: History, trained_params, y_true,
                 y_predict, class_titles, batch_size, epochs, optimizer, learning_rate,
-                qpu_time_used="-", save=True):
+                qpu_time_used="-", save=True, make_plots=False):
     """Weights pickle + ``*_result.txt`` + ``*acc_auc.pkl`` + history
-    pickles (reference ``save_result``, ``src/metrics.py:205-236``; the
-    port draws no figures)."""
+    pickles, and with ``make_plots`` the five figures of
+    ``plots.save_all`` (reference ``save_result``,
+    ``src/metrics.py:205-236``)."""
     acc, f1, precision, recall, auc = get_metrics(y_true, y_predict, class_titles)
     result_txt = get_result_as_txt(
         acc, f1, precision, recall, auc,
@@ -171,6 +172,11 @@ def save_result(file_path: str, model, history: History, trained_params, y_true,
         save_history(file_path, history)
         with open(file_path + "acc_auc.pkl", "wb") as f:
             pickle.dump((acc, auc), f)
+    if make_plots:
+        from qbmx_torch.utils import plots
+
+        Path(file_path).parent.mkdir(parents=True, exist_ok=True)
+        plots.save_all(file_path, history, y_true, y_predict, class_titles)
     return acc, f1, precision, recall, auc
 
 

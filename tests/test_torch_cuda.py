@@ -1174,3 +1174,64 @@ def test_rbm_bf16_headline_step_on_the_card(dev):
         assert leaf.dtype == torch.float32 and leaf.device.type == "cuda"
         assert bool(torch.isfinite(leaf).all()), f
     assert not torch.equal(new.weights, params.weights) and math.isfinite(float(loss))
+
+
+# -- the host seams with the model on the card --------------------------------
+
+
+def test_native_sampler_on_a_cuda_q_returns_on_the_card_equal_to_the_host_call(dev):
+    from qbmx_torch.core.rng import draw_seeds
+    from qbmx_torch.samplers import native
+
+    Q = random_qubo_batch(np.random.default_rng(0), 5, 6)
+    s = api.get_sampler("SA-NATIVE", num_sweeps=100)
+    sa_cuda.reset_launch_counts()
+    got = s.sample_batch(torch.Generator().manual_seed(4), Q.to(dev), 64)
+    assert got.device.type == "cuda" and got.shape == (5, 64, 6)
+    assert sum(sa_cuda.launch_counts.values()) == 0  # the host anneals, no kernel
+    want = native.sa_sample_batch_native_seeds(
+        draw_seeds(torch.Generator().manual_seed(4), 5), Q.numpy(), 64, 100)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+class _CardStub:
+    """A structured dimod-style sampler on Chimera C4 that anneals the
+    embedded physical QUBO with the port's SA sampler on the card."""
+
+    def __init__(self, dev):
+        import types
+
+        from qbmx_torch import embedding
+
+        self.adjacency = embedding.chimera_graph(4)
+        self.properties = {"topology": {"type": "chimera", "shape": [4, 4, 4]}}
+        self.dev, self.types = dev, types
+        self.sampler = api.SASampler(num_sweeps=200)
+        self.generator = torch.Generator().manual_seed(0)
+
+    def sample_qubo(self, qdict, num_reads=1, **_):
+        variables = sorted({q for ij in qdict for q in ij})
+        col = {q: c for c, q in enumerate(variables)}
+        Q = torch.zeros((1, len(variables), len(variables)))
+        for (i, j), v in qdict.items():
+            assert i == j or j in self.adjacency[i], "a coupler off the graph"
+            Q[0, col[min(i, j)], col[max(i, j)]] += v
+        s = self.sampler.sample_batch(self.generator, Q.to(self.dev), num_reads)[0]
+        record = self.types.SimpleNamespace(sample=s.cpu().numpy().astype(np.int8))
+        return self.types.SimpleNamespace(record=record, variables=variables, info={})
+
+
+@pytest.mark.parametrize("copies", [1, 3])
+def test_qpu_adapter_with_a_card_stub_returns_on_the_card(dev, copies):
+    from qbmx_torch.samplers.qpu import StructuredQPUSampler
+
+    adapter = StructuredQPUSampler(_CardStub(dev), copies=copies)
+    Q = torch.as_tensor([[[-2.0, 3.0, 0.0], [0.0, -1.0, 0.5], [0.0, 0.0, 1.0]]], device=dev)
+    sa_cuda.reset_launch_counts()
+    out = adapter.sample_batch(torch.Generator().manual_seed(1), Q.repeat(2, 1, 1), 30)
+    assert out.device.type == "cuda" and out.shape == (2, 30, 3)
+    assert sa_cuda.launch_counts["sa_metropolis"] == 2  # one stub call a problem
+    # the ground state [1, 0, 0] (E = -2, the next -1) is the reads' most frequent state
+    states, counts = torch.unique(out[0], dim=0, return_counts=True)
+    assert states[counts.argmax()].tolist() == [1.0, 0.0, 0.0]
+    assert adapter.embedding_searches == 1
