@@ -166,7 +166,28 @@ failure exits nonzero; nothing carries on after one):
    search in all, none for a second model on the same cache, one K1
    launch a stub call, ``chain_break_fraction`` printed; on the first
    step's QUBOs, the most frequent of 200 reads is the exact ground state
-   wherever the lowest two energies stand 0.25 apart (at least 40 problems).
+   wherever the lowest two energies stand 0.25 apart (at least 40 problems);
+9. the mesh (``mesh_phase``; ``qbmx_torch/parallel/mesh.py`` over
+   ``torch.distributed``, no kernel of its own): a world of one under NCCL
+   in this process: the flagship DQBM through ``shard_model`` and
+   ``train_model`` (2 steps and a validation call: K1 launched 3 times and
+   nothing else, the counts zeroed just before and read just after); the
+   sharded flagship step (SA on K1, BMS on K2) and the sharded CDQBM (a)
+   step at anneal 10 (SA on K4, PT on K5's sparse path) each launching its
+   kernel once and equal bit for bit to the single model's step fed the
+   same stream (``fold_in(generator, 0, 0)``), each timed beside it; the
+   10-seed flagship sweep with ``mesh=`` at dp=1 equal to the unsharded
+   sweep bit for bit (2 steps at G=20 and a validation call: 3 K1
+   launches); then two ranks spawned on ``cuda:0`` over gloo
+   (``parallel/dryrun.flagship_pair``): the flagship step over dp=2 within
+   ``dryrun.PAIR_ATOL`` (nll ``PAIR_NLL_ATOL``) of the unsharded step, and
+   the rank's step without the all-reduce (the control) farther than that,
+   K1 launched once on each rank, both timed; the 10-seed sweep over dp=2
+   (G=10 a rank) launching K1 once a step and once for validation on each
+   rank, rank 0 alone writing the 10 best-model pickles; the two ranks' K1
+   launches of the same local groups from the sweep's stream differ (their
+   launch seeds are folded with the rank's rows) and leave the sweep's
+   generator in one state.
 
 The last three lines are the ``nvidia-smi`` line, one JSON object with the
 kernel records (time, plain time, bound, launches on the main path), and
@@ -175,6 +196,7 @@ kernel records (time, plain time, bound, launches on the main path), and
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
@@ -795,6 +817,154 @@ def host_seams_phase(dev, smi: str, counters, made, batch, k1_step_ms: float) ->
     return rec
 
 
+def mesh_phase(dev, smi: str) -> dict:
+    """Phase 9 (module docstring): the mesh on the card; returns its
+    record."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from qbmx_torch.core.rng import fold_in
+    from qbmx_torch.models.base import tree_leaves
+    from qbmx_torch.models.cdqbm import CDQBM
+    from qbmx_torch.models.dqbm import DiscQBM
+    from qbmx_torch.parallel import dryrun
+    from qbmx_torch.parallel.mesh import make_mesh, shard_model
+    from qbmx_torch.samplers import launches
+    from qbmx_torch.train.loop import train_model
+    from qbmx_torch.train.sweep import SeedParallelDQBM
+
+    rec = {}
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(31)
+    x = torch.as_tensor(rng.random((60, 784), dtype=np.float32), device=dev)
+    y = torch.as_tensor(np.arange(60) % 2, device=dev)
+    mask = torch.ones(60, device=dev)
+    ximg = torch.as_tensor(rng.random((20, 28, 28), dtype=np.float32), device=dev)
+    yimg, mimg = y[:20], mask[:20]
+    flagship = lambda solver: DiscQBM(dim_input=784, n_hidden_nodes=5, sample_count=1000,
+                                      anneal_steps=1000, solver=solver, device=dev)
+    cdqbm_a = lambda solver: CDQBM(pooling_size=4, pooling_type="probabilistic",
+                                   sequential_layer_sizes=[4], hidden_bias_type="shared",
+                                   sample_count=100, anneal=10, beta_eff=5.0, solver=solver,
+                                   device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", rank=0,
+                                world_size=1, timeout=datetime.timedelta(seconds=300))
+        try:
+            mesh = make_mesh(dp=1, chains=1, device=dev)
+            # the flagship DQBM through shard_model and train_model: 2 steps and
+            # one validation call, K1 on each (counts zeroed just before)
+            X = rng.random((120, 784), dtype=np.float32)
+            Y = np.arange(120) % 2
+            model = shard_model(flagship("SA"), mesh)
+            launches.reset()
+            h = train_model(model, X, Y, X[:60], Y[:60], batch_size=60, learning_rate=0.307,
+                            epochs=1, verbose=False)
+            torch.cuda.synchronize()
+            counts = launches.counts()
+            check(counts == {"sa_metropolis": 3}, f"phase 9 shard_model + train_model: launch "
+                  f"counts {counts} for 2 steps + 1 validation call")
+            check(all(math.isfinite(v) for v in h.nll_per_batch), f"phase 9 nll {h.nll_per_batch}")
+            rec["train_model_launches"] = counts
+            print(f"phase 9 world of one (NCCL): flagship DQBM shard_model + train_model, 2 "
+                  f"steps + 1 validation call: launch counts {counts}, nll "
+                  f"{h.nll_per_batch}")
+            # each sharded step against the single step fed the same stream
+            for label, make, inputs, kernel in (
+                    ("flagship SA", lambda: flagship("SA"), (x, y, mask), "sa_metropolis"),
+                    ("flagship BMS", lambda: flagship("BMS"), (x, y, mask), "sa_heatbath"),
+                    ("CDQBM (a) SA anneal 10", lambda: cdqbm_a("SA"), (ximg, yimg, mimg),
+                     "anneal_wide"),
+                    ("CDQBM (a) PT anneal 10", lambda: cdqbm_a("PT"), (ximg, yimg, mimg),
+                     "pt_wide_sparse")):
+                base = make()
+                sharded = shard_model(copy.deepcopy(base), mesh)
+                single = copy.deepcopy(base)
+                single.generator = fold_in(single.generator, 0, 0)
+                launches.reset()
+                n1, e1 = sharded._step(*inputs, 0.01)
+                torch.cuda.synchronize()
+                counts = launches.counts()
+                n2, e2 = single._step(*inputs, 0.01)
+                same = (torch.equal(n1, n2) and torch.equal(e1, e2) and all(
+                    torch.equal(a, b) for a, b in zip(tree_leaves(sharded.params),
+                                                      tree_leaves(single.params))))
+                check(counts == {kernel: 1}, f"phase 9 {label}: launch counts {counts}")
+                check(same, f"phase 9 {label}: the sharded step is not the single step")
+                ms_sh = cuda_ms(lambda: sharded._step(*inputs, 0.01), runs=5)
+                ms_si = cuda_ms(lambda: single._step(*inputs, 0.01), runs=5)
+                rec[label] = {"launches": counts, "bit_for_bit": same, "sharded_ms": ms_sh,
+                              "single_ms": ms_si}
+                print(f"phase 9 world of one (NCCL) {label}: sharded step = single step fed "
+                      f"fold_in(generator, 0, 0) bit for bit: {same}; launch counts {counts}; "
+                      f"step {ms_sh:.3f} ms sharded, {ms_si:.3f} ms single (CUDA events, "
+                      f"median of 5; {smi})")
+            # the 10-seed flagship sweep at dp=1 against the unsharded sweep
+            out = []
+            for m in (mesh, None):
+                sw = SeedParallelDQBM(list(range(10)), dim_input=784, n_hidden_nodes=5,
+                                      sample_count=1000, anneal_steps=1000, device=dev, mesh=m)
+                launches.reset()
+                hs = sw.train(X, Y, X[:60], Y[:60], epochs=1, batch_size=60,
+                              learning_rate=0.307, verbose=False)
+                torch.cuda.synchronize()
+                out.append((launches.counts(), [h.nll_per_batch + h.acc_per_epoch for h in hs],
+                            tree_leaves(sw.params)))
+            same = out[0][1] == out[1][1] and all(
+                torch.equal(a, b) for a, b in zip(out[0][2], out[1][2]))
+            check(out[0][0] == {"sa_metropolis": 3}, f"phase 9 sweep dp=1: {out[0][0]}")
+            check(same, "phase 9 sweep dp=1: not the unsharded sweep bit for bit")
+            rec["sweep_dp1"] = {"launches": out[0][0], "bit_for_bit": same}
+            print(f"phase 9 world of one (NCCL): SeedParallelDQBM(0..9, mesh=dp 1) = the "
+                  f"unsharded sweep bit for bit: {same} (launch counts {out[0][0]}: 2 steps "
+                  "at G=20 + 1 validation call)")
+        finally:
+            dist.destroy_process_group()
+        # two ranks on this card over gloo, spawned
+        t0 = time.perf_counter()
+        ranks = dryrun.spawn(dryrun.flagship_pair, 2, "gloo", ("cuda:0", tmp), timeout=600.0)
+        rec["gloo2_spawn_s"] = time.perf_counter() - t0
+    for r in ranks:
+        check(r["step_launches"] == {"sa_metropolis": 1},
+              f"phase 9 gloo rank {r['rank']}: step launch counts {r['step_launches']}")
+        check(r["max_diff"] <= dryrun.PAIR_ATOL and r["nll_diff"] <= dryrun.PAIR_NLL_ATOL,
+              f"phase 9 gloo rank {r['rank']}: sharded step {r['max_diff']} (nll "
+              f"{r['nll_diff']}) from the unsharded step")
+        # the control: the rank's step without the all-reduce must fail the check
+        check(r["control_diff"] > dryrun.PAIR_ATOL,
+              f"phase 9 gloo rank {r['rank']}: the step without the all-reduce is only "
+              f"{r['control_diff']} from the unsharded step: the check cannot fail")
+        check(r["sweep_launches"] == {"sa_metropolis": 3},
+              f"phase 9 gloo rank {r['rank']}: sweep launch counts {r['sweep_launches']}")
+        check(r["sweep_nll_finite"], f"phase 9 gloo rank {r['rank']}: sweep nll not finite")
+        check(len(r["files"]) == (10 if r["rank"] == 0 else 0),
+              f"phase 9 gloo rank {r['rank']} wrote {r['files']}")
+        med = lambda v: statistics.median(v)
+        print(f"phase 9 two ranks on cuda:0 over gloo, rank {r['rank']}: flagship step (30 rows "
+              f"a rank, K1 launches {r['step_launches']['sa_metropolis']}) {r['max_diff']!r} "
+              f"from the unsharded step (nll {r['nll_diff']!r}; limits {dryrun.PAIR_ATOL}, "
+              f"{dryrun.PAIR_NLL_ATOL}); control without the all-reduce {r['control_diff']!r} "
+              f"(nll {r['control_nll_diff']!r}); step {med(r['sharded_ms']):.3f} ms "
+              f"sharded, {med(r['single_ms']):.3f} ms unsharded (CUDA events, median of 5, both "
+              f"ranks on the card at once; {smi}); 10-seed sweep dp=2: launch counts "
+              f"{r['sweep_launches']} (2 steps at G=10 + 1 "
+              f"validation call), {len(r['files'])} best-model pickles written")
+    same_probe = np.array_equal(ranks[0]["probe"], ranks[1]["probe"])
+    check(not same_probe, "phase 9 sweep dp=2: the two ranks' launches of the same local "
+          "groups drew the same numbers")
+    check(ranks[0]["generator_state"] == ranks[1]["generator_state"],
+          "phase 9 sweep dp=2: the ranks left the sweep's generator in different states")
+    print(f"phase 9 sweep dp=2: the ranks' K1 launches of the same 5 local groups (hot, beta "
+          f"0.01) differ in {float((ranks[0]['probe'] != ranks[1]['probe']).mean()):.3f} of "
+          "their bits; the sweep's generator is left in one state on both")
+    rec["gloo2"] = [{k: v for k, v in r.items() if k not in ("probe", "generator_state")}
+                    for r in ranks]
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 9 mesh: {rec['phase_s']:.1f} s")
+    return rec
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA GPU")
@@ -807,6 +977,7 @@ def main() -> None:
     from qbmx_torch.core.rng import draw_seed
     from qbmx_torch.samplers import (gibbs, gibbs_cuda, kernel_call, pt_cuda, pt_wide_cuda, sa_cuda,
                                      sa_torch, tempering, wide_cuda)
+    from qbmx_torch.samplers import launches as launches_mod
     from qbmx_torch.samplers.api import densify_groups
     from qbmx_torch.samplers.exact import exact_boltzmann
     from qbmx_torch.utils.roofline import anneal_bound, heatbath_units
@@ -1439,7 +1610,7 @@ def main() -> None:
 
     qm.DiscQBM = RecordedDiscQBM
     steps, predictions = math.ceil(600 / 60), 2  # 600 synthetic train images; val + test
-    counters = (sa_cuda, gibbs_cuda, pt_cuda, wide_cuda, pt_wide_cuda)
+    counters = launches_mod.MODULES
     x = torch.as_tensor(np.random.default_rng(0).random((60, 784), dtype=np.float32), device=dev)
     y = torch.as_tensor(np.arange(60) % 2, device=dev)
     mask = torch.ones(60, device=dev)
@@ -2110,6 +2281,9 @@ def main() -> None:
     # -- 8. the host seams: the native annealer and the QPU seam -----------------
     host_rec = host_seams_phase(dev, smi, counters, made, (x, y, mask), step_ms["SA"])
 
+    # -- 9. the mesh: a world of one under NCCL, two ranks on the card over gloo ---
+    mesh_rec = mesh_phase(dev, smi)
+
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s")
     t = lambda prefix: next(v for k, v in times.items() if k.startswith(prefix))
     bound_keys = lambda name: {"bound_ms": bounds[name]["bound_ms"],
@@ -2207,7 +2381,7 @@ def main() -> None:
          "sweep_s100_bound_ms": bounds["pt_wide_sparse CDQBM (a) sweep G=20 S=100"]["bound_ms"]},
     ], "step_ms": step_ms, "cdqbm_launches": cdqbm_launches, "sweeps": sweep_rec,
         "cdqbm_sweeps": csweep_rec, "resume": resume_rec, "rbm": rbm_rec,
-        "host_seams": host_rec}
+        "host_seams": host_rec, "mesh": mesh_rec}
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

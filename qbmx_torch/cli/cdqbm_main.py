@@ -155,7 +155,7 @@ def main(
         save_folder=f"{save}{pstr}" if save else None,
         class_titles=class_names, history=prev_history,
         checkpoint_every=checkpoint_every, checkpoint_path=ckpt_path,
-        start_epoch=start_epoch,
+        start_epoch=start_epoch, progress=progress,
     )
     print("QBM trained")
 
@@ -227,7 +227,7 @@ def build_parser():
     p.add_argument("--coreset_budget", type=int, default=0,
                    help="k-center coreset size (0 = use all training data)")
     p.add_argument("--progress", action="store_true",
-                   help="Kept for flag parity (epochs report at epoch granularity)")
+                   help="tqdm bar over each epoch's batch loop")
     p.add_argument("--beta_eff", type=float, default=1.0,
                    help="effective inverse temperature divisor")
     p.add_argument("--samples_per_class", type=int, default=50,

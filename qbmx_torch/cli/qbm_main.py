@@ -126,7 +126,7 @@ def main(
         save_folder=f"{save}{pstr}" if save else None,
         reinit_on_collapse=reinit_on_collapse, history=prev_history,
         checkpoint_every=checkpoint_every, checkpoint_path=ckpt_path,
-        start_epoch=start_epoch, track_distribution=track_distribution,
+        start_epoch=start_epoch, track_distribution=track_distribution, progress=progress,
     )
     print(f"QBM trained in {time.time() - t0:.1f}s")
 
@@ -216,7 +216,7 @@ def build_parser():
     p.add_argument("--save", "--out", dest="save", type=str, default="out/")
     p.add_argument("--name", type=str, default="run")
     p.add_argument("--progress", action="store_true",
-                   help="Kept for flag parity (epochs report at epoch granularity)")
+                   help="tqdm bar over each epoch's batch loop")
     p.add_argument("--beta_eff", type=float, default=1.0)
     p.add_argument("--grad_clip", type=float, default=0.0,
                    help="max gradient global L2 norm (0 = off)")

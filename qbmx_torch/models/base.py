@@ -155,15 +155,15 @@ class EpochLaunchMixin:
             self._cache_store("_predict_data", (X,), None, x)
         return x
 
-    def train_epoch(self, x, y, batch_size, learning_rate):
+    def train_epoch(self, x, y, batch_size, learning_rate, progress: bool = False):
         """One epoch; the ragged tail batch is zero-padded and masked.
         Returns per-batch (nll, err) numpy arrays.  Callers must not mutate
         ``x``/``y`` in place between epochs (the device copy is cached by
-        array identity)."""
+        array identity).  ``progress``: a tqdm bar over the batches."""
+        from qbmx_torch.train.loop import _pad_batch, progress_bar
+
         cached = self._cache_lookup("_epoch_data", (x, y), batch_size)
         if cached is None:
-            from qbmx_torch.train.loop import _pad_batch
-
             xh = self._prepare_inputs(np.asarray(x, dtype="float32"))
             nb = -(-len(xh) // batch_size)
             xp, yp, mask = _pad_batch(xh, np.asarray(y), nb * batch_size)
@@ -176,7 +176,7 @@ class EpochLaunchMixin:
             self._cache_store("_epoch_data", (x, y), batch_size, cached)
         xb, yb, maskb = cached
         nlls, errs = [], []
-        for i in range(xb.shape[0]):
+        for i in progress_bar(range(xb.shape[0]), "epoch", progress):
             nll, err = self._step(xb[i], yb[i], maskb[i], learning_rate)
             nlls.append(nll)
             errs.append(err)

@@ -51,6 +51,7 @@ from qbmx_torch.models.base import (
     resolve_device,
     tree_map,
 )
+from qbmx_torch.models.dqbm import SINGLE_DEVICE, StepSeams
 from qbmx_torch.models.geometry import StackGeometry, patch_index_grid
 from qbmx_torch.samplers.api import Sampler, get_sampler, sampler_sample_groups
 
@@ -207,6 +208,10 @@ class CDQBM(EpochLaunchMixin, QBMModel):
     Randomness comes from one CPU ``torch.Generator`` seeded from ``seed``:
     it draws the init and the samplers' seeds (the CUDA kernels key their
     Philox streams with them) or, on CPU, the samplers' variates."""
+
+    #: where the training step meets its devices (``parallel.mesh.shard_model``
+    #: sets a rank's)
+    step_seams: StepSeams = SINGLE_DEVICE
 
     def __init__(
         self,
@@ -542,27 +547,29 @@ class CDQBM(EpochLaunchMixin, QBMModel):
         return Q2.flatten(0, len(lead)), h2.flatten(0, len(lead))
 
     @torch.no_grad()
-    def _step(self, x_imgs, y, mask, lr):
+    def _step(self, x_imgs, y, mask, lr, seams: StepSeams | None = None):
         """One fused two-phase update of ``self.params`` on images (B, H, W);
-        returns device scalars (nll, err)."""
+        returns device scalars (nll, err).  ``seams``: where the step meets
+        its devices (default ``self.step_seams``)."""
+        seams = seams if seams is not None else self.step_seams
+        x_imgs, y, mask = seams.rows(x_imgs, y, mask)
+        generator = seams.generator(self)
         geo = self.geo
         p = self.params
         y_vec = self._label_vec(y)
         nh = geo.n_hidden
         ctx = self._context(p, x_imgs)
         Q2, h2 = self.step_qubos(p, x_imgs, y_vec, ctx)
-        s_all = sampler_sample_groups(self.sampler, self.generator, Q2, h2, self.sample_count)
+        s_all = sampler_sample_groups(self.sampler, generator, Q2, h2,
+                                      seams.reads(self.sample_count))
         s_c, s_u = s_all[0, :, :, :nh], s_all[1]
 
         mc = self._moments(p, s_c, ctx, y_vec)
         mu = self._moments(p, s_u, ctx)
-        denom = torch.clamp(mask.sum(), min=1.0)
-
-        def avg(a, b):
-            diff = a - b
-            return (diff * mask.reshape((-1,) + (1,) * (diff.dim() - 1))).sum(dim=0) / denom
-
-        grad = tree_map(avg, mc, mu)
+        # NLL from unclamped output marginals (``nll_from_probs_binary``,
+        # ``src/train/train.py:7-10``)
+        grad, nll = seams.reduce(tree_map(torch.sub, mc, mu), mask,
+                                 self._probs_from_samples(s_u), y)
         if self.is_restricted:
             grad.w_seq_intra = tuple(torch.zeros_like(w) for w in grad.w_seq_intra)
         if self.hidden_bias_type == "none":
@@ -570,12 +577,6 @@ class CDQBM(EpochLaunchMixin, QBMModel):
         if self.grad_clip > 0.0:
             grad = clip_by_global_norm(grad, self.grad_clip)
         self.params = tree_map(lambda a, g: a - lr * g, p, grad)
-
-        # NLL from unclamped output marginals (``nll_from_probs_binary``,
-        # ``src/train/train.py:7-10``)
-        probs = self._probs_from_samples(s_u)
-        pr = torch.gather(probs, 1, y[:, None].to(torch.int64))[:, 0]
-        nll = (-torch.log(pr + 1e-12) * mask).sum() / denom
         return nll, grad.b_o.mean()
 
     def _probs_from_samples(self, s_u):

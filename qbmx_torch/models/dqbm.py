@@ -208,6 +208,32 @@ def nll_from_probs(probs, y, mask):
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
+class StepSeams:
+    """Where a training step (``DiscQBM._step``, ``CDQBM._step``) meets the
+    devices it runs on; these are one device's: every row of the batch,
+    the model's own generator, every read, the masked batch mean.
+    ``parallel.mesh.MeshSeams`` is a rank's."""
+
+    shortcut = True  # the restricted linear shortcut may be taken
+
+    def rows(self, *tensors):
+        return tensors
+
+    def generator(self, model) -> torch.Generator:
+        return model.generator
+
+    def reads(self, count: int) -> int:
+        return count
+
+    def reduce(self, diff, mask, probs, y):
+        """``(grad, nll)``: the masked batch means of the per-example moment
+        differences and of −log p(y)."""
+        return _masked_mean(diff, mask), nll_from_probs(probs, y, mask)
+
+
+SINGLE_DEVICE = StepSeams()
+
+
 # ---------------------------------------------------------------------------
 # Model
 # ---------------------------------------------------------------------------
@@ -221,6 +247,10 @@ class DiscQBM(EpochLaunchMixin, QBMModel):
     it draws the init, the linear-shortcut coins and the samplers' seeds
     (the CUDA kernel keys its Philox streams with them) or, on CPU, the
     samplers' variates."""
+
+    #: where the training step meets its devices (``parallel.mesh.shard_model``
+    #: sets a rank's)
+    step_seams: StepSeams = SINGLE_DEVICE
 
     def __init__(
         self,
@@ -283,35 +313,49 @@ class DiscQBM(EpochLaunchMixin, QBMModel):
         h2[1] = hu
         return Q2, h2
 
-    @torch.no_grad()
-    def _step(self, x, y, mask, lr):
-        """One fused two-phase update of ``self.params``; returns device
-        scalars (nll, err)."""
-        p = self.params
-        n_out, beta, reads = self.n_output_nodes, self.beta_eff, self.sample_count
+    def _label_vec(self, y: torch.Tensor) -> torch.Tensor:
         if self.use_one_hot_encoding:
-            y_vec = torch.nn.functional.one_hot(y.to(torch.int64), n_out).to(torch.float32)
-        else:
-            y_vec = y.to(torch.float32)[:, None]
+            return torch.nn.functional.one_hot(y.to(torch.int64), self.n_output_nodes) \
+                .to(torch.float32)
+        return y.to(torch.float32)[:, None]
+
+    def _sampler_call_groups(self) -> int:
+        """Groups in the step's one sampler call: the linear-shortcut step
+        samples the unclamped phase alone, the normal step (and a sharded
+        one) both phases."""
+        return 1 if self.use_linear_shortcut and self.step_seams.shortcut else 2
+
+    @torch.no_grad()
+    def _step(self, x, y, mask, lr, seams: StepSeams | None = None):
+        """One fused two-phase update of ``self.params``; returns device
+        scalars (nll, err).  ``seams``: where the step meets its devices
+        (default ``self.step_seams``)."""
+        seams = seams if seams is not None else self.step_seams
+        x, y, mask = seams.rows(x, y, mask)
+        generator = seams.generator(self)
+        p = self.params
+        n_out, beta, reads = self.n_output_nodes, self.beta_eff, seams.reads(self.sample_count)
+        y_vec = self._label_vec(y)
         B, H = x.shape[0], p.b_h.shape[0]
-        if self.use_linear_shortcut:
+        if self.use_linear_shortcut and seams.shortcut:
             # restricted clamped QUBO is diagonal: its ground state in closed
             # form, one fair coin per zero-bias unit, replicated across reads
             diag = torch.diagonal(clamped_qubo(p, x, y_vec, beta), dim1=-2, dim2=-1)
-            coin = (rand(diag.shape, self.generator, diag.device) < 0.5).to(torch.float32)
+            coin = (rand(diag.shape, generator, diag.device) < 0.5).to(torch.float32)
             gs = torch.where(diag < 0, 1.0, torch.where(diag > 0, 0.0, coin))
             s_c = gs[:, None, :].expand(B, reads, H)
-            s_u = sampler_sample_groups(self.sampler, self.generator,
+            s_u = sampler_sample_groups(self.sampler, generator,
                                         unclamped_qubo_shared(p, beta)[None],
                                         unclamped_fields(p, x, beta)[None], reads)[0]
         else:
             Q2, h2 = self.step_qubos(p, x, y_vec)
-            s_all = sampler_sample_groups(self.sampler, self.generator, Q2, h2, reads)
+            s_all = sampler_sample_groups(self.sampler, generator, Q2, h2, reads)
             s_c, s_u = s_all[0, :, :, :H], s_all[1]
 
         mc = clamped_moments(s_c, x, y_vec)
         mu = unclamped_moments(s_u, x, n_out)
-        grad = _masked_mean(tree_map(torch.sub, mc, mu), mask)
+        probs = output_probs_from_samples(s_u, n_out, self.use_one_hot_encoding)
+        grad, nll = seams.reduce(tree_map(torch.sub, mc, mu), mask, probs, y)
         if self.restricted:
             grad.w_hh = torch.zeros_like(grad.w_hh)
         if self.grad_clip > 0.0:
@@ -319,8 +363,7 @@ class DiscQBM(EpochLaunchMixin, QBMModel):
         # gradient DESCENT on (clamped − unclamped), reference
         # ``src/model/faster_dqbm.py:1051-1059``
         self.params = tree_map(lambda a, g: a - lr * g, p, grad)
-        probs = output_probs_from_samples(s_u, n_out, self.use_one_hot_encoding)
-        return nll_from_probs(probs, y, mask), grad.b_o.mean()
+        return nll, grad.b_o.mean()
 
     @torch.no_grad()
     def _predict_probs(self, x):

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from qbmx_torch.core.rng import draw_seed, make_generator
+from qbmx_torch.core.rng import draw_seed, make_generator, rand
 from qbmx_torch.models.base import (
     load_weight_pickle,
     resolve_device,
@@ -94,8 +94,22 @@ def init_params(generator: torch.Generator, num_visible: int, num_hidden: int,
 # ---------------------------------------------------------------------------
 
 
-def class_logits(params: RBMParams, x: torch.Tensor) -> torch.Tensor:
-    """log p(y|x) + const: (..., B, C).
+def _seedwise(fn, t: torch.Tensor, stacked: bool) -> torch.Tensor:
+    """``fn(t)`` for an elementwise ``fn``; seed by seed for a tensor
+    stacked over seeds on the CPU.  The CPU's vectorized kernels compute a
+    tensor's last elements in scalar code, which rounds softplus and
+    sigmoid differently, so a seed's values would otherwise depend on how
+    many seeds share the tensor (a seed-sharded sweep reproduces the
+    unsharded one bit for bit).  On the card every element takes one code.
+    ``stacked``: ``t``'s leading axis is the seeds' (the sweep says so)."""
+    if not stacked or t.device.type != "cpu":
+        return fn(t)
+    return torch.stack([fn(seed) for seed in t.unbind(0)])
+
+
+def class_logits(params: RBMParams, x: torch.Tensor, stacked: bool = False) -> torch.Tensor:
+    """log p(y|x) + const: (..., B, C); ``stacked``: the parameters have a
+    leading seed axis.
 
     ``logit_y = d_y + Σ_j softplus(c_j + x·W_j + U_yj)`` (torch's softplus
     goes linear past 20, where ``jax.nn.softplus`` is ``logaddexp(x, 0)``:
@@ -103,27 +117,28 @@ def class_logits(params: RBMParams, x: torch.Tensor) -> torch.Tensor:
     W = params.weights
     pre = x.to(W.dtype) @ W + params.hidden_bias[..., None, :]  # (..., B, H)
     act = pre[..., :, None, :] + params.class_weights[..., None, :, :]  # (..., B, C, H)
-    return params.class_bias[..., None, :] + F.softplus(act).sum(dim=-1)
+    return params.class_bias[..., None, :] + _seedwise(F.softplus, act, stacked).sum(dim=-1)
 
 
-def predict_proba(params: RBMParams, x: torch.Tensor) -> torch.Tensor:
-    return torch.softmax(class_logits(params, x), dim=-1)
+def predict_proba(params: RBMParams, x: torch.Tensor, stacked: bool = False) -> torch.Tensor:
+    return torch.softmax(class_logits(params, x, stacked), dim=-1)
 
 
-def discriminative_nll(params: RBMParams, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def discriminative_nll(params: RBMParams, x: torch.Tensor, y: torch.Tensor,
+                       stacked: bool = False) -> torch.Tensor:
     """Mean −log p(y|x) over the batch axis: a scalar, or (S,) for
     parameters stacked over seeds."""
-    logp = torch.log_softmax(class_logits(params, x), dim=-1)
+    logp = torch.log_softmax(class_logits(params, x, stacked), dim=-1)
     return -torch.gather(logp, -1, y.to(torch.int64)[..., None])[..., 0].mean(dim=-1)
 
 
-def nll_and_grad(params: RBMParams, x, y):
+def nll_and_grad(params: RBMParams, x, y, stacked: bool = False):
     """(nll, its gradient as ``RBMParams``) by autograd of the sum over
     seeds of each seed's mean nll, which is each seed's own gradient; the
     visible bias does not enter p(y|x) and gets a zero gradient."""
     with torch.enable_grad():
         leaves = tree_map(lambda a: a.detach().requires_grad_(True), params)
-        nll = discriminative_nll(leaves, x, y)
+        nll = discriminative_nll(leaves, x, y, stacked)
         flat = tree_leaves(leaves)
         grads = torch.autograd.grad(nll.sum(), flat, allow_unused=True)
     grads = [torch.zeros_like(a) if g is None else g for a, g in zip(flat, grads)]
@@ -140,10 +155,13 @@ class Draws:
     drawn from ``generator`` on its device, or, where ``variates`` is
     given, taken from it one array a draw (host-supplied: for each full
     Gibbs step the hidden uniforms, the visible uniforms and the class
-    Gumbel noise, then the final hidden uniforms)."""
+    Gumbel noise, then the final hidden uniforms).  ``stacked``: the
+    draws have a leading seed axis."""
 
-    def __init__(self, generator: torch.Generator | None = None, variates=None):
+    def __init__(self, generator: torch.Generator | None = None, variates=None,
+                 stacked: bool = False):
         self.generator = generator
+        self.stacked = stacked
         self._host = iter(variates) if variates is not None else None
 
     def _take(self, shape, device) -> torch.Tensor:
@@ -152,19 +170,17 @@ class Draws:
             raise ValueError(f"host variate of shape {tuple(v.shape)}, expected {tuple(shape)}")
         return v
 
-    def _rand(self, shape, device) -> torch.Tensor:
-        src = self.generator.device if self.generator is not None else device
-        return torch.rand(shape, generator=self.generator, device=src).to(device)
-
     def uniform(self, shape, device) -> torch.Tensor:
-        return self._take(shape, device) if self._host is not None else self._rand(shape, device)
+        if self._host is not None:
+            return self._take(shape, device)
+        return rand(shape, self.generator, device)
 
     def gumbel(self, shape, device) -> torch.Tensor:
         """``jax.random.gumbel``: −log(−log(u)), u uniform on [tiny, 1)."""
         if self._host is not None:
             return self._take(shape, device)
-        u = self._rand(shape, device).clamp_min_(torch.finfo(torch.float32).tiny)
-        return -torch.log(-torch.log(u))
+        u = rand(shape, self.generator, device).clamp_min_(torch.finfo(torch.float32).tiny)
+        return _seedwise(lambda t: -torch.log(-torch.log(t)), u, self.stacked)
 
 
 def _bernoulli(draws: Draws, p: torch.Tensor) -> torch.Tensor:
@@ -175,15 +191,16 @@ def _categorical(draws: Draws, logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits + draws.gumbel(logits.shape, logits.device), dim=-1)
 
 
-def _hidden_prob(params, v, y_onehot):
+def _hidden_prob(params, v, y_onehot, stacked: bool = False):
     W, U = params.weights, params.class_weights
-    return torch.sigmoid(v.to(W.dtype) @ W + params.hidden_bias[..., None, :]
-                         + y_onehot.to(U.dtype) @ U)
+    z = v.to(W.dtype) @ W + params.hidden_bias[..., None, :] + y_onehot.to(U.dtype) @ U
+    return _seedwise(torch.sigmoid, z, stacked)
 
 
-def _visible_prob(params, h):
+def _visible_prob(params, h, stacked: bool = False):
     W = params.weights
-    return torch.sigmoid(h.to(W.dtype) @ W.mT + params.visible_bias[..., None, :])
+    return _seedwise(torch.sigmoid, h.to(W.dtype) @ W.mT + params.visible_bias[..., None, :],
+                     stacked)
 
 
 def _class_prob(params, h):
@@ -193,7 +210,7 @@ def _class_prob(params, h):
 
 def cd_stats(params: RBMParams, v0, y_onehot, k: int, v_init=None, y_init=None,
              compute_dtype=torch.float32, persistent: bool = False,
-             draws: Draws | None = None):
+             draws: Draws | None = None, stacked: bool = False):
     """CD-k positive/negative statistics (``qbmx.models.rbm.cd_stats``).
 
     Returns ``(pos, neg, (vk, yk), recon)``: batch-meaned expected
@@ -202,21 +219,25 @@ def cd_stats(params: RBMParams, v0, y_onehot, k: int, v_init=None, y_init=None,
     hidden samples drive the chain; intermediate steps sample everything;
     the final update is mean-field (reconstructions enter the negative
     statistics as probabilities).  ``persistent=True`` keeps the fully
-    sampled chain, whose binary fantasy particles carry across steps."""
+    sampled chain, whose binary fantasy particles carry across steps.
+    ``stacked``: the parameters have a leading seed axis."""
     dt = compute_dtype
     draws = draws if draws is not None else Draws()
     B = v0.shape[-2]
     v0 = v0.to(dt)
     y_onehot = y_onehot.to(dt)
-    ph0 = _hidden_prob(params, v0, y_onehot).to(dt)
+    hidden = lambda v, y: _hidden_prob(params, v, y, stacked)
+    visible = lambda h: _visible_prob(params, h, stacked)
+    ph0 = hidden(v0, y_onehot).to(dt)
     v, y = (v0, y_onehot) if v_init is None else (v_init.to(dt), y_init.to(dt))
 
     def gibbs(v, y):
-        h = _bernoulli(draws, _hidden_prob(params, v, y)).to(dt)
-        pv = _visible_prob(params, h)
+        h = _bernoulli(draws, hidden(v, y)).to(dt)
+        pv = visible(h)
         v = _bernoulli(draws, pv).to(dt)
         py = _class_prob(params, h)
-        y = F.one_hot(_categorical(draws, torch.log(py + 1e-12)), py.shape[-1]).to(dt)
+        logits = _seedwise(torch.log, py + 1e-12, stacked)
+        y = F.one_hot(_categorical(draws, logits), py.shape[-1]).to(dt)
         return v, y
 
     def stats(v, y, ph):
@@ -233,17 +254,17 @@ def cd_stats(params: RBMParams, v0, y_onehot, k: int, v_init=None, y_init=None,
     if persistent:
         for _ in range(k):
             v, y = gibbs(v, y)
-        phk = _hidden_prob(params, v, y).to(dt)
-        recon = _visible_prob(params, phk).to(dt)
+        phk = hidden(v, y).to(dt)
+        recon = visible(phk).to(dt)
         return pos, stats(v, y, phk), (v, y), recon
 
     for _ in range(k - 1):  # intermediate steps fully sampled
         v, y = gibbs(v, y)
     # final mean-field update
-    h = _bernoulli(draws, _hidden_prob(params, v, y)).to(dt)
-    pv = _visible_prob(params, h).to(dt)
+    h = _bernoulli(draws, hidden(v, y)).to(dt)
+    pv = visible(h).to(dt)
     py = _class_prob(params, h).to(dt)
-    phk = _hidden_prob(params, pv, py).to(dt)
+    phk = hidden(pv, py).to(dt)
     return pos, stats(pv, py, phk), (pv, py), pv
 
 
@@ -254,7 +275,7 @@ def cd_stats(params: RBMParams, v0, y_onehot, k: int, v_init=None, y_init=None,
 
 def make_train_step(num_classes: int, method: str = "discriminative", cd_k: int = 1,
                     sparse_constant: float = 0.0, generative_factor: float = 0.0,
-                    compute_dtype=torch.float32):
+                    compute_dtype=torch.float32, stacked: bool = False):
     """Build a step ``(params, x, y, lr, chain=None, generator=None,
     variates=None) -> (params, loss[, chain])``.
 
@@ -262,7 +283,7 @@ def make_train_step(num_classes: int, method: str = "discriminative", cd_k: int 
     (the Gibbs chain carries over between steps) or 'hybrid' (disc +
     generative_factor · CD-k).  ``generator`` / ``variates`` feed the CD
     chain's draws (:class:`Draws`).  The loss is a device tensor (one a
-    seed for stacked parameters)."""
+    seed for parameters ``stacked`` over a leading seed axis)."""
     if method not in METHODS:
         # an unknown string would otherwise silently no-op (zero updates,
         # constant-0 loss): the run "succeeds" with an untrained model
@@ -277,7 +298,7 @@ def make_train_step(num_classes: int, method: str = "discriminative", cd_k: int 
         loss = x.new_zeros((), dtype=torch.float32)
         new_chain = chain
         if method in ("discriminative", "hybrid"):
-            nll, grad = nll_and_grad(params, x, y)
+            nll, grad = nll_and_grad(params, x, y, stacked)
             updates = tree_map(lambda u, g: u - g, updates, grad)
             loss = nll
         if method in ("generative", "hybrid", "pcd"):
@@ -287,7 +308,7 @@ def make_train_step(num_classes: int, method: str = "discriminative", cd_k: int 
             pos, neg, new_chain, recon = cd_stats(
                 params, x, y_onehot, cd_k, v_init=v_init, y_init=y_init,
                 compute_dtype=compute_dtype, persistent=persistent,
-                draws=Draws(generator, variates))
+                draws=Draws(generator, variates, stacked), stacked=stacked)
             updates = tree_map(lambda u, p, n: u + factor * (p - n), updates, pos, neg)
             if method == "generative":
                 # reconstruction error from the CD chain itself
@@ -295,8 +316,8 @@ def make_train_step(num_classes: int, method: str = "discriminative", cd_k: int 
             elif method == "pcd":
                 # fantasy-particle recon says nothing about x: the data
                 # mean-field reconstruction error instead
-                loss = ((x - _visible_prob(params, _hidden_prob(params, x, y_onehot))) ** 2
-                        ).mean(dim=(-2, -1))
+                ph = _hidden_prob(params, x, y_onehot, stacked)
+                loss = ((x - _visible_prob(params, ph, stacked)) ** 2).mean(dim=(-2, -1))
         new = tree_map(lambda p, u: p + lr * u, params, updates)
         # sparsity shrinkage on biases, reference ``update_weights``
         # (``src/ClassificationRBM.py:96-99``)

@@ -6,7 +6,9 @@ validation accuracy/AUC (+ their 50/50 combination); every N epochs a
 full-state checkpoint (``utils/checkpoint.py``).  On any failure the
 weights and history are saved as crash pickles, the full state as a
 ``mid_epoch`` crash checkpoint, and the error re-raised (reference
-``src/model/faster_dqbm.py:1128-1132``).
+``src/model/faster_dqbm.py:1128-1132``).  A model sharded over a mesh
+(``parallel.mesh.shard_model``) trains here unchanged; only its global
+rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -17,11 +19,25 @@ from pathlib import Path
 
 import numpy as np
 
+from qbmx_torch.parallel.mesh import writes_files
 from qbmx_torch.utils.checkpoint import save_checkpoint
 from qbmx_torch.utils.metrics import History, get_metrics, prob_scored_auc, save_history
 
 #: examples sampled per epoch for ``track_distribution``
 _DISTRIBUTION_SAMPLE_EXAMPLES = 64
+
+
+def progress_bar(iterable, desc: str, enabled: bool):
+    """A tqdm bar over ``iterable`` when ``enabled`` (the reference wraps its
+    batch loops in tqdm, e.g. ``src/train/train.py:268``); inert when
+    tqdm cannot be imported, as in ``qbmx``."""
+    if not enabled:
+        return iterable
+    try:
+        from tqdm import tqdm
+    except ImportError:
+        return iterable
+    return tqdm(iterable, desc=desc, leave=False)
 
 
 def _pad_batch(x, y, batch_size):
@@ -91,6 +107,7 @@ def train_model(
     checkpoint_path: str | None = None,
     start_epoch: int = 0,
     track_distribution: bool = False,
+    progress: bool = False,
 ) -> History:
     """Train ``model`` through epoch ``epochs``; returns the ``History``.
 
@@ -108,6 +125,9 @@ def train_model(
     the state goes to ``<checkpoint_path>_crash``, stamped ``mid_epoch``:
     an epoch is a loop of steps, so its parameters may be part-way through
     one, and ``load_checkpoint`` refuses it without ``allow_mid_epoch``.
+
+    ``progress``: a tqdm bar over each epoch's batch loop
+    (``model.train_epoch(..., progress=True)``).
     """
     train_X = np.asarray(train_X, dtype="float32")
     train_Y = np.asarray(train_Y)
@@ -115,13 +135,17 @@ def train_model(
     history = history if history is not None else (
         getattr(model, "training_history", None) or History())
     model.training_history = history
+    if not writes_files(model):
+        save_folder = checkpoint_path = None
     if save_folder:
         Path(save_folder).mkdir(parents=True, exist_ok=True)
     num_batches = max(-(-len(train_X) // batch_size), 1)
 
     for epoch in range(start_epoch + 1, epochs + 1):
         try:
-            nlls, errs = model.train_epoch(train_X, train_Y, batch_size, learning_rate)
+            # asked only when set: a model without a bar keeps its signature
+            nlls, errs = model.train_epoch(train_X, train_Y, batch_size, learning_rate,
+                                           **({"progress": True} if progress else {}))
         except BaseException:  # incl. KeyboardInterrupt: save, then re-raise
             if save_folder:
                 model.save_weights(f"e{epoch}_crash", save_folder)

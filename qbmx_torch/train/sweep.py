@@ -26,10 +26,23 @@ The RBM sweep (:class:`SeedParallelRBM`) runs no sampler: its products are
 batched matmuls over the seed axis (``models/rbm.py``), and its epoch
 drops the ragged tail, as ``qbmx``'s does.
 
+``mesh=`` (a ``parallel.mesh.Mesh``) shards the seed axis over dp: each
+rank trains its S/dp seeds (``mesh.seed_rows``; the seed count must
+divide) and the rows are gathered when a run ends, so every rank returns
+every seed's history and holds every seed's parameters and best epoch;
+rank 0 alone writes the pickles.  A rank's sampler calls and the RBM's
+shuffles and chain draws take its rows of the whole sweep's draws
+(``core.rng.RowStream``): on the plain versions (the CPU) the sharded
+sweep reproduces the unsharded one, and bit for bit for the RBM, whose
+draws are all its own.  The kernels key Philox by a group's index within
+the launch, which every rank shares, so a rank's launch seed is folded
+with its first row (``RowStream.seed``): every seed of the sweep anneals
+from numbers of its own, and on the card a sharded sweep of more than one
+rank agrees with the unsharded one statistically, not bit for bit (at
+dp=1 it is the same sweep).
+
 Left out, because they serve the TPU's compiler: the scanned and unrolled
-epoch launches, ``epoch_segment`` and the ``mesh`` argument with its
-sharded row scatter (ROADMAP Queue 1 item 11); a plain row write re-draws
-a seed.
+epoch launches and ``epoch_segment``.
 """
 
 from __future__ import annotations
@@ -41,7 +54,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from qbmx_torch.core.rng import draw_seed, make_generator
+from qbmx_torch.core.rng import RowStream, draw_seed, make_generator, rand
 from qbmx_torch.models import rbm
 from qbmx_torch.models.base import pad_rows, resolve_device, tree_leaves, tree_map
 from qbmx_torch.models.cdqbm import init_params as cdqbm_init
@@ -58,6 +71,8 @@ from qbmx_torch.models.dqbm import (
     unclamped_moments,
     unclamped_qubo_shared,
 )
+from qbmx_torch.parallel.mesh import (check_device, gather_numpy, gather_tree, seed_rows,
+                                      writes_files)
 from qbmx_torch.samplers.api import Sampler, get_sampler, sampler_sample_groups
 from qbmx_torch.train.loop import _pad_batch, flatlined
 from qbmx_torch.utils.metrics import History, accuracy_and_auc, get_metrics, prob_scored_auc
@@ -154,51 +169,81 @@ def _snapshot_best(best, params, improved: np.ndarray):
 
 def _track_best(sw, histories, epoch_i: int) -> None:
     """Update ``sw.best_params`` / ``best_metric`` / ``best_epoch`` from
-    this epoch's per-seed 0.5·acc + 0.5·auc (the reference's model
-    selection); the epoch recorded counts every epoch trained so far."""
+    this epoch's 0.5·acc + 0.5·auc of the seeds ``sw.rows`` (the
+    reference's model selection); the epoch recorded counts every epoch
+    trained so far."""
+    rows = slice(sw.rows.start, sw.rows.stop)
     combined = np.asarray([h.combined_acc_auc_per_epoch[-1] for h in histories])
-    improved = combined > sw.best_metric
+    improved = combined > sw.best_metric[rows]
     if not improved.any():
         return
-    sw.best_metric = np.where(improved, combined, sw.best_metric)
-    sw.best_epoch = np.where(improved, sw._epochs_done + epoch_i, sw.best_epoch)
+    sw.best_metric[rows] = np.where(improved, combined, sw.best_metric[rows])
+    sw.best_epoch[rows] = np.where(improved, sw._epochs_done + epoch_i, sw.best_epoch[rows])
     sw.best_params = _snapshot_best(sw.best_params if sw.best_params is not None else sw.params,
                                     sw.params, improved)
+
+
+def _rows_of(tree, rows: range):
+    return tree_map(lambda a: a[rows.start: rows.stop], tree)
+
+
+def _gather_histories(mesh, histories, rows: range, S: int) -> list[History]:
+    """Every seed's ``History`` on every rank, from each rank's histories of
+    its ``rows`` (every series has one length across the seeds)."""
+    out = [History() for _ in range(S)]
+    for field in ("errors_per_batch", "error_per_epoch", "nll_per_batch", "nll_per_epoch",
+                  "acc_per_epoch", "auc_per_epoch", "combined_acc_auc_per_epoch",
+                  "prob_auc_per_epoch"):
+        local = np.asarray([getattr(h, field) for h in histories], dtype=np.float64)
+        full = gather_numpy(mesh, local.reshape(len(rows), -1), rows, S)
+        for h, series in zip(out, full):
+            setattr(h, field, [float(v) for v in series])
+    return out
 
 
 def _save_best_models(sw, folder, objs_for_seed, name_fn=None) -> dict:
     """Each seed's best-epoch weight pickle under ``folder/best_model/``,
     the reference's layout; ``objs_for_seed(one seed's parameters, on the
     host) -> pickle payload``, ``name_fn(seed, best_epoch) -> file stem``.
-    Returns {seed: path}."""
+    Returns {seed: path} on every rank; under a mesh rank 0 alone writes."""
     if sw.best_params is None:
         raise RuntimeError("no best-epoch snapshots: train with validation data first")
     out = Path(folder) / "best_model"
-    out.mkdir(parents=True, exist_ok=True)
-    host = tree_map(lambda a: a.cpu(), sw.best_params)  # fetched once for every seed
+    write = writes_files(sw)
+    if write:
+        out.mkdir(parents=True, exist_ok=True)
+        host = tree_map(lambda a: a.cpu(), sw.best_params)  # fetched once for every seed
     paths = {}
     for i, seed in enumerate(sw.seeds):
         stem = (name_fn(seed, int(sw.best_epoch[i])) if name_fn is not None
                 else f"_se{seed}_e{int(sw.best_epoch[i])}_best")
         path = out / f"{stem}.pkl"
-        with open(path, "wb") as f:
-            pickle.dump(objs_for_seed(tree_map(lambda a: a[i], host)), f)
+        if write:
+            with open(path, "wb") as f:
+                pickle.dump(objs_for_seed(tree_map(lambda a: a[i], host)), f)
         paths[seed] = str(path)
     return paths
 
 
 class _SeedSweep:
-    """The epoch loop, flatline re-draws and best-epoch bookkeeping both
-    sweeps share.  A subclass sets ``seeds``, ``S``, ``device`` and
-    ``params``, calls :meth:`_start`, and provides ``_init_params(generator)``
-    (one seed's initial parameters), ``_prepare(x)`` (host inputs in its
-    layout), ``_step(x, y, mask, lr)`` ((S,) nlls) and ``_validate(x)`` (numpy
-    (S, N) predictions and (S, N, classes) probabilities)."""
+    """The epoch loop, flatline re-draws, best-epoch bookkeeping and seed
+    sharding both sweeps share.  A subclass sets ``seeds``, ``S``,
+    ``device`` and ``params``, calls :meth:`_start`, and provides
+    ``_init_params(generator)`` (one seed's initial parameters),
+    ``_prepare(x)`` (host inputs in its layout), ``_step(x, y, mask, lr)``
+    (one nll a seed it holds) and ``_validate(x, chunk)`` (numpy predictions
+    and probabilities, a row a seed it holds).
 
-    #: validation examples a sampler call (None: all of them in one call)
-    predict_chunk: int | None = None
+    Between runs ``params`` holds every seed's rows on every rank; during a
+    run, its own rows ``rows`` alone (``_held``: the seeds ``params`` holds
+    now)."""
 
-    def _start(self) -> None:
+    def _start(self, mesh=None) -> None:
+        if mesh is not None:
+            check_device(self.device, mesh)
+        self.mesh = mesh
+        self.rows = seed_rows(mesh, self.S)
+        self._held = range(self.S)
         # the samplers' draws: one generator for the sweep, from the seed list
         self.generator = _sweep_generator(self.seeds)
         self.best_params = None
@@ -209,28 +254,44 @@ class _SeedSweep:
         self._epochs_done = 0
         self._reinit_attempts = [0] * self.S
 
+    def _stream(self, phases: int):
+        """The generator of a sampler call of ``phases`` groups a seed,
+        phase-major: the sweep's own, or this rank's rows of its draws."""
+        if self.mesh is None:
+            return self.generator
+        return RowStream(self.generator, [ph * self.S + s for ph in range(phases)
+                                          for s in self.rows], phases * self.S)
+
     def reinit_seeds(self, indices: Sequence[int], attempt: int = 1) -> None:
         """Re-draw the listed seeds' parameters (by index) from
         ``make_generator(seed, attempt)``: fresh, deterministic draws for
         flatline recovery, each equal to the single model's
-        ``reinit_params(attempt)``."""
-        idx = torch.as_tensor(list(indices), dtype=torch.int64, device=self.device)
+        ``reinit_params(attempt)``.  Every seed listed must be held: during a
+        run under a mesh, a rank re-draws its own rows only."""
+        idx = torch.as_tensor([self._held.index(i) for i in indices], dtype=torch.int64,
+                              device=self.device)
         fresh = _seed_streams([self.seeds[i] for i in indices], self._init_params, attempt)
         self.params = tree_map(lambda a, f: a.index_copy(0, idx, f), self.params, fresh)
 
     def train(self, train_X, train_Y, val_X=None, val_Y=None, epochs: int = 1,
               batch_size: int = 8, learning_rate: float = 0.005,
               class_titles=("0", "1"), verbose: bool = True,
-              reinit_on_collapse: int = 0) -> list[History]:
+              reinit_on_collapse: int = 0, predict_chunk: int | None = None) -> list[History]:
         """Returns one reference-style ``History`` per seed.
         ``reinit_on_collapse`` (0 = off, needs validation data): every N
         epochs, re-draw each seed that ``train.loop.flatlined`` over them
-        (never after the final epoch)."""
+        (never after the final epoch).  ``predict_chunk``: validation
+        examples a sampler call (None: all of them in one call)."""
         xb, yb, maskb, nb = _pad_to_batches(self._prepare(np.asarray(train_X, dtype="float32")),
                                             np.asarray(train_Y), batch_size, self.device)
         xv = (torch.as_tensor(self._prepare(np.asarray(val_X, dtype="float32")),
                               device=self.device) if val_X is not None else None)
-        histories = [History() for _ in range(self.S)]
+        rows = self.rows
+        self.params = _rows_of(self.params, rows)
+        if self.best_params is not None:
+            self.best_params = _rows_of(self.best_params, rows)
+        self._held = rows
+        histories = [History() for _ in rows]
         for epoch_i in range(1, epochs + 1):
             nlls = torch.stack([self._step(xb[i], yb[i], maskb[i], learning_rate)
                                 for i in range(nb)], dim=1).cpu().numpy()  # (S, nb)
@@ -241,7 +302,7 @@ class _SeedSweep:
                 h.error_per_epoch.append(0.0)
             if xv is None:
                 continue
-            preds, probs = self._validate(xv)
+            preds, probs = self._validate(xv, predict_chunk)
             for s, h in enumerate(histories):
                 acc, _, _, _, auc = get_metrics(val_Y, preds[s], list(class_titles))
                 h.acc_per_epoch.append(acc)
@@ -254,7 +315,7 @@ class _SeedSweep:
                 print(f"Epoch {epoch_i}/{epochs}  val_acc mean {np.mean(accs):.4f} "
                       f"[{np.min(accs):.4f}, {np.max(accs):.4f}]")
             if reinit_on_collapse and epoch_i % reinit_on_collapse == 0 and epoch_i < epochs:
-                collapsed = [s for s, h in enumerate(histories)
+                collapsed = [s for s, h in zip(rows, histories)
                              if flatlined(h.acc_per_epoch, val_Y, reinit_on_collapse)]
                 for s in collapsed:
                     self._reinit_attempts[s] += 1
@@ -262,7 +323,18 @@ class _SeedSweep:
                 if collapsed and verbose:
                     print(f"re-initialized flatlined seeds {[self.seeds[s] for s in collapsed]}")
         self._epochs_done += epochs
-        return histories
+        self._held = range(self.S)
+        if self.mesh is None:
+            return histories
+        self.params = gather_tree(self.mesh, self.params, rows, self.S)
+        if self.best_params is not None:
+            self.best_params = gather_tree(self.mesh, self.best_params, rows, self.S)
+        gather = lambda a: gather_numpy(
+            self.mesh, np.asarray(a[rows.start: rows.stop], np.float64), rows, self.S)
+        self.best_metric = gather(self.best_metric)
+        self.best_epoch = gather(self.best_epoch).astype(int)
+        self._reinit_attempts = [int(a) for a in gather(self._reinit_attempts)]
+        return _gather_histories(self.mesh, histories, rows, self.S)
 
     def params_for_seed(self, s: int):
         """Seed ``s``'s parameters (by index) out of the stacked ones."""
@@ -280,7 +352,9 @@ class SeedParallelDQBM(_SeedSweep):
 
     Hyperparameters mirror :class:`qbmx_torch.models.dqbm.DiscQBM`;
     ``predict_sample_count`` sets the validation reads (default
-    ``sample_count``).  ``device`` defaults to the card, as the models'."""
+    ``sample_count``).  ``device`` defaults to the card, as the models'.
+    ``mesh``: shard the seeds over its dp axis (module docstring); the
+    sweep lives on the mesh's device."""
 
     def __init__(
         self,
@@ -298,6 +372,7 @@ class SeedParallelDQBM(_SeedSweep):
         grad_clip: float = 0.0,
         predict_sample_count: int | None = None,
         device="cuda",
+        mesh=None,
     ):
         self.seeds = [int(s) for s in seeds]
         self.S = len(self.seeds)
@@ -315,8 +390,8 @@ class SeedParallelDQBM(_SeedSweep):
         self.sampler = sampler if sampler is not None else get_sampler(
             solver, num_sweeps=anneal_steps)
         _refuse_qpu_adapters(self.sampler)
+        self._start(mesh)
         self.params = _seed_streams(self.seeds, self._init_params)
-        self._start()
 
     def _init_params(self, generator: torch.Generator) -> DQBMParams:
         return init_params(generator, self.dim_input, self.n_hidden_nodes, self.n_output_nodes,
@@ -344,7 +419,7 @@ class SeedParallelDQBM(_SeedSweep):
         """One update of every seed's parameters from ONE sampler call;
         returns the (S,) nlls on the device."""
         p = self.params
-        S, O, beta = self.S, self.n_output_nodes, self.beta_eff
+        S, O, beta = len(self._held), self.n_output_nodes, self.beta_eff
         y_vec = self._y_vec(y)
         B, H = x.shape[0], self.n_hidden_nodes
         Qu = unclamped_qubo_shared(p, beta)  # (S, n_u, n_u)
@@ -358,7 +433,7 @@ class SeedParallelDQBM(_SeedSweep):
         h_all = Qu.new_zeros((2 * S, B, n_u))
         h_all[:S, :, :H] = clamped_fields(p, x, y_vec, beta)
         h_all[S:] = unclamped_fields(p, x, beta)
-        s_all = sampler_sample_groups(self.sampler, self.generator, Q_all, h_all,
+        s_all = sampler_sample_groups(self.sampler, self._stream(2), Q_all, h_all,
                                       self.sample_count)  # (2S, B, R, n_u)
         s_c, s_u = s_all[:S, :, :, :H], s_all[S:]
 
@@ -381,14 +456,14 @@ class SeedParallelDQBM(_SeedSweep):
         """ONE sampler call over S groups of the inputs → (S, N, O) output
         marginals and (S, N, classes) probabilities."""
         p = self.params
-        s_u = sampler_sample_groups(self.sampler, self.generator,
+        s_u = sampler_sample_groups(self.sampler, self._stream(1),
                                     unclamped_qubo_shared(p, self.beta_eff),
                                     unclamped_fields(p, x, self.beta_eff),
                                     self.predict_sample_count)  # (S, N, R, n_u)
         return s_u[..., :self.n_output_nodes].mean(dim=2), self._probs(s_u)
 
-    def _validate(self, x):
-        marg, probs = _chunked(self._predict, x, self.predict_chunk)
+    def _validate(self, x, chunk):
+        marg, probs = _chunked(self._predict, x, chunk)
         preds = (np.argmax(marg, axis=2) if self.use_one_hot_encoding
                  else np.round(marg[..., 0]).astype(int))
         return preds, probs
@@ -417,21 +492,26 @@ class SeedParallelCDQBM(_SeedSweep):
     ``cdqbm.init_params``, equal to ``CDQBM(seed=s)``'s.  A step is one
     sampler call of 2·S groups of B problems, the clamped groups
     zero-padded from n_hidden to n_total (``CDQBM.step_qubos``); a
-    validation chunk of ``predict_chunk`` (32) examples one call of S
+    validation chunk of ``train(predict_chunk=32)`` examples one call of S
     groups.  ``params_from_numpy`` / ``params_to_numpy`` of
     ``models/cdqbm.py`` carry the stacked parameters to and from numpy
-    (a stacked ``qbmx`` ``CDQBMParams``, seed axis first)."""
+    (a stacked ``qbmx`` ``CDQBMParams``, seed axis first).  ``mesh``:
+    shard the seeds over its dp axis (module docstring); the donor lives
+    on the mesh's device."""
 
-    predict_chunk = 32
-
-    def __init__(self, seeds: Sequence[int], model):
+    def __init__(self, seeds: Sequence[int], model, mesh=None):
         _refuse_qpu_adapters(model.sampler)
         self.model = model
         self.seeds = [int(s) for s in seeds]
         self.S = len(self.seeds)
         self.device = model.device
+        self._start(mesh)
         self.params = _seed_streams(self.seeds, self._init_params)
-        self._start()
+
+    def train(self, *args, predict_chunk: int = 32, **kwargs) -> list[History]:
+        """:meth:`_SeedSweep.train`, validating ``predict_chunk`` examples a
+        sampler call (each chunk zero-padded, as ``qbmx`` pads it)."""
+        return super().train(*args, predict_chunk=predict_chunk, **kwargs)
 
     def _init_params(self, generator: torch.Generator):
         m = self.model
@@ -451,11 +531,11 @@ class SeedParallelCDQBM(_SeedSweep):
     def _step(self, x, y, mask, lr):
         """One update of every seed's parameters from ONE sampler call;
         returns the (S,) nlls on the device."""
-        m, p, S = self.model, self.params, self.S
+        m, p, S = self.model, self.params, len(self._held)
         y_vec = m._label_vec(y)
         ctx = m._context(p, x)
         Q_all, h_all = m.step_qubos(p, x, y_vec, ctx)
-        s_all = sampler_sample_groups(m.sampler, self.generator, Q_all, h_all,
+        s_all = sampler_sample_groups(m.sampler, self._stream(2), Q_all, h_all,
                                       m.sample_count)  # (2S, B, R, n_total)
         s_c, s_u = s_all[:S, :, :, :m.geo.n_hidden], s_all[S:]
         mc = m._moments(p, s_c, ctx, y_vec)
@@ -475,12 +555,12 @@ class SeedParallelCDQBM(_SeedSweep):
         """ONE sampler call over S groups of the images → ((S, N, classes)
         probabilities,)."""
         m, p = self.model, self.params
-        s_u = sampler_sample_groups(m.sampler, self.generator, m.unclamped_qubo_shared(p),
+        s_u = sampler_sample_groups(m.sampler, self._stream(1), m.unclamped_qubo_shared(p),
                                     m.unclamped_fields(p, x), m.sample_count)
         return (m._probs_from_samples(s_u),)
 
-    def _validate(self, x):
-        (probs,) = _chunked(self._predict, x, self.predict_chunk)
+    def _validate(self, x, chunk):
+        (probs,) = _chunked(self._predict, x, chunk)
         return np.argmax(probs, axis=2), probs
 
     def save_best_models(self, folder, name_fn=None) -> dict:
@@ -504,13 +584,15 @@ class SeedParallelRBM:
     the ragged tail batch is dropped, ``pcd`` and a set smaller than a
     batch are refused, the test probabilities are computed every epoch on
     the device and fetched once at the end, and the best epoch is chosen
-    by 0.5·acc + 0.5·AUC, counted across ``sweep()`` calls.  Left out: the
-    ``mesh`` argument (ROADMAP Queue 1 item 11)."""
+    by 0.5·acc + 0.5·AUC, counted across ``sweep()`` calls.  ``mesh``:
+    shard the seeds over its dp axis (module docstring); a rank's shuffles
+    and chain draws are its rows of the whole sweep's, so the sharded sweep
+    is the unsharded one bit for bit."""
 
     def __init__(self, seeds: Sequence[int], num_visible: int, num_hidden: int,
                  num_classes: int = 2, k: int = 1, learning_rate: float = 0.05,
                  method: str = "discriminative", sparse_constant: float = 0.0,
-                 generative_factor: float = 0.0, device="cuda"):
+                 generative_factor: float = 0.0, device="cuda", mesh=None):
         if method == "pcd":
             raise ValueError("pcd carries host-side chain state; use "
                              "ClassificationRBM per seed")
@@ -519,11 +601,15 @@ class SeedParallelRBM:
         self.num_classes = num_classes
         self.learning_rate = float(learning_rate)
         self.device = resolve_device(device)
+        if mesh is not None:
+            check_device(self.device, mesh)
+        self.mesh = mesh
+        self.rows = seed_rows(mesh, self.S)
         self.params = _seed_streams(self.seeds, lambda g: rbm.init_params(
             g, num_visible, num_hidden, num_classes, self.device))
         self._epoch = rbm.make_epoch_scan(rbm.make_train_step(
             num_classes, method=method, cd_k=k, sparse_constant=sparse_constant,
-            generative_factor=generative_factor))
+            generative_factor=generative_factor, stacked=True))
         self.generator = _sweep_generator(self.seeds)
         self.best_params = None
         self.best_metric = np.full(self.S, -np.inf)
@@ -536,7 +622,7 @@ class SeedParallelRBM:
               shuffle: bool = True):
         """Returns (acc_lists, auc_lists): per seed, per epoch (the
         reference ``rbm_main`` pickles)."""
-        dev, S = self.device, self.S
+        dev, S, rows = self.device, len(self.rows), self.rows
         x = torch.as_tensor(rbm._host_rows(train_x), device=dev)
         tx = torch.as_tensor(rbm._host_rows(test_x), device=dev)
         y = torch.as_tensor(np.asarray(train_y), device=dev)
@@ -549,16 +635,18 @@ class SeedParallelRBM:
                 "ClassificationRBM path trains the remainder batch instead)")
         m = nb * batch_size
         probs, per_epoch = [], []
+        params = _rows_of(self.params, rows)  # this rank's seeds (all without a mesh)
         for _ in range(epochs):
             gen = torch.Generator(device=dev).manual_seed(draw_seed(self.generator))
-            order = (torch.argsort(torch.rand((S, n), generator=gen, device=dev), dim=1)
+            stream = gen if self.mesh is None else RowStream(gen, rows, self.S)
+            order = (torch.argsort(rand((S, n), stream, dev), dim=1)
                      if shuffle else torch.arange(n, device=dev).expand(S, n))[:, :m]
             xb = x[order].reshape(S, nb, batch_size, -1).transpose(0, 1)  # (nb, S, bs, V)
             yb = y[order].reshape(S, nb, batch_size).transpose(0, 1)
-            self.params, _ = self._epoch(self.params, gen, xb, yb, self.learning_rate)
+            params, _ = self._epoch(params, stream, xb, yb, self.learning_rate)
             with torch.no_grad():
-                probs.append(rbm.predict_proba(self.params, tx))  # (S, n_test, C)
-            per_epoch.append(self.params)
+                probs.append(rbm.predict_proba(params, tx, stacked=True))  # (S, n_test, C)
+            per_epoch.append(params)
         probs = torch.stack(probs).cpu().numpy()  # ONE fetch for the whole sweep
         ty = np.asarray(test_y)
         acc_lists = [[] for _ in range(S)]
@@ -573,15 +661,29 @@ class SeedParallelRBM:
         combined = 0.5 * np.asarray(acc_lists) + 0.5 * np.asarray(auc_lists)
         best_e = np.argmax(combined, axis=1)
         best_val = combined[np.arange(S), best_e]
-        improved = best_val > self.best_metric
+        own = slice(rows.start, rows.stop)
+        improved = best_val > self.best_metric[own]
         pick = (torch.as_tensor(best_e, device=dev), torch.arange(S, device=dev))
         run_best = tree_map(lambda *a: torch.stack(a)[pick], *per_epoch)
         self.best_params = _snapshot_best(
-            self.best_params if self.best_params is not None else run_best, run_best, improved)
-        self.best_metric = np.where(improved, best_val, self.best_metric)
-        self.best_epoch = np.where(improved, self._epochs_done + best_e + 1, self.best_epoch)
+            run_best if self.best_params is None else _rows_of(self.best_params, rows),
+            run_best, improved)
+        best_metric = np.where(improved, best_val, self.best_metric[own])
+        best_epoch = np.where(improved, self._epochs_done + best_e + 1, self.best_epoch[own])
         self._epochs_done += epochs
-        return acc_lists, auc_lists
+        self.params = params
+        if self.mesh is None:
+            self.best_metric, self.best_epoch = best_metric, best_epoch
+            return acc_lists, auc_lists
+        # every seed's rows on every rank
+        self.params = gather_tree(self.mesh, params, rows, self.S)
+        self.best_params = gather_tree(self.mesh, self.best_params, rows, self.S)
+        self.best_metric = gather_numpy(self.mesh, best_metric, rows, self.S)
+        self.best_epoch = gather_numpy(self.mesh, best_epoch.astype(np.int64), rows, self.S)
+        acc_full = gather_numpy(self.mesh, np.asarray(acc_lists, np.float64), rows, self.S)
+        auc_full = gather_numpy(self.mesh, np.asarray(auc_lists, np.float64), rows, self.S)
+        return ([[float(a) for a in r] for r in acc_full],
+                [[float(a) for a in r] for r in auc_full])
 
     def params_for_seed(self, s: int):
         """Seed ``s``'s parameters (by index) out of the stacked ones."""

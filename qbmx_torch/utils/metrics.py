@@ -197,3 +197,15 @@ def save_history(file_path_and_name: str, history: History):
         with open(file_path_and_name + name, "wb") as f:
             pickle.dump(getattr(history, field), f)
 
+
+def load_history(file_path_and_name: str) -> History:
+    """Every series :func:`save_history` writes (``qbmx``'s too), read
+    back; a missing file reads as ``[]``."""
+    loaded = {}
+    for name, field in _HISTORY_FILES.items():
+        path = Path(file_path_and_name + name)
+        if path.exists():
+            with open(path, "rb") as f:
+                loaded[field] = pickle.load(f)
+    return History(**loaded)
+

@@ -45,14 +45,15 @@ BASE = dict(image_shape=(8, 8), kernel_size=3, pooling_size=2, sequential_layer_
             sample_count=R, anneal=SWEEPS)
 
 
-def _variates(n, S):
+def _variates(n, S, chunk=CHUNK):
     """Host variates keyed by the sampler call's (groups, problems): the
-    training steps' 2·S groups of B, the validation chunk's S groups of 32."""
+    training steps' 2·S groups of B, a validation chunk's S groups of
+    ``chunk``."""
     rng = np.random.default_rng(31)
     return {(g, b): ((rng.random((g, b, R, n)) < 0.5).astype(np.float32),
                      np.clip(rng.random((SWEEPS, g, b, n, R)), 1e-6, 1 - 1e-6)
                      .astype(np.float32))
-            for g, b in ((2 * S, B), (S, CHUNK))}
+            for g, b in ((2 * S, B), (S, chunk))}
 
 
 class _JaxReplay:
@@ -142,6 +143,29 @@ def test_one_epoch_and_validation_match(case):
         assert got[k].shape[0] == len(SEEDS)
         np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-5, err_msg=k)
     assert list(ts.best_epoch) == list(js.best_epoch) == [1, 1, 1]
+
+
+@pytest.mark.parametrize("chunk", [7, 4])
+def test_predict_chunk_matches_qbmx(chunk):
+    """``train(predict_chunk=...)`` as in ``qbmx``: validation in chunks of
+    ``chunk`` examples (6 examples: one padded chunk of 7, or 4 + 2 padded),
+    the same accuracy, AUC and probability AUC per seed."""
+    kw = CASES["probabilistic"]
+    jm, _ = _models(kw)
+    variates = _variates(jm.geo.n_total, len(SEEDS), chunk)
+    calls = []
+    jm, tm = _models(kw, variates, calls=calls)
+    js, ts = jsweep.SeedParallelCDQBM(SEEDS, jm), tsweep.SeedParallelCDQBM(SEEDS, tm)
+    ts.params = tc.params_from_numpy(js.params)
+    x, y, xv, yv = _data()
+    train = dict(epochs=1, batch_size=B, learning_rate=0.3, verbose=False,
+                 predict_chunk=chunk)
+    jh, th = js.train(x, y, xv, yv, **train), ts.train(x, y, xv, yv, **train)
+    assert calls[2:] == [(len(SEEDS), chunk, jm.geo.n_total)] * -(-N_VAL // chunk)
+    for s in range(len(SEEDS)):
+        for series in ("acc_per_epoch", "auc_per_epoch", "prob_auc_per_epoch"):
+            np.testing.assert_allclose(getattr(th[s], series), getattr(jh[s], series),
+                                       rtol=0, atol=1e-5, err_msg=f"seed {s} {series}")
 
 
 def test_stacked_params_cross_from_qbmx():

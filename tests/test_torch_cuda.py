@@ -1235,3 +1235,77 @@ def test_qpu_adapter_with_a_card_stub_returns_on_the_card(dev, copies):
     states, counts = torch.unique(out[0], dim=0, return_counts=True)
     assert states[counts.argmax()].tolist() == [1.0, 0.0, 0.0]
     assert adapter.embedding_searches == 1
+
+
+# -- the mesh on the card ----------------------------------------------------------
+
+
+@pytest.mark.parametrize("family,kernel", [("dqbm", "sa_metropolis"),
+                                           ("cdqbm_a", "anneal_wide")])
+def test_mesh_world_of_one_under_nccl_is_the_single_step(dev, tmp_path, family, kernel):
+    """A world of one under NCCL: the sharded step launches its kernel once
+    (K1 at the flat model, K4 at CDQBM (a)'s 717 variables) and equals the
+    single model's step fed ``fold_in(generator, 0, 0)`` bit for bit."""
+    import copy
+    import datetime
+
+    import torch.distributed as dist
+
+    from qbmx_torch.core.rng import fold_in
+    from qbmx_torch.models.base import tree_leaves
+    from qbmx_torch.models.cdqbm import CDQBM
+    from qbmx_torch.models.dqbm import DiscQBM
+    from qbmx_torch.parallel.mesh import make_mesh, shard_model
+    from qbmx_torch.samplers import launches
+
+    rng = np.random.default_rng(3)
+    if family == "dqbm":
+        base = DiscQBM(dim_input=20, n_hidden_nodes=5, sample_count=64, anneal_steps=50,
+                       device=dev)
+        x = torch.as_tensor(rng.random((12, 20), dtype=np.float32), device=dev)
+    else:
+        base = CDQBM(pooling_size=4, pooling_type="probabilistic", sequential_layer_sizes=[4],
+                     hidden_bias_type="shared", sample_count=16, anneal=10, beta_eff=5.0,
+                     device=dev)
+        x = torch.as_tensor(rng.random((4, 28, 28), dtype=np.float32), device=dev)
+    y = torch.as_tensor(np.arange(x.shape[0]) % 2, device=dev)
+    mask = torch.ones(x.shape[0], device=dev)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rendezvous", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        sharded = shard_model(copy.deepcopy(base), make_mesh(dp=1, device=dev))
+        launches.reset()
+        n1, e1 = sharded._step(x, y, mask, 0.1)
+        torch.cuda.synchronize()
+        assert launches.counts() == {kernel: 1}
+    finally:
+        dist.destroy_process_group()
+    single = copy.deepcopy(base)
+    single.generator = fold_in(single.generator, 0, 0)
+    n2, e2 = single._step(x, y, mask, 0.1)
+    assert torch.equal(n1, n2) and torch.equal(e1, e2)
+    for a, b in zip(tree_leaves(sharded.params), tree_leaves(single.params)):
+        assert torch.equal(a, b)
+
+
+def test_mesh_two_ranks_on_one_card_over_gloo(dev, tmp_path):
+    """Two spawned ranks on ``cuda:0`` over gloo (NCCL refuses two ranks on
+    one card): the flagship step sharded over dp=2 within ``PAIR_ATOL`` of
+    the unsharded step, where the rank's step without the all-reduce lies
+    farther; K1 launched once a step on each rank; the 10-seed sweep over
+    dp=2 launching K1 once a step and once for validation on each rank,
+    rank 0 alone writing its pickles; the ranks' launches of the same local
+    groups from the sweep's stream draw different numbers, and leave the
+    sweep's generator in one state."""
+    from qbmx_torch.parallel import dryrun
+
+    ranks = dryrun.spawn(dryrun.flagship_pair, 2, "gloo", ("cuda:0", str(tmp_path)),
+                         timeout=300.0)
+    for r in ranks:
+        assert r["step_launches"] == {"sa_metropolis": 1}
+        assert r["max_diff"] <= dryrun.PAIR_ATOL and r["nll_diff"] <= dryrun.PAIR_NLL_ATOL
+        assert r["control_diff"] > dryrun.PAIR_ATOL
+        assert r["sweep_launches"] == {"sa_metropolis": 3}
+        assert len(r["files"]) == (10 if r["rank"] == 0 else 0)
+    assert not np.array_equal(ranks[0]["probe"], ranks[1]["probe"])
+    assert ranks[0]["generator_state"] == ranks[1]["generator_state"]

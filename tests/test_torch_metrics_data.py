@@ -90,6 +90,25 @@ def test_history_fields_match():
     assert tm.History().__dataclass_fields__.keys() == jm.History().__dataclass_fields__.keys()
 
 
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_history_written_by_either_package_loads_in_both(tmp_path, writer):
+    """Every series ``save_history`` writes reads back equal through both
+    packages' ``load_history``; a missing series reads as ``[]``."""
+    mod = jm if writer == "jax" else tm
+    h = mod.History(errors_per_batch=[0.0, 0.5], error_per_epoch=[0.25],
+                    nll_per_batch=[0.5, 0.25], nll_per_epoch=[0.375], acc_per_epoch=[0.75],
+                    auc_per_epoch=[0.7], combined_acc_auc_per_epoch=[0.725])
+    prefix = str(tmp_path / "run")
+    mod.save_history(prefix, h)
+    (tmp_path / "runauc_per_epoch.pkl").unlink()  # a series absent on disk
+    ours, theirs = tm.load_history(prefix), jm.load_history(prefix)
+    for field in ("errors_per_batch", "error_per_epoch", "nll_per_batch", "nll_per_epoch",
+                  "acc_per_epoch", "auc_per_epoch", "combined_acc_auc_per_epoch"):
+        want = [] if field == "auc_per_epoch" else getattr(h, field)
+        assert getattr(ours, field) == getattr(theirs, field) == want, field
+    assert tm.load_history(str(tmp_path / "absent")) == tm.History()
+
+
 # -- data ---------------------------------------------------------------------
 
 
@@ -281,10 +300,10 @@ def test_scikit_learn_pca_turns_randomized_past_500():
 
 
 def test_get_cifar10_and_load_dataset_match(tmp_path, monkeypatch):
-    """Over the stock-layout batches ``qbmx/data/synthesize.py`` writes:
-    the loader (grayscale, colour, class filters, subsampling) and the
-    CLI's ``cifar-10`` branch equal qbmx's; absent files raise."""
-    from qbmx.data.synthesize import synthesize_cifar10
+    """Over the stock-layout batches ``qbmx_torch/data/synthesize.py``
+    writes: the loader (grayscale, colour, class filters, subsampling) and
+    the CLI's ``cifar-10`` branch equal qbmx's; absent files raise."""
+    from qbmx_torch.data.synthesize import synthesize_cifar10
 
     monkeypatch.chdir(tmp_path)
     with pytest.raises(FileNotFoundError):
@@ -302,3 +321,34 @@ def test_get_cifar10_and_load_dataset_match(tmp_path, monkeypatch):
         for split_ours, split_theirs in zip(ours, theirs):
             for a, b in zip(split_ours, split_theirs):
                 np.testing.assert_array_equal(a, b)
+
+
+# -- synthesized datasets -------------------------------------------------------
+
+
+@pytest.mark.parametrize("real_labels", [False, True])
+def test_synthesized_files_are_byte_equal_and_load_in_both(tmp_path, real_labels):
+    """``qbmx_torch.data.synthesize`` writes the bytes ``qbmx``'s writes for
+    the same seeds and labels (FashionMNIST idx files, CIFAR-10 batches),
+    and the loaders of both packages read either copy equal."""
+    import qbmx.data.synthesize as js
+    import qbmx_torch.data.synthesize as ts
+
+    labels = dict(labels_train=np.arange(30) % 10, labels_test=np.arange(12)[::-1] % 10) \
+        if real_labels else {}
+    for pkg, mod in (("jax", js), ("torch", ts)):
+        mod.synthesize_fashionmnist(tmp_path / pkg, max_train=25, max_test=9, seed=3, **labels)
+        mod.synthesize_cifar10(tmp_path / pkg, n_per_train_batch=7, n_test=5, seed=4)
+    files = sorted(p.relative_to(tmp_path / "jax") for p in (tmp_path / "jax").rglob("*")
+                   if p.is_file())
+    assert len(files) == 10
+    for f in files:
+        assert (tmp_path / "torch" / f).read_bytes() == (tmp_path / "jax" / f).read_bytes(), f
+    d = tmp_path / "torch" / "fashionmnist"
+    np.testing.assert_array_equal(ts.read_idx1(d / "t10k-labels-idx1-ubyte"),
+                                  js.read_idx1(d / "t10k-labels-idx1-ubyte"))
+    img, lab = str(d / "train-images-idx3-ubyte"), str(d / "train-labels-idx1-ubyte")
+    for a, b in zip(tl.get_fashionmnist(img, lab), jl.get_fashionmnist(img, lab)):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(ts.class_template_images([1, 2], seed=5),
+                                  js.class_template_images([1, 2], seed=5))

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import os
 import pickle
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -73,8 +74,8 @@ def test_unported_options_raise(kw, match):
 def test_cifar10_loads_through_the_cli(tmp_path, monkeypatch):
     """``--data_set cifar-10`` (classes 3 and 5, 32×32 grayscale) raises
     as ``qbmx`` does where the batches are absent, and trains on the
-    stock-layout batches ``qbmx/data/synthesize.py`` writes."""
-    from qbmx.data.synthesize import synthesize_cifar10
+    stock-layout batches ``qbmx_torch/data/synthesize.py`` writes."""
+    from qbmx_torch.data.synthesize import synthesize_cifar10
 
     monkeypatch.chdir(tmp_path)
     with pytest.raises(FileNotFoundError):
@@ -260,3 +261,23 @@ def test_train_model_saves_crash_pickles(tmp_path):
     saved = pickle.load(open(tmp_path / "e1_crash.pkl", "rb"))
     assert [w.shape for w in saved] == [(5, 2), (4, 1), (2,), (1,), (1, 1), (2, 2)]
     assert (tmp_path / "nll_per_batch.pkl").exists()
+
+
+@pytest.mark.parametrize("cli", ["qbm_main", "cdqbm_main"])
+@pytest.mark.parametrize("tqdm_present", [True, False])
+def test_progress_draws_a_bar_over_the_batch_loop(cli, tqdm_present, capsys, monkeypatch):
+    """``--progress`` reaches ``train_model`` through both CLIs and draws a
+    tqdm bar over each epoch's batches (as ``qbmx`` draws one); where tqdm
+    cannot be imported it is inert and the run goes on."""
+    from qbmx_torch.cli import cdqbm_main as cmain
+
+    if not tqdm_present:
+        monkeypatch.setitem(sys.modules, "tqdm", None)  # import tqdm raises ImportError
+    if cli == "qbm_main":
+        tmain.main(save="", progress=True, **SMALL)
+    else:
+        cmain.main(progress=True, **CDQBM_SMALL)
+    err = capsys.readouterr().err
+    batches = 30 if cli == "qbm_main" else 3  # 600 synthetic images at batch 20 / 200
+    bars = re.findall(r"epoch:\s+0%.*?\| 0/(\d+) ", err)
+    assert bars == ([str(batches)] if tqdm_present else []), err[-500:]
