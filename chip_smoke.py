@@ -5,7 +5,8 @@ Run from the root of a checkout on a machine with one CUDA GPU:
 
     python3 chip_smoke.py
 
-Five hand-written kernels are checked: K1 ``sa_metropolis`` (annealed
+Five hand-written kernels, K4 and K5 each also in a global-field layout
+past their shared ones, are checked: K1 ``sa_metropolis`` (annealed
 Metropolis), K2 ``sa_heatbath`` (annealed heat-bath, single/pair/quad
 updates), K3 ``pt_heatbath`` (parallel tempering), K4 ``anneal_wide``
 (both anneal rules for QUBOs whose couplings exceed shared memory, n > 241,
@@ -33,7 +34,7 @@ failure exits nonzero; nothing carries on after one):
    beyond the first design's M·n ≤ 2048 at B=4, n=241, M=12, R=32, S=20;
    K4 Metropolis and pair at the CDQBM probabilistic-pooling shape (G=2,
    B=20, n=717, R=100, S=10), on its dense entry (B=32, n=717) and at the
-   widest n it takes (R=200, S=2); K5's dense path through the sampler's
+   widest n the rule gives its shared layout (n=2608, R=200, S=2); K5's dense path through the sampler's
    structured entry against the plain version on the densified batch at
    (G=2, B=4, n=300, M=8, R=16, S=20), (G=2, B=2, n=717, M=8, R=8, S=10),
    (n, M) = (241, 16) and the CDQBM (a) PT call's shape on random QUBOs
@@ -187,7 +188,36 @@ failure exits nonzero; nothing carries on after one):
    rank, rank 0 alone writing the 10 best-model pickles; the two ranks' K1
    launches of the same local groups from the sweep's stream differ (their
    launch seeds are folded with the rank's rows) and leave the sweep's
-   generator in one state.
+   generator in one state;
+10. past the shared layouts (``wide_phase``): K4's global-field layout
+   (each chain's fields and state in global scratch, J_g's rows in 8-row
+   tiles cut to column chunks) forced at n=717 equal to the shared
+   layout bit for bit (samples, fields, counters; every rule, S=70), and
+   through the SA and BMS wrappers at n = 3369, 4096 and 8192 (one, two
+   and three column chunks a row; Metropolis, pair, quad; 256 chains,
+   S=2) against plain within the 1% bound, launching ``anneal_wide_global``
+   once and nothing else; K5's global path (S + 1 launches a call: each
+   launch takes the last round's exchanges, then a sweep) forced at n=300,
+   M=8 equal to the dense path bit for bit (samples, states, fields,
+   energies, counters, S=70), and through the sampler's entry at
+   ``qbm_main -hn 3400``'s call (n=3401, M=8), past a cluster (n=3000, M=24;
+   n=300, M=300), past the 10-bit Philox block (n=4100) and at n=8192,
+   256 target-rung chains each, against plain within the 1% bound; then ``qbm_main.main`` on ``cuda``
+   at H=3400 (n=3401, the CLI's restricted default, sc100, bs20, anneal
+   5, one epoch of 30 steps plus validation and test prediction) with SA
+   and BMS on K4's global-field layout and PT (8 rungs) on K5's global
+   path: exactly one launch a sampler call and nothing else, finite nll,
+   metrics in range; each step's time by CUDA events (median of 3, one
+   launch a step); and at that step's own call (G=2, B=20, R=100, S=5)
+   the kernels' and plain versions' times and their bounds, also with the
+   global fields' least traffic (``roofline.global_field_bytes``); K4
+   Metropolis, K4 pair and K5 (M=8) at that call on each solver's own step
+   QUBOs under variates drawn on the card, each launched once through its
+   wrapper and held against its plain version within the 1% bound; then
+   the layouts in turns (``layout_turns``): K4's two layouts and K5's
+   dense and global paths, each forced on one call, timed a, b, b, a
+   across n and on both sides of the rules' switch (n = 2608, where a
+   block holds 5 chains), on which that switch rests.
 
 The last three lines are the ``nvidia-smi`` line, one JSON object with the
 kernel records (time, plain time, bound, launches on the main path), and
@@ -965,6 +995,325 @@ def mesh_phase(dev, smi: str) -> dict:
     return rec
 
 
+def in_turns(a, b, reps: int) -> tuple[float, float]:
+    """Medians in ms of ``a()`` and ``b()``, each run once as a warm-up, then
+    ``reps`` rounds of a, b, b, a, each call timed by CUDA events."""
+    a(), b()
+    torch.cuda.synchronize()
+    times = ([], [])
+    for _ in range(reps):
+        for i in (0, 1, 1, 0):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            (a, b)[i]()
+            end.record()
+            end.synchronize()
+            times[i].append(start.elapsed_time(end))
+    return statistics.median(times[0]), statistics.median(times[1])
+
+
+def layout_turns(dev, smi: str) -> dict:
+    """K4's shared and global-field layouts, and K5's dense and global
+    paths, each forced on the same call, timed in turns (``in_turns``;
+    Philox mode): K4 Metropolis and pair at the CDQBM (a) call's G=2 B=20
+    R=100 across n up to the shared layout's widest (random QUBOs, S=10;
+    at n=717 also the CDQBM (a) step's own QUBOs), K5 M=8 at the flat H=300
+    PT call and at G=2 B=20 R=100 across n."""
+    from qbmx_torch.core.qubo import random_qubo_batch
+    from qbmx_torch.models.cdqbm import cdqbm_a_qubos
+    from qbmx_torch.samplers import pt_wide_cuda, wide_cuda
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(3368)
+    out = {"k4": [], "k5": []}
+    G, B, R = 2, 20, 100
+    switch = wide_cuda.switch_n()
+    for n, what in ((242, "random"), (512, "random"), (717, "random"), (717, "CDQBM (a) step"),
+                    (1024, "random"), (1536, "random"), (2048, "random"), (switch, "random"),
+                    (switch + 1, "random"), (3000, "random"), (3368, "random")):
+        S = 10
+        if what == "random":
+            Q = random_qubo_batch(rng, G, n).to(dev)
+            he = torch.as_tensor(rng.normal(size=(G, B, n)).astype(np.float32), device=dev)
+        else:
+            Q, he = cdqbm_a_qubos(B, dev)
+        for rule, label in ((0, "Metropolis"), (2, "pair")):
+            J, h, hot, logr = structured_form(Q, he, S, rule)
+            geo = {lay: wide_cuda.layout_geometry(G, B, R, n, lay)
+                   for lay in (wide_cuda.SHARED, wide_cuda.GLOBAL)}
+            run = lambda lay: lambda: wide_cuda.launch(J, h, hot, logr, R, S, rule,
+                                                       generator=gen_of(5), geometry=geo[lay])
+            shared, glob = in_turns(run(wide_cuda.SHARED), run(wide_cuda.GLOBAL),
+                                    reps=1 if n > 2048 else 2)
+            out["k4"].append({"n": n, "qubos": what, "rule": label, "S": S, "shared_ms": shared,
+                              "global_ms": glob,
+                              "shared_chains_a_block": geo[wide_cuda.SHARED].chains_per_block,
+                              "global_chains_a_block": geo[wide_cuda.GLOBAL].chains_per_block})
+            print(f"phase 10 K4 layouts in turns G={G} B={B} R={R} n={n} S={S} {label} ({what} "
+                  f"QUBOs): shared {shared:.3f} ms ({geo[wide_cuda.SHARED].chains_per_block} "
+                  f"chains a block), global {glob:.3f} ms "
+                  f"({geo[wide_cuda.GLOBAL].chains_per_block}); global/shared {glob / shared:.3f}")
+    M = 8
+    for G, B, R, n, S, what in ((2, 60, 16, 301, 100, "qbm_main --solver PT -hn 300's call"),
+                                (2, 20, 100, 717, 10, "random"), (2, 20, 100, 1536, 10, "random"),
+                                (2, 20, 100, switch, 4, "random"),
+                                (2, 20, 100, switch + 1, 4, "random"),
+                                (2, 20, 100, 3368, 4, "random")):
+        Q = random_qubo_batch(rng, G, n).to(dev)
+        he = torch.as_tensor(rng.normal(size=(G, B, n)).astype(np.float32), device=dev)
+        form = pt_wide_cuda.structured_form(Q, he, M)
+        run = lambda path: lambda: pt_wide_cuda.launch(*form, R, S, generator=gen_of(5), path=path)
+        dense, glob = in_turns(run(pt_wide_cuda.DENSE), run(pt_wide_cuda.GLOBAL),
+                               reps=1 if n > 2048 else 2)
+        out["k5"].append({"G": G, "B": B, "R": R, "n": n, "M": M, "S": S, "qubos": what,
+                          "dense_ms": dense, "global_ms": glob})
+        print(f"phase 10 K5 paths in turns G={G} B={B} R={R} n={n} M={M} S={S} ({what}): dense "
+              f"{dense:.3f} ms, global {glob:.3f} ms ({S + 1} launches); global/dense "
+              f"{glob / dense:.3f}")
+        del Q, he, form
+    print(f"phase 10 layouts in turns ({smi}): {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def wide_phase(dev, smi: str, counters, made) -> dict:
+    """Phase 10 (module docstring): the widths and ladders past the shared
+    layouts -- K4's global-field layout and K5's global path -- and the flat
+    trainer at ``qbm_main -hn 3400``; returns its record."""
+    from qbmx_torch.cli import qbm_main as qm
+    from qbmx_torch.core.qubo import split_qubo
+    from qbmx_torch.samplers import (gibbs, gibbs_cuda, pt_wide_cuda, sa_cuda, sa_torch,
+                                     tempering, wide_cuda)
+    from qbmx_torch.samplers.api import densify_groups
+    from qbmx_torch.utils.roofline import anneal_bound, global_field_bytes, heatbath_units
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(3401)
+    errs, fracs = {"anneal_wide_global": [], "pt_wide_global": []}, \
+        {"anneal_wide_global": [], "pt_wide_global": []}
+
+    def note(kernel, frac_err):
+        fracs[kernel].append(frac_err[0])
+        errs[kernel].append(frac_err[1])
+
+    # K4's global-field layout forced at n = 717: the shared layout's samples,
+    # fields and counters bit for bit, every rule, past a refresh
+    for rule in (0, 1, 2, 4):
+        G, B, n, R, S = 2, 3, 717, 20, 70
+        Q, he, init01, u = structured_problem(rng, G, B, n, R, S, dev)
+        J, h, hot, logr = structured_form(Q, he, S, rule)
+        res = []
+        for layout in (wide_cuda.SHARED, wide_cuda.GLOBAL):
+            fields = torch.empty((G, B, R, n), device=dev)
+            flips = torch.zeros(2, dtype=torch.int64, device=dev)
+            out = wide_cuda.launch(J, h, hot, logr, R, S, rule, host_variates=(init01, u),
+                                   fields_out=fields, flips=flips,
+                                   geometry=wide_cuda.WideGeometry.of(G, B, R, n, 7, layout))
+            torch.cuda.synchronize()
+            res.append((out, fields, flips))
+        check(all(torch.equal(a, b) for a, b in zip(*res)),
+              f"K4 rule {rule} n={n}: the global-field layout differs from the shared one")
+    print(f"phase 10 K4 global-field layout forced at G=2 B=3 n=717 R=20 S=70 (7 chains a "
+          "block): samples, fields and counters equal the shared layout's bit for bit, "
+          "Metropolis and heat-bath single, pair, quad")
+    # ... and past the shared layout, through the wrappers, against plain
+    for n in (3369, 4096, 8192):
+        for rule, label in ((0, "Metropolis"), (2, "pair"), (4, "quad")):
+            G, B, R, S = 1, 2, 128, 2
+            Q, he, init01, u = structured_problem(rng, G, B, n, R, S, dev)
+            hv = (init01, u)
+            for c in counters:
+                c.reset_launch_counts()
+            if rule == 0:
+                got = sa_cuda.sa_sample_groups_cuda(Q, he, R, S, host_variates=hv)
+                want = sa_torch.sa_sample_groups_plain(Q, he, R, S, host_variates=hv)
+            else:
+                kw = dict(beta=1.0, pair=rule == 2, quad=rule == 4, host_variates=hv)
+                got = gibbs_cuda.gibbs_sample_groups_cuda(Q, he, R, S, **kw)
+                want = gibbs.gibbs_sample_groups_plain(Q, he, R, S, **kw)
+            torch.cuda.synchronize()
+            check(wide_cuda.launch_counts == {"anneal_wide": 0, "anneal_wide_global": 1},
+                  f"K4 n={n} {label}: not served by the global-field layout alone")
+            note("anneal_wide_global", compare(
+                got, want, f"K4 global-field {label} G={G} B={B} n={n} R={R} S={S} "
+                f"({-(-wide_cuda.global_row_floats(n) // wide_cuda.chunk_floats(n))} column "
+                "chunks a row)", phase=10))
+            del Q, he, init01, u, got, want
+    # K5's global path forced at n = 300: the dense path's samples, states,
+    # fields, energies and counters bit for bit
+    G, B, n, M, R, S = 2, 2, 300, 8, 8, 70
+    Q, he = structured_problem(rng, G, B, n, 1, 1, dev)[:2]
+    J, h, betas, dbeta = pt_wide_cuda.structured_form(Q, he, M)
+    hv = pt_hv(rng, G * B * M, R, n, S, dev)
+    res = []
+    for path in (pt_wide_cuda.DENSE, pt_wide_cuda.GLOBAL):
+        outs = (torch.empty((G * B * M, R, n), device=dev), torch.empty((G * B * M, R, n), device=dev),
+                torch.empty((G * B * M, R), device=dev), torch.zeros(2, dtype=torch.int64, device=dev))
+        out = pt_wide_cuda.launch(J, h, betas, dbeta, R, S, host_variates=hv, states_out=outs[0],
+                                  fields_out=outs[1], energy_out=outs[2], flips=outs[3], path=path)
+        torch.cuda.synchronize()
+        res.append((out, *outs))
+    check(all(torch.equal(a, b) for a, b in zip(*res)),
+          "K5 n=300 M=8: the global path differs from the dense path")
+    print(f"phase 10 K5 global path forced at G={G} B={B} n={n} M={M} R={R} S={S}: samples, "
+          "states, fields, energies and counters equal the dense path's bit for bit")
+    # ... and past the shared paths, through the sampler's entry, against plain
+    for G, B, n, M, R, S, why in ((2, 2, 3401, 8, 64, 4, "qbm_main -hn 3400's PT call, cut"),
+                                  (1, 1, 3000, 24, 256, 4, "past a cluster of 2-rung blocks"),
+                                  (1, 1, 300, 300, 256, 6, "past a cluster of 32-warp blocks"),
+                                  (1, 1, 4100, 3, 256, 3, "past the 10-bit Philox block"),
+                                  (1, 2, 8192, 2, 128, 2, "three column chunks a row")):
+        Q, he = structured_problem(rng, G, B, n, 1, 1, dev)[:2]
+        hv = pt_hv(rng, G * B * M, R, n, S, dev)
+        for c in counters:
+            c.reset_launch_counts()
+        got = pt_wide_cuda.pt_sample_groups(Q, he, R, S, num_replicas=M, host_variates=hv)
+        torch.cuda.synchronize()
+        check(pt_wide_cuda.launch_counts == {"pt_wide": 0, "pt_wide_sparse": 0,
+                                             "pt_wide_global": 1},
+              f"K5 n={n} M={M}: not served by the global path alone")
+        want = tempering.pt_sample_batch_plain(densify_groups(Q, he), R, S, num_replicas=M,
+                                               host_variates=hv).reshape(G, B, R, n)
+        note("pt_wide_global", compare(got, want, f"K5 global path G={G} B={B} n={n} M={M} "
+                                                  f"R={R} S={S} ({why})", phase=10))
+        del Q, he, hv, got, want
+
+    # the flat trainer at qbm_main -hn 3400 (n = 3401): SA and BMS on K4's
+    # global-field layout, PT on K5's global path, one launch a sampler call
+    anneal, bs = 5, 20
+    steps, predictions = math.ceil(600 / bs), 2
+    kernel_of = {"SA": "anneal_wide_global", "BMS": "anneal_wide_global", "PT": "pt_wide_global"}
+    x = torch.as_tensor(np.random.default_rng(1).random((bs, 784), dtype=np.float32), device=dev)
+    y = torch.as_tensor(np.arange(bs) % 2, device=dev)
+    mask = torch.ones(bs, device=dev)
+    runs = {}
+    for solver, kernel in kernel_of.items():
+        for c in counters:
+            c.reset_launch_counts()
+        t1 = time.perf_counter()
+        acc, f1, precision, recall, auc = qm.main(
+            device="cuda", data_set="synthetic", n_hidden_nodes=3400, sample_count=100,
+            anneal=anneal, batch_size=bs, epochs=1, save="", solver=solver)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        counts = {k: v for c in counters for k, v in c.launch_counts.items() if v}
+        model = made[-1]
+        nlls = model.training_history.nll_per_batch
+        check(counts == {kernel: steps + predictions},
+              f"H=3400 {solver}: launch counts {counts} for {steps} steps + {predictions} "
+              "predictions")
+        check(model.n_hidden_nodes + model.n_output_nodes == 3401, "H=3400: n is not 3401")
+        check(len(nlls) == steps and all(math.isfinite(v) for v in nlls),
+              f"H=3400 {solver}: nll {nlls}")
+        check(all(0.0 <= v <= 1.0 for v in (acc, f1, precision, recall, auc)),
+              f"H=3400 {solver}: metrics out of range")
+        for c in counters:
+            c.reset_launch_counts()
+        step = cuda_ms(lambda: model._step(x, y, mask, 0.01), runs=3)
+        per_step = {k: v for c in counters for k, v in c.launch_counts.items() if v}
+        check(per_step == {kernel: 4}, f"H=3400 {solver}: {per_step} for 4 steps")
+        runs[solver] = {"launches": counts, "step_ms": step, "wall_s": wall,
+                        "nll": [nlls[0], nlls[-1]], "acc": acc, "auc": auc}
+        print(f"phase 10 slice {solver}: qbm_main cuda synthetic H=3400 (n=3401) sc100 "
+              f"anneal{anneal} bs{bs} e1: launch counts {counts} for {steps} steps + "
+              f"{predictions} predictions, nll {nlls[0]:.4f} -> {nlls[-1]:.4f}, test acc "
+              f"{acc:.4f} auc {auc:.4f}, wall {wall:.2f} s, step {step:.3f} ms (CUDA events, "
+              f"median of 3; one {kernel} launch a step; {smi})")
+        Qs, hs = model.step_qubos(model.params, x, y[:, None].to(torch.float32))
+        runs[solver]["qubos"] = (Qs, hs)
+    model = None
+    made.clear()
+
+    # times at the trainer's call (G=2 B=20 R=100 n=3401 S=anneal, the step's
+    # own QUBOs, Philox mode), the plain versions on the same inputs, bounds
+    g = torch.Generator().manual_seed(7)
+    Qs, hs = runs["SA"]["qubos"]
+    G, B, n = hs.shape
+    R, S, M = 100, anneal, 8
+    k4 = lambda: sa_cuda.sa_sample_groups_cuda(Qs, hs, R, S, generator=g)
+    k4_pair = lambda: gibbs_cuda.gibbs_sample_groups_cuda(Qs, hs, R, S, generator=g, pair=True)
+    k5 = lambda: pt_wide_cuda.pt_sample_groups(Qs, hs, R, S, num_replicas=M, generator=g)
+    times = {name: cuda_ms(fn, runs=3) for name, fn in (("k4", k4), ("k4_pair", k4_pair),
+                                                        ("k5", k5))}
+    plain = {}
+    for name, fn in (("k4", lambda: sa_torch.sa_sample_groups_plain(Qs, hs, R, S, generator=g)),
+                     ("k4_pair", lambda: gibbs.gibbs_sample_groups_plain(Qs, hs, R, S,
+                                                                         generator=g, pair=True)),
+                     ("k5", lambda: tempering.pt_sample_batch_plain(
+                         densify_groups(Qs, hs), R, S, num_replicas=M, generator=g))):
+        plain[name] = cuda_ms(fn, runs=1)
+    J, h, hot, logr = structured_form(Qs, hs, S)
+    w4 = torch.zeros(2, dtype=torch.int64, device=dev)
+    wide_cuda.launch(J, h, hot, logr, R, S, wide_cuda.METROPOLIS, generator=g, flips=w4)
+    w5 = torch.zeros(2, dtype=torch.int64, device=dev)
+    pt_wide_cuda.launch(*pt_wide_cuda.structured_form(Qs, hs, M), R, S, generator=g, flips=w5)
+    b4 = anneal_bound(G, B, R, n, S, flip_work=int(w4[1]))
+    b5 = anneal_bound(G, B, R, n, S, rungs=M, flip_work=int(w5[1]))
+    l4 = anneal_bound(G, B, R, n, S, flip_work=int(w4[1]),
+                      layout_bytes=global_field_bytes(G * B * R, n, S))
+    l5 = anneal_bound(G, B, R, n, S, rungs=M, flip_work=int(w5[1]),
+                      layout_bytes=global_field_bytes(G * B * R * M, n, S))
+    nnz = int((split_qubo(Qs)[1] != 0).sum())
+    print(f"phase 10 time at the H=3400 step's call G={G} B={B} n={n} R={R} S={S} (its own "
+          f"QUBOs: {nnz} nonzero couplings; Philox; CUDA events, kernels median of 3, plain one "
+          f"run after a warm-up; {smi}): K4 global Metropolis {times['k4']:.3f} ms (plain "
+          f"{plain['k4']:.3f}), pair {times['k4_pair']:.3f} ms (plain {plain['k4_pair']:.3f}); "
+          f"K5 global M={M} {times['k5']:.3f} ms (plain {plain['k5']:.3f}; {S + 1} launches); "
+          f"bounds K4 {b4['bound_ms']:.4f} ms by {b4['bound_by']} ({int(w4[0])} changes), K5 "
+          f"{b5['bound_ms']:.4f} ms by {b5['bound_by']} ({int(w5[0])} changes); with the "
+          f"global fields' traffic {l4['bound_ms']:.4f} and {l5['bound_ms']:.4f} ms")
+
+    # each kernel against its plain version at the trainer's own call (G=2
+    # B=20 R=100 n=3401 S=anneal, each solver's step QUBOs), under variates
+    # drawn on the card: K4 Metropolis and pair, K5 M=8
+    main_path = {}
+    for solver, name, kernel in (("SA", "K4 global-field Metropolis", "anneal_wide_global"),
+                                 ("BMS", "K4 global-field pair", "anneal_wide_global"),
+                                 ("PT", f"K5 global path M={M}", "pt_wide_global")):
+        Qs, hs = runs[solver]["qubos"]
+        if solver == "PT":
+            hv = card_pt_hv(17, G * B * M, R, n, S, dev)
+        else:
+            init01, u = card_pt_hv(13, G * B, R, n, S, dev)[:2]
+            hv = (init01.reshape(G, B, R, n), u.reshape(S, G, B, n, R))
+        for c in counters:
+            c.reset_launch_counts()
+        if solver == "SA":
+            got = sa_cuda.sa_sample_groups_cuda(Qs, hs, R, S, host_variates=hv)
+        elif solver == "BMS":
+            got = gibbs_cuda.gibbs_sample_groups_cuda(Qs, hs, R, S, pair=True, host_variates=hv)
+        else:
+            got = pt_wide_cuda.pt_sample_groups(Qs, hs, R, S, num_replicas=M, host_variates=hv)
+        torch.cuda.synchronize()
+        counts = {k: v for c in counters for k, v in c.launch_counts.items() if v}
+        check(counts == {kernel: 1}, f"{name} at the H=3400 call: launch counts {counts}")
+        if solver == "SA":
+            want = sa_torch.sa_sample_groups_plain(Qs, hs, R, S, host_variates=hv)
+        elif solver == "BMS":
+            want = gibbs.gibbs_sample_groups_plain(Qs, hs, R, S, pair=True, host_variates=hv)
+        else:
+            want = tempering.pt_sample_batch_plain(densify_groups(Qs, hs), R, S, num_replicas=M,
+                                                   host_variates=hv).reshape(G, B, R, n)
+        frac_err = compare(got, want, f"{name} at the H=3400 step's call G={G} B={B} n={n} "
+                                      f"R={R} S={S} (its {solver} step QUBOs, variates drawn "
+                                      "on the card)", phase=10)
+        note(kernel, frac_err)
+        main_path[name] = {"differing_chains": frac_err[0], "max_abs_err": frac_err[1]}
+        del hv, got, want
+    turns = layout_turns(dev, smi)
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s")
+    return {"trainer": {k: {kk: vv for kk, vv in v.items() if kk != "qubos"}
+                        for k, v in runs.items()},
+            "anneal": anneal, "times_ms": times, "plain_ms": plain,
+            "bounds": {"anneal_wide_global": b4, "pt_wide_global": b5,
+                       "anneal_wide_global_with_fields": l4, "pt_wide_global_with_fields": l5},
+            "changes": {"anneal_wide_global": [int(v) for v in w4.tolist()],
+                        "pt_wide_global": [int(v) for v in w5.tolist()]},
+            "max_abs_err": {k: max(v) for k, v in errs.items()},
+            "differing_chains": {k: max(v) for k, v in fracs.items()},
+            "main_path_check": main_path, "layout_turns": turns,
+            "seconds": time.perf_counter() - t0}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA GPU")
@@ -1122,17 +1471,17 @@ def main() -> None:
                                   "K4 pair dense B=32 n=717 R=100 S=10"))
     check(wide_cuda.launch_counts["anneal_wide"] == 2, "K4 dense: not launched by the wrappers")
     del hv, init_wd, u_wd
-    # K4 at the widest n it takes (one chain a block)
-    SX = dict(G=1, B=1, n=wide_cuda.max_n(), R=200, S=2)
+    # K4's shared layout at the widest n the rule gives it (5 chains a block)
+    SX = dict(G=1, B=1, n=wide_cuda.switch_n(), R=200, S=2)
     Qx, hx, init_x, u_x = structured_problem(rng, *SX.values(), dev)
     args, hv = (Qx, hx, SX["R"], SX["S"]), (init_x, u_x)
     record("anneal_wide", compare(sa_cuda.sa_sample_groups_cuda(*args, host_variates=hv),
                                   sa_torch.sa_sample_groups_plain(*args, host_variates=hv),
-                                  f"K4 Metropolis structured at its widest n={SX['n']} R=200 S=2"))
+                                  f"K4 Metropolis structured at its widest shared n={SX['n']} R=200 S=2"))
     record("anneal_wide", compare(
         gibbs_cuda.gibbs_sample_groups_cuda(*args, pair=True, host_variates=hv),
         gibbs.gibbs_sample_groups_plain(*args, pair=True, host_variates=hv),
-        f"K4 pair structured at its widest n={SX['n']} R=200 S=2"))
+        f"K4 pair structured at its widest shared n={SX['n']} R=200 S=2"))
     del Qx, hx, hv, init_x, u_x
     # K5 at the shapes K3 cannot hold (pt_wide_cuda.pt_route), through the
     # sampler's structured entry, against the plain version on the densified
@@ -1215,7 +1564,7 @@ def main() -> None:
     pt_wide_cuda.reset_launch_counts()
     out = pt_wide_cuda.pt_sample_groups(Qf, hf, R, S, num_replicas=M, host_variates=hv)
     torch.cuda.synchronize()
-    check(pt_wide_cuda.launch_counts == {"pt_wide": 1, "pt_wide_sparse": 0}
+    check(pt_wide_cuda.launch_counts == {"pt_wide": 1, "pt_wide_sparse": 0, "pt_wide_global": 0}
           and pt_cuda.launch_counts["pt_heatbath"] == 0,
           f"K5 flat PT H=300: not served by the dense path alone ({pt_wide_cuda.launch_counts})")
     want = tempering.pt_sample_batch_plain(densify_groups(Qf, hf), R, S, num_replicas=M,
@@ -1239,7 +1588,7 @@ def main() -> None:
     pt_wide_cuda.reset_launch_counts()
     out = pt_wide_cuda.pt_sample_groups(Qs, hs, R, S, num_replicas=M, host_variates=hv)
     torch.cuda.synchronize()
-    check(pt_wide_cuda.launch_counts == {"pt_wide": 0, "pt_wide_sparse": 1}
+    check(pt_wide_cuda.launch_counts == {"pt_wide": 0, "pt_wide_sparse": 1, "pt_wide_global": 0}
           and pt_cuda.launch_counts["pt_heatbath"] == 0,
           "K5 CDQBM (a) PT: not served by the sparse path alone")
     want = tempering.pt_sample_batch_plain(densify_groups(Qs, hs), R, S, num_replicas=M,
@@ -1745,7 +2094,7 @@ def main() -> None:
         end.synchronize()
         pt_steps.append(start.elapsed_time(end))
         check(math.isfinite(float(nll)), f"CDQBM (a) PT at anneal 1000: nll {float(nll)}")
-    check(pt_wide_cuda.launch_counts == {"pt_wide": 0, "pt_wide_sparse": 3},
+    check(pt_wide_cuda.launch_counts == {"pt_wide": 0, "pt_wide_sparse": 3, "pt_wide_global": 0},
           f"CDQBM (a) PT at anneal 1000: K5's sparse path did not serve every step: "
           f"{pt_wide_cuda.launch_counts}")
     step_ms["CDQBM a PT anneal1000"] = statistics.median(pt_steps)
@@ -2051,7 +2400,7 @@ def main() -> None:
             pt_wide_cuda.reset_launch_counts()
             out = pt_wide_cuda.pt_sample_groups(Qsw, hsw, R, S, num_replicas=M, host_variates=hv)
             torch.cuda.synchronize()
-            check(pt_wide_cuda.launch_counts == {"pt_wide": 0, "pt_wide_sparse": 1}
+            check(pt_wide_cuda.launch_counts == {"pt_wide": 0, "pt_wide_sparse": 1, "pt_wide_global": 0}
                   and pt_cuda.launch_counts["pt_heatbath"] == 0,
                   f"K5 at the sweep's call: not served by the sparse path alone "
                   f"({pt_wide_cuda.launch_counts})")
@@ -2284,6 +2633,9 @@ def main() -> None:
     # -- 9. the mesh: a world of one under NCCL, two ranks on the card over gloo ---
     mesh_rec = mesh_phase(dev, smi)
 
+    # -- 10. past the shared layouts: K4's global fields, K5's global path, H=3400 --
+    wide_rec = wide_phase(dev, smi, counters, made)
+
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s")
     t = lambda prefix: next(v for k, v in times.items() if k.startswith(prefix))
     bound_keys = lambda name: {"bound_ms": bounds[name]["bound_ms"],
@@ -2379,9 +2731,30 @@ def main() -> None:
          "clusters": clusters, "active_clusters": active,
          "sweep_launches": csweep_rec["a PT"]["launches"],
          "sweep_s100_bound_ms": bounds["pt_wide_sparse CDQBM (a) sweep G=20 S=100"]["bound_ms"]},
+        *({"name": name, "route": "cuda", "source": src, "replaces": "qbmx/samplers/sa_pallas.py:196",
+           **({"also_replaces": "qbmx/samplers/sa_lane.py:144"} if name == "anneal_wide_global"
+              else {}),
+           "layout": layout,
+           "launches": sum(r["launches"].get(name, 0) for r in wide_rec["trainer"].values()),
+           "launches_on": "qbm_main -hn 3400 " + solvers,
+           "max_abs_err": wide_rec["max_abs_err"][name],
+           "differing_chains": wide_rec["differing_chains"][name],
+           "differing_chains_limit": MAX_DIFF_FRAC,
+           "ms": wide_rec["times_ms"][key], "plain_ms": wide_rec["plain_ms"][key],
+           "bound_ms": wide_rec["bounds"][name]["bound_ms"],
+           "bound_by": wide_rec["bounds"][name]["bound_by"], "library_ms": None,
+           "with_field_traffic_bound_ms": wide_rec["bounds"][f"{name}_with_fields"]["bound_ms"],
+           "step_ms": {s_: wide_rec["trainer"][s_]["step_ms"] for s_ in solvers.split()}}
+          for name, src, layout, key, solvers in (
+              ("anneal_wide_global", "qbmx_torch/csrc/anneal_wide.cu",
+               "global fields (n > 3368)", "k4", "SA BMS"),
+              ("pt_wide_global", "qbmx_torch/csrc/pt_wide.cu",
+               "global path (n > 3368 or a ladder past a cluster; S + 1 launches a call)", "k5",
+               "PT"))),
     ], "step_ms": step_ms, "cdqbm_launches": cdqbm_launches, "sweeps": sweep_rec,
         "cdqbm_sweeps": csweep_rec, "resume": resume_rec, "rbm": rbm_rec,
-        "host_seams": host_rec, "mesh": mesh_rec}
+        "host_seams": host_rec, "mesh": mesh_rec,
+        "wide": {k: v for k, v in wide_rec.items() if k not in ("times_ms", "plain_ms")}}
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

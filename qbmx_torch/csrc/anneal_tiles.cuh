@@ -5,7 +5,10 @@
 // comment describes the scheme (tiles double-buffered with cp.async,
 // incremental local fields with a refresh every so many sweeps, the tile's
 // fields and states in registers, 32 thresholds drawn by a warp's lanes at
-// once) and how far the fields drift.
+// once) and how far the fields drift.  Two layouts: the shared one
+// (sweep_tiles: a chain's fields and state in shared memory, n <= 3368)
+// and the global-field one (sweep_global: in a scratch buffer in global
+// memory, any n), which compute the same fields bit for bit.
 //
 // Build without --use_fast_math (anneal_rules.cuh).
 
@@ -342,6 +345,227 @@ __device__ __forceinline__ int sweep_tiles(float* tiles, int& buf, const float* 
     }
     __syncthreads();  // tile buffer buf is free for the prefetch after next
     buf ^= 1;
+  }
+  return changed;
+}
+
+// ---- The global-field layout --------------------------------------------
+//
+// Past n = 3368 one chain's fields and state no longer fit a block beside
+// two 8-row tiles.  There each chain's n fields and its state bytes live in
+// a scratch buffer in global memory (the wrapper allocates it: a row of
+// frow floats and frow bytes a chain), and shared memory holds J_g alone:
+// two buffers of a tile of 8 rows cut to a column chunk of cw floats, and
+// two of the tile's 8x8 diagonal block.  Up to n = 3624 a chunk is the whole
+// row; past it a row takes several chunks, so no width bound is left short
+// of the card's memory.  Per tile, a chain (a warp) takes the tile's
+// decisions first, on registers as tile_unit does: the tile's 8 fields and
+// states, the couplings among them from the diagonal block; a change adds
+// d·J_ij to all 8 of the tile's fields in registers and is kept (d8).  Then
+// every chunk of the tile's rows adds the kept changes to the chain's other
+// fields in global memory, each lane its float4s q = lane (mod 32), rows in
+// increasing order, by fmaf; the tile's own 8 fields are written from the
+// registers.  So every field takes the same adds in the same order as in the
+// shared layout, and the fields, states and decisions are the same bit for
+// bit (a zero's sign aside).  A refresh sweep recomputes a unit's fields by
+// fields<M> on J_g's rows read from global memory (L2) and the state there,
+// in the shared layout's order.  The cost of the layout: a tile with a
+// change rewrites the chain's n fields in global memory (L2 while the
+// chains' fields fit its 50 MB), where the shared layout adds to shared
+// memory.
+
+constexpr int kDiag = kRows * kRows;  // floats of a tile's diagonal block
+// Floats a tile row holds: two 8-row tiles and two diagonal blocks fill a
+// block's 232,448 bytes of shared memory at 3624 (a multiple of 8).
+constexpr int kChunkMax = 3624;
+
+struct GlobalLayout {
+  int jrow;  // floats per (padded) J row: n rounded up to 8, so a diagonal
+             // block's two float4s a row stay inside the row
+  int frow;  // floats per chain's fields (and bytes of its state): n rounded up to 8
+  int cw;    // floats a tile row holds: min(jrow, kChunkMax)
+
+  __host__ __device__ int words() const { return frow / 4; }  // state words per chain
+  __host__ __device__ int chunks() const { return (jrow + cw - 1) / cw; }
+  __host__ __device__ size_t smem() const {
+    return 4 * ((size_t)2 * kRows * cw + 2 * (size_t)kDiag);
+  }
+};
+
+__host__ __device__ inline GlobalLayout global_layout_of(int n) {
+  const int r8 = (n + kRows - 1) / kRows * kRows;
+  return GlobalLayout{r8, r8, r8 < kChunkMax ? r8 : kChunkMax};
+}
+
+// Chunk `chunk` of rows [8·tile, 8·tile + 8) of the padded J_g (row stride
+// L.jrow) into a tile buffer of row stride L.cw, and with chunk 0 the
+// tile's diagonal block into `diag`, as asynchronous 16-byte copies.  Rows
+// past n are not loaded: no change reads them.
+__device__ __forceinline__ void load_chunk(float* dst, float* diag, const float* Jg, int tile,
+                                           int chunk, int n, GlobalLayout L) {
+  const int i0 = tile * kRows;
+  const int rows = min(kRows, n - i0);
+  const int c0 = chunk * L.cw;
+  const int q4 = min(L.cw, L.jrow - c0) / 4;  // float4s a row of the chunk
+  const int s4 = L.jrow / 4, d4 = L.cw / 4;
+  const float4* src = reinterpret_cast<const float4*>(Jg) + (size_t)i0 * s4;
+  float4* dst4 = reinterpret_cast<float4*>(dst);
+  for (int q = threadIdx.x; q < rows * q4; q += blockDim.x) {
+    const int row = q / q4, col = q - row * q4;
+    __pipeline_memcpy_async(dst4 + row * d4 + col, src + (size_t)row * s4 + c0 / 4 + col,
+                            sizeof(float4));
+  }
+  if (chunk == 0) {
+    float4* g4 = reinterpret_cast<float4*>(diag);
+    for (int q = threadIdx.x; q < 2 * rows; q += blockDim.x)
+      __pipeline_memcpy_async(g4 + q, src + (size_t)(q >> 1) * s4 + i0 / 4 + (q & 1),
+                              sizeof(float4));
+  }
+}
+
+// A unit of the global-field layout at tile row rr (a constant once the
+// tile's units are unrolled): its fields from the registers ft, or, in a
+// refresh sweep, recomputed from J_g's rows (Jrow: row i0+rr in global
+// memory) and the chain's state st; the decision on the diagonal block dg;
+// a change updates the registers sv, ft (all 8 of the tile's fields, each
+// by its rows in increasing order, as add_rows orders them), the state
+// bytes and d8, the tile's changes kept for the chunks' adds.
+template <int RULE, int M, bool COUNT>
+__device__ __forceinline__ int global_unit(const float* dg, const float* Jrow, int jrow, int rr,
+                                           int i0, bool refresh, uint32_t* st, int lane,
+                                           const float* hp, float beta, float v, float ft[8],
+                                           float sv[8], float d8[8], const int* nnz,
+                                           unsigned& work) {
+  float f[M], s[M], o[M], d[M];
+  unsigned char* sb = reinterpret_cast<unsigned char*>(st);
+  if (refresh) {
+    fields<M>(Jrow, jrow, st, lane, hp + i0 + rr, f);
+#pragma unroll
+    for (int a = 0; a < M; ++a) ft[rr + a] = f[a];
+  } else {
+#pragma unroll
+    for (int a = 0; a < M; ++a) f[a] = ft[rr + a];
+  }
+#pragma unroll
+  for (int a = 0; a < M; ++a) s[a] = sv[rr + a];
+  decide<RULE, M>(f, s, dg, rr, kRows, rr, beta, v, o);
+  int changed = 0;
+#pragma unroll
+  for (int a = 0; a < M; ++a) {
+    d[a] = o[a] - s[a];
+    changed += d[a] != 0.0f;
+  }
+  if (changed != 0) {  // the same on the chain's lanes
+#pragma unroll
+    for (int a = 0; a < M; ++a) {
+      sv[rr + a] = o[a];
+      d8[rr + a] = d[a];
+      if (lane == 0) sb[i0 + rr + a] = o[a] != 0.0f ? 0xFF : 0x00;
+    }
+#pragma unroll
+    for (int r2 = 0; r2 < kRows; ++r2)
+#pragma unroll
+      for (int a = 0; a < M; ++a)
+        if (d[a] != 0.0f) ft[r2] = fmaf(d[a], dg[(rr + a) * kRows + r2], ft[r2]);
+    count_rows<M, COUNT>(nnz, i0 + rr, d, work);
+    if (refresh) __syncwarp();  // the chain's lanes see the state before the next refresh
+  }
+  return changed;
+}
+
+// sweep_tiles in the global-field layout: one sweep of the block's chains
+// over the tiles of J_g (Jg, rows padded to L.jrow), each tile's chunks in
+// turn, the next chunk (or the next tile's first, wrapping to tile 0 of the
+// next sweep unless `last`) prefetched into the other buffer while one is
+// used.  fr and st are the chain's fields and state in global memory; an
+// inactive warp (a spare chain) takes part in the loads and barriers only.
+// The first call must follow a load_chunk of tile 0, chunk 0 into buffer
+// `buf` and its commit.  Returns the variables the chain changed, and,
+// where COUNT, adds to `work` the nonzeros of their rows.
+template <int RULE, bool COUNT>
+__device__ __forceinline__ int sweep_global(float* tiles, float* diags, int& buf, const float* Jg,
+                                            GlobalLayout L, int n, bool last, bool refresh,
+                                            bool active, float beta, SweepUniforms& u, float* fr,
+                                            uint32_t* st, int lane, const float* hp,
+                                            const int* nnz, unsigned& work) {
+  const int ntiles = (n + kRows - 1) / kRows, nch = L.chunks();
+  const int tile_floats = kRows * L.cw, d4 = L.cw / 4;
+  int changed = 0;
+  float mine = 0.0f;  // this lane's threshold or uniform of the current batch
+  for (int k = 0; k < ntiles; ++k) {
+    const int i0 = k * kRows;
+    const int base = i0 - i0 % kLanes;  // first variable of the lanes' batch
+    if (active && base == i0) {  // every 4th tile, as sweep_tiles
+      mine = 0.0f;
+      if (i0 + lane < n) {
+        const float uu = u(i0 + lane);
+        mine = RULE == 0 ? metropolis_threshold(uu, beta)
+               : RULE == 1 ? heatbath_threshold(uu, beta) : uu;
+      }
+    }
+    float d8[kRows];  // the tile's changes, by row
+#pragma unroll
+    for (int a = 0; a < kRows; ++a) d8[a] = 0.0f;
+    for (int c = 0; c < nch; ++c) {
+      const bool tile_end = c + 1 == nch;
+      if (!(last && tile_end && k + 1 == ntiles))
+        load_chunk(tiles + (buf ^ 1) * tile_floats, diags + (buf ^ 1) * kDiag, Jg,
+                   tile_end ? (k + 1 < ntiles ? k + 1 : 0) : k, tile_end ? 0 : c + 1, n, L);
+      __pipeline_commit();
+      __pipeline_wait_prior(1);  // this thread's copies of the chunk have landed
+      __syncthreads();           // ... and every thread's, and the last chunk's writes
+      if (active && c == 0) {    // the tile's decisions
+        const float* dg = diags + buf * kDiag;
+        float ft[kRows], sv[kRows];
+        const float4 f0 = *reinterpret_cast<const float4*>(fr + i0);
+        const float4 f1 = *reinterpret_cast<const float4*>(fr + i0 + 4);
+        const uint32_t w0 = st[i0 / 4], w1 = st[i0 / 4 + 1];
+        ft[0] = f0.x, ft[1] = f0.y, ft[2] = f0.z, ft[3] = f0.w;
+        ft[4] = f1.x, ft[5] = f1.y, ft[6] = f1.z, ft[7] = f1.w;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          sv[b] = (w0 >> (8 * b)) & 0xFFu ? 1.0f : 0.0f;
+          sv[b + 4] = (w1 >> (8 * b)) & 0xFFu ? 1.0f : 0.0f;
+        }
+        auto v_at = [&](int rr) { return __shfl_sync(0xFFFFFFFFu, mine, i0 + rr - base); };
+        changed += tile_schedule<RULE>(i0, n, [&](int rr, auto w) {
+          constexpr int M = decltype(w)::value;
+          return global_unit<RULE, M, COUNT>(dg, Jg + (size_t)(i0 + rr) * L.jrow, L.jrow, rr, i0,
+                                             refresh, st, lane, hp, beta, v_at(rr), ft, sv, d8,
+                                             nnz, work);
+        });
+        if (lane == 0) {
+          *reinterpret_cast<float4*>(fr + i0) = make_float4(ft[0], ft[1], ft[2], ft[3]);
+          *reinterpret_cast<float4*>(fr + i0 + 4) = make_float4(ft[4], ft[5], ft[6], ft[7]);
+        }
+      }
+      bool any = false;
+#pragma unroll
+      for (int a = 0; a < kRows; ++a) any |= d8[a] != 0.0f;
+      if (active && any) {  // the tile's changes onto the chunk's other fields
+        const int q0 = c * d4, qn = min(L.cw, L.jrow - c * L.cw) / 4;
+        const float4* T = reinterpret_cast<const float4*>(tiles + buf * tile_floats);
+        float4* F = reinterpret_cast<float4*>(fr);
+        for (int q = lane; q < qn; q += kLanes) {
+          const int gq = q0 + q;
+          if (gq == i0 / 4 || gq == i0 / 4 + 1) continue;  // the tile's own: from ft
+          float4 x = F[gq];
+#pragma unroll
+          for (int a = 0; a < kRows; ++a) {
+            if (d8[a] != 0.0f) {
+              const float4 t = T[a * d4 + q];
+              x.x = fmaf(d8[a], t.x, x.x);
+              x.y = fmaf(d8[a], t.y, x.y);
+              x.z = fmaf(d8[a], t.z, x.z);
+              x.w = fmaf(d8[a], t.w, x.w);
+            }
+          }
+          F[gq] = x;
+        }
+      }
+      __syncthreads();  // buffer buf is free for the prefetch after next; fields in place
+      buf ^= 1;
+    }
   }
   return changed;
 }

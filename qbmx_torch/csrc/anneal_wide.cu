@@ -69,6 +69,17 @@
 // (G,n), J_g's nonzeros a row, from the wrapper), the work a change takes
 // on a sparse J (for chip_smoke.py's drift check and bound).
 //
+// Past n = 3368, where one chain's fields and state no longer fit a block
+// beside two tiles, the global-field layout (anneal_global_kernel) keeps
+// them in a scratch buffer in global memory that the wrapper allocates,
+// (G*B*R, n rounded up to 8) floats and as many state bytes, and streams
+// J_g's rows through shared memory in 8-row tiles cut to column chunks of
+// at most 3624 floats (anneal_tiles.cuh's sweep_global): the same
+// decisions, fields and streams as the shared layout, bit for bit, at any
+// n the card's memory holds.  samplers/wide_cuda.py::wide_geometry picks
+// the shared layout up to n = 2608, where a block still holds 5 chains,
+// and the global-field one past it, where it is as fast or faster.
+//
 // The tiles, fields and units live in anneal_tiles.cuh, which pt_wide.cu
 // (K5, parallel tempering past shared memory) shares.
 //
@@ -83,13 +94,18 @@
 
 namespace {
 
+using qbmx::GlobalLayout;
+using qbmx::global_layout_of;
+using qbmx::kDiag;
 using qbmx::kInitTag;
 using qbmx::kLanes;
 using qbmx::kRows;
 using qbmx::Layout;
 using qbmx::layout_of;
+using qbmx::load_chunk;
 using qbmx::load_tile;
 using qbmx::philox4x32_10;
+using qbmx::sweep_global;
 using qbmx::sweep_tiles;
 using qbmx::SweepUniforms;
 using qbmx::word;
@@ -189,11 +205,94 @@ anneal_wide_kernel(const float* __restrict__ J, const float* __restrict__ h,
   }
 }
 
+// The kernel in the global-field layout (header): each chain's fields
+// (fscr) and state words (sscr) in its row of the scratch buffers, chain
+// (g, b·R + r) at row g·B·R + b·R + r; J rows padded to n rounded up to 8.
+template <int RULE, bool COUNT>
+__global__ void __launch_bounds__(kMaxChains * kLanes)
+anneal_global_kernel(const float* __restrict__ J, const float* __restrict__ h,
+                     const float* __restrict__ hot, const float* __restrict__ logr,
+                     const float* __restrict__ init01, const float* __restrict__ uniforms,
+                     float* __restrict__ out, float* __restrict__ fields_out,
+                     unsigned long long* __restrict__ flips, const int* __restrict__ row_nnz,
+                     float* fscr, uint32_t* sscr, int G, int B, int R, int n, int S,
+                     float inv_span, uint32_t seed_lo, uint32_t seed_hi, int C) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const GlobalLayout L = global_layout_of(n);
+  float* tiles = reinterpret_cast<float*>(smem);
+  float* diags = tiles + 2 * kRows * L.cw;
+
+  const int g = blockIdx.y;
+  const int c = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
+  const long long chains = (long long)B * R;
+  const long long chain = (long long)blockIdx.x * C + c;
+  // the last block's spare chains take part in the loads and barriers only
+  const bool active = chain < chains;
+  const long long ch = active ? chain : chains - 1;
+  const int b = (int)(ch / R);
+  const int r = (int)(ch % R);
+  const size_t p = (size_t)g * B + b;  // problem id
+  const uint2 key = make_uint2(seed_lo, (uint32_t)p);
+  const bool host = uniforms != nullptr;
+  const float* Jg = J + (size_t)g * n * L.jrow;
+  const float* hp = h + p * n;
+  const int* nnz = row_nnz == nullptr ? nullptr : row_nnz + (size_t)g * n;
+  const size_t row_id = (size_t)g * chains + ch;
+  float* fr = fscr + row_id * L.frow;
+  uint32_t* st = sscr + row_id * L.words();
+  unsigned char* sb = reinterpret_cast<unsigned char*>(st);
+
+  if (active) {
+    for (int i = lane; i < n; i += kLanes) {
+      bool bit;
+      if (host) {
+        bit = init01[(p * R + r) * n + i] != 0.0f;
+      } else {
+        const uint4 bits =
+            philox4x32_10(make_uint4((uint32_t)r, (uint32_t)(i >> 2), kInitTag, seed_hi), key);
+        bit = (word(bits, i & 3) & 1u) != 0u;
+      }
+      sb[i] = bit ? 0xFF : 0x00;
+    }
+  }
+
+  const float hot_p = hot[p], logr_p = logr[p];
+  const size_t u_sweep = (size_t)G * B * n * R;  // uniforms per sweep
+  int changed = 0;
+  unsigned long long work = 0;  // the nonzeros of the changed variables' rows
+  load_chunk(tiles, diags, Jg, 0, 0, n, L);
+  __pipeline_commit();
+  int buf = 0;
+  for (int t = 0; t < S; ++t) {
+    const float beta = hot_p * expf(logr_p * ((float)t * inv_span));
+    SweepUniforms u{host ? uniforms + (size_t)t * u_sweep + p * n * R + r : nullptr, R, key,
+                    (uint32_t)r, (uint32_t)t, seed_hi};
+    unsigned sweep_work = 0;  // at most n² a sweep
+    changed += sweep_global<RULE, COUNT>(tiles, diags, buf, Jg, L, n, t + 1 == S,
+                                         t % kRefreshPeriod == 0, active, beta, u, fr, st,
+                                         lane, hp, nnz, sweep_work);
+    work += sweep_work;
+  }
+
+  if (active) {
+    const size_t row = (p * R + r) * n;
+    for (int i = lane; i < n; i += kLanes) out[row + i] = sb[i] ? 1.0f : 0.0f;
+    if (fields_out != nullptr)
+      for (int i = lane; i < n; i += kLanes) fields_out[row + i] = fr[i];
+    if (flips != nullptr && lane == 0 && changed != 0) {
+      atomicAdd(flips, (unsigned long long)changed);
+      atomicAdd(flips + 1, work);
+    }
+  }
+}
+
 struct Args {
   const float *J, *h, *hot, *logr, *init01, *uniforms;
   float *out, *fields_out;
   unsigned long long* flips;
   const int* row_nnz;
+  float* fscr;      // the global-field layout's scratch (null: the shared layout)
+  uint32_t* sscr;
   int G, B, R, n, S;
   float inv_span;
   uint32_t seed_lo, seed_hi;
@@ -202,16 +301,28 @@ struct Args {
 
 template <int RULE, bool COUNT>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = layout_of(a.n).bytes(a.C);
+  const bool global = a.fscr != nullptr;
+  const size_t smem = global ? global_layout_of(a.n).smem() : layout_of(a.n).bytes(a.C);
   if (a.C < 1 || a.C > kMaxChains || smem > kSmemMax) return cudaErrorInvalidValue;
+  const long long blocks = ((long long)a.B * a.R + a.C - 1) / a.C;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks, (unsigned)a.G);
+  if (global) {
+    const cudaError_t e = cudaFuncSetAttribute(anneal_global_kernel<RULE, COUNT>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem);
+    if (e != cudaSuccess) return e;
+    anneal_global_kernel<RULE, COUNT><<<grid, a.C * kLanes, smem, stream>>>(
+        a.J, a.h, a.hot, a.logr, a.init01, a.uniforms, a.out, a.fields_out, a.flips,
+        a.row_nnz, a.fscr, a.sscr, a.G, a.B, a.R, a.n, a.S, a.inv_span, a.seed_lo, a.seed_hi,
+        a.C);
+    return cudaGetLastError();
+  }
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         anneal_wide_kernel<RULE, COUNT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  const long long blocks = ((long long)a.B * a.R + a.C - 1) / a.C;
-  if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  const dim3 grid((unsigned)blocks, (unsigned)a.G);
   anneal_wide_kernel<RULE, COUNT><<<grid, a.C * kLanes, smem, stream>>>(
       a.J, a.h, a.hot, a.logr, a.init01, a.uniforms, a.out, a.fields_out, a.flips, a.row_nnz,
       a.G, a.B, a.R, a.n, a.S, a.inv_span, a.seed_lo, a.seed_hi, a.C);
@@ -231,37 +342,49 @@ cudaError_t dispatch(const Args& a, int rule, cudaStream_t st) {
 
 }  // namespace
 
-// Largest n the kernel takes: two J tiles and one chain's fields and state
-// must fit one block's shared memory.
+// Largest n of the shared layout: two J tiles and one chain's fields and
+// state fit one block's shared memory.  Past it the global-field layout.
 extern "C" int qbmx_anneal_wide_max_n() {
   int n = 1;
   while (layout_of(n + 1).bytes(1) <= kSmemMax) ++n;
   return n;
 }
 
-// Shared-memory bytes of a block of `chains` chains at width n.
+// Shared-memory bytes of a block of `chains` chains at width n (the shared
+// layout), and of any block of the global-field layout.
 extern "C" unsigned long long qbmx_anneal_wide_smem(int n, int chains) {
   return (unsigned long long)layout_of(n).bytes(chains);
 }
 
+extern "C" unsigned long long qbmx_anneal_wide_global_smem(int n) {
+  return (unsigned long long)global_layout_of(n).smem();
+}
+
 // Returns the cudaError_t of the launch (0 = success).  J is (G, n, jrow),
-// each row padded with zeros to jrow = n rounded up to 4; init01/uniforms
-// are both null (Philox mode) or both set (host-variate mode); rule is 0 for
-// Metropolis, 1, 2 or 4 for heat-bath at that update width; chains (chains
-// per block, a warp each) is the host's geometry; fields_out and flips (two
-// counters) may be null, and row_nnz is null unless flips is set.
+// each row padded with zeros to jrow: n rounded up to 4 in the shared
+// layout, to 8 in the global-field one; init01/uniforms are both null
+// (Philox mode) or both set (host-variate mode); rule is 0 for Metropolis,
+// 1, 2 or 4 for heat-bath at that update width; chains (chains per block, a
+// warp each) is the host's geometry; fields_out and flips (two counters)
+// may be null, and row_nnz is null unless flips is set.  fscr and sscr,
+// both null or both set, select the global-field layout: the chains'
+// fields, (G*B*R, n rounded up to 8) float32, and state bytes, as many
+// bytes, 16-byte aligned.
 extern "C" int qbmx_anneal_wide(const float* J, const int* row_nnz, const float* h,
                                 const float* hot, const float* logr, const float* init01,
                                 const float* uniforms, float* out, float* fields_out,
-                                unsigned long long* flips, int G, int B, int R, int n, int S,
-                                float inv_span, unsigned long long seed, int rule, int chains,
-                                void* stream) {
+                                unsigned long long* flips, float* fscr, void* sscr, int G, int B,
+                                int R, int n, int S, float inv_span, unsigned long long seed,
+                                int rule, int chains, void* stream) {
   if (G <= 0 || B <= 0 || R <= 0 || n <= 0 || S <= 0 || G > 65535 ||
-      n > qbmx_anneal_wide_max_n() || (init01 == nullptr) != (uniforms == nullptr) ||
-      (row_nnz != nullptr && flips == nullptr))
+      (fscr == nullptr) != (sscr == nullptr) ||
+      (fscr == nullptr && n > qbmx_anneal_wide_max_n()) ||
+      (reinterpret_cast<uintptr_t>(fscr) | reinterpret_cast<uintptr_t>(sscr)) % 16 != 0 ||
+      (init01 == nullptr) != (uniforms == nullptr) || (row_nnz != nullptr && flips == nullptr))
     return (int)cudaErrorInvalidValue;
-  const Args a{J, h, hot, logr, init01, uniforms, out, fields_out, flips, row_nnz, G, B, R, n,
-               S, inv_span, (uint32_t)(seed & 0xFFFFFFFFull), (uint32_t)(seed >> 32), chains};
+  const Args a{J, h, hot, logr, init01, uniforms, out, fields_out, flips, row_nnz, fscr,
+               static_cast<uint32_t*>(sscr), G, B, R, n, S, inv_span,
+               (uint32_t)(seed & 0xFFFFFFFFull), (uint32_t)(seed >> 32), chains};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(row_nnz != nullptr ? dispatch<true>(a, rule, st) : dispatch<false>(a, rule, st));
 }

@@ -40,8 +40,24 @@
 //   * the dense path (pt_wide_kernel<false>) streams J_g through shared
 //     memory in 8-row tiles double-buffered with cp.async, with the tile's
 //     fields in registers (anneal_tiles.cuh, K4's machinery): two block
-//     barriers a tile, and each change adds a whole row.  It takes the
-//     rest: random dense QUBOs up to n = 3368.
+//     barriers a tile, and each change adds a whole row.  It holds random
+//     dense QUBOs up to n = 3368 and ladders up to 8 blocks of rungs; the
+//     host's rule gives it n <= 2608, where a block holds 5 rungs;
+//   * the global path (pt_global_kernel) takes the rest: n > 2608 off the
+//     sparse path, or a ladder longer than a portable cluster of
+//     dense-path blocks holds.
+//     Each state's fields and state bytes live in scratch buffers in
+//     global memory, with K4's global-field layout (anneal_tiles.cuh's
+//     sweep_global: the dense path's fields bit for bit), and a ladder may
+//     spread over any number of blocks.  So an exchange round needs every
+//     block's energies: the wrapper launches the kernel once a sweep, S + 1
+//     launches a call.  Launch t takes the exchanges of round t-1 (from the
+//     energies launch t-1 wrote, at slots double-buffered by parity), then
+//     sweep t, then writes each state's energy at its rung's slot and its
+//     rung; launch S takes round S-1 and writes the outputs.  (A
+//     cooperative launch with a grid-wide barrier would need the whole
+//     grid co-resident, 4,224 warps on the card, where a training call
+//     holds 32,000 states.)
 //
 // Fields.  Both paths compute the same fields, bit for bit (a zero's sign
 // aside, which no comparison sees).  Between refreshes a change of
@@ -89,8 +105,9 @@
 // Variable draws at counter (read, (m << 10) | variable/4, sweep), initial
 // bits at sweep slot 2^32-1; swap draws at (read, ((m / 4) << 10) | 0x3FF,
 // sweep), word m % 4 -- K3's layout with 10 bits for the variable block (n
-// <= 4096) where K3 has 8 (n <= 1024):
-// qbmx_torch/samplers/sa_torch.py::pt_philox_variates(..., var_shift=10)
+// <= 4092) where K3 has 8 (n <= 1020); the global path takes the shift
+// from the wrapper (10, or more past n = 4092: pt_wide_cuda.var_shift):
+// qbmx_torch/samplers/sa_torch.py::pt_philox_variates(..., var_shift=...)
 // writes them out.  With non-null pointers init01 (G*B*M,R,n), uniforms
 // (S,G*B*M,n,R) and swap_u (S,G*B*M,R), slot p*M+m, come from the host.
 // Optional outputs, null on the main path, each at the slot p*M + rho of
@@ -114,14 +131,19 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+using qbmx::GlobalLayout;
+using qbmx::global_layout_of;
 using qbmx::heatbath_threshold;
+using qbmx::kDiag;
 using qbmx::kInitTag;
 using qbmx::kLanes;
 using qbmx::kRows;
 using qbmx::Layout;
 using qbmx::layout_of;
+using qbmx::load_chunk;
 using qbmx::load_tile;
 using qbmx::philox4x32_10;
+using qbmx::sweep_global;
 using qbmx::sweep_tiles;
 using qbmx::SweepUniforms;
 using qbmx::uniform_of;
@@ -133,7 +155,6 @@ constexpr size_t kSmemMax = 232448;  // a block's shared memory on Hopper
 constexpr int kRefreshPeriod = 64;   // K4's: the wrappers' field_drift_bound assumes it
 constexpr int kHeatBath = 1;         // anneal_tiles.cuh's rule 1: single-variable heat-bath
 constexpr int kVarShift = 10;        // Philox counter y = (rung << 10) | variable/4
-constexpr uint32_t kSwapTag = (1u << kVarShift) - 1;  // variable-block slot of the swap draws
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 // Ints of a group's row offsets: n + 1 rounded up to 4 (16-byte copies).
@@ -185,15 +206,15 @@ struct Args {
   int nnz_pad;  // sparse path: entries a group's row lists hold
 };
 
-// Rung m's uniform for the swap of link (m, m+1) at sweep t.
+// Rung m's uniform for the swap of link (m, m+1) at sweep t (the variable
+// block's shift: kVarShift, or the global path's).
 __device__ __forceinline__ float swap_uniform(const float* swap_u, size_t GBM, size_t slot0,
                                               int m, int R, int r, int t, uint2 key,
-                                              uint32_t seed_hi) {
+                                              uint32_t seed_hi, int shift = kVarShift) {
   if (swap_u != nullptr) return swap_u[((size_t)t * GBM + slot0 + m) * R + r];
+  const uint32_t tag = (1u << shift) - 1;
   const uint4 w = philox4x32_10(
-      make_uint4((uint32_t)r, ((uint32_t)(m >> 2) << kVarShift) | kSwapTag, (uint32_t)t,
-                 seed_hi),
-      key);
+      make_uint4((uint32_t)r, ((uint32_t)(m >> 2) << shift) | tag, (uint32_t)t, seed_hi), key);
   return uniform_of(word(w, m & 3));
 }
 
@@ -422,6 +443,132 @@ __global__ void __launch_bounds__(kMaxWarps * kLanes) pt_wide_kernel(const Args 
   }
 }
 
+// The global path's arguments: those of the other paths' Args that it
+// reads, its scratch and the sweep t this launch takes (t = S: the last
+// exchanges and the outputs).
+struct GArgs {
+  const float *J, *h, *betas, *dbeta, *init01, *uniforms, *swap_u;
+  float *out, *states_out, *fields_out, *energy_out;
+  unsigned long long* flips;
+  const int* row_nnz;
+  float* fields;      // (G*B*R*M, frow) the states' fields
+  uint32_t* state;    // (G*B*R*M, frow / 4) their state words
+  float* energies;    // (2, G*B*R*M): [parity][(g*B*R + ladder)*M + rung]
+  int* rho;           // (G*B*R*M) the rung each state sits at
+  int G, B, M, R, n, S, t;
+  uint32_t seed_lo, seed_hi;
+  int warps;          // states a block, a warp each
+  int var_shift;      // Philox counter y = (rung << var_shift) | variable/4
+};
+
+// One launch of the global path (header): state k = (b·R + r)·M + m0 of
+// group g, a warp, holds the ladder (b, r)'s state that started at rung m0;
+// its scratch row, rung and energy slots are indexed by g·B·R·M + k.
+template <bool COUNT>
+__global__ void __launch_bounds__(kMaxWarps * kLanes) pt_global_kernel(const GArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n = a.n, M = a.M, R = a.R, t = a.t;
+  const GlobalLayout L = global_layout_of(n);
+  float* tiles = reinterpret_cast<float*>(smem);
+  float* diags = tiles + 2 * kRows * L.cw;
+
+  const int g = blockIdx.y;
+  const int c = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
+  const long long states = (long long)a.B * R * M;  // a group's
+  const long long k = (long long)blockIdx.x * a.warps + c;
+  // the last block's spare warps take part in the loads and barriers only
+  const bool active = k < states;
+  const long long kk = active ? k : states - 1;
+  const long long ladder = kk / M;  // b·R + r
+  const int m0 = (int)(kk % M);
+  const int b = (int)(ladder / R), r = (int)(ladder % R);
+  const size_t p = (size_t)g * a.B + b;  // problem id
+  const size_t GBM = (size_t)a.G * a.B * M;
+  const size_t slot0 = p * M;  // host slot of the problem's rung 0
+  const size_t id = (size_t)g * states + kk;
+  const size_t rungs0 = (size_t)g * states + (size_t)ladder * M;  // the ladder's rung 0 slot
+  const size_t all = (size_t)a.G * states;
+  const uint2 key = make_uint2(a.seed_lo, (uint32_t)p);
+  const bool host = a.uniforms != nullptr;
+  float* fr = a.fields + id * L.frow;
+  uint32_t* st = a.state + id * L.words();
+  unsigned char* sb = reinterpret_cast<unsigned char*>(st);
+  const float* hp = a.h + p * n;
+
+  int rho = t == 0 ? m0 : a.rho[id];
+  const int rho_swept = rho;  // the rung of the last sweep's energy
+  if (t > 0 && M > 1 && active) {  // the exchanges of round t-1, K5's rule
+    const int par = (t - 1) & 1;
+    const int lo = (rho & 1) == par ? rho : rho - 1;
+    if (lo >= 0 && lo + 1 < M) {
+      const float* E = a.energies + par * all + rungs0;
+      const float usw =
+          swap_uniform(a.swap_u, GBM, slot0, lo, R, r, t - 1, key, a.seed_hi, a.var_shift);
+      if (a.dbeta[slot0 + lo] * (E[lo] - E[lo + 1]) < -logf(usw)) rho = rho == lo ? lo + 1 : lo;
+    }
+  }
+  if (t == a.S) {  // the outputs, at the rung each state ends at
+    if (active) {
+      if (rho == M - 1) {
+        float* op = a.out + (p * R + r) * n;
+        for (int i = lane; i < n; i += kLanes) op[i] = sb[i] ? 1.0f : 0.0f;
+      }
+      const size_t row = ((slot0 + rho) * R + r) * n;
+      if (a.states_out != nullptr)
+        for (int i = lane; i < n; i += kLanes) a.states_out[row + i] = sb[i] ? 1.0f : 0.0f;
+      if (a.fields_out != nullptr)
+        for (int i = lane; i < n; i += kLanes) a.fields_out[row + i] = fr[i];
+      if (a.energy_out != nullptr && lane == 0)
+        a.energy_out[(slot0 + rho) * R + r] = a.energies[((a.S - 1) & 1) * all + rungs0 +
+                                                         rho_swept];
+    }
+    return;
+  }
+  if (t == 0 && active) {
+    for (int i = lane; i < n; i += kLanes) {
+      bool bit;
+      if (host) {
+        bit = a.init01[((slot0 + rho) * R + r) * n + i] != 0.0f;
+      } else {
+        const uint4 bits = philox4x32_10(
+            make_uint4((uint32_t)r, ((uint32_t)rho << a.var_shift) | (uint32_t)(i >> 2),
+                       kInitTag, a.seed_hi),
+            key);
+        bit = (word(bits, i & 3) & 1u) != 0u;
+      }
+      sb[i] = bit ? 0xFF : 0x00;
+    }
+  }
+
+  const float* Jg = a.J + (size_t)g * n * L.jrow;
+  const int* nnz = a.row_nnz == nullptr ? nullptr : a.row_nnz + (size_t)g * n;
+  const size_t u_sweep = GBM * n * R;  // uniforms per sweep
+  SweepUniforms u{host ? a.uniforms + (size_t)t * u_sweep + (slot0 + rho) * n * R + r : nullptr,
+                  R, key, (uint32_t)r, (uint32_t)t, a.seed_hi, (uint32_t)rho << a.var_shift};
+  unsigned work = 0;  // at most n² a sweep
+  int buf = 0;
+  load_chunk(tiles, diags, Jg, 0, 0, n, L);
+  __pipeline_commit();
+  const int changed = sweep_global<kHeatBath, COUNT>(
+      tiles, diags, buf, Jg, L, n, true, t % kRefreshPeriod == 0, active, a.betas[slot0 + rho], u,
+      fr, st, lane, hp, nnz, work);
+  if (!active) return;
+  // the state's energy, as the other paths sum it; its slot and rung
+  float e = 0.0f;
+  for (int i = lane; i < n; i += kLanes)
+    if (sb[i]) e += hp[i] + fr[i];
+#pragma unroll
+  for (int d = 1; d < kLanes; d <<= 1) e += __shfl_xor_sync(kFull, e, d);
+  if (lane == 0) {
+    a.energies[(t & 1) * all + rungs0 + rho] = 0.5f * e;
+    a.rho[id] = rho;
+    if (a.flips != nullptr && changed != 0) {
+      atomicAdd(a.flips, (unsigned long long)changed);
+      atomicAdd(a.flips + 1, (unsigned long long)work);
+    }
+  }
+}
+
 // Checks a launch's arguments and geometry; cudaSuccess if they hold.
 cudaError_t validate(const Args& a, bool sparse) {
   const bool some = a.init01 != nullptr || a.uniforms != nullptr || a.swap_u != nullptr;
@@ -554,6 +701,62 @@ extern "C" int qbmx_pt_wide(const float* J, const int* row_nnz, const float* h,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(flips != nullptr && row_nnz != nullptr ? launch<false, true>(a, st)
                                                    : launch<false, false>(a, st));
+}
+
+// Shared-memory bytes of a block of the global path (any warps) at width n.
+extern "C" unsigned long long qbmx_pt_wide_global_smem(int n) {
+  return (unsigned long long)global_layout_of(n).smem();
+}
+
+// The global path: S + 1 launches of pt_global_kernel on the stream
+// (header).  J is (G, n, jrow), rows padded with zeros to jrow = n rounded
+// up to 8; row_nnz as qbmx_pt_wide's; fields (G*B*R*M, jrow) float32 and
+// state (G*B*R*M, jrow) bytes, both 16-byte aligned; energies (2, G*B*R*M)
+// float32 and rho (G*B*R*M) int32 scratch; warps the states a block (at
+// most 32); var_shift the Philox counter's variable-block bits (10 to 22,
+// with ceil(n / 4) <= 2^var_shift - 1 and M <= 2^(32 - var_shift)).  The other
+// arguments as qbmx_pt_wide's.
+extern "C" int qbmx_pt_wide_global(const float* J, const int* row_nnz, const float* h,
+                                   const float* betas, const float* dbeta, const float* init01,
+                                   const float* uniforms, const float* swap_u, float* out,
+                                   float* states_out, float* fields_out, float* energy_out,
+                                   unsigned long long* flips, float* fields, void* state,
+                                   float* energies, int* rho, int G, int B, int M, int R, int n,
+                                   int S, unsigned long long seed, int warps, int var_shift,
+                                   void* stream) {
+  const bool some = init01 != nullptr || uniforms != nullptr || swap_u != nullptr;
+  const bool all = init01 != nullptr && uniforms != nullptr && swap_u != nullptr;
+  const long long states = (long long)B * R * M;
+  if (G <= 0 || B <= 0 || M <= 0 || R <= 0 || n <= 0 || S <= 0 || G > 65535 || some != all ||
+      J == nullptr || fields == nullptr || state == nullptr || energies == nullptr ||
+      rho == nullptr || warps < 1 || warps > kMaxWarps || var_shift < kVarShift ||
+      var_shift > 22 || (long long)((n + 3) / 4) > (1ll << var_shift) - 1 ||
+      (long long)M > (1ll << (32 - var_shift)) ||
+      (reinterpret_cast<uintptr_t>(fields) | reinterpret_cast<uintptr_t>(state)) % 16 != 0 ||
+      (row_nnz != nullptr && flips == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = (states + warps - 1) / warps;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  const size_t smem = global_layout_of(n).smem();
+  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
+  const bool count = flips != nullptr && row_nnz != nullptr;
+  void (*kernel)(const GArgs) = count ? pt_global_kernel<true> : pt_global_kernel<false>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  GArgs a{J, h, betas, dbeta, init01, uniforms, swap_u, out, states_out, fields_out,
+          energy_out, flips, row_nnz, fields, static_cast<uint32_t*>(state), energies, rho,
+          G, B, M, R, n, S, 0, (uint32_t)(seed & 0xFFFFFFFFull), (uint32_t)(seed >> 32), warps,
+          var_shift};
+  const dim3 grid((unsigned)blocks, (unsigned)G);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  for (int t = 0; t <= S; ++t) {
+    a.t = t;
+    kernel<<<grid, warps * kLanes, smem, st>>>(a);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaSuccess;
 }
 
 // The sparse path: vals (G, nnz_pad) float32 and cols (G, nnz_pad) 16-bit

@@ -88,17 +88,18 @@ def variate_ptrs(host_variates, specs: tuple, device: torch.device) -> tuple:
     return tuple(t.data_ptr() for t in host_variates)
 
 
-def structured_ptrs(kernel: str, max_n: int, J, h, hot, logr, num_reads: int,
+def structured_ptrs(kernel: str, max_n: int | None, J, h, hot, logr, num_reads: int,
                     num_sweeps: int, host_variates) -> tuple:
     """Check the structured form of an anneal kernel (``J`` (G, n, n),
     ``h`` (G, B, n), ``hot``/``logr`` (G, B), ``host_variates`` (init01
-    (G, B, R, n), uniforms (S, G, B, n, R))) and return its six pointers."""
+    (G, B, R, n), uniforms (S, G, B, n, R))) against its widest n
+    (``max_n``; None: no bound) and return its six pointers."""
     G, B, n = h.shape
     dev = h.device
     for t, name, shape in ((J, "J", (G, n, n)), (h, "h", (G, B, n)),
                            (hot, "beta_hot", (G, B)), (logr, "logr", (G, B))):
         require(t, name, shape, dev)
-    if n > max_n:
+    if max_n is not None and n > max_n:
         raise ValueError(f"{kernel} kernel: n={n} exceeds its bound (n ≤ {max_n})")
     if G > 65535:
         raise ValueError(f"{kernel} kernel: {G} groups exceed the grid's 65535")

@@ -8,26 +8,31 @@ K5 computes what K3 (``pt_heatbath.cu``) and the plain version
 (G, B, R, n)), for the shapes K3 cannot hold: J_b past one block's shared
 memory (n > 241, or M ≥ 16 at n = 241), or more than 64 rungs.
 :func:`pt_route` is the rule: K3 where ``pt_cuda.pt_layout`` takes the
-shape, K5 where :func:`pt_wide_geometry` does, and a ``ValueError`` naming
-both bounds beyond them.  :func:`pt_sample_batch` and
-:func:`pt_sample_groups` are the sampler's entries: on CPU tensors they run
-the plain version on the densified batch, on CUDA tensors they launch the
-kernel the rule picks or raise.
+shape, else K5, which takes every width and ladder (a grid of at most
+65,535 groups).  :func:`pt_sample_batch` and :func:`pt_sample_groups` are
+the sampler's entries: on CPU tensors they run the plain version on the
+densified batch, on CUDA tensors they launch the kernel the rule picks.
 
-K5 has two paths, one semantics, and the same fields bit for bit: the
+K5 has three paths, one semantics, and the same fields bit for bit: the
 sparse path holds J_g's nonzero rows (:func:`row_lists`) whole in a
-block's shared memory, the dense path streams J_g in tiles.
-:func:`pt_wide_geometry` takes the sparse path where the row lists fit a
-block beside its rungs, else the dense one; a ladder of more rungs than a
-block holds spreads over a thread block cluster.  Each path's launches
-are counted here, apart from K3's (``"pt_wide"`` dense,
-``"pt_wide_sparse"``).
+block's shared memory, the dense path streams J_g in tiles beside the
+rungs' fields in shared memory, and the global path keeps the rungs'
+fields and states in global scratch (K4's global-field layout) and is
+launched once a sweep, S + 1 launches a call, so that a ladder may span
+any number of blocks.  :func:`pt_wide_geometry` takes the sparse path
+where the row lists fit a block beside its rungs, else the dense one where
+n ≤ ``wide_cuda.switch_n()`` (2608: a block holds 5 rungs) and its ladders
+fit a thread block cluster of 8 blocks (a ladder of more rungs than a
+block holds spreads over a cluster), else the global path.  Each
+path's launches are counted here, apart from K3's (``"pt_wide"`` dense,
+``"pt_wide_sparse"``, ``"pt_wide_global"``: one a call).
 
 Host variates keep K3's layout in densified slot order ``(g·B + b)·M +
 m``: ``init01`` (G·B·M, R, n), ``uniforms`` (S, G·B·M, n, R), ``swap_u``
 (S, G·B·M, R), so one set of arrays drives K5 and the plain version.  In
 generator mode K5 draws K3's Philox streams with a wider variable block
-(``sa_torch.pt_philox_variates(..., var_shift=VAR_SHIFT)`` writes them out).
+(``sa_torch.pt_philox_variates(..., var_shift=var_shift(n))`` writes them
+out).
 """
 
 from __future__ import annotations
@@ -44,12 +49,23 @@ from qbmx_torch.core.rng import draw_seed
 from qbmx_torch.samplers import kernel_call, pt_cuda, tempering, wide_cuda
 
 #: launches of K5 since the last reset (one per call that reached the GPU), by path
-launch_counts = {"pt_wide": 0, "pt_wide_sparse": 0}
+launch_counts = {"pt_wide": 0, "pt_wide_sparse": 0, "pt_wide_global": 0}
 
-DENSE, SPARSE = "dense", "sparse"
+DENSE, SPARSE, GLOBAL = "dense", "sparse", "global"
 MAX_WARPS = 32  # rungs a block, a warp each: 1024 threads (pt_wide.cu kMaxWarps)
 MAX_CLUSTER = 8  # blocks a ladder: the portable thread block cluster size
 VAR_SHIFT = 10  # Philox counter word y = (rung << 10) | variable/4 (pt_wide.cu kVarShift)
+
+
+def var_shift(n: int) -> int:
+    """Bits of K5's Philox variable block at width n: :data:`VAR_SHIFT`
+    while the ⌈n/4⌉ blocks stay below the swap draws' slot 2^10 − 1 (n ≤
+    4092, every shape of the shared paths), one more each time they reach
+    it (the global path's; 11 up to n = 8188)."""
+    s = VAR_SHIFT
+    while -(-n // 4) > (1 << s) - 1:
+        s += 1
+    return s
 
 
 def reset_launch_counts() -> None:
@@ -84,8 +100,9 @@ def padded(nnz: int) -> int:
 
 @functools.cache
 def max_n() -> int:
-    """Largest n K5 takes: one rung's fields, state and energies beside two
-    tiles fit one block (``qbmx_pt_wide_max_n``; K4's bound, 3368)."""
+    """Largest n of K5's shared paths: one rung's fields, state and
+    energies beside two tiles fit one block (``qbmx_pt_wide_max_n``; K4's
+    shared layout's bound, 3368).  The global path takes any n."""
     n = 1
     while smem_bytes(n + 1, 1) <= kernel_call.SMEM_BYTES:
         n += 1
@@ -106,18 +123,17 @@ def block_rungs(n: int, nnz_pad: int | None = None) -> int:
 
 
 def max_rungs(n: int) -> int:
-    """Largest ladder K5 takes at width n on either path: the dense path's
+    """Largest ladder of K5's shared paths at width n: the dense path's
     rungs a block over a cluster of 8 blocks (``qbmx_pt_wide_max_rungs``:
-    256 up to n ≈ 2600, 8 at n = 3368); 0 past n = 3368."""
+    256 up to n ≈ 2600, 8 at n = 3368; 0 past n = 3368).  Longer ladders
+    and wider problems take the global path."""
     return block_rungs(n) * MAX_CLUSTER if n <= max_n() else 0
 
 
-def bounds() -> str:
-    return (f"n ≤ {max_n()}, and a ladder within one thread block cluster of {MAX_CLUSTER} "
-            f"blocks of at most {MAX_WARPS} rungs, a warp each, the dense path's two J tiles "
-            f"beside the rungs' fields, states and energies within {kernel_call.SMEM_BYTES:,} "
-            f"bytes a block: M ≤ {max_rungs(717)} at n = 717, M ≤ {max_rungs(3000)} at "
-            f"n = 3000, M ≤ {max_rungs(max_n())} at n = {max_n()}")
+def global_warps(G: int, B: int, M: int, R: int) -> int:
+    """States (a warp each) a block of the global path holds: ⌈G·B·R·M /
+    132⌉ (one block per SM when the states allow), at most 32."""
+    return max(1, min(math.ceil(G * B * R * M / kernel_call.NUM_SMS), MAX_WARPS))
 
 
 def energy_drift_bound(h: torch.Tensor, J: torch.Tensor, num_sweeps: int) -> torch.Tensor:
@@ -195,8 +211,8 @@ def row_lists(J: torch.Tensor, counts: torch.Tensor | None = None,
 
 @dataclasses.dataclass(frozen=True)
 class PTWideGeometry:
-    path: str  # DENSE (J_g in tiles) or SPARSE (its row lists in shared memory)
-    ladders_per_block: int
+    path: str  # DENSE (J_g in tiles), SPARSE (its row lists in shared memory) or GLOBAL
+    ladders_per_block: int  # 0 on the global path: a block holds states of any ladders
     cluster: int  # blocks a ladder (a thread block cluster); 1: whole ladders a block
     warps: int  # per block: a warp a rung
     threads: int
@@ -221,25 +237,27 @@ class PTWideGeometry:
         return cls(SPARSE, ladders, cluster, warps, 32 * warps,
                    sparse_smem_bytes(n, warps, nnz_pad), grid, nnz_pad)
 
+    @classmethod
+    def global_path(cls, G: int, B: int, M: int, R: int, n: int, warps: int) -> "PTWideGeometry":
+        """The global path with ``warps`` states a block (any ladders)."""
+        return cls(GLOBAL, 0, 1, warps, 32 * warps, wide_cuda.global_smem_bytes(n),
+                   (math.ceil(B * R * M / warps), G))
 
-def pt_wide_geometry(G: int, B: int, M: int, R: int, n: int,
-                     nnz_pad: int | None = None) -> PTWideGeometry:
-    """K5's launch geometry for G groups of B problems, M rungs, R reads
-    (ladders a problem), width n, and J_g's row lists of ``nnz_pad``
-    entries a group (None: not built).
 
-    Rule: the sparse path where the row lists fit a block beside at least
-    ⌈M / 8⌉ rungs (every ladder within a cluster), else the dense path.  A
-    rung a warp; where a block holds W ≥ M rungs, whole ladders of one
-    group a block (their exchanges need only the block's barrier), L =
-    ⌈G·B·R / 132⌉ of them (one block an SM while ladders are few), at most
-    ⌊W / M⌋, on a grid of (⌈B·R / L⌉, G); else a ladder over a cluster of
-    K = ⌈M / W⌉ ≤ 8 blocks of ⌈M / K⌉ rungs, on a grid of (B·R·K, G).
-    Raises on what the kernel does not take (:func:`bounds`)."""
-    if not (1 <= n <= max_n() and 1 <= M <= max_rungs(n)):
-        raise ValueError(f"pt_wide kernel: n={n}, M={M} exceed its bound ({bounds()})")
-    if G > 65535:
-        raise ValueError(f"pt_wide kernel: {G} groups exceed the grid's 65535")
+def shared_geometry(G: int, B: int, M: int, R: int, n: int,
+                    nnz_pad: int | None = None) -> PTWideGeometry:
+    """The geometry of K5's shared paths: the sparse path where J_g's row
+    lists of ``nnz_pad`` entries a group fit a block beside at least ⌈M /
+    8⌉ rungs (every ladder within a cluster), else the dense path.  A rung
+    is a warp; where a block holds W ≥ M rungs, whole ladders of one group
+    a block (their exchanges need only the block's barrier), L = ⌈G·B·R /
+    132⌉ of them (one block an SM while ladders are few), at most ⌊W / M⌋,
+    on a grid of (⌈B·R / L⌉, G); else a ladder over a cluster of K = ⌈M /
+    W⌉ ≤ 8 blocks of ⌈M / K⌉ rungs, on a grid of (B·R·K, G).  Raises where
+    n > 3368 or M > :func:`max_rungs`."""
+    if not (n <= max_n() and M <= max_rungs(n)):
+        raise ValueError(f"pt_wide kernel: n={n}, M={M} exceed the shared paths' bounds "
+                         f"(n ≤ {max_n()}, M ≤ {max_rungs(min(n, max_n()))})")
     if nnz_pad is not None and M > block_rungs(n, nnz_pad) * MAX_CLUSTER:
         nnz_pad = None  # the row lists leave too little room: the dense path
     W = block_rungs(n, nnz_pad)
@@ -249,23 +267,45 @@ def pt_wide_geometry(G: int, B: int, M: int, R: int, n: int,
     return PTWideGeometry.of(G, B, M, R, n, L, 1, nnz_pad)
 
 
+def pt_wide_geometry(G: int, B: int, M: int, R: int, n: int,
+                     nnz_pad: int | None = None) -> PTWideGeometry:
+    """K5's launch geometry for G groups of B problems, M rungs, R reads
+    (ladders a problem), width n, and J_g's row lists of ``nnz_pad``
+    entries a group (None: not built).
+
+    Rule: :func:`shared_geometry` where n ≤ 3368 and M ≤ :func:`max_rungs`,
+    if it takes the sparse path or n ≤ ``wide_cuda.switch_n()`` (2608);
+    else the global path, :func:`global_warps` states of one group a
+    block, on a grid of (⌈B·R·M / W⌉, G), launched S + 1 times.  Past n =
+    2608 a dense block holds fewer than 5 rungs, and the global path is as
+    fast or faster (on an H100 at M = 8 and 32,000 rungs, ``chip_smoke.py``
+    phase 10: the dense path 2.3-2.5× faster up to n = 1536, even at n =
+    2560, 4.5× slower at n = 3368).  Raises only on an empty shape or more
+    than 65,535 groups."""
+    if n < 1 or M < 1:
+        raise ValueError(f"pt_wide kernel: n={n}, M={M}: no problem to sample")
+    if G > 65535:
+        raise ValueError(f"pt_wide kernel: {G} groups exceed the grid's 65535")
+    if n <= max_n() and M <= max_rungs(n):
+        geo = shared_geometry(G, B, M, R, n, nnz_pad)
+        if geo.path == SPARSE or n <= wide_cuda.switch_n():
+            return geo
+    return PTWideGeometry.global_path(G, B, M, R, n, global_warps(G, B, M, R))
+
+
 def pt_route(G: int, B: int, M: int, R: int, n: int) -> str:
     """The tempering kernel a CUDA call of G groups of B problems (a dense
     batch: G = B groups of one), M rungs, R reads and width n launches:
     ``"pt_heatbath"`` (K3, on the densified batch) where ``pt_cuda.
-    pt_layout`` takes the shape, ``"pt_wide"`` (K5, on the structured form,
-    either path) where :func:`pt_wide_geometry` does; raises with both
-    bounds beyond."""
+    pt_layout`` takes the shape, else ``"pt_wide"`` (K5, on the structured
+    form, the path :func:`pt_wide_geometry` picks), which takes every width
+    and ladder; raises only where that does (more than 65,535 groups)."""
     try:
         pt_cuda.pt_layout(G * B, M, R, n)
         return "pt_heatbath"
-    except ValueError as k3:
-        try:
-            pt_wide_geometry(G, B, M, R, n)
-            return "pt_wide"
-        except ValueError as k5:
-            raise ValueError(f"parallel tempering on the GPU: no kernel takes n={n}, M={M} "
-                             f"({G}×{B} problems, {R} reads): {k3}; {k5}") from None
+    except ValueError:
+        pt_wide_geometry(G, B, M, R, n)
+        return "pt_wide"
 
 
 def launch(J: torch.Tensor, h: torch.Tensor, betas: torch.Tensor, dbeta: torch.Tensor,
@@ -277,17 +317,17 @@ def launch(J: torch.Tensor, h: torch.Tensor, betas: torch.Tensor, dbeta: torch.T
     """Launch K5 on the structured form: ``J`` (G, n, n) symmetric
     zero-diagonal couplings, ``h`` (G, B, n) linear terms, ``betas`` and
     ``dbeta`` (G·B, M) each problem's ladder (``tempering.ladder_betas``) →
-    (G, B, R, n) samples of the target rung.  Any shape within
-    :func:`bounds`, so checks of the kernel may send it narrow problems
-    too.  The path is :func:`pt_wide_geometry`'s choice on J's row lists.
+    (G, B, R, n) samples of the target rung.  Any width and ladder, so
+    checks of the kernel may send it narrow problems too.  The path is
+    :func:`pt_wide_geometry`'s choice on J's row lists.
 
     ``states_out``, ``fields_out`` ((G·B·M, R, n) float32) and
     ``energy_out`` ((G·B·M, R)) receive each rung's final state, local
     fields and energy at slot ``p·M + m``; ``flips`` ((2,) int64, added
     to) the number of variables changed and the nonzeros of their rows;
-    ``path`` (:data:`DENSE` or :data:`SPARSE`) forces a path, and
-    ``geometry`` replaces the rule's whole choice.  All are for checks of
-    the kernel; the sampler paths pass none."""
+    ``path`` (:data:`DENSE`, :data:`SPARSE` or :data:`GLOBAL`) forces a
+    path, and ``geometry`` replaces the rule's whole choice.  All are for
+    checks of the kernel; the sampler paths pass none."""
     from qbmx_torch._build import load_kernels
 
     lib = load_kernels()
@@ -298,11 +338,16 @@ def launch(J: torch.Tensor, h: torch.Tensor, betas: torch.Tensor, dbeta: torch.T
     for t, name, shape in ((J, "J", (G, n, n)), (h, "h", (G, B, n)),
                            (betas, "betas", (G * B, M)), (dbeta, "dbeta", (G * B, M))):
         kernel_call.require(t, name, shape, dev)
-    if path not in (None, DENSE, SPARSE):
+    if path not in (None, DENSE, SPARSE, GLOBAL):
         raise ValueError(f"pt_wide kernel: unknown path {path!r}")
-    counts = row_nnz(J) if path != DENSE or flips is not None else None
-    nnz = group_nnz(counts) if path != DENSE and (geometry is None or geometry.path == SPARSE) \
-        else None
+    if path == GLOBAL and geometry is None:
+        geometry = PTWideGeometry.global_path(G, B, M, R, n, global_warps(G, B, M, R))
+    if path == DENSE and geometry is None:
+        geometry = shared_geometry(G, B, M, R, n)
+    sparse = path in (None, SPARSE) and n <= max_n() and M <= max_rungs(n) and (
+        geometry is None or geometry.path == SPARSE)  # the sparse path may take the call
+    counts = row_nnz(J) if sparse or flips is not None else None
+    nnz = group_nnz(counts) if sparse else None
     geo = geometry or pt_wide_geometry(G, B, M, R, n, nnz and padded(max(nnz)))
     if path is not None and geo.path != path:
         raise ValueError(f"pt_wide kernel: the {path} path does not take n={n}, M={M} "
@@ -323,7 +368,20 @@ def launch(J: torch.Tensor, h: torch.Tensor, betas: torch.Tensor, dbeta: torch.T
     out = torch.empty((G, B, R, n), dtype=torch.float32, device=dev)
     tail = (h.data_ptr(), betas.data_ptr(), dbeta.data_ptr(), *variates, out.data_ptr(), *outs,
             G, B, M, R, n, S, seed)
-    if geo.path == SPARSE:
+    if geo.path == GLOBAL:
+        jrow = wide_cuda.global_row_floats(n)
+        states = G * B * R * M
+        Jp = F.pad(J, (0, jrow - n)).contiguous()  # 32-byte rows: the diagonal blocks' copies
+        fields = torch.zeros((states, jrow), dtype=torch.float32, device=dev)
+        state = torch.zeros((states, jrow), dtype=torch.uint8, device=dev)
+        energies = torch.empty((2, states), dtype=torch.float32, device=dev)
+        rho = torch.empty((states,), dtype=torch.int32, device=dev)
+        kernel_call.check_rc("pt_wide_global", lib.qbmx_pt_wide_global(
+            Jp.data_ptr(), None if flips is None else counts.data_ptr(), *tail[:-7],
+            fields.data_ptr(), state.data_ptr(), energies.data_ptr(), rho.data_ptr(),
+            *tail[-7:], geo.warps, var_shift(n), kernel_call.stream(dev)))
+        launch_counts["pt_wide_global"] += 1
+    elif geo.path == SPARSE:
         kernel_call.check_rc("pt_wide_sparse", lib.qbmx_pt_wide_sparse(
             rows.vals.data_ptr(), rows.cols.data_ptr(), rows.offsets.data_ptr(), *tail,
             geo.nnz_pad, geo.ladders_per_block, geo.cluster, kernel_call.stream(dev)))

@@ -7,10 +7,20 @@ schedule ``hot``/``logr`` (G, B) → (G, B, R, n)), for the widths whose
 couplings do not fit one block's shared memory.  ``sa_cuda`` and
 ``gibbs_cuda`` call :func:`launch` when ``kernel_call.fits_shared(n)`` is
 false; its plain versions are theirs (``sa_torch``, ``gibbs``).  Its
-launches are counted here, apart from K1's and K2's, so a run shows which
-kernel served it.  :func:`wide_geometry` is the launch's geometry (chains
-per block, a warp each, and shared memory), the one rule the kernel is
-launched by.
+launches are counted here, apart from K1's and K2's and by layout, so a
+run shows which kernel served it.  :func:`wide_geometry` is the launch's
+geometry (layout, chains per block, a warp each, and shared memory), the
+one rule the kernel is launched by.
+
+Two layouts, one semantics and the same fields bit for bit: the shared
+layout keeps each chain's fields and state in shared memory beside two J
+tiles, at most :func:`max_n` (3368) wide; the global-field layout keeps
+them in a scratch buffer in global memory that :func:`launch` allocates (a
+row of n rounded up to 8 floats and as many bytes a chain) and streams
+J_g's rows in tiles cut to column chunks (:func:`chunk_floats`), at any
+width the card's memory holds.  The rule takes the shared layout up to
+:func:`switch_n` (2608), where a block still holds 5 chains, and the
+global one past it, where it is as fast or faster.
 
 In generator mode K4 draws the Philox streams of K1 and K2
 (``sa_torch.philox_variates`` writes them out); ``host_variates``
@@ -21,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 
 import torch
@@ -33,13 +44,17 @@ from qbmx_torch.samplers.sa_torch import inv_span
 #: the kernel's ``rule`` argument: Metropolis, or heat-bath at update width 1, 2, 4
 METROPOLIS, HEATBATH, PAIR, QUAD = 0, 1, 2, 4
 
-#: launches of K4 since the last reset (one per call that reached the GPU)
-launch_counts = {"anneal_wide": 0}
+#: launches of K4 since the last reset (one per call that reached the GPU), by layout
+launch_counts = {"anneal_wide": 0, "anneal_wide_global": 0}
+
+SHARED, GLOBAL = "shared", "global"  # where a chain's fields and state live
 
 TILE_ROWS = 8  # J rows per shared-memory tile (anneal_wide.cu kRows)
 REFRESH_PERIOD = 64  # sweeps between recomputations of the fields (kRefreshPeriod)
 LANES = 32  # threads a chain: a warp (kLanes)
 MAX_CHAINS = 32  # chains per block: 1024 threads (kMaxChains)
+CHUNK_MAX = 3624  # floats a tile row holds in the global-field layout (kChunkMax)
+SWITCH_CHAINS = 5  # the fewest chains a block the rule gives the shared layout
 
 
 def reset_launch_counts() -> None:
@@ -84,13 +99,49 @@ def smem_bytes(n: int, chains: int) -> int:
     return 4 * (2 * TILE_ROWS * row_floats(n) + chains * (frow + frow // 4))
 
 
+@functools.cache
 def max_n() -> int:
-    """Largest n K4 takes: one chain's fields and state beside two tiles
-    fit one block (``qbmx_anneal_wide_max_n``)."""
+    """Widest n of the shared layout, where one chain's fields and state
+    beside two tiles fit one block (``qbmx_anneal_wide_max_n``)."""
     n = 1
     while smem_bytes(n + 1, 1) <= kernel_call.SMEM_BYTES:
         n += 1
     return n
+
+
+@functools.cache
+def switch_n() -> int:
+    """Widest n the rule gives the shared layout: where a block still holds
+    :data:`SWITCH_CHAINS` chains (2608).  Measured on an H100 with both
+    layouts forced on 4,000 chains (``chip_smoke.py`` phase 10), the shared
+    layout is 1.25-1.55× faster up to n = 2048 (9 or more chains a block),
+    even with the global one at n = 2560 (5), and 2.2-6.4× slower from
+    n = 3000 (2 and 1); at 6,000 chains it is still 1.6× faster at n = 2232
+    (8) than the global one at 2233 (``cli/anneal_time_bench``)."""
+    n = 1
+    while smem_bytes(n + 1, SWITCH_CHAINS) <= kernel_call.SMEM_BYTES:
+        n += 1
+    return n
+
+
+def global_row_floats(n: int) -> int:
+    """Floats per padded J row and per chain's fields (and bytes of its
+    state) in the global-field layout: n rounded up to 8, so a tile's
+    diagonal block stays inside its rows."""
+    return -(-n // TILE_ROWS) * TILE_ROWS
+
+
+def chunk_floats(n: int) -> int:
+    """Floats a tile row holds in the global-field layout: the whole padded
+    row up to n = 3624, else :data:`CHUNK_MAX` (``GlobalLayout.cw``)."""
+    return min(global_row_floats(n), CHUNK_MAX)
+
+
+def global_smem_bytes(n: int) -> int:
+    """A global-field block's shared memory: two tiles of 8 rows of
+    :func:`chunk_floats` floats and two 8×8 diagonal blocks, whatever its
+    chains (``qbmx_anneal_wide_global_smem``)."""
+    return 4 * (2 * TILE_ROWS * chunk_floats(n) + 2 * TILE_ROWS * TILE_ROWS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,24 +150,45 @@ class WideGeometry:
     threads: int  # per block
     smem: int  # bytes per block
     grid: tuple  # (blocks per group, groups)
+    layout: str = SHARED  # SHARED or GLOBAL
 
     @classmethod
-    def of(cls, G: int, B: int, R: int, n: int, chains: int) -> "WideGeometry":
-        return cls(chains, LANES * chains, smem_bytes(n, chains), (math.ceil(B * R / chains), G))
+    def of(cls, G: int, B: int, R: int, n: int, chains: int,
+           layout: str | None = None) -> "WideGeometry":
+        """``chains`` chains a block in ``layout`` (default: the shared
+        layout up to :func:`max_n`, the global-field one past it)."""
+        layout = layout or (SHARED if n <= max_n() else GLOBAL)
+        grid = (math.ceil(B * R / chains), G)
+        if layout == SHARED:
+            return cls(chains, LANES * chains, smem_bytes(n, chains), grid)
+        if layout != GLOBAL:
+            raise ValueError(f"anneal_wide kernel: unknown layout {layout!r}")
+        return cls(chains, LANES * chains, global_smem_bytes(n), grid, GLOBAL)
+
+
+def layout_geometry(G: int, B: int, R: int, n: int, layout: str) -> WideGeometry:
+    """K4's launch geometry in ``layout``: C = ⌈G·B·R / 132⌉ chains a block
+    (one block per SM when the chains allow), at most 32 (1024 threads),
+    and in the shared layout also at most what shared memory holds
+    (:func:`smem_bytes` ≤ 232,448 bytes; n ≤ :func:`max_n`)."""
+    C = max(1, min(math.ceil(G * B * R / kernel_call.NUM_SMS), MAX_CHAINS))
+    if layout == SHARED:
+        fit = [c for c in range(1, MAX_CHAINS + 1) if smem_bytes(n, c) <= kernel_call.SMEM_BYTES]
+        if not fit:
+            raise ValueError(f"anneal_wide kernel: n={n} exceeds the shared layout's bound "
+                             f"(n ≤ {max_n()})")
+        C = min(C, max(fit))
+    return WideGeometry.of(G, B, R, n, C, layout)
 
 
 def wide_geometry(G: int, B: int, R: int, n: int) -> WideGeometry:
     """K4's launch geometry for G groups of B problems, R reads, width n.
 
-    Rule: a chain gets a warp.  A block holds C chains of one group, C =
-    ⌈G·B·R / 132⌉ (one block per SM when the chains allow), at most 32 (1024
-    threads) and at most what shared memory holds (:func:`smem_bytes` ≤
-    232,448 bytes).  The grid is (⌈B·R / C⌉, G)."""
-    if n > max_n():
-        raise ValueError(f"anneal_wide kernel: n={n} exceeds its bound (n ≤ {max_n()})")
-    fit = max(c for c in range(1, MAX_CHAINS + 1) if smem_bytes(n, c) <= kernel_call.SMEM_BYTES)
-    C = max(1, min(math.ceil(G * B * R / kernel_call.NUM_SMS), MAX_CHAINS, fit))
-    return WideGeometry.of(G, B, R, n, C)
+    Rule: a chain gets a warp, :func:`layout_geometry`'s chains a block,
+    on a grid of (⌈B·R / C⌉, G).  Up to n = :func:`switch_n` (2608) the
+    shared layout; past it the global-field layout, whose shared memory
+    holds J's tiles alone (:func:`global_smem_bytes`)."""
+    return layout_geometry(G, B, R, n, SHARED if n <= switch_n() else GLOBAL)
 
 
 def launch(J: torch.Tensor, h: torch.Tensor, hot: torch.Tensor, logr: torch.Tensor,
@@ -128,8 +200,8 @@ def launch(J: torch.Tensor, h: torch.Tensor, hot: torch.Tensor, logr: torch.Tens
     zero-diagonal couplings, ``h`` (G, B, n) linear terms, ``hot``/``logr``
     (G, B) the schedule ``β_t = hot·exp(logr·t/(S−1))``, ``rule`` one of
     :data:`METROPOLIS`, :data:`HEATBATH`, :data:`PAIR`, :data:`QUAD` →
-    (G, B, R, n) samples in {0, 1}.  Any width the kernel takes, so callers
-    (and checks of the kernel itself) may send it narrow problems too.
+    (G, B, R, n) samples in {0, 1}.  Any width, so callers (and checks of
+    the kernel itself) may send it narrow problems too.
 
     ``fields_out`` ((G, B, R, n) float32) receives the final local fields,
     ``flips`` ((2,) int64, added to) the number of variables changed and
@@ -143,10 +215,21 @@ def launch(J: torch.Tensor, h: torch.Tensor, hot: torch.Tensor, logr: torch.Tens
     lib = load_kernels()
     G, B, n = h.shape
     R, S = num_reads, num_sweeps
-    ptrs = kernel_call.structured_ptrs("anneal_wide", lib.qbmx_anneal_wide_max_n(),
-                                       J, h, hot, logr, R, S, host_variates)
+    ptrs = kernel_call.structured_ptrs("anneal_wide", None, J, h, hot, logr, R, S,
+                                       host_variates)
     geo = geometry or wide_geometry(G, B, R, n)
-    Jp = F.pad(J, (0, row_floats(n) - n)).contiguous()  # 16-byte rows for cp.async
+    glob = geo.layout == GLOBAL
+    if not glob and n > lib.qbmx_anneal_wide_max_n():
+        raise ValueError(f"anneal_wide kernel: n={n} exceeds the shared layout's bound "
+                         f"(n ≤ {max_n()})")
+    # rows padded to 16 bytes for cp.async (to 32 in the global-field layout)
+    Jp = F.pad(J, (0, (global_row_floats(n) if glob else row_floats(n)) - n)).contiguous()
+    fscr = sscr = None
+    if glob:  # each chain's fields and state bytes, a row each
+        fscr = torch.zeros((G * B * R, global_row_floats(n)), dtype=torch.float32,
+                           device=h.device)
+        sscr = torch.zeros((G * B * R, global_row_floats(n)), dtype=torch.uint8,
+                           device=h.device)
     seed = draw_seed(generator) if host_variates is None else 0
     out = torch.empty((G, B, R, n), dtype=torch.float32, device=h.device)
     fptr = kernel_call.optional_ptr(fields_out, "fields_out", (G, B, R, n), torch.float32,
@@ -155,8 +238,9 @@ def launch(J: torch.Tensor, h: torch.Tensor, hot: torch.Tensor, logr: torch.Tens
     nnz = None if flips is None else (J != 0).sum(-1, dtype=torch.int32)  # (G, n)
     kernel_call.check_rc("anneal_wide", lib.qbmx_anneal_wide(
         Jp.data_ptr(), None if nnz is None else nnz.data_ptr(), *ptrs[1:], out.data_ptr(), fptr,
-        cptr, G, B, R, n, S,
+        cptr, None if fscr is None else fscr.data_ptr(),
+        None if sscr is None else sscr.data_ptr(), G, B, R, n, S,
         ctypes.c_float(inv_span(S)), seed, rule, geo.chains_per_block,
         kernel_call.stream(h.device)))
-    launch_counts["anneal_wide"] += 1
+    launch_counts["anneal_wide_global" if glob else "anneal_wide"] += 1
     return out

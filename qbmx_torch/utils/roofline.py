@@ -20,6 +20,12 @@ variates).  Operations, counted from the run's inputs:
   changes (``flips``), taken at n FMAs each, as on a dense J; a kernel that
   counts neither is bounded by its decisions alone, a lower bound still.
 
+Beside that bound, which any implementation must respect, a layout may
+be held to the traffic its own design cannot avoid: K4's global-field
+layout and K5's global path keep each chain's fields and state bytes in
+global memory, so each sweep reads and writes them at least once
+(:func:`global_field_bytes`, added by ``anneal_bound``'s ``layout_bytes``).
+
 The 67 TFLOP/s count an FMA as two flops, so the card issues at most 33.5e12
 float32 instructions a second (4 schedulers × 32 lanes × 132 SMs at 1.98
 GHz), an FMA one of them; an add, xor or comparison takes an issue slot as
@@ -53,18 +59,27 @@ def heatbath_units(n: int, width: int) -> int:
     raise ValueError(f"no heat-bath update of width {width}")
 
 
+def global_field_bytes(chains: int, n: int, S: int) -> int:
+    """Bytes the global-field layout moves through its scratch at the least:
+    each sweep reads and writes each chain's (or rung's) fields, float32,
+    and state bytes once, rows of n rounded up to 8."""
+    return chains * S * 2 * 5 * (-(-n // 8) * 8)
+
+
 def anneal_bound(G: int, B: int, R: int, n: int, S: int, *, decisions: int | None = None,
                  flips: int | None = None, flip_work: int | None = None,
-                 J_groups: int | None = None, rungs: int = 1) -> dict:
+                 J_groups: int | None = None, rungs: int = 1, layout_bytes: int = 0) -> dict:
     """``{"bound_ms", "bound_by", "bytes", "ops"}`` of one launch over G
     groups of B problems (couplings of ``J_groups`` problems, default G;
     linear terms and two schedule floats per problem and rung), R reads
     (of ``rungs`` chains each: a tempering ladder), width n, S sweeps;
     ``decisions`` defaults to G·B·rungs·R·n·S.  The changes' FMAs are
     ``flip_work`` (the nonzeros of the changed rows) where counted, else
-    ``flips``·n."""
+    ``flips``·n.  ``layout_bytes`` adds a layout's own traffic
+    (:func:`global_field_bytes`) to the bytes."""
     J_groups = G if J_groups is None else J_groups
-    nbytes = 4 * (J_groups * n * n + G * B * n + 2 * G * B * rungs + G * B * R * n)
+    nbytes = 4 * (J_groups * n * n + G * B * n + 2 * G * B * rungs + G * B * R * n) \
+        + layout_bytes
     decisions = G * B * rungs * R * n * S if decisions is None else decisions
     fmas = flip_work if flip_work is not None else (flips or 0) * n
     ops = decisions * OPS_PER_DECISION + fmas

@@ -8,7 +8,10 @@ under host variates and on its own Philox draws written out, its Philox
 streams against the exact oracle, the launch counters, the incremental
 fields of K2, K4 and K5 (and K5's energies), K5's two paths (J_g's row
 lists in shared memory, or its tiles streamed) against each other bit for
-bit, its ladders over a thread block cluster, and the wrappers' refusals.
+bit, its ladders over a thread block cluster, the global-field layouts
+(K4's, and K5's global path) against the shared ones bit for bit and
+against plain past n = 3368 and past a cluster, and the wrappers' routes
+and refusals.
 The RBM (no kernel of its own: batched matmuls) on the card against the
 CPU.  ``chip_smoke.py`` runs the same checks at the main path's shapes.
 
@@ -141,9 +144,12 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(dev):
         sa_cuda.sa_sample_groups_cuda(Q, h, 3, 2, host_variates=(init01, u.double()))
     with pytest.raises(ValueError, match="init01"):
         sa_cuda.sa_sample_groups_cuda(Q, h, 3, 2, host_variates=(init01.transpose(2, 3), u))
-    n = wide_cuda_max_n() + 1  # beyond K1 and K4 both
-    with pytest.raises(ValueError, match="exceeds its bound"):
-        sa_cuda.sa_sample_batch_cuda(torch.zeros((1, n, n), device=dev), 2, 2)
+    n = wide_cuda_max_n() + 1  # beyond K1 and K4's shared layout: its global-field layout
+    wide_cuda.reset_launch_counts()
+    out = sa_cuda.sa_sample_batch_cuda(torch.zeros((1, n, n), device=dev), 2, 2)
+    torch.cuda.synchronize()
+    assert out.shape == (1, 2, n) and wide_cuda.launch_counts == {"anneal_wide": 0,
+                                                                   "anneal_wide_global": 1}
 
 
 def test_model_steps_launch_the_kernel(dev):
@@ -248,9 +254,12 @@ def test_heatbath_wrappers_refuse_what_the_kernel_does_not_take(dev):
         gibbs_cuda.gibbs_sample_groups_cuda(Q, h, 3, 2, host_variates=(init01, u[..., :2]))
     with pytest.raises(ValueError, match="init01"):
         gibbs_cuda.gibbs_sample_groups_cuda(Q, h, 3, 2, host_variates=(init01.transpose(2, 3), u))
-    n = wide_cuda_max_n() + 1  # beyond K2 and K4 both
-    with pytest.raises(ValueError, match="exceeds its bound"):
-        gibbs_cuda.gibbs_sample_batch_cuda(torch.zeros((1, n, n), device=dev), 2, 2, quad=True)
+    n = wide_cuda_max_n() + 1  # beyond K2 and K4's shared layout: its global-field layout
+    wide_cuda.reset_launch_counts()
+    out = gibbs_cuda.gibbs_sample_batch_cuda(torch.zeros((1, n, n), device=dev), 2, 2, quad=True)
+    torch.cuda.synchronize()
+    assert out.shape == (1, 2, n) and wide_cuda.launch_counts == {"anneal_wide": 0,
+                                                                   "anneal_wide_global": 1}
 
 
 # -- the wide anneal kernel (qbmx_torch/csrc/anneal_wide.cu) -------------------
@@ -465,8 +474,9 @@ def test_pt_streams_are_per_ladder(dev):
 
 def test_pt_wrapper_refuses_what_the_kernel_does_not_take(dev):
     """K3's wrapper refuses what K3 does not take; the sampler sends the
-    shapes past J_b in shared memory to K5 and refuses only what neither
-    kernel takes, naming both bounds."""
+    shapes past J_b in shared memory to K5, and those past K5's shared
+    paths (n > 3368, a ladder past a cluster) to its global path: no
+    shape is refused."""
     Q = torch.zeros((1, 4, 4), device=dev)
     init01, u, sw = _pt_variates(np.random.default_rng(2), 1, 2, 4, 3, 2, dev)
     with pytest.raises(ValueError, match="swap_u"):
@@ -489,10 +499,14 @@ def test_pt_wrapper_refuses_what_the_kernel_does_not_take(dev):
         assert out.shape == (1, 2, n)
         assert pt_cuda.launch_counts["pt_heatbath"] == 0
         assert sum(pt_wide_cuda.launch_counts.values()) == 1
-    # past K5's widest n, and a ladder past a cluster of 8 blocks
+    # past K5's widest shared n, and a ladder past a cluster of 8 blocks: the global path
     for n, M in ((pt_wide_cuda.max_n() + 1, 1), (4, 8 * 32 + 1), (3000, 17), (3368, 9)):
-        with pytest.raises(ValueError, match="pt_heatbath kernel.*pt_wide kernel"):
-            sampler(M).sample_batch(None, torch.zeros((1, n, n), device=dev), 2)
+        pt_wide_cuda.reset_launch_counts()
+        out = sampler(M).sample_batch(None, torch.zeros((1, n, n), device=dev), 2)
+        torch.cuda.synchronize()
+        assert out.shape == (1, 2, n)
+        assert pt_wide_cuda.launch_counts == {"pt_wide": 0, "pt_wide_sparse": 0,
+                                              "pt_wide_global": 1}
 
 
 @pytest.mark.parametrize("solver,counts,kernel,model", [
@@ -553,8 +567,10 @@ def test_geometry_rules_match_the_kernels(dev):
         for c in (1, 7, 32):
             assert lib.qbmx_anneal_wide_smem(n, c) == wide_cuda.smem_bytes(n, c)
     assert lib.qbmx_sa_metropolis_max_n() == 241
-    with pytest.raises(ValueError, match="exceeds its bound"):
-        wide_cuda.wide_geometry(1, 1, 1, wide_cuda.max_n() + 1)
+    assert wide_cuda.wide_geometry(1, 1, 1, wide_cuda.max_n() + 1).layout == wide_cuda.GLOBAL
+    for n in (242, 3369, 3624, 3625, 8192):
+        assert lib.qbmx_anneal_wide_global_smem(n) == wide_cuda.global_smem_bytes(n) \
+            == lib.qbmx_pt_wide_global_smem(n)
     assert (lib.qbmx_pt_heatbath_max_n(), lib.qbmx_pt_heatbath_max_rungs()) == \
         (pt_cuda.MAX_N, pt_cuda.MAX_RUNGS)
     for kind in (pt_cuda.RUNG, pt_cuda.WARP):
@@ -660,7 +676,7 @@ def test_wide_geometries_match_plain(dev, rule, chains, G, B, n, R, S):
 
 @pytest.mark.parametrize("rule", list(RULES))
 def test_wide_kernel_at_its_widest_n(dev, rule):
-    n = wide_cuda.max_n()
+    n = wide_cuda.switch_n()  # the widest n the rule gives the shared layout
     G, B, R, S = 1, 1, 5, 2
     rng = np.random.default_rng(60 + len(rule))
     Q, h_extra = _structured(rng, G, B, n, dev)
@@ -1021,7 +1037,7 @@ def test_pt_wide_sparse_matches_plain(dev, B, M, R, S):
     pt_wide_cuda.reset_launch_counts()
     got = pt_wide_cuda.pt_sample_groups(Q, h_extra, R, S, num_replicas=M, host_variates=hv)
     torch.cuda.synchronize()
-    assert pt_wide_cuda.launch_counts == {"pt_wide": 0, "pt_wide_sparse": 1}
+    assert pt_wide_cuda.launch_counts == {"pt_wide": 0, "pt_wide_sparse": 1, "pt_wide_global": 0}
     want = tempering.pt_sample_batch_plain(api.densify_groups(Q, h_extra), R, S, num_replicas=M,
                                            host_variates=hv)
     assert got.shape == (G, B, R, n) and set(got.unique().tolist()) <= {0.0, 1.0}
@@ -1088,7 +1104,8 @@ def test_pt_wide_paths_agree_bit_for_bit(dev, problem, M, R, S):
 @pytest.mark.parametrize("G,B,n,M,R,S,problem,path", [
     (1, 1, 4, 65, 8, 6, "random", "sparse"),     # past K3's 64 rungs: 3 blocks of 22
     (1, 2, 300, 33, 4, 5, "random", "dense"),    # past a block's 32 warps: 2 blocks of 17
-    (1, 2, 3000, 3, 3, 3, "random", "dense"),    # past what shared memory holds: 2 blocks
+    (1, 2, 2608, 9, 3, 3, "random", "dense"),    # past a block's 5 rungs at the rule's widest
+                                                 # dense n: 2 blocks
     (2, 2, 717, 40, 4, 4, "CDQBM (a)", "sparse"),
     (1, 2, 717, 40, 4, 4, "random", "dense"),
     (1, 1, 241, 200, 2, 3, "random", "dense"),   # 7 blocks of 29, 3 spare warps
@@ -1309,3 +1326,108 @@ def test_mesh_two_ranks_on_one_card_over_gloo(dev, tmp_path):
         assert len(r["files"]) == (10 if r["rank"] == 0 else 0)
     assert not np.array_equal(ranks[0]["probe"], ranks[1]["probe"])
     assert ranks[0]["generator_state"] == ranks[1]["generator_state"]
+
+
+# -- the global-field layouts: K4 past n = 3368, K5 past its shared paths ------
+
+
+@pytest.mark.parametrize("rule", [0, 1, 2, 4])
+@pytest.mark.parametrize("n", [301, 717])
+def test_wide_global_layout_equals_the_shared_layout(dev, n, rule):
+    """K4's global-field layout forced at shared widths: the same samples,
+    final fields and counters as the shared layout, bit for bit, past a
+    refresh (S = 70), with spare chains in the last block."""
+    G, B, R, S = 2, 3, 20, 70
+    rng = np.random.default_rng(n + rule)
+    Q, h_extra = _structured(rng, G, B, n, dev)
+    hv = _variates(rng, (G, B), n, R, S, dev)
+    J, h, hot, logr = _structured_form(Q, h_extra, S, rule, 1.0)
+    res = []
+    for layout in (wide_cuda.SHARED, wide_cuda.GLOBAL):
+        fields = torch.empty((G, B, R, n), device=dev)
+        flips = torch.zeros(2, dtype=torch.int64, device=dev)
+        out = wide_cuda.launch(J, h, hot, logr, R, S, rule, host_variates=hv, fields_out=fields,
+                               flips=flips,
+                               geometry=wide_cuda.WideGeometry.of(G, B, R, n, 7, layout))
+        torch.cuda.synchronize()
+        res.append((out, fields, flips))
+    for a, b in zip(*res):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("rule", list(RULES))
+@pytest.mark.parametrize("n", [3369, 4096, 8192])
+def test_wide_global_layout_matches_plain(dev, n, rule):
+    """Past the shared layout (one, two and three column chunks a row), the
+    sampler's wrappers launch K4's global-field layout once, within the 1%
+    chain bound of plain (256 chains)."""
+    G, B, R, S = 1, 2, 128, 2
+    rng = np.random.default_rng(n + len(rule))
+    Q, h_extra = _structured(rng, G, B, n, dev)
+    hv = _variates(rng, (G, B), n, R, S, dev)
+    wide_cuda.reset_launch_counts()
+    got = _kernel_groups(rule, Q, h_extra, R, S, host_variates=hv)
+    torch.cuda.synchronize()
+    assert wide_cuda.launch_counts == {"anneal_wide": 0, "anneal_wide_global": 1}
+    assert _differ(got, _plain_groups(rule, Q, h_extra, R, S, hv)) <= MAX_DIFF_FRAC
+
+
+@pytest.mark.parametrize("G,B,n,M,R,S", [(2, 2, 300, 8, 8, 70), (1, 2, 717, 12, 4, 10)])
+def test_pt_global_path_equals_the_dense_path(dev, G, B, n, M, R, S):
+    """K5's global path forced where the dense path runs: the same samples,
+    states, fields, energies and counters bit for bit under host variates,
+    and the same samples on its own Philox draws."""
+    rng = np.random.default_rng(n + M)
+    Q, h_extra = _structured(rng, G, B, n, dev)
+    J, h, betas, dbeta = pt_wide_cuda.structured_form(Q, h_extra, M)
+    hv = _pt_variates(rng, G * B, M, n, R, S, dev)
+    res = []
+    for path in (pt_wide_cuda.DENSE, pt_wide_cuda.GLOBAL):
+        st = torch.empty((G * B * M, R, n), device=dev)
+        fo = torch.empty_like(st)
+        eo = torch.empty((G * B * M, R), device=dev)
+        fl = torch.zeros(2, dtype=torch.int64, device=dev)
+        out = pt_wide_cuda.launch(J, h, betas, dbeta, R, S, host_variates=hv, states_out=st,
+                                  fields_out=fo, energy_out=eo, flips=fl, path=path)
+        torch.cuda.synchronize()
+        res.append((out, st, fo, eo, fl))
+    for a, b in zip(*res):
+        assert torch.equal(a, b)
+    a, b = (pt_wide_cuda.launch(J, h, betas, dbeta, R, S, path=p,
+                                generator=torch.Generator().manual_seed(5))
+            for p in (pt_wide_cuda.DENSE, pt_wide_cuda.GLOBAL))
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("G,B,n,M,R,S", [
+    (2, 2, 3401, 8, 64, 4),   # qbm_main -hn 3400's PT call, cut
+    (1, 1, 3000, 24, 256, 4),  # past a cluster of the dense path's 2-rung blocks
+    (1, 1, 300, 300, 256, 6),  # past a cluster of 32-warp blocks
+    (1, 1, 4100, 3, 256, 3),   # past the 10-bit Philox variable block
+])
+def test_pt_global_path_matches_plain(dev, G, B, n, M, R, S):
+    rng = np.random.default_rng(n + M + 1)
+    Q, h_extra = _structured(rng, G, B, n, dev)
+    hv = _pt_variates(rng, G * B, M, n, R, S, dev)
+    pt_wide_cuda.reset_launch_counts()
+    got = pt_wide_cuda.pt_sample_groups(Q, h_extra, R, S, num_replicas=M, host_variates=hv)
+    torch.cuda.synchronize()
+    assert pt_wide_cuda.launch_counts == {"pt_wide": 0, "pt_wide_sparse": 0, "pt_wide_global": 1}
+    want = tempering.pt_sample_batch_plain(api.densify_groups(Q, h_extra), R, S, num_replicas=M,
+                                           host_variates=hv).reshape(G, B, R, n)
+    assert _differ(got, want) <= MAX_DIFF_FRAC
+
+
+def test_pt_global_path_draws_its_written_out_philox_streams(dev):
+    """At n = 4100 the global path's Philox variable block takes 11 bits
+    (``pt_wide_cuda.var_shift``): ``pt_philox_variates`` writes them out."""
+    G, B, n, M, R, S = 1, 1, 4100, 2, 2, 2
+    Q, _ = _structured(np.random.default_rng(9), G, B, n, dev)
+    J, h, betas, dbeta = pt_wide_cuda.structured_form(Q, torch.zeros((G, B, n), device=dev), M)
+    seed = draw_seed(torch.Generator().manual_seed(3))
+    got = pt_wide_cuda.launch(J, h, betas, dbeta, R, S,
+                              generator=torch.Generator().manual_seed(3))
+    hv = tuple(torch.as_tensor(a, device=dev) for a in sa_torch.pt_philox_variates(
+        seed, G * B, M, R, n, S, var_shift=pt_wide_cuda.var_shift(n)))
+    assert pt_wide_cuda.var_shift(n) == 11
+    assert torch.equal(got, pt_wide_cuda.launch(J, h, betas, dbeta, R, S, host_variates=hv))

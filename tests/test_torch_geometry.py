@@ -8,9 +8,10 @@ a warp, and the kernel's bounds), K5's geometry
 over a thread block cluster), its row lists (``pt_wide_cuda.row_lists``)
 and the rule that routes a PT call to
 K3 or K5 (``pt_wide_cuda.pt_route``) at the shapes the main paths launch,
-at the K1/K4 boundary and at the kernels' widest shapes; the field-drift
-limit of K4 and of K2's LANES layout, K5's energy limit, and the roofline
-bound.
+at the K1/K4 boundary, at the shared layouts' widest shapes and past them
+(K4's global-field layout and K5's global path, which leave no n up to
+8192 and no M up to 512 refused); the field-drift limit of K4 and of K2's
+LANES layout, K5's energy limit, and the roofline bound.
 ``test_torch_cuda.py`` checks on the card that the kernels accept what
 these rules report."""
 
@@ -120,17 +121,28 @@ def test_wide_geometry_at_the_cdqbm_shapes():
 
 
 def test_wide_max_n_is_the_widest_geometry():
-    """Every width K4 took before (n ≤ 2400) stays covered; at the widest n
-    one chain a block still fits, and one more variable does not."""
+    """At the shared layout's widest n one chain a block still fits, and one
+    more variable does not.  The rule leaves it earlier: at n = 2608, the
+    widest where a block holds 5 chains; past it K4 takes the global-field
+    layout, 31 chains a block, at the shared layout's widest too."""
     top = wide_cuda.max_n()
-    assert top >= 2400
+    assert top == 3368
     assert wide_cuda.smem_bytes(top, 1) <= kernel_call.SMEM_BYTES < wide_cuda.smem_bytes(top + 1, 1)
-    for n in (2400, top):
+    switch = wide_cuda.switch_n()
+    assert switch == 2608
+    assert wide_cuda.smem_bytes(switch, 5) <= kernel_call.SMEM_BYTES \
+        < wide_cuda.smem_bytes(switch + 1, 5)
+    for n in (2048, switch):
         geo = wide_cuda.wide_geometry(2, 20, 100, n)
         _within_limits(geo.smem, geo.threads, geo.grid)
-    assert wide_cuda.wide_geometry(2, 20, 100, top).chains_per_block == 1
-    with pytest.raises(ValueError, match="exceeds its bound"):
-        wide_cuda.wide_geometry(2, 20, 100, top + 1)
+        assert geo.layout == wide_cuda.SHARED and geo.chains_per_block >= 5
+    assert wide_cuda.layout_geometry(2, 20, 100, top, wide_cuda.SHARED).chains_per_block == 1
+    with pytest.raises(ValueError, match="shared layout's bound"):
+        wide_cuda.layout_geometry(2, 20, 100, top + 1, wide_cuda.SHARED)
+    for n in (switch + 1, top, top + 1):
+        past = wide_cuda.wide_geometry(2, 20, 100, n)
+        assert past.layout == wide_cuda.GLOBAL and past.chains_per_block == 31
+        _within_limits(past.smem, past.threads, past.grid)
 
 
 @pytest.mark.parametrize("n,jrow,frow", [(242, 244, 248), (717, 720, 720), (2400, 2400, 2400)])
@@ -142,6 +154,42 @@ def test_wide_layout_strides(n, jrow, frow):
     assert frow % 8 == 0 and 0 <= frow - n < 8
     assert wide_cuda.smem_bytes(n, 1) == 4 * (16 * jrow + frow + frow // 4)
     assert wide_cuda.smem_bytes(n, 3) - wide_cuda.smem_bytes(n, 2) == 4 * (frow + frow // 4)
+
+
+@pytest.mark.parametrize("n", [2, 242, 717, 3368, 3369, 3401, 3624, 3625, 4096, 4100, 8192])
+def test_wide_geometry_refuses_no_width(n):
+    """K4 takes every n up to 8192 (and past it): the shared layout up to
+    2608, the global-field layout past it, whose shared memory holds two
+    8-row tiles of a column chunk (the whole padded row up to n = 3624, 3624
+    floats past it) and two 8×8 diagonal blocks."""
+    G, B, R = 2, 20, 100
+    geo = wide_cuda.wide_geometry(G, B, R, n)
+    _within_limits(geo.smem, geo.threads, geo.grid)
+    assert geo.grid == (math.ceil(B * R / geo.chains_per_block), G)
+    frow = -(-n // 8) * 8
+    if n <= wide_cuda.switch_n():
+        assert geo.layout == wide_cuda.SHARED and geo.smem == wide_cuda.smem_bytes(n, geo.chains_per_block)
+        return
+    cw = min(frow, 3624)
+    assert geo.layout == wide_cuda.GLOBAL and geo.chains_per_block == 31
+    assert wide_cuda.global_row_floats(n) == frow and wide_cuda.chunk_floats(n) == cw
+    assert geo.smem == wide_cuda.global_smem_bytes(n) == 4 * (2 * 8 * cw + 2 * 64)
+    chunks = -(-frow // cw)
+    assert chunks == (1 if n <= 3624 else 2 if n <= 7248 else 3)
+
+
+def test_wide_global_layout_fills_shared_memory_at_its_widest_chunk():
+    """The chunk width is the largest multiple of 8 whose two tiles and two
+    diagonal blocks fit a block: 3624 floats fill 232,448 bytes exactly."""
+    assert wide_cuda.CHUNK_MAX % 8 == 0
+    assert wide_cuda.global_smem_bytes(8192) == kernel_call.SMEM_BYTES
+    assert 4 * (2 * 8 * (wide_cuda.CHUNK_MAX + 8) + 128) > kernel_call.SMEM_BYTES
+    # a forced layout, as the checks of the layouts' bit equality ask for it
+    geo = wide_cuda.WideGeometry.of(2, 3, 20, 717, 7, wide_cuda.GLOBAL)
+    assert geo.layout == wide_cuda.GLOBAL and geo.grid == (9, 2)
+    assert geo.smem == 4 * (2 * 8 * 720 + 128)
+    with pytest.raises(ValueError, match="unknown layout"):
+        wide_cuda.WideGeometry.of(1, 1, 1, 8, 1, "registers")
 
 
 def test_k1_k4_boundary():
@@ -199,6 +247,18 @@ def test_roofline_bound_counts_issue_slots():
     b = roofline.anneal_bound(1, 1, 1, 2000, 1)  # a 16 MB J_g read for 2,000 decisions
     assert b["bound_by"] == "bytes"
     assert b["bytes"] == 4 * (2000 * 2000 + 2000 + 2 + 2000)
+
+
+def test_roofline_counts_the_global_fields_traffic():
+    """The global-field layouts' least traffic: each sweep reads and writes
+    each chain's fields (4 bytes) and state (1 byte), rows of n rounded up
+    to 8; ``layout_bytes`` adds it to the bound's bytes, nothing else."""
+    assert roofline.global_field_bytes(4000, 3401, 5) == 4000 * 5 * 2 * 5 * 3408
+    plain = roofline.anneal_bound(2, 20, 100, 3401, 5, flip_work=10**9)
+    extra = roofline.global_field_bytes(4000, 3401, 5)
+    held = roofline.anneal_bound(2, 20, 100, 3401, 5, flip_work=10**9, layout_bytes=extra)
+    assert held["bytes"] == plain["bytes"] + extra and held["ops"] == plain["ops"]
+    assert held["bound_ms"] >= plain["bound_ms"]
 
 
 def _cdqbm_a_J() -> torch.Tensor:
@@ -375,12 +435,16 @@ PT_WIDE_SHAPES = {  # (G, B, M, R, n)
     "n=241 M=16": (1, 4, 16, 32, 241),
     "n=300": (2, 4, 8, 16, 300),
     "one ladder a block": (1, 2, 32, 4, 242),
-    "widest n": (1, 1, 1, 10, 3368),
+    "widest n": (1, 1, 1, 10, 3368),       # the sparse path, or past n = 2608 the global one
     "65 rungs": (1, 1, 65, 8, 4),          # past K3: a cluster of 3 blocks
     "n=300 M=33": (1, 2, 33, 4, 300),      # past a block's warps: 2 blocks
     "n=3000 M=3": (1, 2, 3, 3, 3000),      # past what a block's memory holds
     "widest ladder": (1, 1, 256, 2, 717),  # 8 blocks of 32 warps
     "widest n, widest ladder": (1, 1, 8, 2, 3368),
+    "qbm_main -hn 3400 PT": (2, 20, 8, 100, 3401),   # past n = 3368: the global path
+    "n=3000 M=24": (1, 1, 24, 4, 3000),   # past a cluster of the dense path's 2-rung blocks
+    "n=300 M=300": (1, 1, 300, 2, 300),   # past a cluster of 32-warp blocks
+    "n=8192": (1, 2, 2, 4, 8192),
 }
 CDQBM_A_NNZ_PAD = 10_104  # CDQBM (a)'s row lists: 10,100 nonzeros in the larger group
 
@@ -393,10 +457,16 @@ def test_pt_wide_geometry_within_the_card_limits(name, nnz_pad):
     _within_limits(geo.smem, geo.threads, geo.grid)
     L, K, W = geo.ladders_per_block, geo.cluster, geo.warps
     assert geo.threads == 32 * W <= 1024  # a warp a rung
+    if geo.path == pt_wide_cuda.GLOBAL:  # any ladder over any blocks, S + 1 launches
+        assert n > wide_cuda.switch_n() or M > pt_wide_cuda.max_rungs(n)
+        assert W == pt_wide_cuda.global_warps(G, B, M, R) and geo.ladders_per_block == 0
+        assert geo.smem == wide_cuda.global_smem_bytes(n) and geo.grid == (math.ceil(B * R * M / W), G)
+        return
     if geo.path == pt_wide_cuda.DENSE:
+        assert n <= wide_cuda.switch_n()
         assert geo.smem == pt_wide_cuda.smem_bytes(n, W) == wide_cuda.smem_bytes(n, W) + 8 * W
     else:
-        assert nnz_pad is not None and geo.nnz_pad == nnz_pad
+        assert nnz_pad is not None and geo.nnz_pad == nnz_pad and n <= pt_wide_cuda.max_n()
         assert geo.smem == pt_wide_cuda.sparse_smem_bytes(n, W, nnz_pad) \
             == 6 * nnz_pad + 4 * pt_wide_cuda.offsets_len(n) + pt_wide_cuda.smem_bytes(n, W) \
             - pt_wide_cuda.smem_bytes(n, 0)
@@ -432,28 +502,40 @@ def test_pt_wide_geometry_at_the_cdqbm_shape():
 
 
 def test_pt_wide_bounds():
-    """K5 takes K4's widths (n ≤ 3368) and every ladder whose rungs fit a
-    cluster of 8 blocks, each of up to 32 warps beside two J tiles: 256
-    rungs up to n = 2600 or so, 16 at n = 3000, 8 at n = 3368."""
+    """K5's shared paths hold K4's shared widths (n ≤ 3368) and every ladder
+    whose rungs fit a cluster of 8 blocks, each of up to 32 warps beside two
+    J tiles: 256 rungs up to n = 2600 or so, 16 at n = 3000, 8 at n = 3368.
+    The rule gives the dense path n ≤ 2608 (5 rungs a block); past it, and
+    past those ladders, the global path takes the call; only an empty shape
+    or more than 65,535 groups raise."""
     assert pt_wide_cuda.max_n() == wide_cuda.max_n() == 3368
     assert pt_wide_cuda.block_rungs(241) == pt_wide_cuda.block_rungs(717) == 32
     assert pt_wide_cuda.max_rungs(241) == pt_wide_cuda.max_rungs(717) == 256
     assert pt_wide_cuda.max_rungs(3000) == 16
     assert pt_wide_cuda.max_rungs(3368) == 8 and pt_wide_cuda.max_rungs(3369) == 0
+    assert pt_wide_cuda.block_rungs(wide_cuda.switch_n()) == 5
+    assert pt_wide_cuda.block_rungs(wide_cuda.switch_n() + 1) == 4
     for n in (242, 717, 1500, 2600, 3000, 3368):
         W = pt_wide_cuda.block_rungs(n)
         M = pt_wide_cuda.max_rungs(n)
         assert M == 8 * W and 1 <= W <= 32
         assert pt_wide_cuda.smem_bytes(n, W) <= kernel_call.SMEM_BYTES
-        assert pt_wide_cuda.pt_wide_geometry(1, 1, W, 1, n).cluster == 1
-        assert pt_wide_cuda.pt_wide_geometry(1, 1, M, 1, n).cluster == 8
+        rule = pt_wide_cuda.pt_wide_geometry if n <= wide_cuda.switch_n() else \
+            pt_wide_cuda.shared_geometry
+        assert rule(1, 1, W, 1, n).cluster == 1
+        assert rule(1, 1, M, 1, n).cluster == 8
         if W < 32:
             assert pt_wide_cuda.smem_bytes(n, W + 1) > kernel_call.SMEM_BYTES
-            assert pt_wide_cuda.pt_wide_geometry(1, 1, W + 1, 1, n).cluster == 2
-        with pytest.raises(ValueError, match="exceed its bound"):
-            pt_wide_cuda.pt_wide_geometry(1, 1, M + 1, 1, n)
-    for n, M in ((3369, 1), (300, 257), (3000, 17), (3368, 9), (0, 4), (300, 0)):
-        with pytest.raises(ValueError, match="exceed its bound"):
+            assert rule(1, 1, W + 1, 1, n).cluster == 2
+        assert pt_wide_cuda.pt_wide_geometry(1, 1, M + 1, 1, n).path == pt_wide_cuda.GLOBAL
+        with pytest.raises(ValueError, match="shared paths' bounds"):
+            pt_wide_cuda.shared_geometry(1, 1, M + 1, 1, n)
+        if n > wide_cuda.switch_n():
+            assert pt_wide_cuda.pt_wide_geometry(1, 1, M, 1, n).path == pt_wide_cuda.GLOBAL
+    for n, M in ((3369, 1), (300, 257), (3000, 17), (3368, 9), (2609, 1)):
+        assert pt_wide_cuda.pt_wide_geometry(1, 1, M, 1, n).path == pt_wide_cuda.GLOBAL
+    for n, M in ((0, 4), (300, 0)):
+        with pytest.raises(ValueError, match="no problem to sample"):
             pt_wide_cuda.pt_wide_geometry(1, 1, M, 1, n)
     with pytest.raises(ValueError, match="grid"):
         pt_wide_cuda.pt_wide_geometry(65536, 1, 8, 1, 300)
@@ -483,17 +565,34 @@ def test_pt_route(shape, kernel):
 
 
 def test_pt_route_takes_the_union_of_the_bounds():
-    """A PT call launches K3 where it takes the shape, else K5 where that
-    takes it, and raises only beyond both, naming both bounds."""
+    """A PT call launches K3 where it takes the shape, else K5: its dense
+    path where the rule gives it the call (n ≤ 2608, the ladder within a
+    cluster), its global path beyond, so that no shape raises (the cases
+    that raised before this layout now take the global path, one for one)."""
     for n in (1, 6, 8, 9, 100, 240, 241, 242, 300, 717, 1024, 2000, 3000, 3368, 3369):
         for M in (1, 2, 8, 9, 15, 16, 17, 32, 33, 64, 65, 256, 257):
             k3 = n <= 241 and M <= 64 and 4 * (n * n + 2 * M) <= kernel_call.SMEM_BYTES
-            k5 = n <= 3368 and M <= 8 * pt_wide_cuda.block_rungs(n)
-            if k3 or k5:
-                assert pt_wide_cuda.pt_route(1, 2, M, 3, n) == ("pt_heatbath" if k3 else "pt_wide")
-            else:
-                with pytest.raises(ValueError, match="pt_heatbath kernel.*pt_wide kernel"):
-                    pt_wide_cuda.pt_route(1, 2, M, 3, n)
+            k5 = n <= 2608 and M <= 8 * pt_wide_cuda.block_rungs(n)
+            assert pt_wide_cuda.pt_route(1, 2, M, 3, n) == ("pt_heatbath" if k3 else "pt_wide")
+            if not k3:
+                path = pt_wide_cuda.pt_wide_geometry(1, 2, M, 3, n).path
+                assert (path == pt_wide_cuda.GLOBAL) == (not k5)
+
+
+@pytest.mark.parametrize("n", [242, 3369, 4096, 4100, 8192])
+def test_pt_route_refuses_no_width_or_ladder(n):
+    """No n up to 8192 and no M up to 512 is refused; the global path's
+    Philox variable block widens past n = 4092 (its counter's rung keeps
+    ≥ 10 bits: M up to 2^20 and more)."""
+    for M in (1, 2, 8, 9, 33, 256, 257, 300, 512):
+        assert pt_wide_cuda.pt_route(1, 2, M, 3, n) == "pt_wide"
+        geo = pt_wide_cuda.pt_wide_geometry(1, 2, M, 3, n)
+        _within_limits(geo.smem, geo.threads, geo.grid)
+    shift = pt_wide_cuda.var_shift(n)
+    assert -(-n // 4) <= (1 << shift) - 1 and 512 <= 1 << (32 - shift)
+    assert shift == (10 if n <= 4092 else 11 if n <= 8188 else 12)
+    with pytest.raises(ValueError, match="grid"):
+        pt_wide_cuda.pt_route(65536, 1, 8, 1, n)
 
 
 def test_energy_drift_limit_catches_one_lost_flip():
@@ -603,3 +702,16 @@ def test_rbm_cd1_bound_at_the_headline_shape():
     b9 = roofline.rbm_cd1_bound(16, 4096, 784, 9)
     assert b9["bound_by"] == "operations" and 0.04 < b9["bound_ms"] < 0.045
     assert 0.03 < 1e3 * b9["bytes"] / 3.35e12 < b9["bound_ms"]
+
+
+@pytest.mark.parametrize("n", [2048, 2232, 2560, 2608, 2609, 3000, 3368])
+def test_layout_rules_switch_where_a_block_holds_five(n):
+    """K4's shared layout and K5's dense path take a call up to n = 2608,
+    where a block holds 5 chains (rungs); past it the global-field layout
+    and the global path take it, at the CDQBM (a) call's 4,000 chains and
+    32,000 rungs.  K5's sparse path keeps its rule: J_g's row lists that fit
+    a block beside its rungs."""
+    shared = n <= 2608
+    assert (wide_cuda.wide_geometry(2, 20, 100, n).layout == wide_cuda.SHARED) == shared
+    assert (pt_wide_cuda.pt_wide_geometry(2, 20, 8, 100, n).path == pt_wide_cuda.DENSE) == shared
+    assert pt_wide_cuda.pt_wide_geometry(2, 20, 8, 100, n, 8).path == pt_wide_cuda.SPARSE
