@@ -6,7 +6,8 @@ Run from the root of a checkout on a machine with one CUDA GPU:
     python3 chip_smoke.py
 
 Five hand-written kernels, K4 and K5 each also in a global-field layout
-past their shared ones, are checked: K1 ``sa_metropolis`` (annealed
+past their shared ones (with a dense and a sparse field pass, each with
+its own launch count), are checked: K1 ``sa_metropolis`` (annealed
 Metropolis), K2 ``sa_heatbath`` (annealed heat-bath, single/pair/quad
 updates), K3 ``pt_heatbath`` (parallel tempering), K4 ``anneal_wide``
 (both anneal rules for QUBOs whose couplings exceed shared memory, n > 241,
@@ -34,7 +35,7 @@ failure exits nonzero; nothing carries on after one):
    beyond the first design's M·n ≤ 2048 at B=4, n=241, M=12, R=32, S=20;
    K4 Metropolis and pair at the CDQBM probabilistic-pooling shape (G=2,
    B=20, n=717, R=100, S=10), on its dense entry (B=32, n=717) and at the
-   widest n the rule gives its shared layout (n=2608, R=200, S=2); K5's dense path through the sampler's
+   widest n the rule gives its shared layout (n=1056, R=200, S=2); K5's dense path through the sampler's
    structured entry against the plain version on the densified batch at
    (G=2, B=4, n=300, M=8, R=16, S=20), (G=2, B=2, n=717, M=8, R=8, S=10),
    (n, M) = (241, 16) and the CDQBM (a) PT call's shape on random QUBOs
@@ -190,34 +191,45 @@ failure exits nonzero; nothing carries on after one):
    launch seeds are folded with the rank's rows) and leave the sweep's
    generator in one state;
 10. past the shared layouts (``wide_phase``): K4's global-field layout
-   (each chain's fields and state in global scratch, J_g's rows in 8-row
-   tiles cut to column chunks) forced at n=717 equal to the shared
-   layout bit for bit (samples, fields, counters; every rule, S=70), and
-   through the SA and BMS wrappers at n = 3369, 4096 and 8192 (one, two
-   and three column chunks a row; Metropolis, pair, quad; 256 chains,
-   S=2) against plain within the 1% bound, launching ``anneal_wide_global``
-   once and nothing else; K5's global path (S + 1 launches a call: each
-   launch takes the last round's exchanges, then a sweep) forced at n=300,
-   M=8 equal to the dense path bit for bit (samples, states, fields,
-   energies, counters, S=70), and through the sampler's entry at
-   ``qbm_main -hn 3400``'s call (n=3401, M=8), past a cluster (n=3000, M=24;
-   n=300, M=300), past the 10-bit Philox block (n=4100) and at n=8192,
-   256 target-rung chains each, against plain within the 1% bound; then ``qbm_main.main`` on ``cuda``
-   at H=3400 (n=3401, the CLI's restricted default, sc100, bs20, anneal
-   5, one epoch of 30 steps plus validation and test prediction) with SA
-   and BMS on K4's global-field layout and PT (8 rungs) on K5's global
-   path: exactly one launch a sampler call and nothing else, finite nll,
-   metrics in range; each step's time by CUDA events (median of 3, one
-   launch a step); and at that step's own call (G=2, B=20, R=100, S=5)
-   the kernels' and plain versions' times and their bounds, also with the
-   global fields' least traffic (``roofline.global_field_bytes``); K4
-   Metropolis, K4 pair and K5 (M=8) at that call on each solver's own step
-   QUBOs under variates drawn on the card, each launched once through its
-   wrapper and held against its plain version within the 1% bound; then
-   the layouts in turns (``layout_turns``): K4's two layouts and K5's
-   dense and global paths, each forced on one call, timed a, b, b, a
-   across n and on both sides of the rules' switch (n = 2608, where a
-   block holds 5 chains), on which that switch rests.
+   (each chain's fields and state in global scratch, J_g walked in windows
+   of 128 rows: the window's fields read once into shared memory beside its
+   diagonal block, then one pass of its changes onto the other fields --
+   the dense pass streaming the window's rows, or, where
+   ``wide_cuda.sparse_pass`` finds J_g sparse, the sparse pass over the
+   changed rows' nonzeros) forced at n=717 with each pass, on dense and
+   sparse QUBOs, equal to the shared layout bit for bit (samples, fields,
+   counters; every rule, S=70), and through the SA and BMS wrappers at n =
+   3369, 4096 and 8192 (Metropolis, pair, quad; 256 chains, S=2; dense
+   QUBOs on the dense pass, sparse ones on the sparse pass) against plain
+   within the 1% bound, launching ``anneal_wide_global`` or
+   ``anneal_wide_global_sparse`` once and nothing else; K5's global path
+   (S + 1 launches a call: each launch takes the last round's exchanges,
+   then a sweep) forced at n=300, M=8 with each pass equal to the dense
+   path bit for bit (samples, states, fields, energies, counters, S=70),
+   and through the sampler's entry at ``qbm_main -hn 3400``'s PT call
+   (n=3401, M=8, dense and sparse), past a cluster (n=3000, M=24; n=300,
+   M=300), past the 10-bit Philox block (n=4100) and at n=4096 and 8192,
+   256 target-rung chains each, against plain within the 1% bound
+   (``pt_wide_global`` or ``pt_wide_global_sparse``); then ``qbm_main.main``
+   on ``cuda`` at H=3400 (n=3401, sc100, bs20, anneal 5, one epoch of 30
+   steps plus validation and test prediction) both ways: restricted
+   (``qm.main``'s default ``restricted=True``: J_g all zeros but the
+   output's row and column, on the sparse pass) and ``restricted=False``
+   (the CLI's ``-r False`` default: a dense ``w_hh``, on the dense pass),
+   with SA and BMS on K4's global-field layout and PT (8 rungs) on K5's
+   global path: exactly one launch a sampler call and nothing else,
+   finite nll, metrics in range; each step's time by CUDA events (median
+   of 3, one launch a step); and at each call's own step QUBOs (G=2, B=20,
+   R=100, S=5) the kernels' times (median of 3) and plain versions' (one
+   run after a warm-up) and their bounds (the modelled bytes of the global
+   fields printed apart, ``global_field_bytes_model``); K4 Metropolis, K4
+   pair and K5 (M=8) at that call on each solver's own step QUBOs under
+   variates drawn on the card, each launched once through its wrapper and
+   held against its plain version within the 1% bound; then the layouts
+   in turns (``layout_turns``): K4's two layouts and K5's dense and global
+   paths, each forced on one call, timed a, b, b, a across n and on both
+   sides of the rules' switches (K4: n = 1056, where a block holds 31
+   chains; K5: n = 1416, 20 rungs).
 
 The last three lines are the ``nvidia-smi`` line, one JSON object with the
 kernel records (time, plain time, bound, launches on the main path), and
@@ -1027,9 +1039,10 @@ def layout_turns(dev, smi: str) -> dict:
     rng = np.random.default_rng(3368)
     out = {"k4": [], "k5": []}
     G, B, R = 2, 20, 100
-    switch = wide_cuda.switch_n()
+    switch, pt_switch = wide_cuda.switch_n(), pt_wide_cuda.switch_n()
     for n, what in ((242, "random"), (512, "random"), (717, "random"), (717, "CDQBM (a) step"),
-                    (1024, "random"), (1536, "random"), (2048, "random"), (switch, "random"),
+                    (1024, "random"), (1280, "random"), (1536, "random"), (1792, "random"),
+                    (2048, "random"), (2232, "random"), (switch, "random"),
                     (switch + 1, "random"), (3000, "random"), (3368, "random")):
         S = 10
         if what == "random":
@@ -1055,9 +1068,11 @@ def layout_turns(dev, smi: str) -> dict:
                   f"({geo[wide_cuda.GLOBAL].chains_per_block}); global/shared {glob / shared:.3f}")
     M = 8
     for G, B, R, n, S, what in ((2, 60, 16, 301, 100, "qbm_main --solver PT -hn 300's call"),
-                                (2, 20, 100, 717, 10, "random"), (2, 20, 100, 1536, 10, "random"),
-                                (2, 20, 100, switch, 4, "random"),
-                                (2, 20, 100, switch + 1, 4, "random"),
+                                (2, 20, 100, 717, 10, "random"), (2, 20, 100, 1024, 10, "random"),
+                                (2, 20, 100, 1536, 10, "random"), (2, 20, 100, 2048, 4, "random"),
+                                (2, 20, 100, 1056, 4, "random"), (2, 20, 100, 1280, 4, "random"),
+                                (2, 20, 100, pt_switch, 4, "random"),
+                                (2, 20, 100, pt_switch + 1, 4, "random"),
                                 (2, 20, 100, 3368, 4, "random")):
         Q = random_qubo_batch(rng, G, n).to(dev)
         he = torch.as_tensor(rng.normal(size=(G, B, n)).astype(np.float32), device=dev)
@@ -1075,10 +1090,24 @@ def layout_turns(dev, smi: str) -> dict:
     return out
 
 
+def sparse_structured(rng, G, B, n, dev, density=0.005):
+    """G QUBOs whose couplings are ``density`` nonzeros, and the restricted
+    flat model's pattern besides (variable 0, the output, coupled to every
+    other: ``qbm_main -hn 3400``'s unclamped group), and their h_extra."""
+    from qbmx_torch.core.qubo import random_qubo_batch
+
+    Q = random_qubo_batch(rng, G, n).to(dev)
+    keep = torch.as_tensor(rng.random((G, n, n)) < density, device=dev)
+    keep[:, 0, :] = True
+    Q = torch.where(keep | torch.eye(n, dtype=torch.bool, device=dev), Q, torch.zeros_like(Q))
+    return Q, torch.as_tensor(rng.normal(size=(G, B, n)).astype(np.float32), device=dev)
+
+
 def wide_phase(dev, smi: str, counters, made) -> dict:
     """Phase 10 (module docstring): the widths and ladders past the shared
-    layouts -- K4's global-field layout and K5's global path -- and the flat
-    trainer at ``qbm_main -hn 3400``; returns its record."""
+    layouts -- K4's global-field layout and K5's global path, each with its
+    dense and its sparse field pass -- and the flat trainer at ``qbm_main
+    -hn 3400``, restricted and dense; returns its record."""
     from qbmx_torch.cli import qbm_main as qm
     from qbmx_torch.core.qubo import split_qubo
     from qbmx_torch.samplers import (gibbs, gibbs_cuda, pt_wide_cuda, sa_cuda, sa_torch,
@@ -1088,230 +1117,284 @@ def wide_phase(dev, smi: str, counters, made) -> dict:
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(3401)
-    errs, fracs = {"anneal_wide_global": [], "pt_wide_global": []}, \
-        {"anneal_wide_global": [], "pt_wide_global": []}
+    kernels = ("anneal_wide_global", "anneal_wide_global_sparse", "pt_wide_global",
+               "pt_wide_global_sparse")
+    errs, fracs = {k: [] for k in kernels}, {k: [] for k in kernels}
 
     def note(kernel, frac_err):
         fracs[kernel].append(frac_err[0])
         errs[kernel].append(frac_err[1])
 
-    # K4's global-field layout forced at n = 717: the shared layout's samples,
-    # fields and counters bit for bit, every rule, past a refresh
+    def launched() -> dict:
+        return {k: v for c in counters for k, v in c.launch_counts.items() if v}
+
+    # K4's global-field layout forced at n = 717 with each field pass: the
+    # shared layout's samples, fields and counters bit for bit, every rule,
+    # past a refresh, on dense and on sparse QUBOs
     for rule in (0, 1, 2, 4):
-        G, B, n, R, S = 2, 3, 717, 20, 70
-        Q, he, init01, u = structured_problem(rng, G, B, n, R, S, dev)
-        J, h, hot, logr = structured_form(Q, he, S, rule)
-        res = []
-        for layout in (wide_cuda.SHARED, wide_cuda.GLOBAL):
-            fields = torch.empty((G, B, R, n), device=dev)
-            flips = torch.zeros(2, dtype=torch.int64, device=dev)
-            out = wide_cuda.launch(J, h, hot, logr, R, S, rule, host_variates=(init01, u),
-                                   fields_out=fields, flips=flips,
-                                   geometry=wide_cuda.WideGeometry.of(G, B, R, n, 7, layout))
-            torch.cuda.synchronize()
-            res.append((out, fields, flips))
-        check(all(torch.equal(a, b) for a, b in zip(*res)),
-              f"K4 rule {rule} n={n}: the global-field layout differs from the shared one")
+        for qubos in ("dense", "sparse"):
+            G, B, n, R, S = 2, 3, 717, 20, 70
+            if qubos == "dense":
+                Q, he, init01, u = structured_problem(rng, G, B, n, R, S, dev)
+            else:
+                Q, he = sparse_structured(rng, G, B, n, dev)
+                init01, u = bits(rng, (G, B, R, n), dev), uniforms(rng, (S, G, B, n, R), dev)
+            J, h, hot, logr = structured_form(Q, he, S, rule)
+            res = []
+            for layout, field_pass in ((wide_cuda.SHARED, None), (wide_cuda.GLOBAL, "dense"),
+                                       (wide_cuda.GLOBAL, "sparse")):
+                fields = torch.empty((G, B, R, n), device=dev)
+                flips = torch.zeros(2, dtype=torch.int64, device=dev)
+                out = wide_cuda.launch(J, h, hot, logr, R, S, rule, host_variates=(init01, u),
+                                       fields_out=fields, flips=flips, field_pass=field_pass,
+                                       geometry=wide_cuda.WideGeometry.of(G, B, R, n, 7, layout))
+                torch.cuda.synchronize()
+                res.append((out, fields, flips))
+            check(all(torch.equal(a, b) for other in res[1:] for a, b in zip(res[0], other)),
+                  f"K4 rule {rule} n={n} ({qubos} QUBOs): the global-field layout's passes "
+                  "differ from the shared layout")
     print(f"phase 10 K4 global-field layout forced at G=2 B=3 n=717 R=20 S=70 (7 chains a "
-          "block): samples, fields and counters equal the shared layout's bit for bit, "
-          "Metropolis and heat-bath single, pair, quad")
-    # ... and past the shared layout, through the wrappers, against plain
+          "block), dense and sparse QUBOs: samples, fields and counters of its dense and its "
+          "sparse pass equal the shared layout's bit for bit, Metropolis and heat-bath single, "
+          "pair, quad")
+    # ... and past the shared layout, through the wrappers, against plain: on
+    # dense QUBOs the dense pass, on sparse ones the sparse pass
     for n in (3369, 4096, 8192):
         for rule, label in ((0, "Metropolis"), (2, "pair"), (4, "quad")):
-            G, B, R, S = 1, 2, 128, 2
-            Q, he, init01, u = structured_problem(rng, G, B, n, R, S, dev)
-            hv = (init01, u)
-            for c in counters:
-                c.reset_launch_counts()
-            if rule == 0:
-                got = sa_cuda.sa_sample_groups_cuda(Q, he, R, S, host_variates=hv)
-                want = sa_torch.sa_sample_groups_plain(Q, he, R, S, host_variates=hv)
-            else:
-                kw = dict(beta=1.0, pair=rule == 2, quad=rule == 4, host_variates=hv)
-                got = gibbs_cuda.gibbs_sample_groups_cuda(Q, he, R, S, **kw)
-                want = gibbs.gibbs_sample_groups_plain(Q, he, R, S, **kw)
-            torch.cuda.synchronize()
-            check(wide_cuda.launch_counts == {"anneal_wide": 0, "anneal_wide_global": 1},
-                  f"K4 n={n} {label}: not served by the global-field layout alone")
-            note("anneal_wide_global", compare(
-                got, want, f"K4 global-field {label} G={G} B={B} n={n} R={R} S={S} "
-                f"({-(-wide_cuda.global_row_floats(n) // wide_cuda.chunk_floats(n))} column "
-                "chunks a row)", phase=10))
-            del Q, he, init01, u, got, want
-    # K5's global path forced at n = 300: the dense path's samples, states,
-    # fields, energies and counters bit for bit
+            for qubos, kernel in (("dense", "anneal_wide_global"),
+                                  ("sparse", "anneal_wide_global_sparse")):
+                G, B, R, S = 1, 2, 128, 2
+                if qubos == "dense":
+                    Q, he = structured_problem(rng, G, B, n, 1, 1, dev)[:2]
+                else:
+                    Q, he = sparse_structured(rng, G, B, n, dev)
+                hv = (bits(rng, (G, B, R, n), dev), uniforms(rng, (S, G, B, n, R), dev))
+                for c in counters:
+                    c.reset_launch_counts()
+                if rule == 0:
+                    got = sa_cuda.sa_sample_groups_cuda(Q, he, R, S, host_variates=hv)
+                    want = sa_torch.sa_sample_groups_plain(Q, he, R, S, host_variates=hv)
+                else:
+                    kw = dict(beta=1.0, pair=rule == 2, quad=rule == 4, host_variates=hv)
+                    got = gibbs_cuda.gibbs_sample_groups_cuda(Q, he, R, S, **kw)
+                    want = gibbs.gibbs_sample_groups_plain(Q, he, R, S, **kw)
+                torch.cuda.synchronize()
+                check(launched() == {kernel: 1},
+                      f"K4 n={n} {label} ({qubos}): launches {launched()}, not {kernel} alone")
+                note(kernel, compare(
+                    got, want, f"K4 global-field {label} G={G} B={B} n={n} R={R} S={S} "
+                    f"({qubos} QUBOs: the {kernel} pass)", phase=10))
+                del Q, he, hv, got, want
+    # K5's global path forced at n = 300 with each field pass: the dense
+    # path's samples, states, fields, energies and counters bit for bit
     G, B, n, M, R, S = 2, 2, 300, 8, 8, 70
-    Q, he = structured_problem(rng, G, B, n, 1, 1, dev)[:2]
-    J, h, betas, dbeta = pt_wide_cuda.structured_form(Q, he, M)
-    hv = pt_hv(rng, G * B * M, R, n, S, dev)
-    res = []
-    for path in (pt_wide_cuda.DENSE, pt_wide_cuda.GLOBAL):
-        outs = (torch.empty((G * B * M, R, n), device=dev), torch.empty((G * B * M, R, n), device=dev),
-                torch.empty((G * B * M, R), device=dev), torch.zeros(2, dtype=torch.int64, device=dev))
-        out = pt_wide_cuda.launch(J, h, betas, dbeta, R, S, host_variates=hv, states_out=outs[0],
-                                  fields_out=outs[1], energy_out=outs[2], flips=outs[3], path=path)
-        torch.cuda.synchronize()
-        res.append((out, *outs))
-    check(all(torch.equal(a, b) for a, b in zip(*res)),
-          "K5 n=300 M=8: the global path differs from the dense path")
-    print(f"phase 10 K5 global path forced at G={G} B={B} n={n} M={M} R={R} S={S}: samples, "
-          "states, fields, energies and counters equal the dense path's bit for bit")
+    for qubos in ("dense", "sparse"):
+        Q, he = (structured_problem(rng, G, B, n, 1, 1, dev)[:2] if qubos == "dense"
+                 else sparse_structured(rng, G, B, n, dev))
+        J, h, betas, dbeta = pt_wide_cuda.structured_form(Q, he, M)
+        hv = pt_hv(rng, G * B * M, R, n, S, dev)
+        res = []
+        for path, field_pass in ((pt_wide_cuda.DENSE, None), (pt_wide_cuda.GLOBAL, "dense"),
+                                 (pt_wide_cuda.GLOBAL, "sparse")):
+            outs = (torch.empty((G * B * M, R, n), device=dev),
+                    torch.empty((G * B * M, R, n), device=dev),
+                    torch.empty((G * B * M, R), device=dev),
+                    torch.zeros(2, dtype=torch.int64, device=dev))
+            out = pt_wide_cuda.launch(J, h, betas, dbeta, R, S, host_variates=hv,
+                                      states_out=outs[0], fields_out=outs[1], energy_out=outs[2],
+                                      flips=outs[3], path=path, field_pass=field_pass)
+            torch.cuda.synchronize()
+            res.append((out, *outs))
+        check(all(torch.equal(a, b) for other in res[1:] for a, b in zip(res[0], other)),
+              f"K5 n=300 M=8 ({qubos} QUBOs): the global path's passes differ from the dense "
+              "path")
+    print(f"phase 10 K5 global path forced at G={G} B={B} n={n} M={M} R={R} S={S}, dense and "
+          "sparse QUBOs: samples, states, fields, energies and counters of its dense and its "
+          "sparse pass equal the dense path's bit for bit")
     # ... and past the shared paths, through the sampler's entry, against plain
-    for G, B, n, M, R, S, why in ((2, 2, 3401, 8, 64, 4, "qbm_main -hn 3400's PT call, cut"),
-                                  (1, 1, 3000, 24, 256, 4, "past a cluster of 2-rung blocks"),
-                                  (1, 1, 300, 300, 256, 6, "past a cluster of 32-warp blocks"),
-                                  (1, 1, 4100, 3, 256, 3, "past the 10-bit Philox block"),
-                                  (1, 2, 8192, 2, 128, 2, "three column chunks a row")):
-        Q, he = structured_problem(rng, G, B, n, 1, 1, dev)[:2]
+    for G, B, n, M, R, S, qubos, why in (
+            (2, 2, 3401, 8, 64, 4, "dense", "qbm_main -hn 3400 -r False's PT call, cut"),
+            (2, 2, 3401, 8, 64, 4, "sparse", "qbm_main -hn 3400's restricted PT call, cut"),
+            (1, 1, 3000, 24, 256, 4, "dense", "past a cluster of 2-rung blocks"),
+            (1, 1, 300, 300, 256, 6, "dense", "past a cluster of 32-warp blocks"),
+            (1, 1, 4100, 3, 256, 3, "dense", "past the 10-bit Philox block"),
+            (1, 2, 4096, 2, 128, 2, "sparse", "n = 4096"),
+            (1, 2, 8192, 2, 128, 2, "dense", "n = 8192"),
+            (1, 2, 8192, 2, 128, 2, "sparse", "n = 8192")):
+        Q, he = (structured_problem(rng, G, B, n, 1, 1, dev)[:2] if qubos == "dense"
+                 else sparse_structured(rng, G, B, n, dev))
+        kernel = "pt_wide_global" if qubos == "dense" else "pt_wide_global_sparse"
         hv = pt_hv(rng, G * B * M, R, n, S, dev)
         for c in counters:
             c.reset_launch_counts()
         got = pt_wide_cuda.pt_sample_groups(Q, he, R, S, num_replicas=M, host_variates=hv)
         torch.cuda.synchronize()
-        check(pt_wide_cuda.launch_counts == {"pt_wide": 0, "pt_wide_sparse": 0,
-                                             "pt_wide_global": 1},
-              f"K5 n={n} M={M}: not served by the global path alone")
+        check(launched() == {kernel: 1}, f"K5 n={n} M={M} ({qubos}): launches {launched()}, "
+                                         f"not {kernel} alone")
         want = tempering.pt_sample_batch_plain(densify_groups(Q, he), R, S, num_replicas=M,
                                                host_variates=hv).reshape(G, B, R, n)
-        note("pt_wide_global", compare(got, want, f"K5 global path G={G} B={B} n={n} M={M} "
-                                                  f"R={R} S={S} ({why})", phase=10))
+        note(kernel, compare(got, want, f"K5 global path G={G} B={B} n={n} M={M} R={R} S={S} "
+                                        f"({why}; {qubos} QUBOs: {kernel})", phase=10))
         del Q, he, hv, got, want
 
-    # the flat trainer at qbm_main -hn 3400 (n = 3401): SA and BMS on K4's
-    # global-field layout, PT on K5's global path, one launch a sampler call
+    # the flat trainer at qbm_main -hn 3400 (n = 3401), both ways: restricted
+    # (qm.main's default: J_g all zeros but the output's row and column, on
+    # the global layouts' sparse pass) and as the CLI runs it (-r False, its
+    # default: a dense w_hh, on the dense pass); SA and BMS on K4's global-
+    # field layout, PT on K5's global path, one launch a sampler call
     anneal, bs = 5, 20
     steps, predictions = math.ceil(600 / bs), 2
-    kernel_of = {"SA": "anneal_wide_global", "BMS": "anneal_wide_global", "PT": "pt_wide_global"}
     x = torch.as_tensor(np.random.default_rng(1).random((bs, 784), dtype=np.float32), device=dev)
     y = torch.as_tensor(np.arange(bs) % 2, device=dev)
     mask = torch.ones(bs, device=dev)
-    runs = {}
-    for solver, kernel in kernel_of.items():
-        for c in counters:
-            c.reset_launch_counts()
-        t1 = time.perf_counter()
-        acc, f1, precision, recall, auc = qm.main(
-            device="cuda", data_set="synthetic", n_hidden_nodes=3400, sample_count=100,
-            anneal=anneal, batch_size=bs, epochs=1, save="", solver=solver)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t1
-        counts = {k: v for c in counters for k, v in c.launch_counts.items() if v}
-        model = made[-1]
-        nlls = model.training_history.nll_per_batch
-        check(counts == {kernel: steps + predictions},
-              f"H=3400 {solver}: launch counts {counts} for {steps} steps + {predictions} "
-              "predictions")
-        check(model.n_hidden_nodes + model.n_output_nodes == 3401, "H=3400: n is not 3401")
-        check(len(nlls) == steps and all(math.isfinite(v) for v in nlls),
-              f"H=3400 {solver}: nll {nlls}")
-        check(all(0.0 <= v <= 1.0 for v in (acc, f1, precision, recall, auc)),
-              f"H=3400 {solver}: metrics out of range")
-        for c in counters:
-            c.reset_launch_counts()
-        step = cuda_ms(lambda: model._step(x, y, mask, 0.01), runs=3)
-        per_step = {k: v for c in counters for k, v in c.launch_counts.items() if v}
-        check(per_step == {kernel: 4}, f"H=3400 {solver}: {per_step} for 4 steps")
-        runs[solver] = {"launches": counts, "step_ms": step, "wall_s": wall,
-                        "nll": [nlls[0], nlls[-1]], "acc": acc, "auc": auc}
-        print(f"phase 10 slice {solver}: qbm_main cuda synthetic H=3400 (n=3401) sc100 "
-              f"anneal{anneal} bs{bs} e1: launch counts {counts} for {steps} steps + "
-              f"{predictions} predictions, nll {nlls[0]:.4f} -> {nlls[-1]:.4f}, test acc "
-              f"{acc:.4f} auc {auc:.4f}, wall {wall:.2f} s, step {step:.3f} ms (CUDA events, "
-              f"median of 3; one {kernel} launch a step; {smi})")
-        Qs, hs = model.step_qubos(model.params, x, y[:, None].to(torch.float32))
-        runs[solver]["qubos"] = (Qs, hs)
-    model = None
-    made.clear()
+    R, M = 100, 8
+    calls = {}
+    for restricted in (True, False):
+        how = "restricted" if restricted else "dense"
+        tail = "_sparse" if restricted else ""
+        kernel_of = {"SA": "anneal_wide_global" + tail, "BMS": "anneal_wide_global" + tail,
+                     "PT": "pt_wide_global" + tail}
+        runs = {}
+        for solver, kernel in kernel_of.items():
+            for c in counters:
+                c.reset_launch_counts()
+            t1 = time.perf_counter()
+            acc, f1, precision, recall, auc = qm.main(
+                device="cuda", data_set="synthetic", n_hidden_nodes=3400, sample_count=R,
+                anneal=anneal, batch_size=bs, epochs=1, save="", solver=solver,
+                restricted=restricted)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            counts = launched()
+            model = made[-1]
+            nlls = model.training_history.nll_per_batch
+            check(counts == {kernel: steps + predictions},
+                  f"H=3400 {how} {solver}: launch counts {counts} for {steps} steps + "
+                  f"{predictions} predictions")
+            check(model.n_hidden_nodes + model.n_output_nodes == 3401, "H=3400: n is not 3401")
+            check(model.restricted == restricted, f"H=3400 {how}: the model's restricted flag")
+            check(len(nlls) == steps and all(math.isfinite(v) for v in nlls),
+                  f"H=3400 {how} {solver}: nll {nlls}")
+            check(all(0.0 <= v <= 1.0 for v in (acc, f1, precision, recall, auc)),
+                  f"H=3400 {how} {solver}: metrics out of range")
+            for c in counters:
+                c.reset_launch_counts()
+            step = cuda_ms(lambda: model._step(x, y, mask, 0.01), runs=3)
+            check(launched() == {kernel: 4}, f"H=3400 {how} {solver}: {launched()} for 4 steps")
+            runs[solver] = {"launches": counts, "step_ms": step, "wall_s": wall,
+                            "nll": [nlls[0], nlls[-1]], "acc": acc, "auc": auc}
+            print(f"phase 10 slice {solver} ({how}): qbm_main cuda synthetic H=3400 (n=3401) "
+                  f"{'restricted (qm.main default)' if restricted else '-r False (the CLI default)'}"
+                  f" sc{R} anneal{anneal} bs{bs} e1: launch counts {counts} for {steps} steps + "
+                  f"{predictions} predictions, nll {nlls[0]:.4f} -> {nlls[-1]:.4f}, test acc "
+                  f"{acc:.4f} auc {auc:.4f}, wall {wall:.2f} s, step {step:.3f} ms (CUDA events, "
+                  f"median of 3; one {kernel} launch a step; {smi})")
+            runs[solver]["qubos"] = model.step_qubos(model.params, x,
+                                                     y[:, None].to(torch.float32))
+        model = None
+        made.clear()
 
-    # times at the trainer's call (G=2 B=20 R=100 n=3401 S=anneal, the step's
-    # own QUBOs, Philox mode), the plain versions on the same inputs, bounds
-    g = torch.Generator().manual_seed(7)
-    Qs, hs = runs["SA"]["qubos"]
-    G, B, n = hs.shape
-    R, S, M = 100, anneal, 8
-    k4 = lambda: sa_cuda.sa_sample_groups_cuda(Qs, hs, R, S, generator=g)
-    k4_pair = lambda: gibbs_cuda.gibbs_sample_groups_cuda(Qs, hs, R, S, generator=g, pair=True)
-    k5 = lambda: pt_wide_cuda.pt_sample_groups(Qs, hs, R, S, num_replicas=M, generator=g)
-    times = {name: cuda_ms(fn, runs=3) for name, fn in (("k4", k4), ("k4_pair", k4_pair),
-                                                        ("k5", k5))}
-    plain = {}
-    for name, fn in (("k4", lambda: sa_torch.sa_sample_groups_plain(Qs, hs, R, S, generator=g)),
-                     ("k4_pair", lambda: gibbs.gibbs_sample_groups_plain(Qs, hs, R, S,
-                                                                         generator=g, pair=True)),
-                     ("k5", lambda: tempering.pt_sample_batch_plain(
-                         densify_groups(Qs, hs), R, S, num_replicas=M, generator=g))):
-        plain[name] = cuda_ms(fn, runs=1)
-    J, h, hot, logr = structured_form(Qs, hs, S)
-    w4 = torch.zeros(2, dtype=torch.int64, device=dev)
-    wide_cuda.launch(J, h, hot, logr, R, S, wide_cuda.METROPOLIS, generator=g, flips=w4)
-    w5 = torch.zeros(2, dtype=torch.int64, device=dev)
-    pt_wide_cuda.launch(*pt_wide_cuda.structured_form(Qs, hs, M), R, S, generator=g, flips=w5)
-    b4 = anneal_bound(G, B, R, n, S, flip_work=int(w4[1]))
-    b5 = anneal_bound(G, B, R, n, S, rungs=M, flip_work=int(w5[1]))
-    l4 = anneal_bound(G, B, R, n, S, flip_work=int(w4[1]),
-                      layout_bytes=global_field_bytes(G * B * R, n, S))
-    l5 = anneal_bound(G, B, R, n, S, rungs=M, flip_work=int(w5[1]),
-                      layout_bytes=global_field_bytes(G * B * R * M, n, S))
-    nnz = int((split_qubo(Qs)[1] != 0).sum())
-    print(f"phase 10 time at the H=3400 step's call G={G} B={B} n={n} R={R} S={S} (its own "
-          f"QUBOs: {nnz} nonzero couplings; Philox; CUDA events, kernels median of 3, plain one "
-          f"run after a warm-up; {smi}): K4 global Metropolis {times['k4']:.3f} ms (plain "
-          f"{plain['k4']:.3f}), pair {times['k4_pair']:.3f} ms (plain {plain['k4_pair']:.3f}); "
-          f"K5 global M={M} {times['k5']:.3f} ms (plain {plain['k5']:.3f}; {S + 1} launches); "
-          f"bounds K4 {b4['bound_ms']:.4f} ms by {b4['bound_by']} ({int(w4[0])} changes), K5 "
-          f"{b5['bound_ms']:.4f} ms by {b5['bound_by']} ({int(w5[0])} changes); with the "
-          f"global fields' traffic {l4['bound_ms']:.4f} and {l5['bound_ms']:.4f} ms")
+        # times at the trainer's call (G=2 B=20 R=100 n=3401 S=anneal, the
+        # step's own QUBOs, Philox mode), the plain versions on the same
+        # inputs (one run after a warm-up), bounds
+        g = torch.Generator().manual_seed(7)
+        Qs, hs = runs["SA"]["qubos"]
+        G, B, n = hs.shape
+        S = anneal
+        k4 = lambda: sa_cuda.sa_sample_groups_cuda(Qs, hs, R, S, generator=g)
+        k4_pair = lambda: gibbs_cuda.gibbs_sample_groups_cuda(Qs, hs, R, S, generator=g,
+                                                              pair=True)
+        k5 = lambda: pt_wide_cuda.pt_sample_groups(Qs, hs, R, S, num_replicas=M, generator=g)
+        times = {name: cuda_ms(fn, runs=3) for name, fn in (("k4", k4), ("k4_pair", k4_pair),
+                                                            ("k5", k5))}
+        plain = {}
+        for name, fn in (("k4", lambda: sa_torch.sa_sample_groups_plain(Qs, hs, R, S,
+                                                                        generator=g)),
+                         ("k4_pair", lambda: gibbs.gibbs_sample_groups_plain(
+                             Qs, hs, R, S, generator=g, pair=True)),
+                         ("k5", lambda: tempering.pt_sample_batch_plain(
+                             densify_groups(Qs, hs), R, S, num_replicas=M, generator=g))):
+            plain[name] = cuda_ms(fn, runs=1)
+        bounds, changes = {}, {}
+        for name, rule in (("k4", wide_cuda.METROPOLIS), ("k4_pair", wide_cuda.PAIR)):
+            J, h, hot, logr = structured_form(Qs, hs, S, rule)
+            w = torch.zeros(2, dtype=torch.int64, device=dev)
+            wide_cuda.launch(J, h, hot, logr, R, S, rule, generator=g, flips=w)
+            units = n if rule == wide_cuda.METROPOLIS else heatbath_units(n, 2)
+            bounds[name] = anneal_bound(G, B, R, n, S, decisions=G * B * R * units * S,
+                                        flip_work=int(w[1]))
+            changes[name] = [int(v) for v in w.tolist()]
+        w = torch.zeros(2, dtype=torch.int64, device=dev)
+        pt_wide_cuda.launch(*pt_wide_cuda.structured_form(Qs, hs, M), R, S, generator=g, flips=w)
+        bounds["k5"] = anneal_bound(G, B, R, n, S, rungs=M, flip_work=int(w[1]))
+        changes["k5"] = [int(v) for v in w.tolist()]
+        nnz = int((split_qubo(Qs)[1] != 0).sum())
+        print(f"phase 10 global_field_bytes_model ({how} call; a formula, not a measurement: "
+              "chains x S x 2 x 5 x (n rounded up to 8), one read and one write of each chain's "
+              f"fields and state bytes a sweep): K4 {global_field_bytes(G * B * R, n, S)} bytes, "
+              f"K5 {global_field_bytes(G * B * R * M, n, S)} bytes")
+        print(f"phase 10 time at the H=3400 {how} step's call G={G} B={B} n={n} R={R} S={S} "
+              f"(its own QUBOs: {nnz} nonzero couplings; Philox; CUDA events, kernels median of "
+              f"3, plain one run after a warm-up; {smi}): K4 Metropolis {times['k4']:.3f} ms "
+              f"(plain {plain['k4']:.3f}; bound {bounds['k4']['bound_ms']:.4f} by "
+              f"{bounds['k4']['bound_by']}, {changes['k4'][0]} changes), pair "
+              f"{times['k4_pair']:.3f} ms (plain {plain['k4_pair']:.3f}; bound "
+              f"{bounds['k4_pair']['bound_ms']:.4f}, {changes['k4_pair'][0]} changes); K5 M={M} "
+              f"{times['k5']:.3f} ms (plain {plain['k5']:.3f}; bound "
+              f"{bounds['k5']['bound_ms']:.4f} by {bounds['k5']['bound_by']}, "
+              f"{changes['k5'][0]} changes; {S + 1} launches)")
 
-    # each kernel against its plain version at the trainer's own call (G=2
-    # B=20 R=100 n=3401 S=anneal, each solver's step QUBOs), under variates
-    # drawn on the card: K4 Metropolis and pair, K5 M=8
-    main_path = {}
-    for solver, name, kernel in (("SA", "K4 global-field Metropolis", "anneal_wide_global"),
-                                 ("BMS", "K4 global-field pair", "anneal_wide_global"),
-                                 ("PT", f"K5 global path M={M}", "pt_wide_global")):
-        Qs, hs = runs[solver]["qubos"]
-        if solver == "PT":
-            hv = card_pt_hv(17, G * B * M, R, n, S, dev)
-        else:
-            init01, u = card_pt_hv(13, G * B, R, n, S, dev)[:2]
-            hv = (init01.reshape(G, B, R, n), u.reshape(S, G, B, n, R))
-        for c in counters:
-            c.reset_launch_counts()
-        if solver == "SA":
-            got = sa_cuda.sa_sample_groups_cuda(Qs, hs, R, S, host_variates=hv)
-        elif solver == "BMS":
-            got = gibbs_cuda.gibbs_sample_groups_cuda(Qs, hs, R, S, pair=True, host_variates=hv)
-        else:
-            got = pt_wide_cuda.pt_sample_groups(Qs, hs, R, S, num_replicas=M, host_variates=hv)
-        torch.cuda.synchronize()
-        counts = {k: v for c in counters for k, v in c.launch_counts.items() if v}
-        check(counts == {kernel: 1}, f"{name} at the H=3400 call: launch counts {counts}")
-        if solver == "SA":
-            want = sa_torch.sa_sample_groups_plain(Qs, hs, R, S, host_variates=hv)
-        elif solver == "BMS":
-            want = gibbs.gibbs_sample_groups_plain(Qs, hs, R, S, pair=True, host_variates=hv)
-        else:
-            want = tempering.pt_sample_batch_plain(densify_groups(Qs, hs), R, S, num_replicas=M,
-                                                   host_variates=hv).reshape(G, B, R, n)
-        frac_err = compare(got, want, f"{name} at the H=3400 step's call G={G} B={B} n={n} "
-                                      f"R={R} S={S} (its {solver} step QUBOs, variates drawn "
-                                      "on the card)", phase=10)
-        note(kernel, frac_err)
-        main_path[name] = {"differing_chains": frac_err[0], "max_abs_err": frac_err[1]}
-        del hv, got, want
+        # each kernel against its plain version at the trainer's own call,
+        # each solver's step QUBOs, under variates drawn on the card
+        main_path = {}
+        for solver, name in (("SA", "K4 Metropolis"), ("BMS", "K4 pair"), ("PT", f"K5 M={M}")):
+            Qs, hs = runs[solver]["qubos"]
+            kernel = kernel_of[solver]
+            if solver == "PT":
+                hv = card_pt_hv(17, G * B * M, R, n, S, dev)
+            else:
+                init01, u = card_pt_hv(13, G * B, R, n, S, dev)[:2]
+                hv = (init01.reshape(G, B, R, n), u.reshape(S, G, B, n, R))
+            for c in counters:
+                c.reset_launch_counts()
+            if solver == "SA":
+                got = sa_cuda.sa_sample_groups_cuda(Qs, hs, R, S, host_variates=hv)
+            elif solver == "BMS":
+                got = gibbs_cuda.gibbs_sample_groups_cuda(Qs, hs, R, S, pair=True,
+                                                          host_variates=hv)
+            else:
+                got = pt_wide_cuda.pt_sample_groups(Qs, hs, R, S, num_replicas=M,
+                                                    host_variates=hv)
+            torch.cuda.synchronize()
+            check(launched() == {kernel: 1},
+                  f"{name} at the H=3400 {how} call: launch counts {launched()}")
+            if solver == "SA":
+                want = sa_torch.sa_sample_groups_plain(Qs, hs, R, S, host_variates=hv)
+            elif solver == "BMS":
+                want = gibbs.gibbs_sample_groups_plain(Qs, hs, R, S, pair=True, host_variates=hv)
+            else:
+                want = tempering.pt_sample_batch_plain(densify_groups(Qs, hs), R, S,
+                                                       num_replicas=M,
+                                                       host_variates=hv).reshape(G, B, R, n)
+            frac_err = compare(got, want, f"{name} ({kernel}) at the H=3400 {how} step's call "
+                                          f"G={G} B={B} n={n} R={R} S={S} (its {solver} step "
+                                          "QUBOs, variates drawn on the card)", phase=10)
+            note(kernel, frac_err)
+            main_path[name] = {"kernel": kernel, "differing_chains": frac_err[0],
+                               "max_abs_err": frac_err[1]}
+            del hv, got, want
+        calls[how] = {"trainer": {k: {kk: vv for kk, vv in v.items() if kk != "qubos"}
+                                  for k, v in runs.items()},
+                      "kernel_of": kernel_of, "nonzero_couplings": nnz, "times_ms": times,
+                      "plain_ms": plain, "bounds": bounds, "changes": changes,
+                      "main_path_check": main_path}
+        del runs, Qs, hs
     turns = layout_turns(dev, smi)
     print(f"phase 10: {time.perf_counter() - t0:.1f} s")
-    return {"trainer": {k: {kk: vv for kk, vv in v.items() if kk != "qubos"}
-                        for k, v in runs.items()},
-            "anneal": anneal, "times_ms": times, "plain_ms": plain,
-            "bounds": {"anneal_wide_global": b4, "pt_wide_global": b5,
-                       "anneal_wide_global_with_fields": l4, "pt_wide_global_with_fields": l5},
-            "changes": {"anneal_wide_global": [int(v) for v in w4.tolist()],
-                        "pt_wide_global": [int(v) for v in w5.tolist()]},
+    return {"calls": calls, "anneal": anneal,
             "max_abs_err": {k: max(v) for k, v in errs.items()},
             "differing_chains": {k: max(v) for k, v in fracs.items()},
-            "main_path_check": main_path, "layout_turns": turns,
-            "seconds": time.perf_counter() - t0}
+            "layout_turns": turns, "seconds": time.perf_counter() - t0}
 
 
 def main() -> None:
@@ -1471,7 +1554,7 @@ def main() -> None:
                                   "K4 pair dense B=32 n=717 R=100 S=10"))
     check(wide_cuda.launch_counts["anneal_wide"] == 2, "K4 dense: not launched by the wrappers")
     del hv, init_wd, u_wd
-    # K4's shared layout at the widest n the rule gives it (5 chains a block)
+    # K4's shared layout at the widest n the rule gives it (31 chains a block)
     SX = dict(G=1, B=1, n=wide_cuda.switch_n(), R=200, S=2)
     Qx, hx, init_x, u_x = structured_problem(rng, *SX.values(), dev)
     args, hv = (Qx, hx, SX["R"], SX["S"]), (init_x, u_x)
@@ -1564,7 +1647,8 @@ def main() -> None:
     pt_wide_cuda.reset_launch_counts()
     out = pt_wide_cuda.pt_sample_groups(Qf, hf, R, S, num_replicas=M, host_variates=hv)
     torch.cuda.synchronize()
-    check(pt_wide_cuda.launch_counts == {"pt_wide": 1, "pt_wide_sparse": 0, "pt_wide_global": 0}
+    check(pt_wide_cuda.launch_counts == {"pt_wide": 1, "pt_wide_sparse": 0,
+                                         "pt_wide_global": 0, "pt_wide_global_sparse": 0}
           and pt_cuda.launch_counts["pt_heatbath"] == 0,
           f"K5 flat PT H=300: not served by the dense path alone ({pt_wide_cuda.launch_counts})")
     want = tempering.pt_sample_batch_plain(densify_groups(Qf, hf), R, S, num_replicas=M,
@@ -1588,7 +1672,8 @@ def main() -> None:
     pt_wide_cuda.reset_launch_counts()
     out = pt_wide_cuda.pt_sample_groups(Qs, hs, R, S, num_replicas=M, host_variates=hv)
     torch.cuda.synchronize()
-    check(pt_wide_cuda.launch_counts == {"pt_wide": 0, "pt_wide_sparse": 1, "pt_wide_global": 0}
+    check(pt_wide_cuda.launch_counts == {"pt_wide": 0, "pt_wide_sparse": 1,
+                                         "pt_wide_global": 0, "pt_wide_global_sparse": 0}
           and pt_cuda.launch_counts["pt_heatbath"] == 0,
           "K5 CDQBM (a) PT: not served by the sparse path alone")
     want = tempering.pt_sample_batch_plain(densify_groups(Qs, hs), R, S, num_replicas=M,
@@ -2094,7 +2179,8 @@ def main() -> None:
         end.synchronize()
         pt_steps.append(start.elapsed_time(end))
         check(math.isfinite(float(nll)), f"CDQBM (a) PT at anneal 1000: nll {float(nll)}")
-    check(pt_wide_cuda.launch_counts == {"pt_wide": 0, "pt_wide_sparse": 3, "pt_wide_global": 0},
+    check(pt_wide_cuda.launch_counts == {"pt_wide": 0, "pt_wide_sparse": 3,
+                                         "pt_wide_global": 0, "pt_wide_global_sparse": 0},
           f"CDQBM (a) PT at anneal 1000: K5's sparse path did not serve every step: "
           f"{pt_wide_cuda.launch_counts}")
     step_ms["CDQBM a PT anneal1000"] = statistics.median(pt_steps)
@@ -2400,7 +2486,8 @@ def main() -> None:
             pt_wide_cuda.reset_launch_counts()
             out = pt_wide_cuda.pt_sample_groups(Qsw, hsw, R, S, num_replicas=M, host_variates=hv)
             torch.cuda.synchronize()
-            check(pt_wide_cuda.launch_counts == {"pt_wide": 0, "pt_wide_sparse": 1, "pt_wide_global": 0}
+            check(pt_wide_cuda.launch_counts == {"pt_wide": 0, "pt_wide_sparse": 1,
+                                                 "pt_wide_global": 0, "pt_wide_global_sparse": 0}
                   and pt_cuda.launch_counts["pt_heatbath"] == 0,
                   f"K5 at the sweep's call: not served by the sparse path alone "
                   f"({pt_wide_cuda.launch_counts})")
@@ -2732,29 +2819,40 @@ def main() -> None:
          "sweep_launches": csweep_rec["a PT"]["launches"],
          "sweep_s100_bound_ms": bounds["pt_wide_sparse CDQBM (a) sweep G=20 S=100"]["bound_ms"]},
         *({"name": name, "route": "cuda", "source": src, "replaces": "qbmx/samplers/sa_pallas.py:196",
-           **({"also_replaces": "qbmx/samplers/sa_lane.py:144"} if name == "anneal_wide_global"
-              else {}),
+           **({"also_replaces": "qbmx/samplers/sa_lane.py:144"} if key == "k4" else {}),
            "layout": layout,
-           "launches": sum(r["launches"].get(name, 0) for r in wide_rec["trainer"].values()),
-           "launches_on": "qbm_main -hn 3400 " + solvers,
+           "launches": sum(r["launches"].get(name, 0)
+                           for r in wide_rec["calls"][how]["trainer"].values()),
+           "launches_on": f"qbm_main -hn 3400 {flag} " + solvers,
            "max_abs_err": wide_rec["max_abs_err"][name],
            "differing_chains": wide_rec["differing_chains"][name],
            "differing_chains_limit": MAX_DIFF_FRAC,
-           "ms": wide_rec["times_ms"][key], "plain_ms": wide_rec["plain_ms"][key],
-           "bound_ms": wide_rec["bounds"][name]["bound_ms"],
-           "bound_by": wide_rec["bounds"][name]["bound_by"], "library_ms": None,
-           "with_field_traffic_bound_ms": wide_rec["bounds"][f"{name}_with_fields"]["bound_ms"],
-           "step_ms": {s_: wide_rec["trainer"][s_]["step_ms"] for s_ in solvers.split()}}
-          for name, src, layout, key, solvers in (
+           "ms": wide_rec["calls"][how]["times_ms"][key],
+           "plain_ms": wide_rec["calls"][how]["plain_ms"][key],
+           "bound_ms": wide_rec["calls"][how]["bounds"][key]["bound_ms"],
+           "bound_by": wide_rec["calls"][how]["bounds"][key]["bound_by"], "library_ms": None,
+           **({"pair_ms": wide_rec["calls"][how]["times_ms"]["k4_pair"],
+               "pair_plain_ms": wide_rec["calls"][how]["plain_ms"]["k4_pair"],
+               "pair_bound_ms": wide_rec["calls"][how]["bounds"]["k4_pair"]["bound_ms"]}
+              if key == "k4" else {}),
+           "step_ms": {s_: wide_rec["calls"][how]["trainer"][s_]["step_ms"]
+                       for s_ in solvers.split()}}
+          for name, src, layout, key, how, flag, solvers in (
               ("anneal_wide_global", "qbmx_torch/csrc/anneal_wide.cu",
-               "global fields (n > 3368)", "k4", "SA BMS"),
+               "global fields, dense pass (n > 1056)", "k4", "dense", "-r False", "SA BMS"),
+              ("anneal_wide_global_sparse", "qbmx_torch/csrc/anneal_wide.cu",
+               "global fields, sparse pass (n > 1056, J_g at most SPARSE_DENSITY nonzeros)", "k4",
+               "restricted", "(restricted)", "SA BMS"),
               ("pt_wide_global", "qbmx_torch/csrc/pt_wide.cu",
-               "global path (n > 3368 or a ladder past a cluster; S + 1 launches a call)", "k5",
-               "PT"))),
+               "global path, dense pass (n > 1416 off the sparse path, or a ladder past a "
+               "cluster; S + 1 launches a call)", "k5", "dense", "-r False", "PT"),
+              ("pt_wide_global_sparse", "qbmx_torch/csrc/pt_wide.cu",
+               "global path, sparse pass (as pt_wide_global, J_g at most SPARSE_DENSITY "
+               "nonzeros; S + 1 launches a call)", "k5", "restricted", "(restricted)", "PT"))),
     ], "step_ms": step_ms, "cdqbm_launches": cdqbm_launches, "sweeps": sweep_rec,
         "cdqbm_sweeps": csweep_rec, "resume": resume_rec, "rbm": rbm_rec,
         "host_seams": host_rec, "mesh": mesh_rec,
-        "wide": {k: v for k, v in wide_rec.items() if k not in ("times_ms", "plain_ms")}}
+        "wide": wide_rec}
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -62,8 +62,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # inv_span, seed, width, lanes, stream
         "qbmx_sa_heatbath": [p] * 9 + [i] * 5 + [f, u64, i, i, p],
         # J, row_nnz, h, hot, logr, init01, uniforms, out, fields_out, flips, fscr, sscr,
-        # G, B, R, n, S, inv_span, seed, rule, chains, stream
-        "qbmx_anneal_wide": [p] * 12 + [i] * 5 + [f, u64, i, i, p],
+        # vals, cols, offsets, nnz_pad, G, B, R, n, S, inv_span, seed, rule, chains, stream
+        "qbmx_anneal_wide": [p] * 15 + [i] * 6 + [f, u64, i, i, p],
         # J, h, betas, dbeta, init01, uniforms, swap_u, out, B, M, R, n, S, seed, layout,
         # stream
         "qbmx_pt_heatbath": [p] * 8 + [i] * 5 + [u64, i, p],
@@ -71,9 +71,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # fields_out, energy_out, flips, G, B, M, R, n, S, seed, ladders, cluster, stream
         "qbmx_pt_wide": [p] * 13 + [i] * 6 + [u64, i, i, p],
         # J, row_nnz, h, betas, dbeta, init01, uniforms, swap_u, out, states_out,
-        # fields_out, energy_out, flips, fields, state, energies, rho, G, B, M, R, n, S,
-        # seed, warps, var_shift, stream
-        "qbmx_pt_wide_global": [p] * 17 + [i] * 6 + [u64, i, i, p],
+        # fields_out, energy_out, flips, fields, state, energies, rho, vals, cols, offsets,
+        # nnz_pad, G, B, M, R, n, S, seed, warps, var_shift, stream
+        "qbmx_pt_wide_global": [p] * 20 + [i] * 7 + [u64, i, i, p],
         # vals, cols, offsets, h, betas, dbeta, init01, uniforms, swap_u, out, states_out,
         # fields_out, energy_out, flips, G, B, M, R, n, S, seed, nnz_pad, ladders, cluster,
         # stream
@@ -96,8 +96,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                            ("qbmx_pt_wide_max_active_clusters", [i, i, i, i])):  # n, M, K, nnz_pad
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = i
-    lib.qbmx_anneal_wide_global_smem.argtypes = [i]  # n
-    lib.qbmx_pt_wide_global_smem.argtypes = [i]  # n
+    lib.qbmx_anneal_wide_global_smem.argtypes = [i, i]  # chains, sparse
+    lib.qbmx_pt_wide_global_smem.argtypes = [i, i]  # warps, sparse
     for fn in (lib.qbmx_anneal_wide_smem, lib.qbmx_pt_heatbath_smem, lib.qbmx_pt_wide_smem,
                lib.qbmx_pt_wide_sparse_smem, lib.qbmx_anneal_wide_global_smem,
                lib.qbmx_pt_wide_global_smem):

@@ -1,15 +1,19 @@
-"""Time the parallel-tempering kernel K5 (``pt_wide.cu``) and the wide
-anneal K4 (``anneal_wide.cu``) of this tree against their sources at the
-parent commit 492df98 (K5 streaming J_g in tiles, whole ladders a block;
-K4 before its per-row work counter), on one GPU, in one process, in turns
-(old, new, new, old).
+"""Time the port's wide kernels against their sources at earlier commits,
+on one GPU, in one process, in turns (old, new, new, old): K5
+(``pt_wide.cu``) and K4 (``anneal_wide.cu``) against commit 492df98 (K5
+streaming J_g in tiles, whole ladders a block; K4 before its per-row work
+counter), and K4's and K5's global-field layouts against commit 210c6d7
+(before their windows and sparse field pass).
 
     mkdir -p build/old && git archive 492df98 qbmx_torch/csrc | tar -x -C build/old
-    python -m qbmx_torch.cli.compare_kernels --old build/old/qbmx_torch/csrc
+    python -m qbmx_torch.cli.compare_kernels --old build/old/qbmx_torch/csrc --parts k5 k4
+    mkdir -p build/old/210c6d7 && git archive 210c6d7 qbmx_torch/csrc | tar -x -C build/old/210c6d7
+    python -m qbmx_torch.cli.compare_kernels --parent build/old/210c6d7/qbmx_torch/csrc \
+        --parts split global density split_new
 
-The old library is declared with that commit's C interface, so the tool
-compares against 492df98's sources only; they are built with the same
-``nvcc`` flags into ``build/kernels_old/``.  Parts (``--parts``, all by
+Each old library is declared with its commit's C interface, so the tool
+compares against those commits' sources only; they are built with the
+same ``nvcc`` flags into ``build/kernels_*/``.  Parts (``--parts``, all by
 default):
 
 * ``k5``: old against new in Philox mode at the CDQBM (a) PT call (G=2,
@@ -29,7 +33,19 @@ default):
   deep shape (n = 301, S = 70, heat-bath at beta 1.5; G=1, B=4, R=500,
   three seeds), this K4 against this K4 built with
   ``-DQBMX_K4_REFRESH_PERIOD=1`` (into ``build/kernels_refresh1/``: every
-  field recomputed just before its decision).
+  field recomputed just before its decision);
+* ``split``: 210c6d7's global layouts (K4 Metropolis and pair, K5 M=8) at
+  both H=3400 step calls (``h3400_qubos``: restricted, and ``-r False``),
+  each timed whole, without its field pass and with its loads alone
+  (``build_split``), and its chain-tiles with a change counted;
+* ``global``: 210c6d7's global layouts against this tree's, in turns, at
+  both H=3400 calls (the new ones on the pass the density rule picks and
+  on the other, forced) and at n = 4096 and 8192 on 256 chains;
+* ``density``: this tree's sparse field pass against its dense one at n =
+  3401 across densities of J_g (``DENSITIES``), in turns: the tie that
+  ``wide_cuda.SPARSE_DENSITY`` rests on;
+* ``split_new``: ``split`` for this tree's global layouts, through the
+  wrappers (on the pass the density rule picks).
 
 Each turn is the median of ``--runs`` CUDA-event timings after a warm-up.
 Prints one line per measurement, the ``nvidia-smi`` name and power limit,
@@ -39,6 +55,7 @@ and last one JSON object with every number.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import statistics
@@ -56,7 +73,13 @@ from qbmx_torch.samplers import (gibbs, gibbs_cuda, kernel_call, pt_cuda, pt_wid
                                  sa_torch, wide_cuda)
 from qbmx_torch.utils.roofline import anneal_bound, heatbath_units
 
-PARTS = ("k5", "k4", "layouts", "k4_agreement")
+PARTS = ("k5", "k4", "layouts", "k4_agreement", "split", "global", "density", "split_new")
+OLD_PARTS = ("k5", "k4", "k4_agreement")  # the parts that build 492df98's sources (--old)
+PARENT = "210c6d7"  # the global layouts before their redesign
+PARENT_PARTS = ("split", "global")  # the parts that build its sources (--parent)
+# the global part's shapes past the H=3400 calls: label -> (G, B, R, M, n, S), 256 chains
+GLOBAL_WIDE = {"n=4096": (1, 2, 128, 16, 4096, 5), "n=8192": (1, 2, 128, 16, 8192, 5)}
+DENSITIES = (0.005, 0.01, 0.02, 0.04, 0.08)  # the density part's J_g, at n = 3401
 K5_CALL = dict(G=2, B=20, M=8, R=100, n=717)  # the CDQBM (a) PT call
 K4_SHAPES = {  # label: (rule, G, B, n, R, S)
     "K4 Metropolis CDQBM (a) G=2 B=20 n=717 R=100 S=1000": (0, 2, 20, 717, 100, 1000),
@@ -100,18 +123,25 @@ def build_libs(old_csrc: Path) -> tuple[ctypes.CDLL, ctypes.CDLL]:
     return old, refresh1
 
 
-def problem(rng, width, G, B, n, S, dev, beta=1.0):
-    """(Q, h_extra) random QUBOs and (J, h, hot, logr) scheduled as the
-    wrappers do: Metropolis at width 0, heat-bath at ``beta`` otherwise."""
-    Q = random_qubo_batch(rng, G, n).to(dev)
-    h_extra = torch.as_tensor(rng.normal(size=(G, B, n)).astype(np.float32), device=dev)
+def anneal_form(Q, h_extra, S, width, beta=1.0):
+    """(J, h, hot, logr) as the wrappers hand ``Q`` (G, n, n) and
+    ``h_extra`` (G, B, n) to K4: Metropolis at width 0, heat-bath at
+    ``beta`` otherwise."""
     hs, J = split_qubo(Q)
     h = (hs[:, None, :] + h_extra).contiguous()
     if width == 0:
         hot, logr = sa_torch.schedule_params(h, J[:, None], S)
     else:
         hot, logr = gibbs.heat_bath_schedule(h, J[:, None], S, beta)
-    return (Q, h_extra), (J.contiguous(), h, hot, logr)
+    return J.contiguous(), h, hot, logr
+
+
+def problem(rng, width, G, B, n, S, dev, beta=1.0):
+    """(Q, h_extra) random QUBOs and (J, h, hot, logr) scheduled as the
+    wrappers do (``anneal_form``)."""
+    Q = random_qubo_batch(rng, G, n).to(dev)
+    h_extra = torch.as_tensor(rng.normal(size=(G, B, n)).astype(np.float32), device=dev)
+    return (Q, h_extra), anneal_form(Q, h_extra, S, width, beta)
 
 
 def median_ms(fn, runs: int) -> float:
@@ -300,18 +330,351 @@ def k4_agreement(refresh1, dev) -> dict:
     return records
 
 
+def h3400_qubos(restricted: bool, dev, B: int = 20, seed: int = 3400):
+    """The step QUBOs of ``qbm_main -hn 3400`` (n = 3401, a batch of B
+    random images; its two groups, clamped and unclamped): restricted, J_g
+    all zeros but the output row and column (``qm.main``'s default), or as
+    the CLI runs it (``-r False``, its default), a dense strictly-upper
+    ``w_hh``.  (Q2 (2, n, n), h2 (2, B, n)), untrained parameters."""
+    from qbmx_torch.models.dqbm import DiscQBM
+
+    m = DiscQBM(dim_input=784, n_hidden_nodes=3400, sample_count=100, anneal_steps=5,
+                restricted=restricted, seed=seed, device=dev)
+    x = torch.as_tensor(np.random.default_rng(seed).random((B, 784), dtype=np.float32),
+                        device=dev)
+    return m.step_qubos(m.params, x, m._label_vec(torch.arange(B, device=dev) % 2))
+
+
+# the split variants of the parent's global layouts: (decisions, field pass)
+SPLIT_VARIANTS = {"full": (1, 1), "no_field_pass": (1, 0), "loads_only": (0, 0)}
+# text of anneal_tiles.cuh -> the split build's (each found once): the parent's,
+# whose counting build counts the chain-tiles with a change in place of the
+# nonzeros of the changed rows, and this tree's
+SPLIT_PATCH = (
+    ("      if (active && c == 0) {    // the tile's decisions",
+     "      if (QBMX_SPLIT_DECIDE && active && c == 0) {    // the tile's decisions"),
+    ("      if (active && any) {  // the tile's changes onto the chunk's other fields",
+     "      if (COUNT && active && any && c == 0) ++work;  // a tile with a change\n"
+     "      if (QBMX_SPLIT_PASS && active && any) {  // the tile's changes"),
+    ("    count_rows<M, COUNT>(nnz, i0 + rr, d, work);\n    if (refresh) __syncwarp();",
+     "    if (refresh) __syncwarp();"),
+)
+SPLIT_PATCH_NEW = (
+    ("      changed += window_decisions<RULE, SPARSE, COUNT>(",
+     "      if (QBMX_SPLIT_DECIDE) changed += window_decisions<RULE, SPARSE, COUNT>("),
+    ("      if (active && count > 0) sparse_pass(",
+     "      if (QBMX_SPLIT_PASS && active && count > 0) sparse_pass("),
+    ("        if (active && count > 0)\n          dense_chunk(",
+     "        if (QBMX_SPLIT_PASS && active && count > 0)\n          dense_chunk("),
+)
+
+
+def build_split(csrc: Path, patch: tuple, tag: str) -> dict:
+    """K4 and K5 from ``csrc`` built three ways (``SPLIT_VARIANTS``): whole,
+    without the field pass, and without the decisions too (the loads of J_g
+    and of the fields, their barriers, the launch, init and outputs), by
+    the text ``patch``; the libraries are declared with the parent's C
+    interface (``tag`` ``PARENT``) or this tree's."""
+    import shutil
+
+    jobs = {}
+    for name, (decide, pass_) in SPLIT_VARIANTS.items():
+        src = _build.BUILD_DIR.parent / f"split_{tag}_{name}" / "csrc"
+        shutil.rmtree(src, ignore_errors=True)
+        shutil.copytree(csrc, src)
+        text = (src / "anneal_tiles.cuh").read_text()
+        for old_text, new_text in patch:
+            if text.count(old_text) != 1:
+                raise SystemExit(f"compare_kernels: {csrc} is not the {tag} tree's csrc")
+            text = text.replace(old_text, new_text)
+        (src / "anneal_tiles.cuh").write_text(text)
+        jobs[name] = build(f"kernels_split_{tag}_{name}",
+                           [src / "anneal_wide.cu", src / "pt_wide.cu"],
+                           (f"-DQBMX_SPLIT_DECIDE={decide}", f"-DQBMX_SPLIT_PASS={pass_}"))
+    _build._run_all([c for compile_, _ in jobs.values() for c in compile_])
+    _build._run_all([link for _, link in jobs.values()])
+    libs = {}
+    p, i, f, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_ulonglong
+    for name, (_, link) in jobs.items():
+        lib = ctypes.CDLL(link[link.index("-o") + 1])
+        if tag == PARENT:
+            lib.qbmx_anneal_wide.argtypes = [p] * 12 + [i] * 5 + [f, u64, i, i, p]
+            lib.qbmx_pt_wide_global.argtypes = [p] * 17 + [i] * 6 + [u64, i, i, p]
+            lib.qbmx_anneal_wide.restype = lib.qbmx_pt_wide_global.restype = i
+        else:
+            for fn in ("qbmx_anneal_wide", "qbmx_pt_wide_global"):
+                getattr(lib, fn).argtypes = getattr(_build.load_kernels(), fn).argtypes
+                getattr(lib, fn).restype = i
+        libs[name] = lib
+    return libs
+
+
+@contextlib.contextmanager
+def kernels_from(lib):
+    """The wrappers launch from ``lib`` (a split build of this tree) inside."""
+    saved = _build._lib
+    _build._lib = lib
+    try:
+        yield
+    finally:
+        _build._lib = saved
+
+
+def parent_k4_global(lib, J, h, hot, logr, R, S, rule, flips=None):
+    """K4's global-field layout from a build of the parent's sources, by
+    its C interface, on 31 chains a block (the rule's at 4,000 chains)."""
+    G, B, n = h.shape
+    frow = wide_cuda.global_row_floats(n)
+    Jp = F.pad(J, (0, frow - n)).contiguous()
+    fscr = torch.zeros((G * B * R, frow), dtype=torch.float32, device=h.device)
+    sscr = torch.zeros((G * B * R, frow), dtype=torch.uint8, device=h.device)
+    out = torch.empty((G, B, R, n), device=h.device)
+    nnz = None if flips is None else pt_wide_cuda.row_nnz(J)
+    kernel_call.check_rc("parent anneal_wide global", lib.qbmx_anneal_wide(
+        Jp.data_ptr(), None if nnz is None else nnz.data_ptr(), h.data_ptr(), hot.data_ptr(),
+        logr.data_ptr(), None, None, out.data_ptr(), None,
+        None if flips is None else flips.data_ptr(), fscr.data_ptr(), sscr.data_ptr(),
+        G, B, R, n, S, ctypes.c_float(sa_torch.inv_span(S)), 7, rule,
+        wide_cuda.layout_geometry(G, B, R, n, wide_cuda.GLOBAL).chains_per_block,
+        kernel_call.stream(h.device)))
+    return out
+
+
+def parent_k5_global(lib, J, h, betas, dbeta, R, S, flips=None):
+    """K5's global path from a build of the parent's sources (S + 1 launches)."""
+    G, B, n = h.shape
+    M = betas.shape[-1]
+    frow, states = wide_cuda.global_row_floats(n), G * B * R * M
+    Jp = F.pad(J, (0, frow - n)).contiguous()
+    fields = torch.zeros((states, frow), dtype=torch.float32, device=h.device)
+    state = torch.zeros((states, frow), dtype=torch.uint8, device=h.device)
+    energies = torch.empty((2, states), dtype=torch.float32, device=h.device)
+    rho = torch.empty((states,), dtype=torch.int32, device=h.device)
+    out = torch.empty((G, B, R, n), device=h.device)
+    nnz = None if flips is None else pt_wide_cuda.row_nnz(J)
+    kernel_call.check_rc("parent pt_wide_global", lib.qbmx_pt_wide_global(
+        Jp.data_ptr(), None if nnz is None else nnz.data_ptr(), h.data_ptr(), betas.data_ptr(),
+        dbeta.data_ptr(), None, None, None, out.data_ptr(), None, None, None,
+        None if flips is None else flips.data_ptr(), fields.data_ptr(), state.data_ptr(),
+        energies.data_ptr(), rho.data_ptr(), G, B, M, R, n, S, 7,
+        pt_wide_cuda.global_warps(G, B, M, R), pt_wide_cuda.var_shift(n),
+        kernel_call.stream(h.device)))
+    return out
+
+
+def time_split(libs: dict, parent: bool, runs: int, dev) -> dict:
+    """The global layouts' K4 (Metropolis, pair) and K5 (M=8) at both H=3400
+    calls, from each of ``build_split``'s builds ``libs``: whole, without
+    the field pass, and with the loads alone, in the order whole, no pass,
+    loads, loads, no pass, whole (the mean of each one's two medians), the
+    whole one also at S=1 (its refresh sweep alone); and, by the whole
+    counting build, the changes and -- ``parent``, 210c6d7's build by its C
+    interface -- the (chain, tile) pairs with a change, or -- this tree's,
+    through the wrappers on the pass the density rule picks -- the
+    nonzeros of the changed rows."""
+    R, S, M = 100, 5, 8
+    gen = lambda: torch.Generator().manual_seed(7)
+    records = {}
+    for restricted in (True, False):
+        Qs, hs = h3400_qubos(restricted, dev)
+        G, B, n = hs.shape
+        call = "restricted" if restricted else "dense (-r False)"
+        for kernel in ("K4 Metropolis", "K4 pair", f"K5 M={M}"):
+            if kernel.startswith("K4"):
+                rule = wide_cuda.METROPOLIS if kernel == "K4 Metropolis" else wide_cuda.PAIR
+                J, h, hot, logr = anneal_form(Qs, hs, S, rule)
+                launch = (lambda lib, S, flips: parent_k4_global(lib, J, h, hot, logr, R, S, rule,
+                                                                 flips)) if parent else \
+                    (lambda lib, S, flips: wide_cuda.launch(J, h, hot, logr, R, S, rule,
+                                                            generator=gen(), flips=flips))
+            else:
+                J, h, betas, dbeta = pt_wide_cuda.structured_form(Qs, hs, M)
+                launch = (lambda lib, S, flips: parent_k5_global(lib, J, h, betas, dbeta, R, S,
+                                                                 flips)) if parent else \
+                    (lambda lib, S, flips: pt_wide_cuda.launch(J, h, betas, dbeta, R, S,
+                                                               generator=gen(), flips=flips))
+
+            def run(name, S=S, flips=None):
+                with kernels_from(libs[name]):  # the wrappers launch from this build
+                    return launch(libs[name], S, flips)
+
+            times = {name: [] for name in SPLIT_VARIANTS}
+            for name in [*SPLIT_VARIANTS, *reversed(SPLIT_VARIANTS)]:
+                times[name].append(median_ms(lambda: run(name), runs))
+            rec = {name: statistics.mean(v) for name, v in times.items()}
+            rec["full_S1"] = median_ms(lambda: run("full", 1), runs)
+            flips = torch.zeros(2, dtype=torch.int64, device=dev)
+            run("full", flips=flips)
+            torch.cuda.synchronize()
+            second = "tiles_with_a_change" if parent else "flip_work"
+            rec["changes"], rec[second] = (int(v) for v in flips.tolist())
+            rec["field_pass_ms"] = rec["full"] - rec["no_field_pass"]
+            rec["decisions_ms"] = rec["no_field_pass"] - rec["loads_only"]
+            if parent:
+                tiles = G * B * R * (M if kernel.startswith("K5") else 1) * S * -(-n // 8)
+                counted = f"{rec[second]} of {tiles} chain-tiles with a change"
+                where = PARENT
+            else:
+                counted = f"{rec[second]} nonzeros of their rows"
+                where = "this tree, the " + ("sparse" if wide_cuda.sparse_pass(
+                    pt_wide_cuda.row_nnz(J), n) else "dense") + " pass"
+            records[f"{kernel}, {call}"] = rec
+            print(f"split {kernel} global ({where}), H=3400 {call} call (G={G} B={B} n={n} R={R} "
+                  f"S={S}): whole {rec['full']:.3f} ms = field pass {rec['field_pass_ms']:.3f} + "
+                  f"decisions {rec['decisions_ms']:.3f} + loads, barriers and the rest "
+                  f"{rec['loads_only']:.3f} ms; at S=1 (its refresh sweep) {rec['full_S1']:.3f} ms; "
+                  f"{rec['changes']} changes, {counted} (CUDA events, median of {runs}, each "
+                  "variant twice in turns)", flush=True)
+        del Qs, hs
+    return records
+
+
+def build_parent(parent_csrc: Path) -> ctypes.CDLL:
+    """The parent's K4 and K5, as they are, declared with their C interface."""
+    compile_, link = build("kernels_parent", [parent_csrc / "anneal_wide.cu",
+                                              parent_csrc / "pt_wide.cu"])
+    _build._run_all(compile_)
+    _build._run_all([link])
+    lib = ctypes.CDLL(link[link.index("-o") + 1])
+    p, i, f, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_ulonglong
+    lib.qbmx_anneal_wide.argtypes = [p] * 12 + [i] * 5 + [f, u64, i, i, p]
+    lib.qbmx_pt_wide_global.argtypes = [p] * 17 + [i] * 6 + [u64, i, i, p]
+    lib.qbmx_anneal_wide.restype = lib.qbmx_pt_wide_global.restype = i
+    return lib
+
+
+def global_calls(dev) -> dict:
+    """The global part's calls: label -> (Q, h_extra, R, M, S): both H=3400
+    step calls (G=2 B=20 R=100 n=3401 S=5; K5 at M=8, 32,000 rungs) and
+    random dense QUBOs at n = 4096 and 8192 (K4 on 256 chains, K5 on 256
+    rungs: M=8 over 32 ladders)."""
+    calls = {}
+    for restricted in (True, False):
+        Q, he = h3400_qubos(restricted, dev)
+        calls["H=3400 " + ("restricted" if restricted else "dense (-r False)")] = (Q, he, 100,
+                                                                                  8, 5)
+    rng = np.random.default_rng(4096)
+    for label, (G, B, R, Rk5, n, S) in GLOBAL_WIDE.items():
+        Q = random_qubo_batch(rng, G, n).to(dev)
+        he = torch.as_tensor(rng.normal(size=(G, B, n)).astype(np.float32), device=dev)
+        calls[label] = (Q, he, R, 8, S, Rk5)
+    return calls
+
+
+def time_global(parent_csrc: Path, runs: int, dev) -> dict:
+    """The parent's global layouts (K4 Metropolis and pair, K5) against this
+    tree's, in turns (parent, new, new, parent) at ``global_calls``; the new
+    ones on the pass the density rule picks, and at the H=3400 calls also on
+    the other pass, forced; each call's changes and the nonzeros of their
+    rows counted once, for the bound (``qbmx_torch.utils.roofline``)."""
+    parent = build_parent(parent_csrc)
+    gen = lambda: torch.Generator().manual_seed(7)
+    records = {}
+    for label, (Q, he, R, M, S, *rk5) in global_calls(dev).items():
+        G, B, n = he.shape
+        J0 = split_qubo(Q)[1]
+        rule_pass = "sparse" if wide_cuda.sparse_pass(pt_wide_cuda.row_nnz(J0), n) else "dense"
+        other = {"sparse": "dense", "dense": "sparse"}[rule_pass]
+        passes = (rule_pass, other) if label.startswith("H=3400") else (rule_pass,)
+        for kernel in ("K4 Metropolis", "K4 pair", f"K5 M={M}"):
+            if kernel.startswith("K4"):
+                rule = wide_cuda.METROPOLIS if kernel == "K4 Metropolis" else wide_cuda.PAIR
+                J, h, hot, logr = anneal_form(Q, he, S, rule)
+                geo = wide_cuda.layout_geometry(G, B, R, n, wide_cuda.GLOBAL)
+                old = lambda: parent_k4_global(parent, J, h, hot, logr, R, S, rule)
+                new = lambda fp, **kw: wide_cuda.launch(J, h, hot, logr, R, S, rule,
+                                                        generator=gen(), geometry=geo,
+                                                        field_pass=fp, **kw)
+                rungs, Rc = 1, R
+            else:
+                Rc = rk5[0] if rk5 else R
+                J, h, betas, dbeta = pt_wide_cuda.structured_form(Q, he, M)
+                old = lambda: parent_k5_global(parent, J, h, betas, dbeta, Rc, S)
+                new = lambda fp, **kw: pt_wide_cuda.launch(
+                    J, h, betas, dbeta, Rc, S, generator=gen(), path=pt_wide_cuda.GLOBAL,
+                    field_pass=fp, **kw)
+                rungs = M
+            flips = torch.zeros(2, dtype=torch.int64, device=dev)
+            new(rule_pass, flips=flips)
+            torch.cuda.synchronize()
+            changed, work = (int(v) for v in flips.tolist())
+            bound = anneal_bound(G, B, Rc, n, S, rungs=rungs, flip_work=work,
+                                 decisions=G * B * Rc * rungs * S *
+                                 (heatbath_units(n, 2) if kernel == "K4 pair" else n))
+            rec = {"flips": changed, "flip_work": work, "rule_pass": rule_pass, **bound}
+            for fp in passes:
+                rec[f"parent_ms vs {fp}"], rec[f"{fp}_ms"] = turns(old, lambda fp=fp: new(fp),
+                                                                   runs)
+                print(f"global {kernel} {label} (G={G} B={B} R={Rc} n={n} S={S}): parent "
+                      f"{rec[f'parent_ms vs {fp}'][0]:.3f} / {rec[f'parent_ms vs {fp}'][1]:.3f} "
+                      f"ms, new {fp} pass{' (the rule)' if fp == rule_pass else ' (forced)'} "
+                      f"{rec[f'{fp}_ms'][0]:.3f} / {rec[f'{fp}_ms'][1]:.3f} ms (CUDA events, "
+                      f"median of {runs} each, turns parent new new parent); {changed} changes, "
+                      f"{work} nonzeros of their rows; bound {bound['bound_ms']:.4f} ms by "
+                      f"{bound['bound_by']}", flush=True)
+            records[f"{kernel}, {label}"] = rec
+    return records
+
+
+def time_density(runs: int, dev) -> dict:
+    """The density rule's tie: at n = 3401 (the H=3400 step's G=2 B=20 R=100
+    S=5, K5 at M=8) on random QUBOs whose couplings are ``DENSITIES`` of
+    nonzeros, each kernel with its sparse pass and its dense pass forced, in
+    turns (sparse, dense, dense, sparse)."""
+    G, B, R, n, S, M = 2, 20, 100, 3401, 5, 8
+    gen = lambda: torch.Generator().manual_seed(7)
+    rng = np.random.default_rng(3401)
+    records = {}
+    for density in DENSITIES:
+        Q = random_qubo_batch(rng, G, n).to(dev)
+        keep = torch.as_tensor(rng.random((G, n, n)) < density, device=dev)
+        Q = torch.where(keep | torch.eye(n, dtype=torch.bool, device=dev), Q, torch.zeros_like(Q))
+        he = torch.as_tensor(rng.normal(size=(G, B, n)).astype(np.float32), device=dev)
+        counts = pt_wide_cuda.row_nnz(split_qubo(Q)[1])
+        share = int(counts.sum(-1).max()) / (n * n)
+        for kernel in ("K4 Metropolis", "K4 pair", f"K5 M={M}"):
+            if kernel.startswith("K4"):
+                rule = wide_cuda.METROPOLIS if kernel == "K4 Metropolis" else wide_cuda.PAIR
+                J, h, hot, logr = anneal_form(Q, he, S, rule)
+                run = lambda fp: wide_cuda.launch(J, h, hot, logr, R, S, rule, generator=gen(),
+                                                  field_pass=fp)
+            else:
+                J, h, betas, dbeta = pt_wide_cuda.structured_form(Q, he, M)
+                run = lambda fp: pt_wide_cuda.launch(J, h, betas, dbeta, R, S, generator=gen(),
+                                                     path=pt_wide_cuda.GLOBAL, field_pass=fp)
+            sparse_ms, dense_ms = turns(lambda: run("sparse"), lambda: run("dense"), runs)
+            records[f"{kernel}, density {density}"] = {
+                "share": share, "sparse_ms": sparse_ms, "dense_ms": dense_ms,
+                "rule": "sparse" if wide_cuda.sparse_pass(counts, n) else "dense"}
+            print(f"density {kernel} n={n} G={G} B={B} R={R} S={S}: J_g {share:.4f} nonzeros "
+                  f"(the densest group): sparse pass {sparse_ms[0]:.3f} / {sparse_ms[1]:.3f} ms, "
+                  f"dense pass {dense_ms[0]:.3f} / {dense_ms[1]:.3f} ms (turns sparse dense "
+                  f"dense sparse, median of {runs}); the rule (SPARSE_DENSITY "
+                  f"{wide_cuda.SPARSE_DENSITY}) takes the "
+                  f"{records[f'{kernel}, density {density}']['rule']} pass", flush=True)
+        del Q, he, keep
+    return records
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--old", type=Path, required=True,
-                    help="qbmx_torch/csrc directory of commit 492df98")
+    ap.add_argument("--old", type=Path,
+                    help=f"qbmx_torch/csrc directory of commit 492df98 (parts {OLD_PARTS})")
+    ap.add_argument("--parent", type=Path,
+                    help=f"qbmx_torch/csrc directory of commit {PARENT} (parts {PARENT_PARTS})")
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--parts", nargs="+", choices=PARTS, default=list(PARTS))
     args = ap.parse_args(argv)
+    for flag, needed in (("old", OLD_PARTS), ("parent", PARENT_PARTS)):
+        if getattr(args, flag) is None and set(needed) & set(args.parts):
+            ap.error(f"--{flag} is needed for the parts {sorted(set(needed) & set(args.parts))}")
     if not torch.cuda.is_available():
         raise SystemExit("compare_kernels: needs a CUDA GPU")
     dev = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain version in full float32
-    old, refresh1 = build_libs(args.old)
+    old = refresh1 = None
+    if set(OLD_PARTS) & set(args.parts):
+        old, refresh1 = build_libs(args.old)
     _build.load_kernels()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -319,7 +682,14 @@ def main(argv=None) -> dict:
     for part, run in (("k5", lambda: time_k5(old, args.runs, dev)),
                       ("k4", lambda: time_k4(old, args.runs, dev)),
                       ("layouts", lambda: time_layouts(args.runs, dev)),
-                      ("k4_agreement", lambda: k4_agreement(refresh1, dev))):
+                      ("k4_agreement", lambda: k4_agreement(refresh1, dev)),
+                      ("split", lambda: time_split(build_split(args.parent, SPLIT_PATCH, PARENT),
+                                                   True, args.runs, dev)),
+                      ("global", lambda: time_global(args.parent, args.runs, dev)),
+                      ("density", lambda: time_density(args.runs, dev)),
+                      ("split_new", lambda: time_split(
+                          build_split(_build.CSRC, SPLIT_PATCH_NEW, "this tree"), False,
+                          args.runs, dev))):
         if part in args.parts:
             result[part] = run()
     print(smi)

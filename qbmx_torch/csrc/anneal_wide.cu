@@ -69,16 +69,20 @@
 // (G,n), J_g's nonzeros a row, from the wrapper), the work a change takes
 // on a sparse J (for chip_smoke.py's drift check and bound).
 //
-// Past n = 3368, where one chain's fields and state no longer fit a block
-// beside two tiles, the global-field layout (anneal_global_kernel) keeps
-// them in a scratch buffer in global memory that the wrapper allocates,
-// (G*B*R, n rounded up to 8) floats and as many state bytes, and streams
-// J_g's rows through shared memory in 8-row tiles cut to column chunks of
-// at most 3624 floats (anneal_tiles.cuh's sweep_global): the same
-// decisions, fields and streams as the shared layout, bit for bit, at any
-// n the card's memory holds.  samplers/wide_cuda.py::wide_geometry picks
-// the shared layout up to n = 2608, where a block still holds 5 chains,
-// and the global-field one past it, where it is as fast or faster.
+// Past n = 1056 (samplers/wide_cuda.py::wide_geometry; the shared layout
+// holds up to 3368, but past 1056 a block holds fewer than 31 chains and it
+// stops paying) the global-field layout (anneal_global_kernel) keeps each
+// chain's fields and state bytes in a scratch buffer in global memory that
+// the wrapper allocates, (G*B*R, n rounded up to 8) floats and as many
+// state bytes, and walks J_g in windows of 128 rows (anneal_tiles.cuh's
+// sweep_global): the window's fields read once into shared memory beside
+// its 128x128 diagonal block, the decisions there, then one pass of the
+// window's changes onto the chain's other fields in global memory -- the
+// dense pass streaming the window's rows of J_g in chunks, or, where J_g is
+// sparse (the wrapper's density rule, wide_cuda.sparse_pass), the sparse
+// pass over the changed rows' nonzeros from J_g's row lists
+// (pt_wide_cuda.row_lists).  The same decisions, fields and streams as the
+// shared layout, bit for bit, at any n the card's memory holds.
 //
 // The tiles, fields and units live in anneal_tiles.cuh, which pt_wide.cu
 // (K5, parallel tempering past shared memory) shares.
@@ -94,17 +98,19 @@
 
 namespace {
 
-using qbmx::GlobalLayout;
 using qbmx::global_layout_of;
-using qbmx::kDiag;
+using qbmx::GlobalLayout;
+using qbmx::GlobalSmem;
 using qbmx::kInitTag;
 using qbmx::kLanes;
 using qbmx::kRows;
 using qbmx::Layout;
 using qbmx::layout_of;
-using qbmx::load_chunk;
+using qbmx::load_diag;
 using qbmx::load_tile;
+using qbmx::offsets_len;
 using qbmx::philox4x32_10;
+using qbmx::RowLists;
 using qbmx::sweep_global;
 using qbmx::sweep_tiles;
 using qbmx::SweepUniforms;
@@ -207,23 +213,25 @@ anneal_wide_kernel(const float* __restrict__ J, const float* __restrict__ h,
 
 // The kernel in the global-field layout (header): each chain's fields
 // (fscr) and state words (sscr) in its row of the scratch buffers, chain
-// (g, b·R + r) at row g·B·R + b·R + r; J rows padded to n rounded up to 8.
-template <int RULE, bool COUNT>
+// (g, b·R + r) at row g·B·R + b·R + r; J rows padded to n rounded up to 8;
+// SPARSE: the sparse pass on the group's row lists (nnz_pad entries a
+// group), else the dense pass.
+template <int RULE, bool SPARSE, bool COUNT>
 __global__ void __launch_bounds__(kMaxChains * kLanes)
 anneal_global_kernel(const float* __restrict__ J, const float* __restrict__ h,
                      const float* __restrict__ hot, const float* __restrict__ logr,
                      const float* __restrict__ init01, const float* __restrict__ uniforms,
                      float* __restrict__ out, float* __restrict__ fields_out,
                      unsigned long long* __restrict__ flips, const int* __restrict__ row_nnz,
-                     float* fscr, uint32_t* sscr, int G, int B, int R, int n, int S,
-                     float inv_span, uint32_t seed_lo, uint32_t seed_hi, int C) {
+                     float* fscr, uint32_t* sscr, const float* __restrict__ vals,
+                     const uint16_t* __restrict__ cols, const int* __restrict__ offsets,
+                     int nnz_pad, int G, int B, int R, int n, int S, float inv_span,
+                     uint32_t seed_lo, uint32_t seed_hi, int C) {
   extern __shared__ __align__(16) unsigned char smem[];
   const GlobalLayout L = global_layout_of(n);
-  float* tiles = reinterpret_cast<float*>(smem);
-  float* diags = tiles + 2 * kRows * L.cw;
-
   const int g = blockIdx.y;
   const int c = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
+  const GlobalSmem sm = GlobalSmem::of(smem, C, c, SPARSE);
   const long long chains = (long long)B * R;
   const long long chain = (long long)blockIdx.x * C + c;
   // the last block's spare chains take part in the loads and barriers only
@@ -237,6 +245,9 @@ anneal_global_kernel(const float* __restrict__ J, const float* __restrict__ h,
   const float* Jg = J + (size_t)g * n * L.jrow;
   const float* hp = h + p * n;
   const int* nnz = row_nnz == nullptr ? nullptr : row_nnz + (size_t)g * n;
+  const RowLists rl = SPARSE ? RowLists{vals + (size_t)g * nnz_pad, cols + (size_t)g * nnz_pad,
+                                        offsets + (size_t)g * offsets_len(n)}
+                             : RowLists{nullptr, nullptr, nullptr};
   const size_t row_id = (size_t)g * chains + ch;
   float* fr = fscr + row_id * L.frow;
   uint32_t* st = sscr + row_id * L.words();
@@ -260,17 +271,16 @@ anneal_global_kernel(const float* __restrict__ J, const float* __restrict__ h,
   const size_t u_sweep = (size_t)G * B * n * R;  // uniforms per sweep
   int changed = 0;
   unsigned long long work = 0;  // the nonzeros of the changed variables' rows
-  load_chunk(tiles, diags, Jg, 0, 0, n, L);
+  load_diag(sm.diag, Jg, 0, n, L);
   __pipeline_commit();
-  int buf = 0;
   for (int t = 0; t < S; ++t) {
     const float beta = hot_p * expf(logr_p * ((float)t * inv_span));
     SweepUniforms u{host ? uniforms + (size_t)t * u_sweep + p * n * R + r : nullptr, R, key,
                     (uint32_t)r, (uint32_t)t, seed_hi};
     unsigned sweep_work = 0;  // at most n² a sweep
-    changed += sweep_global<RULE, COUNT>(tiles, diags, buf, Jg, L, n, t + 1 == S,
-                                         t % kRefreshPeriod == 0, active, beta, u, fr, st,
-                                         lane, hp, nnz, sweep_work);
+    changed += sweep_global<RULE, SPARSE, COUNT>(sm, Jg, rl, L, n, t + 1 == S,
+                                                 t % kRefreshPeriod == 0, active, beta, u, fr,
+                                                 st, lane, hp, nnz, sweep_work);
     work += sweep_work;
   }
 
@@ -293,31 +303,40 @@ struct Args {
   const int* row_nnz;
   float* fscr;      // the global-field layout's scratch (null: the shared layout)
   uint32_t* sscr;
+  const float* vals;      // J_g's row lists: the sparse pass (null: the dense pass)
+  const uint16_t* cols;
+  const int* offsets;
+  int nnz_pad;
   int G, B, R, n, S;
   float inv_span;
   uint32_t seed_lo, seed_hi;
   int C;
 };
 
+template <int RULE, bool SPARSE, bool COUNT>
+cudaError_t launch_global(const Args& a, dim3 grid, size_t smem, cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(anneal_global_kernel<RULE, SPARSE, COUNT>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)smem);
+  if (e != cudaSuccess) return e;
+  anneal_global_kernel<RULE, SPARSE, COUNT><<<grid, a.C * kLanes, smem, stream>>>(
+      a.J, a.h, a.hot, a.logr, a.init01, a.uniforms, a.out, a.fields_out, a.flips, a.row_nnz,
+      a.fscr, a.sscr, a.vals, a.cols, a.offsets, a.nnz_pad, a.G, a.B, a.R, a.n, a.S,
+      a.inv_span, a.seed_lo, a.seed_hi, a.C);
+  return cudaGetLastError();
+}
+
 template <int RULE, bool COUNT>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const bool global = a.fscr != nullptr;
-  const size_t smem = global ? global_layout_of(a.n).smem() : layout_of(a.n).bytes(a.C);
+  const bool global = a.fscr != nullptr, sparse = a.vals != nullptr;
+  const size_t smem = global ? global_layout_of(a.n).smem(a.C, sparse) : layout_of(a.n).bytes(a.C);
   if (a.C < 1 || a.C > kMaxChains || smem > kSmemMax) return cudaErrorInvalidValue;
   const long long blocks = ((long long)a.B * a.R + a.C - 1) / a.C;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
   const dim3 grid((unsigned)blocks, (unsigned)a.G);
-  if (global) {
-    const cudaError_t e = cudaFuncSetAttribute(anneal_global_kernel<RULE, COUNT>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)smem);
-    if (e != cudaSuccess) return e;
-    anneal_global_kernel<RULE, COUNT><<<grid, a.C * kLanes, smem, stream>>>(
-        a.J, a.h, a.hot, a.logr, a.init01, a.uniforms, a.out, a.fields_out, a.flips,
-        a.row_nnz, a.fscr, a.sscr, a.G, a.B, a.R, a.n, a.S, a.inv_span, a.seed_lo, a.seed_hi,
-        a.C);
-    return cudaGetLastError();
-  }
+  if (global)
+    return sparse ? launch_global<RULE, true, COUNT>(a, grid, smem, stream)
+                  : launch_global<RULE, false, COUNT>(a, grid, smem, stream);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         anneal_wide_kernel<RULE, COUNT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -351,13 +370,14 @@ extern "C" int qbmx_anneal_wide_max_n() {
 }
 
 // Shared-memory bytes of a block of `chains` chains at width n (the shared
-// layout), and of any block of the global-field layout.
+// layout), and of a block of the global-field layout (any n) with the
+// sparse pass or the dense one.
 extern "C" unsigned long long qbmx_anneal_wide_smem(int n, int chains) {
   return (unsigned long long)layout_of(n).bytes(chains);
 }
 
-extern "C" unsigned long long qbmx_anneal_wide_global_smem(int n) {
-  return (unsigned long long)global_layout_of(n).smem();
+extern "C" unsigned long long qbmx_anneal_wide_global_smem(int chains, int sparse) {
+  return (unsigned long long)global_layout_of(1).smem(chains, sparse != 0);
 }
 
 // Returns the cudaError_t of the launch (0 = success).  J is (G, n, jrow),
@@ -369,21 +389,29 @@ extern "C" unsigned long long qbmx_anneal_wide_global_smem(int n) {
 // may be null, and row_nnz is null unless flips is set.  fscr and sscr,
 // both null or both set, select the global-field layout: the chains'
 // fields, (G*B*R, n rounded up to 8) float32, and state bytes, as many
-// bytes, 16-byte aligned.
+// bytes, 16-byte aligned.  There vals, cols and offsets, all null or all
+// set (n <= 32768), select the sparse pass: J_g's row lists as
+// pt_wide_cuda.row_lists builds them, vals (G, nnz_pad) float32, cols (G,
+// nnz_pad) 16-bit columns, offsets (G, n + 1 rounded up to 4) int32.
 extern "C" int qbmx_anneal_wide(const float* J, const int* row_nnz, const float* h,
                                 const float* hot, const float* logr, const float* init01,
                                 const float* uniforms, float* out, float* fields_out,
-                                unsigned long long* flips, float* fscr, void* sscr, int G, int B,
-                                int R, int n, int S, float inv_span, unsigned long long seed,
-                                int rule, int chains, void* stream) {
+                                unsigned long long* flips, float* fscr, void* sscr,
+                                const float* vals, const int16_t* cols, const int* offsets,
+                                int nnz_pad, int G, int B, int R, int n, int S, float inv_span,
+                                unsigned long long seed, int rule, int chains, void* stream) {
+  const bool some = vals != nullptr || cols != nullptr || offsets != nullptr;
+  const bool all = vals != nullptr && cols != nullptr && offsets != nullptr;
   if (G <= 0 || B <= 0 || R <= 0 || n <= 0 || S <= 0 || G > 65535 ||
       (fscr == nullptr) != (sscr == nullptr) ||
       (fscr == nullptr && n > qbmx_anneal_wide_max_n()) ||
       (reinterpret_cast<uintptr_t>(fscr) | reinterpret_cast<uintptr_t>(sscr)) % 16 != 0 ||
-      (init01 == nullptr) != (uniforms == nullptr) || (row_nnz != nullptr && flips == nullptr))
+      (init01 == nullptr) != (uniforms == nullptr) || (row_nnz != nullptr && flips == nullptr) ||
+      some != all || (all && (fscr == nullptr || n > 32768 || nnz_pad <= 0)))
     return (int)cudaErrorInvalidValue;
   const Args a{J, h, hot, logr, init01, uniforms, out, fields_out, flips, row_nnz, fscr,
-               static_cast<uint32_t*>(sscr), G, B, R, n, S, inv_span,
+               static_cast<uint32_t*>(sscr), vals, reinterpret_cast<const uint16_t*>(cols),
+               offsets, nnz_pad, G, B, R, n, S, inv_span,
                (uint32_t)(seed & 0xFFFFFFFFull), (uint32_t)(seed >> 32), chains};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(row_nnz != nullptr ? dispatch<true>(a, rule, st) : dispatch<false>(a, rule, st));

@@ -42,14 +42,16 @@
 //     fields in registers (anneal_tiles.cuh, K4's machinery): two block
 //     barriers a tile, and each change adds a whole row.  It holds random
 //     dense QUBOs up to n = 3368 and ladders up to 8 blocks of rungs; the
-//     host's rule gives it n <= 2608, where a block holds 5 rungs;
-//   * the global path (pt_global_kernel) takes the rest: n > 2608 off the
+//     host's rule gives it n <= 1416, where a block holds 20 rungs;
+//   * the global path (pt_global_kernel) takes the rest: n > 1416 off the
 //     sparse path, or a ladder longer than a portable cluster of
 //     dense-path blocks holds.
 //     Each state's fields and state bytes live in scratch buffers in
 //     global memory, with K4's global-field layout (anneal_tiles.cuh's
-//     sweep_global: the dense path's fields bit for bit), and a ladder may
-//     spread over any number of blocks.  So an exchange round needs every
+//     sweep_global: windows of 128 rows, the window's changes added to the
+//     other fields by the dense pass or, where J_g is sparse, by the sparse
+//     pass over J_g's row lists; the dense path's fields bit for bit), and a
+//     ladder may spread over any number of blocks.  So an exchange round needs every
 //     block's energies: the wrapper launches the kernel once a sweep, S + 1
 //     launches a call.  Launch t takes the exchanges of round t-1 (from the
 //     energies launch t-1 wrote, at slots double-buffered by parity), then
@@ -131,18 +133,20 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-using qbmx::GlobalLayout;
 using qbmx::global_layout_of;
+using qbmx::GlobalLayout;
+using qbmx::GlobalSmem;
 using qbmx::heatbath_threshold;
-using qbmx::kDiag;
 using qbmx::kInitTag;
 using qbmx::kLanes;
 using qbmx::kRows;
 using qbmx::Layout;
 using qbmx::layout_of;
-using qbmx::load_chunk;
+using qbmx::load_diag;
 using qbmx::load_tile;
+using qbmx::offsets_len;
 using qbmx::philox4x32_10;
+using qbmx::RowLists;
 using qbmx::sweep_global;
 using qbmx::sweep_tiles;
 using qbmx::SweepUniforms;
@@ -156,9 +160,6 @@ constexpr int kRefreshPeriod = 64;   // K4's: the wrappers' field_drift_bound as
 constexpr int kHeatBath = 1;         // anneal_tiles.cuh's rule 1: single-variable heat-bath
 constexpr int kVarShift = 10;        // Philox counter y = (rung << 10) | variable/4
 constexpr unsigned kFull = 0xFFFFFFFFu;
-
-// Ints of a group's row offsets: n + 1 rounded up to 4 (16-byte copies).
-__host__ __device__ inline int offsets_len(int n) { return (n + 4) / 4 * 4; }
 
 // A group's row lists in shared memory: nnz_pad values (a multiple of 8),
 // the offsets, nnz_pad 16-bit columns; a multiple of 16 bytes.
@@ -451,6 +452,10 @@ struct GArgs {
   float *out, *states_out, *fields_out, *energy_out;
   unsigned long long* flips;
   const int* row_nnz;
+  const float* vals;  // J_g's row lists: the sparse pass (null: the dense pass)
+  const uint16_t* cols;
+  const int* offsets;
+  int nnz_pad;
   float* fields;      // (G*B*R*M, frow) the states' fields
   uint32_t* state;    // (G*B*R*M, frow / 4) their state words
   float* energies;    // (2, G*B*R*M): [parity][(g*B*R + ladder)*M + rung]
@@ -464,16 +469,16 @@ struct GArgs {
 // One launch of the global path (header): state k = (b·R + r)·M + m0 of
 // group g, a warp, holds the ladder (b, r)'s state that started at rung m0;
 // its scratch row, rung and energy slots are indexed by g·B·R·M + k.
-template <bool COUNT>
+// SPARSE: the sparse pass on the group's row lists, else the dense pass.
+template <bool SPARSE, bool COUNT>
 __global__ void __launch_bounds__(kMaxWarps * kLanes) pt_global_kernel(const GArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int n = a.n, M = a.M, R = a.R, t = a.t;
   const GlobalLayout L = global_layout_of(n);
-  float* tiles = reinterpret_cast<float*>(smem);
-  float* diags = tiles + 2 * kRows * L.cw;
 
   const int g = blockIdx.y;
   const int c = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
+  const GlobalSmem sm = GlobalSmem::of(smem, a.warps, c, SPARSE);
   const long long states = (long long)a.B * R * M;  // a group's
   const long long k = (long long)blockIdx.x * a.warps + c;
   // the last block's spare warps take part in the loads and barriers only
@@ -542,16 +547,19 @@ __global__ void __launch_bounds__(kMaxWarps * kLanes) pt_global_kernel(const GAr
 
   const float* Jg = a.J + (size_t)g * n * L.jrow;
   const int* nnz = a.row_nnz == nullptr ? nullptr : a.row_nnz + (size_t)g * n;
+  const RowLists rl = SPARSE ? RowLists{a.vals + (size_t)g * a.nnz_pad,
+                                        a.cols + (size_t)g * a.nnz_pad,
+                                        a.offsets + (size_t)g * offsets_len(n)}
+                             : RowLists{nullptr, nullptr, nullptr};
   const size_t u_sweep = GBM * n * R;  // uniforms per sweep
   SweepUniforms u{host ? a.uniforms + (size_t)t * u_sweep + (slot0 + rho) * n * R + r : nullptr,
                   R, key, (uint32_t)r, (uint32_t)t, a.seed_hi, (uint32_t)rho << a.var_shift};
   unsigned work = 0;  // at most n² a sweep
-  int buf = 0;
-  load_chunk(tiles, diags, Jg, 0, 0, n, L);
+  load_diag(sm.diag, Jg, 0, n, L);
   __pipeline_commit();
-  const int changed = sweep_global<kHeatBath, COUNT>(
-      tiles, diags, buf, Jg, L, n, true, t % kRefreshPeriod == 0, active, a.betas[slot0 + rho], u,
-      fr, st, lane, hp, nnz, work);
+  const int changed = sweep_global<kHeatBath, SPARSE, COUNT>(
+      sm, Jg, rl, L, n, true, t % kRefreshPeriod == 0, active, a.betas[slot0 + rho], u, fr, st,
+      lane, hp, nnz, work);
   if (!active) return;
   // the state's energy, as the other paths sum it; its slot and rung
   float e = 0.0f;
@@ -703,14 +711,17 @@ extern "C" int qbmx_pt_wide(const float* J, const int* row_nnz, const float* h,
                                                    : launch<false, false>(a, st));
 }
 
-// Shared-memory bytes of a block of the global path (any warps) at width n.
-extern "C" unsigned long long qbmx_pt_wide_global_smem(int n) {
-  return (unsigned long long)global_layout_of(n).smem();
+// Shared-memory bytes of a block of the global path of `warps` warps (any
+// n), with the sparse pass or the dense one.
+extern "C" unsigned long long qbmx_pt_wide_global_smem(int warps, int sparse) {
+  return (unsigned long long)global_layout_of(1).smem(warps, sparse != 0);
 }
 
 // The global path: S + 1 launches of pt_global_kernel on the stream
 // (header).  J is (G, n, jrow), rows padded with zeros to jrow = n rounded
-// up to 8; row_nnz as qbmx_pt_wide's; fields (G*B*R*M, jrow) float32 and
+// up to 8; vals, cols and offsets, all null or all set (n <= 32768), select
+// the sparse pass (qbmx_pt_wide_sparse's row lists of nnz_pad entries a
+// group); row_nnz as qbmx_pt_wide's; fields (G*B*R*M, jrow) float32 and
 // state (G*B*R*M, jrow) bytes, both 16-byte aligned; energies (2, G*B*R*M)
 // float32 and rho (G*B*R*M) int32 scratch; warps the states a block (at
 // most 32); var_shift the Philox counter's variable-block bits (10 to 22,
@@ -721,11 +732,14 @@ extern "C" int qbmx_pt_wide_global(const float* J, const int* row_nnz, const flo
                                    const float* uniforms, const float* swap_u, float* out,
                                    float* states_out, float* fields_out, float* energy_out,
                                    unsigned long long* flips, float* fields, void* state,
-                                   float* energies, int* rho, int G, int B, int M, int R, int n,
-                                   int S, unsigned long long seed, int warps, int var_shift,
-                                   void* stream) {
+                                   float* energies, int* rho, const float* vals,
+                                   const int16_t* cols, const int* offsets, int nnz_pad, int G,
+                                   int B, int M, int R, int n, int S, unsigned long long seed,
+                                   int warps, int var_shift, void* stream) {
   const bool some = init01 != nullptr || uniforms != nullptr || swap_u != nullptr;
   const bool all = init01 != nullptr && uniforms != nullptr && swap_u != nullptr;
+  const bool lists = vals != nullptr || cols != nullptr || offsets != nullptr;
+  const bool sparse = vals != nullptr && cols != nullptr && offsets != nullptr;
   const long long states = (long long)B * R * M;
   if (G <= 0 || B <= 0 || M <= 0 || R <= 0 || n <= 0 || S <= 0 || G > 65535 || some != all ||
       J == nullptr || fields == nullptr || state == nullptr || energies == nullptr ||
@@ -733,21 +747,24 @@ extern "C" int qbmx_pt_wide_global(const float* J, const int* row_nnz, const flo
       var_shift > 22 || (long long)((n + 3) / 4) > (1ll << var_shift) - 1 ||
       (long long)M > (1ll << (32 - var_shift)) ||
       (reinterpret_cast<uintptr_t>(fields) | reinterpret_cast<uintptr_t>(state)) % 16 != 0 ||
-      (row_nnz != nullptr && flips == nullptr))
+      (row_nnz != nullptr && flips == nullptr) || lists != sparse ||
+      (sparse && (n > 32768 || nnz_pad <= 0)))
     return (int)cudaErrorInvalidValue;
   const long long blocks = (states + warps - 1) / warps;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  const size_t smem = global_layout_of(n).smem();
+  const size_t smem = global_layout_of(n).smem(warps, sparse);
   if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
   const bool count = flips != nullptr && row_nnz != nullptr;
-  void (*kernel)(const GArgs) = count ? pt_global_kernel<true> : pt_global_kernel<false>;
+  void (*kernel)(const GArgs) =
+      sparse ? (count ? pt_global_kernel<true, true> : pt_global_kernel<true, false>)
+             : (count ? pt_global_kernel<false, true> : pt_global_kernel<false, false>);
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   GArgs a{J, h, betas, dbeta, init01, uniforms, swap_u, out, states_out, fields_out,
-          energy_out, flips, row_nnz, fields, static_cast<uint32_t*>(state), energies, rho,
-          G, B, M, R, n, S, 0, (uint32_t)(seed & 0xFFFFFFFFull), (uint32_t)(seed >> 32), warps,
-          var_shift};
+          energy_out, flips, row_nnz, vals, reinterpret_cast<const uint16_t*>(cols), offsets,
+          nnz_pad, fields, static_cast<uint32_t*>(state), energies, rho, G, B, M, R, n, S, 0,
+          (uint32_t)(seed & 0xFFFFFFFFull), (uint32_t)(seed >> 32), warps, var_shift};
   const dim3 grid((unsigned)blocks, (unsigned)G);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   for (int t = 0; t <= S; ++t) {

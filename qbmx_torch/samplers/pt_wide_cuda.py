@@ -17,15 +17,17 @@ K5 has three paths, one semantics, and the same fields bit for bit: the
 sparse path holds J_g's nonzero rows (:func:`row_lists`) whole in a
 block's shared memory, the dense path streams J_g in tiles beside the
 rungs' fields in shared memory, and the global path keeps the rungs'
-fields and states in global scratch (K4's global-field layout) and is
-launched once a sweep, S + 1 launches a call, so that a ladder may span
-any number of blocks.  :func:`pt_wide_geometry` takes the sparse path
+fields and states in global scratch (K4's global-field layout, with its
+dense or sparse field pass by ``wide_cuda.sparse_pass``) and is launched
+once a sweep, S + 1 launches a call, so that a ladder may span any number
+of blocks.  :func:`pt_wide_geometry` takes the sparse path
 where the row lists fit a block beside its rungs, else the dense one where
-n ≤ ``wide_cuda.switch_n()`` (2608: a block holds 5 rungs) and its ladders
+n ≤ :func:`switch_n` (1416: a block holds 20 rungs) and its ladders
 fit a thread block cluster of 8 blocks (a ladder of more rungs than a
 block holds spreads over a cluster), else the global path.  Each
 path's launches are counted here, apart from K3's (``"pt_wide"`` dense,
-``"pt_wide_sparse"``, ``"pt_wide_global"``: one a call).
+``"pt_wide_sparse"``, ``"pt_wide_global"`` and, with the sparse field
+pass, ``"pt_wide_global_sparse"``: one a call).
 
 Host variates keep K3's layout in densified slot order ``(g·B + b)·M +
 m``: ``init01`` (G·B·M, R, n), ``uniforms`` (S, G·B·M, n, R), ``swap_u``
@@ -49,12 +51,14 @@ from qbmx_torch.core.rng import draw_seed
 from qbmx_torch.samplers import kernel_call, pt_cuda, tempering, wide_cuda
 
 #: launches of K5 since the last reset (one per call that reached the GPU), by path
-launch_counts = {"pt_wide": 0, "pt_wide_sparse": 0, "pt_wide_global": 0}
+launch_counts = {"pt_wide": 0, "pt_wide_sparse": 0, "pt_wide_global": 0,
+                 "pt_wide_global_sparse": 0}
 
 DENSE, SPARSE, GLOBAL = "dense", "sparse", "global"
 MAX_WARPS = 32  # rungs a block, a warp each: 1024 threads (pt_wide.cu kMaxWarps)
 MAX_CLUSTER = 8  # blocks a ladder: the portable thread block cluster size
 VAR_SHIFT = 10  # Philox counter word y = (rung << 10) | variable/4 (pt_wide.cu kVarShift)
+SWITCH_RUNGS = 20  # the fewest rungs a dense-path block holds for the rule to give it the call
 
 
 def var_shift(n: int) -> int:
@@ -105,6 +109,21 @@ def max_n() -> int:
     shared layout's bound, 3368).  The global path takes any n."""
     n = 1
     while smem_bytes(n + 1, 1) <= kernel_call.SMEM_BYTES:
+        n += 1
+    return n
+
+
+@functools.cache
+def switch_n() -> int:
+    """Widest n the rule gives the dense path: where a block still holds
+    :data:`SWITCH_RUNGS` rungs (1416).  Measured on an H100 with both paths
+    forced at M = 8 on 32,000 rungs (``chip_smoke.py`` phase 10's turns,
+    after the global path's windows and sparse pass): the dense path is
+    9-12% faster up to n = 1216 (25 rungs a block), 1-2% at 1280 and 1408
+    (23, 20), 13% slower at 1536 (17); K4's layouts tie earlier
+    (``wide_cuda.switch_n``, 1056)."""
+    n = 1
+    while smem_bytes(n + 1, SWITCH_RUNGS) <= kernel_call.SMEM_BYTES:
         n += 1
     return n
 
@@ -240,7 +259,7 @@ class PTWideGeometry:
     @classmethod
     def global_path(cls, G: int, B: int, M: int, R: int, n: int, warps: int) -> "PTWideGeometry":
         """The global path with ``warps`` states a block (any ladders)."""
-        return cls(GLOBAL, 0, 1, warps, 32 * warps, wide_cuda.global_smem_bytes(n),
+        return cls(GLOBAL, 0, 1, warps, 32 * warps, wide_cuda.global_smem_bytes(warps),
                    (math.ceil(B * R * M / warps), G))
 
 
@@ -274,21 +293,18 @@ def pt_wide_geometry(G: int, B: int, M: int, R: int, n: int,
     entries a group (None: not built).
 
     Rule: :func:`shared_geometry` where n ≤ 3368 and M ≤ :func:`max_rungs`,
-    if it takes the sparse path or n ≤ ``wide_cuda.switch_n()`` (2608);
-    else the global path, :func:`global_warps` states of one group a
-    block, on a grid of (⌈B·R·M / W⌉, G), launched S + 1 times.  Past n =
-    2608 a dense block holds fewer than 5 rungs, and the global path is as
-    fast or faster (on an H100 at M = 8 and 32,000 rungs, ``chip_smoke.py``
-    phase 10: the dense path 2.3-2.5× faster up to n = 1536, even at n =
-    2560, 4.5× slower at n = 3368).  Raises only on an empty shape or more
-    than 65,535 groups."""
+    if it takes the sparse path or n ≤ :func:`switch_n` (1416, where a
+    block holds 20 rungs); else the global path, :func:`global_warps`
+    states of one group a block, on a grid of (⌈B·R·M / W⌉, G), launched
+    S + 1 times, as fast or faster past it (:func:`switch_n`).  Raises only
+    on an empty shape or more than 65,535 groups."""
     if n < 1 or M < 1:
         raise ValueError(f"pt_wide kernel: n={n}, M={M}: no problem to sample")
     if G > 65535:
         raise ValueError(f"pt_wide kernel: {G} groups exceed the grid's 65535")
     if n <= max_n() and M <= max_rungs(n):
         geo = shared_geometry(G, B, M, R, n, nnz_pad)
-        if geo.path == SPARSE or n <= wide_cuda.switch_n():
+        if geo.path == SPARSE or n <= switch_n():
             return geo
     return PTWideGeometry.global_path(G, B, M, R, n, global_warps(G, B, M, R))
 
@@ -313,7 +329,7 @@ def launch(J: torch.Tensor, h: torch.Tensor, betas: torch.Tensor, dbeta: torch.T
            host_variates=None, states_out: torch.Tensor | None = None,
            fields_out: torch.Tensor | None = None, energy_out: torch.Tensor | None = None,
            flips: torch.Tensor | None = None, geometry: PTWideGeometry | None = None,
-           path: str | None = None) -> torch.Tensor:
+           path: str | None = None, field_pass: str | None = None) -> torch.Tensor:
     """Launch K5 on the structured form: ``J`` (G, n, n) symmetric
     zero-diagonal couplings, ``h`` (G, B, n) linear terms, ``betas`` and
     ``dbeta`` (G·B, M) each problem's ladder (``tempering.ladder_betas``) →
@@ -326,8 +342,10 @@ def launch(J: torch.Tensor, h: torch.Tensor, betas: torch.Tensor, dbeta: torch.T
     fields and energy at slot ``p·M + m``; ``flips`` ((2,) int64, added
     to) the number of variables changed and the nonzeros of their rows;
     ``path`` (:data:`DENSE`, :data:`SPARSE` or :data:`GLOBAL`) forces a
-    path, and ``geometry`` replaces the rule's whole choice.  All are for
-    checks of the kernel; the sampler paths pass none."""
+    path, ``geometry`` replaces the rule's whole choice, and ``field_pass``
+    (``"dense"`` or ``"sparse"``) the global path's
+    ``wide_cuda.sparse_pass``.  All are for checks of the kernel; the
+    sampler paths pass none."""
     from qbmx_torch._build import load_kernels
 
     lib = load_kernels()
@@ -340,6 +358,8 @@ def launch(J: torch.Tensor, h: torch.Tensor, betas: torch.Tensor, dbeta: torch.T
         kernel_call.require(t, name, shape, dev)
     if path not in (None, DENSE, SPARSE, GLOBAL):
         raise ValueError(f"pt_wide kernel: unknown path {path!r}")
+    if field_pass not in (None, "dense", "sparse"):
+        raise ValueError(f"pt_wide kernel: unknown field pass {field_pass!r}")
     if path == GLOBAL and geometry is None:
         geometry = PTWideGeometry.global_path(G, B, M, R, n, global_warps(G, B, M, R))
     if path == DENSE and geometry is None:
@@ -352,8 +372,18 @@ def launch(J: torch.Tensor, h: torch.Tensor, betas: torch.Tensor, dbeta: torch.T
     if path is not None and geo.path != path:
         raise ValueError(f"pt_wide kernel: the {path} path does not take n={n}, M={M} "
                          f"({geo.path} path chosen)")
-    rows = row_lists(J, counts, nnz) if geo.path == SPARSE else None
-    if rows is not None and geo.nnz_pad != rows.nnz_pad:
+    if field_pass is not None and geo.path != GLOBAL:
+        raise ValueError("pt_wide kernel: a field pass is the global path's")
+    glob_sparse = False
+    if geo.path == GLOBAL:
+        counts = row_nnz(J) if counts is None else counts
+        glob_sparse = (wide_cuda.sparse_pass(counts, n) if field_pass is None
+                       else field_pass == "sparse")
+        if glob_sparse and n > wide_cuda.MAX_SPARSE_N:
+            raise ValueError("pt_wide kernel: the sparse pass takes "
+                             f"n ≤ {wide_cuda.MAX_SPARSE_N}")
+    rows = row_lists(J, counts, nnz) if geo.path == SPARSE or glob_sparse else None
+    if geo.path == SPARSE and geo.nnz_pad != rows.nnz_pad:
         raise ValueError(f"pt_wide kernel: geometry for {geo.nnz_pad} entries a group, "
                          f"J's row lists hold {rows.nnz_pad}")
     GBM = G * B * M
@@ -376,11 +406,13 @@ def launch(J: torch.Tensor, h: torch.Tensor, betas: torch.Tensor, dbeta: torch.T
         state = torch.zeros((states, jrow), dtype=torch.uint8, device=dev)
         energies = torch.empty((2, states), dtype=torch.float32, device=dev)
         rho = torch.empty((states,), dtype=torch.int32, device=dev)
+        lists = (None, None, None, 0) if rows is None else (
+            rows.vals.data_ptr(), rows.cols.data_ptr(), rows.offsets.data_ptr(), rows.nnz_pad)
         kernel_call.check_rc("pt_wide_global", lib.qbmx_pt_wide_global(
             Jp.data_ptr(), None if flips is None else counts.data_ptr(), *tail[:-7],
-            fields.data_ptr(), state.data_ptr(), energies.data_ptr(), rho.data_ptr(),
+            fields.data_ptr(), state.data_ptr(), energies.data_ptr(), rho.data_ptr(), *lists,
             *tail[-7:], geo.warps, var_shift(n), kernel_call.stream(dev)))
-        launch_counts["pt_wide_global"] += 1
+        launch_counts["pt_wide_global_sparse" if rows is not None else "pt_wide_global"] += 1
     elif geo.path == SPARSE:
         kernel_call.check_rc("pt_wide_sparse", lib.qbmx_pt_wide_sparse(
             rows.vals.data_ptr(), rows.cols.data_ptr(), rows.offsets.data_ptr(), *tail,

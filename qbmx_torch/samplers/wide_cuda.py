@@ -16,11 +16,15 @@ Two layouts, one semantics and the same fields bit for bit: the shared
 layout keeps each chain's fields and state in shared memory beside two J
 tiles, at most :func:`max_n` (3368) wide; the global-field layout keeps
 them in a scratch buffer in global memory that :func:`launch` allocates (a
-row of n rounded up to 8 floats and as many bytes a chain) and streams
-J_g's rows in tiles cut to column chunks (:func:`chunk_floats`), at any
-width the card's memory holds.  The rule takes the shared layout up to
-:func:`switch_n` (2608), where a block still holds 5 chains, and the
-global one past it, where it is as fast or faster.
+row of n rounded up to 8 floats and as many bytes a chain) and walks J_g
+in windows of :data:`WINDOW` rows, at any width the card's memory holds:
+a window's fields are read once into shared memory beside its diagonal
+block, and its changes reach the chain's other fields in one pass -- the
+dense pass, streaming the window's rows of J_g, or, where :func:`sparse_pass`
+finds J_g sparse, the sparse pass over the changed rows' nonzeros
+(``pt_wide_cuda.row_lists``), counted apart.  The rule takes the shared
+layout up to :func:`switch_n` (1056), where a block still holds 31 chains,
+and the global one past it.
 
 In generator mode K4 draws the Philox streams of K1 and K2
 (``sa_torch.philox_variates`` writes them out); ``host_variates``
@@ -45,7 +49,8 @@ from qbmx_torch.samplers.sa_torch import inv_span
 METROPOLIS, HEATBATH, PAIR, QUAD = 0, 1, 2, 4
 
 #: launches of K4 since the last reset (one per call that reached the GPU), by layout
-launch_counts = {"anneal_wide": 0, "anneal_wide_global": 0}
+#: and, in the global-field layout, by pass
+launch_counts = {"anneal_wide": 0, "anneal_wide_global": 0, "anneal_wide_global_sparse": 0}
 
 SHARED, GLOBAL = "shared", "global"  # where a chain's fields and state live
 
@@ -53,8 +58,12 @@ TILE_ROWS = 8  # J rows per shared-memory tile (anneal_wide.cu kRows)
 REFRESH_PERIOD = 64  # sweeps between recomputations of the fields (kRefreshPeriod)
 LANES = 32  # threads a chain: a warp (kLanes)
 MAX_CHAINS = 32  # chains per block: 1024 threads (kMaxChains)
-CHUNK_MAX = 3624  # floats a tile row holds in the global-field layout (kChunkMax)
-SWITCH_CHAINS = 5  # the fewest chains a block the rule gives the shared layout
+WINDOW = 128  # rows a window of the global-field layout (kWin), and columns a dense chunk
+SWITCH_CHAINS = 31  # the fewest chains a block the rule gives the shared layout
+#: the global-field layout's sparse pass takes a call whose densest group's
+#: J_g holds at most this share of nonzeros (:func:`sparse_pass`)
+SPARSE_DENSITY = 0.01
+MAX_SPARSE_N = 32768  # the row lists' 16-bit columns
 
 
 def reset_launch_counts() -> None:
@@ -112,12 +121,12 @@ def max_n() -> int:
 @functools.cache
 def switch_n() -> int:
     """Widest n the rule gives the shared layout: where a block still holds
-    :data:`SWITCH_CHAINS` chains (2608).  Measured on an H100 with both
-    layouts forced on 4,000 chains (``chip_smoke.py`` phase 10), the shared
-    layout is 1.25-1.55× faster up to n = 2048 (9 or more chains a block),
-    even with the global one at n = 2560 (5), and 2.2-6.4× slower from
-    n = 3000 (2 and 1); at 6,000 chains it is still 1.6× faster at n = 2232
-    (8) than the global one at 2233 (``cli/anneal_time_bench``)."""
+    :data:`SWITCH_CHAINS` chains (1056).  Measured on an H100 with both
+    layouts forced on 4,000 chains (``chip_smoke.py`` phase 10's turns,
+    after the global-field layout's windows and sparse pass): the shared
+    layout is 8-20% faster at n = 1024 and 1056 (31 chains a block, the
+    4,000 chains in one wave of 130 blocks) and 37-40% slower at n = 1057
+    (30 chains a block: a second wave), 25-36% from n = 1280."""
     n = 1
     while smem_bytes(n + 1, SWITCH_CHAINS) <= kernel_call.SMEM_BYTES:
         n += 1
@@ -131,24 +140,28 @@ def global_row_floats(n: int) -> int:
     return -(-n // TILE_ROWS) * TILE_ROWS
 
 
-def chunk_floats(n: int) -> int:
-    """Floats a tile row holds in the global-field layout: the whole padded
-    row up to n = 3624, else :data:`CHUNK_MAX` (``GlobalLayout.cw``)."""
-    return min(global_row_floats(n), CHUNK_MAX)
+def global_smem_bytes(chains: int, sparse: bool = False) -> int:
+    """A global-field block's shared memory at any width: the window's
+    :data:`WINDOW` × :data:`WINDOW` diagonal block, on the dense pass two
+    chunks of as many floats, and each chain's window fields, state bytes
+    and change list (``qbmx_anneal_wide_global_smem``)."""
+    return 4 * WINDOW * WINDOW * (1 if sparse else 3) + chains * 6 * WINDOW
 
 
-def global_smem_bytes(n: int) -> int:
-    """A global-field block's shared memory: two tiles of 8 rows of
-    :func:`chunk_floats` floats and two 8×8 diagonal blocks, whatever its
-    chains (``qbmx_anneal_wide_global_smem``)."""
-    return 4 * (2 * TILE_ROWS * chunk_floats(n) + 2 * TILE_ROWS * TILE_ROWS)
+def sparse_pass(counts: torch.Tensor, n: int) -> bool:
+    """The density rule of the global-field layout (K4's and K5's): its
+    sparse pass where the densest group's J_g holds at most
+    :data:`SPARSE_DENSITY` · n² nonzeros (``counts``: J_g's nonzeros a row,
+    (G, n), ``pt_wide_cuda.row_nnz``) and the row lists' columns fit 16 bits
+    (n ≤ 32768), else the dense pass."""
+    return n <= MAX_SPARSE_N and int(counts.sum(-1).max()) <= SPARSE_DENSITY * n * n
 
 
 @dataclasses.dataclass(frozen=True)
 class WideGeometry:
     chains_per_block: int
     threads: int  # per block
-    smem: int  # bytes per block
+    smem: int  # bytes per block (the global-field layout: with the dense pass)
     grid: tuple  # (blocks per group, groups)
     layout: str = SHARED  # SHARED or GLOBAL
 
@@ -163,7 +176,7 @@ class WideGeometry:
             return cls(chains, LANES * chains, smem_bytes(n, chains), grid)
         if layout != GLOBAL:
             raise ValueError(f"anneal_wide kernel: unknown layout {layout!r}")
-        return cls(chains, LANES * chains, global_smem_bytes(n), grid, GLOBAL)
+        return cls(chains, LANES * chains, global_smem_bytes(chains), grid, GLOBAL)
 
 
 def layout_geometry(G: int, B: int, R: int, n: int, layout: str) -> WideGeometry:
@@ -185,9 +198,9 @@ def wide_geometry(G: int, B: int, R: int, n: int) -> WideGeometry:
     """K4's launch geometry for G groups of B problems, R reads, width n.
 
     Rule: a chain gets a warp, :func:`layout_geometry`'s chains a block,
-    on a grid of (⌈B·R / C⌉, G).  Up to n = :func:`switch_n` (2608) the
+    on a grid of (⌈B·R / C⌉, G).  Up to n = :func:`switch_n` (1056) the
     shared layout; past it the global-field layout, whose shared memory
-    holds J's tiles alone (:func:`global_smem_bytes`)."""
+    holds a window's rows (:func:`global_smem_bytes`)."""
     return layout_geometry(G, B, R, n, SHARED if n <= switch_n() else GLOBAL)
 
 
@@ -195,7 +208,7 @@ def launch(J: torch.Tensor, h: torch.Tensor, hot: torch.Tensor, logr: torch.Tens
            num_reads: int, num_sweeps: int, rule: int, *,
            generator: torch.Generator | None = None, host_variates=None,
            fields_out: torch.Tensor | None = None, flips: torch.Tensor | None = None,
-           geometry: WideGeometry | None = None) -> torch.Tensor:
+           geometry: WideGeometry | None = None, field_pass: str | None = None) -> torch.Tensor:
     """Launch K4 on the structured form: ``J`` (G, n, n) symmetric
     zero-diagonal couplings, ``h`` (G, B, n) linear terms, ``hot``/``logr``
     (G, B) the schedule ``β_t = hot·exp(logr·t/(S−1))``, ``rule`` one of
@@ -205,13 +218,18 @@ def launch(J: torch.Tensor, h: torch.Tensor, hot: torch.Tensor, logr: torch.Tens
 
     ``fields_out`` ((G, B, R, n) float32) receives the final local fields,
     ``flips`` ((2,) int64, added to) the number of variables changed and
-    the nonzeros of their rows (the work of the changes on a sparse J), and
-    ``geometry`` replaces :func:`wide_geometry`'s choice; all three are for
-    checks of the kernel, and the sampler paths pass none."""
+    the nonzeros of their rows (the work of the changes on a sparse J),
+    ``geometry`` replaces :func:`wide_geometry`'s choice, and ``field_pass``
+    (``"dense"`` or ``"sparse"``) the global-field layout's
+    :func:`sparse_pass`; all four are for checks of the kernel, and the
+    sampler paths pass none."""
     from qbmx_torch._build import load_kernels
+    from qbmx_torch.samplers import pt_wide_cuda
 
     if rule not in (METROPOLIS, HEATBATH, PAIR, QUAD):
         raise ValueError(f"anneal_wide kernel: unknown rule {rule}")
+    if field_pass not in (None, "dense", "sparse"):
+        raise ValueError(f"anneal_wide kernel: unknown field pass {field_pass!r}")
     lib = load_kernels()
     G, B, n = h.shape
     R, S = num_reads, num_sweeps
@@ -224,23 +242,32 @@ def launch(J: torch.Tensor, h: torch.Tensor, hot: torch.Tensor, logr: torch.Tens
                          f"(n ≤ {max_n()})")
     # rows padded to 16 bytes for cp.async (to 32 in the global-field layout)
     Jp = F.pad(J, (0, (global_row_floats(n) if glob else row_floats(n)) - n)).contiguous()
-    fscr = sscr = None
+    fscr = sscr = rows = None
+    counts = pt_wide_cuda.row_nnz(J) if glob or flips is not None else None
     if glob:  # each chain's fields and state bytes, a row each
         fscr = torch.zeros((G * B * R, global_row_floats(n)), dtype=torch.float32,
                            device=h.device)
         sscr = torch.zeros((G * B * R, global_row_floats(n)), dtype=torch.uint8,
                            device=h.device)
+        sparse = sparse_pass(counts, n) if field_pass is None else field_pass == "sparse"
+        if sparse and n > MAX_SPARSE_N:
+            raise ValueError(f"anneal_wide kernel: the sparse pass takes n ≤ {MAX_SPARSE_N}")
+        rows = pt_wide_cuda.row_lists(J, counts) if sparse else None
+    elif field_pass is not None:
+        raise ValueError("anneal_wide kernel: a field pass is the global-field layout's")
     seed = draw_seed(generator) if host_variates is None else 0
     out = torch.empty((G, B, R, n), dtype=torch.float32, device=h.device)
     fptr = kernel_call.optional_ptr(fields_out, "fields_out", (G, B, R, n), torch.float32,
                                     h.device)
     cptr = kernel_call.optional_ptr(flips, "flips", (2,), torch.int64, h.device)
-    nnz = None if flips is None else (J != 0).sum(-1, dtype=torch.int32)  # (G, n)
+    lists = (None, None, None, 0) if rows is None else (
+        rows.vals.data_ptr(), rows.cols.data_ptr(), rows.offsets.data_ptr(), rows.nnz_pad)
     kernel_call.check_rc("anneal_wide", lib.qbmx_anneal_wide(
-        Jp.data_ptr(), None if nnz is None else nnz.data_ptr(), *ptrs[1:], out.data_ptr(), fptr,
-        cptr, None if fscr is None else fscr.data_ptr(),
-        None if sscr is None else sscr.data_ptr(), G, B, R, n, S,
+        Jp.data_ptr(), None if flips is None else counts.data_ptr(), *ptrs[1:], out.data_ptr(),
+        fptr, cptr, None if fscr is None else fscr.data_ptr(),
+        None if sscr is None else sscr.data_ptr(), *lists, G, B, R, n, S,
         ctypes.c_float(inv_span(S)), seed, rule, geo.chains_per_block,
         kernel_call.stream(h.device)))
-    launch_counts["anneal_wide_global" if glob else "anneal_wide"] += 1
+    launch_counts["anneal_wide" if not glob else "anneal_wide_global_sparse" if rows is not None
+                  else "anneal_wide_global"] += 1
     return out

@@ -148,8 +148,9 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(dev):
     wide_cuda.reset_launch_counts()
     out = sa_cuda.sa_sample_batch_cuda(torch.zeros((1, n, n), device=dev), 2, 2)
     torch.cuda.synchronize()
-    assert out.shape == (1, 2, n) and wide_cuda.launch_counts == {"anneal_wide": 0,
-                                                                   "anneal_wide_global": 1}
+    # an all-zero J_g: the global-field layout's sparse pass
+    assert out.shape == (1, 2, n) and wide_cuda.launch_counts == {
+        "anneal_wide": 0, "anneal_wide_global": 0, "anneal_wide_global_sparse": 1}
 
 
 def test_model_steps_launch_the_kernel(dev):
@@ -258,8 +259,9 @@ def test_heatbath_wrappers_refuse_what_the_kernel_does_not_take(dev):
     wide_cuda.reset_launch_counts()
     out = gibbs_cuda.gibbs_sample_batch_cuda(torch.zeros((1, n, n), device=dev), 2, 2, quad=True)
     torch.cuda.synchronize()
-    assert out.shape == (1, 2, n) and wide_cuda.launch_counts == {"anneal_wide": 0,
-                                                                   "anneal_wide_global": 1}
+    # an all-zero J_g: the global-field layout's sparse pass
+    assert out.shape == (1, 2, n) and wide_cuda.launch_counts == {
+        "anneal_wide": 0, "anneal_wide_global": 0, "anneal_wide_global_sparse": 1}
 
 
 # -- the wide anneal kernel (qbmx_torch/csrc/anneal_wide.cu) -------------------
@@ -505,8 +507,9 @@ def test_pt_wrapper_refuses_what_the_kernel_does_not_take(dev):
         out = sampler(M).sample_batch(None, torch.zeros((1, n, n), device=dev), 2)
         torch.cuda.synchronize()
         assert out.shape == (1, 2, n)
-        assert pt_wide_cuda.launch_counts == {"pt_wide": 0, "pt_wide_sparse": 0,
-                                              "pt_wide_global": 1}
+        assert pt_wide_cuda.launch_counts == {"pt_wide": 0, "pt_wide_sparse": 0,  # J_g = 0:
+                                              "pt_wide_global": 0,  # the sparse pass
+                                              "pt_wide_global_sparse": 1}
 
 
 @pytest.mark.parametrize("solver,counts,kernel,model", [
@@ -568,9 +571,11 @@ def test_geometry_rules_match_the_kernels(dev):
             assert lib.qbmx_anneal_wide_smem(n, c) == wide_cuda.smem_bytes(n, c)
     assert lib.qbmx_sa_metropolis_max_n() == 241
     assert wide_cuda.wide_geometry(1, 1, 1, wide_cuda.max_n() + 1).layout == wide_cuda.GLOBAL
-    for n in (242, 3369, 3624, 3625, 8192):
-        assert lib.qbmx_anneal_wide_global_smem(n) == wide_cuda.global_smem_bytes(n) \
-            == lib.qbmx_pt_wide_global_smem(n)
+    for chains in (1, 7, 31, 32):
+        for sparse in (False, True):
+            assert lib.qbmx_anneal_wide_global_smem(chains, sparse) \
+                == wide_cuda.global_smem_bytes(chains, sparse) \
+                == lib.qbmx_pt_wide_global_smem(chains, sparse)
     assert (lib.qbmx_pt_heatbath_max_n(), lib.qbmx_pt_heatbath_max_rungs()) == \
         (pt_cuda.MAX_N, pt_cuda.MAX_RUNGS)
     for kind in (pt_cuda.RUNG, pt_cuda.WARP):
@@ -1037,7 +1042,8 @@ def test_pt_wide_sparse_matches_plain(dev, B, M, R, S):
     pt_wide_cuda.reset_launch_counts()
     got = pt_wide_cuda.pt_sample_groups(Q, h_extra, R, S, num_replicas=M, host_variates=hv)
     torch.cuda.synchronize()
-    assert pt_wide_cuda.launch_counts == {"pt_wide": 0, "pt_wide_sparse": 1, "pt_wide_global": 0}
+    assert pt_wide_cuda.launch_counts == {"pt_wide": 0, "pt_wide_sparse": 1, "pt_wide_global": 0,
+                                          "pt_wide_global_sparse": 0}
     want = tempering.pt_sample_batch_plain(api.densify_groups(Q, h_extra), R, S, num_replicas=M,
                                            host_variates=hv)
     assert got.shape == (G, B, R, n) and set(got.unique().tolist()) <= {0.0, 1.0}
@@ -1104,7 +1110,7 @@ def test_pt_wide_paths_agree_bit_for_bit(dev, problem, M, R, S):
 @pytest.mark.parametrize("G,B,n,M,R,S,problem,path", [
     (1, 1, 4, 65, 8, 6, "random", "sparse"),     # past K3's 64 rungs: 3 blocks of 22
     (1, 2, 300, 33, 4, 5, "random", "dense"),    # past a block's 32 warps: 2 blocks of 17
-    (1, 2, 2608, 9, 3, 3, "random", "dense"),    # past a block's 5 rungs at the rule's widest
+    (1, 2, 1416, 21, 3, 3, "random", "dense"),   # past a block's 20 rungs at the rule's widest
                                                  # dense n: 2 blocks
     (2, 2, 717, 40, 4, 4, "CDQBM (a)", "sparse"),
     (1, 2, 717, 40, 4, 4, "random", "dense"),
@@ -1368,7 +1374,8 @@ def test_wide_global_layout_matches_plain(dev, n, rule):
     wide_cuda.reset_launch_counts()
     got = _kernel_groups(rule, Q, h_extra, R, S, host_variates=hv)
     torch.cuda.synchronize()
-    assert wide_cuda.launch_counts == {"anneal_wide": 0, "anneal_wide_global": 1}
+    assert wide_cuda.launch_counts == {"anneal_wide": 0, "anneal_wide_global": 1,
+                                       "anneal_wide_global_sparse": 0}
     assert _differ(got, _plain_groups(rule, Q, h_extra, R, S, hv)) <= MAX_DIFF_FRAC
 
 
@@ -1399,6 +1406,130 @@ def test_pt_global_path_equals_the_dense_path(dev, G, B, n, M, R, S):
     assert torch.equal(a, b)
 
 
+def _sparse_structured(rng, G, B, n, dev, density=0.005):
+    """G QUBOs whose couplings are ``density`` nonzeros (under the density
+    rule's 1% with the rest), and the restricted flat model's pattern
+    besides: variable 0 (the output) coupled to every other, as ``qbm_main
+    -hn 3400``'s unclamped group."""
+    Q = random_qubo_batch(rng, G, n).to(dev)
+    keep = torch.as_tensor(rng.random((G, n, n)) < density, device=dev)
+    keep[:, 0, :] = True
+    Q = torch.where(keep | torch.eye(n, dtype=torch.bool, device=dev), Q, torch.zeros_like(Q))
+    return Q, torch.as_tensor(rng.normal(size=(G, B, n)).astype(np.float32), device=dev)
+
+
+@pytest.mark.parametrize("rule", [0, 1, 2, 4])
+@pytest.mark.parametrize("n,qubos", [(301, "dense"), (301, "sparse"), (717, "CDQBM (a)"),
+                                     (3401, "sparse")])
+def test_wide_global_sparse_pass_equals_the_dense_pass(dev, n, qubos, rule):
+    """K4's global-field layout with its sparse pass forced and with its
+    dense pass forced: the same samples, final fields and counters bit for
+    bit, past a refresh, on dense and sparse QUBOs; at shared widths also
+    the shared layout's; the launches counted by pass."""
+    G, B, R, S = 2, 3, 20, 70 if n < 3000 else 3
+    rng = np.random.default_rng(n + rule + 7)
+    if qubos == "dense":
+        Q, h_extra = _structured(rng, G, B, n, dev)
+    elif qubos == "sparse":
+        Q, h_extra = _sparse_structured(rng, G, B, n, dev)
+    else:
+        Q, h_extra = cdqbm_a_qubos(B, dev)
+    hv = _variates(rng, (G, B), n, R, S, dev)
+    J, h, hot, logr = _structured_form(Q, h_extra, S, rule, 1.0)
+    runs = [(wide_cuda.GLOBAL, "dense"), (wide_cuda.GLOBAL, "sparse")]
+    if n <= wide_cuda.max_n():
+        runs.append((wide_cuda.SHARED, None))
+    res = []
+    for layout, field_pass in runs:
+        fields = torch.empty((G, B, R, n), device=dev)
+        flips = torch.zeros(2, dtype=torch.int64, device=dev)
+        wide_cuda.reset_launch_counts()
+        out = wide_cuda.launch(J, h, hot, logr, R, S, rule, host_variates=hv, fields_out=fields,
+                               flips=flips, field_pass=field_pass,
+                               geometry=wide_cuda.WideGeometry.of(G, B, R, n, 7, layout))
+        torch.cuda.synchronize()
+        key = {"dense": "anneal_wide_global", "sparse": "anneal_wide_global_sparse",
+               None: "anneal_wide"}[field_pass]
+        assert wide_cuda.launch_counts[key] == 1 and sum(wide_cuda.launch_counts.values()) == 1
+        res.append((out, fields, flips))
+    for other in res[1:]:
+        for a, b in zip(res[0], other):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("G,B,n,M,R,S,qubos", [(2, 2, 300, 8, 8, 70, "sparse"),
+                                               (1, 2, 717, 12, 4, 10, "dense"),
+                                               (2, 2, 717, 8, 4, 10, "CDQBM (a)"),
+                                               (2, 1, 3401, 8, 8, 3, "sparse")])
+def test_pt_global_sparse_pass_equals_the_dense_pass(dev, G, B, n, M, R, S, qubos):
+    """K5's global path with its sparse pass forced and with its dense pass
+    forced: the same samples, states, fields, energies and counters bit for
+    bit under host variates; where the dense path takes the shape, its
+    too."""
+    rng = np.random.default_rng(n + M + 3)
+    if qubos == "dense":
+        Q, h_extra = _structured(rng, G, B, n, dev)
+    elif qubos == "sparse":
+        Q, h_extra = _sparse_structured(rng, G, B, n, dev)
+    else:
+        Q, h_extra = cdqbm_a_qubos(B, dev)
+    J, h, betas, dbeta = pt_wide_cuda.structured_form(Q, h_extra, M)
+    hv = _pt_variates(rng, G * B, M, n, R, S, dev)
+    runs = [(pt_wide_cuda.GLOBAL, "dense"), (pt_wide_cuda.GLOBAL, "sparse")]
+    if n <= pt_wide_cuda.max_n():
+        runs.append((pt_wide_cuda.DENSE, None))
+    res = []
+    for path, field_pass in runs:
+        st = torch.empty((G * B * M, R, n), device=dev)
+        fo = torch.empty_like(st)
+        eo = torch.empty((G * B * M, R), device=dev)
+        fl = torch.zeros(2, dtype=torch.int64, device=dev)
+        pt_wide_cuda.reset_launch_counts()
+        out = pt_wide_cuda.launch(J, h, betas, dbeta, R, S, host_variates=hv, states_out=st,
+                                  fields_out=fo, energy_out=eo, flips=fl, path=path,
+                                  field_pass=field_pass)
+        torch.cuda.synchronize()
+        key = {"dense": "pt_wide_global", "sparse": "pt_wide_global_sparse",
+               None: "pt_wide"}[field_pass]
+        assert pt_wide_cuda.launch_counts[key] == 1
+        assert sum(pt_wide_cuda.launch_counts.values()) == 1
+        res.append((out, st, fo, eo, fl))
+    for other in res[1:]:
+        for a, b in zip(res[0], other):
+            assert torch.equal(a, b)
+
+
+def test_the_density_rule_picks_the_pass(dev):
+    """Through the sampler's wrappers past the shared layouts: a sparse
+    J_g (``_sparse_structured``: 0.5% and the output's row) on the sparse
+    pass, a dense one on the dense pass, for K4 and K5, each within the 1%
+    chain bound of plain."""
+    G, B, R, S, n = 1, 2, 64, 2, 3401
+    for qubos, sparse in (("sparse", True), ("dense", False)):
+        rng = np.random.default_rng(11 if sparse else 12)
+        Q, h_extra = (_sparse_structured if sparse else _structured)(rng, G, B, n, dev)
+        J = split_qubo(Q)[1]
+        assert wide_cuda.sparse_pass(pt_wide_cuda.row_nnz(J), n) == sparse
+        hv = _variates(rng, (G, B), n, R, S, dev)
+        wide_cuda.reset_launch_counts()
+        got = _kernel_groups("metropolis", Q, h_extra, R, S, host_variates=hv)
+        torch.cuda.synchronize()
+        key = "anneal_wide_global_sparse" if sparse else "anneal_wide_global"
+        assert wide_cuda.launch_counts[key] == 1 and sum(wide_cuda.launch_counts.values()) == 1
+        assert _differ(got, _plain_groups("metropolis", Q, h_extra, R, S, hv)) <= MAX_DIFF_FRAC
+        M = 4
+        hv = _pt_variates(rng, G * B, M, n, R, S, dev)
+        pt_wide_cuda.reset_launch_counts()
+        got = pt_wide_cuda.pt_sample_groups(Q, h_extra, R, S, num_replicas=M, host_variates=hv)
+        torch.cuda.synchronize()
+        key = "pt_wide_global_sparse" if sparse else "pt_wide_global"
+        assert pt_wide_cuda.launch_counts[key] == 1
+        assert sum(pt_wide_cuda.launch_counts.values()) == 1
+        want = tempering.pt_sample_batch_plain(api.densify_groups(Q, h_extra), R, S,
+                                               num_replicas=M, host_variates=hv)
+        assert _differ(got, want.reshape(G, B, R, n)) <= MAX_DIFF_FRAC
+
+
 @pytest.mark.parametrize("G,B,n,M,R,S", [
     (2, 2, 3401, 8, 64, 4),   # qbm_main -hn 3400's PT call, cut
     (1, 1, 3000, 24, 256, 4),  # past a cluster of the dense path's 2-rung blocks
@@ -1412,7 +1543,8 @@ def test_pt_global_path_matches_plain(dev, G, B, n, M, R, S):
     pt_wide_cuda.reset_launch_counts()
     got = pt_wide_cuda.pt_sample_groups(Q, h_extra, R, S, num_replicas=M, host_variates=hv)
     torch.cuda.synchronize()
-    assert pt_wide_cuda.launch_counts == {"pt_wide": 0, "pt_wide_sparse": 0, "pt_wide_global": 1}
+    assert pt_wide_cuda.launch_counts == {"pt_wide": 0, "pt_wide_sparse": 0, "pt_wide_global": 1,
+                                          "pt_wide_global_sparse": 0}
     want = tempering.pt_sample_batch_plain(api.densify_groups(Q, h_extra), R, S, num_replicas=M,
                                            host_variates=hv).reshape(G, B, R, n)
     assert _differ(got, want) <= MAX_DIFF_FRAC

@@ -122,20 +122,20 @@ def test_wide_geometry_at_the_cdqbm_shapes():
 
 def test_wide_max_n_is_the_widest_geometry():
     """At the shared layout's widest n one chain a block still fits, and one
-    more variable does not.  The rule leaves it earlier: at n = 2608, the
-    widest where a block holds 5 chains; past it K4 takes the global-field
+    more variable does not.  The rule leaves it earlier: at n = 1056, the
+    widest where a block holds 31 chains; past it K4 takes the global-field
     layout, 31 chains a block, at the shared layout's widest too."""
     top = wide_cuda.max_n()
     assert top == 3368
     assert wide_cuda.smem_bytes(top, 1) <= kernel_call.SMEM_BYTES < wide_cuda.smem_bytes(top + 1, 1)
     switch = wide_cuda.switch_n()
-    assert switch == 2608
-    assert wide_cuda.smem_bytes(switch, 5) <= kernel_call.SMEM_BYTES \
-        < wide_cuda.smem_bytes(switch + 1, 5)
-    for n in (2048, switch):
+    assert switch == 1056
+    assert wide_cuda.smem_bytes(switch, 31) <= kernel_call.SMEM_BYTES \
+        < wide_cuda.smem_bytes(switch + 1, 31)
+    for n in (1024, switch):
         geo = wide_cuda.wide_geometry(2, 20, 100, n)
         _within_limits(geo.smem, geo.threads, geo.grid)
-        assert geo.layout == wide_cuda.SHARED and geo.chains_per_block >= 5
+        assert geo.layout == wide_cuda.SHARED and geo.chains_per_block >= 31
     assert wide_cuda.layout_geometry(2, 20, 100, top, wide_cuda.SHARED).chains_per_block == 1
     with pytest.raises(ValueError, match="shared layout's bound"):
         wide_cuda.layout_geometry(2, 20, 100, top + 1, wide_cuda.SHARED)
@@ -159,9 +159,9 @@ def test_wide_layout_strides(n, jrow, frow):
 @pytest.mark.parametrize("n", [2, 242, 717, 3368, 3369, 3401, 3624, 3625, 4096, 4100, 8192])
 def test_wide_geometry_refuses_no_width(n):
     """K4 takes every n up to 8192 (and past it): the shared layout up to
-    2608, the global-field layout past it, whose shared memory holds two
-    8-row tiles of a column chunk (the whole padded row up to n = 3624, 3624
-    floats past it) and two 8×8 diagonal blocks."""
+    1056, the global-field layout past it, whose shared memory holds a
+    window's 128×128 diagonal block, the dense pass's two chunks of as many
+    floats, and each chain's window fields, state bytes and change list."""
     G, B, R = 2, 20, 100
     geo = wide_cuda.wide_geometry(G, B, R, n)
     _within_limits(geo.smem, geo.threads, geo.grid)
@@ -170,26 +170,92 @@ def test_wide_geometry_refuses_no_width(n):
     if n <= wide_cuda.switch_n():
         assert geo.layout == wide_cuda.SHARED and geo.smem == wide_cuda.smem_bytes(n, geo.chains_per_block)
         return
-    cw = min(frow, 3624)
     assert geo.layout == wide_cuda.GLOBAL and geo.chains_per_block == 31
-    assert wide_cuda.global_row_floats(n) == frow and wide_cuda.chunk_floats(n) == cw
-    assert geo.smem == wide_cuda.global_smem_bytes(n) == 4 * (2 * 8 * cw + 2 * 64)
-    chunks = -(-frow // cw)
-    assert chunks == (1 if n <= 3624 else 2 if n <= 7248 else 3)
+    assert wide_cuda.global_row_floats(n) == frow
+    assert geo.smem == wide_cuda.global_smem_bytes(31) == 4 * 3 * 128 * 128 + 31 * 6 * 128
 
 
 def test_wide_global_layout_fills_shared_memory_at_its_widest_chunk():
-    """The chunk width is the largest multiple of 8 whose two tiles and two
-    diagonal blocks fit a block: 3624 floats fill 232,448 bytes exactly."""
-    assert wide_cuda.CHUNK_MAX % 8 == 0
-    assert wide_cuda.global_smem_bytes(8192) == kernel_call.SMEM_BYTES
-    assert 4 * (2 * 8 * (wide_cuda.CHUNK_MAX + 8) + 128) > kernel_call.SMEM_BYTES
+    """The window (rows, and columns a dense chunk) is the widest multiple
+    of 8 whose diagonal block, two dense chunks and 32 chains' window rows
+    fit a block: 128 takes 221,184 of its 232,448 bytes, 136 would take
+    248,064."""
+    assert wide_cuda.WINDOW % 8 == 0
+    assert wide_cuda.global_smem_bytes(32) == 221_184 <= kernel_call.SMEM_BYTES
+    W = wide_cuda.WINDOW + 8
+    assert 4 * 3 * W * W + 32 * 6 * W > kernel_call.SMEM_BYTES
+    assert wide_cuda.global_smem_bytes(32, sparse=True) == 4 * 128 * 128 + 32 * 6 * 128
     # a forced layout, as the checks of the layouts' bit equality ask for it
     geo = wide_cuda.WideGeometry.of(2, 3, 20, 717, 7, wide_cuda.GLOBAL)
     assert geo.layout == wide_cuda.GLOBAL and geo.grid == (9, 2)
-    assert geo.smem == 4 * (2 * 8 * 720 + 128)
+    assert geo.smem == 4 * 3 * 128 * 128 + 7 * 6 * 128
     with pytest.raises(ValueError, match="unknown layout"):
         wide_cuda.WideGeometry.of(1, 1, 1, 8, 1, "registers")
+
+
+@pytest.mark.parametrize("n", [2609, 3369, 3401, 4096, 4100, 8191, 8192])
+@pytest.mark.parametrize("sparse", [False, True])
+def test_window_geometry_within_the_card_limits(n, sparse):
+    """The global-field layout's windows at widths up to 8192: ⌈n / 128⌉
+    windows of 128 rows (the last one shorter), each a multiple of 8 fields
+    within the chain's padded row, and every block of 1 to 32 chains (K5:
+    warps) within the card's shared memory, on either pass; the dense
+    pass's chunks cover the padded row, one of them the window's own
+    columns."""
+    W, frow = wide_cuda.WINDOW, wide_cuda.global_row_floats(n)
+    windows = -(-n // W)
+    starts = [k * W for k in range(windows)]
+    assert starts[-1] < n <= starts[-1] + W
+    fields = [min(W, frow - w0) for w0 in starts]
+    assert all(f % 8 == 0 and f > 0 for f in fields) and sum(fields) == frow
+    assert -(-frow // W) == windows  # a chunk per window: the pass skips its own
+    for chains in (1, 7, 31, 32):
+        smem = wide_cuda.global_smem_bytes(chains, sparse)
+        _within_limits(smem, 32 * chains, (1, 1))
+        geo = wide_cuda.WideGeometry.of(2, 20, 100, n, chains, wide_cuda.GLOBAL)
+        assert geo.smem == wide_cuda.global_smem_bytes(chains) >= smem
+        pt = pt_wide_cuda.PTWideGeometry.global_path(2, 20, 8, 100, n, chains)
+        assert pt.smem == geo.smem and pt.threads == 32 * chains
+
+
+def test_density_rule_is_one_constant():
+    """The global-field layouts' sparse pass takes a call whose densest
+    group holds at most ``SPARSE_DENSITY`` · n² nonzeros, and n ≤ 32768
+    (the row lists' 16-bit columns); the dense pass takes the rest: a pure
+    function of J_g's nonzeros a row and n, on either side of the constant."""
+    n = 1000
+    limit = int(wide_cuda.SPARSE_DENSITY * n * n)
+    at = torch.zeros((2, n), dtype=torch.int32)
+    at[1, :limit % n] = limit // n + 1
+    at[1, limit % n:] = limit // n
+    assert int(at[1].sum()) == limit
+    assert wide_cuda.sparse_pass(at, n)
+    over = at.clone()
+    over[1, 0] += 1
+    assert not wide_cuda.sparse_pass(over, n)
+    # the densest group decides, not the mean over groups
+    spread = torch.full((2, n), limit // n // 2 + 1, dtype=torch.int32)
+    assert wide_cuda.sparse_pass(spread, n)
+    lopsided = torch.cat([over[1:], torch.zeros((1, n), dtype=torch.int32)])
+    assert not wide_cuda.sparse_pass(lopsided, n)
+    # past 16-bit columns, the dense pass whatever the density
+    assert wide_cuda.sparse_pass(torch.zeros((1, 32768), dtype=torch.int32), 32768)
+    assert not wide_cuda.sparse_pass(torch.zeros((1, 32769), dtype=torch.int32), 32769)
+
+
+@pytest.mark.parametrize("restricted", [True, False])
+def test_density_rule_at_the_h3400_step(restricted):
+    """``qbm_main -hn 3400``'s step call: restricted (``qm.main``'s default:
+    J_g all zeros but the output's row and column, 6,800 nonzeros in the
+    unclamped group) on the sparse pass; as the CLI runs it (``-r False``:
+    a dense strictly-upper ``w_hh``) on the dense pass."""
+    n = 3401
+    counts = torch.zeros((2, n), dtype=torch.int32)
+    if restricted:
+        counts[1, 0], counts[1, 1:] = n - 1, 1
+    else:
+        counts[0, 1:], counts[1] = n - 2, n - 1
+    assert wide_cuda.sparse_pass(counts, n) == restricted
 
 
 def test_k1_k4_boundary():
@@ -435,7 +501,7 @@ PT_WIDE_SHAPES = {  # (G, B, M, R, n)
     "n=241 M=16": (1, 4, 16, 32, 241),
     "n=300": (2, 4, 8, 16, 300),
     "one ladder a block": (1, 2, 32, 4, 242),
-    "widest n": (1, 1, 1, 10, 3368),       # the sparse path, or past n = 2608 the global one
+    "widest n": (1, 1, 1, 10, 3368),       # the sparse path, or past n = 1056 the global one
     "65 rungs": (1, 1, 65, 8, 4),          # past K3: a cluster of 3 blocks
     "n=300 M=33": (1, 2, 33, 4, 300),      # past a block's warps: 2 blocks
     "n=3000 M=3": (1, 2, 3, 3, 3000),      # past what a block's memory holds
@@ -458,12 +524,12 @@ def test_pt_wide_geometry_within_the_card_limits(name, nnz_pad):
     L, K, W = geo.ladders_per_block, geo.cluster, geo.warps
     assert geo.threads == 32 * W <= 1024  # a warp a rung
     if geo.path == pt_wide_cuda.GLOBAL:  # any ladder over any blocks, S + 1 launches
-        assert n > wide_cuda.switch_n() or M > pt_wide_cuda.max_rungs(n)
+        assert n > pt_wide_cuda.switch_n() or M > pt_wide_cuda.max_rungs(n)
         assert W == pt_wide_cuda.global_warps(G, B, M, R) and geo.ladders_per_block == 0
-        assert geo.smem == wide_cuda.global_smem_bytes(n) and geo.grid == (math.ceil(B * R * M / W), G)
+        assert geo.smem == wide_cuda.global_smem_bytes(W) and geo.grid == (math.ceil(B * R * M / W), G)
         return
     if geo.path == pt_wide_cuda.DENSE:
-        assert n <= wide_cuda.switch_n()
+        assert n <= pt_wide_cuda.switch_n()
         assert geo.smem == pt_wide_cuda.smem_bytes(n, W) == wide_cuda.smem_bytes(n, W) + 8 * W
     else:
         assert nnz_pad is not None and geo.nnz_pad == nnz_pad and n <= pt_wide_cuda.max_n()
@@ -505,7 +571,7 @@ def test_pt_wide_bounds():
     """K5's shared paths hold K4's shared widths (n ≤ 3368) and every ladder
     whose rungs fit a cluster of 8 blocks, each of up to 32 warps beside two
     J tiles: 256 rungs up to n = 2600 or so, 16 at n = 3000, 8 at n = 3368.
-    The rule gives the dense path n ≤ 2608 (5 rungs a block); past it, and
+    The rule gives the dense path n ≤ 1416 (20 rungs a block); past it, and
     past those ladders, the global path takes the call; only an empty shape
     or more than 65,535 groups raise."""
     assert pt_wide_cuda.max_n() == wide_cuda.max_n() == 3368
@@ -513,14 +579,15 @@ def test_pt_wide_bounds():
     assert pt_wide_cuda.max_rungs(241) == pt_wide_cuda.max_rungs(717) == 256
     assert pt_wide_cuda.max_rungs(3000) == 16
     assert pt_wide_cuda.max_rungs(3368) == 8 and pt_wide_cuda.max_rungs(3369) == 0
-    assert pt_wide_cuda.block_rungs(wide_cuda.switch_n()) == 5
-    assert pt_wide_cuda.block_rungs(wide_cuda.switch_n() + 1) == 4
+    assert pt_wide_cuda.switch_n() == 1416
+    assert pt_wide_cuda.block_rungs(pt_wide_cuda.switch_n()) == 20
+    assert pt_wide_cuda.block_rungs(pt_wide_cuda.switch_n() + 1) == 19
     for n in (242, 717, 1500, 2600, 3000, 3368):
         W = pt_wide_cuda.block_rungs(n)
         M = pt_wide_cuda.max_rungs(n)
         assert M == 8 * W and 1 <= W <= 32
         assert pt_wide_cuda.smem_bytes(n, W) <= kernel_call.SMEM_BYTES
-        rule = pt_wide_cuda.pt_wide_geometry if n <= wide_cuda.switch_n() else \
+        rule = pt_wide_cuda.pt_wide_geometry if n <= pt_wide_cuda.switch_n() else \
             pt_wide_cuda.shared_geometry
         assert rule(1, 1, W, 1, n).cluster == 1
         assert rule(1, 1, M, 1, n).cluster == 8
@@ -530,7 +597,7 @@ def test_pt_wide_bounds():
         assert pt_wide_cuda.pt_wide_geometry(1, 1, M + 1, 1, n).path == pt_wide_cuda.GLOBAL
         with pytest.raises(ValueError, match="shared paths' bounds"):
             pt_wide_cuda.shared_geometry(1, 1, M + 1, 1, n)
-        if n > wide_cuda.switch_n():
+        if n > pt_wide_cuda.switch_n():
             assert pt_wide_cuda.pt_wide_geometry(1, 1, M, 1, n).path == pt_wide_cuda.GLOBAL
     for n, M in ((3369, 1), (300, 257), (3000, 17), (3368, 9), (2609, 1)):
         assert pt_wide_cuda.pt_wide_geometry(1, 1, M, 1, n).path == pt_wide_cuda.GLOBAL
@@ -566,13 +633,13 @@ def test_pt_route(shape, kernel):
 
 def test_pt_route_takes_the_union_of_the_bounds():
     """A PT call launches K3 where it takes the shape, else K5: its dense
-    path where the rule gives it the call (n ≤ 2608, the ladder within a
+    path where the rule gives it the call (n ≤ 1416, the ladder within a
     cluster), its global path beyond, so that no shape raises (the cases
     that raised before this layout now take the global path, one for one)."""
     for n in (1, 6, 8, 9, 100, 240, 241, 242, 300, 717, 1024, 2000, 3000, 3368, 3369):
         for M in (1, 2, 8, 9, 15, 16, 17, 32, 33, 64, 65, 256, 257):
             k3 = n <= 241 and M <= 64 and 4 * (n * n + 2 * M) <= kernel_call.SMEM_BYTES
-            k5 = n <= 2608 and M <= 8 * pt_wide_cuda.block_rungs(n)
+            k5 = n <= pt_wide_cuda.switch_n() and M <= 8 * pt_wide_cuda.block_rungs(n)
             assert pt_wide_cuda.pt_route(1, 2, M, 3, n) == ("pt_heatbath" if k3 else "pt_wide")
             if not k3:
                 path = pt_wide_cuda.pt_wide_geometry(1, 2, M, 3, n).path
@@ -704,14 +771,17 @@ def test_rbm_cd1_bound_at_the_headline_shape():
     assert 0.03 < 1e3 * b9["bytes"] / 3.35e12 < b9["bound_ms"]
 
 
-@pytest.mark.parametrize("n", [2048, 2232, 2560, 2608, 2609, 3000, 3368])
+@pytest.mark.parametrize("n", [1024, 1056, 1057, 1280, 1416, 1417, 2048, 2232, 2560, 2608, 2609,
+                               3000, 3368])
 def test_layout_rules_switch_where_a_block_holds_five(n):
-    """K4's shared layout and K5's dense path take a call up to n = 2608,
-    where a block holds 5 chains (rungs); past it the global-field layout
-    and the global path take it, at the CDQBM (a) call's 4,000 chains and
-    32,000 rungs.  K5's sparse path keeps its rule: J_g's row lists that fit
-    a block beside its rungs."""
-    shared = n <= 2608
-    assert (wide_cuda.wide_geometry(2, 20, 100, n).layout == wide_cuda.SHARED) == shared
-    assert (pt_wide_cuda.pt_wide_geometry(2, 20, 8, 100, n).path == pt_wide_cuda.DENSE) == shared
+    """K4's shared layout takes a call up to n = 1056, where a block holds
+    31 chains, and K5's dense path up to n = 1416, where a block holds 20
+    rungs (both 5 before the global layouts' redesign, at n = 2608); past
+    them the global-field layout and the global path take it, at the
+    CDQBM (a) call's 4,000 chains and 32,000 rungs.  K5's sparse path keeps
+    its rule: J_g's row lists that fit a block beside its rungs."""
+    assert (wide_cuda.switch_n(), pt_wide_cuda.switch_n()) == (1056, 1416)
+    assert (wide_cuda.wide_geometry(2, 20, 100, n).layout == wide_cuda.SHARED) == (n <= 1056)
+    assert (pt_wide_cuda.pt_wide_geometry(2, 20, 8, 100, n).path == pt_wide_cuda.DENSE) == \
+        (n <= 1416)
     assert pt_wide_cuda.pt_wide_geometry(2, 20, 8, 100, n, 8).path == pt_wide_cuda.SPARSE

@@ -143,7 +143,8 @@ def test_wrapper_runs_the_plain_version_on_cpu():
     assert torch.equal(pt_wide_cuda.pt_sample_batch(T(Q), 8, 3, num_replicas=3,
                                                     host_variates=hv), want)
     assert pt_cuda.launch_counts == {"pt_heatbath": 0}
-    assert pt_wide_cuda.launch_counts == {"pt_wide": 0, "pt_wide_sparse": 0, "pt_wide_global": 0}
+    assert pt_wide_cuda.launch_counts == {"pt_wide": 0, "pt_wide_sparse": 0, "pt_wide_global": 0,
+                                          "pt_wide_global_sparse": 0}
 
 
 def test_registry_pt_takes_qbmx_kwargs():

@@ -148,18 +148,23 @@ class _TorchReplay:
                                                host_variates=(T(init01), T(u)))
 
 
-def test_one_flat_step_at_h3400_matches_qbmx():
+@pytest.mark.parametrize("restricted", [False, True])
+def test_one_flat_step_at_h3400_matches_qbmx(restricted):
     """``qbm_main -hn 3400``'s model (n = 3401: 3400 hidden units and the
-    output), one step at sc 2, anneal 2, a batch of 2."""
+    output), one step at sc 2, anneal 2, a batch of 2: as the CLI runs it
+    (``-r False``: a dense strictly-upper ``w_hh``, the card's dense pass)
+    and restricted (``qm.main``'s default: ``w_hh`` zero, J_g all zeros but
+    the output's row and column, the card's sparse pass)."""
     D, H, B, R, S, O = 6, 3400, 2, 2, 2, 1
     n, G = O + H, 2
     rng = np.random.default_rng(3400)
     variates = [((rng.random((G, B, R, n)) < 0.5).astype(np.float32),
                  np.clip(rng.random((S, G, B, n, R)), 1e-6, 1 - 1e-6).astype(np.float32))]
-    kw = dict(dim_input=D, n_hidden_nodes=H, sample_count=R, anneal_steps=S, restricted=False)
+    kw = dict(dim_input=D, n_hidden_nodes=H, sample_count=R, anneal_steps=S,
+              restricted=restricted)
     jm = jd.DiscQBM(sampler=_XlaReplay(variates, S), **kw)
     tm = td.DiscQBM(sampler=_TorchReplay(variates, S), device="cpu", **kw)
-    d = _params(8, D, H, O)
+    d = _params(8, D, H, O, restricted)
     jm.params, tm.params = _jparams(d), td.params_from_numpy(d)
     x, y, _ = _batch(11, B, D, O, False)
     mask = np.ones(B, np.float32)
