@@ -229,7 +229,31 @@ failure exits nonzero; nothing carries on after one):
    in turns (``layout_turns``): K4's two layouts and K5's dense and global
    paths, each forced on one call, timed a, b, b, a across n and on both
    sides of the rules' switches (K4: n = 1056, where a block holds 31
-   chains; K5: n = 1416, 20 rungs).
+   chains; K5: n = 1416, 20 rungs);
+11. the user scripts (``scripts_phase``; no kernel of its own for the
+   exact studies, whose enumeration is PyTorch ops), in a temporary working
+   directory: ``cli/cdqbm_exact_study.main`` on ``cuda`` at full size (14
+   variants × 400 Adam steps through the enumeration, 80/80 bars images),
+   each row within ``BARS_BAND`` of ``qbmx``'s recorded
+   ``out/parity/cdqbm_exact_study.md`` (QUBO variables equal, NLL within
+   0.02, accuracies within 3 images, bias sensitivity within 2%), and each
+   variant's p(y=1|x) after 20 steps on the card within 1e-4 of the CPU's
+   from the same inputs; ``cdqbm_breast_exact_study`` and
+   ``cdqbm_multikernel_study`` at full size on seeded MedMNIST files of the
+   real shapes (breastmnist 546/78/156, pneumoniamnist 4708/524/624, made
+   here under ``$QBMX_DATA_DIR``): every row's QUBO-variable count the
+   recorded tables', NLL finite, times printed; ``bms_hyper_search
+   --configs`` at the script's widths (sc 1000, anneal 1000, bs 20, 10
+   seeds, one epoch) for SA h5, BMS h8 and PT h5 (128 sweeps): exactly one
+   launch of K1, K2 or K3 a step and one for validation, nothing else, a
+   JSONL record with ``qbmx``'s keys, the time a seed-step; K1, K2 pair
+   and K3 at the search's own step calls (G=20 groups of B=20, R=1000, n =
+   6, 9 and 6 with M=8; each solver's step QUBOs), each launched once
+   through its wrapper against its plain version under host variates
+   (the 1% bound of phase 3; depth cut to 100 sweeps, K3's to 16), timed at
+   the full depth beside its bound and the plain version's time; and
+   ``bms_winner_curves --e 1 --seeds 10 --predict_reads 100``: the JSON
+   written, both fronts printed, K2 once a step and once for validation.
 
 The last three lines are the ``nvidia-smi`` line, one JSON object with the
 kernel records (time, plain time, bound, launches on the main path), and
@@ -1395,6 +1419,291 @@ def wide_phase(dev, smi: str, counters, made) -> dict:
             "max_abs_err": {k: max(v) for k, v in errs.items()},
             "differing_chains": {k: max(v) for k, v in fracs.items()},
             "layout_turns": turns, "seconds": time.perf_counter() - t0}
+
+
+# -- phase 11: the user scripts (the exact studies, the breastmnist search) ------
+
+# the bars rows against qbmx's recorded table: NLL (absolute), accuracies
+# (images of 80), bias sensitivity (relative)
+BARS_BAND = {"nll": 0.02, "acc_images": 3, "sensitivity_rel": 0.02}
+CARD_CPU_P_ATOL = 1e-4  # the bars variants' p(y=1|x) after 20 steps, card against CPU
+MEDMNIST_SHAPES = {"breastmnist": (546, 78, 156), "pneumoniamnist": (4708, 524, 624)}
+SEARCH_CONFIGS = {  # bms_hyper_search --configs at the script's widths, one epoch
+    "sa_metropolis": {"solver": "SA", "h": 5, "lr": 0.307, "e": 1},
+    "sa_heatbath": {"solver": "BMS", "h": 8, "lr": 0.453, "e": 1},
+    "pt_heatbath": {"solver": "PT", "h": 5, "lr": 0.453, "sweeps": 128, "e": 1},
+}
+
+
+def read_table(text: str) -> list[dict]:
+    """The rows of a study's markdown table: variant, QUBO vars and the four
+    numeric columns (the last: bias sensitivity or test AUC)."""
+    rows = []
+    for line in text.splitlines():
+        cells = [c.strip() for c in line.strip().strip("|").split("|")]
+        if len(cells) == 6 and cells[1].isdigit():
+            rows.append({"name": cells[0], "vars": int(cells[1]), "nll": float(cells[2]),
+                         "acc_train": float(cells[3]), "acc_test": float(cells[4]),
+                         "last": float(cells[5])})
+    return rows
+
+
+def bars_spreads(rows: list[dict], recorded: list[dict]) -> dict:
+    """The largest differences of bars rows (``cdqbm_exact_study.main``'s, or
+    a written table's ``read_table``) from the recorded ones, row by row:
+    NLL, accuracies in images of 80, sensitivity relative; and whether the
+    variants and QUBO-variable counts are the same."""
+    last = lambda r: r.get("sensitivity", r.get("last"))
+    return {
+        "rows_equal": [(r["name"], r["vars"]) for r in rows]
+                      == [(r["name"], r["vars"]) for r in recorded],
+        "nll": max(abs(a["nll"] - b["nll"]) for a, b in zip(rows, recorded)),
+        "acc_images": max(abs(round(a[k] * 80) - round(b[k] * 80))
+                          for a, b in zip(rows, recorded) for k in ("acc_train", "acc_test")),
+        "sensitivity_rel": max(abs(last(a) - last(b)) / abs(last(b))
+                               for a, b in zip(rows, recorded)),
+    }
+
+
+def write_medmnist(root: Path, seed: int = 11) -> None:
+    """Seeded MedMNIST files of the real shapes under ``root/medmnist``
+    (28×28 uint8 images, labels (N, 1), 27% positive): a class template
+    plus noise."""
+    r = np.random.default_rng(seed)
+    (root / "medmnist").mkdir(parents=True, exist_ok=True)
+    for name, sizes in MEDMNIST_SHAPES.items():
+        template = r.uniform(0, 1, (2, 28, 28))
+        arrays = {}
+        for split, n in zip(("train", "val", "test"), sizes):
+            y = (r.random(n) < 0.27).astype(np.int64)
+            img = 0.4 * template[y] + 0.6 * r.uniform(0, 1, (n, 28, 28))
+            arrays[f"{split}_images"] = (img * 255).astype(np.uint8)
+            arrays[f"{split}_labels"] = y[:, None]
+        np.savez(root / "medmnist" / f"{name}.npz", **arrays)
+
+
+def search_calls(search, data, smi: str) -> dict:
+    """K1, K2 pair and K3 at the search's own step calls (10 seeds: G=20
+    groups of B=20, R=1000; each solver's step QUBOs on the first batch),
+    each launched once through its wrapper against its plain version under
+    host variates (depth cut: K1 and K2 100 sweeps, K3 16), then timed at
+    the full depth (Philox, CUDA events, median of 3) beside its bound and
+    the plain version's time at the cut depth (one run after a warm-up)."""
+    from qbmx_torch.samplers import gibbs, gibbs_cuda, pt_cuda, sa_cuda, sa_torch, tempering
+    from qbmx_torch.samplers import launches as launches_mod
+    from qbmx_torch.samplers.api import densify_groups
+    from qbmx_torch.train.sweep import SeedParallelDQBM
+    from qbmx_torch.utils.roofline import anneal_bound, heatbath_units
+
+    dev, rng, g = torch.device("cuda"), np.random.default_rng(15), gen_of(15)
+    seeds = (list(search.DEFAULT_SEEDS) + search.EXTRA_SEEDS)[:10]
+    x = torch.as_tensor(data[0][0][:20], device=dev)
+    y = torch.as_tensor(np.asarray(data[0][1][:20]), device=dev)
+    pair = WIDTH_OF["pair"]
+
+    def counted(launch, *args):
+        flips = torch.zeros(1, dtype=torch.int64, device=dev)
+        launch(*args, generator=g, flips=flips)
+        return int(flips.item())
+
+    out = {}
+    for kernel, cfg in SEARCH_CONFIGS.items():
+        sw = SeedParallelDQBM(seeds, dim_input=x.shape[1], n_hidden_nodes=cfg["h"],
+                              restricted=False, sample_count=1000,
+                              anneal_steps=cfg.get("sweeps", 1000), solver=cfg["solver"],
+                              device=dev)
+        Q, h = sw.step_qubos(x, y)
+        G, B, n = h.shape
+        R, S = 1000, cfg.get("sweeps", 1000)
+        if kernel == "pt_heatbath":
+            Qd, Sc, M = densify_groups(Q, h), 16, 8
+            hv = pt_hv(rng, G * B * M, R, n, Sc, dev)
+            kern = lambda: pt_cuda.pt_sample_batch_cuda(Qd, R, Sc, num_replicas=M, host_variates=hv)
+            plain = lambda: tempering.pt_sample_batch_plain(Qd, R, Sc, num_replicas=M,
+                                                            host_variates=hv)
+            full = lambda: pt_cuda.pt_sample_batch_cuda(Qd, R, S, num_replicas=M, generator=g)
+            bound = anneal_bound(G * B, 1, R, n, S, decisions=G * B * M * R * n * S)
+        else:
+            Sc = 100
+            hv = (bits(rng, (G, B, R, n), dev), uniforms(rng, (Sc, G, B, n, R), dev))
+            if kernel == "sa_metropolis":
+                kern = lambda: sa_cuda.sa_sample_groups_cuda(Q, h, R, Sc, host_variates=hv)
+                plain = lambda: sa_torch.sa_sample_groups_plain(Q, h, R, Sc, host_variates=hv)
+                full = lambda: sa_cuda.sa_sample_groups_cuda(Q, h, R, S, generator=g)
+                bound = anneal_bound(G, B, R, n, S, flips=counted(
+                    sa_cuda.launch, *structured_form(Q, h, S), R, S))
+            else:
+                kern = lambda: gibbs_cuda.gibbs_sample_groups_cuda(Q, h, R, Sc, pair=True,
+                                                                   host_variates=hv)
+                plain = lambda: gibbs.gibbs_sample_groups_plain(Q, h, R, Sc, pair=True,
+                                                                host_variates=hv)
+                full = lambda: gibbs_cuda.gibbs_sample_groups_cuda(Q, h, R, S, pair=True,
+                                                                   generator=g)
+                bound = anneal_bound(G, B, R, n, S, decisions=G * B * R * heatbath_units(n, pair) * S,
+                                     flips=counted(gibbs_cuda.launch,
+                                                   *structured_form(Q, h, S, pair), R, S, pair))
+        launches_mod.reset()
+        got = kern()
+        torch.cuda.synchronize()
+        counts = launches_mod.counts()
+        check(counts == {kernel: 1}, f"phase 11: the search's {cfg['solver']} call launched "
+                                     f"{counts}")
+        label = (f"{kernel} at the search's {cfg['solver']} call G={G} B={B} n={n} R={R} "
+                 f"S={Sc} (of {S}; the step's QUBOs)")
+        frac, err = compare(got, plain(), label, phase=11)
+        del got
+        k_ms, p_ms = cuda_ms(full, runs=3), cuda_ms(plain, runs=1)
+        del hv
+        out[kernel] = {"G": G, "B": B, "n": n, "R": R, "S": S, "plain_S": Sc,
+                       "differing_chains": frac, "max_abs_err": err, "ms": k_ms,
+                       "plain_ms_at_plain_S": p_ms, "bound_ms": bound["bound_ms"],
+                       "bound_by": bound["bound_by"]}
+        print(f"phase 11 time {kernel} at the search's {cfg['solver']} call (G={G} B={B} n={n} "
+              f"R={R} S={S}): kernel {k_ms:.3f} ms (CUDA events, median of 3), plain "
+              f"{p_ms:.3f} ms at S={Sc} (one run after a warm-up), bound "
+              f"{bound['bound_ms']:.4f} ms by {bound['bound_by']}; {smi}")
+    return out
+
+
+def scripts_phase(smi: str) -> dict:
+    """Phase 11: the user scripts' CLIs on the card, in a temporary working
+    directory (their tables and records go to its ``out/parity_torch/``)
+    with seeded MedMNIST files under ``$QBMX_DATA_DIR``."""
+    import contextlib
+    import io
+    import os
+
+    from qbmx_torch.cli import (bms_hyper_search, bms_winner_curves, cdqbm_breast_exact_study,
+                                cdqbm_exact_study, cdqbm_multikernel_study, exact_harness)
+    from qbmx_torch.samplers import launches as launches_mod
+
+    t_phase = time.perf_counter()
+    rec = {}
+    recorded = lambda name: read_table((ROOT / "out" / "parity" / name).read_text())
+    cwd, data_env = os.getcwd(), os.environ.get("QBMX_DATA_DIR")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        os.environ["QBMX_DATA_DIR"] = str(Path(tmp) / "data")
+        try:
+            # the bars study at full size: 14 variants × 400 Adam steps, 80/80 images
+            t0 = time.perf_counter()
+            rows = cdqbm_exact_study.main(["--device", "cuda"])
+            rec["bars_s"] = time.perf_counter() - t0
+            spreads = bars_spreads(rows, recorded("cdqbm_exact_study.md"))
+            rec["bars_spreads"], rec["bars_band"] = spreads, BARS_BAND
+            check(spreads["rows_equal"], "phase 11: the bars variants or QUBO-variable counts "
+                  "differ from out/parity/cdqbm_exact_study.md")
+            for k, limit in BARS_BAND.items():
+                check(spreads[k] <= limit, f"phase 11: bars {k} {spreads[k]} past the band "
+                      f"{limit} of out/parity/cdqbm_exact_study.md")
+            print(f"phase 11 bars study (cdqbm_exact_study.main, 14 × 400 Adam steps): "
+                  f"{rec['bars_s']:.1f} s, {smi}; against qbmx's recorded table: NLL "
+                  f"{spreads['nll']:.4f} (band {BARS_BAND['nll']}), accuracies "
+                  f"{spreads['acc_images']} images (band {BARS_BAND['acc_images']}), "
+                  f"sensitivity {spreads['sensitivity_rel']:.5f} relative "
+                  f"(band {BARS_BAND['sensitivity_rel']})")
+
+            # each variant 20 steps on the card and on the CPU from the same inputs
+            X, Y = cdqbm_exact_study.make_bars(np.random.default_rng(0))
+            worst = {}
+            for name, kw in cdqbm_exact_study.variants():
+                kw = dict(kw)
+                Xs = X * 2.0 - 1.0 if kw.pop("signed", False) else X
+                p = {}
+                for d in ("cuda", "cpu"):
+                    m = cdqbm_exact_study.make_model(X.shape[1:], d, **kw)
+                    params, _ = cdqbm_exact_study.train_exact(m, Xs, Y, steps=20)
+                    p[d] = exact_harness.predict_p1(
+                        lambda q, x: cdqbm_exact_study.exact_p1(m, q, x), params, Xs)
+                worst[name] = float(np.abs(p["cuda"] - p["cpu"]).max())
+            rec["card_cpu_p_after_20_steps"] = worst
+            check(max(worst.values()) <= CARD_CPU_P_ATOL,
+                  f"phase 11: p(y=1|x) after 20 steps, card against CPU: {worst}")
+            print(f"phase 11 bars, 20 steps, card against CPU: max |Δp| "
+                  f"{max(worst.values()):.2e} over the 14 variants (bar {CARD_CPU_P_ATOL})")
+
+            # the two MedMNIST studies on seeded files of the real shapes
+            write_medmnist(Path(tmp) / "data")
+            for study, name in ((cdqbm_breast_exact_study, "cdqbm_breast_exact_study.md"),
+                                (cdqbm_multikernel_study, "cdqbm_multikernel_study.md")):
+                t0 = time.perf_counter()
+                out = study.main(["--device", "cuda"])
+                seconds = time.perf_counter() - t0
+                flat = out if isinstance(out, list) else [r for rows_ in out.values() for r in rows_]
+                key = name.removesuffix(".md")
+                check([(r["name"], r["vars"]) for r in flat]
+                      == [(r["name"], r["vars"]) for r in recorded(name)],
+                      f"phase 11: {key}'s variants or QUBO-variable counts differ from the "
+                      "recorded table")
+                check(all(math.isfinite(r["nll"]) for r in flat), f"phase 11: {key} NLL")
+                rec[key] = {"seconds": seconds,
+                            "rows": [{k: r[k] for k in ("name", "vars", "nll", "seconds")}
+                                     for r in flat]}
+                print(f"phase 11 {key} (seeded files): {len(flat)} rows in {seconds:.1f} s, "
+                      f"{smi}; QUBO vars as recorded, NLL finite")
+
+            # the search: one config a solver, 10 seeds, one epoch; one launch a step
+            data = bms_hyper_search.breast_data()
+            n_train = len(data[0][0])
+            rec["search"] = {}
+            for kernel, cfg in SEARCH_CONFIGS.items():
+                steps = math.ceil(n_train / cfg.get("bs", 20))
+                launches_mod.reset()
+                t0 = time.perf_counter()
+                records = bms_hyper_search.main(["--configs", json.dumps([cfg]), "--seeds", "10",
+                                                 "--device", "cuda"])
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                counts = launches_mod.counts()
+                check(counts == {kernel: steps + 1},
+                      f"phase 11: bms_hyper_search {cfg} launched {counts}, not {kernel} once a "
+                      f"step ({steps}) and once for validation")
+                check(set(records[0]) == {"cfg", "n_seeds", "time_s", "mean_acc", "std_acc",
+                                          "mean_auc", "best_single", "any_beats_ref",
+                                          "per_seed"}, "phase 11: the search record's keys")
+                rec["search"][cfg["solver"]] = {
+                    "cfg": cfg, "launches": counts, "seconds": seconds,
+                    "ms_a_seed_step": seconds * 1000 / (steps * 10),
+                    "mean_acc": records[0]["mean_acc"], "best_single": records[0]["best_single"]}
+                print(f"phase 11 bms_hyper_search {cfg['solver']} (h{cfg['h']}, 10 seeds, "
+                      f"{steps} steps + validation): {counts}, {seconds:.2f} s, "
+                      f"{seconds * 1000 / (steps * 10):.3f} ms a seed-step (epoch wall with "
+                      f"validation ÷ steps·seeds), {smi}")
+            written = Path("out/parity_torch/bms_hyper_search.jsonl").read_text().splitlines()
+            check(len(written) == len(SEARCH_CONFIGS), "phase 11: the search's JSONL lines")
+            rec["search_calls"] = search_calls(bms_hyper_search, data, smi)
+
+            # the winner curves: BMS h8 bs36, one epoch, 10 seeds, 100 prediction reads
+            steps = math.ceil(n_train / 36)
+            launches_mod.reset()
+            t0 = time.perf_counter()
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                path = bms_winner_curves.main(["--e", "1", "--seeds", "10", "--predict_reads",
+                                               "100", "--device", "cuda"])
+            seconds = time.perf_counter() - t0
+            counts = launches_mod.counts()
+            print(printed.getvalue(), end="")
+            curves = json.loads(Path(path).read_text())["curves"]
+            check(len(curves) == 10 and all(len(c["acc"]) == 1 for c in curves.values()),
+                  "phase 11: the winner curves' JSON")
+            check("acc/AUC Pareto front" in printed.getvalue()
+                  and "top by acc (prob-scored AUC)" in printed.getvalue(),
+                  "phase 11: the winner curves' fronts")
+            check(counts == {"sa_heatbath": steps + 1},
+                  f"phase 11: bms_winner_curves launched {counts}")
+            rec["winner_curves"] = {"launches": counts, "seconds": seconds}
+            print(f"phase 11 bms_winner_curves (BMS h8, 10 seeds, {steps} steps): {counts}, "
+                  f"{seconds:.2f} s")
+        finally:
+            os.chdir(cwd)
+            if data_env is None:
+                os.environ.pop("QBMX_DATA_DIR", None)
+            else:
+                os.environ["QBMX_DATA_DIR"] = data_env
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 11 user scripts: {rec['phase_s']:.1f} s")
+    return rec
 
 
 def main() -> None:
@@ -2723,6 +3032,13 @@ def main() -> None:
     # -- 10. past the shared layouts: K4's global fields, K5's global path, H=3400 --
     wide_rec = wide_phase(dev, smi, counters, made)
 
+    # -- 11. the user scripts: the exact studies, the breastmnist search ----------
+    scripts_rec = scripts_phase(smi)
+    for kernel, r in scripts_rec["search_calls"].items():
+        record(kernel, (r["differing_chains"], r["max_abs_err"]))
+    search_launches = lambda kernel: next(r["launches"] for r in scripts_rec["search"].values()
+                                          if kernel in r["launches"])
+
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s")
     t = lambda prefix: next(v for k, v in times.items() if k.startswith(prefix))
     bound_keys = lambda name: {"bound_ms": bounds[name]["bound_ms"],
@@ -2744,7 +3060,9 @@ def main() -> None:
          "warm_start_ms": rbm_rec["warm_start"]["k1_ms"],
          "warm_start_plain_ms": rbm_rec["warm_start"]["k1_plain_ms"],
          "warm_start_bound_ms": rbm_rec["warm_start"]["k1_bound_ms"],
-         "warm_start_differing_chains": rbm_rec["warm_start"]["k1_differing_chains"]},
+         "warm_start_differing_chains": rbm_rec["warm_start"]["k1_differing_chains"],
+         "bms_search_launches": search_launches("sa_metropolis"),
+         "bms_search_call": scripts_rec["search_calls"]["sa_metropolis"]},
         {"name": "sa_heatbath", "route": "cuda", "source": "qbmx_torch/csrc/sa_heatbath.cu",
          "replaces": "qbmx/samplers/sa_lane.py:144",
          "also_replaces": "qbmx/samplers/sa_pallas.py:196",
@@ -2762,7 +3080,10 @@ def main() -> None:
          "quad_dense_ms": t("K2 quad")[0], "quad_dense_plain_ms": t("K2 quad")[1],
          "field_drift_of_limit": k2_drift_ratio, "field_one_add_short_of_limit": k2_planted,
          "cdqbm_b_sweep_launches": csweep_rec["b BMS"]["launches"],
-         "cdqbm_b_sweep_bound_ms": bounds["sa_heatbath CDQBM (b) sweep G=20"]["bound_ms"]},
+         "cdqbm_b_sweep_bound_ms": bounds["sa_heatbath CDQBM (b) sweep G=20"]["bound_ms"],
+         "bms_search_launches": search_launches("sa_heatbath"),
+         "bms_search_call": scripts_rec["search_calls"]["sa_heatbath"],
+         "bms_winner_curves_launches": scripts_rec["winner_curves"]["launches"]},
         {"name": "pt_heatbath", "route": "cuda", "source": "qbmx_torch/csrc/pt_heatbath.cu",
          "replaces": "qbmx/samplers/sa_pallas.py:196",
          "launches": launches["pt_heatbath"], "max_abs_err": max(errs["pt_heatbath"]),
@@ -2772,7 +3093,9 @@ def main() -> None:
          **bound_keys("pt_heatbath"), "layouts": pt_layouts,
          "cli_defaults_ms": t("K3 CLI defaults")[0],
          "cli_defaults_plain_ms": t("K3 CLI defaults")[1],
-         "cli_defaults_bound_ms": bounds["pt_heatbath CLI defaults"]["bound_ms"]},
+         "cli_defaults_bound_ms": bounds["pt_heatbath CLI defaults"]["bound_ms"],
+         "bms_search_launches": search_launches("pt_heatbath"),
+         "bms_search_call": scripts_rec["search_calls"]["pt_heatbath"]},
         {"name": "anneal_wide", "route": "cuda", "source": "qbmx_torch/csrc/anneal_wide.cu",
          "replaces": "qbmx/samplers/sa_lane.py:144",
          "also_replaces": "qbmx/samplers/sa_pallas.py:196",
@@ -2852,7 +3175,7 @@ def main() -> None:
     ], "step_ms": step_ms, "cdqbm_launches": cdqbm_launches, "sweeps": sweep_rec,
         "cdqbm_sweeps": csweep_rec, "resume": resume_rec, "rbm": rbm_rec,
         "host_seams": host_rec, "mesh": mesh_rec,
-        "wide": wide_rec}
+        "wide": wide_rec, "scripts": scripts_rec}
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -414,25 +414,34 @@ class SeedParallelDQBM(_SeedSweep):
                                           self.use_one_hot_encoding)
         return probs.unflatten(0, s_u.shape[:2])
 
-    @torch.no_grad()
-    def _step(self, x, y, mask, lr):
-        """One update of every seed's parameters from ONE sampler call;
-        returns the (S,) nlls on the device."""
-        p = self.params
-        S, O, beta = len(self._held), self.n_output_nodes, self.beta_eff
+    def step_qubos(self, x, y):
+        """The step's one sampler call on inputs ``x`` (B, D) and labels
+        ``y`` (B,): ``(Q_all (2·S, n_u, n_u), h_all (2·S, B, n_u))``, every
+        seed's clamped group first, then every seed's unclamped group; the
+        clamped groups are zero-padded to n_u (the padding couples to
+        nothing and is sliced off)."""
+        p, S, beta = self.params, len(self._held), self.beta_eff
         y_vec = self._y_vec(y)
         B, H = x.shape[0], self.n_hidden_nodes
         Qu = unclamped_qubo_shared(p, beta)  # (S, n_u, n_u)
         n_u = Qu.shape[-1]
-        # group order: [every seed's clamped, every seed's unclamped]; the
-        # clamped groups are zero-padded to n_u (the padding couples to
-        # nothing and is sliced off)
         Q_all = Qu.new_zeros((2 * S, n_u, n_u))
         Q_all[:S, :H, :H] = clamped_qubo_shared(p, beta)
         Q_all[S:] = Qu
         h_all = Qu.new_zeros((2 * S, B, n_u))
         h_all[:S, :, :H] = clamped_fields(p, x, y_vec, beta)
         h_all[S:] = unclamped_fields(p, x, beta)
+        return Q_all, h_all
+
+    @torch.no_grad()
+    def _step(self, x, y, mask, lr):
+        """One update of every seed's parameters from ONE sampler call;
+        returns the (S,) nlls on the device."""
+        p = self.params
+        S, O = len(self._held), self.n_output_nodes
+        y_vec = self._y_vec(y)
+        B, H = x.shape[0], self.n_hidden_nodes
+        Q_all, h_all = self.step_qubos(x, y)
         s_all = sampler_sample_groups(self.sampler, self._stream(2), Q_all, h_all,
                                       self.sample_count)  # (2S, B, R, n_u)
         s_c, s_u = s_all[:S, :, :, :H], s_all[S:]

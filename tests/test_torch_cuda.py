@@ -1563,3 +1563,48 @@ def test_pt_global_path_draws_its_written_out_philox_streams(dev):
         seed, G * B, M, R, n, S, var_shift=pt_wide_cuda.var_shift(n)))
     assert pt_wide_cuda.var_shift(n) == 11
     assert torch.equal(got, pt_wide_cuda.launch(J, h, betas, dbeta, R, S, host_variates=hv))
+
+
+# -- the user scripts: the breastmnist search and the exact studies ------------
+
+
+@pytest.mark.parametrize("cfg,kernel", [
+    ({"solver": "SA", "h": 5, "lr": 0.307, "sc": 100, "sweeps": 100, "e": 1}, "sa_metropolis"),
+    ({"solver": "BMS", "h": 8, "lr": 0.453, "sc": 100, "sweeps": 100, "e": 1}, "sa_heatbath"),
+    ({"solver": "PT", "h": 5, "lr": 0.453, "sc": 100, "sweeps": 128, "e": 1}, "pt_heatbath"),
+])
+def test_bms_search_config_launches_its_kernel_once_a_step(dev, tmp_path, cfg, kernel):
+    """``bms_hyper_search.run_config`` at breastmnist's shapes (546 train
+    and 156 test images of 784 inputs, bs 20: 28 steps), 3 seeds: one launch
+    of the solver's kernel a step and one for validation, nothing else."""
+    from qbmx_torch.cli import bms_hyper_search
+    from qbmx_torch.samplers import launches
+
+    r = np.random.default_rng(3)
+    split = lambda n: (r.random((n, 784), dtype=np.float32), (r.random(n) < 0.27).astype(int))
+    seeds = (list(bms_hyper_search.DEFAULT_SEEDS) + bms_hyper_search.EXTRA_SEEDS)[:3]
+    launches.reset()
+    rec = bms_hyper_search.run_config((split(546), split(156)), cfg, seeds,
+                                      tmp_path / "search.jsonl", device="cuda")
+    torch.cuda.synchronize()
+    assert launches.counts() == {kernel: math.ceil(546 / 20) + 1}
+    assert rec["n_seeds"] == 3 and all(0 <= p["acc"] <= 1 for p in rec["per_seed"])
+
+
+def test_exact_study_card_matches_cpu(dev):
+    """A bars variant of ``cdqbm_exact_study`` (probabilistic pooling, a
+    learned penalty, signed inputs), 20 Adam steps through the enumeration
+    on the card and on the CPU from the same inputs: p(y=1|x) within 1e-4."""
+    from qbmx_torch.cli import cdqbm_exact_study as study
+    from qbmx_torch.cli import exact_harness as xh
+
+    X, Y = study.make_bars(np.random.default_rng(0))
+    X = X * 2.0 - 1.0
+    kw = dict(kernel_size=4, pooling_size=2, pooling_type="probabilistic",
+              sequential_layer_sizes=[2], hidden_bias_type="shared", learn_penalty=True)
+    p = {}
+    for d in ("cuda", "cpu"):
+        m = study.make_model(X.shape[1:], d, **kw)
+        params, _ = study.train_exact(m, X, Y, steps=20)
+        p[d] = xh.predict_p1(lambda q, x: study.exact_p1(m, q, x), params, X)
+    assert np.abs(p["cuda"] - p["cpu"]).max() <= 1e-4

@@ -757,8 +757,10 @@ def test_seed_sweep_cli_refuses_a_qpu_solver_as_qbmx_does(fake_ocean, monkeypatc
 
 
 def test_port_modules_import_no_jax_sklearn_qbmx_or_matplotlib():
-    """In a fresh interpreter: the host seams and the figure modules import
-    none of jax, sklearn, qbmx or matplotlib; drawing loads matplotlib."""
+    """In a fresh interpreter: the host seams, the figure modules and the
+    user scripts' CLIs (the exact studies, the breastmnist search and
+    curves, the data synthesizer) import none of jax, optax, sklearn, qbmx,
+    scripts or matplotlib; drawing loads matplotlib."""
     import subprocess
     from pathlib import Path
 
@@ -769,8 +771,11 @@ def test_port_modules_import_no_jax_sklearn_qbmx_or_matplotlib():
         "from qbmx_torch.samplers import api, native, qpu\n"
         "from qbmx_torch.utils import metrics, plots, viz\n"
         "from qbmx_torch.cli import cdqbm_main, qbm_main\n"
-        "bad = sorted({m.split('.')[0] for m in sys.modules} & {'jax', 'sklearn', 'qbmx', "
-        "'matplotlib'})\n"
+        "from qbmx_torch.cli import (exact_harness, cdqbm_exact_study, cdqbm_breast_exact_study,"
+        " cdqbm_multikernel_study, bms_hyper_search, bms_winner_curves,"
+        " synthesize_missing_data)\n"
+        "bad = sorted({m.split('.')[0] for m in sys.modules} & {'jax', 'optax', 'sklearn', "
+        "'qbmx', 'scripts', 'matplotlib'})\n"
         "print('LOADED', bad)\n"
         "plots.get_confusion_matrix([0, 1], [1, 1])\n"
         "print('DRAWN', 'matplotlib' in sys.modules, 'sklearn' in sys.modules)\n"
