@@ -44,10 +44,11 @@ failure exits nonzero; nothing carries on after one):
    block holds spare ladders; K5's dense path at the flat PT step of phase
    5 (``qbm_main --solver PT -hn 300``: G=2, B=60, n=301, M=8, R=16, S cut
    to 20) on that step's own QUBOs (``DiscQBM.step_qubos``), with the
-   geometry the step gets (four ladders a block on a grid of (240, 2));
-   K5's sparse path at the CDQBM (a) PT call on
-   the step's own QUBOs (``CDQBM.step_qubos``: J_g 98% zeros); ladders over
-   a thread block cluster, M=65 at n=4 (sparse), M=40 at n=717 on the
+   geometry the step gets (four ladders a block on a grid of (240, 2)),
+   then timed there at the step's S=100 beside its bound; K5's sparse
+   path at the CDQBM (a) PT call on the step's own QUBOs
+   (``CDQBM.step_qubos``: J_g 98% zeros); ladders over a thread block
+   cluster, M=65 at n=4 (sparse), M=40 at n=717 on the
    step's QUBOs (sparse) and on random ones (dense): at most 1% of chains
    may end in another state (a near-tie decision from a differently
    rounded field or energy diverges that one chain); both K5 paths forced
@@ -112,8 +113,9 @@ failure exits nonzero; nothing carries on after one):
    pair at CDQBM (b) (B=3, S cut to 100); both K5 paths forced on the PT
    sweep's step QUBOs at G=20 (S=10), bit for bit; the CDQBM (a) sweep
    with SA at anneal 1000 for 3 steps and a validation chunk; and resume:
-   the flagship DQBM (SA), CDQBM (b) (K1) and CDQBM (a) at anneal 10 with
-   SA (K4) and PT (K5's sparse path) trained 2 epochs straight against 1
+   the flagship DQBM with SA (K1), BMS (K2 pair) and PT (K3), CDQBM (b)
+   (K1) and CDQBM (a) at anneal 10 with SA (K4), BMS (K4 pair) and PT
+   (K5's sparse path) trained 2 epochs straight against 1
    epoch with ``--checkpoint_every 1`` and ``--resume`` for the second,
    whose parameters, history and generator state must be equal bit for
    bit, the resumed epoch launching its kernel;
@@ -253,7 +255,22 @@ failure exits nonzero; nothing carries on after one):
    (the 1% bound of phase 3; depth cut to 100 sweeps, K3's to 16), timed at
    the full depth beside its bound and the plain version's time; and
    ``bms_winner_curves --e 1 --seeds 10 --predict_reads 100``: the JSON
-   written, both fronts printed, K2 once a step and once for validation.
+   written, both fronts printed, K2 once a step and once for validation;
+   and K1 at the search's SA h8 call (n = 9: a warp a chain), held and
+   timed as the three above;
+12. the seed bands (``band_phase``; North-star check 3 for every route by
+   which a kernel trains): each setting of ``qbmx_torch/cli/bands.py``
+   (the flat model at H = 2 with SA, BMS and PT; at H = 8, n = 9, with SA
+   and BMS; the CDQBM (b), n = 41, with SA and BMS; at H = 300, n = 301,
+   with SA, BMS and PT) trains the port's 10-seed sweep through its CLI on
+   ``cuda`` and its control at a tenth of the learning rate; each run launches its kernel once a sampler call
+   and nothing else (K1, K2 pair, K3, K4, K5's dense path), one call a
+   step plus the validation calls, every call on the route the layout
+   rules name (``BAND_ROUTES``); the sweep must lie within ``qbmx``'s
+   committed band (``out/bands/<setting>/qbmx/``) by
+   ``seed_bands.compare`` at the Bonferroni width z_k of all k comparisons
+   of the phase (``bands.z_all``), at every epoch for accuracy and AUC,
+   and the control must fail that rule.
 
 The last three lines are the ``nvidia-smi`` line, one JSON object with the
 kernel records (time, plain time, bound, launches on the main path), and
@@ -1433,6 +1450,7 @@ SEARCH_CONFIGS = {  # bms_hyper_search --configs at the script's widths, one epo
     "sa_heatbath": {"solver": "BMS", "h": 8, "lr": 0.453, "e": 1},
     "pt_heatbath": {"solver": "PT", "h": 5, "lr": 0.453, "sweeps": 128, "e": 1},
 }
+SEARCH_SA_H8 = {"solver": "SA", "h": 8}  # the search's SA h8 width: K1 a warp a chain (n = 9)
 
 
 def read_table(text: str) -> list[dict]:
@@ -1485,11 +1503,13 @@ def write_medmnist(root: Path, seed: int = 11) -> None:
 def search_calls(search, data, smi: str) -> dict:
     """K1, K2 pair and K3 at the search's own step calls (10 seeds: G=20
     groups of B=20, R=1000; each solver's step QUBOs on the first batch),
+    and K1 at its SA h8 call (n = 9, a warp a chain),
     each launched once through its wrapper against its plain version under
     host variates (depth cut: K1 and K2 100 sweeps, K3 16), then timed at
     the full depth (Philox, CUDA events, median of 3) beside its bound and
     the plain version's time at the cut depth (one run after a warm-up)."""
-    from qbmx_torch.samplers import gibbs, gibbs_cuda, pt_cuda, sa_cuda, sa_torch, tempering
+    from qbmx_torch.samplers import (gibbs, gibbs_cuda, kernel_call, pt_cuda, sa_cuda, sa_torch,
+                                     tempering)
     from qbmx_torch.samplers import launches as launches_mod
     from qbmx_torch.samplers.api import densify_groups
     from qbmx_torch.train.sweep import SeedParallelDQBM
@@ -1507,7 +1527,8 @@ def search_calls(search, data, smi: str) -> dict:
         return int(flips.item())
 
     out = {}
-    for kernel, cfg in SEARCH_CONFIGS.items():
+    for key, cfg in (*SEARCH_CONFIGS.items(), ("sa_metropolis h8", SEARCH_SA_H8)):
+        kernel = key.split()[0]
         sw = SeedParallelDQBM(seeds, dim_input=x.shape[1], n_hidden_nodes=cfg["h"],
                               restricted=False, sample_count=1000,
                               anneal_steps=cfg.get("sweeps", 1000), solver=cfg["solver"],
@@ -1532,7 +1553,7 @@ def search_calls(search, data, smi: str) -> dict:
                 full = lambda: sa_cuda.sa_sample_groups_cuda(Q, h, R, S, generator=g)
                 bound = anneal_bound(G, B, R, n, S, flips=counted(
                     sa_cuda.launch, *structured_form(Q, h, S), R, S))
-            else:
+            elif kernel == "sa_heatbath":
                 kern = lambda: gibbs_cuda.gibbs_sample_groups_cuda(Q, h, R, Sc, pair=True,
                                                                    host_variates=hv)
                 plain = lambda: gibbs.gibbs_sample_groups_plain(Q, h, R, Sc, pair=True,
@@ -1554,12 +1575,15 @@ def search_calls(search, data, smi: str) -> dict:
         del got
         k_ms, p_ms = cuda_ms(full, runs=3), cuda_ms(plain, runs=1)
         del hv
-        out[kernel] = {"G": G, "B": B, "n": n, "R": R, "S": S, "plain_S": Sc,
-                       "differing_chains": frac, "max_abs_err": err, "ms": k_ms,
-                       "plain_ms_at_plain_S": p_ms, "bound_ms": bound["bound_ms"],
-                       "bound_by": bound["bound_by"]}
-        print(f"phase 11 time {kernel} at the search's {cfg['solver']} call (G={G} B={B} n={n} "
-              f"R={R} S={S}): kernel {k_ms:.3f} ms (CUDA events, median of 3), plain "
+        lanes = kernel_call.chain_layout(G, B, R, n).lanes if kernel != "pt_heatbath" else None
+        check(key != "sa_metropolis h8" or lanes == 32,
+              f"phase 11: K1 at the search's SA h8 call: {lanes} lanes a chain, not a warp")
+        out[key] = {"G": G, "B": B, "n": n, "R": R, "S": S, "plain_S": Sc, "lanes": lanes,
+                    "differing_chains": frac, "max_abs_err": err, "ms": k_ms,
+                    "plain_ms_at_plain_S": p_ms, "bound_ms": bound["bound_ms"],
+                    "bound_by": bound["bound_by"]}
+        print(f"phase 11 time {kernel} at the search's {cfg['solver']} h{cfg['h']} call (G={G} "
+              f"B={B} n={n} R={R} S={S}): kernel {k_ms:.3f} ms (CUDA events, median of 3), plain "
               f"{p_ms:.3f} ms at S={Sc} (one run after a warm-up), bound "
               f"{bound['bound_ms']:.4f} ms by {bound['bound_by']}; {smi}")
     return out
@@ -1706,6 +1730,152 @@ def scripts_phase(smi: str) -> dict:
     return rec
 
 
+# phase 12: the band settings (``qbmx_torch/cli/bands.py``), each with the
+# kernel (its launch counter) and the route its every sampler call must take
+BAND_ROUTES = {
+    "flat_sa_h2": ("sa_metropolis", "a thread a chain"),
+    "flat_bms_h2": ("sa_heatbath", "a thread a chain"),
+    "flat_pt_h2": ("pt_heatbath", "a rung a thread"),
+    "flat_sa_h8": ("sa_metropolis", "a warp a chain"),
+    "flat_bms_h8": ("sa_heatbath", "a warp a chain"),
+    "cdqbm_b_sa": ("sa_metropolis", "a warp a chain"),
+    "cdqbm_b_bms": ("sa_heatbath", "a warp a chain"),
+    "flat_sa_h300": ("anneal_wide", "shared layout"),
+    "flat_pt_h300": ("pt_wide", "dense path"),
+    "flat_bms_h300": ("anneal_wide", "shared layout"),
+}
+PT_RUNGS = 8  # the CLIs' PT ladder
+
+
+def band_route(kernel: str, G: int, B: int, R: int, n: int) -> str:
+    """The route the layout rules give ``kernel`` at a sampler call of G
+    groups of B problems, R reads, width n."""
+    from qbmx_torch.samplers import kernel_call, pt_cuda, pt_wide_cuda, wide_cuda
+
+    if kernel in ("sa_metropolis", "sa_heatbath"):
+        lanes = kernel_call.chain_layout(G, B, R, n).lanes
+        return "a thread a chain" if lanes == 1 else "a warp a chain"
+    if kernel == "anneal_wide":
+        return f"{wide_cuda.wide_geometry(G, B, R, n).layout} layout"
+    route = pt_wide_cuda.pt_route(G, B, PT_RUNGS, R, n)
+    if kernel == "pt_heatbath" and route == kernel:
+        kind = pt_cuda.pt_layout(G * B, PT_RUNGS, R, n).kind
+        return "a rung a thread" if kind == pt_cuda.RUNG else "a rung a warp"
+    if kernel == "pt_wide" and route == kernel:
+        return f"{pt_wide_cuda.pt_wide_geometry(G, B, PT_RUNGS, R, n).path} path"
+    return f"{route} (not {kernel})"
+
+
+def band_phase(smi: str) -> dict:
+    """Phase 12: North-star check 3 on the card for every route by which a
+    kernel trains.  Each setting of :data:`BAND_ROUTES` trains the port's
+    10-seed sweep through its CLI (``bands.train_port``) and its lr/10
+    control; each must launch only its kernel, once a step and once a
+    validation chunk, every call on the named route; the sweep must hold
+    ``qbmx``'s committed band (``out/bands/<setting>/qbmx/``) at the
+    Bonferroni width of all the settings' comparisons, and the control must
+    fail it.  Every setting runs before the verdicts are checked."""
+    import contextlib
+    import io
+
+    import qbmx_torch.cli.cdqbm_main as cm
+    import qbmx_torch.cli.qbm_main as qm
+    from qbmx_torch.cli import bands
+    from qbmx_torch.samplers import launches as launches_mod
+    from qbmx_torch.samplers.api import sampler_sample_groups
+    from qbmx_torch.train import sweep as sweep_mod
+
+    t_phase = time.perf_counter()
+    settings = list(BAND_ROUTES)
+    check(sorted(settings) == sorted(bands.SETTINGS), f"phase 12: the band settings "
+          f"{sorted(bands.SETTINGS)} against the routes {sorted(settings)}")
+    missing = [s for s in settings if not (bands.reference_dir(s) / "manifest.json").is_file()]
+    check(not missing, f"phase 12: no committed qbmx reference for {missing}")
+    k, z = bands.z_all(settings)
+    calls = []
+
+    class ShapeLog:
+        """A sweep's sampler, recording each call's (groups, problems, reads, n)."""
+
+        def __init__(self, inner):
+            self.inner = inner
+
+        def sample_groups(self, generator, Q_shared, h_extra, num_reads):
+            G, B, n = h_extra.shape
+            calls.append((G, B, num_reads, n))
+            return sampler_sample_groups(self.inner, generator, Q_shared, h_extra, num_reads)
+
+    class LoggedDQBM(sweep_mod.SeedParallelDQBM):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.sampler = ShapeLog(self.sampler)
+
+    class LoggedCDQBM(sweep_mod.SeedParallelCDQBM):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.model.sampler = ShapeLog(self.model.sampler)
+
+    saved = qm.SeedParallelDQBM, cm.SeedParallelCDQBM
+    qm.SeedParallelDQBM, cm.SeedParallelCDQBM = LoggedDQBM, LoggedCDQBM
+    rec = {"k": k, "z": z, "settings": {}}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for s in settings:
+                kernel, route = BAND_ROUTES[s]
+                module, args = bands.SETTINGS[s]
+                batch = int(args[args.index("-b") + 1])
+                steps = bands.epochs(s) * math.ceil(600 / batch)  # synthetic: 600 train images
+                srec = {"kernel": kernel, "route": route}
+                for label, div in (("band", 1), ("control", bands.CONTROL_DIV)):
+                    folder = Path(tmp, s, label)
+                    calls.clear()
+                    launches_mod.reset()
+                    t0 = time.perf_counter()
+                    with contextlib.redirect_stdout(io.StringIO()):
+                        bands.train_port(s, folder, device="cuda", lr_div=div)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    counts = launches_mod.counts()
+                    train_calls = sum(1 for c in calls if c[0] == 2 * len(bands.SEEDS))
+                    routes = sorted({band_route(kernel, *c) for c in calls})
+                    check(counts == {kernel: len(calls)} and train_calls == steps,
+                          f"phase 12 {s} {label}: launches {counts} for {len(calls)} sampler "
+                          f"calls, {train_calls} of them steps (want {kernel} once a call and "
+                          f"{steps} steps)")
+                    check(routes == [route], f"phase 12 {s} {label}: routes {routes}, not "
+                                             f"{route!r}")
+                    holds, rows = bands.hold(s, folder, z)
+                    srec[label] = {"holds": holds, "launches": counts[kernel], "steps": steps,
+                                   "shapes": sorted(set(calls)), "wall_s": wall,
+                                   "widest": bands.widest(rows), "means": bands.means(rows)}
+                srec["reference"] = bands.means(rows, "ref")
+                rec["settings"][s] = srec
+                b, c = srec["band"], srec["control"]
+                fin = lambda side, m: side[m][-1][0]
+                print(f"phase 12 {s}: {kernel} ({route}) launched {b['launches']} times "
+                      f"({steps} steps + validation) at {b['shapes']}; final epoch acc "
+                      f"qbmx {fin(srec['reference'], 'acc'):.4f} port {fin(b['means'], 'acc'):.4f}"
+                      f", auc qbmx {fin(srec['reference'], 'auc'):.4f} port "
+                      f"{fin(b['means'], 'auc'):.4f}; widest {b['widest']['metric']} epoch "
+                      f"{b['widest']['epoch']} {b['widest']['diff']:+.4f} of "
+                      f"±{b['widest']['half_width']:.4f}: {'HOLDS' if b['holds'] else 'FAILS'}; "
+                      f"control lr/10 final acc {fin(c['means'], 'acc'):.4f}, widest "
+                      f"{c['widest']['diff']:+.4f} of ±{c['widest']['half_width']:.4f}: "
+                      f"{'holds' if c['holds'] else 'fails'}; wall {b['wall_s']:.1f} + "
+                      f"{c['wall_s']:.1f} s; {smi}")
+    finally:
+        qm.SeedParallelDQBM, cm.SeedParallelCDQBM = saved
+    rec["phase_s"] = time.perf_counter() - t_phase
+    bad = [s for s, r in rec["settings"].items() if not r["band"]["holds"]]
+    loose = [s for s, r in rec["settings"].items() if r["control"]["holds"]]
+    print(f"phase 12 bands: {len(settings)} settings, k = {k} comparisons at z_k = {z:.4f}; "
+          f"bands held {len(settings) - len(bad)}/{len(settings)}, controls failed "
+          f"{len(settings) - len(loose)}/{len(settings)}; {rec['phase_s']:.1f} s")
+    check(not bad, f"phase 12: the port's band fails qbmx's at z_k = {z:.4f} for {bad}")
+    check(not loose, f"phase 12: the lr/10 control holds qbmx's band for {loose}")
+    return rec
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA GPU")
@@ -1726,6 +1896,8 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False  # plain version in full float32
     dev = torch.device("cuda:0")
     t_all = time.perf_counter()
+    clock = lambda phase: print(f"chip_smoke: phase {phase} starts at "
+                                f"{time.perf_counter() - t_all:.1f} s")
 
     # -- 1. device ----------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -1743,6 +1915,7 @@ def main() -> None:
           f"({'compiled' if _build.info.built else 'cached'}) -> {_build.info.path}")
 
     # -- 3. kernel vs plain under host variates ------------------------------
+    clock(3)
     rng = np.random.default_rng(2024)
     errs = {"sa_metropolis": [], "sa_heatbath": [], "pt_heatbath": [], "anneal_wide": [],
             "pt_wide": [], "pt_wide_sparse": []}
@@ -1966,6 +2139,23 @@ def main() -> None:
                                          "(qbm_main --solver PT -hn 300, the step's QUBOs; "
                                          f"{geo_f.ladders_per_block} ladders a block on a grid "
                                          f"of {geo_f.grid})"))
+    # its time at the step's own depth (S=100) through the sampler's entry,
+    # beside the plain version's at S=20 and the bound of the S=100 call
+    gf = gen_of(301)
+    k5_h300 = {"G": G, "B": B, "M": M, "R": R, "n": n, "S": 100, "plain_S": S,
+               "ms": cuda_ms(lambda: pt_wide_cuda.pt_sample_groups(Qf, hf, R, 100, num_replicas=M,
+                                                                   generator=gf), runs=3),
+               "plain_ms_at_plain_S": cuda_ms(lambda: tempering.pt_sample_batch_plain(
+                   densify_groups(Qf, hf), R, S, num_replicas=M, host_variates=hv), runs=1)}
+    flips_f = torch.zeros(2, dtype=torch.int64, device=dev)
+    pt_wide_cuda.launch(*pt_wide_cuda.structured_form(Qf, hf, M), R, 100, generator=gf,
+                        flips=flips_f)
+    k5_h300.update(anneal_bound(G, B, R, n, 100, rungs=M, flip_work=int(flips_f[1].item())))
+    print(f"phase 3 time K5 dense at qbm_main --solver PT -hn 300's call (G={G} B={B} n={n} M={M} "
+          f"R={R} S=100, the step's QUBOs, the sampler's entry): kernel {k5_h300['ms']:.3f} ms "
+          f"(CUDA events, median of 3), plain {k5_h300['plain_ms_at_plain_S']:.3f} ms at S={S} "
+          f"(one run after a warm-up), bound {k5_h300['bound_ms']:.4f} ms by "
+          f"{k5_h300['bound_by']}; {smi}")
     del hv, out, want, flat_pt, Qf, hf
     # K5's sparse path: the CDQBM (a) PT call on the step's own QUBOs (J_g
     # 98% zeros: its row lists fit a block beside 32 rungs), through the
@@ -2054,6 +2244,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 4. Philox path vs the exact oracle -----------------------------------
+    clock(4)
     # the problems and bound of tests/test_samplers.py::test_marginals_match_oracle
     # (annealing ends frozen at the cold beta, so on some random problems
     # SA's marginals sit further from the oracle's, on every implementation)
@@ -2340,6 +2531,7 @@ def main() -> None:
           f"{k5_planted}; [variables changed, nonzeros of their rows] {k5_flips_full}")
 
     # -- 5. the slices: qbm_main on cuda, one solver at a time ------------------
+    clock(5)
     import qbmx_torch.cli.qbm_main as qm
     from qbmx_torch.models.dqbm import params_to_numpy
 
@@ -2829,9 +3021,10 @@ def main() -> None:
                   f"fields, energies and counters {rec['k5_paths_equal_flips']} equal bit for bit")
 
     # resume: 2 epochs straight against 1 epoch with --checkpoint_every 1 and
-    # then --resume for the second, on the card, for the flagship DQBM (SA),
-    # CDQBM (b) and CDQBM (a) with SA (K4) and PT (K5's sparse path) at a
-    # cut anneal: the same parameters, history and random stream
+    # then --resume for the second, on the card, for the flagship DQBM with
+    # SA (K1), BMS (K2 pair) and PT (K3), CDQBM (b) (K1) and CDQBM (a) with
+    # SA (K4), BMS (K4 pair) and PT (K5's sparse path) at a cut anneal: the
+    # same parameters, history and random stream
     def same_run(a, b) -> list:
         """The fields in which two trained models differ (empty: bit for bit)."""
         from qbmx_torch.utils.checkpoint import flatten_params
@@ -2846,13 +3039,17 @@ def main() -> None:
     resume_rec = {}
     cdqbm_a10 = dict(prob, pooling_size=4, sequential_layer_sizes=(4,), sample_count=100,
                      anneal=10)
+    flagship = dict(n_hidden_nodes=5, sample_count=1000, anneal=1000, batch_size=60,
+                    learning_rate=0.307, restricted=False)
     for label, main, models, kernel, kw in (
-            ("flagship DQBM SA", qm.main, made, "sa_metropolis",
-             dict(n_hidden_nodes=5, sample_count=1000, anneal=1000, batch_size=60,
-                  learning_rate=0.307, restricted=False, solver="SA")),
+            ("flagship DQBM SA", qm.main, made, "sa_metropolis", dict(flagship, solver="SA")),
+            ("flagship DQBM BMS", qm.main, made, "sa_heatbath", dict(flagship, solver="BMS")),
+            ("flagship DQBM PT", qm.main, made, "pt_heatbath", dict(flagship, solver="PT")),
             ("CDQBM (b)", cm.main, cmade, "sa_metropolis",
              dict(pooling_size=4, sequential_layer_sizes=(4,))),
             ("CDQBM (a) SA, anneal 10", cm.main, cmade, "anneal_wide", cdqbm_a10),
+            ("CDQBM (a) BMS, anneal 10", cm.main, cmade, "anneal_wide",
+             dict(cdqbm_a10, solver="BMS")),
             ("CDQBM (a) PT, anneal 10", cm.main, cmade, "pt_wide_sparse",
              dict(cdqbm_a10, solver="PT"))):
         with tempfile.TemporaryDirectory() as tmp:
@@ -2886,6 +3083,7 @@ def main() -> None:
               f"{counts[kernel]} times; wall {wall:.2f} s)")
 
     # -- 6. kernel and plain times, generator mode -----------------------------
+    clock(6)
     g1 = torch.Generator().manual_seed(1)
     Qcli = random_qubo_batch(rng, 146, 3).to(dev)  # the flat CLI defaults' PT call, densified
     times = {}
@@ -3021,23 +3219,32 @@ def main() -> None:
           + "; ".join(f"{k} {b['bound_ms']:.4f} ms by {b['bound_by']}" for k, b in bounds.items()))
 
     # -- 7. the RBM family -------------------------------------------------------
+    clock(7)
     rbm_rec = rbm_phase(dev, smi, counters)
 
     # -- 8. the host seams: the native annealer and the QPU seam -----------------
+    clock(8)
     host_rec = host_seams_phase(dev, smi, counters, made, (x, y, mask), step_ms["SA"])
 
     # -- 9. the mesh: a world of one under NCCL, two ranks on the card over gloo ---
+    clock(9)
     mesh_rec = mesh_phase(dev, smi)
 
     # -- 10. past the shared layouts: K4's global fields, K5's global path, H=3400 --
+    clock(10)
     wide_rec = wide_phase(dev, smi, counters, made)
 
     # -- 11. the user scripts: the exact studies, the breastmnist search ----------
+    clock(11)
     scripts_rec = scripts_phase(smi)
-    for kernel, r in scripts_rec["search_calls"].items():
-        record(kernel, (r["differing_chains"], r["max_abs_err"]))
+    for key, r in scripts_rec["search_calls"].items():
+        record(key.split()[0], (r["differing_chains"], r["max_abs_err"]))
     search_launches = lambda kernel: next(r["launches"] for r in scripts_rec["search"].values()
                                           if kernel in r["launches"])
+
+    # -- 12. the seed bands: every kernel's training route against qbmx's band --
+    clock(12)
+    band_rec = band_phase(smi)
 
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s")
     t = lambda prefix: next(v for k, v in times.items() if k.startswith(prefix))
@@ -3062,7 +3269,8 @@ def main() -> None:
          "warm_start_bound_ms": rbm_rec["warm_start"]["k1_bound_ms"],
          "warm_start_differing_chains": rbm_rec["warm_start"]["k1_differing_chains"],
          "bms_search_launches": search_launches("sa_metropolis"),
-         "bms_search_call": scripts_rec["search_calls"]["sa_metropolis"]},
+         "bms_search_call": scripts_rec["search_calls"]["sa_metropolis"],
+         "bms_search_call_sa_h8": scripts_rec["search_calls"]["sa_metropolis h8"]},
         {"name": "sa_heatbath", "route": "cuda", "source": "qbmx_torch/csrc/sa_heatbath.cu",
          "replaces": "qbmx/samplers/sa_lane.py:144",
          "also_replaces": "qbmx/samplers/sa_pallas.py:196",
@@ -3123,6 +3331,7 @@ def main() -> None:
          "ms": t("K5 dense")[0], "plain_ms": t("K5 dense")[1], **bound_keys("pt_wide"),
          "full_depth_ms": k5_full_ms["dense"],
          "full_depth_bound_ms": bounds["pt_wide full depth"]["bound_ms"],
+         "h300_pt_call": k5_h300,
          "drift_of_limit": k5_drift["dense"],
          "one_add_or_flip_short_of_limit": k5_planted["dense"]},
         {"name": "pt_wide_sparse", "route": "cuda", "source": "qbmx_torch/csrc/pt_wide.cu",
@@ -3175,7 +3384,7 @@ def main() -> None:
     ], "step_ms": step_ms, "cdqbm_launches": cdqbm_launches, "sweeps": sweep_rec,
         "cdqbm_sweeps": csweep_rec, "resume": resume_rec, "rbm": rbm_rec,
         "host_seams": host_rec, "mesh": mesh_rec,
-        "wide": wide_rec, "scripts": scripts_rec}
+        "wide": wide_rec, "scripts": scripts_rec, "bands": band_rec}
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

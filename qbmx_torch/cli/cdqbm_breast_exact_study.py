@@ -78,11 +78,11 @@ def train_exact(p1_fn, params, X, Y, steps=STEPS, lr=LR):
 
 def run_cdqbm(name, data, *, signed=False, device="cuda", **model_kw):
     Xtr, Ytr, Xte, Yte = data
-    m = xh.qbmx_init(CDQBM(
+    m = CDQBM(
         image_shape=(28, 28), num_label_nodes=1, seed=7, sample_count=8,
         sampler=GibbsSampler(num_warmup=2), hidden_bias_type="shared", device=device,
         **model_kw,
-    ))
+    )
     if m.geo.n_total > 15:
         raise ValueError(f"{name}: {m.geo.n_total} vars too large")
     if signed:
@@ -97,8 +97,8 @@ def run_cdqbm(name, data, *, signed=False, device="cuda", **model_kw):
 
 def run_dqbm(name, data, *, n_hidden, lr=LR, device="cuda"):
     Xtr, Ytr, Xte, Yte = data
-    m = xh.qbmx_init(DiscQBM(dim_input=784, num_classes=2, n_hidden_nodes=n_hidden, seed=7,
-                             beta_eff=1.0, sampler=GibbsSampler(num_warmup=2), device=device))
+    m = DiscQBM(dim_input=784, num_classes=2, n_hidden_nodes=n_hidden, seed=7, beta_eff=1.0,
+                sampler=GibbsSampler(num_warmup=2), device=device)
     flat = lambda X: X.reshape(len(X), -1)
     params, nll = train_exact(dqbm_p1, m.params, flat(Xtr), Ytr, lr=lr)
     acc_tr, _ = metrics(dqbm_p1, params, flat(Xtr), Ytr)

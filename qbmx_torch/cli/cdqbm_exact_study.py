@@ -91,10 +91,10 @@ def pooled_bias_sensitivity(model, params, X):
 def make_model(image_shape, device="cuda", **model_kw):
     """A study CDQBM (one label node, seed 7) with ``qbmx``'s initial
     parameters."""
-    return xh.qbmx_init(CDQBM(
+    return CDQBM(
         image_shape=image_shape, num_label_nodes=1, seed=7,
         sample_count=8, sampler=GibbsSampler(num_warmup=2), device=device, **model_kw,
-    ))
+    )
 
 
 def run_variant(name, X, Y, Xt, Yt, *, signed=False, steps=400, device="cuda", **model_kw):

@@ -275,12 +275,14 @@ def build_parser():
     return p
 
 
-if __name__ == "__main__":
-    flags = build_parser().parse_args()
+def run(argv=None):
+    """Parse ``argv`` (the command line's by default) and call :func:`main`
+    with it, as ``python -m qbmx_torch.cli.cdqbm_main`` does."""
+    flags = build_parser().parse_args(argv)
     print("Running with solver", flags.solver)
     if flags.save:
         os.makedirs(flags.save, exist_ok=True)
-    main(
+    return main(
         seed=flags.seed, solver=flags.solver, sample_count=flags.sample_count,
         anneal=flags.anneal, beta_eff=flags.beta_eff, epochs=flags.epochs,
         batch_size=flags.batch_size, learning_rate=flags.learning_rate,
@@ -301,3 +303,7 @@ if __name__ == "__main__":
         qpu_copies=flags.qpu_copies, qpu_embedding=flags.qpu_embedding,
         embedding_cache=flags.embedding_cache, device=flags.device,
     )
+
+
+if __name__ == "__main__":
+    run()

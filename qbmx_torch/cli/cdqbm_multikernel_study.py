@@ -33,7 +33,6 @@ from pathlib import Path
 
 import numpy as np
 
-from qbmx_torch.cli import exact_harness as xh
 from qbmx_torch.cli.cdqbm_breast_exact_study import (LR, STEPS, TRAIN_SUBSAMPLE, cdqbm_p1,
                                                      load_medmnist, run_dqbm, train_exact)
 from qbmx_torch.cli.exact_harness import eval_metrics
@@ -47,11 +46,11 @@ DATASETS = ("breastmnist", "pneumoniamnist")
 
 def run_cdqbm(name, data, *, device="cuda", **model_kw):
     Xtr, Ytr, Xte, Yte = data
-    m = xh.qbmx_init(CDQBM(
+    m = CDQBM(
         image_shape=(28, 28), num_label_nodes=1, seed=7, sample_count=8,
         sampler=GibbsSampler(num_warmup=2), hidden_bias_type="shared",
         pool_select="absmax", device=device, **model_kw,
-    ))
+    )
     if m.geo.n_total > 15:
         raise ValueError(f"{name}: {m.geo.n_total} vars too large")
     # signed inputs: the fullstack family config every prior study used

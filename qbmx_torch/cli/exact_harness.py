@@ -13,7 +13,7 @@ of images is one pass: the (N, 2ⁿ) energies of its QUBOs over
 and ``torch.autograd`` takes the gradient through it.
 
 Each study starts from the very parameters ``qbmx`` draws for its seed
-(:func:`qbmx_init`, on the numpy threefry of ``core/threefry.py``), so
+(the models draw them on the numpy threefry of ``core/threefry.py``), so
 its table can be held row by row against ``qbmx``'s recorded one."""
 
 from __future__ import annotations
@@ -21,7 +21,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from qbmx_torch.core import threefry
 from qbmx_torch.models import dqbm
 from qbmx_torch.models.base import tree_leaves, tree_map
 from qbmx_torch.models.cdqbm import CDQBM, CDQBMParams
@@ -116,64 +115,3 @@ def eval_metrics(p1_fn, params, X, Y, chunk: int = 64) -> tuple[float, float]:
     return accuracy(p1, Y), float(_safe_auc(Y, p1))
 
 
-# -- qbmx's initial parameters -------------------------------------------------
-
-
-def _uniform(key, shape, device) -> torch.Tensor:
-    return torch.as_tensor(threefry.uniform(key, shape, -1.0, 1.0), device=device)
-
-
-def _init_key(seed: int) -> np.ndarray:
-    """The key ``qbmx``'s models draw their parameters from:
-    ``split(key(seed))[1]``."""
-    return threefry.split(threefry.key(seed))[1]
-
-
-def qbmx_cdqbm_params(model: CDQBM) -> CDQBMParams:
-    """The parameters ``qbmx``'s ``CDQBM`` of the same configuration draws
-    for ``model.seed`` (``qbmx.models.cdqbm.init_params``: one key a draw,
-    in its order)."""
-    geo, dev = model.geo, model.device
-    ks = iter(threefry.split(_init_key(model.seed), 8 + 2 * len(geo.seq_sizes)))
-    u = lambda *shape: _uniform(next(ks), shape, dev)
-    w_seq, w_seq_intra = [], []
-    prev = geo.n_pooled
-    for size in geo.seq_sizes:
-        w_seq.append(u(prev, size))
-        w_seq_intra.append(torch.zeros(size, size, device=dev) if model.is_restricted
-                           else torch.triu(u(size, size), 1))
-        prev = size
-    if model.hidden_bias_type == "shared":
-        b_conv = u(1)
-    elif model.hidden_bias_type == "none":
-        b_conv = torch.zeros(1, device=dev)
-    else:
-        b_conv = u(geo.conv_units_total)
-    kernel = u(geo.n_kernels, geo.kernel_size, geo.kernel_size)
-    w_h2o = u(geo.last_hidden_size, geo.n_out)
-    w_oo = torch.triu(u(geo.n_out, geo.n_out), 1)
-    b_seq = u(sum(geo.seq_sizes)) if geo.seq_sizes else torch.zeros(0, device=dev)
-    pen = (torch.full((geo.n_windows,), model.prob_penalty, device=dev)
-           if model.learn_penalty else None)
-    return CDQBMParams(kernel=kernel, w_seq=tuple(w_seq), w_seq_intra=tuple(w_seq_intra),
-                       w_h2o=w_h2o, w_oo=w_oo, b_conv=b_conv, b_seq=b_seq, b_o=u(geo.n_out),
-                       pen=pen)
-
-
-def qbmx_dqbm_params(model: dqbm.DiscQBM) -> dqbm.DQBMParams:
-    """The parameters ``qbmx``'s ``DiscQBM`` of the same configuration
-    draws for ``model.seed`` (``qbmx.models.dqbm.init_params``)."""
-    ks = threefry.split(_init_key(model.seed), 6)
-    dev, H, n_out = model.device, model.n_hidden_nodes, model.n_output_nodes
-    u = lambda i, *shape: _uniform(ks[i], shape, dev)
-    return dqbm.DQBMParams(
-        w_vh=u(0, n_out + model.dim_input, H), w_vo=u(1, model.dim_input, n_out),
-        w_oo=torch.triu(u(2, n_out, n_out), 1), b_h=u(3, H), b_o=u(4, n_out),
-        w_hh=torch.zeros(H, H, device=dev) if model.restricted else torch.triu(u(5, H, H), 1))
-
-
-def qbmx_init(model):
-    """``model`` with ``qbmx``'s initial parameters for its seed in place."""
-    model.params = (qbmx_cdqbm_params(model) if isinstance(model, CDQBM)
-                    else qbmx_dqbm_params(model))
-    return model

@@ -252,10 +252,12 @@ def build_parser():
     return p
 
 
-if __name__ == "__main__":
-    flags = build_parser().parse_args()
+def run(argv=None):
+    """Parse ``argv`` (the command line's by default) and call :func:`main`
+    with it, as ``python -m qbmx_torch.cli.qbm_main`` does."""
+    flags = build_parser().parse_args(argv)
     print("Running with solver", flags.solver)
-    main(
+    return main(
         epochs=flags.epochs, n_hidden_nodes=flags.hnodes,
         learning_rate=flags.learning_rate, batch_size=flags.batch_size,
         solver=flags.solver, restricted=flags.restricted, seed=flags.seed,
@@ -270,3 +272,7 @@ if __name__ == "__main__":
         embedding_cache=flags.embedding_cache, seed_sweep=flags.seed_sweep,
         track_distribution=flags.track_distribution, device=flags.device,
     )
+
+
+if __name__ == "__main__":
+    run()

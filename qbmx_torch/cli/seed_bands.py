@@ -13,6 +13,10 @@ within :data:`Z` = 2 standard errors of their difference, sqrt(sd_ref² / S
 across seeds).  Exit status 0 when it holds, 1 when it fails.  Nothing of
 ``qbmx`` is imported: the pickles are plain lists.
 
+Held over k comparisons at once (settings × epochs × metrics), the rule
+takes the Bonferroni width :func:`bonferroni_z` (k) in place of :data:`Z`,
+so that a sound port fails any of them in at most one run of 20.
+
     python -m qbmx.cli.qbm_main --data_set synthetic -hn 2 ... --seed_sweep 0 1 2 --save ref/
     python -m qbmx_torch.cli.qbm_main --device cpu --data_set synthetic -hn 2 ... \\
         --seed_sweep 0 1 2 --save port/
@@ -25,6 +29,7 @@ import argparse
 import math
 import pickle
 import re
+import statistics
 import sys
 from pathlib import Path
 
@@ -56,9 +61,15 @@ def load_bands(folder) -> dict:
     return {"seeds": seeds, **{m: np.array([found[m][s] for s in seeds]) for m in METRICS}}
 
 
-def compare(ref: dict, cand: dict) -> tuple[bool, list[dict]]:
+def bonferroni_z(k: int, alpha: float = 0.05) -> float:
+    """The two-sided Bonferroni width for ``k`` comparisons held together:
+    Φ⁻¹(1 − alpha / (2k)) (3.376 at k = 68, 3.392 at k = 72)."""
+    return statistics.NormalDist().inv_cdf(1.0 - alpha / (2 * k))
+
+
+def compare(ref: dict, cand: dict, z: float = Z) -> tuple[bool, list[dict]]:
     """``(holds, rows)``: one row an epoch with each sweep's band and whether
-    the two means lie within :data:`Z` standard errors of their difference."""
+    the two means lie within ``z`` standard errors of their difference."""
     if ref["seeds"] != cand["seeds"]:
         raise SystemExit(f"the sweeps ran seeds {ref['seeds']} and {cand['seeds']}")
     epochs = ref["acc"].shape[1]
@@ -70,7 +81,7 @@ def compare(ref: dict, cand: dict) -> tuple[bool, list[dict]]:
         row = {"epoch": e + 1}
         for m in METRICS:
             r, c = ref[m][:, e], cand[m][:, e]
-            half = Z * math.sqrt((sd(r) ** 2 + sd(c) ** 2) / len(r))
+            half = z * math.sqrt((sd(r) ** 2 + sd(c) ** 2) / len(r))
             ok = abs(float(c.mean()) - float(r.mean())) <= half
             holds &= ok
             row[m] = {"ref": (float(r.mean()), float(r.min()), float(r.max()), sd(r)),
@@ -80,11 +91,11 @@ def compare(ref: dict, cand: dict) -> tuple[bool, list[dict]]:
     return holds, rows
 
 
-def report(ref_dir, cand_dir) -> bool:
+def report(ref_dir, cand_dir, z: float = Z) -> bool:
     ref, cand = load_bands(ref_dir), load_bands(cand_dir)
-    holds, rows = compare(ref, cand)
+    holds, rows = compare(ref, cand, z)
     print(f"reference {ref_dir}, candidate {cand_dir}: seeds {ref['seeds']}; rule: the means "
-          f"within {Z:g} standard errors of their difference")
+          f"within {z:g} standard errors of their difference")
     for row in rows:
         parts = []
         for m in METRICS:

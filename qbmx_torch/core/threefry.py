@@ -2,12 +2,13 @@
 float32 ``uniform`` draws of ``jax.random`` under its default
 implementation (threefry2x32 with partitionable counters).
 
-The port's models draw from ``torch.Generator`` streams (``core/rng.py``).
-The exact-enumeration studies (``cli/exact_harness.py``) start instead
-from the very parameters ``qbmx`` draws for the same seed, so that their
-tables can be held row by row against ``qbmx``'s recorded ones: a keyed
-stream of 32-bit words is all that needs, and this module is it, in
-numpy, with no import of jax."""
+The flat Disc_QBM and the CDQBM (single models and seed sweeps) draw
+their initial parameters here, from the very keys ``qbmx`` draws them from
+for the same seed and attempt (:func:`init_key`), so that a seed starts
+where ``qbmx``'s does and the two packages' runs differ only in the
+samplers' draws, which come from ``torch.Generator`` streams
+(``core/rng.py``).  A keyed stream of 32-bit words is all that needs, and
+this module is it, in numpy, with no import of jax."""
 
 from __future__ import annotations
 
@@ -56,6 +57,21 @@ def split(k: np.ndarray, num: int = 2) -> np.ndarray:
     counters 0 .. num - 1."""
     b0, b1 = threefry2x32(k, *_counters(num))
     return np.stack([b0, b1], axis=-1)
+
+
+def fold_in(k: np.ndarray, data: int) -> np.ndarray:
+    """The key ``jax.random.fold_in(k, data)``: the block function of ``k``
+    on the counter words (0, data), for ``data`` in [0, 2³²)."""
+    b0, b1 = threefry2x32(k, np.zeros(1, np.uint32), np.array([data], dtype=np.uint32))
+    return np.array([b0[0], b1[0]], dtype=np.uint32)
+
+
+def init_key(seed: int, attempt: int = 0) -> np.ndarray:
+    """The key ``qbmx``'s models and sweeps draw a seed's initial
+    parameters from: ``split(key(seed))[1]``, and for a re-draw
+    ``split(fold_in(key(seed), attempt))[1]``."""
+    k = key(seed)
+    return split(fold_in(k, attempt) if attempt else k)[1]
 
 
 def uniform(k: np.ndarray, shape, minval: float = 0.0, maxval: float = 1.0) -> np.ndarray:

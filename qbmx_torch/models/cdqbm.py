@@ -41,7 +41,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from qbmx_torch.core.rng import make_generator, rand
+from qbmx_torch.core import threefry
+from qbmx_torch.core.rng import make_generator
 from qbmx_torch.models.base import (
     EpochLaunchMixin,
     QBMModel,
@@ -100,22 +101,25 @@ def params_to_numpy(p: CDQBMParams) -> dict:
     return {f.name: getattr(q, f.name) for f in dataclasses.fields(q)}
 
 
-def init_params(generator: torch.Generator, geo: StackGeometry, hidden_bias_type: str,
+def init_params(key: np.ndarray, geo: StackGeometry, hidden_bias_type: str,
                 restricted: bool, learn_penalty: bool = False,
                 prob_penalty: float = PROB_POOL_PENALTY, device="cpu") -> CDQBMParams:
     """U(-1, 1) init following ``Conv_Deep_QBM.init_weights``/``init_biases``
-    (``src/model/cdqbm_state.py:140-190``; the reference's distribution, not
-    its RNG stream).  ``learn_penalty``: start the per-window penalty
-    vector at ``prob_penalty``."""
-    u = lambda *shape: rand(shape, generator, device) * 2.0 - 1.0
+    (``src/model/cdqbm_state.py:140-190``): ``qbmx.models.cdqbm.init_params``'s
+    draws from the same threefry ``key`` (``core/threefry.init_key``; one
+    key a draw, in its order), bit for bit.  ``learn_penalty``: start the
+    per-window penalty vector at ``prob_penalty``."""
+    ks = iter(threefry.split(key, 8 + 2 * len(geo.seq_sizes)))
+    u = lambda *shape: torch.as_tensor(threefry.uniform(next(ks), shape, -1.0, 1.0),
+                                       device=device)
     k = geo.kernel_size
 
     w_seq, w_seq_intra = [], []
     prev = geo.n_pooled
     for size in geo.seq_sizes:
         w_seq.append(u(prev, size))
-        intra = u(size, size)
-        w_seq_intra.append(torch.zeros_like(intra) if restricted else torch.triu(intra, 1))
+        w_seq_intra.append(torch.zeros(size, size, device=device) if restricted
+                           else torch.triu(u(size, size), 1))
         prev = size
 
     if hidden_bias_type == "shared":
@@ -691,13 +695,13 @@ class CDQBM(EpochLaunchMixin, QBMModel):
         return objs
 
     def reinit_params(self, attempt: int = 1) -> None:
-        """Re-draw the parameters and the random stream from a generator that
-        is a pure function of ``(seed, attempt)``; attempt 0 is the initial
-        draw."""
+        """Re-draw the parameters (``qbmx``'s for ``(seed, attempt)``) and the
+        random stream (a generator that is a pure function of them); attempt
+        0 is the initial draw."""
         self.generator = make_generator(self.seed, attempt)
-        self.params = init_params(self.generator, self.geo, self.hidden_bias_type,
-                                  self.is_restricted, self.learn_penalty, self.prob_penalty,
-                                  self.device)
+        self.params = init_params(threefry.init_key(self.seed, attempt), self.geo,
+                                  self.hidden_bias_type, self.is_restricted, self.learn_penalty,
+                                  self.prob_penalty, self.device)
 
     def load_params(self, file_path):
         """Load a reference-format pickle: 8 entries, or 9 with learned

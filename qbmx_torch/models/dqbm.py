@@ -27,6 +27,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from qbmx_torch.core import threefry
 from qbmx_torch.core.rng import make_generator, rand
 from qbmx_torch.models.base import (
     EpochLaunchMixin,
@@ -65,16 +66,18 @@ def params_to_numpy(p: DQBMParams) -> dict:
     return {k: getattr(p, k).detach().cpu().numpy() for k in FIELDS}
 
 
-def init_params(generator: torch.Generator, dim_input: int, n_hidden: int, n_out: int,
+def init_params(key: np.ndarray, dim_input: int, n_hidden: int, n_out: int,
                 restricted: bool, device="cpu") -> DQBMParams:
-    """U(-1, 1) init (the reference's distribution, not its RNG stream)."""
-    u = lambda *shape: (rand(shape, generator, device) * 2.0 - 1.0)
+    """U(-1, 1) init: ``qbmx.models.dqbm.init_params``'s draws from the same
+    threefry ``key`` (``core/threefry.init_key``), bit for bit."""
+    ks = threefry.split(key, 6)
+    u = lambda i, *shape: torch.as_tensor(threefry.uniform(ks[i], shape, -1.0, 1.0),
+                                          device=device)
     H = n_hidden
-    w_vh, w_vo, w_oo = u(n_out + dim_input, H), u(dim_input, n_out), u(n_out, n_out)
-    b_h, b_o, w_hh = u(H), u(n_out), u(H, H)
     return DQBMParams(
-        w_vh=w_vh, w_vo=w_vo, w_oo=torch.triu(w_oo, 1), b_h=b_h, b_o=b_o,
-        w_hh=torch.zeros_like(w_hh) if restricted else torch.triu(w_hh, 1),
+        w_vh=u(0, n_out + dim_input, H), w_vo=u(1, dim_input, n_out),
+        w_oo=torch.triu(u(2, n_out, n_out), 1), b_h=u(3, H), b_o=u(4, n_out),
+        w_hh=torch.zeros(H, H, device=device) if restricted else torch.triu(u(5, H, H), 1),
     )
 
 
@@ -429,12 +432,13 @@ class DiscQBM(EpochLaunchMixin, QBMModel):
         return objs
 
     def reinit_params(self, attempt: int = 1) -> None:
-        """Re-draw the parameters and the random stream from a generator that
-        is a pure function of ``(seed, attempt)``; attempt 0 is the initial
-        draw."""
+        """Re-draw the parameters (``qbmx``'s for ``(seed, attempt)``) and the
+        random stream (a generator that is a pure function of them); attempt
+        0 is the initial draw."""
         self.generator = make_generator(self.seed, attempt)
-        self.params = init_params(self.generator, self.dim_input, self.n_hidden_nodes,
-                                  self.n_output_nodes, self.restricted, self.device)
+        self.params = init_params(threefry.init_key(self.seed, attempt), self.dim_input,
+                                  self.n_hidden_nodes, self.n_output_nodes, self.restricted,
+                                  self.device)
 
     def load_savepoint(self, savepoint):
         """Load reference-format checkpoints: 5-tuple (restricted) or 6-tuple

@@ -14,9 +14,10 @@ the seeds × examples; the masked mean, clipping and update are batched
 over the seed axis.  An epoch is a Python loop of steps whose nlls stay on
 the device until its end: one host sync an epoch.
 
-Streams: seed s's parameters come from ``make_generator(s, attempt)``, as
-``DiscQBM(seed=s)`` and ``CDQBM(seed=s)`` draw their own, so its initial
-parameters are equal.  The samplers' random numbers come from one
+Streams: seed s's parameters come from ``qbmx``'s threefry key for ``(s,
+attempt)`` (``core/threefry.init_key``), as ``DiscQBM(seed=s)`` and
+``CDQBM(seed=s)`` draw their own and as ``qbmx``'s sweeps draw theirs, so
+its initial parameters are equal to both.  The samplers' random numbers come from one
 sweep-level generator, a pure function of the seed list: the kernels key
 their Philox streams per problem from its draws, so a seed's samples do
 not depend on its batch-mates, but they do not reproduce a single-model
@@ -54,6 +55,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from qbmx_torch.core import threefry
 from qbmx_torch.core.rng import RowStream, draw_seed, make_generator, rand
 from qbmx_torch.models import rbm
 from qbmx_torch.models.base import pad_rows, resolve_device, tree_leaves, tree_map
@@ -99,13 +101,13 @@ def _refuse_qpu_adapters(sampler) -> None:
         raise ValueError("seed-parallel sweeps need a jit-safe sampler")
 
 
-def _seed_streams(seeds: Sequence[int], init_fn, attempt: int = 0):
-    """Stacked initial parameters: seed s's are ``init_fn(make_generator(s,
-    attempt))``, the stream the single model of seed s draws them from
+def _seed_streams(seeds: Sequence[int], init_fn, attempt: int = 0, key=threefry.init_key):
+    """Stacked initial parameters: seed s's are ``init_fn(key(s, attempt))``,
+    from the key (the DQBM and CDQBM: ``qbmx``'s threefry key) or stream
+    (the RBM: ``make_generator``) the single model of seed s draws them from
     (``reinit_params(attempt)``; attempt 0: its construction), so they are
     equal."""
-    return tree_map(lambda *a: torch.stack(a),
-                    *(init_fn(make_generator(s, attempt)) for s in seeds))
+    return tree_map(lambda *a: torch.stack(a), *(init_fn(key(s, attempt)) for s in seeds))
 
 
 def _pad_to_batches(x: np.ndarray, y: np.ndarray, batch_size: int, device):
@@ -229,7 +231,7 @@ class _SeedSweep:
     """The epoch loop, flatline re-draws, best-epoch bookkeeping and seed
     sharding both sweeps share.  A subclass sets ``seeds``, ``S``,
     ``device`` and ``params``, calls :meth:`_start`, and provides
-    ``_init_params(generator)`` (one seed's initial parameters),
+    ``_init_params(key)`` (one seed's initial parameters),
     ``_prepare(x)`` (host inputs in its layout), ``_step(x, y, mask, lr)``
     (one nll a seed it holds) and ``_validate(x, chunk)`` (numpy predictions
     and probabilities, a row a seed it holds).
@@ -264,7 +266,7 @@ class _SeedSweep:
 
     def reinit_seeds(self, indices: Sequence[int], attempt: int = 1) -> None:
         """Re-draw the listed seeds' parameters (by index) from
-        ``make_generator(seed, attempt)``: fresh, deterministic draws for
+        ``threefry.init_key(seed, attempt)``: fresh, deterministic draws for
         flatline recovery, each equal to the single model's
         ``reinit_params(attempt)``.  Every seed listed must be held: during a
         run under a mesh, a rank re-draws its own rows only."""
@@ -393,8 +395,8 @@ class SeedParallelDQBM(_SeedSweep):
         self._start(mesh)
         self.params = _seed_streams(self.seeds, self._init_params)
 
-    def _init_params(self, generator: torch.Generator) -> DQBMParams:
-        return init_params(generator, self.dim_input, self.n_hidden_nodes, self.n_output_nodes,
+    def _init_params(self, key: np.ndarray) -> DQBMParams:
+        return init_params(key, self.dim_input, self.n_hidden_nodes, self.n_output_nodes,
                            self.restricted, self.device)
 
     def _prepare(self, x: np.ndarray) -> np.ndarray:
@@ -497,8 +499,8 @@ class SeedParallelCDQBM(_SeedSweep):
     A donor :class:`qbmx_torch.models.cdqbm.CDQBM` supplies the geometry,
     flags, sampler, device and the builders, which take the stacked
     parameters; its own parameters and generator are not used.  Seed s's
-    parameters come from ``make_generator(s, attempt)`` through
-    ``cdqbm.init_params``, equal to ``CDQBM(seed=s)``'s.  A step is one
+    parameters come from ``threefry.init_key(s, attempt)`` through
+    ``cdqbm.init_params``, equal to ``CDQBM(seed=s)``'s and ``qbmx``'s.  A step is one
     sampler call of 2·S groups of B problems, the clamped groups
     zero-padded from n_hidden to n_total (``CDQBM.step_qubos``); a
     validation chunk of ``train(predict_chunk=32)`` examples one call of S
@@ -522,9 +524,9 @@ class SeedParallelCDQBM(_SeedSweep):
         sampler call (each chunk zero-padded, as ``qbmx`` pads it)."""
         return super().train(*args, predict_chunk=predict_chunk, **kwargs)
 
-    def _init_params(self, generator: torch.Generator):
+    def _init_params(self, key: np.ndarray):
         m = self.model
-        return cdqbm_init(generator, m.geo, m.hidden_bias_type, m.is_restricted,
+        return cdqbm_init(key, m.geo, m.hidden_bias_type, m.is_restricted,
                           m.learn_penalty, m.prob_penalty, m.device)
 
     def _prepare(self, x: np.ndarray) -> np.ndarray:
@@ -615,7 +617,7 @@ class SeedParallelRBM:
         self.mesh = mesh
         self.rows = seed_rows(mesh, self.S)
         self.params = _seed_streams(self.seeds, lambda g: rbm.init_params(
-            g, num_visible, num_hidden, num_classes, self.device))
+            g, num_visible, num_hidden, num_classes, self.device), key=make_generator)
         self._epoch = rbm.make_epoch_scan(rbm.make_train_step(
             num_classes, method=method, cd_k=k, sparse_constant=sparse_constant,
             generative_factor=generative_factor, stacked=True))

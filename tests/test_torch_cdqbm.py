@@ -346,6 +346,28 @@ def test_reinit_is_a_function_of_seed_and_attempt():
     assert not np.array_equal(first["kernel"], second["kernel"])
 
 
+@pytest.mark.parametrize("seed,attempt", [(0, 0), (7, 0), (3492574433, 3)])
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(pooling_type="probabilistic", hidden_bias_type="per-unit", is_restricted=True),
+    dict(pooling_type="probabilistic", learn_penalty=True, n_kernels=2, hidden_bias_type="none"),
+    dict(pooling_size=0, sequential_layer_sizes=[]),
+], ids=["defaults", "probabilistic per-unit restricted", "learned penalty two kernels",
+        "no pooling no sequential layer"])
+def test_a_model_starts_from_qbmx_parameters(seed, attempt, kw):
+    """``CDQBM(seed=s)`` and its ``reinit_params(attempt)`` draw ``qbmx``'s
+    parameters for ``(s, attempt)`` bit for bit."""
+    kw = {**BASE, **kw}
+    t, j = tc.CDQBM(seed=seed, device="cpu", **kw), jc.CDQBM(seed=seed, **kw)
+    if attempt:
+        t.reinit_params(attempt)
+        j.reinit_params(attempt)
+    got, want = _leaves(t.params), _leaves(j.params)
+    assert got.keys() == want.keys()
+    for k in got:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
 # -- coreset --------------------------------------------------------------------
 
 

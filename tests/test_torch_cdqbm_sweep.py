@@ -23,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 import pickle
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -226,6 +227,28 @@ def test_each_seed_starts_where_a_single_model_does():
     check()
     sw.reinit_seeds([1], attempt=1)
     singles[1].reinit_params(attempt=1)
+    check()
+
+
+@pytest.mark.parametrize("case", ["deterministic", "probabilistic per-unit restricted"])
+def test_each_seed_starts_where_qbmx_does(case):
+    """The sweep's initial parameters are ``qbmx``'s sweep's, bit for bit,
+    and so are a re-drawn seed's."""
+    kw = {**BASE, **CASES[case]}
+    ts = tsweep.SeedParallelCDQBM(SEEDS, tc.CDQBM(seed=99, device="cpu", **kw))
+    js = jsweep.SeedParallelCDQBM(SEEDS, jc.CDQBM(seed=99, **kw))
+
+    def check():
+        for i in range(len(SEEDS)):
+            got = _leaves(ts.params_for_seed(i))
+            want = _leaves(jax.tree.map(lambda a: a[i], js.params))
+            assert got.keys() == want.keys()
+            for k in got:
+                np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+    check()
+    ts.reinit_seeds([1], attempt=1)
+    js.reinit_seeds([1], attempt=1)
     check()
 
 

@@ -22,6 +22,7 @@ import torch
 import qbmx.models.base as jbase
 import qbmx.models.dqbm as jd
 import qbmx_torch.models.base as tbase
+from qbmx_torch.core import threefry
 import qbmx_torch.models.dqbm as td
 from qbmx.samplers.sa_lane import lane_sample_groups
 from qbmx_torch.samplers import sa_torch
@@ -72,12 +73,13 @@ def test_params_round_trip():
 
 @pytest.mark.parametrize("restricted", [False, True])
 def test_init_params_structure(restricted):
-    p = td.init_params(torch.Generator().manual_seed(0), 9, 4, 2, restricted)
+    p = td.init_params(threefry.key(0), 9, 4, 2, restricted)
     j = jd.init_params(jax.random.key(0), 9, 4, 2, restricted)
     for k in FIELDS:
         t = getattr(p, k)
         assert tuple(t.shape) == getattr(j, k).shape
         assert float(t.abs().max()) <= 1.0
+        np.testing.assert_array_equal(t.numpy(), np.asarray(getattr(j, k)))
     assert torch.equal(p.w_oo, torch.triu(p.w_oo, 1))
     assert torch.equal(p.w_hh, torch.triu(p.w_hh, 1))
     assert bool((p.w_hh == 0).all()) is restricted
@@ -267,3 +269,21 @@ def test_sample_output_patterns_and_distribution():
     dist = m.get_result_distribution(pats, ["0", "1"])
     assert abs(sum(dist) - 1.0) < 1e-9
     assert dataclasses.is_dataclass(m.params)
+
+
+@pytest.mark.parametrize("seed", [0, 19, 3492574433])
+@pytest.mark.parametrize("attempt", [0, 2])
+@pytest.mark.parametrize("one_hot,restricted", [(False, False), (True, True)])
+def test_a_model_starts_from_qbmx_parameters(seed, attempt, one_hot, restricted):
+    """``DiscQBM(seed=s)`` and its ``reinit_params(attempt)`` draw ``qbmx``'s
+    parameters for ``(s, attempt)`` bit for bit (a seed's runs in the two
+    packages then differ only in the samplers' draws)."""
+    kw = dict(dim_input=13, n_hidden_nodes=8, seed=seed, restricted=restricted,
+              use_one_hot_encoding=one_hot)
+    t, j = td.DiscQBM(device="cpu", **kw), jd.DiscQBM(**kw)
+    if attempt:
+        t.reinit_params(attempt)
+        j.reinit_params(attempt)
+    got = td.params_to_numpy(t.params)
+    for k in FIELDS:
+        np.testing.assert_array_equal(got[k], np.asarray(getattr(j.params, k)), err_msg=k)

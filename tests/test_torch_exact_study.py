@@ -5,7 +5,7 @@
 ``cdqbm_multikernel_study.py``).
 
 - ``make_bars`` is equal bit for bit, and each study's initial parameters
-  (``exact_harness.qbmx_init``, numpy threefry) equal ``qbmx``'s for the
+  (the models' own, on the numpy threefry) equal ``qbmx``'s for the
   same seed bit for bit.
 - For CDQBM variants (argmin raw, absmax + signed, ``center_fmap``,
   probabilistic pooling with ``learn_penalty``, no pooling, two kernels,
@@ -151,7 +151,7 @@ def test_make_bars_is_bit_for_bit():
 @pytest.mark.parametrize("case", CASES)
 def test_qbmx_init_draws_qbmx_parameters(case):
     *_, tm, jm = _pair(case)
-    ours, theirs = tree_leaves(xh.qbmx_init(tm).params), jax.tree.leaves(jm.params)
+    ours, theirs = tree_leaves(tm.params), jax.tree.leaves(jm.params)
     assert len(ours) == len(theirs)
     for a, b in zip(ours, theirs):
         assert a.dtype == torch.float32 and tuple(a.shape) == b.shape

@@ -147,6 +147,27 @@ def test_each_seed_starts_where_a_single_model_does():
         assert all(np.array_equal(got[k], v) for k, v in td.params_to_numpy(m.params).items())
 
 
+@pytest.mark.parametrize("restricted", [False, True])
+def test_each_seed_starts_where_qbmx_does(restricted):
+    """The sweep's initial parameters are ``qbmx``'s sweep's, bit for bit,
+    and so are a re-drawn seed's: the two packages' seed bands differ only
+    in the samplers' draws."""
+    seeds = list(range(10))
+    kw = dict(dim_input=D, n_hidden_nodes=8, restricted=restricted)
+    ts, js = tsweep.SeedParallelDQBM(seeds, device="cpu", **kw), jsweep.SeedParallelDQBM(seeds,
+                                                                                         **kw)
+
+    def check():
+        got = tsweep.sweep_params_to_numpy(ts.params)
+        for k in FIELDS:
+            np.testing.assert_array_equal(got[k], np.asarray(getattr(js.params, k)), err_msg=k)
+
+    check()
+    ts.reinit_seeds([1, 4], attempt=2)
+    js.reinit_seeds([1, 4], attempt=2)
+    check()
+
+
 def test_one_sampler_call_a_step():
     """A step is ONE structured call of 2·S groups (clamped first), a
     validation pass one call of S groups."""
