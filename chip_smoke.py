@@ -18,20 +18,28 @@ own launch count and record: ``pt_wide_sparse`` (J_g's nonzero rows whole
 in shared memory, where they fit a block beside its rungs: the CDQBM (a)
 PT call) and ``pt_wide`` (J_g streamed in tiles: dense QUBOs); a ladder of
 more rungs than a block holds spreads over a thread block cluster.  K1 and K2 each run a thread a
-chain or a warp a chain, by one rule (``kernel_call.chain_layout``); K3 a
-rung a thread or a rung a warp (``pt_cuda.pt_layout``).  Phases (any
+chain (THREAD, n ≤ ``kernel_call.THREAD_MAX_N``), 4, 8 or 16 lanes a chain
+(GROUP) or a warp a chain (LANES), by one rule (``kernel_call.chain_layout``);
+K3 a rung a thread or a rung a warp (``pt_cuda.pt_layout``).  Phases (any
 failure exits nonzero; nothing carries on after one):
 
 1. device: the GPU's name, ``nvidia-smi`` name and power limit, torch and nvcc versions;
 2. build: the kernels from ``qbmx_torch/csrc``, one ``nvcc`` per source at once (seconds);
 3. kernel vs plain PyTorch under the same numpy-seeded host variates: K1
    and K2 pair (a thread a chain) at the flagship structured shape (G=2,
-   B=60, n=6, R=1000, S=1000), K1 and K2 single and quad (a warp a chain)
-   at the dense CDQBM bench shape (B=60, n=41, R=100, S=1000), K1 and K2
+   B=60, n=6, R=1000, S=1000), K1 (8 lanes a chain), K2 single and quad
+   (16) at the dense CDQBM bench shape (B=60, n=41, R=100, S=1000), K1 and K2
    pair (a warp a chain) at the CDQBM default call (G=2, B=3, n=41, R=100,
-   S=1000), with the layouts the rule picks there; K3 (a rung a thread) at
-   the flagship shape densified (120 problems, n=6, M=8 rungs) at R=1000,
-   S=100 and at the main path's S=1000 with R=100, and (a rung a warp)
+   S=1000), with the layouts the rule picks there; K1 and K2 pair past
+   n = 8 (``chain_layouts_check``, S cut to 100) at the search's h8 call
+   (G=20, B=20, R=1000, n=9), at n = THREAD_MAX_N and THREAD_MAX_N + 1
+   (G=2, B=60, R=1000) and at the 10-seed CDQBM (b) sweep's call (G=20,
+   B=3, R=100, n=41): every layout that holds the call forced and the one
+   the rule picks (through the sampler's entry), and GROUP against LANES
+   forced on the same draws, samples and final fields equal bit for bit;
+   K3 (a rung a thread) at the flagship shape densified (120 problems,
+   n=6, M=8 rungs) at R=1000, S=100 and at the main path's S=1000 with
+   R=100, and (a rung a warp)
    beyond the first design's M·n ≤ 2048 at B=4, n=241, M=12, R=32, S=20;
    K4 Metropolis and pair at the CDQBM probabilistic-pooling shape (G=2,
    B=20, n=717, R=100, S=10), on its dense entry (B=32, n=717) and at the
@@ -56,16 +64,19 @@ failure exits nonzero; nothing carries on after one):
    samples, states, fields, energies and counters bit for bit; and the
    clusters of 8 blocks the card holds at once;
 4. the kernels' own Philox streams: vs the exact Boltzmann oracle (K1
-   marginals within 0.12 at the cold beta; K2 at each layout and K3 at
-   each layout within 0.08 single / 0.05 pair and quad, pair moments
-   within 0.07, at beta 1), decorrelated chains, per-problem streams, and
+   marginals within 0.12 at the cold beta, each layout of K1 forced, and
+   at n = 12 with the anneal ending at beta 1; K2 at each layout, also at
+   n = 12, and K3 at each layout within 0.08 single / 0.05 pair and quad,
+   pair moments within 0.07, at beta 1), decorrelated chains, per-problem
+   streams, and
    the plain versions driven by those same draws written out on the host
    (``sa_torch.philox_variates``, ``sa_torch.pt_philox_variates``; the 1%
-   bound of phase 3; K2 and K3 in both layouts); K4 launched directly (past
+   bound of phase 3; K1 and K2 at every layout, at n = 6 and at
+   THREAD_MAX_N; K3 in both layouts); K4 launched directly (past
    the routing) against the oracle at n in (2, 5, 8), and on its own Philox
    draws at the CDQBM shape (S=3); the incremental fields of K4 after the
-   main path's S=1000 at the CDQBM (a) shape and of K2's warp-a-chain
-   layout at the CDQBM (b) call, for every rule, against h + J·s in
+   main path's S=1000 at the CDQBM (a) shape and of K2's GROUP and LANES
+   layouts at the CDQBM (b) call, for every rule, against h + J·s in
    float64, within the statistical rounding limit of the adds since their
    last recomputation (``wide_cuda.field_drift_bound``), and the same check
    failing on one chain's fields each one add of their row's median |J_jk|
@@ -129,7 +140,12 @@ failure exits nonzero; nothing carries on after one):
    inputs make, K4's and K5's from the nonzeros of the changed rows, each
    counted by one more launch, K2's at the flagship and the CDQBM (b)
    call; K3's from its decisions alone; and K4, K5's sparse path, K1 and
-   K2 at the 10-seed sweeps' calls on their own step QUBOs);
+   K2 at the 10-seed sweeps' calls on their own step QUBOs); and first
+   (``chain_layout_times``) K1 and K2 pair at the calls whose layout the
+   rule moved (the search's SA and BMS h8 calls, the warm start's, the
+   CDQBM (b) sweep's; S=1000, random QUBOs): the rule's layout against
+   the earlier rule's (``parent_lanes``) forced, in turns, beside the
+   bound;
 7. the RBM family (``rbm_phase``; no kernel of its own, its products are
    cuBLAS matmuls): ``qbmx_torch.cli.rbm_main.main`` on ``cuda`` at its
    defaults (discriminative, H=9, bs7, lr 0.0871) on synthetic data, cut
@@ -256,8 +272,9 @@ failure exits nonzero; nothing carries on after one):
    the full depth beside its bound and the plain version's time; and
    ``bms_winner_curves --e 1 --seeds 10 --predict_reads 100``: the JSON
    written, both fronts printed, K2 once a step and once for validation;
-   and K1 at the search's SA h8 call (n = 9: a warp a chain), held and
-   timed as the three above;
+   and K1 at the search's SA h8 call (n = 9), held and timed as the three
+   above; K1 and K2 pair at the h8 calls on the route the rule names
+   (``H8_ROUTE``);
 12. the seed bands (``band_phase``; North-star check 3 for every route by
    which a kernel trains): each setting of ``qbmx_torch/cli/bands.py``
    (the flat model at H = 2 with SA, BMS and PT; at H = 8, n = 9, with SA
@@ -1065,6 +1082,156 @@ def in_turns(a, b, reps: int) -> tuple[float, float]:
     return statistics.median(times[0]), statistics.median(times[1])
 
 
+# K1 (width 0) and K2 pair (width 2): the kernels whose layouts past n = 8
+# phases 3, 4 and 6 check and time
+K1_K2 = (("K1", 0), ("K2 pair", 2))
+
+
+def k1k2_launch(width: int, form, R: int, S: int, **kw):
+    """K1 (``width`` 0) or K2 at ``width`` launched on a structured form."""
+    from qbmx_torch.samplers import gibbs_cuda, sa_cuda
+
+    if width == 0:
+        return sa_cuda.launch(*form, R, S, **kw)
+    return gibbs_cuda.launch(*form, R, S, width, **kw)
+
+
+def k1k2_layouts(n: int, width: int) -> list:
+    """The layouts (lanes a chain) of K1 (``width`` 0) or K2 that hold n."""
+    from qbmx_torch.samplers import kernel_call
+
+    return [L for L in (1, *kernel_call.LANES) if n <= kernel_call.max_n(L, width)]
+
+
+def chain_layout_calls() -> dict:
+    """Phase 3's calls of K1 and K2 past n = 8: label -> (G, B, R, n)."""
+    from qbmx_torch.samplers import kernel_call
+
+    top = kernel_call.THREAD_MAX_N
+    return {"the search's h8 call": (20, 20, 1000, 9),
+            f"THREAD_MAX_N = {top}": (2, 60, 1000, top),
+            f"THREAD_MAX_N + 1 = {top + 1}": (2, 60, 1000, top + 1),
+            "the (b) sweep call": (20, 3, 100, 41)}
+
+
+def chain_layouts_check(dev, rng) -> tuple[dict, list]:
+    """Phase 3: K1 and K2 pair at ``chain_layout_calls`` (S cut to 100),
+    each layout that holds the call forced and the layout the rule picks
+    (through the sampler's entry), against the plain version under the same
+    host variates (the 1% bound); GROUP (4, 8, 16 lanes a chain) against
+    LANES (a warp a chain) forced on the same draws: samples and
+    ``fields_out`` equal bit for bit.  Returns the records and (kernel,
+    (differing, max_abs_err)) pairs."""
+    from qbmx_torch.samplers import gibbs, gibbs_cuda, kernel_call, sa_cuda, sa_torch
+    from qbmx_torch.samplers import launches as launches_mod
+
+    S, rec, pairs = 100, {}, []
+    for label, (G, B, R, n) in chain_layout_calls().items():
+        Q, he, init01, u = structured_problem(rng, G, B, n, R, S, dev)
+        hv = (init01, u)
+        for name, width in K1_K2:
+            kernel = "sa_metropolis" if width == 0 else "sa_heatbath"
+            plain = (sa_torch.sa_sample_groups_plain(Q, he, R, S, host_variates=hv) if width == 0
+                     else gibbs.gibbs_sample_groups_plain(Q, he, R, S, pair=True,
+                                                          host_variates=hv))
+            form = structured_form(Q, he, S, width)
+            shape = f"G={G} B={B} R={R} n={n} S={S}"
+            outs, fracs = {}, {}
+            for L in k1k2_layouts(n, width):
+                fields = None if L == 1 else torch.empty((G, B, R, n), device=dev)
+                out = k1k2_launch(width, form, R, S, host_variates=hv, lanes=L,
+                                  fields_out=fields)
+                lay = kernel_call.chain_layout(G, B, R, n, L, width)
+                fracs[L], err = compare(out, plain, f"{name} at {label} {shape}, "
+                                                    f"{lay.route} (forced)")
+                pairs.append((kernel, (fracs[L], err)))
+                outs[L] = (out, fields)
+            picked = kernel_call.chain_layout(G, B, R, n, width=width)
+            launches_mod.reset()
+            got = (sa_cuda.sa_sample_groups_cuda(Q, he, R, S, host_variates=hv) if width == 0
+                   else gibbs_cuda.gibbs_sample_groups_cuda(Q, he, R, S, pair=True,
+                                                            host_variates=hv))
+            torch.cuda.synchronize()
+            check(launches_mod.counts() == {kernel: 1},
+                  f"{name} at {label}: the sampler's entry launched {launches_mod.counts()}")
+            pairs.append((kernel, compare(got, plain, f"{name} at {label} {shape}, "
+                                                      f"{picked.route} (the rule's)")))
+            check(torch.equal(got, outs[picked.lanes][0]),
+                  f"{name} at {label}: the sampler's entry and {picked.route} forced differ")
+            equal = []
+            for L in outs:
+                if 1 < L < 32:
+                    same = (torch.equal(outs[L][0], outs[32][0])
+                            and torch.equal(outs[L][1], outs[32][1]))
+                    check(same, f"{name} at {label}: {L} lanes a chain and a warp a chain "
+                                "differ (samples or fields) on the same draws")
+                    equal.append(L)
+            print(f"phase 3 {name} at {label} {shape}: GROUP at {equal} lanes a chain equals "
+                  "LANES bit for bit (samples and fields_out); the rule picks "
+                  f"{picked.route}", flush=True)
+            rec[f"{name} at {label}"] = {
+                "G": G, "B": B, "R": R, "n": n, "S": S, "picked_lanes": picked.lanes,
+                "route": picked.route, "differing_chains_by_lanes": fracs,
+                "group_equal_to_lanes": equal}
+            del outs, got, plain
+        del Q, he, init01, u, hv
+        torch.cuda.empty_cache()
+    return rec, pairs
+
+
+# phase 6: K1 and K2 pair at the calls whose layouts moved when THREAD went
+# past n = 8 and GROUP came: label -> (width, G, B, R, n)
+LAYOUT_TIMING_CALLS = {
+    "K1 at the search's SA h8 call": (0, 20, 20, 1000, 9),
+    "K2 pair at the search's BMS h8 call": (2, 20, 20, 1000, 9),
+    "K1 at the warm start": (0, 2, 60, 100, 10),
+    "K1 at the (b) sweep call": (0, 20, 3, 100, 41),
+    "K2 pair at the (b) sweep call": (2, 20, 3, 100, 41),
+}
+
+
+def parent_lanes(G: int, B: int, R: int, n: int) -> int:
+    """The layout the K1/K2 rule picked before THREAD went past n = 8 and
+    GROUP came: a thread a chain at n ≤ 8 and more than 4,224 chains, else a
+    warp a chain."""
+    return 1 if n <= 8 and G * B * R > 4_224 else 32
+
+
+def chain_layout_times(dev, rng, smi: str) -> dict:
+    """Phase 6: each of ``LAYOUT_TIMING_CALLS`` at S=1000 in Philox mode on
+    random QUBOs, the layout the rule picks and the earlier rule's
+    (``parent_lanes``) forced, in turns (``in_turns``), beside its bound
+    (``roofline.anneal_bound`` from the flips of one more launch)."""
+    from qbmx_torch.core.qubo import random_qubo_batch
+    from qbmx_torch.samplers import kernel_call
+    from qbmx_torch.utils.roofline import anneal_bound, heatbath_units
+
+    S, out = 1000, {}
+    for label, (width, G, B, R, n) in LAYOUT_TIMING_CALLS.items():
+        Qg = random_qubo_batch(rng, G, n).to(dev)
+        he = torch.as_tensor(rng.normal(size=(G, B, n)).astype(np.float32), device=dev)
+        form = structured_form(Qg, he, S, width)
+        picked = kernel_call.chain_layout(G, B, R, n, width=width)
+        before = kernel_call.chain_layout(G, B, R, n, parent_lanes(G, B, R, n), width)
+        run = lambda L: k1k2_launch(width, form, R, S, lanes=L, generator=gen_of(3))
+        new_ms, old_ms = in_turns(lambda: run(picked.lanes), lambda: run(before.lanes), reps=2)
+        flips = torch.zeros(1, dtype=torch.int64, device=dev)
+        k1k2_launch(width, form, R, S, lanes=picked.lanes, generator=gen_of(3), flips=flips)
+        decisions = None if width == 0 else G * B * R * heatbath_units(n, width) * S
+        bound = anneal_bound(G, B, R, n, S, flips=int(flips.item()), decisions=decisions)
+        out[label] = {"G": G, "B": B, "R": R, "n": n, "S": S, "lanes": picked.lanes,
+                      "route": picked.route, "ms": new_ms, "parent_route": before.route,
+                      "parent_ms": old_ms, "speedup": old_ms / new_ms,
+                      "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
+        print(f"phase 6 layouts: {label} (G={G} B={B} R={R} n={n} S={S}): {picked.route} "
+              f"{new_ms:.3f} ms, the earlier rule's {before.route} {old_ms:.3f} ms (forced; CUDA "
+              f"events, in turns new old old new, medians of 2), {old_ms / new_ms:.2f}x; bound "
+              f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} "
+              f"({bound['bound_ms'] / new_ms:.1%}); {smi}", flush=True)
+        del Qg, he, form
+    return out
+
+
 def layout_turns(dev, smi: str) -> dict:
     """K4's shared and global-field layouts, and K5's dense and global
     paths, each forced on the same call, timed in turns (``in_turns``;
@@ -1450,7 +1617,7 @@ SEARCH_CONFIGS = {  # bms_hyper_search --configs at the script's widths, one epo
     "sa_heatbath": {"solver": "BMS", "h": 8, "lr": 0.453, "e": 1},
     "pt_heatbath": {"solver": "PT", "h": 5, "lr": 0.453, "sweeps": 128, "e": 1},
 }
-SEARCH_SA_H8 = {"solver": "SA", "h": 8}  # the search's SA h8 width: K1 a warp a chain (n = 9)
+SEARCH_SA_H8 = {"solver": "SA", "h": 8}  # the search's SA h8 width (n = 9)
 
 
 def read_table(text: str) -> list[dict]:
@@ -1503,7 +1670,7 @@ def write_medmnist(root: Path, seed: int = 11) -> None:
 def search_calls(search, data, smi: str) -> dict:
     """K1, K2 pair and K3 at the search's own step calls (10 seeds: G=20
     groups of B=20, R=1000; each solver's step QUBOs on the first batch),
-    and K1 at its SA h8 call (n = 9, a warp a chain),
+    and K1 at its SA h8 call (n = 9),
     each launched once through its wrapper against its plain version under
     host variates (depth cut: K1 and K2 100 sweeps, K3 16), then timed at
     the full depth (Philox, CUDA events, median of 3) beside its bound and
@@ -1575,10 +1742,14 @@ def search_calls(search, data, smi: str) -> dict:
         del got
         k_ms, p_ms = cuda_ms(full, runs=3), cuda_ms(plain, runs=1)
         del hv
-        lanes = kernel_call.chain_layout(G, B, R, n).lanes if kernel != "pt_heatbath" else None
-        check(key != "sa_metropolis h8" or lanes == 32,
-              f"phase 11: K1 at the search's SA h8 call: {lanes} lanes a chain, not a warp")
+        lay = None if kernel == "pt_heatbath" else kernel_call.chain_layout(
+            G, B, R, n, width=pair if kernel == "sa_heatbath" else 0)
+        lanes = lay and lay.lanes
+        if n > 8:  # the h8 calls (n = 9, 400,000 chains): the route the rule names
+            check(lay.route == H8_ROUTE, f"phase 11: {kernel} at the search's h8 call takes "
+                                         f"{lay.route}, not {H8_ROUTE}")
         out[key] = {"G": G, "B": B, "n": n, "R": R, "S": S, "plain_S": Sc, "lanes": lanes,
+                    "route": lay and lay.route,
                     "differing_chains": frac, "max_abs_err": err, "ms": k_ms,
                     "plain_ms_at_plain_S": p_ms, "bound_ms": bound["bound_ms"],
                     "bound_by": bound["bound_by"]}
@@ -1736,15 +1907,16 @@ BAND_ROUTES = {
     "flat_sa_h2": ("sa_metropolis", "a thread a chain"),
     "flat_bms_h2": ("sa_heatbath", "a thread a chain"),
     "flat_pt_h2": ("pt_heatbath", "a rung a thread"),
-    "flat_sa_h8": ("sa_metropolis", "a warp a chain"),
-    "flat_bms_h8": ("sa_heatbath", "a warp a chain"),
-    "cdqbm_b_sa": ("sa_metropolis", "a warp a chain"),
-    "cdqbm_b_bms": ("sa_heatbath", "a warp a chain"),
+    "flat_sa_h8": ("sa_metropolis", "a thread a chain"),
+    "flat_bms_h8": ("sa_heatbath", "a thread a chain"),
+    "cdqbm_b_sa": ("sa_metropolis", "8 lanes a chain"),
+    "cdqbm_b_bms": ("sa_heatbath", "8 lanes a chain"),
     "flat_sa_h300": ("anneal_wide", "shared layout"),
     "flat_pt_h300": ("pt_wide", "dense path"),
     "flat_bms_h300": ("anneal_wide", "shared layout"),
 }
 PT_RUNGS = 8  # the CLIs' PT ladder
+H8_ROUTE = "a thread a chain"  # K1 and K2 pair at the search's h8 calls (phase 11)
 
 
 def band_route(kernel: str, G: int, B: int, R: int, n: int) -> str:
@@ -1752,9 +1924,8 @@ def band_route(kernel: str, G: int, B: int, R: int, n: int) -> str:
     groups of B problems, R reads, width n."""
     from qbmx_torch.samplers import kernel_call, pt_cuda, pt_wide_cuda, wide_cuda
 
-    if kernel in ("sa_metropolis", "sa_heatbath"):
-        lanes = kernel_call.chain_layout(G, B, R, n).lanes
-        return "a thread a chain" if lanes == 1 else "a warp a chain"
+    if kernel in ("sa_metropolis", "sa_heatbath"):  # the bands' BMS is pair
+        return kernel_call.chain_layout(G, B, R, n, width=2 if kernel == "sa_heatbath" else 0).route
     if kernel == "anneal_wide":
         return f"{wide_cuda.wide_geometry(G, B, R, n).layout} layout"
     route = pt_wide_cuda.pt_route(G, B, PT_RUNGS, R, n)
@@ -1952,12 +2123,18 @@ def main() -> None:
 
     # the few-chain layout of K1 and K2 (a warp a chain) at the CDQBM (b)
     # call; the layout rule is the two kernels' one kernel_call.chain_layout
+    # (the dense bench: 8 lanes a chain, single and quad 16)
     SB = dict(G=2, B=3, n=41, R=100, S=1000)
-    layouts = {label: kernel_call.chain_layout(G, B, R, n).lanes for label, (G, B, R, n) in (
-        ("flagship", (2, 60, 1000, 6)), ("dense bench", (60, 1, 100, 41)),
-        ("CDQBM (b)", (SB["G"], SB["B"], SB["R"], SB["n"])))}
-    check(layouts == {"flagship": 1, "dense bench": 32, "CDQBM (b)": 32},
-          f"K1/K2 layouts (lanes a chain) {layouts}")
+    layouts = {f"{label} width {w}": kernel_call.chain_layout(G, B, R, n, width=w).lanes
+               for label, (G, B, R, n) in (
+                   ("flagship", (2, 60, 1000, 6)), ("dense bench", (60, 1, 100, 41)),
+                   ("CDQBM (b)", (SB["G"], SB["B"], SB["R"], SB["n"])))
+               for w in (0, 1, 2, 4)}
+    want = {**{f"flagship width {w}": 1 for w in (0, 1, 2, 4)},
+            **{f"dense bench width {w}": 8 for w in (0, 2)},
+            **{f"dense bench width {w}": 16 for w in (1, 4)},
+            **{f"CDQBM (b) width {w}": 32 for w in (0, 1, 2, 4)}}
+    check(layouts == want, f"K1/K2 layouts (lanes a chain) {layouts}, not {want}")
     Qcb, hcb, init_b, u_b = structured_problem(rng, *SB.values(), dev)
     args, hv = (Qcb, hcb, SB["R"], SB["S"]), (init_b, u_b)
     record("sa_metropolis", compare(sa_cuda.sa_sample_groups_cuda(*args, host_variates=hv),
@@ -1968,6 +2145,11 @@ def main() -> None:
         gibbs.gibbs_sample_groups_plain(*args, pair=True, host_variates=hv),
         "K2 pair structured G=2 B=3 n=41 R=100 S=1000 (a warp a chain)"))
     del hv, init_b, u_b
+    # K1 and K2 pair past n = 8: every layout that holds the call, forced and
+    # as the rule picks it, against plain; GROUP against LANES bit for bit
+    chain_rec, pairs = chain_layouts_check(dev, np.random.default_rng(17))
+    for kernel, frac_err in pairs:
+        record(kernel, frac_err)
 
     Qpt = densify_groups(Qg, h_extra)  # (120, 6, 6): the PT slice's sampler input
     SP = dict(B=120, M=8, n=6, R=1000)
@@ -2258,23 +2440,43 @@ def main() -> None:
         err = (s[0].mean(0) - marg).abs().max().item()
         worst = max(worst, err)
         check(err <= ORACLE_ATOL, f"oracle n={n}: marginals off by {err:.4f}")
+    # K1 at each layout forced on the same problems; at n = 12 (THREAD past
+    # n = 8) a schedule that ends at beta 1, where the chains still mix (the
+    # default one freezes SA short of the oracle at n = 12 on every
+    # implementation), against the oracle at beta 1
+    k1_oracle = {}
+    for n in (2, 5, 8, 12):
+        Q = random_qubo_batch(np.random.default_rng(0), 1, n, scale=0.5).to(dev)
+        J, h, hot, logr = structured_form(Q, torch.zeros((1, 1, n), device=dev), 200)
+        cold = float(default_beta_range(Q[0])[1]) if n < 12 else 1.0
+        if n >= 12:
+            hot, logr = sa_torch.schedule_params(h, J[:, None], 200, 0.1, 1.0)
+        _, _, marg, _ = exact_boltzmann(Q[0], beta=cold)
+        for lanes in k1k2_layouts(n, 0):
+            s = sa_cuda.launch(J, h, hot, logr, 512, 200, lanes=lanes, generator=gen_of(n))[0, 0]
+            k1_oracle[f"n={n} lanes {lanes}"] = err = (s.mean(0) - marg).abs().max().item()
+            check(err <= ORACLE_ATOL, f"K1 oracle n={n} at {lanes} lanes a chain: marginals "
+                                      f"off by {err:.4f}")
     # K2 and K3 at beta 1 (tests/test_gibbs_pt_pallas_debug.py's problems),
     # each layout forced: K2 a thread or a warp a chain, K3 a rung a thread
     # or a rung a warp
     oracle = {}
     for width in WIDTHS:
-        seed, reads, sweeps, bar = (9, 384, 48, HB_ATOL) if width == "single" else \
-            (11, 2048, 64, JOINT_ATOL)
-        Q = torch.as_tensor(np.triu(np.random.default_rng(seed).uniform(-1, 1, (1, 6, 6)))
-                            .astype(np.float32), device=dev)
-        form = structured_form(Q, torch.zeros((1, 1, 6), device=dev), sweeps, WIDTH_OF[width])
-        for lanes in (1, 32):
-            s = gibbs_cuda.launch(*form, reads, sweeps, WIDTH_OF[width], lanes=lanes,
-                                  generator=torch.Generator().manual_seed(4))[0, 0]
-            err, moment = oracle_error(s, Q[0], joint=width != "single")
-            oracle[f"K2 {width} lanes {lanes}"] = (err, moment)
-            check(err <= bar and moment <= MOMENT_ATOL, f"K2 {width} oracle at {lanes} lanes a "
-                  f"chain: marginals off by {err:.4f}, moments by {moment:.4f}")
+        for n in (6, 12):  # n = 12: THREAD past n = 8, the same draw of couplings, 4x the reads
+            seed, reads, sweeps, bar = (9, 384, 48, HB_ATOL) if width == "single" else \
+                (11, 2048, 64, JOINT_ATOL)
+            reads *= 1 if n == 6 else 4
+            Q = torch.as_tensor(np.triu(np.random.default_rng(seed).uniform(-1, 1, (1, n, n)))
+                                .astype(np.float32), device=dev)
+            form = structured_form(Q, torch.zeros((1, 1, n), device=dev), sweeps,
+                                   WIDTH_OF[width])
+            for lanes in k1k2_layouts(n, WIDTH_OF[width]):
+                s = gibbs_cuda.launch(*form, reads, sweeps, WIDTH_OF[width], lanes=lanes,
+                                      generator=torch.Generator().manual_seed(4))[0, 0]
+                err, moment = oracle_error(s, Q[0], joint=width != "single")
+                oracle[f"K2 {width} n={n} lanes {lanes}"] = (err, moment)
+                check(err <= bar and moment <= MOMENT_ATOL, f"K2 {width} oracle n={n} at {lanes} "
+                      f"lanes a chain: marginals off by {err:.4f}, moments by {moment:.4f}")
     Q = torch.as_tensor(np.triu(np.random.default_rng(3).uniform(-1.5, 1.5, (1, 5, 5)))
                         .astype(np.float32), device=dev)
     for layout, name in ((pt_cuda.RUNG, "a rung a thread"), (pt_cuda.WARP, "a rung a warp")):
@@ -2326,6 +2528,26 @@ def main() -> None:
                                   WIDTH_OF[width], lanes=32, generator=gen(5))
         philox[f"K2 {width} a warp a chain"] = differing(k_out, p_out)
     del hv
+    # every layout of K1 and K2 forced on its own draws, at the flagship
+    # widths (n = 6) and at n = THREAD_MAX_N (THREAD past n = 8; G=2 B=20
+    # R=100 S=20)
+    Qt, ht, _, _ = structured_problem(rng, 2, 20, kernel_call.THREAD_MAX_N, 1, 1, dev)
+    for (Qp, hp, Rp, Sp) in ((Qg, h_extra, R, S), (Qt, ht, 100, 20)):
+        Gp, Bp, n_p = hp.shape
+        seed = draw_seed(gen(8))
+        hv = tuple(torch.as_tensor(a, device=dev)
+                   for a in sa_torch.philox_variates(seed, Gp, Bp, Rp, n_p, Sp))
+        for width in ("Metropolis", *WIDTHS):
+            w = 0 if width == "Metropolis" else WIDTH_OF[width]
+            p_out = (sa_torch.sa_sample_groups_plain(Qp, hp, Rp, Sp, host_variates=hv) if w == 0
+                     else gibbs.gibbs_sample_groups_plain(Qp, hp, Rp, Sp, **WIDTHS[width],
+                                                          host_variates=hv))
+            form = structured_form(Qp, hp, Sp, w)
+            for lanes in k1k2_layouts(n_p, w):
+                k_out = k1k2_launch(w, form, Rp, Sp, lanes=lanes, generator=gen(8))
+                philox[f"{'K1' if w == 0 else 'K2 ' + width} n={n_p} lanes {lanes}"] = \
+                    differing(k_out, p_out)
+        del hv
     S_pt = 20
     seed = draw_seed(gen(6))
     hv = tuple(torch.as_tensor(a, device=dev) for a in sa_torch.pt_philox_variates(
@@ -2438,28 +2660,30 @@ def main() -> None:
             check(planted_ratio > 1.0, f"K4 field drift check: a field one add short reads "
                   f"only {planted_ratio:.3f} of the limit")
         del fields, exact, drift, bound, s_w
-    # K2's incremental fields (its LANES layout) after the main path's S=1000
-    # at the CDQBM (b) call, every width, against h + J·s in float64, within
-    # the limit of the adds since its last refresh (every 16th sweep); the
-    # planted fault as for K4
+    # K2's incremental fields (GROUP and LANES, each forced) after the main
+    # path's S=1000 at the CDQBM (b) call, every width, against h + J·s in
+    # float64, within the limit of the adds since its last refresh (every
+    # 16th sweep); the planted fault as for K4
     k2_drift_ratio, k2_planted = {}, math.inf
     for width in WIDTHS:
         Jb, hb_eff, hot_b, logr_b = structured_form(Qcb, hcb, 1000, WIDTH_OF[width])
-        fields = torch.empty((SB["G"], SB["B"], SB["R"], SB["n"]), device=dev)
-        s_b = gibbs_cuda.launch(Jb, hb_eff, hot_b, logr_b, SB["R"], 1000, WIDTH_OF[width],
-                                generator=gen(9), fields_out=fields)
-        exact = hb_eff.double()[:, :, None] + torch.einsum("gbrj,gij->gbri", s_b.double(),
-                                                           Jb.double())
-        bound = wide_cuda.field_drift_bound(hb_eff, Jb, 1000, gibbs_cuda.REFRESH_PERIOD)
-        drift = (fields.double() - exact).abs()
-        k2_drift_ratio[width] = (drift / bound).max().item()
-        check(bool(torch.isfinite(fields).all()) and k2_drift_ratio[width] <= 1.0,
-              f"K2 {width} field drift at S=1000: {k2_drift_ratio[width]:.3e} of its limit")
-        typical = Jb[0].abs().masked_fill(Jb[0] == 0, math.nan).nanmedian(dim=1).values
-        lost = fields[0, 0, 0].double() - typical.double()
-        k2_planted = min(k2_planted,
-                         ((lost - exact[0, 0, 0]).abs() / bound[0, 0, 0]).min().item())
-        del fields, exact, drift, bound, s_b
+        for lanes in [L for L in k1k2_layouts(SB["n"], WIDTH_OF[width]) if L > 1]:
+            fields = torch.empty((SB["G"], SB["B"], SB["R"], SB["n"]), device=dev)
+            s_b = gibbs_cuda.launch(Jb, hb_eff, hot_b, logr_b, SB["R"], 1000, WIDTH_OF[width],
+                                    generator=gen(9), fields_out=fields, lanes=lanes)
+            exact = hb_eff.double()[:, :, None] + torch.einsum("gbrj,gij->gbri", s_b.double(),
+                                                               Jb.double())
+            bound = wide_cuda.field_drift_bound(hb_eff, Jb, 1000, gibbs_cuda.REFRESH_PERIOD)
+            drift = (fields.double() - exact).abs()
+            key = f"{width} lanes {lanes}"
+            k2_drift_ratio[key] = (drift / bound).max().item()
+            check(bool(torch.isfinite(fields).all()) and k2_drift_ratio[key] <= 1.0,
+                  f"K2 {key} field drift at S=1000: {k2_drift_ratio[key]:.3e} of its limit")
+            typical = Jb[0].abs().masked_fill(Jb[0] == 0, math.nan).nanmedian(dim=1).values
+            lost = fields[0, 0, 0].double() - typical.double()
+            k2_planted = min(k2_planted,
+                             ((lost - exact[0, 0, 0]).abs() / bound[0, 0, 0]).min().item())
+            del fields, exact, drift, bound, s_b
     check(k2_planted > 1.0, f"K2 field drift check: a field one add short reads only "
           f"{k2_planted:.3f} of the limit")
     # K5's fields and energies after the main path's S=1000 at the CDQBM (a)
@@ -2510,20 +2734,24 @@ def main() -> None:
         del states, fields, energy, s64, exact_f, exact_e, f64, e64, drift
     beta1 = ", ".join(f"{k} {a:.4f}/{b:.4f}" for k, (a, b) in oracle.items())
     print(f"phase 4 oracle: K1 n in (2, 5, 8), 512 reads, 200 sweeps, worst marginal "
-          f"error {worst:.4f} (limit {ORACLE_ATOL}); at beta 1 marginal/moment errors "
+          f"error {worst:.4f} (limit {ORACLE_ATOL}); K1 at each layout forced {k1_oracle} "
+          f"(n = 12: beta 0.1 to 1, the oracle at 1); at beta 1 marginal/moment errors "
           f"{beta1} (limits {HB_ATOL} single and PT, {JOINT_ATOL} pair and quad, moments "
-          f"{MOMENT_ATOL}; K2 at 1 and 32 lanes a chain, K3 a rung a thread and a warp); "
+          f"{MOMENT_ATOL}; K2 at each layout, K3 a rung a thread and a warp); "
           f"distinct states of 64 {distinct}; per-problem streams "
           "independent of batch-mates; Philox draws vs plain at G=2 B=60 n=6 R=1000 S=100 "
           f"(K3: B=120 M=8 S={S_pt}; K4: G=2 B=20 n=717 R=100 S={S_w}): differing chains "
-          f"{philox}; K4 forced at n in (2, 5, 8): worst oracle errors {worst_wide} (limits "
+          f"{philox} (K1 and K2 at each layout: G=2 B=60 n=6 R=1000 S=100 and G=2 B=20 "
+          f"n={kernel_call.THREAD_MAX_N} R=100 S=20); K4 forced at n in (2, 5, 8): worst "
+          f"oracle errors {worst_wide} (limits "
           f"{ORACLE_ATOL} Metropolis at the cold beta, {JOINT_ATOL} pair and {MOMENT_ATOL} "
           "pair moments at beta 1); K4 fields after S=1000 at G=2 B=20 n=717 R=100 vs h + J·s "
           f"in float64: max drift {drift_max}, of the limit at most {drift_ratio}; one "
           f"add of the row's median |J_jk| short reads at least {planted_ratio:.3f} of the "
           f"limit (must exceed 1); {flips_full} variables changed and their rows' nonzeros "
           f"(Metropolis); K2 fields "
-          f"after S=1000 at G=2 B=3 n=41 R=100, of their limit at most {k2_drift_ratio}, one "
+          f"after S=1000 at G=2 B=3 n=41 R=100 (GROUP and LANES), of their limit at most "
+          f"{k2_drift_ratio}, one "
           f"add short at least {k2_planted:.3f}; K5 forced at n in (2, 5, 8): worst marginal "
           f"error {worst_k5} (limit {HB_ATOL}); K5 fields and energies after S=1000 at G=2 "
           f"B=20 M=8 R=100 n=717 (dense path: a random QUBO; sparse: the step's QUBOs), of "
@@ -3084,6 +3312,7 @@ def main() -> None:
 
     # -- 6. kernel and plain times, generator mode -----------------------------
     clock(6)
+    layout_times = chain_layout_times(dev, np.random.default_rng(18), smi)
     g1 = torch.Generator().manual_seed(1)
     Qcli = random_qubo_batch(rng, 146, 3).to(dev)  # the flat CLI defaults' PT call, densified
     times = {}
@@ -3270,7 +3499,9 @@ def main() -> None:
          "warm_start_differing_chains": rbm_rec["warm_start"]["k1_differing_chains"],
          "bms_search_launches": search_launches("sa_metropolis"),
          "bms_search_call": scripts_rec["search_calls"]["sa_metropolis"],
-         "bms_search_call_sa_h8": scripts_rec["search_calls"]["sa_metropolis h8"]},
+         "bms_search_call_sa_h8": scripts_rec["search_calls"]["sa_metropolis h8"],
+         "chain_layouts": {k: v for k, v in chain_rec.items() if k.startswith("K1 ")},
+         "layout_times": {k: v for k, v in layout_times.items() if k.startswith("K1 ")}},
         {"name": "sa_heatbath", "route": "cuda", "source": "qbmx_torch/csrc/sa_heatbath.cu",
          "replaces": "qbmx/samplers/sa_lane.py:144",
          "also_replaces": "qbmx/samplers/sa_pallas.py:196",
@@ -3291,7 +3522,9 @@ def main() -> None:
          "cdqbm_b_sweep_bound_ms": bounds["sa_heatbath CDQBM (b) sweep G=20"]["bound_ms"],
          "bms_search_launches": search_launches("sa_heatbath"),
          "bms_search_call": scripts_rec["search_calls"]["sa_heatbath"],
-         "bms_winner_curves_launches": scripts_rec["winner_curves"]["launches"]},
+         "bms_winner_curves_launches": scripts_rec["winner_curves"]["launches"],
+         "chain_layouts": {k: v for k, v in chain_rec.items() if k.startswith("K2 ")},
+         "layout_times": {k: v for k, v in layout_times.items() if k.startswith("K2 ")}},
         {"name": "pt_heatbath", "route": "cuda", "source": "qbmx_torch/csrc/pt_heatbath.cu",
          "replaces": "qbmx/samplers/sa_pallas.py:196",
          "launches": launches["pt_heatbath"], "max_abs_err": max(errs["pt_heatbath"]),

@@ -55,9 +55,9 @@ def _nvcc() -> str:
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_ulonglong
     entries = {
-        # J, h, hot, logr, init01, uniforms, out, flips, G, B, R, n, S, inv_span, seed,
-        # lanes, stream
-        "qbmx_sa_metropolis": [p] * 8 + [i] * 5 + [f, u64, i, p],
+        # J, h, hot, logr, init01, uniforms, out, fields_out, flips, G, B, R, n, S,
+        # inv_span, seed, lanes, stream
+        "qbmx_sa_metropolis": [p] * 9 + [i] * 5 + [f, u64, i, p],
         # J, h, hot, logr, init01, uniforms, out, fields_out, flips, G, B, R, n, S,
         # inv_span, seed, width, lanes, stream
         "qbmx_sa_heatbath": [p] * 9 + [i] * 5 + [f, u64, i, i, p],
@@ -82,7 +82,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     for name, argtypes in entries.items():
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = i
-    for name in ("qbmx_sa_metropolis_max_n", "qbmx_sa_heatbath_max_n", "qbmx_anneal_wide_max_n",
+    for name in ("qbmx_sa_metropolis_max_n", "qbmx_sa_heatbath_max_n",
+                 "qbmx_sa_metropolis_thread_max_n", "qbmx_sa_heatbath_thread_max_n",
+                 "qbmx_anneal_wide_max_n",
                  "qbmx_pt_heatbath_max_n", "qbmx_pt_heatbath_max_rungs", "qbmx_pt_wide_max_n"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i

@@ -26,9 +26,14 @@ default):
   (``qbmx_torch.utils.roofline``);
 * ``k4``: old against new, K4 Metropolis and pair at the CDQBM (a) call
   (G=2, B=20, n=717, R=100, S=1000) on a random QUBO;
-* ``layouts``: K1's and K2's two layouts, each forced, on either side of
-  ``kernel_call.chain_layout``'s one rule at n = 6 (the flagship call, and
-  600 chains), and K3's two layouts at the flagship PT call, in turns;
+* ``layouts``: K1's and K2's layouts (a thread a chain, 4, 8 or 16
+  lanes a chain, a warp a chain), each forced, at every n of
+  ``LAYOUT_NS`` and chain count of ``LAYOUT_CHAINS`` (S = ``LAYOUT_S``,
+  Philox mode), in turns (a rotation through the layouts and back), from a
+  build of K1 and K2 whose THREAD layout reaches n = ``THREAD_WIDE``
+  (``-DQBMX_THREAD_MAX_N``, into ``build/kernels_thread_wide/``): the
+  measurements ``kernel_call.chain_layout``'s boundaries rest on; then K3's
+  two layouts at the flagship PT call;
 * ``k4_agreement``: K4's agreement with plain at ``tests/test_torch_cuda.py``'s
   deep shape (n = 301, S = 70, heat-bath at beta 1.5; G=1, B=4, R=500,
   three seeds), this K4 against this K4 built with
@@ -69,8 +74,7 @@ import torch.nn.functional as F
 from qbmx_torch import _build
 from qbmx_torch.core.qubo import random_qubo_batch, split_qubo
 from qbmx_torch.models.cdqbm import cdqbm_a_qubos
-from qbmx_torch.samplers import (gibbs, gibbs_cuda, kernel_call, pt_cuda, pt_wide_cuda, sa_cuda,
-                                 sa_torch, wide_cuda)
+from qbmx_torch.samplers import gibbs, kernel_call, pt_cuda, pt_wide_cuda, sa_torch, wide_cuda
 from qbmx_torch.utils.roofline import anneal_bound, heatbath_units
 
 PARTS = ("k5", "k4", "layouts", "k4_agreement", "split", "global", "density", "split_new")
@@ -85,10 +89,19 @@ K4_SHAPES = {  # label: (rule, G, B, n, R, S)
     "K4 Metropolis CDQBM (a) G=2 B=20 n=717 R=100 S=1000": (0, 2, 20, 717, 100, 1000),
     "K4 pair CDQBM (a) G=2 B=20 n=717 R=100 S=1000": (2, 2, 20, 717, 100, 1000),
 }
-LAYOUT_SHAPES = {  # label: (G, B, n, R, S)
-    "flagship G=2 B=60 n=6 R=1000 S=1000": (2, 60, 6, 1000, 1000),
-    "few chains G=2 B=3 n=6 R=100 S=1000": (2, 3, 6, 100, 1000),
+LAYOUT_NS = (3, 6, 8, 9, 10, 12, 16, 24, 32, 41, 64)  # the layouts part's widths
+LAYOUT_CHAINS = {  # chains: (G, B, R) of the layouts part
+    600: (2, 3, 100),  # the CDQBM (b) call
+    2_000: (2, 10, 100),
+    4_224: (1, 44, 96),  # 32 warps a SM at a warp a chain
+    6_000: (20, 3, 100),  # the 10-seed CDQBM (b) sweep's call
+    12_000: (2, 60, 100),  # the warm start's call
+    19_200: (2, 96, 100),  # the h8 band's call
+    120_000: (2, 60, 1000),  # the flagship call
+    400_000: (20, 20, 1000),  # the search's call
 }
+LAYOUT_S = 100
+THREAD_WIDE = 48  # the layouts part's THREAD bound
 K4_AGREE = dict(G=1, B=4, n=301, R=500, S=70, beta=1.5, seeds=(0, 1, 2))
 RULES = {"Metropolis": 0, "single": 1, "pair": 2, "quad": 4}
 
@@ -260,27 +273,82 @@ def time_k4(old, runs, dev) -> dict:
     return records
 
 
+def build_thread_wide() -> ctypes.CDLL:
+    """K1 and K2 with the THREAD layout up to n = ``THREAD_WIDE``, by this
+    tree's C interface."""
+    compile_, link = build("kernels_thread_wide", sorted(_build.CSRC.glob("sa_*.cu")),
+                           (f"-DQBMX_THREAD_MAX_N={THREAD_WIDE}",))
+    _build._run_all(compile_)
+    _build._run_all([link])
+    lib = ctypes.CDLL(link[link.index("-o") + 1])
+    p, i, f, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_ulonglong
+    lib.qbmx_sa_metropolis.argtypes = [p] * 9 + [i] * 5 + [f, u64, i, p]
+    lib.qbmx_sa_heatbath.argtypes = [p] * 9 + [i] * 5 + [f, u64, i, i, p]
+    for fn in (lib.qbmx_sa_metropolis, lib.qbmx_sa_heatbath, lib.qbmx_sa_metropolis_thread_max_n,
+               lib.qbmx_sa_heatbath_thread_max_n):
+        fn.restype = i
+    if lib.qbmx_sa_metropolis_thread_max_n() != THREAD_WIDE \
+            or lib.qbmx_sa_heatbath_thread_max_n() != THREAD_WIDE:
+        raise RuntimeError("compare_kernels: the wide THREAD build did not take its bound")
+    return lib
+
+
+def lib_k1k2(lib, width, J, h, hot, logr, R, S, lanes, out, seed=7):
+    """K1 (``width`` 0) or K2 from another build, a layout forced, Philox mode."""
+    G, B, n = h.shape
+    head = (J.data_ptr(), h.data_ptr(), hot.data_ptr(), logr.data_ptr(), None, None,
+            out.data_ptr(), None, None, G, B, R, n, S, ctypes.c_float(sa_torch.inv_span(S)),
+            seed)
+    stream = kernel_call.stream(h.device)
+    if width == 0:
+        rc = lib.qbmx_sa_metropolis(*head, lanes, stream)
+    else:
+        rc = lib.qbmx_sa_heatbath(*head, width, lanes, stream)
+    kernel_call.check_rc("sa_metropolis" if width == 0 else "sa_heatbath", rc)
+    return out
+
+
+def layouts_at(n: int, width: int) -> list[int]:
+    """The layouts (lanes a chain) the layouts part times at width ``n``."""
+    return [L for L in (1, *kernel_call.LANES)
+            if n <= (THREAD_WIDE if L == 1 else kernel_call.max_n(L, width))]
+
+
 def time_layouts(runs, dev) -> dict:
+    lib = build_thread_wide()
     records = {}
+    for kernel, width in (("K1", 0), ("K2 pair", 2), ("K2 single", 1), ("K2 quad", 4)):
+        for n in LAYOUT_NS:
+            for chains, (G, B, R) in LAYOUT_CHAINS.items():
+                S = LAYOUT_S
+                _, (J, h, hot, logr) = problem(np.random.default_rng(2024), width, G, B, n, S,
+                                               dev)
+                out = torch.empty((G, B, R, n), device=dev)
+                order = layouts_at(n, width)
+                run = {L: (lambda L=L: lib_k1k2(lib, width, J, h, hot, logr, R, S, L, out))
+                       for L in order}
+                # a rotation there and back: each layout timed twice, the
+                # first and last of the rotation beside each other
+                ms = {L: [] for L in order}
+                for L in [*order, *reversed(order)]:
+                    ms[L].append(median_ms(run[L], runs))
+                chosen = kernel_call.chain_layout(G, B, R, n, width=width).lanes
+                best = min(order, key=lambda L: sum(ms[L]))
+                records[f"{kernel} n={n} chains={chains}"] = {
+                    "kernel": kernel, "n": n, "chains": chains, "G": G, "B": B, "R": R, "S": S,
+                    "ms": {str(L): ms[L] for L in order}, "best_lanes": best,
+                    "chosen_lanes": chosen}
+                print(f"{kernel} n={n} chains={chains} (G={G} B={B} R={R} S={S}): "
+                      + ", ".join(f"{L} lanes {ms[L][0]:.3f}/{ms[L][1]:.3f}" for L in order)
+                      + f" ms; best {best}, chain_layout {chosen}", flush=True)
+                del J, h, hot, logr, out
+    for kernel in ("K1", "K2 pair", "K2 single", "K2 quad"):  # the best layout at each n, chains
+        print(f"{kernel}: best lanes a chain (rows n, columns chains {list(LAYOUT_CHAINS)})")
+        for n in LAYOUT_NS:
+            print(f"  n={n:3d}: " + " ".join(
+                f"{records[f'{kernel} n={n} chains={c}']['best_lanes']:>3d}"
+                for c in LAYOUT_CHAINS))
     gen = lambda: torch.Generator().manual_seed(7)
-    for label, (G, B, n, R, S) in LAYOUT_SHAPES.items():
-        chosen = kernel_call.chain_layout(G, B, R, n).lanes
-        for kernel, width in (("K1", 0), ("K2 pair", 2)):
-            _, (J, h, hot, logr) = problem(np.random.default_rng(2024), width, G, B, n, S, dev)
-            if width == 0:
-                run = {lanes: (lambda lanes=lanes: sa_cuda.launch(
-                    J, h, hot, logr, R, S, lanes=lanes, generator=gen())) for lanes in (1, 32)}
-            else:
-                run = {lanes: (lambda lanes=lanes: gibbs_cuda.launch(
-                    J, h, hot, logr, R, S, width, lanes=lanes, generator=gen()))
-                    for lanes in (1, 32)}
-            thread_ms, warp_ms = turns(run[1], run[32], runs)
-            records[f"{kernel} {label}"] = {"thread_ms": thread_ms, "warp_ms": warp_ms,
-                                            "chosen_lanes": chosen}
-            print(f"{kernel} {label}: a thread a chain {thread_ms[0]:.3f} / {thread_ms[1]:.3f} ms, "
-                  f"a warp a chain {warp_ms[0]:.3f} / {warp_ms[1]:.3f} ms (CUDA events, median of "
-                  f"{runs} each, turns thread warp warp thread); chain_layout chooses {chosen} "
-                  "lanes", flush=True)
     B, M, n, R, S = 120, 8, 6, 1000, 1000
     Q = random_qubo_batch(np.random.default_rng(2024), B, n).to(dev)
     run = {kind: (lambda kind=kind: pt_cuda.pt_sample_batch_cuda(

@@ -147,19 +147,22 @@ __device__ __forceinline__ void quad_rule(const float f[4], const float c[4][4],
   for (int a = 0; a < 4; ++a) o[a] = (float)((sel >> (3 - a)) & 1);
 }
 
-// quad_rule spread over a warp whose 32 lanes all call it with the same
-// values (a chain on a warp): lane l forms the energy and weight of joint
-// state idx = l % 16 alone, by quad_rule's operations for that state; the
-// maximum is taken by a butterfly (fmaxf is exact, so its order does not
+// quad_rule spread over 16 lanes: every lane of a chain of 16 or 32 lanes
+// (sa_heatbath.cu: a warp or half a warp) calls it with the same values;
+// lane l forms the energy and weight of joint state idx = l % 16 alone, by
+// quad_rule's operations for that state; the maximum is taken by a
+// butterfly within the 16 lanes (fmaxf is exact, so its order does not
 // matter); lane l sums the weights of states 0..idx in quad_rule's order,
-// and a ballot counts the running sums that t reaches.  So every lane
-// returns quad_rule's o, bit for bit, at a sixteenth of its expf and
-// energy arithmetic.
+// and a ballot of its 16 lanes counts the running sums that t reaches.  A
+// chain of 32 lanes does the same in both halves.  So every lane returns
+// quad_rule's o, bit for bit, at a sixteenth of its expf and energy
+// arithmetic.
 __device__ __forceinline__ void quad_rule_warp(const float f[4], const float c[4][4],
                                                const float s[4], float beta, float u,
-                                               int lane, float o[4]) {
+                                               float o[4]) {
   const unsigned full = 0xFFFFFFFFu;
-  const int idx = lane & 15;
+  const int idx = threadIdx.x & 15;
+  const int half = threadIdx.x & 16;  // the first lane of this 16 in the warp
   float fp[4];
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
@@ -188,15 +191,15 @@ __device__ __forceinline__ void quad_rule_warp(const float f[4], const float c[4
   for (int d = 1; d < 16; d <<= 1) m = fmaxf(m, __shfl_xor_sync(full, m, d));
   m = fmaxf(m, 0.0f);
   const float w = expf(es - m);
-  float cum = __shfl_sync(full, w, 0);  // this lane's running sum, to state idx
+  float cum = __shfl_sync(full, w, 0, 16);  // this lane's running sum, to state idx
 #pragma unroll
   for (int k = 1; k < 16; ++k) {
-    const float wk = __shfl_sync(full, w, k);
+    const float wk = __shfl_sync(full, w, k, 16);
     if (k <= idx) cum = cum + wk;
   }
-  const float t = u * __shfl_sync(full, cum, 15);
+  const float t = u * __shfl_sync(full, cum, 15, 16);
   // sel counts the running sums 0..14 that t reaches
-  const int sel = __popc(__ballot_sync(full, idx < 15 && t >= cum) & 0x7FFFu);
+  const int sel = __popc((__ballot_sync(full, idx < 15 && t >= cum) >> half) & 0x7FFFu);
 #pragma unroll
   for (int a = 0; a < 4; ++a) o[a] = (float)((sel >> (3 - a)) & 1);
 }

@@ -11,8 +11,9 @@ above.  On CUDA tensors they launch a kernel or raise; on CPU tensors they
 run the plain version (``gibbs``) — the tensor's device is the only thing
 that decides.
 
-K2 has K1's two layouts, one thread per chain or a chain spread over a
-warp, chosen by the rule the two share (``kernel_call.chain_layout``).
+K2 has K1's three layouts, a thread a chain (THREAD), a few lanes a chain
+(GROUP: 4, 8 or 16; quad 16) or a warp a chain (LANES), chosen and named by
+the rule the two share (``kernel_call.chain_layout``).
 
 In generator mode the kernel draws the Philox streams of the Metropolis
 kernel, keyed by a seed taken from ``generator`` and the problem's index;
@@ -46,8 +47,8 @@ def _width(pair: bool, quad: bool) -> int:
     return 4 if quad else 2 if pair else 1
 
 
-#: sweeps between recomputations of the LANES layout's fields
-#: (``sa_heatbath.cu`` kRefreshPeriod), for ``wide_cuda.field_drift_bound``
+#: sweeps between recomputations of the GROUP and LANES layouts' fields
+#: (``sa_heatbath.cuh`` kRefreshPeriod), for ``wide_cuda.field_drift_bound``
 REFRESH_PERIOD = 16
 
 
@@ -56,10 +57,11 @@ def launch(J, h, hot, logr, num_reads: int, num_sweeps: int, width: int, *, gene
            fields_out: torch.Tensor | None = None) -> torch.Tensor:
     """Launch K2 on the structured form, ``J`` (G, n, n), ``h`` (G, B, n),
     ``hot``/``logr`` (G, B) → (G, B, R, n), update ``width`` 1, 2 or 4, in
-    the layout ``kernel_call.chain_layout`` chooses (``lanes`` forces one).
-    ``flips`` ((1,) int64) is added the number of variables changed;
-    ``fields_out`` ((G, B, R, n) float32) receives the LANES layout's final
-    fields.  The sampler paths pass none of the three."""
+    the layout ``kernel_call.chain_layout`` chooses (``lanes`` forces one: 1,
+    4, 8, 16 or 32; quad 1, 16 or 32).  ``flips`` ((1,) int64) is added the
+    number of variables changed; ``fields_out`` ((G, B, R, n) float32)
+    receives the final fields of GROUP and LANES.  The sampler paths pass
+    none of the three."""
     from qbmx_torch._build import load_kernels
 
     if width not in (1, 2, 4):
@@ -69,7 +71,7 @@ def launch(J, h, hot, logr, num_reads: int, num_sweeps: int, width: int, *, gene
     R, S = num_reads, num_sweeps
     ptrs = kernel_call.structured_ptrs("sa_heatbath", lib.qbmx_sa_heatbath_max_n(),
                                        J, h, hot, logr, R, S, host_variates)
-    layout = kernel_call.chain_layout(G, B, R, n, lanes)
+    layout = kernel_call.chain_layout(G, B, R, n, lanes, width)
     if fields_out is not None and layout.lanes == 1:
         raise ValueError("fields_out: the THREAD layout of sa_heatbath keeps no fields")
     seed = draw_seed(generator) if host_variates is None else 0

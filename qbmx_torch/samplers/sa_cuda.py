@@ -9,9 +9,10 @@ couplings fit shared memory (``kernel_call.fits_shared``), K4
 kernel or raise; on CPU tensors they run the plain version (``sa_torch``)
 — the tensor's device is the only thing that decides.
 
-K1 has two layouts, one thread per chain or a chain spread over a warp;
-``kernel_call.chain_layout``, the rule K2 shares, chooses between them
-from the launch's shape.
+K1 has three layouts: a thread a chain (THREAD), a few lanes a chain
+(GROUP: 4, 8 or 16) or a warp a chain (LANES); ``kernel_call.chain_layout``,
+the rule K2 shares, chooses among them from the launch's shape and names
+the route (``ChainLayout.route``).
 
 In generator mode the kernel draws its own Philox streams, keyed by a seed
 taken from ``generator`` and the problem's index, so its samples are not
@@ -48,12 +49,14 @@ def reset_launch_counts() -> None:
 
 def launch(J, h, hot, logr, num_reads: int, num_sweeps: int, *, generator=None,
            host_variates=None, lanes: int | None = None,
-           flips: torch.Tensor | None = None) -> torch.Tensor:
+           flips: torch.Tensor | None = None,
+           fields_out: torch.Tensor | None = None) -> torch.Tensor:
     """Launch K1 on the structured form, ``J`` (G, n, n), ``h`` (G, B, n),
     ``hot``/``logr`` (G, B) → (G, B, R, n), in the layout
-    ``kernel_call.chain_layout`` chooses (``lanes`` forces one).  ``flips``
-    ((1,) int64) is added the number of flips the launch made; the sampler
-    paths pass neither."""
+    ``kernel_call.chain_layout`` chooses (``lanes`` forces one: 1, 4, 8, 16
+    or 32).  ``flips`` ((1,) int64) is added the number of flips the launch
+    made; ``fields_out`` ((G, B, R, n) float32) receives the final fields of
+    GROUP and LANES.  The sampler paths pass none of the three."""
     from qbmx_torch._build import load_kernels
 
     lib = load_kernels()
@@ -61,12 +64,16 @@ def launch(J, h, hot, logr, num_reads: int, num_sweeps: int, *, generator=None,
     R, S = num_reads, num_sweeps
     ptrs = kernel_call.structured_ptrs("sa_metropolis", lib.qbmx_sa_metropolis_max_n(),
                                        J, h, hot, logr, R, S, host_variates)
-    layout = kernel_call.chain_layout(G, B, R, n, lanes)
+    layout = kernel_call.chain_layout(G, B, R, n, lanes, kernel_call.METROPOLIS)
+    if fields_out is not None and layout.lanes == 1:
+        raise ValueError("fields_out: the THREAD layout of sa_metropolis keeps no fields")
     seed = draw_seed(generator) if host_variates is None else 0
     out = torch.empty((G, B, R, n), dtype=torch.float32, device=h.device)
+    fptr = kernel_call.optional_ptr(fields_out, "fields_out", (G, B, R, n), torch.float32,
+                                    h.device)
     cptr = kernel_call.optional_ptr(flips, "flips", (1,), torch.int64, h.device)
     kernel_call.check_rc("sa_metropolis", lib.qbmx_sa_metropolis(
-        *ptrs, out.data_ptr(), cptr, G, B, R, n, S, ctypes.c_float(inv_span(S)), seed,
+        *ptrs, out.data_ptr(), fptr, cptr, G, B, R, n, S, ctypes.c_float(inv_span(S)), seed,
         layout.lanes, kernel_call.stream(h.device)))
     launch_counts["sa_metropolis"] += 1
     return out

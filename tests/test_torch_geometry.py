@@ -1,6 +1,7 @@
 """The launch-geometry rules of the anneal kernels, on the CPU: the layout
-choice K1 and K2 share (``kernel_call.chain_layout``: one thread per
-chain, or a chain spread over a warp), K4's geometry
+choice K1 and K2 share (``kernel_call.chain_layout``: a thread a chain,
+4, 8 or 16 lanes a chain, or a warp a chain, at the main paths' calls, at
+its boundaries and within the card's limits at every shape), K4's geometry
 (``wide_cuda.wide_geometry``: chains per block, a warp each, and shared
 memory), K3's layout (``pt_cuda.pt_layout``: a rung a thread or a rung
 a warp, and the kernel's bounds), K5's geometry
@@ -40,7 +41,15 @@ SHAPES = {  # (G, B, R, n) of the calls the main paths make
     "n=241": (2, 3, 100, 241),
     "n=241 many chains": (2, 3, 10000, 241),
     "n=242": (2, 3, 100, 242),
+    "search h8": (20, 20, 1000, 9),  # bms_hyper_search's h8 configs, 10 seeds
+    "winner curves": (60, 36, 1000, 9),  # bms_winner_curves' default, 30 seeds
+    "h8 band": (20, 60, 16, 9),  # the flat_{sa,bms}_h8 band settings
+    "warm start": (2, 60, 100, 10),  # the RBM warm start onto a DiscQBM
+    "CDQBM (b) sweep": (20, 3, 100, 41),  # the 10-seed CDQBM (b) sweep
+    "CDQBM (b) band": (20, 20, 16, 41),  # the cdqbm_b_{sa,bms} band settings
 }
+WIDTHS = (kernel_call.METROPOLIS, 1, 2, 4)  # K1; K2 single, pair, quad
+LAYOUTS = (1, *kernel_call.LANES)  # lanes a chain: THREAD, GROUP 4, 8, 16, LANES
 
 
 def _within_limits(smem: int, threads: int, grid: tuple) -> None:
@@ -49,10 +58,8 @@ def _within_limits(smem: int, threads: int, grid: tuple) -> None:
     assert 1 <= grid[0] <= GRID_X and 1 <= grid[1] <= GRID_Y
 
 
-@pytest.mark.parametrize("name", [k for k, v in SHAPES.items() if v[3] <= 241])
-def test_k1_layout_within_the_card_limits(name):
-    G, B, R, n = SHAPES[name]
-    lay = kernel_call.chain_layout(G, B, R, n)
+def _check_chain_layout(lay, G: int, B: int, R: int, n: int) -> None:
+    """A K1/K2 layout within the card's limits, with a place for every chain."""
     _within_limits(lay.smem, kernel_call.THREADS, lay.grid)
     assert lay.smem == 4 * n * n
     assert lay.chains_per_block * lay.lanes == kernel_call.THREADS
@@ -60,41 +67,155 @@ def test_k1_layout_within_the_card_limits(name):
     assert lay.grid[0] * lay.chains_per_block >= B * R  # every chain has a place
     if lay.lanes > 1:
         assert lay.slots * lay.lanes >= n and lay.slots & (lay.slots - 1) == 0
-        assert lay.slots <= 8  # the kernel's slot buckets
+        assert lay.slots <= kernel_call.MAX_SLOTS == 8  # the kernels' slot buckets
+    else:
+        assert lay.slots == n <= kernel_call.THREAD_MAX_N
+
+
+@pytest.mark.parametrize("name", [k for k, v in SHAPES.items() if v[3] <= 241])
+def test_k1_layout_within_the_card_limits(name):
+    G, B, R, n = SHAPES[name]
+    for width in WIDTHS:
+        _check_chain_layout(kernel_call.chain_layout(G, B, R, n, width=width), G, B, R, n)
+
+
+@pytest.mark.parametrize("lanes", LAYOUTS)
+@pytest.mark.parametrize("name", [k for k, v in SHAPES.items() if v[3] <= 241])
+def test_every_chain_layout_within_the_card_limits(name, lanes):
+    """Every layout forced at every shape it holds, for every update width:
+    within the card's limits, a place for every chain; refused where it
+    cannot hold n (quad below 16 lanes: never)."""
+    G, B, R, n = SHAPES[name]
+    for width in WIDTHS:
+        if n <= kernel_call.max_n(lanes, width):
+            _check_chain_layout(kernel_call.chain_layout(G, B, R, n, lanes, width), G, B, R, n)
+        else:
+            with pytest.raises(ValueError, match="no layout"):
+                kernel_call.chain_layout(G, B, R, n, lanes, width)
+
+
+@pytest.mark.parametrize("name", [k for k, v in SHAPES.items() if v[3] <= 241])
+def test_quad_never_gets_fewer_than_16_lanes(name):
+    """quad_rule_warp spreads the 16 joint states over 16 lanes: the rule
+    never routes quad to 4 or 8 lanes a chain, and a forced 4 or 8 is
+    refused."""
+    G, B, R, n = SHAPES[name]
+    assert kernel_call.chain_layout(G, B, R, n, width=4).lanes in (1, 16, 32)
+    for lanes in (4, 8):
+        with pytest.raises(ValueError, match="for quad"):
+            kernel_call.chain_layout(G, B, R, n, lanes, 4)
+    assert kernel_call.max_n(4, 4) == kernel_call.max_n(8, 4) == 0
 
 
 @pytest.mark.parametrize("name,lanes", [
     ("flagship", 1),  # 120,000 chains at n = 6: a thread a chain
     ("flat CLI defaults", 1),  # 14,600 chains at n = 3
-    ("dense bench", 32),  # 6,000 chains at n = 41: too wide for THREAD
+    ("dense bench", 8),  # 6,000 chains at n = 41: 8 lanes a chain, 6 of 8 slots
     ("CDQBM (b)", 32),  # 600 chains: a warp a chain
-    ("CDQBM (b) prediction", 32),  # 3,200 chains
+    ("CDQBM (b) prediction", 16),  # 3,200 chains
     ("n=241", 32),
-    ("n=241 many chains", 32),  # 60,000 chains
+    ("n=241 many chains", 32),  # 60,000 chains; only a warp holds n = 241
+    ("search h8", 1),  # 400,000 chains at n = 9
+    ("winner curves", 1),  # 2,160,000 chains
+    ("h8 band", 1),  # 19,200 chains
+    ("warm start", 4),  # 12,000 chains at n = 10
+    ("CDQBM (b) sweep", 8),  # 6,000 chains at n = 41
+    ("CDQBM (b) band", 8),  # 6,400 chains
 ])
 def test_k1_layout_chosen(name, lanes):
     assert kernel_call.chain_layout(*SHAPES[name]).lanes == lanes
 
 
+@pytest.mark.parametrize("name,width,lanes", [
+    ("flagship", 2, 1),
+    ("flat CLI defaults", 2, 1),  # n = 3: pair takes THREAD at any count
+    ("dense bench", 1, 16), ("dense bench", 4, 16),  # K2 single (4 slots at most), quad
+    ("CDQBM (b)", 2, 32),
+    ("search h8", 2, 1),  # the BMS h8 config: a thread a chain
+    ("winner curves", 2, 1),
+    ("h8 band", 2, 1),
+    ("warm start", 2, 1),
+    ("CDQBM (b) sweep", 2, 8),
+    ("CDQBM (b) band", 2, 8),
+    ("CDQBM (b) prediction", 4, 16),
+])
+def test_k2_layout_chosen(name, width, lanes):
+    assert kernel_call.chain_layout(*SHAPES[name], width=width).lanes == lanes
+
+
 def test_k1_layout_boundaries():
-    few = 32 * kernel_call.NUM_SMS  # 4,224 chains
-    assert kernel_call.chain_layout(1, 1, few, 8).lanes == 32
-    assert kernel_call.chain_layout(1, 1, few + 1, 8).lanes == 1
-    assert kernel_call.chain_layout(1, 1, few + 1, 9).lanes == 32
-    assert kernel_call.chain_layout(1, 1, few, 9).lanes == 32
+    """The rule's boundaries, each on both sides: THREAD up to
+    ``THREAD_MAX_N`` from min(``THREAD_MIN_CHAINS``,
+    ``THREAD_CHAINS_A_VARIABLE``·n) chains on; pair and quad THREAD at any
+    count up to ``THREAD_ANY_CHAINS_N``; GROUP at the fewest lanes that put
+    ``FILL_LANES`` lanes on the card; LANES below."""
+    top = kernel_call.THREAD_MAX_N
+    assert top == 32
+    for width in WIDTHS:
+        for n in (3, 8, 9, 16, top):
+            few = min(kernel_call.THREAD_MIN_CHAINS[width],
+                      kernel_call.THREAD_CHAINS_A_VARIABLE[width] * n)
+            assert kernel_call.chain_layout(1, 1, few, n, width=width).lanes == 1
+            if n > kernel_call.THREAD_ANY_CHAINS_N[width]:
+                assert kernel_call.chain_layout(1, 1, few - 1, n, width=width).lanes > 1
+        assert kernel_call.chain_layout(1, 1, 10**6, top + 1, width=width).lanes > 1
+        narrow = kernel_call.THREAD_ANY_CHAINS_N[width]
+        if narrow:
+            assert kernel_call.chain_layout(1, 1, 1, narrow, width=width).lanes == 1
+    assert kernel_call.chain_layout(1, 1, 4_500, 3).lanes == 1  # K1: 1,500 chains a variable
+    assert kernel_call.chain_layout(1, 1, 4_499, 3).lanes > 1
+    assert kernel_call.chain_layout(1, 1, 15_999, 16).lanes > 1  # at most 16,000
+    # was: THREAD only at n ≤ 8 and more than 4,224 chains, a warp a chain
+    # else; K1 at 4,224 chains now takes 8 lanes a chain at n = 8 and 9
+    few = 32 * kernel_call.NUM_SMS
+    assert kernel_call.chain_layout(1, 1, few, 8).lanes == 8
+    assert kernel_call.chain_layout(1, 1, few + 1, 8).lanes == 8
+    assert kernel_call.chain_layout(1, 1, few + 1, 9).lanes == 8
+    assert kernel_call.chain_layout(1, 1, few, 9).lanes == 8
+    assert kernel_call.chain_layout(1, 1, few, 9, width=2).lanes == 1
+    # GROUP at n = 41: 8 lanes (6 slots) from FILL_LANES / 8 chains, 16 and
+    # a warp below
+    fill = kernel_call.FILL_LANES
+    assert kernel_call.chain_layout(1, 1, math.ceil(fill / 8), 41).lanes == 8
+    assert kernel_call.chain_layout(1, 1, math.ceil(fill / 8) - 1, 41).lanes == 16
+    assert kernel_call.chain_layout(1, 1, math.ceil(fill / 16) - 1, 41).lanes == 32
+    assert kernel_call.chain_layout(1, 1, math.ceil(fill / 4), top + 1).lanes == 8  # 4 hold 32
+    assert kernel_call.chain_layout(1, 1, math.ceil(fill / 4), 16).lanes == 4
+    assert kernel_call.chain_layout(1, 1, math.ceil(fill / 4), 41, width=4).lanes == 16
+    # heat-bath single's GROUP holds at most 4 slots: 16 lanes at n = 41, 8 at 32
+    assert kernel_call.GROUP_MAX_SLOTS[1] == 4
+    assert kernel_call.chain_layout(1, 1, math.ceil(fill / 8), 41, width=1).lanes == 16
+    assert kernel_call.chain_layout(1, 1, math.ceil(fill / 8), 32, width=1).lanes == 8
     # a forced layout, as the checks of each layout ask for it
     assert kernel_call.chain_layout(1, 1, 512, 5, lanes=1).lanes == 1
     assert kernel_call.chain_layout(2, 60, 1000, 6, lanes=32).slots == 1
     assert kernel_call.chain_layout(1, 1, 8, 128, lanes=32).slots == 4
     assert kernel_call.chain_layout(1, 1, 8, 241, lanes=32).slots == 8
-    with pytest.raises(ValueError, match="no layout"):
-        kernel_call.chain_layout(1, 1, 8, 41, lanes=8)
-    with pytest.raises(ValueError, match="no layout"):
-        kernel_call.chain_layout(1, 1, 8, 9, lanes=1)
-    with pytest.raises(ValueError, match="no layout"):
-        kernel_call.chain_layout(1, 1, 8, 9, lanes=16)
+    assert kernel_call.chain_layout(1, 1, 8, 41, lanes=8).slots == 8  # 6 slots, rounded up
+    assert kernel_call.chain_layout(1, 1, 8, top, lanes=1).slots == top
+    # the widest n of each layout, and one past it (was: 41 at 8 lanes, 9 at
+    # a thread and 9 at 16 lanes refused; they are layouts now)
+    for lanes, widest in ((1, top), (4, 32), (8, 64), (16, 128), (32, 241)):
+        assert kernel_call.max_n(lanes) == widest
+        kernel_call.chain_layout(1, 1, 8, widest, lanes=lanes)
+        if widest < 241:
+            with pytest.raises(ValueError, match="no layout"):
+                kernel_call.chain_layout(1, 1, 8, widest + 1, lanes=lanes)
+    for lanes in (2, 64):
+        with pytest.raises(ValueError, match="no layout"):
+            kernel_call.chain_layout(1, 1, 8, 9, lanes=lanes)
     with pytest.raises(ValueError, match="exceeds its bound"):
         kernel_call.chain_layout(1, 1, 8, 242)
+    with pytest.raises(ValueError, match="unknown update width"):
+        kernel_call.chain_layout(1, 1, 8, 9, width=3)
+
+
+def test_chain_layout_routes_are_named():
+    """The names the records and ``chip_smoke.BAND_ROUTES`` use."""
+    route = lambda lanes: kernel_call.chain_layout(1, 1, 64, 9, lanes=lanes).route
+    assert [route(L) for L in LAYOUTS] == ["a thread a chain", "4 lanes a chain",
+                                           "8 lanes a chain", "16 lanes a chain",
+                                           "a warp a chain"]
 
 
 @pytest.mark.parametrize("name", [k for k, v in SHAPES.items() if v[3] > 241])
@@ -361,11 +482,13 @@ class _Picked(Exception):
     """Raised by a stand-in layout rule once a wrapper has asked it."""
 
 
-@pytest.mark.parametrize("name", ["flagship", "dense bench", "CDQBM (b)"])
+@pytest.mark.parametrize("name", ["flagship", "dense bench", "CDQBM (b)", "search h8",
+                                  "CDQBM (b) sweep"])
 def test_k1_and_k2_take_their_layout_from_one_rule(monkeypatch, name):
     """The launches of K1 (``sa_cuda.launch``) and K2 (``gibbs_cuda.launch``)
     ask the one rule, ``kernel_call.chain_layout``, with the same
-    arguments, so at every shape both pick the same layout."""
+    arguments but their update width (K1's ``METROPOLIS``, K2's 1, 2 or
+    4)."""
     from qbmx_torch import _build
 
     G, B, R, n = SHAPES[name]
@@ -387,7 +510,7 @@ def test_k1_and_k2_take_their_layout_from_one_rule(monkeypatch, name):
     for width in (1, 2, 4):
         with pytest.raises(_Picked):
             gibbs_cuda.launch(J, h, hot, logr, R, 10, width)
-    assert asked == [(G, B, R, n, None)] * 4
+    assert asked == [(G, B, R, n, None, width) for width in WIDTHS]
 
 
 PT_SHAPES = {  # (B, M, R, n)
