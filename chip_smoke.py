@@ -9,9 +9,13 @@ Five hand-written kernels, K4 and K5 each also in a global-field layout
 past their shared ones (with a dense and a sparse field pass, each with
 its own launch count), are checked: K1 ``sa_metropolis`` (annealed
 Metropolis), K2 ``sa_heatbath`` (annealed heat-bath, single/pair/quad
-updates), K3 ``pt_heatbath`` (parallel tempering), K4 ``anneal_wide``
-(both anneal rules for QUBOs whose couplings exceed shared memory, n > 241,
-which the K1/K2 wrappers route to it) and K5 (parallel tempering where K3
+updates), K3 ``pt_heatbath`` (parallel tempering), K4 (both anneal rules
+for QUBOs whose couplings exceed shared memory, n > 241, which the K1/K2
+wrappers route to it), whose shared layout has two paths, each with its own
+launch count and record: ``anneal_wide`` (J_g streamed in tiles: dense
+QUBOs) and ``anneal_wide_sparse`` (J_g's row lists whole in shared memory,
+where ``wide_cuda.shared_path`` finds J_g sparse: the CDQBM (a) SA and BMS
+calls, the restricted flat model), and K5 (parallel tempering where K3
 cannot hold the call: n > 241, M ≥ 16 at n = 241, or M > 64, which
 ``pt_wide_cuda.pt_route`` sends to it), in its two paths, each with its
 own launch count and record: ``pt_wide_sparse`` (J_g's nonzero rows whole
@@ -43,7 +47,11 @@ failure exits nonzero; nothing carries on after one):
    beyond the first design's M·n ≤ 2048 at B=4, n=241, M=12, R=32, S=20;
    K4 Metropolis and pair at the CDQBM probabilistic-pooling shape (G=2,
    B=20, n=717, R=100, S=10), on its dense entry (B=32, n=717) and at the
-   widest n the rule gives its shared layout (n=1056, R=200, S=2); K5's dense path through the sampler's
+   widest n the rule gives its shared layout (n=1056, R=200, S=2); K4's
+   dense shared path at the call that launches it on the main path, on
+   ``qbm_main -hn 300 -r False``'s step QUBOs (G=2, B=60, n=301, R=100,
+   S=10; a dense ``w_hh``), and with the model's ``dense_couplings`` hint
+   to the same samples bit for bit; K5's dense path through the sampler's
    structured entry against the plain version on the densified batch at
    (G=2, B=4, n=300, M=8, R=16, S=20), (G=2, B=2, n=717, M=8, R=8, S=10),
    (n, M) = (241, 16) and the CDQBM (a) PT call's shape on random QUBOs
@@ -97,7 +105,8 @@ failure exits nonzero; nothing carries on after one):
    epoch (30 or 200 steps and 4 prediction chunks of 32) at both full-width
    configurations on synthetic 28×28 images: (a) probabilistic pooling 4,
    ``--seq_sizes 4``, sc100, anneal 1000, beta_eff 5, bs20, lr 0.02 -- a
-   717-variable QUBO that must launch K4 on every step and prediction --
+   717-variable QUBO that must launch K4's sparse shared path
+   (``anneal_wide_sparse``) on every step and prediction --
    and (b) the CLI defaults (deterministic pooling 4, 41 variables, bs3) on
    K1, and again with ``--solver BMS`` on K2, and (a) with ``--solver PT``
    at anneal 100 on K5's sparse path (never K3, never the dense path),
@@ -110,22 +119,23 @@ failure exits nonzero; nothing carries on after one):
    best-model pickles that load back into ``DiscQBM``, the sweep's step
    time and its epoch a seed beside a single model's epoch; then
    ``cdqbm_main --seed_sweep 0..9`` (the 10-seed CDQBM sweep, one epoch):
-   at CDQBM (a)'s full widths (n=717, sc100, bs20) for SA and BMS on K4
-   and PT on K5's sparse path, the anneal cut for the epoch (20 sweeps,
+   at CDQBM (a)'s full widths (n=717, sc100, bs20) for SA and BMS on K4's
+   sparse shared path and PT on K5's sparse path, the anneal cut for the epoch (20 sweeps,
    PT 10), and at CDQBM (b) (n=41, bs3, anneal 1000) for SA on K1 and BMS
    on K2: exactly one sampler launch a step at G=20 groups and 4
    validation launches at G=10 groups of 32, every seed moved, finite nll,
    10 best-model pickles that load back into ``CDQBM``, the sweep's step
    (CUDA events) and its share a seed beside a single model's step at the
    same anneal; against the plain version under host variates, on each
-   sweep's own step QUBOs at its G=20 call (the 1% bound of phase 3): K4
-   (Metropolis and pair) at CDQBM (a) (S cut to 5), K5's sparse path at
+   sweep's own step QUBOs at its G=20 call (the 1% bound of phase 3): K4's
+   sparse path (Metropolis and pair) at CDQBM (a) (S cut to 5), K5's sparse path at
    the PT sweep's (S cut to 10; its variates drawn on the card), K1 and K2
    pair at CDQBM (b) (B=3, S cut to 100); both K5 paths forced on the PT
    sweep's step QUBOs at G=20 (S=10), bit for bit; the CDQBM (a) sweep
    with SA at anneal 1000 for 3 steps and a validation chunk; and resume:
    the flagship DQBM with SA (K1), BMS (K2 pair) and PT (K3), CDQBM (b)
-   (K1) and CDQBM (a) at anneal 10 with SA (K4), BMS (K4 pair) and PT
+   (K1) and CDQBM (a) at anneal 10 with SA (K4's sparse path), BMS (its
+   pair) and PT
    (K5's sparse path) trained 2 epochs straight against 1
    epoch with ``--checkpoint_every 1`` and ``--resume`` for the second,
    whose parameters, history and generator state must be equal bit for
@@ -134,8 +144,11 @@ failure exits nonzero; nothing carries on after one):
    warm-up, the plain versions one run after a warm-up) at the phase-3
    shapes in generator mode (K3 at S=1000 and at the flat CLI defaults' PT
    call, 146 problems, n=3, M=8, R=100;
-   K4 and both K5 paths at S=10, and K4 and both K5 paths alone at S=1000,
-   K4 also on the CDQBM (a) step's QUBOs), and each kernel's bound
+   K4 and both K5 paths at S=10, and K4 and both K5 paths alone at S=1000;
+   K4's dense path also at S=10 on ``qbm_main -hn 300 -r False``'s step
+   QUBOs (the ``anneal_wide`` record's shape); K4's sparse path, Metropolis and pair, on the CDQBM (a) step's QUBOs at
+   S=10 and, in turns with the dense path forced, at S=1000, there and on
+   ``qbm_main -hn 300 -r True``'s), and each kernel's bound
    (``qbmx_torch/utils/roofline.py``: K1's and K2's from the flips their
    inputs make, K4's and K5's from the nonzeros of the changed rows, each
    counted by one more launch, K2's at the flagship and the CDQBM (b)
@@ -193,7 +206,7 @@ failure exits nonzero; nothing carries on after one):
    ``train_model`` (2 steps and a validation call: K1 launched 3 times and
    nothing else, the counts zeroed just before and read just after); the
    sharded flagship step (SA on K1, BMS on K2) and the sharded CDQBM (a)
-   step at anneal 10 (SA on K4, PT on K5's sparse path) each launching its
+   step at anneal 10 (SA on K4's sparse path, PT on K5's) each launching its
    kernel once and equal bit for bit to the single model's step fed the
    same stream (``fold_in(generator, 0, 0)``), each timed beside it; the
    10-seed flagship sweep with ``mesh=`` at dp=1 equal to the unsharded
@@ -247,7 +260,16 @@ failure exits nonzero; nothing carries on after one):
    in turns (``layout_turns``): K4's two layouts and K5's dense and global
    paths, each forced on one call, timed a, b, b, a across n and on both
    sides of the rules' switches (K4: n = 1056, where a block holds 31
-   chains; K5: n = 1416, 20 rungs);
+   chains; K5: n = 1416, 20 rungs); and K4's shared layout on sparse
+   couplings (``sparse_shared_phase``): on the step QUBOs of CDQBM (a) (G=2
+   B=20 n=717) and of ``qbm_main -hn 300 -r True`` (G=2 B=73 n=301), R=100,
+   S=65 (past the refresh at sweep 64), host variates, both shared paths
+   forced, every rule: samples, final fields and counters equal bit for bit;
+   through the SA and BMS entries (R=100, S=10), the rule's sparse path
+   launched once and within the 1% bound of plain; then 3 training steps (SA and BMS, anneal 1000) of each
+   model on the rule's sparse path and on the dense path forced, launching
+   only that path's kernel, ending in the same parameters and nll bit for
+   bit;
 11. the user scripts (``scripts_phase``; no kernel of its own for the
    exact studies, whose enumeration is PyTorch ops), in a temporary working
    directory: ``cli/cdqbm_exact_study.main`` on ``cuda`` at full size (14
@@ -975,7 +997,7 @@ def mesh_phase(dev, smi: str) -> dict:
                     ("flagship SA", lambda: flagship("SA"), (x, y, mask), "sa_metropolis"),
                     ("flagship BMS", lambda: flagship("BMS"), (x, y, mask), "sa_heatbath"),
                     ("CDQBM (a) SA anneal 10", lambda: cdqbm_a("SA"), (ximg, yimg, mimg),
-                     "anneal_wide"),
+                     "anneal_wide_sparse"),
                     ("CDQBM (a) PT anneal 10", lambda: cdqbm_a("PT"), (ximg, yimg, mimg),
                      "pt_wide_sparse")):
                 base = make()
@@ -1311,6 +1333,171 @@ def sparse_structured(rng, G, B, n, dev, density=0.005):
     return Q, torch.as_tensor(rng.normal(size=(G, B, n)).astype(np.float32), device=dev)
 
 
+def dense_h300_check(dev) -> tuple:
+    """Phase 3's K4 dense shared path at the call that launches it on the
+    main path (``qbm_main -hn 300 -r False``: a dense ``w_hh``), on that
+    step's own QUBOs (G=2 B=60 n=301 R=100, the bands' batch; S cut to 10),
+    Metropolis and pair through the samplers' entries against plain under
+    host variates, each launching ``anneal_wide`` alone, and again with
+    ``dense_couplings`` (the model's hint: no count of J's nonzeros) to the
+    same samples bit for bit; returns the QUBOs and the two comparisons."""
+    from qbmx_torch.cli.compare_kernels import flat_step_qubos
+    from qbmx_torch.samplers import gibbs, gibbs_cuda, sa_cuda, sa_torch, wide_cuda
+
+    Qu, hu = flat_step_qubos(300, 60, dev, restricted=False)
+    G, B, n = hu.shape
+    R, S = 100, 10
+    rng = np.random.default_rng(301)
+    hv = (bits(rng, (G, B, R, n), dev), uniforms(rng, (S, G, B, n, R), dev))
+    results = []
+    for width, kern, plain in (
+            ("Metropolis", lambda **kw: sa_cuda.sa_sample_groups_cuda(Qu, hu, R, S,
+                                                                      host_variates=hv, **kw),
+             lambda: sa_torch.sa_sample_groups_plain(Qu, hu, R, S, host_variates=hv)),
+            ("pair", lambda **kw: gibbs_cuda.gibbs_sample_groups_cuda(Qu, hu, R, S, pair=True,
+                                                                      host_variates=hv, **kw),
+             lambda: gibbs.gibbs_sample_groups_plain(Qu, hu, R, S, pair=True,
+                                                     host_variates=hv))):
+        for c in (sa_cuda, gibbs_cuda, wide_cuda):
+            c.reset_launch_counts()
+        out = kern()
+        hinted = kern(dense_couplings=True)
+        torch.cuda.synchronize()
+        got = {k: v for c in (sa_cuda, gibbs_cuda, wide_cuda)
+               for k, v in c.launch_counts.items() if v}
+        check(got == {"anneal_wide": 2}, f"K4 {width} at qbm_main -hn 300 -r False: {got}")
+        check(torch.equal(out, hinted), f"K4 {width} at qbm_main -hn 300 -r False: the "
+                                        "dense_couplings hint changed the samples")
+        results.append(compare(out, plain(), f"K4 {width} dense path, qbm_main -hn 300 -r False's "
+                                             f"step QUBOs G={G} B={B} n={n} R={R} S={S}"))
+    return Qu, hu, results
+
+
+def sparse_shared_phase(dev, smi: str, counters) -> dict:
+    """Phase 10's K4 sparse shared path (module docstring): on the step
+    QUBOs of CDQBM (a) and of ``qbm_main -hn 300 -r True``, both shared
+    paths forced, equal bit for bit, and the sparse path through the
+    samplers' entries against plain (depth cut); then a few
+    training steps on each path through the models, ending in the same
+    parameters; returns its record."""
+    import functools
+
+    from qbmx_torch.cli.compare_kernels import flat_step_qubos
+    from qbmx_torch.core.qubo import split_qubo
+    from qbmx_torch.models.base import tree_leaves
+    from qbmx_torch.models.cdqbm import CDQBM, cdqbm_a_qubos
+    from qbmx_torch.models.dqbm import DiscQBM
+    from qbmx_torch.samplers import gibbs, gibbs_cuda, pt_wide_cuda, sa_cuda, sa_torch, wide_cuda
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(717)
+    rec = {"max_abs_err": [], "differing_chains": [], "calls": {}, "training": {}}
+
+    def launched() -> dict:
+        return {k: v for c in counters for k, v in c.launch_counts.items() if v}
+
+    S = 65  # past the refresh at sweep 64
+    Sp, Rp = 10, 100  # the plain version's check, through the samplers' entries
+    for label, (Q, he) in (("CDQBM (a)", cdqbm_a_qubos(20, dev)),
+                           ("restricted H=300", flat_step_qubos(300, 73, dev))):
+        G, B, n = he.shape
+        R = 100
+        nnz = pt_wide_cuda.group_nnz(pt_wide_cuda.row_nnz(split_qubo(Q)[1]))
+        geo = wide_cuda.wide_geometry(G, B, R, n)
+        check(wide_cuda.shared_path(nnz, n, geo.chains_per_block) == wide_cuda.SPARSE,
+              f"phase 10 {label}: the rule does not take the sparse shared path ({nnz})")
+        hv = (bits(rng, (G, B, R, n), dev), uniforms(rng, (S, G, B, n, R), dev))
+        hvp = (bits(rng, (G, B, Rp, n), dev), uniforms(rng, (Sp, G, B, n, Rp), dev))
+        for name, rule in (("Metropolis", 0), ("single", 1), ("pair", 2), ("quad", 4)):
+            J, h, hot, logr = structured_form(Q, he, S, rule)
+            res = {}
+            for path in (wide_cuda.DENSE, wide_cuda.SPARSE):
+                fields = torch.empty((G, B, R, n), device=dev)
+                flips = torch.zeros(2, dtype=torch.int64, device=dev)
+                for c in counters:
+                    c.reset_launch_counts()
+                out = wide_cuda.launch(J, h, hot, logr, R, S, rule, host_variates=hv,
+                                       fields_out=fields, flips=flips, field_pass=path)
+                torch.cuda.synchronize()
+                key = "anneal_wide" if path == wide_cuda.DENSE else "anneal_wide_sparse"
+                check(launched() == {key: 1}, f"phase 10 {label} {name} {path}: {launched()}")
+                res[path] = (out, fields, flips)
+            unequal = [k for k, a, b in zip(("samples", "fields", "counters"), res["dense"],
+                                            res["sparse"]) if not torch.equal(a, b)]
+            check(not unequal, f"phase 10 K4 shared paths at {label} {name} S={S}: {unequal} "
+                               "differ")
+            changes, work = res["sparse"][2].tolist()
+            for c in counters:
+                c.reset_launch_counts()
+            if rule == 0:
+                got = sa_cuda.sa_sample_groups_cuda(Q, he, Rp, Sp, host_variates=hvp)
+                plain = sa_torch.sa_sample_groups_plain(Q, he, Rp, Sp, host_variates=hvp)
+            else:
+                kw = dict(pair=rule == 2, quad=rule == 4, host_variates=hvp)
+                got = gibbs_cuda.gibbs_sample_groups_cuda(Q, he, Rp, Sp, **kw)
+                plain = gibbs.gibbs_sample_groups_plain(Q, he, Rp, Sp, **kw)
+            torch.cuda.synchronize()
+            check(launched() == {"anneal_wide_sparse": 1},
+                  f"phase 10 {label} {name}: the sampler launched {launched()}")
+            frac_err = compare(got, plain, f"K4 sparse {name} {label} G={G} B={B} n={n} R={Rp} "
+                                           f"S={Sp} (the step's QUBOs, {max(nnz)} nonzeros; "
+                                           "the sampler's entry)", phase=10)
+            rec["differing_chains"].append(frac_err[0])
+            rec["max_abs_err"].append(frac_err[1])
+            rec["calls"][f"{label} {name}"] = {"bit_for_bit": True, "changes": changes,
+                                               "flip_work": work,
+                                               "differing_chains": frac_err[0]}
+            print(f"phase 10 K4 shared paths forced at {label} {name} G={G} B={B} n={n} R={R} "
+                  f"S={S}: dense (J_g in tiles) and sparse (row lists, {max(nnz)} nonzeros) "
+                  f"equal bit for bit in samples, fields and counters ({changes} changes, "
+                  f"{work} nonzeros of their rows)")
+            del res, got, plain
+        del hv, hvp
+    # a few training steps on each path: the same parameters bit for bit
+    dense_launch = functools.partial(wide_cuda.launch, field_pass=wide_cuda.DENSE)
+    ximg = torch.as_tensor(rng.random((20, 28, 28), dtype=np.float32), device=dev)
+    x = torch.as_tensor(rng.random((73, 784), dtype=np.float32), device=dev)
+    for label, make, inputs in (
+            ("CDQBM (a)", lambda solver: CDQBM(
+                pooling_size=4, pooling_type="probabilistic", sequential_layer_sizes=[4],
+                hidden_bias_type="shared", sample_count=100, anneal=1000, beta_eff=5.0,
+                solver=solver, device=dev), (ximg, torch.arange(20, device=dev) % 2)),
+            ("restricted H=300", lambda solver: DiscQBM(
+                dim_input=784, n_hidden_nodes=300, sample_count=100, anneal_steps=1000,
+                restricted=True, solver=solver, device=dev), (x, torch.arange(73, device=dev) % 2))):
+        for solver in ("SA", "BMS"):
+            runs = {}
+            for path in (wide_cuda.SPARSE, wide_cuda.DENSE):
+                m = make(solver)
+                mask = torch.ones(inputs[0].shape[0], device=dev)
+                saved = wide_cuda.launch
+                if path == wide_cuda.DENSE:
+                    wide_cuda.launch = dense_launch  # the sampler's calls, dense path forced
+                try:
+                    for c in counters:
+                        c.reset_launch_counts()
+                    nll = [float(m._step(*inputs, mask, 0.02)[0]) for _ in range(3)]
+                    torch.cuda.synchronize()
+                    counts = launched()
+                finally:
+                    wide_cuda.launch = saved
+                key = "anneal_wide" if path == wide_cuda.DENSE else "anneal_wide_sparse"
+                check(counts == {key: 3}, f"phase 10 {label} {solver} {path}: launches {counts}")
+                runs[path] = (nll, [a.clone() for a in tree_leaves(m.params)])
+            same = runs["sparse"][0] == runs["dense"][0] and all(
+                torch.equal(a, b) for a, b in zip(runs["sparse"][1], runs["dense"][1]))
+            check(same, f"phase 10 {label} {solver}: 3 steps on the sparse path do not end in "
+                        "the dense path's parameters")
+            rec["training"][f"{label} {solver}"] = {"steps": 3, "bit_for_bit": same,
+                                                    "nll": runs["sparse"][0]}
+            print(f"phase 10 {label} {solver} sc100 anneal 1000: 3 steps on K4's sparse shared "
+                  f"path and 3 with its dense path forced end in the same parameters and nll "
+                  f"bit for bit ({runs['sparse'][0]})")
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"phase 10 K4 sparse shared path: {rec['seconds']:.1f} s ({smi})")
+    return rec
+
+
 def wide_phase(dev, smi: str, counters, made) -> dict:
     """Phase 10 (module docstring): the widths and ladders past the shared
     layouts -- K4's global-field layout and K5's global path, each with its
@@ -1597,9 +1784,10 @@ def wide_phase(dev, smi: str, counters, made) -> dict:
                       "plain_ms": plain, "bounds": bounds, "changes": changes,
                       "main_path_check": main_path}
         del runs, Qs, hs
+    sparse_shared = sparse_shared_phase(dev, smi, counters)
     turns = layout_turns(dev, smi)
     print(f"phase 10: {time.perf_counter() - t0:.1f} s")
-    return {"calls": calls, "anneal": anneal,
+    return {"calls": calls, "anneal": anneal, "sparse_shared": sparse_shared,
             "max_abs_err": {k: max(v) for k, v in errs.items()},
             "differing_chains": {k: max(v) for k, v in fracs.items()},
             "layout_turns": turns, "seconds": time.perf_counter() - t0}
@@ -2054,6 +2242,7 @@ def main() -> None:
         fail(f"{ROOT} is not a qbmx checkout (qbmx_torch/csrc is missing)")
     sys.path.insert(0, str(ROOT))
     from qbmx_torch import _build
+    from qbmx_torch.cli.compare_kernels import flat_step_qubos
     from qbmx_torch.models.cdqbm import cdqbm_a_qubos
     from qbmx_torch.core.qubo import default_beta_range, random_qubo_batch, split_qubo
     from qbmx_torch.core.rng import draw_seed
@@ -2089,7 +2278,7 @@ def main() -> None:
     clock(3)
     rng = np.random.default_rng(2024)
     errs = {"sa_metropolis": [], "sa_heatbath": [], "pt_heatbath": [], "anneal_wide": [],
-            "pt_wide": [], "pt_wide_sparse": []}
+            "anneal_wide_sparse": [], "pt_wide": [], "pt_wide_sparse": []}
     fracs = {k: [] for k in errs}
 
     def record(kernel, frac_err):
@@ -2230,6 +2419,10 @@ def main() -> None:
         gibbs.gibbs_sample_groups_plain(*args, pair=True, host_variates=hv),
         f"K4 pair structured at its widest shared n={SX['n']} R=200 S=2"))
     del Qx, hx, hv, init_x, u_x
+    # K4's dense shared path at the call that launches it on the main path
+    Qu, hu, frac_errs = dense_h300_check(dev)
+    for frac_err in frac_errs:
+        record("anneal_wide", frac_err)
     # K5 at the shapes K3 cannot hold (pt_wide_cuda.pt_route), through the
     # sampler's structured entry, against the plain version on the densified
     # batch; the launch counts show K5 alone served each.  The first three
@@ -2852,7 +3045,7 @@ def main() -> None:
     cdqbm_launches, cmodels = {}, {}
     prob = dict(pooling_type="probabilistic", beta_eff=5.0, batch_size=20, learning_rate=0.02)
     for label, kernel, n_total, kw in (
-        ("a", "anneal_wide", 717, prob),
+        ("a", "anneal_wide_sparse", 717, prob),
         # PT at 717 variables on K5's sparse path, at 100 sweeps (3 steps at 1000 below)
         ("a PT", "pt_wide_sparse", 717, dict(prob, solver="PT", anneal=100)),
         ("b", "sa_metropolis", 41, dict()),
@@ -3048,8 +3241,8 @@ def main() -> None:
     cdqbm_a = dict(pooling_type="probabilistic", beta_eff=5.0, batch_size=20, learning_rate=0.02)
     csweep_rec = {}
     for label, solver, kernel, anneal, n_total, bs, kw in (
-            ("a", "SA", "anneal_wide", 20, 717, 20, cdqbm_a),
-            ("a", "BMS", "anneal_wide", 20, 717, 20, cdqbm_a),
+            ("a", "SA", "anneal_wide_sparse", 20, 717, 20, cdqbm_a),
+            ("a", "BMS", "anneal_wide_sparse", 20, 717, 20, cdqbm_a),
             ("a", "PT", "pt_wide_sparse", 10, 717, 20, cdqbm_a),
             ("b", "SA", "sa_metropolis", 1000, 41, 3, {}),
             ("b", "BMS", "sa_heatbath", 1000, 41, 3, {})):
@@ -3167,9 +3360,10 @@ def main() -> None:
                 wide_cuda.reset_launch_counts()
                 out = kern()
                 torch.cuda.synchronize()
-                check(wide_cuda.launch_counts["anneal_wide"] == 1,
-                      f"K4 {width} at the sweep's call: not launched once")
-                record("anneal_wide", compare(
+                check(wide_cuda.launch_counts["anneal_wide_sparse"] == 1
+                      and sum(wide_cuda.launch_counts.values()) == 1,
+                      f"K4 {width} at the sweep's call: not its sparse path once")
+                record("anneal_wide_sparse", compare(
                     out, plain(), f"K4 {width} structured G=20 B=20 n=717 R=100 S={S5} (the "
                                   "10-seed CDQBM (a) sweep's step QUBOs; 32 chains a block on a "
                                   f"grid of {geo_sw.grid})", phase=5))
@@ -3183,7 +3377,8 @@ def main() -> None:
                      batch_size=20, learning_rate=0.02, verbose=False)
             full = sw.step_times()
             check(m.sampler.calls == [(20, 20, 717)] * 3 + [(10, 32, 717)]
-                  and wide_cuda.launch_counts["anneal_wide"] == 4,
+                  and wide_cuda.launch_counts["anneal_wide_sparse"] == 4
+                  and sum(wide_cuda.launch_counts.values()) == 4,
                   f"CDQBM (a) sweep SA at anneal 1000: calls {m.sampler.calls}, launch counts "
                   f"{wide_cuda.launch_counts}")
             check(all(math.isfinite(h.nll_per_batch[-1]) for h in sw.histories),
@@ -3275,8 +3470,8 @@ def main() -> None:
             ("flagship DQBM PT", qm.main, made, "pt_heatbath", dict(flagship, solver="PT")),
             ("CDQBM (b)", cm.main, cmade, "sa_metropolis",
              dict(pooling_size=4, sequential_layer_sizes=(4,))),
-            ("CDQBM (a) SA, anneal 10", cm.main, cmade, "anneal_wide", cdqbm_a10),
-            ("CDQBM (a) BMS, anneal 10", cm.main, cmade, "anneal_wide",
+            ("CDQBM (a) SA, anneal 10", cm.main, cmade, "anneal_wide_sparse", cdqbm_a10),
+            ("CDQBM (a) BMS, anneal 10", cm.main, cmade, "anneal_wide_sparse",
              dict(cdqbm_a10, solver="BMS")),
             ("CDQBM (a) PT, anneal 10", cm.main, cmade, "pt_wide_sparse",
              dict(cdqbm_a10, solver="PT"))):
@@ -3352,6 +3547,18 @@ def main() -> None:
         ("K4 pair structured G=2 B=20 n=717 R=100 S=10",
          lambda: gibbs_cuda.gibbs_sample_groups_cuda(Qw, hw, 100, 10, pair=True, generator=g1),
          lambda: gibbs.gibbs_sample_groups_plain(Qw, hw, 100, 10, pair=True)),
+        ("K4 dense Metropolis qbm_main -hn 300 -r False, the step's QUBOs, G=2 B=60 n=301 R=100 "
+         "S=10", lambda: sa_cuda.sa_sample_groups_cuda(Qu, hu, 100, 10, generator=g1),
+         lambda: sa_torch.sa_sample_groups_plain(Qu, hu, 100, 10)),
+        ("K4 dense pair qbm_main -hn 300 -r False, the step's QUBOs, G=2 B=60 n=301 R=100 S=10",
+         lambda: gibbs_cuda.gibbs_sample_groups_cuda(Qu, hu, 100, 10, pair=True, generator=g1),
+         lambda: gibbs.gibbs_sample_groups_plain(Qu, hu, 100, 10, pair=True)),
+        ("K4 sparse Metropolis CDQBM (a), the step's QUBOs, G=2 B=20 n=717 R=100 S=10",
+         lambda: sa_cuda.sa_sample_groups_cuda(Qs, hs, 100, 10, generator=g1),
+         lambda: sa_torch.sa_sample_groups_plain(Qs, hs, 100, 10)),
+        ("K4 sparse pair CDQBM (a), the step's QUBOs, G=2 B=20 n=717 R=100 S=10",
+         lambda: gibbs_cuda.gibbs_sample_groups_cuda(Qs, hs, 100, 10, pair=True, generator=g1),
+         lambda: gibbs.gibbs_sample_groups_plain(Qs, hs, 100, 10, pair=True)),
         ("K5 dense CDQBM (a) PT shape, random QUBOs, G=2 B=20 M=8 n=717 R=100 S=10",
          lambda: pt_wide_cuda.pt_sample_groups(Qw, hw, 100, 10, num_replicas=8, generator=g1),
          lambda: tempering.pt_sample_batch_plain(densify_groups(Qw, hw), 100, 10,
@@ -3374,7 +3581,25 @@ def main() -> None:
     k4_cdqbm_ms = cuda_ms(lambda: sa_cuda.sa_sample_groups_cuda(Qs, hs, 100, 1000, generator=g1),
                           runs=3)
     print(f"phase 6 time K4 Metropolis CDQBM (a) on the step's QUBOs G=2 B=20 n=717 R=100 "
-          f"S=1000: kernel {k4_cdqbm_ms:.3f} ms (CUDA events, median of 3; {smi})")
+          f"S=1000 (the sparse shared path): kernel {k4_cdqbm_ms:.3f} ms (CUDA events, median "
+          f"of 3; {smi})")
+    # K4's shared layout at S=1000 on the CDQBM (a) step's QUBOs and on qbm_main -hn 300
+    # -r True's (G=2 B=73 R=100 n=301): the sparse path (the rule's) against the dense
+    # path forced, in turns
+    Qr, hr = flat_step_qubos(300, 73, dev)
+    k4_paths_ms = {}
+    for label, (Q, h), rule in (("CDQBM (a) Metropolis G=2 B=20 n=717", (Qs, hs), 0),
+                                ("CDQBM (a) pair G=2 B=20 n=717", (Qs, hs), 2),
+                                ("restricted H=300 Metropolis G=2 B=73 n=301", (Qr, hr), 0)):
+        form = structured_form(Q, h, 1000, rule)
+        run = lambda path, form=form, rule=rule: wide_cuda.launch(
+            *form, 100, 1000, rule, generator=g1, field_pass=path)
+        sparse_ms, dense_ms = in_turns(lambda: run(wide_cuda.SPARSE),
+                                       lambda: run(wide_cuda.DENSE), 2)
+        k4_paths_ms[label] = {"sparse_ms": sparse_ms, "dense_ms": dense_ms}
+        print(f"phase 6 time K4 shared layout {label} R=100 S=1000, the step's QUBOs: sparse "
+              f"path {sparse_ms:.3f} ms, dense path (forced) {dense_ms:.3f} ms (CUDA events, "
+              f"median of 4 in turns sparse dense dense sparse; {smi})")
     k5_full_ms = {
         path: cuda_ms(lambda Q=Q, h=h: pt_wide_cuda.pt_sample_groups(
             Q, h, 100, 1000, num_replicas=8, generator=g1), runs=3)
@@ -3415,11 +3640,25 @@ def main() -> None:
         "pt_heatbath": anneal_bound(120, 1, 1000, 6, 1000, decisions=120 * 8 * 1000 * 6 * 1000),
         "pt_heatbath CLI defaults": anneal_bound(146, 1, 100, 3, 1000,
                                                  decisions=146 * 8 * 100 * 3 * 1000),
-        "anneal_wide": anneal_bound(2, 20, 100, 717, 10, flip_work=work(
+        "anneal_wide": anneal_bound(2, 60, 100, 301, 10, flip_work=work(
+            wide_cuda.launch, *structured_form(Qu, hu, 10), 100, 10, wide_cuda.METROPOLIS)),
+        "anneal_wide pair": anneal_bound(
+            2, 60, 100, 301, 10, decisions=2 * 60 * 100 * heatbath_units(301, pair) * 10,
+            flip_work=work(wide_cuda.launch, *structured_form(Qu, hu, 10, pair), 100, 10, pair)),
+        "anneal_wide random n=717": anneal_bound(2, 20, 100, 717, 10, flip_work=work(
             wide_cuda.launch, *structured_form(Qw, hw, 10), 100, 10, wide_cuda.METROPOLIS)),
         "anneal_wide full depth": anneal_bound(2, 20, 100, 717, 1000, flip_work=flips_full[1]),
-        "anneal_wide CDQBM QUBOs full depth": anneal_bound(2, 20, 100, 717, 1000, flip_work=work(
+        "anneal_wide_sparse": anneal_bound(2, 20, 100, 717, 10, flip_work=work(
+            wide_cuda.launch, *structured_form(Qs, hs, 10), 100, 10, wide_cuda.METROPOLIS)),
+        "anneal_wide_sparse pair": anneal_bound(
+            2, 20, 100, 717, 10, decisions=2 * 20 * 100 * heatbath_units(717, pair) * 10,
+            flip_work=work(wide_cuda.launch, *structured_form(Qs, hs, 10, pair), 100, 10, pair)),
+        "anneal_wide_sparse full depth": anneal_bound(2, 20, 100, 717, 1000, flip_work=work(
             wide_cuda.launch, *structured_form(Qs, hs, 1000), 100, 1000, wide_cuda.METROPOLIS)),
+        "anneal_wide_sparse restricted H=300 full depth": anneal_bound(
+            2, 73, 100, 301, 1000, flip_work=work(
+                wide_cuda.launch, *structured_form(Qr, hr, 1000), 100, 1000,
+                wide_cuda.METROPOLIS)),
         "pt_wide": anneal_bound(2, 20, 100, 717, 10, rungs=8, flip_work=work(
             pt_wide_cuda.launch, *pt_wide_cuda.structured_form(Qw, hw, 8), 100, 10)),
         "pt_wide full depth": anneal_bound(2, 20, 100, 717, 1000, rungs=8,
@@ -3429,7 +3668,7 @@ def main() -> None:
         "pt_wide_sparse full depth": anneal_bound(2, 20, 100, 717, 1000, rungs=8,
                                                   flip_work=k5_flips_full["sparse"][1]),
         # the 10-seed sweeps' calls, on their own step QUBOs
-        "anneal_wide CDQBM (a) sweep G=20 full depth": anneal_bound(
+        "anneal_wide_sparse CDQBM (a) sweep G=20 full depth": anneal_bound(
             20, 20, 100, 717, 1000, flip_work=work(
                 wide_cuda.launch, *structured_form(*sweep_qubos["a SA"], 1000), 100, 1000,
                 wide_cuda.METROPOLIS)),
@@ -3540,22 +3779,51 @@ def main() -> None:
         {"name": "anneal_wide", "route": "cuda", "source": "qbmx_torch/csrc/anneal_wide.cu",
          "replaces": "qbmx/samplers/sa_lane.py:144",
          "also_replaces": "qbmx/samplers/sa_pallas.py:196",
-         "launches": cdqbm_launches["a"]["anneal_wide"], "max_abs_err": max(errs["anneal_wide"]),
+         "path": "shared layout, dense path (J_g in tiles)",
+         "launches": sum(band_rec["settings"][s_]["band"]["launches"]
+                         for s_ in ("flat_sa_h300", "flat_bms_h300")),
+         "launches_on": "the bands flat_sa_h300 and flat_bms_h300 (qbm_main -hn 300 -r False)",
+         "max_abs_err": max(errs["anneal_wide"]),
          "differing_chains": max(fracs["anneal_wide"]),
          "differing_chains_limit": MAX_DIFF_FRAC,
-         "ms": t("K4 Metropolis")[0], "plain_ms": t("K4 Metropolis")[1],
+         "ms": t("K4 dense Metropolis")[0], "plain_ms": t("K4 dense Metropolis")[1],
          **bound_keys("anneal_wide"),
-         "pair_ms": t("K4 pair")[0], "pair_plain_ms": t("K4 pair")[1],
+         "pair_ms": t("K4 dense pair")[0], "pair_plain_ms": t("K4 dense pair")[1],
+         "pair_bound_ms": bounds["anneal_wide pair"]["bound_ms"],
+         "shape": "qbm_main -hn 300 -r False's step QUBOs, G=2 B=60 n=301 R=100 S=10",
+         "random_n717_ms": t("K4 Metropolis")[0], "random_n717_plain_ms": t("K4 Metropolis")[1],
+         "random_n717_bound_ms": bounds["anneal_wide random n=717"]["bound_ms"],
+         "random_n717_pair_ms": t("K4 pair")[0],
+         "random_n717_pair_plain_ms": t("K4 pair")[1],
          "full_depth_ms": k4_full_ms,
          "full_depth_bound_ms": bounds["anneal_wide full depth"]["bound_ms"],
-         "cdqbm_qubos_full_depth_ms": k4_cdqbm_ms,
-         "cdqbm_qubos_full_depth_bound_ms":
-             bounds["anneal_wide CDQBM QUBOs full depth"]["bound_ms"],
          "field_drift_max": drift_max, "field_drift_of_limit": drift_ratio,
-         "field_one_add_short_of_limit": planted_ratio,
+         "field_one_add_short_of_limit": planted_ratio},
+        {"name": "anneal_wide_sparse", "route": "cuda",
+         "source": "qbmx_torch/csrc/anneal_wide_sparse.cu",
+         "replaces": "qbmx/samplers/sa_lane.py:144",
+         "also_replaces": "qbmx/samplers/sa_pallas.py:196",
+         "path": "shared layout, sparse path (J_g's row lists in shared memory)",
+         "launches": cdqbm_launches["a"]["anneal_wide_sparse"],
+         "launches_on": "cdqbm_main CDQBM (a) (SA)",
+         "max_abs_err": max(errs["anneal_wide_sparse"] + wide_rec["sparse_shared"]["max_abs_err"]),
+         "differing_chains": max(fracs["anneal_wide_sparse"]
+                                 + wide_rec["sparse_shared"]["differing_chains"]),
+         "differing_chains_limit": MAX_DIFF_FRAC,
+         "ms": t("K4 sparse Metropolis")[0], "plain_ms": t("K4 sparse Metropolis")[1],
+         **bound_keys("anneal_wide_sparse"),
+         "pair_ms": t("K4 sparse pair")[0], "pair_plain_ms": t("K4 sparse pair")[1],
+         "pair_bound_ms": bounds["anneal_wide_sparse pair"]["bound_ms"],
+         "full_depth_ms": k4_cdqbm_ms,
+         "full_depth_bound_ms": bounds["anneal_wide_sparse full depth"]["bound_ms"],
+         "paths_in_turns_ms": k4_paths_ms,
+         "restricted_h300_full_depth_bound_ms":
+             bounds["anneal_wide_sparse restricted H=300 full depth"]["bound_ms"],
+         "bit_for_bit_with_dense_path": wide_rec["sparse_shared"]["calls"],
+         "training_bit_for_bit": wide_rec["sparse_shared"]["training"],
          "sweep_launches": {k: csweep_rec[f"a {k}"]["launches"] for k in ("SA", "BMS")},
          "sweep_full_depth_bound_ms":
-             bounds["anneal_wide CDQBM (a) sweep G=20 full depth"]["bound_ms"]},
+             bounds["anneal_wide_sparse CDQBM (a) sweep G=20 full depth"]["bound_ms"]},
         {"name": "pt_wide", "route": "cuda", "source": "qbmx_torch/csrc/pt_wide.cu",
          "replaces": "qbmx/samplers/sa_pallas.py:196", "path": "dense (J_g in tiles)",
          "launches": launches["pt_wide"], "launches_on": "qbm_main --solver PT -hn 300",

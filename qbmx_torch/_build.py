@@ -64,6 +64,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # J, row_nnz, h, hot, logr, init01, uniforms, out, fields_out, flips, fscr, sscr,
         # vals, cols, offsets, nnz_pad, G, B, R, n, S, inv_span, seed, rule, chains, stream
         "qbmx_anneal_wide": [p] * 15 + [i] * 6 + [f, u64, i, i, p],
+        # vals, cols, offsets, units, h, hot, logr, init01, uniforms, out, fields_out, flips,
+        # nnz_pad, G, B, R, n, S, inv_span, seed, rule, chains, stream
+        "qbmx_anneal_wide_sparse": [p] * 12 + [i] * 6 + [f, u64, i, i, p],
         # J, h, betas, dbeta, init01, uniforms, swap_u, out, B, M, R, n, S, seed, layout,
         # stream
         "qbmx_pt_heatbath": [p] * 8 + [i] * 5 + [u64, i, p],
@@ -89,6 +92,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
     lib.qbmx_anneal_wide_smem.argtypes = [i, i]  # n, chains
+    lib.qbmx_anneal_wide_sparse_smem.argtypes = [i, i, i]  # n, chains, nnz_pad
     lib.qbmx_pt_heatbath_smem.argtypes = [i, i, i]  # layout, n, M
     lib.qbmx_pt_wide_smem.argtypes = [i, i]  # n, warps
     lib.qbmx_pt_wide_sparse_smem.argtypes = [i, i, i]  # n, warps, nnz_pad
@@ -100,7 +104,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         getattr(lib, name).restype = i
     lib.qbmx_anneal_wide_global_smem.argtypes = [i, i]  # chains, sparse
     lib.qbmx_pt_wide_global_smem.argtypes = [i, i]  # warps, sparse
-    for fn in (lib.qbmx_anneal_wide_smem, lib.qbmx_pt_heatbath_smem, lib.qbmx_pt_wide_smem,
+    for fn in (lib.qbmx_anneal_wide_smem, lib.qbmx_anneal_wide_sparse_smem,
+               lib.qbmx_pt_heatbath_smem, lib.qbmx_pt_wide_smem,
                lib.qbmx_pt_wide_sparse_smem, lib.qbmx_anneal_wide_global_smem,
                lib.qbmx_pt_wide_global_smem):
         fn.restype = ctypes.c_ulonglong

@@ -3,13 +3,15 @@ on one GPU, in one process, in turns (old, new, new, old): K5
 (``pt_wide.cu``) and K4 (``anneal_wide.cu``) against commit 492df98 (K5
 streaming J_g in tiles, whole ladders a block; K4 before its per-row work
 counter), and K4's and K5's global-field layouts against commit 210c6d7
-(before their windows and sparse field pass).
+(before their windows and sparse field pass); and K4's shared layout's
+two paths against each other.
 
     mkdir -p build/old && git archive 492df98 qbmx_torch/csrc | tar -x -C build/old
     python -m qbmx_torch.cli.compare_kernels --old build/old/qbmx_torch/csrc --parts k5 k4
     mkdir -p build/old/210c6d7 && git archive 210c6d7 qbmx_torch/csrc | tar -x -C build/old/210c6d7
     python -m qbmx_torch.cli.compare_kernels --parent build/old/210c6d7/qbmx_torch/csrc \
         --parts split global density split_new
+    python -m qbmx_torch.cli.compare_kernels --parts sparse_shared sparse_density sparse_split
 
 Each old library is declared with its commit's C interface, so the tool
 compares against those commits' sources only; they are built with the
@@ -40,7 +42,7 @@ default):
   ``-DQBMX_K4_REFRESH_PERIOD=1`` (into ``build/kernels_refresh1/``: every
   field recomputed just before its decision);
 * ``split``: 210c6d7's global layouts (K4 Metropolis and pair, K5 M=8) at
-  both H=3400 step calls (``h3400_qubos``: restricted, and ``-r False``),
+  both H=3400 step calls (``flat_step_qubos``: restricted, and ``-r False``),
   each timed whole, without its field pass and with its loads alone
   (``build_split``), and its chain-tiles with a change counted;
 * ``global``: 210c6d7's global layouts against this tree's, in turns, at
@@ -50,7 +52,25 @@ default):
   3401 across densities of J_g (``DENSITIES``), in turns: the tie that
   ``wide_cuda.SPARSE_DENSITY`` rests on;
 * ``split_new``: ``split`` for this tree's global layouts, through the
-  wrappers (on the pass the density rule picks).
+  wrappers (on the pass the density rule picks);
+* ``sparse_shared``: K4's shared layout, its sparse path (J_g's row lists in
+  shared memory, ``anneal_wide_sparse.cu``) against its dense path (J_g in
+  tiles), each forced, in turns (dense, sparse, sparse, dense), Metropolis
+  and pair at S=1000 on the main paths' own QUBOs: the CDQBM (a) call (G=2
+  B=20 R=100 n=717), its 10-seed sweep's call (G=20: seeds 0..9's step
+  QUBOs) and the restricted flat model's calls, ``qbm_main -hn 300 -r
+  True`` at the CLI's defaults (G=2 B=73 R=100 n=301), at ``-b 20`` and at
+  ``-hn 700``; each call's changes and the nonzeros of their rows counted
+  once, for the bound;
+* ``sparse_density``: the same two paths at n = 301, 384, 512 and 717 on
+  4,000, 14,600 and 40,000 chains (S = 100) across J_g's shares of nonzeros
+  (``SHARED_DENSITIES``, where the row lists fit beside the rule's chains):
+  the tie ``wide_cuda.SHARED_SPARSE_DENSITY`` rests on;
+* ``sparse_split``: the sparse path's time by part at the ``sparse_shared``
+  calls, from a build with ``-DQBMX_K4S_CLOCKS`` (into
+  ``build/kernels_k4s_clocks/``): each chain's clock64 cycles in its
+  draws, refreshes, decisions and changes, their shares, and those shares
+  of the main build's time.
 
 Each turn is the median of ``--runs`` CUDA-event timings after a warm-up.
 Prints one line per measurement, the ``nvidia-smi`` name and power limit,
@@ -74,10 +94,12 @@ import torch.nn.functional as F
 from qbmx_torch import _build
 from qbmx_torch.core.qubo import random_qubo_batch, split_qubo
 from qbmx_torch.models.cdqbm import cdqbm_a_qubos
+from qbmx_torch.models.dqbm import DiscQBM
 from qbmx_torch.samplers import gibbs, kernel_call, pt_cuda, pt_wide_cuda, sa_torch, wide_cuda
 from qbmx_torch.utils.roofline import anneal_bound, heatbath_units
 
-PARTS = ("k5", "k4", "layouts", "k4_agreement", "split", "global", "density", "split_new")
+PARTS = ("k5", "k4", "layouts", "k4_agreement", "split", "global", "density", "split_new",
+         "sparse_shared", "sparse_density", "sparse_split")
 OLD_PARTS = ("k5", "k4", "k4_agreement")  # the parts that build 492df98's sources (--old)
 PARENT = "210c6d7"  # the global layouts before their redesign
 PARENT_PARTS = ("split", "global")  # the parts that build its sources (--parent)
@@ -85,6 +107,12 @@ PARENT_PARTS = ("split", "global")  # the parts that build its sources (--parent
 GLOBAL_WIDE = {"n=4096": (1, 2, 128, 16, 4096, 5), "n=8192": (1, 2, 128, 16, 8192, 5)}
 DENSITIES = (0.005, 0.01, 0.02, 0.04, 0.08)  # the density part's J_g, at n = 3401
 K5_CALL = dict(G=2, B=20, M=8, R=100, n=717)  # the CDQBM (a) PT call
+# the sparse_density part's J_g shares, widths and chain counts (G, B, R)
+SHARED_DENSITIES = (0.005, 0.01, 0.02, 0.04, 0.08)
+SHARED_DENSITY_NS = (301, 384, 512, 717)
+SHARED_DENSITY_CHAINS = {4_000: (2, 20, 100), 14_600: (2, 73, 100), 40_000: (20, 20, 100)}
+SHARED_DENSITY_S = 100
+CLOCK_PARTS = ("draws", "refresh", "decisions", "changes")  # anneal_wide_sparse.cu's Part
 K4_SHAPES = {  # label: (rule, G, B, n, R, S)
     "K4 Metropolis CDQBM (a) G=2 B=20 n=717 R=100 S=1000": (0, 2, 20, 717, 100, 1000),
     "K4 pair CDQBM (a) G=2 B=20 n=717 R=100 S=1000": (2, 2, 20, 717, 100, 1000),
@@ -398,19 +426,20 @@ def k4_agreement(refresh1, dev) -> dict:
     return records
 
 
-def h3400_qubos(restricted: bool, dev, B: int = 20, seed: int = 3400):
-    """The step QUBOs of ``qbm_main -hn 3400`` (n = 3401, a batch of B
-    random images; its two groups, clamped and unclamped): restricted, J_g
-    all zeros but the output row and column (``qm.main``'s default), or as
-    the CLI runs it (``-r False``, its default), a dense strictly-upper
-    ``w_hh``.  (Q2 (2, n, n), h2 (2, B, n)), untrained parameters."""
-    from qbmx_torch.models.dqbm import DiscQBM
-
-    m = DiscQBM(dim_input=784, n_hidden_nodes=3400, sample_count=100, anneal_steps=5,
-                restricted=restricted, seed=seed, device=dev)
+def flat_step_qubos(n_hidden: int, B: int, device, restricted: bool = True, seed: int = 19):
+    """The flat model's step QUBOs at ``qbm_main -hn n_hidden`` (784
+    inputs, n = n_hidden + 1) on a batch of B random images made from
+    ``seed``, from the seed's untrained parameters: (Q2 (2, n, n), h2 (2, B,
+    n)), the clamped and unclamped groups of the step's one sampler call.
+    Restricted (``qm.main``'s default), J_g is all zeros but the output's
+    row and column; unrestricted (the CLI's ``-r False``), a dense
+    ``w_hh``.  For checks and timings of the kernels; the models never
+    call it."""
+    m = DiscQBM(dim_input=784, n_hidden_nodes=n_hidden, sample_count=100, anneal_steps=5,
+                restricted=restricted, seed=seed, device=device)
     x = torch.as_tensor(np.random.default_rng(seed).random((B, 784), dtype=np.float32),
-                        device=dev)
-    return m.step_qubos(m.params, x, m._label_vec(torch.arange(B, device=dev) % 2))
+                        device=device)
+    return m.step_qubos(m.params, x, m._label_vec(torch.arange(B, device=device) % 2))
 
 
 # the split variants of the parent's global layouts: (decisions, field pass)
@@ -544,7 +573,7 @@ def time_split(libs: dict, parent: bool, runs: int, dev) -> dict:
     gen = lambda: torch.Generator().manual_seed(7)
     records = {}
     for restricted in (True, False):
-        Qs, hs = h3400_qubos(restricted, dev)
+        Qs, hs = flat_step_qubos(3400, 20, dev, restricted, seed=3400)
         G, B, n = hs.shape
         call = "restricted" if restricted else "dense (-r False)"
         for kernel in ("K4 Metropolis", "K4 pair", f"K5 M={M}"):
@@ -618,7 +647,7 @@ def global_calls(dev) -> dict:
     rungs: M=8 over 32 ladders)."""
     calls = {}
     for restricted in (True, False):
-        Q, he = h3400_qubos(restricted, dev)
+        Q, he = flat_step_qubos(3400, 20, dev, restricted, seed=3400)
         calls["H=3400 " + ("restricted" if restricted else "dense (-r False)")] = (Q, he, 100,
                                                                                   8, 5)
     rng = np.random.default_rng(4096)
@@ -724,6 +753,190 @@ def time_density(runs: int, dev) -> dict:
     return records
 
 
+def shared_calls(dev) -> dict:
+    """The sparse_shared part's calls: label -> (Q, h_extra), the main
+    paths' own step QUBOs (untrained parameters)."""
+    sweep = [cdqbm_a_qubos(20, dev, seed) for seed in range(10)]
+    return {
+        "CDQBM (a) G=2 B=20 R=100 n=717": cdqbm_a_qubos(20, dev),
+        "CDQBM (a) 10-seed sweep G=20 B=20 R=100 n=717": (
+            torch.cat([q for q, _ in sweep]), torch.cat([h for _, h in sweep])),
+        "qbm_main -hn 300 -r True G=2 B=73 R=100 n=301": flat_step_qubos(300, 73, dev),
+        "qbm_main -hn 300 -r True -b 20 G=2 B=20 R=100 n=301": flat_step_qubos(300, 20, dev),
+        "qbm_main -hn 700 -r True G=2 B=73 R=100 n=701": flat_step_qubos(700, 73, dev),
+    }
+
+
+def shared_paths(J, h, hot, logr, R, S, rule, gen):
+    """K4's shared layout forced onto each path: path -> launch(**kw)."""
+    return {path: (lambda path=path, **kw: wide_cuda.launch(
+        J, h, hot, logr, R, S, rule, generator=gen(), field_pass=path, **kw))
+        for path in (wide_cuda.DENSE, wide_cuda.SPARSE)}
+
+
+def call_bound(launch, G, B, R, n, S, rule, dev) -> dict:
+    """The bound of a K4 call from the changes and the nonzeros of their
+    rows that ``launch(flips=...)`` counts (``qbmx_torch.utils.roofline``)."""
+    flips = torch.zeros(2, dtype=torch.int64, device=dev)
+    launch(flips=flips)
+    torch.cuda.synchronize()
+    changed, work = (int(v) for v in flips.tolist())
+    units = n if rule == wide_cuda.METROPOLIS else heatbath_units(n, rule)
+    return {"flips": changed, "flip_work": work,
+            **anneal_bound(G, B, R, n, S, decisions=G * B * R * units * S, flip_work=work)}
+
+
+def time_sparse_shared(runs: int, dev) -> dict:
+    """The shared layout's sparse path against its dense path, each forced,
+    in turns (dense, sparse, sparse, dense), at ``shared_calls``, S=1000,
+    Metropolis and pair, beside the bound."""
+    R, S = 100, 1000
+    gen = lambda: torch.Generator().manual_seed(7)
+    records = {}
+    for label, (Q, he) in shared_calls(dev).items():
+        G, B, n = he.shape
+        nnz = pt_wide_cuda.group_nnz(pt_wide_cuda.row_nnz(split_qubo(Q)[1]))
+        geo = wide_cuda.wide_geometry(G, B, R, n)
+        rule_path = wide_cuda.shared_path(nnz, n, geo.chains_per_block)
+        for kernel, rule in (("Metropolis", wide_cuda.METROPOLIS), ("pair", wide_cuda.PAIR)):
+            J, h, hot, logr = anneal_form(Q, he, S, rule)
+            run = shared_paths(J, h, hot, logr, R, S, rule, gen)
+            rec = {"nnz": nnz, "share": max(nnz) / n**2, "rule_path": rule_path,
+                   "chains_per_block": geo.chains_per_block, "grid": geo.grid,
+                   "sparse_smem": wide_cuda.sparse_smem_bytes(
+                       n, geo.chains_per_block, pt_wide_cuda.padded(max(nnz))),
+                   "dense_smem": geo.smem,
+                   **call_bound(run[wide_cuda.SPARSE], G, B, R, n, S, rule, dev)}
+            rec["dense_ms"], rec["sparse_ms"] = turns(run[wide_cuda.DENSE],
+                                                      run[wide_cuda.SPARSE], runs)
+            records[f"K4 {kernel}, {label}"] = rec
+            print(f"sparse_shared K4 {kernel} {label} S={S} (J_g {rec['share']:.4f} nonzeros, "
+                  f"the rule's path {rule_path}, {geo.chains_per_block} chains a block on a grid "
+                  f"of {geo.grid}): dense path {rec['dense_ms'][0]:.3f} / {rec['dense_ms'][1]:.3f}"
+                  f" ms, sparse path {rec['sparse_ms'][0]:.3f} / {rec['sparse_ms'][1]:.3f} ms "
+                  f"(CUDA events, median of {runs} each, turns dense sparse sparse dense); "
+                  f"{rec['flips']} changes, {rec['flip_work']} nonzeros of their rows; bound "
+                  f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}", flush=True)
+        del Q, he
+    return records
+
+
+def time_sparse_density(runs: int, dev) -> dict:
+    """The tie of ``wide_cuda.shared_path``: both shared paths forced, in
+    turns (dense, sparse, sparse, dense), on random QUBOs whose J_g holds
+    ``SHARED_DENSITIES`` of nonzeros, at ``SHARED_DENSITY_NS`` and
+    ``SHARED_DENSITY_CHAINS``, S = ``SHARED_DENSITY_S``, Metropolis and
+    pair; a share whose row lists do not fit beside the rule's chains is
+    recorded as such."""
+    S = SHARED_DENSITY_S
+    gen = lambda: torch.Generator().manual_seed(7)
+    rng = np.random.default_rng(717)
+    records = {}
+    for n in SHARED_DENSITY_NS:
+        for chains, (G, B, R) in SHARED_DENSITY_CHAINS.items():
+            C = wide_cuda.wide_geometry(G, B, R, n).chains_per_block
+            for density in SHARED_DENSITIES:
+                # an upper-triangular Q whose J_g holds about `density` nonzeros
+                Q = random_qubo_batch(rng, G, n).to(dev)
+                keep = torch.as_tensor(rng.random((G, n, n)) < density, device=dev)
+                Q = torch.where(keep | torch.eye(n, dtype=torch.bool, device=dev), Q,
+                                torch.zeros_like(Q))
+                he = torch.as_tensor(rng.normal(size=(G, B, n)).astype(np.float32), device=dev)
+                nnz = pt_wide_cuda.group_nnz(pt_wide_cuda.row_nnz(split_qubo(Q)[1]))
+                share = max(nnz) / n**2
+                smem = wide_cuda.sparse_smem_bytes(n, C, pt_wide_cuda.padded(max(nnz)))
+                label = f"n={n} chains={chains} density {density}"
+                if smem > kernel_call.SMEM_BYTES:
+                    records[label] = {"share": share, "sparse_smem": smem, "fits": False}
+                    print(f"sparse_density {label}: J_g {share:.4f} nonzeros, the row lists "
+                          f"need {smem} bytes beside {C} chains: they do not fit", flush=True)
+                    continue
+                for kernel, rule in (("Metropolis", wide_cuda.METROPOLIS),
+                                     ("pair", wide_cuda.PAIR)):
+                    J, h, hot, logr = anneal_form(Q, he, S, rule)
+                    run = shared_paths(J, h, hot, logr, R, S, rule, gen)
+                    dense_ms, sparse_ms = turns(run[wide_cuda.DENSE], run[wide_cuda.SPARSE], runs)
+                    records[f"K4 {kernel}, {label}"] = {
+                        "share": share, "fits": True, "dense_ms": dense_ms,
+                        "sparse_ms": sparse_ms, "rule_path": wide_cuda.shared_path(nnz, n, C)}
+                    print(f"sparse_density K4 {kernel} {label} (G={G} B={B} R={R} S={S}, {C} "
+                          f"chains a block): J_g {share:.4f} nonzeros; dense path "
+                          f"{dense_ms[0]:.3f} / {dense_ms[1]:.3f} ms, sparse path "
+                          f"{sparse_ms[0]:.3f} / {sparse_ms[1]:.3f} ms (turns dense sparse "
+                          f"sparse dense, median of {runs}); the rule (SHARED_SPARSE_DENSITY "
+                          f"{wide_cuda.SHARED_SPARSE_DENSITY}) takes the "
+                          f"{wide_cuda.shared_path(nnz, n, C)} path", flush=True)
+                del Q, he, keep
+    return records
+
+
+def build_clocks() -> ctypes.CDLL:
+    """The sparse path built with -DQBMX_K4S_CLOCKS into
+    ``build/kernels_k4s_clocks/``, by this tree's C interface."""
+    compile_, link = build("kernels_k4s_clocks", [_build.CSRC / "anneal_wide_sparse.cu"],
+                           ("-DQBMX_K4S_CLOCKS",))
+    _build._run_all(compile_)
+    _build._run_all([link])
+    lib = ctypes.CDLL(link[link.index("-o") + 1])
+    lib.qbmx_anneal_wide_sparse.argtypes = _build.load_kernels().qbmx_anneal_wide_sparse.argtypes
+    lib.qbmx_anneal_wide_sparse.restype = ctypes.c_int
+    lib.qbmx_anneal_wide_sparse_clocks.argtypes = [ctypes.c_void_p]
+    lib.qbmx_anneal_wide_sparse_clocks.restype = ctypes.c_int
+    return lib
+
+
+def lib_sparse(lib, J, h, hot, logr, R, S, rule, out):
+    """The sparse path from another build of its source, Philox mode, on
+    the rule's chains a block; returns a launch."""
+    G, B, n = h.shape
+    rows = pt_wide_cuda.row_lists(J)
+    units = wide_cuda.unit_couplings(J)
+    C = wide_cuda.wide_geometry(G, B, R, n).chains_per_block
+    return lambda: kernel_call.check_rc("anneal_wide_sparse", lib.qbmx_anneal_wide_sparse(
+        rows.vals.data_ptr(), rows.cols.data_ptr(), rows.offsets.data_ptr(), units.data_ptr(),
+        h.data_ptr(), hot.data_ptr(), logr.data_ptr(), None, None, out.data_ptr(), None, None,
+        rows.nnz_pad, G, B, R, n, S, ctypes.c_float(sa_torch.inv_span(S)), 7, rule, C,
+        kernel_call.stream(h.device)))
+
+
+def time_sparse_split(runs: int, dev) -> dict:
+    """The sparse path's time by part at ``shared_calls``, S=1000: the
+    clocks build's cycles of each part summed over the chains, their
+    shares, and those shares of the main build's median time."""
+    lib = build_clocks()
+    R, S = 100, 1000
+    gen = lambda: torch.Generator().manual_seed(7)
+    records = {}
+    for label, (Q, he) in shared_calls(dev).items():
+        G, B, n = he.shape
+        for kernel, rule in (("Metropolis", wide_cuda.METROPOLIS), ("pair", wide_cuda.PAIR)):
+            J, h, hot, logr = anneal_form(Q, he, S, rule)
+            whole_ms = median_ms(shared_paths(J, h, hot, logr, R, S, rule, gen)[wide_cuda.SPARSE],
+                                 runs)
+            clocked = lib_sparse(lib, J, h, hot, logr, R, S, rule,
+                                 torch.empty((G, B, R, n), device=dev))
+            cycles = (ctypes.c_ulonglong * len(CLOCK_PARTS))()
+            clocked()  # a warm-up, then one counted launch
+            torch.cuda.synchronize()
+            kernel_call.check_rc("clocks", lib.qbmx_anneal_wide_sparse_clocks(cycles))
+            clocked_ms = median_ms(clocked, 1)  # the warm-up launch, then the timed one
+            torch.cuda.synchronize()
+            kernel_call.check_rc("clocks", lib.qbmx_anneal_wide_sparse_clocks(cycles))
+            total = sum(cycles) / 2  # the two launches median_ms made
+            shares = {part: cycles[k] / 2 / total for k, part in enumerate(CLOCK_PARTS)}
+            rec = {"whole_ms": whole_ms, "clocked_ms": clocked_ms, "shares": shares,
+                   "ms": {part: whole_ms * v for part, v in shares.items()},
+                   "cycles_a_chain": total / (G * B * R)}
+            records[f"K4 {kernel}, {label}"] = rec
+            print(f"sparse_split K4 {kernel} {label} S={S}: sparse path {whole_ms:.3f} ms "
+                  f"(clocked build {clocked_ms:.3f} ms) = "
+                  + ", ".join(f"{part} {shares[part]:.3f} ({rec['ms'][part]:.3f} ms)"
+                              for part in CLOCK_PARTS)
+                  + f" of {rec['cycles_a_chain']:.4g} cycles a chain (each chain's lane 0, "
+                  "clock64)", flush=True)
+    return records
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old", type=Path,
@@ -757,7 +970,10 @@ def main(argv=None) -> dict:
                       ("density", lambda: time_density(args.runs, dev)),
                       ("split_new", lambda: time_split(
                           build_split(_build.CSRC, SPLIT_PATCH_NEW, "this tree"), False,
-                          args.runs, dev))):
+                          args.runs, dev)),
+                      ("sparse_shared", lambda: time_sparse_shared(args.runs, dev)),
+                      ("sparse_density", lambda: time_sparse_density(args.runs, dev)),
+                      ("sparse_split", lambda: time_sparse_split(args.runs, dev))):
         if part in args.parts:
             result[part] = run()
     print(smi)

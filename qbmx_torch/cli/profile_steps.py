@@ -23,7 +23,11 @@ divided by the steps, is ms/step), then on a GPU one more epoch under
 ``torch.profiler``.  Its device events give the device's busy time (the
 union of their intervals), the solver kernel's time per launch and the
 device operations per step; idle share = 1 − busy ÷ the median
-unprofiled epoch.  On ``--device cpu`` the device columns are ``None``.
+unprofiled epoch.  The kernels' launch counters, zeroed just before that
+epoch and read just after (``launch_counts``), name the kernel and path
+that served it (``kernel``: K4's two shared paths and K5's two paths
+share a name prefix in the profiler).  On ``--device cpu`` the device
+columns are ``None``.
 
 ``--rbm`` times RBM epochs the same way (``profile_rbm``): CD-1
 generative in bf16 on 65,536 binarized synthetic images at batch 4096
@@ -54,13 +58,14 @@ from qbmx_torch.data import loaders
 from qbmx_torch.models.base import resolve_device
 from qbmx_torch.models.cdqbm import CDQBM
 from qbmx_torch.models.dqbm import DiscQBM
+from qbmx_torch.samplers import launches
 from qbmx_torch.samplers.kernel_call import fits_shared
 from qbmx_torch.train.sweep import SeedParallelCDQBM, SeedParallelDQBM
 
-#: the kernel each solver's sampler launches on a GPU while the QUBO's
-#: couplings fit shared memory (above: "anneal_wide" for SA and BMS,
-#: "pt_wide" for PT at 8 rungs, either K5 path: the profiler names both
-#: pt_wide_kernel<...>)
+#: the profiler's name prefix of the kernel each solver's sampler launches
+#: on a GPU while the QUBO's couplings fit shared memory (above: "anneal_wide"
+#: for SA and BMS, either path of K4's shared layout, and "pt_wide" for PT
+#: at 8 rungs, either K5 path; the launch counters tell the paths apart)
 SOLVER_KERNELS = {"SA": "sa_metropolis", "BMS": "sa_heatbath", "PT": "pt_heatbath"}
 WIDE_KERNELS = {"SA": "anneal_wide", "BMS": "anneal_wide", "PT": "pt_wide"}
 SEED, LEARNING_RATE = 19, 0.307  # the flagship run's learning rate
@@ -97,12 +102,14 @@ def _union_us(intervals: list[tuple[float, float]]) -> float:
 def device_breakdown(epoch, kernel: str | None) -> dict:
     """Run ``epoch()`` under ``torch.profiler`` and read its device events:
     busy ms (union), the operations, and ``kernel``'s launches and ms
-    (none without a kernel)."""
+    (none without a kernel); and the kernels' launch counters over it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    launches.reset()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         epoch()
+    counted = launches.counts()
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not events:
         raise RuntimeError("torch.profiler recorded no device events: time the device "
@@ -110,7 +117,8 @@ def device_breakdown(epoch, kernel: str | None) -> dict:
     spans = [(e.time_range.start, e.time_range.end) for e in events]
     mine = [e.time_range.elapsed_us() for e in events if kernel and kernel in e.name]
     return {"busy_ms": _union_us(spans) / 1e3, "device_ops": len(events),
-            "kernel_launches": len(mine), "kernel_ms": sum(mine) / 1e3}
+            "kernel_launches": len(mine), "kernel_ms": sum(mine) / 1e3,
+            "launch_counts": counted}
 
 
 def time_epochs(run, epochs: int, dev: torch.device, kernel: str | None = None):
@@ -172,9 +180,12 @@ def profile_solver(solver: str, train_X, train_y, *, hidden: int, reads: int, sw
            "epoch_ms": wall, "ms_per_step": wall / steps, "epoch_ms_runs": walls,
            "ms_per_seed_step": wall / steps / (len(seeds) if seeds else 1),
            "busy_ms": None, "idle_share": None, "ops_per_step": None,
-           "kernel_ms_per_launch": None, "kernel_share": None, "kernel_launches": None}
+           "kernel_ms_per_launch": None, "kernel_share": None, "kernel_launches": None,
+           "launch_counts": None}
     if d is not None:
-        rec.update(busy_ms=d["busy_ms"], idle_share=1.0 - d["busy_ms"] / wall,
+        if len(d["launch_counts"]) == 1:  # the path that served, by its own counter
+            rec["kernel"] = next(iter(d["launch_counts"]))
+        rec.update(launch_counts=d["launch_counts"], busy_ms=d["busy_ms"], idle_share=1.0 - d["busy_ms"] / wall,
                    ops_per_step=d["device_ops"] / steps,
                    kernel_launches=d["kernel_launches"], kernel_share=d["kernel_ms"] / wall,
                    kernel_ms_per_launch=d["kernel_ms"] / max(d["kernel_launches"], 1))

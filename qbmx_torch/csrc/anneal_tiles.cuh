@@ -9,6 +9,9 @@
 // (sweep_tiles: a chain's fields and state in shared memory, n <= 3368)
 // and the global-field one (sweep_global: in a scratch buffer in global
 // memory, any n), which compute the same fields bit for bit.
+// anneal_wide_sparse.cu (K4's shared layout on J_g's row lists) takes its
+// units, decisions and refreshed fields from here too (tile_schedule,
+// decide_with, sparse_fields).
 //
 // Build without --use_fast_math (anneal_rules.cuh).
 
@@ -93,21 +96,21 @@ __device__ __forceinline__ void fields(const float* Ji, int jrow, const uint32_t
 // Variables i..i+M-1's new values o by RULE -- 0 Metropolis, 1 heat-bath;
 // M = 2 or 4 the joint pair or quad draw, M = 1 under RULE 2 or 4 the
 // trailing single -- from their fields f and states s, the couplings among
-// them (tile rows rr.., row stride jrow) and v, the first variable's
+// them (coupling(a, b) = J_{i+a, i+b}, a < b) and v, the first variable's
 // threshold (RULE 0, 1) or uniform (RULE 2, 4).
-template <int RULE, int M>
-__device__ __forceinline__ void decide(const float f[M], const float s[M], const float* tile,
-                                       int rr, int jrow, int i, float beta, float v,
-                                       float o[M]) {
+template <int RULE, int M, typename Coupling>
+__device__ __forceinline__ void decide_with(const float f[M], const float s[M],
+                                            Coupling&& coupling, float beta, float v,
+                                            float o[M]) {
   if constexpr (M == 4) {
     float c[4][4];
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
-      for (int b = a + 1; b < 4; ++b) c[a][b] = tile[(rr + a) * jrow + i + b];
+      for (int b = a + 1; b < 4; ++b) c[a][b] = coupling(a, b);
     quad_rule(f, c, s, beta, v, o);
   } else if constexpr (M == 2) {
-    pair_rule(f[0], f[1], tile[rr * jrow + i + 1], s[0], s[1], beta, v, o[0], o[1]);
+    pair_rule(f[0], f[1], coupling(0, 1), s[0], s[1], beta, v, o[0], o[1]);
   } else if constexpr (RULE == 0) {
     o[0] = metropolis_accept(f[0], s[0], v) ? 1.0f - s[0] : s[0];
   } else if constexpr (RULE == 1) {
@@ -115,6 +118,15 @@ __device__ __forceinline__ void decide(const float f[M], const float s[M], const
   } else {
     o[0] = single_rule(f[0], beta, v);
   }
+}
+
+// decide_with on the couplings of tile rows rr.. (row stride jrow).
+template <int RULE, int M>
+__device__ __forceinline__ void decide(const float f[M], const float s[M], const float* tile,
+                                       int rr, int jrow, int i, float beta, float v,
+                                       float o[M]) {
+  decide_with<RULE, M>(
+      f, s, [&](int a, int b) { return tile[(rr + a) * jrow + i + b]; }, beta, v, o);
 }
 
 // Adds d[a]·J_{i+a, j} (tile rows rr.., a in increasing order) to the

@@ -37,7 +37,8 @@ from qbmx_torch.models.base import (
     resolve_device,
     tree_map,
 )
-from qbmx_torch.samplers.api import Sampler, get_sampler, sampler_sample_groups
+from qbmx_torch.samplers.api import (Sampler, get_sampler, sampler_sample_groups,
+                                     with_dense_couplings)
 
 FIELDS = ("w_vh", "w_vo", "w_oo", "b_h", "b_o", "w_hh")
 
@@ -291,8 +292,9 @@ class DiscQBM(EpochLaunchMixin, QBMModel):
         self.grad_clip = float(grad_clip)
         self.solver_string = solver
         self.device = resolve_device(device)
-        self.sampler = sampler if sampler is not None else get_sampler(
-            solver, num_sweeps=anneal_steps, **(sampler_kwargs or {}))
+        # unrestricted, J_g holds the dense w_hh: K4 need not count its nonzeros
+        self.sampler = sampler if sampler is not None else with_dense_couplings(get_sampler(
+            solver, num_sweeps=anneal_steps, **(sampler_kwargs or {})), not restricted)
         self.reinit_params(attempt=0)
         if load_path:
             self.load_savepoint(load_path)

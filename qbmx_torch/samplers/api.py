@@ -55,19 +55,24 @@ def sampler_sample_groups(sampler, generator, Q_shared, h_extra, num_reads):
 class SASampler:
     """Annealed Metropolis sampler (neal-equivalent).  ``num_sweeps`` is the
     reference's ``anneal_steps``; ``use_kernel=False`` forces the plain
-    PyTorch version on every device."""
+    PyTorch version on every device; ``dense_couplings``: the structured
+    calls' J_g is known dense (``wide_cuda.launch``)."""
 
     num_sweeps: int = 1000
     use_kernel: bool = True
+    dense_couplings: bool = False
 
     def sample_batch(self, generator, Q, num_reads):
         fn = sa_cuda.sa_sample_batch_cuda if self.use_kernel else sa_torch.sa_sample_batch_plain
         return fn(Q, num_reads, self.num_sweeps, generator=generator)
 
     def sample_groups(self, generator, Q_shared, h_extra, num_reads):
-        fn = (sa_cuda.sa_sample_groups_cuda if self.use_kernel
-              else sa_torch.sa_sample_groups_plain)
-        return fn(Q_shared, h_extra, num_reads, self.num_sweeps, generator=generator)
+        if not self.use_kernel:
+            return sa_torch.sa_sample_groups_plain(Q_shared, h_extra, num_reads,
+                                                   self.num_sweeps, generator=generator)
+        return sa_cuda.sa_sample_groups_cuda(Q_shared, h_extra, num_reads, self.num_sweeps,
+                                             generator=generator,
+                                             dense_couplings=self.dense_couplings)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,12 +86,14 @@ class GibbsSampler:
     kernel runs (CUDA tensors) and single-variable sweeps on the plain
     route, as ``qbmx``'s kernel and XLA routes do.  ``quad_updates=True``
     draws variable quadruples from their exact 16-state conditional on both
-    routes and both entries, and wins over ``pair_updates``."""
+    routes and both entries, and wins over ``pair_updates``.
+    ``dense_couplings`` as :class:`SASampler`'s."""
 
     num_warmup: int = 64
     beta: float = 1.0
     pair_updates: bool | None = None
     quad_updates: bool | None = None
+    dense_couplings: bool = False
 
     def widths(self, on_kernel: bool) -> tuple[bool, bool]:
         """``(pair, quad)`` on the kernel route or the plain one."""
@@ -105,7 +112,7 @@ class GibbsSampler:
         pair, quad = self.widths(Q_shared.device.type == "cuda")
         return gibbs_cuda.gibbs_sample_groups_cuda(
             Q_shared, h_extra, num_reads, self.num_warmup, generator=generator,
-            beta=self.beta, pair=pair, quad=quad)
+            beta=self.beta, pair=pair, quad=quad, dense_couplings=self.dense_couplings)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,6 +150,15 @@ class ExactSampler:
     def sample_batch(self, generator, Q, num_reads):
         return torch.stack([_exact.exact_sample(generator, q, num_reads, self.beta)
                             for q in Q])
+
+
+def with_dense_couplings(sampler, dense: bool):
+    """``sampler`` told that its structured calls' J_g is dense
+    (``dense_couplings``) where it is an SA or BMS sampler and ``dense``;
+    any other sampler as it is."""
+    if dense and isinstance(sampler, (SASampler, GibbsSampler)):
+        return dataclasses.replace(sampler, dense_couplings=True)
+    return sampler
 
 
 def get_sampler(solver: str, num_sweeps: int = 1000, **kwargs) -> Sampler:

@@ -87,23 +87,26 @@ def launch(J, h, hot, logr, num_reads: int, num_sweeps: int, width: int, *, gene
 
 
 def _run(Q_shared, h_extra, num_reads, num_warmup, generator, beta, pair, quad,
-         host_variates):
+         host_variates, dense_couplings: bool = False):
     """K2 on the structured form → (G, B, R, n); K4 where ``J_g`` does not
-    fit shared memory."""
+    fit shared memory (``dense_couplings``: ``wide_cuda.launch``'s)."""
     hs, J = split_qubo(Q_shared.to(torch.float32))
     J = J.contiguous()
     h = (hs[:, None, :] + h_extra.to(torch.float32)).contiguous()
     hot, logr = gibbs.heat_bath_schedule(h, J[:, None], num_warmup, beta)
-    launcher = launch if kernel_call.fits_shared(h.shape[-1]) else wide_cuda.launch
-    return launcher(J, h, hot, logr, num_reads, num_warmup, _width(pair, quad),
-                    generator=generator, host_variates=host_variates)
+    if kernel_call.fits_shared(h.shape[-1]):
+        return launch(J, h, hot, logr, num_reads, num_warmup, _width(pair, quad),
+                      generator=generator, host_variates=host_variates)
+    return wide_cuda.launch(J, h, hot, logr, num_reads, num_warmup, _width(pair, quad),
+                            generator=generator, host_variates=host_variates,
+                            dense_couplings=dense_couplings)
 
 
 def gibbs_sample_groups_cuda(Q_shared: torch.Tensor, h_extra: torch.Tensor,
                              num_reads: int, num_warmup: int, *,
                              generator: torch.Generator | None = None,
                              beta: float = 1.0, pair: bool = False, quad: bool = False,
-                             host_variates=None) -> torch.Tensor:
+                             host_variates=None, dense_couplings: bool = False) -> torch.Tensor:
     """Structured heat-bath, ``Q_shared`` (G, n, n) + ``h_extra`` (G, B, n)
     → (G, B, R, n), on the kernel for CUDA tensors; warm-up from
     ``min(default_hot, β)`` to ``β`` per problem."""
@@ -112,7 +115,7 @@ def gibbs_sample_groups_cuda(Q_shared: torch.Tensor, h_extra: torch.Tensor,
             Q_shared, h_extra, num_reads, num_warmup, generator=generator, beta=beta,
             pair=pair, quad=quad, host_variates=host_variates)
     return _run(Q_shared, h_extra, num_reads, num_warmup, generator, beta, pair, quad,
-                host_variates)
+                host_variates, dense_couplings)
 
 
 def gibbs_sample_batch_cuda(Q: torch.Tensor, num_reads: int, num_warmup: int, *,

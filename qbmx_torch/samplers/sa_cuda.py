@@ -80,12 +80,13 @@ def launch(J, h, hot, logr, num_reads: int, num_sweeps: int, *, generator=None,
 
 
 def _launch(J, h, hot, logr, num_reads: int, num_sweeps: int, generator,
-            host_variates) -> torch.Tensor:
+            host_variates, dense_couplings: bool = False) -> torch.Tensor:
     """K1 on the structured form; K4 where ``J_g`` does not fit shared
-    memory."""
+    memory (``dense_couplings``: :func:`wide_cuda.launch`'s)."""
     if not kernel_call.fits_shared(h.shape[-1]):
         return wide_cuda.launch(J, h, hot, logr, num_reads, num_sweeps, wide_cuda.METROPOLIS,
-                                generator=generator, host_variates=host_variates)
+                                generator=generator, host_variates=host_variates,
+                                dense_couplings=dense_couplings)
     return launch(J, h, hot, logr, num_reads, num_sweeps, generator=generator,
                   host_variates=host_variates)
 
@@ -94,10 +95,11 @@ def sa_sample_groups_cuda(Q_shared: torch.Tensor, h_extra: torch.Tensor,
                           num_reads: int, num_sweeps: int, *,
                           generator: torch.Generator | None = None,
                           beta_hot=None, beta_cold=None,
-                          host_variates=None) -> torch.Tensor:
+                          host_variates=None, dense_couplings: bool = False) -> torch.Tensor:
     """Structured annealing, ``Q_shared`` (G, n, n) + ``h_extra`` (G, B, n)
     → (G, B, R, n), on the kernel for CUDA tensors.  Schedule endpoints
-    default per problem exactly as ``sa_lane.py:463-488`` computes them."""
+    default per problem exactly as ``sa_lane.py:463-488`` computes them.
+    ``dense_couplings``: the caller knows J_g dense (``wide_cuda.launch``)."""
     if Q_shared.device.type != "cuda":
         return sa_sample_groups_plain(
             Q_shared, h_extra, num_reads, num_sweeps, generator=generator,
@@ -106,7 +108,7 @@ def sa_sample_groups_cuda(Q_shared: torch.Tensor, h_extra: torch.Tensor,
     h = (hs[:, None, :] + h_extra.to(torch.float32)).contiguous()
     hot, logr = schedule_params(h, J[:, None], num_sweeps, beta_hot, beta_cold)
     return _launch(J.contiguous(), h, hot, logr, num_reads, num_sweeps, generator,
-                   host_variates)
+                   host_variates, dense_couplings)
 
 
 def sa_sample_batch_cuda(Q: torch.Tensor, num_reads: int, num_sweeps: int, *,

@@ -75,7 +75,8 @@ from qbmx_torch.models.dqbm import (
 )
 from qbmx_torch.parallel.mesh import (check_device, gather_numpy, gather_tree, seed_rows,
                                       writes_files)
-from qbmx_torch.samplers.api import Sampler, get_sampler, sampler_sample_groups
+from qbmx_torch.samplers.api import (Sampler, get_sampler, sampler_sample_groups,
+                                     with_dense_couplings)
 from qbmx_torch.train.loop import _pad_batch, flatlined
 from qbmx_torch.utils.metrics import History, accuracy_and_auc, get_metrics, prob_scored_auc
 
@@ -389,8 +390,8 @@ class SeedParallelDQBM(_SeedSweep):
         self.beta_eff = float(beta_eff)
         self.grad_clip = float(grad_clip)
         self.device = resolve_device(device)
-        self.sampler = sampler if sampler is not None else get_sampler(
-            solver, num_sweeps=anneal_steps)
+        self.sampler = sampler if sampler is not None else with_dense_couplings(
+            get_sampler(solver, num_sweeps=anneal_steps), not restricted)
         _refuse_qpu_adapters(self.sampler)
         self._start(mesh)
         self.params = _seed_streams(self.seeds, self._init_params)

@@ -22,6 +22,7 @@ need).  Elsewhere every test skips.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -150,7 +151,8 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(dev):
     torch.cuda.synchronize()
     # an all-zero J_g: the global-field layout's sparse pass
     assert out.shape == (1, 2, n) and wide_cuda.launch_counts == {
-        "anneal_wide": 0, "anneal_wide_global": 0, "anneal_wide_global_sparse": 1}
+        "anneal_wide": 0, "anneal_wide_sparse": 0, "anneal_wide_global": 0,
+        "anneal_wide_global_sparse": 1}
 
 
 def test_model_steps_launch_the_kernel(dev):
@@ -261,7 +263,8 @@ def test_heatbath_wrappers_refuse_what_the_kernel_does_not_take(dev):
     torch.cuda.synchronize()
     # an all-zero J_g: the global-field layout's sparse pass
     assert out.shape == (1, 2, n) and wide_cuda.launch_counts == {
-        "anneal_wide": 0, "anneal_wide_global": 0, "anneal_wide_global_sparse": 1}
+        "anneal_wide": 0, "anneal_wide_sparse": 0, "anneal_wide_global": 0,
+        "anneal_wide_global_sparse": 1}
 
 
 # -- the wide anneal kernel (qbmx_torch/csrc/anneal_wide.cu) -------------------
@@ -356,8 +359,9 @@ def test_wide_philox_path_matches_plain_on_its_variates(dev, rule):
     assert _differ(got, _plain_groups(rule, Q, h_extra, R, S, hv)) <= MAX_DIFF_FRAC
 
 
-def _forced_wide(Q, R, S, rule, generator=None, host_variates=None, beta=1.0):
-    """K4 launched directly on a dense batch, past the routing."""
+def _forced_wide(Q, R, S, rule, generator=None, host_variates=None, beta=1.0, field_pass=None):
+    """K4 launched directly on a dense batch, past the routing (``field_pass``
+    forces a path)."""
     h, J = split_qubo(Q)
     h = h[:, None].contiguous()
     if rule == wide_cuda.METROPOLIS:
@@ -365,7 +369,7 @@ def _forced_wide(Q, R, S, rule, generator=None, host_variates=None, beta=1.0):
     else:
         hot, logr = gibbs.heat_bath_schedule(h, J[:, None], S, beta)
     return wide_cuda.launch(J.contiguous(), h, hot, logr, R, S, rule, generator=generator,
-                            host_variates=host_variates)[:, 0]
+                            host_variates=host_variates, field_pass=field_pass)[:, 0]
 
 
 @pytest.mark.parametrize("n", [2, 5, 8])
@@ -516,6 +520,8 @@ def test_pt_wrapper_refuses_what_the_kernel_does_not_take(dev):
     ("BMS", gibbs_cuda.launch_counts, "sa_heatbath", "DiscQBM"),
     ("PT", pt_cuda.launch_counts, "pt_heatbath", "DiscQBM"),
     ("PT", pt_wide_cuda.launch_counts, "pt_wide_sparse", "CDQBM"),  # n = 717: K5's row lists
+    ("SA", wide_cuda.launch_counts, "anneal_wide_sparse", "CDQBM"),  # ... K4's
+    ("BMS", wide_cuda.launch_counts, "anneal_wide_sparse", "CDQBM"),
 ])
 def test_model_steps_launch_the_solver_kernel(dev, solver, counts, kernel, model):
     from qbmx_torch.models.cdqbm import CDQBM
@@ -532,16 +538,18 @@ def test_model_steps_launch_the_solver_kernel(dev, solver, counts, kernel, model
         assert m.geo.n_total == 717
         x = np.random.default_rng(3).random((40, 784)).astype(np.float32)
     y = np.arange(40) % 2
-    for c in (pt_cuda.launch_counts, pt_wide_cuda.launch_counts):
+    for c in (counts, pt_cuda.launch_counts, pt_wide_cuda.launch_counts,
+              wide_cuda.launch_counts):
         for k in c:
             c[k] = 0
-    counts[kernel] = 0
     nlls, _ = m.train_epoch(x, y, 10, 0.3)
     preds, probs = m.predict_batch(x)
     torch.cuda.synchronize()
     assert counts[kernel] == 4 + math.ceil(40 / (40 if model == "DiscQBM" else 32))
     assert pt_cuda.launch_counts["pt_heatbath"] + sum(pt_wide_cuda.launch_counts.values()) \
         == (counts[kernel] if solver == "PT" else 0)
+    assert sum(wide_cuda.launch_counts.values()) == (
+        counts[kernel] if kernel.startswith("anneal_wide") else 0)
     assert np.isfinite(nlls).all() and preds.shape == (40,) and probs.shape == (40, 2)
 
 
@@ -569,6 +577,9 @@ def test_geometry_rules_match_the_kernels(dev):
     for n in (242, 717, 2400, wide_cuda.max_n()):
         for c in (1, 7, 32):
             assert lib.qbmx_anneal_wide_smem(n, c) == wide_cuda.smem_bytes(n, c)
+            for nnz_pad in (8, 10104, 16392):
+                assert lib.qbmx_anneal_wide_sparse_smem(n, c, nnz_pad) \
+                    == wide_cuda.sparse_smem_bytes(n, c, nnz_pad)
     assert lib.qbmx_sa_metropolis_max_n() == 241
     assert lib.qbmx_sa_metropolis_thread_max_n() == lib.qbmx_sa_heatbath_thread_max_n() \
         == kernel_call.THREAD_MAX_N
@@ -1322,10 +1333,11 @@ def test_qpu_adapter_with_a_card_stub_returns_on_the_card(dev, copies):
 
 
 @pytest.mark.parametrize("family,kernel", [("dqbm", "sa_metropolis"),
-                                           ("cdqbm_a", "anneal_wide")])
+                                           ("cdqbm_a", "anneal_wide_sparse")])
 def test_mesh_world_of_one_under_nccl_is_the_single_step(dev, tmp_path, family, kernel):
     """A world of one under NCCL: the sharded step launches its kernel once
-    (K1 at the flat model, K4 at CDQBM (a)'s 717 variables) and equals the
+    (K1 at the flat model, K4's sparse shared path at CDQBM (a)'s 717
+    variables) and equals the
     single model's step fed ``fold_in(generator, 0, 0)`` bit for bit."""
     import copy
     import datetime
@@ -1432,8 +1444,8 @@ def test_wide_global_layout_matches_plain(dev, n, rule):
     wide_cuda.reset_launch_counts()
     got = _kernel_groups(rule, Q, h_extra, R, S, host_variates=hv)
     torch.cuda.synchronize()
-    assert wide_cuda.launch_counts == {"anneal_wide": 0, "anneal_wide_global": 1,
-                                       "anneal_wide_global_sparse": 0}
+    assert wide_cuda.launch_counts == {"anneal_wide": 0, "anneal_wide_sparse": 0,
+                                       "anneal_wide_global": 1, "anneal_wide_global_sparse": 0}
     assert _differ(got, _plain_groups(rule, Q, h_extra, R, S, hv)) <= MAX_DIFF_FRAC
 
 
@@ -1496,7 +1508,7 @@ def test_wide_global_sparse_pass_equals_the_dense_pass(dev, n, qubos, rule):
     J, h, hot, logr = _structured_form(Q, h_extra, S, rule, 1.0)
     runs = [(wide_cuda.GLOBAL, "dense"), (wide_cuda.GLOBAL, "sparse")]
     if n <= wide_cuda.max_n():
-        runs.append((wide_cuda.SHARED, None))
+        runs.append((wide_cuda.SHARED, "dense"))
     res = []
     for layout, field_pass in runs:
         fields = torch.empty((G, B, R, n), device=dev)
@@ -1506,8 +1518,9 @@ def test_wide_global_sparse_pass_equals_the_dense_pass(dev, n, qubos, rule):
                                flips=flips, field_pass=field_pass,
                                geometry=wide_cuda.WideGeometry.of(G, B, R, n, 7, layout))
         torch.cuda.synchronize()
-        key = {"dense": "anneal_wide_global", "sparse": "anneal_wide_global_sparse",
-               None: "anneal_wide"}[field_pass]
+        key = {(wide_cuda.GLOBAL, "dense"): "anneal_wide_global",
+               (wide_cuda.GLOBAL, "sparse"): "anneal_wide_global_sparse",
+               (wide_cuda.SHARED, "dense"): "anneal_wide"}[layout, field_pass]
         assert wide_cuda.launch_counts[key] == 1 and sum(wide_cuda.launch_counts.values()) == 1
         res.append((out, fields, flips))
     for other in res[1:]:
@@ -1666,3 +1679,154 @@ def test_exact_study_card_matches_cpu(dev):
         params, _ = study.train_exact(m, X, Y, steps=20)
         p[d] = xh.predict_p1(lambda q, x: study.exact_p1(m, q, x), params, X)
     assert np.abs(p["cuda"] - p["cpu"]).max() <= 1e-4
+
+
+# -- K4's sparse shared path (qbmx_torch/csrc/anneal_wide_sparse.cu) -------------
+
+
+def _sparse_qubos(rng, G, B, n, dev):
+    """Sparse QUBOs at width n: CDQBM (a)'s step QUBOs at 717 (G = 2), the
+    restricted flat model's at 301 (``qbm_main -hn 300 -r True``, G = 2),
+    ``_sparse_structured``'s elsewhere."""
+    from qbmx_torch.cli.compare_kernels import flat_step_qubos
+
+    if n == 717:
+        return cdqbm_a_qubos(B, dev)
+    if n == 301:
+        return flat_step_qubos(300, B, dev)
+    return _sparse_structured(rng, G, B, n, dev)
+
+
+@pytest.mark.parametrize("rule", [0, 1, 2, 4])
+@pytest.mark.parametrize("n", [242, 301, 717, 1056])
+def test_wide_sparse_path_equals_the_dense_path(dev, n, rule):
+    """K4's shared layout with its sparse path forced and with its dense
+    path forced: the same samples, final fields and counters bit for bit,
+    past a refresh (S = 70), 7 chains a block with spare chains in the
+    last block, under host variates and on the kernels' own Philox draws;
+    each launch counted by path."""
+    G, B, R, S = 2, 3, 20, 70
+    rng = np.random.default_rng(n + rule + 11)
+    Q, h_extra = _sparse_qubos(rng, G, B, n, dev)
+    hv = _variates(rng, (G, B), n, R, S, dev)
+    J, h, hot, logr = _structured_form(Q, h_extra, S, rule, 1.0)
+    geo = wide_cuda.WideGeometry.of(G, B, R, n, 7)
+    res = []
+    for path in (wide_cuda.DENSE, wide_cuda.SPARSE):
+        fields = torch.empty((G, B, R, n), device=dev)
+        flips = torch.zeros(2, dtype=torch.int64, device=dev)
+        wide_cuda.reset_launch_counts()
+        out = wide_cuda.launch(J, h, hot, logr, R, S, rule, host_variates=hv, fields_out=fields,
+                               flips=flips, field_pass=path, geometry=geo)
+        philox = wide_cuda.launch(J, h, hot, logr, R, S, rule, field_pass=path, geometry=geo,
+                                  generator=torch.Generator().manual_seed(n))
+        torch.cuda.synchronize()
+        key = "anneal_wide" if path == wide_cuda.DENSE else "anneal_wide_sparse"
+        assert wide_cuda.launch_counts[key] == 2 and sum(wide_cuda.launch_counts.values()) == 2
+        res.append((out, fields, flips, philox))
+    assert res[0][2][0] > 0
+    for a, b in zip(*res):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("solver", ["SA", "BMS"])
+def test_wide_dense_couplings_skip_the_count(dev, solver, monkeypatch):
+    """The flat model with a dense ``w_hh`` (``qbm_main -hn 300 -r False``)
+    through its own sampler, which carries ``dense_couplings``: K4's dense
+    shared path, launched once, equal bit for bit to the rule's own choice
+    without the hint, and without counting J's nonzeros (the count, and the
+    host sync it costs, would raise here)."""
+    from qbmx_torch.cli.compare_kernels import flat_step_qubos
+    from qbmx_torch.models.dqbm import DiscQBM
+    from qbmx_torch.samplers import pt_wide_cuda
+
+    B, R, S = 4, 20, 10
+    Q, h_extra = flat_step_qubos(300, B, dev, restricted=False)
+    m = DiscQBM(dim_input=784, n_hidden_nodes=300, solver=solver, anneal_steps=S,
+                restricted=False, device=dev)
+    assert m.sampler.dense_couplings
+    hint = lambda: m.sampler.sample_groups(torch.Generator().manual_seed(3), Q, h_extra, R)
+    rule = dataclasses.replace(m.sampler, dense_couplings=False)
+    want = rule.sample_groups(torch.Generator().manual_seed(3), Q, h_extra, R)
+    torch.cuda.synchronize()
+    wide_cuda.reset_launch_counts()
+
+    def no_count(J):
+        raise AssertionError("J's nonzeros were counted")
+
+    monkeypatch.setattr(pt_wide_cuda, "row_nnz", no_count)
+    got = hint()
+    torch.cuda.synchronize()
+    assert wide_cuda.launch_counts["anneal_wide"] == 1 and sum(wide_cuda.launch_counts.values()) == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("rule", list(RULES))
+@pytest.mark.parametrize("n", [301, 717])
+def test_wide_sparse_path_matches_plain(dev, n, rule):
+    """Through the sampler's wrappers on the step QUBOs of the restricted
+    flat model (n = 301) and of CDQBM (a) (n = 717): the rule's sparse path,
+    launched once and nothing else, within the 1% chain bound of plain
+    under host variates, past a refresh."""
+    G, B, R, S = 2, 4, 50, 70
+    rng = np.random.default_rng(n + len(rule) + 5)
+    Q, h_extra = _sparse_qubos(rng, G, B, n, dev)
+    hv = _variates(rng, (G, B), n, R, S, dev)
+    for mod in (sa_cuda, gibbs_cuda, wide_cuda):
+        mod.reset_launch_counts()
+    got = _kernel_groups(rule, Q, h_extra, R, S, host_variates=hv)
+    torch.cuda.synchronize()
+    assert wide_cuda.launch_counts["anneal_wide_sparse"] == 1
+    assert sum(wide_cuda.launch_counts.values()) == 1
+    assert sa_cuda.launch_counts["sa_metropolis"] == gibbs_cuda.launch_counts["sa_heatbath"] == 0
+    assert _differ(got, _plain_groups(rule, Q, h_extra, R, S, hv)) <= MAX_DIFF_FRAC
+
+
+@pytest.mark.parametrize("rule", list(RULES))
+def test_wide_sparse_path_on_its_philox_draws(dev, rule):
+    """The sparse path draws K1's and K2's streams: the plain version on
+    those draws written out (``sa_torch.philox_variates``)."""
+    G, B, R, S, n = 2, 2, 32, 3, 717
+    Q, h_extra = cdqbm_a_qubos(B, dev)
+    seed = draw_seed(torch.Generator().manual_seed(15))
+    wide_cuda.reset_launch_counts()
+    got = _kernel_groups(rule, Q, h_extra, R, S, generator=torch.Generator().manual_seed(15))
+    assert wide_cuda.launch_counts["anneal_wide_sparse"] == 1
+    hv = tuple(torch.as_tensor(a, device=dev) for a in sa_torch.philox_variates(seed, G, B, R, n, S))
+    assert _differ(got, _plain_groups(rule, Q, h_extra, R, S, hv)) <= MAX_DIFF_FRAC
+
+
+@pytest.mark.parametrize("n", [2, 5, 8])
+def test_forced_wide_sparse_path_matches_oracle(dev, n):
+    """The sparse path forced at narrow widths on its own Philox draws: the
+    oracle bounds of K1 (Metropolis, cold beta) and K2 (pair heat-bath,
+    beta 1)."""
+    Q = random_qubo_batch(np.random.default_rng(0), 1, n, scale=0.5).to(dev)
+    wide_cuda.reset_launch_counts()
+    s = _forced_wide(Q, 512, 200, wide_cuda.METROPOLIS, torch.Generator().manual_seed(n),
+                     field_pass=wide_cuda.SPARSE)
+    _, cold = default_beta_range(Q[0])
+    _, _, marg, _ = exact_boltzmann(Q[0], beta=float(cold))
+    assert torch.allclose(s[0].mean(0), marg, atol=0.12)
+    Q = torch.as_tensor(np.triu(np.random.default_rng(11).uniform(-1, 1, (1, n, n)))
+                        .astype(np.float32), device=dev)
+    s = _forced_wide(Q, 2048, 64, wide_cuda.PAIR, torch.Generator().manual_seed(4),
+                     field_pass=wide_cuda.SPARSE)[0]
+    _, _, marg, pair_m = exact_boltzmann(Q[0], beta=1.0)
+    assert torch.allclose(s.mean(0), marg, atol=0.05)
+    assert torch.allclose(s.T @ s / 2048, pair_m, atol=0.07)
+    assert wide_cuda.launch_counts["anneal_wide_sparse"] == 2
+    assert sum(wide_cuda.launch_counts.values()) == 2
+
+
+def test_forced_sparse_path_refuses_lists_that_do_not_fit(dev):
+    """A dense J_g's row lists exceed a block: forcing the sparse path
+    raises, and nothing is launched in its place."""
+    G, B, R, S, n = 1, 1, 4, 2, 717
+    Q, h_extra = _structured(np.random.default_rng(9), G, B, n, dev)
+    J, h, hot, logr = _structured_form(Q, h_extra, S)
+    wide_cuda.reset_launch_counts()
+    with pytest.raises(ValueError, match="do not fit"):
+        wide_cuda.launch(J, h, hot, logr, R, S, wide_cuda.METROPOLIS,
+                         field_pass=wide_cuda.SPARSE)
+    assert sum(wide_cuda.launch_counts.values()) == 0

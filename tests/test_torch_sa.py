@@ -103,8 +103,8 @@ def test_fits_shared_is_the_boundary_of_the_anneal_kernels():
     assert torch.equal(got, sa_torch.sa_sample_batch_plain(T(Q), 2, 2,
                                                            host_variates=(T(init01), T(u))))
     assert sa_cuda.launch_counts == {"sa_metropolis": 0}
-    assert wide_cuda.launch_counts == {"anneal_wide": 0, "anneal_wide_global": 0,
-                                       "anneal_wide_global_sparse": 0}
+    assert wide_cuda.launch_counts == {"anneal_wide": 0, "anneal_wide_sparse": 0,
+                                       "anneal_wide_global": 0, "anneal_wide_global_sparse": 0}
 
 
 @pytest.mark.parametrize("B,n,R,S", [
