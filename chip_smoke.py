@@ -24,8 +24,9 @@ PT call) and ``pt_wide`` (J_g streamed in tiles: dense QUBOs); a ladder of
 more rungs than a block holds spreads over a thread block cluster.  K1 and K2 each run a thread a
 chain (THREAD, n ≤ ``kernel_call.THREAD_MAX_N``), 4, 8 or 16 lanes a chain
 (GROUP) or a warp a chain (LANES), by one rule (``kernel_call.chain_layout``);
-K3 a rung a thread or a rung a warp (``pt_cuda.pt_layout``).  Phases (any
-failure exits nonzero; nothing carries on after one):
+K3 a rung a thread (n ≤ 32), a rung on 4, 8 or 16 lanes (GROUP) or a rung a
+warp (``pt_cuda.pt_layout``).  Phases (any failure exits nonzero; nothing
+carries on after one):
 
 1. device: the GPU's name, ``nvidia-smi`` name and power limit, torch and nvcc versions;
 2. build: the kernels from ``qbmx_torch/csrc``, one ``nvcc`` per source at once (seconds);
@@ -45,6 +46,13 @@ failure exits nonzero; nothing carries on after one):
    n=6, M=8 rungs) at R=1000, S=100 and at the main path's S=1000 with
    R=100, and (a rung a warp)
    beyond the first design's M·n ≤ 2048 at B=4, n=241, M=12, R=32, S=20;
+   K3 past n = 8 (``pt_layouts_check``) at the flat PT h8 call (120
+   problems, n=9, M=8; R=100 S=100 and R=1000 S=20), the CDQBM (b) PT call
+   (B=6, n=41) and its 10-seed sweep's (B=60), both R=100 S=100, at n = 32
+   and 33 and at M = 4, 8, 16, 32 (n=12): every layout that takes the call
+   forced and the one the rule picks (through the sampler's entry), and
+   GROUP against a rung a warp forced on the same draws, samples equal bit
+   for bit;
    K4 Metropolis and pair at the CDQBM probabilistic-pooling shape (G=2,
    B=20, n=717, R=100, S=10), on its dense entry (B=32, n=717) and at the
    widest n the rule gives its shared layout (n=1056, R=200, S=2); K4's
@@ -74,13 +82,14 @@ failure exits nonzero; nothing carries on after one):
 4. the kernels' own Philox streams: vs the exact Boltzmann oracle (K1
    marginals within 0.12 at the cold beta, each layout of K1 forced, and
    at n = 12 with the anneal ending at beta 1; K2 at each layout, also at
-   n = 12, and K3 at each layout within 0.08 single / 0.05 pair and quad,
+   n = 12, and K3 at each layout, at n = 5 and 12, within 0.08 single /
+   0.05 pair and quad,
    pair moments within 0.07, at beta 1), decorrelated chains, per-problem
    streams, and
    the plain versions driven by those same draws written out on the host
    (``sa_torch.philox_variates``, ``sa_torch.pt_philox_variates``; the 1%
    bound of phase 3; K1 and K2 at every layout, at n = 6 and at
-   THREAD_MAX_N; K3 in both layouts); K4 launched directly (past
+   THREAD_MAX_N; K3 at each layout at n = 6 and 9); K4 launched directly (past
    the routing) against the oracle at n in (2, 5, 8), and on its own Philox
    draws at the CDQBM shape (S=3); the incremental fields of K4 after the
    main path's S=1000 at the CDQBM (a) shape and of K2's GROUP and LANES
@@ -158,7 +167,12 @@ failure exits nonzero; nothing carries on after one):
    rule moved (the search's SA and BMS h8 calls, the warm start's, the
    CDQBM (b) sweep's; S=1000, random QUBOs): the rule's layout against
    the earlier rule's (``parent_lanes``) forced, in turns, beside the
-   bound;
+   bound; and (``pt_layout_times``) K3 at the users' calls past n = 8
+   (``PT_TIMING_CALLS``: the flat PT h8 call and its 10-seed sweep's,
+   ``qm.main``'s PT call, the CDQBM (b) PT call and its sweep's; S=1000,
+   the h8 sweep's turns at 100): every layout that takes the call forced,
+   in turns, the rule's against the fastest and a rung a warp, beside the
+   plain version (S=100) and the bound;
 7. the RBM family (``rbm_phase``; no kernel of its own, its products are
    cuBLAS matmuls): ``qbmx_torch.cli.rbm_main.main`` on ``cuda`` at its
    defaults (discriminative, H=9, bs7, lr 0.0871) on synthetic data, cut
@@ -299,11 +313,12 @@ failure exits nonzero; nothing carries on after one):
    (``H8_ROUTE``);
 12. the seed bands (``band_phase``; North-star check 3 for every route by
    which a kernel trains): each setting of ``qbmx_torch/cli/bands.py``
-   (the flat model at H = 2 with SA, BMS and PT; at H = 8, n = 9, with SA
-   and BMS; the CDQBM (b), n = 41, with SA and BMS; at H = 300, n = 301,
-   with SA, BMS and PT) trains the port's 10-seed sweep through its CLI on
+   (the flat model at H = 2 with SA, BMS and PT; at H = 8, n = 9, with SA,
+   BMS and PT; the CDQBM (b), n = 41, with SA, BMS and PT; at H = 300,
+   n = 301, with SA, BMS and PT) trains the port's 10-seed sweep through its CLI on
    ``cuda`` and its control at a tenth of the learning rate; each run launches its kernel once a sampler call
-   and nothing else (K1, K2 pair, K3, K4, K5's dense path), one call a
+   and nothing else (K1, K2 pair, K3 a rung a thread and on lanes, K4,
+   K5's dense path), one call a
    step plus the validation calls, every call on the route the layout
    rules name (``BAND_ROUTES``); the sweep must lie within ``qbmx``'s
    committed band (``out/bands/<setting>/qbmx/``) by
@@ -1254,6 +1269,137 @@ def chain_layout_times(dev, rng, smi: str) -> dict:
     return out
 
 
+
+# K3's calls past n = 8 (phase 3), held against plain at every layout that
+# takes them: label -> (B, M, R, n, S)
+PT_LAYOUT_CALLS = {
+    "the flat PT h8 call": (120, 8, 100, 9, 100),
+    "the flat PT h8 call, all reads": (120, 8, 1000, 9, 20),
+    "the CDQBM (b) PT call": (6, 8, 100, 41, 100),
+    "the CDQBM (b) PT sweep call": (60, 8, 100, 41, 100),
+    "n=32": (20, 8, 100, 32, 50),
+    "n=33": (20, 8, 100, 33, 50),
+    **{f"M={M}": (20, M, 100, 12, 50) for M in (4, 8, 16, 32)},
+}
+
+
+def pt_layouts_check(dev, rng) -> tuple[dict, list]:
+    """Phase 3: K3 at ``PT_LAYOUT_CALLS``, each layout that takes the call
+    forced and the layout the rule picks (through the sampler's entry),
+    against the plain version under the same host variates (the 1% bound);
+    GROUP (4, 8, 16 lanes a rung) against WARP (a rung a warp) forced on
+    the same draws, samples equal bit for bit.  Returns the records and
+    (differing, max_abs_err) pairs."""
+    from qbmx_torch.core.qubo import random_qubo_batch
+    from qbmx_torch.samplers import launches as launches_mod
+    from qbmx_torch.samplers import pt_cuda, tempering
+
+    rec, pairs = {}, []
+    for label, (B, M, R, n, S) in PT_LAYOUT_CALLS.items():
+        Q = random_qubo_batch(rng, B, n).to(dev)
+        hv = pt_hv(rng, B * M, R, n, S, dev)
+        plain = tempering.pt_sample_batch_plain(Q, R, S, num_replicas=M, host_variates=hv)
+        shape = f"B={B} M={M} R={R} n={n} S={S}"
+        outs, fracs = {}, {}
+        for L in pt_cuda.LAYOUTS:
+            if n > pt_cuda.max_n(L) or (L == pt_cuda.RUNG and M > pt_cuda.RUNG_MAX_M):
+                continue
+            outs[L] = pt_cuda.pt_sample_batch_cuda(Q, R, S, num_replicas=M, host_variates=hv,
+                                                   _layout=L)
+            route = pt_cuda.pt_layout(B, M, R, n, L).route
+            fracs[L], err = compare(outs[L], plain, f"K3 at {label} {shape}, {route} (forced)")
+            pairs.append((fracs[L], err))
+        picked = pt_cuda.pt_layout(B, M, R, n)
+        launches_mod.reset()
+        got = pt_cuda.pt_sample_batch_cuda(Q, R, S, num_replicas=M, host_variates=hv)
+        torch.cuda.synchronize()
+        check(launches_mod.counts() == {"pt_heatbath": 1},
+              f"K3 at {label}: the sampler's entry launched {launches_mod.counts()}")
+        pairs.append(compare(got, plain, f"K3 at {label} {shape}, {picked.route} (the rule's)"))
+        check(torch.equal(got, outs[picked.lanes]),
+              f"K3 at {label}: the sampler's entry and {picked.route} forced differ")
+        equal = [L for L in pt_cuda.GROUP_LANES if L in outs]
+        for L in equal:
+            check(torch.equal(outs[L], outs[pt_cuda.WARP]),
+                  f"K3 at {label}: {L} lanes a rung and a rung a warp differ on the same draws")
+        print(f"phase 3 K3 at {label} {shape}: GROUP at {equal} lanes a rung equals a rung a warp "
+              f"bit for bit; the rule picks {picked.route}", flush=True)
+        rec[label] = {"B": B, "M": M, "R": R, "n": n, "S": S, "picked_lanes": picked.lanes,
+                      "route": picked.route, "differing_chains_by_lanes": fracs,
+                      "group_equal_to_warp": equal}
+        del Q, hv, plain, outs, got
+        torch.cuda.empty_cache()
+    return rec, pairs
+
+
+# phase 6: K3 at the users' calls past n = 8 (PERF.md §6): label -> (B, M, R,
+# n, S of the turns); the sweep's turns are cut to 100 sweeps (a rung a warp
+# takes seconds there), its rule's layout also timed at 1000
+PT_TIMING_CALLS = {
+    "the flat PT h8 call": (120, 8, 1000, 9, 1000),
+    "the flat PT h8 sweep call": (1200, 8, 1000, 9, 100),
+    "qm.main's PT call": (20, 8, 100, 11, 1000),
+    "the CDQBM (b) PT call": (6, 8, 100, 41, 1000),
+    "the CDQBM (b) PT sweep call": (60, 8, 100, 41, 1000),
+}
+PT_PLAIN_S = 100  # phase 6: the plain version's depth at those calls
+# the route pt_cuda.pt_layout gives each (phase 3 checks it)
+PT_USER_ROUTES = {
+    "the flat PT h8 call": "a rung a thread",
+    "the flat PT h8 sweep call": "a rung a thread",
+    "qm.main's PT call": "a rung a thread",
+    "the CDQBM (b) PT call": "16 lanes a rung",
+    "the CDQBM (b) PT sweep call": "8 lanes a rung",
+}
+
+
+def pt_layout_times(dev, rng, smi: str) -> dict:
+    """Phase 6: each of ``PT_TIMING_CALLS`` in Philox mode on random QUBOs,
+    every layout that takes the call forced, in turns (a rotation through
+    the layouts and back, each turn a median of 2 CUDA-event runs after a
+    warm-up): the rule's layout against the fastest and against a rung a
+    warp, beside the plain version's time at ``PT_PLAIN_S`` sweeps and the
+    bound (``roofline.anneal_bound`` from K3's decisions alone).  A record,
+    not a gate: times move up to 16% between calls (PERF.md §6)."""
+    from qbmx_torch.core.qubo import random_qubo_batch
+    from qbmx_torch.samplers import pt_cuda, tempering
+    from qbmx_torch.utils.roofline import anneal_bound
+
+    out = {}
+    for label, (B, M, R, n, S) in PT_TIMING_CALLS.items():
+        Q = random_qubo_batch(rng, B, n).to(dev)
+        picked = pt_cuda.pt_layout(B, M, R, n)
+        run = lambda L, S=S: pt_cuda.pt_sample_batch_cuda(Q, R, S, num_replicas=M,
+                                                          generator=gen_of(3), _layout=L)
+        order = [L for L in pt_cuda.LAYOUTS
+                 if n <= pt_cuda.max_n(L) and (L != pt_cuda.RUNG or M <= pt_cuda.RUNG_MAX_M)]
+        turns = {L: [] for L in order}
+        for L in [*order, *reversed(order)]:
+            turns[L].append(cuda_ms(lambda L=L: run(L), runs=2))
+        ms = {L: statistics.mean(v) for L, v in turns.items()}
+        best = min(order, key=ms.get)
+        new_ms, warp_ms = ms[picked.lanes], ms[pt_cuda.WARP]
+        full_ms = new_ms if S == 1000 else cuda_ms(lambda: run(picked.lanes, 1000), runs=3)
+        plain_ms = cuda_ms(lambda: tempering.pt_sample_batch_plain(
+            Q, R, PT_PLAIN_S, num_replicas=M), runs=1)
+        bound = anneal_bound(B, 1, R, n, 1000, decisions=B * M * R * n * 1000)
+        out[label] = {"B": B, "M": M, "R": R, "n": n, "S": S, "lanes": picked.lanes,
+                      "route": picked.route, "turns_ms": {str(L): v for L, v in turns.items()},
+                      "ms": new_ms, "fastest_lanes": best, "over_fastest": new_ms / ms[best],
+                      "warp_ms": warp_ms, "speedup": warp_ms / new_ms, "ms_s1000": full_ms,
+                      "plain_ms": plain_ms, "plain_S": PT_PLAIN_S,
+                      "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
+        print(f"phase 6 K3 layouts: {label} (B={B} M={M} R={R} n={n} S={S}): "
+              + ", ".join(f"{L} lanes {v[0]:.3f}/{v[1]:.3f}" for L, v in turns.items())
+              + f" ms (forced; CUDA events, a rotation there and back, medians of 2); the rule's "
+              f"{picked.route} {new_ms:.3f} ms, {new_ms / ms[best]:.3f}x the fastest ({best} "
+              f"lanes), {warp_ms / new_ms:.2f}x faster than a rung a warp; at S=1000 "
+              f"{full_ms:.3f} ms; plain {plain_ms:.3f} ms at S={PT_PLAIN_S}; bound at S=1000 "
+              f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} "
+              f"({bound['bound_ms'] / full_ms:.1%}); {smi}", flush=True)
+        del Q
+    return out
+
 def layout_turns(dev, smi: str) -> dict:
     """K4's shared and global-field layouts, and K5's dense and global
     paths, each forced on the same call, timed in turns (``in_turns``;
@@ -2097,8 +2243,10 @@ BAND_ROUTES = {
     "flat_pt_h2": ("pt_heatbath", "a rung a thread"),
     "flat_sa_h8": ("sa_metropolis", "a thread a chain"),
     "flat_bms_h8": ("sa_heatbath", "a thread a chain"),
+    "flat_pt_h8": ("pt_heatbath", "a rung a thread"),
     "cdqbm_b_sa": ("sa_metropolis", "8 lanes a chain"),
     "cdqbm_b_bms": ("sa_heatbath", "8 lanes a chain"),
+    "cdqbm_b_pt": ("pt_heatbath", "8 lanes a rung"),
     "flat_sa_h300": ("anneal_wide", "shared layout"),
     "flat_pt_h300": ("pt_wide", "dense path"),
     "flat_bms_h300": ("anneal_wide", "shared layout"),
@@ -2118,8 +2266,7 @@ def band_route(kernel: str, G: int, B: int, R: int, n: int) -> str:
         return f"{wide_cuda.wide_geometry(G, B, R, n).layout} layout"
     route = pt_wide_cuda.pt_route(G, B, PT_RUNGS, R, n)
     if kernel == "pt_heatbath" and route == kernel:
-        kind = pt_cuda.pt_layout(G * B, PT_RUNGS, R, n).kind
-        return "a rung a thread" if kind == pt_cuda.RUNG else "a rung a warp"
+        return pt_cuda.pt_layout(G * B, PT_RUNGS, R, n).route
     if kernel == "pt_wide" and route == kernel:
         return f"{pt_wide_cuda.pt_wide_geometry(G, B, PT_RUNGS, R, n).path} path"
     return f"{route} (not {kernel})"
@@ -2356,11 +2503,13 @@ def main() -> None:
         del hv
     # K3 beyond the one-thread design's M·n ≤ 2048: a rung a warp at n = 241
     SPW = dict(B=4, M=12, n=241, R=32, S=20)  # M·n = 2,892; 30 MB of uniforms
-    pt_layouts = {label: pt_cuda.pt_layout(*shape).kind for label, shape in (
+    pt_layouts = {label: pt_cuda.pt_layout(*shape).route for label, shape in (
         ("flagship", (120, 8, 1000, 6)), ("CLI defaults", (146, 8, 100, 3)),
-        ("n=241 M=12", (SPW["B"], SPW["M"], SPW["R"], SPW["n"])))}
-    check(pt_layouts == {"flagship": pt_cuda.RUNG, "CLI defaults": pt_cuda.RUNG,
-                         "n=241 M=12": pt_cuda.WARP}, f"K3 layouts {pt_layouts}")
+        ("n=241 M=12", (SPW["B"], SPW["M"], SPW["R"], SPW["n"])),
+        *((label, (B, M, R, n)) for label, (B, M, R, n, _) in PT_TIMING_CALLS.items()))}
+    want = {"flagship": "a rung a thread", "CLI defaults": "a rung a thread",
+            "n=241 M=12": "a rung a warp", **PT_USER_ROUTES}
+    check(pt_layouts == want, f"K3 layouts {pt_layouts}, not {want}")
     Qp3 = random_qubo_batch(rng, SPW["B"], SPW["n"]).to(dev)
     BM3, R3, S3, n3 = SPW["B"] * SPW["M"], SPW["R"], SPW["S"], SPW["n"]
     hv = (bits(rng, (BM3, R3, n3), dev), uniforms(rng, (S3, BM3, n3, R3), dev),
@@ -2370,6 +2519,11 @@ def main() -> None:
         tempering.pt_sample_batch_plain(Qp3, R3, S3, num_replicas=SPW["M"], host_variates=hv),
         "K3 B=4 n=241 M=12 R=32 S=20 (M·n = 2892; a rung a warp)"))
     del hv
+    # K3 past n = 8: every layout that takes each call, forced and as the rule
+    # picks it, against plain; GROUP against WARP bit for bit
+    pt_rec, pt_pairs = pt_layouts_check(dev, np.random.default_rng(19))
+    for frac_err in pt_pairs:
+        record("pt_heatbath", frac_err)
 
     # K4 at the CDQBM probabilistic-pooling shape: the K1/K2 wrappers route
     # n = 717 to it (kernel_call.fits_shared), which the counts confirm
@@ -2670,14 +2824,20 @@ def main() -> None:
                 oracle[f"K2 {width} n={n} lanes {lanes}"] = (err, moment)
                 check(err <= bar and moment <= MOMENT_ATOL, f"K2 {width} oracle n={n} at {lanes} "
                       f"lanes a chain: marginals off by {err:.4f}, moments by {moment:.4f}")
-    Q = torch.as_tensor(np.triu(np.random.default_rng(3).uniform(-1.5, 1.5, (1, 5, 5)))
-                        .astype(np.float32), device=dev)
-    for layout, name in ((pt_cuda.RUNG, "a rung a thread"), (pt_cuda.WARP, "a rung a warp")):
-        s = pt_cuda.pt_sample_batch_cuda(Q, 384, 24, num_replicas=4, _layout=layout,
-                                         generator=torch.Generator().manual_seed(0))[0]
-        oracle[f"K3 {name}"] = oracle_error(s, Q[0], joint=False)
-        check(oracle[f"K3 {name}"][0] <= HB_ATOL,
-              f"K3 oracle, {name}: marginals off by {oracle[f'K3 {name}'][0]:.4f}")
+    # K3 at each layout: n = 5 (tests/test_gibbs_pt_pallas_debug.py's problem),
+    # and n = 12 (a rung a thread past n = 8) on 1024 reads
+    for n, reads in ((5, 384), (12, 1024)):
+        Q = torch.as_tensor(np.triu(np.random.default_rng(3).uniform(-1.5, 1.5, (1, n, n)))
+                            .astype(np.float32), device=dev)
+        for layout in pt_cuda.LAYOUTS:
+            if n > pt_cuda.max_n(layout):
+                continue
+            name = f"{pt_cuda.pt_layout(1, 4, reads, n, layout).route} n={n}"
+            s = pt_cuda.pt_sample_batch_cuda(Q, reads, 24, num_replicas=4, _layout=layout,
+                                             generator=torch.Generator().manual_seed(0))[0]
+            oracle[f"K3 {name}"] = oracle_error(s, Q[0], joint=False)
+            check(oracle[f"K3 {name}"][0] <= HB_ATOL,
+                  f"K3 oracle, {name}: marginals off by {oracle[f'K3 {name}'][0]:.4f}")
     # weak couplings and a mild schedule keep the samples diffuse, so equal
     # samples can only come from equal streams
     Qa = random_qubo_batch(rng, 3, 6, scale=0.2).to(dev)
@@ -2741,17 +2901,25 @@ def main() -> None:
                 philox[f"{'K1' if w == 0 else 'K2 ' + width} n={n_p} lanes {lanes}"] = \
                     differing(k_out, p_out)
         del hv
+    # K3 at each layout on its own draws: the flagship PT call (n = 6) and the
+    # flat PT h8 call (n = 9) at 100 reads
     S_pt = 20
-    seed = draw_seed(gen(6))
-    hv = tuple(torch.as_tensor(a, device=dev) for a in sa_torch.pt_philox_variates(
-        seed, SP["B"], SP["M"], SP["R"], SP["n"], S_pt))
-    p_out = tempering.pt_sample_batch_plain(Qpt, SP["R"], S_pt, num_replicas=SP["M"],
-                                            host_variates=hv)
-    for layout, name in ((None, "K3"), (pt_cuda.WARP, "K3 a rung a warp")):
-        k_out = pt_cuda.pt_sample_batch_cuda(Qpt, SP["R"], S_pt, num_replicas=SP["M"],
-                                             generator=gen(6), _layout=layout)
-        philox[name] = differing(k_out, p_out)
-    del hv, k_out, p_out
+    Qh8 = random_qubo_batch(rng, SP["B"], 9).to(dev)
+    for Qp, Rp in ((Qpt, SP["R"]), (Qh8, 100)):
+        n_p = Qp.shape[-1]
+        seed = draw_seed(gen(6))
+        hv = tuple(torch.as_tensor(a, device=dev) for a in sa_torch.pt_philox_variates(
+            seed, SP["B"], SP["M"], Rp, n_p, S_pt))
+        p_out = tempering.pt_sample_batch_plain(Qp, Rp, S_pt, num_replicas=SP["M"],
+                                                host_variates=hv)
+        philox[f"K3 n={n_p}"] = differing(pt_cuda.pt_sample_batch_cuda(
+            Qp, Rp, S_pt, num_replicas=SP["M"], generator=gen(6)), p_out)
+        for layout in pt_cuda.LAYOUTS:
+            route = pt_cuda.pt_layout(SP["B"], SP["M"], Rp, n_p, layout).route
+            k_out = pt_cuda.pt_sample_batch_cuda(Qp, Rp, S_pt, num_replicas=SP["M"],
+                                                 generator=gen(6), _layout=layout)
+            philox[f"K3 n={n_p} {route}"] = differing(k_out, p_out)
+        del hv, k_out, p_out
     S_w = 3
     seed = draw_seed(gen(7))
     hv = tuple(torch.as_tensor(a, device=dev)
@@ -2930,10 +3098,11 @@ def main() -> None:
           f"error {worst:.4f} (limit {ORACLE_ATOL}); K1 at each layout forced {k1_oracle} "
           f"(n = 12: beta 0.1 to 1, the oracle at 1); at beta 1 marginal/moment errors "
           f"{beta1} (limits {HB_ATOL} single and PT, {JOINT_ATOL} pair and quad, moments "
-          f"{MOMENT_ATOL}; K2 at each layout, K3 a rung a thread and a warp); "
+          f"{MOMENT_ATOL}; K2 at each layout, K3 at each layout at n = 5 and 12); "
           f"distinct states of 64 {distinct}; per-problem streams "
           "independent of batch-mates; Philox draws vs plain at G=2 B=60 n=6 R=1000 S=100 "
-          f"(K3: B=120 M=8 S={S_pt}; K4: G=2 B=20 n=717 R=100 S={S_w}): differing chains "
+          f"(K3 at each layout: B=120 M=8 S={S_pt}, n=6 R=1000 and n=9 R=100; K4: G=2 B=20 "
+          f"n=717 R=100 S={S_w}): differing chains "
           f"{philox} (K1 and K2 at each layout: G=2 B=60 n=6 R=1000 S=100 and G=2 B=20 "
           f"n={kernel_call.THREAD_MAX_N} R=100 S=20); K4 forced at n in (2, 5, 8): worst "
           f"oracle errors {worst_wide} (limits "
@@ -3050,6 +3219,7 @@ def main() -> None:
         ("a PT", "pt_wide_sparse", 717, dict(prob, solver="PT", anneal=100)),
         ("b", "sa_metropolis", 41, dict()),
         ("b BMS", "sa_heatbath", 41, dict(solver="BMS")),
+        ("b PT", "pt_heatbath", 41, dict(solver="PT")),  # K3 on 16 lanes (4,800 rungs)
     ):
         for c in counters:
             c.reset_launch_counts()
@@ -3201,6 +3371,59 @@ def main() -> None:
               f"{sweep_s:.3f} s = {sweep_s / 10:.4f} s a seed, against {single_s:.4f} s for a "
               f"single model's ({10 * single_s:.3f} s for ten)")
 
+    # K3 past n = 8 in training: qbm_main --solver PT -hn 8 at the flagship's
+    # widths (the flat PT h8 call, (120, 9, 9) M=8 R=1000: a rung a thread),
+    # qm.main()'s defaults with PT ((20, 11, 11) R=100), and the -hn 8 sweep
+    # (G=20 B=60, anneal cut to 100 for the epoch): K3 once a sampler call and
+    # nothing else, one launch a step (counted apart), every call on the rule's route
+    pt_users = {}
+    for label, kw in (("flat PT h8", dict(n_hidden_nodes=8, sample_count=1000, anneal=1000,
+                                          batch_size=60, learning_rate=0.307, restricted=False)),
+                      ("qm.main PT", dict()),
+                      ("flat PT h8 sweep", dict(n_hidden_nodes=8, sample_count=1000, anneal=100,
+                                                batch_size=60, learning_rate=0.307,
+                                                restricted=False, seed_sweep=seeds10))):
+        with tempfile.TemporaryDirectory() as tmp:
+            for c in counters:
+                c.reset_launch_counts()
+            t0 = time.perf_counter()
+            qm.main(device="cuda", data_set="synthetic", epochs=1, solver="PT",
+                    save=f"{tmp}/" if "seed_sweep" in kw else "", **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = {k: v for c in counters for k, v in c.launch_counts.items()}
+        model = sweeps[-1] if "seed_sweep" in kw else made[-1]
+        bs = kw.get("batch_size", 10)  # qm.main's default: 10
+        n_u = kw.get("n_hidden_nodes", 10) + 1
+        G = 20 if "seed_sweep" in kw else 2
+        steps_pt = math.ceil(600 / bs)
+        route = pt_cuda.pt_layout(G * bs, PT_RUNGS, model.sample_count, n_u).route
+        check(counts == {**{k: 0 for k in counts}, "pt_heatbath": counts["pt_heatbath"]}
+              and counts["pt_heatbath"] >= steps_pt + 1,
+              f"{label}: launch counts {counts} for {steps_pt} steps and the predictions")
+        if "seed_sweep" in kw:
+            check(model.sampler.calls == [(20, 60, n_u)] * steps_pt + [(10, 100, n_u)],
+                  f"{label}: sampler calls {model.sampler.calls}")
+            nlls = [v for h in model.histories for v in h.nll_per_batch]
+        else:
+            nlls = model.training_history.nll_per_batch
+        check(len(nlls) >= steps_pt and all(map(math.isfinite, nlls)), f"{label}: nll {nlls[:4]}")
+        xb, yb_, mb_ = x[:bs], y[:bs], mask[:bs]
+        pt_cuda.reset_launch_counts()
+        model._step(xb, yb_, mb_, 0.307)
+        torch.cuda.synchronize()
+        check(pt_cuda.launch_counts["pt_heatbath"] == 1,
+              f"{label}: a step launched K3 {pt_cuda.launch_counts['pt_heatbath']} times")
+        ms = cuda_ms(lambda: model._step(xb, yb_, mb_, 0.307), runs=3)
+        pt_users[label] = {"launches_an_epoch": counts["pt_heatbath"], "launches_a_step": 1,
+                           "steps": steps_pt, "route": route, "step_ms": ms, "wall_s": wall,
+                           "anneal": kw.get("anneal", 1000)}
+        print(f"phase 5 K3 past n = 8, {label}: qbm_main --solver PT cuda synthetic "
+              f"H={n_u - 1} sc{model.sample_count} anneal{kw.get('anneal', 1000)} bs{bs} e1: "
+              f"{steps_pt} steps, pt_heatbath launched {counts['pt_heatbath']} times an epoch "
+              f"and once a step ({route}), nothing else; step {ms:.3f} ms (CUDA events, median "
+              f"of 3), wall {wall:.2f} s")
+
     # the 10-seed CDQBM sweeps: cdqbm_main --seed_sweep 0..9, one sampler
     # launch a step for all ten seeds. CDQBM (a) (n = 717): G=20 groups of
     # B=20 on K4 (SA, BMS) or K5's sparse path (PT), the anneal cut for the
@@ -3245,7 +3468,9 @@ def main() -> None:
             ("a", "BMS", "anneal_wide_sparse", 20, 717, 20, cdqbm_a),
             ("a", "PT", "pt_wide_sparse", 10, 717, 20, cdqbm_a),
             ("b", "SA", "sa_metropolis", 1000, 41, 3, {}),
-            ("b", "BMS", "sa_heatbath", 1000, 41, 3, {})):
+            ("b", "BMS", "sa_heatbath", 1000, 41, 3, {}),
+            # K3 on lanes (n = 41, 48,000 rungs), the anneal cut for the epoch
+            ("b", "PT", "pt_heatbath", 100, 41, 3, {})):
         steps = math.ceil(600 / bs)
         with tempfile.TemporaryDirectory() as tmp:
             for c in counters:
@@ -3310,7 +3535,23 @@ def main() -> None:
               f"{len(sweep_steps)}) = {rec['seed_step_ms']:.3f} ms a seed against a single "
               f"model's step of {single_ms:.3f} ms at the same anneal (median of 3)")
 
-        if label == "b":
+        if (label, solver) == ("b", "PT"):
+            # K3 at the sweep's call, (60, 41, 41) densified from its own step
+            # QUBOs, against the plain version under host variates (S=100)
+            Qb = densify_groups(*sweep_qubos["b PT"])
+            hv = pt_hv(rng, 60 * PT_RUNGS, 100, n_total, 100, dev)
+            launches_mod.reset()
+            out = pt_cuda.pt_sample_batch_cuda(Qb, 100, 100, num_replicas=PT_RUNGS,
+                                               host_variates=hv)
+            torch.cuda.synchronize()
+            check(launches_mod.counts() == {"pt_heatbath": 1},
+                  f"{tag}: the G=20 call launched {launches_mod.counts()}")
+            record("pt_heatbath", compare(out, tempering.pt_sample_batch_plain(
+                Qb, 100, 100, num_replicas=PT_RUNGS, host_variates=hv),
+                f"K3 B=60 n=41 M=8 R=100 S=100 (the 10-seed CDQBM (b) PT sweep's step QUBOs, "
+                f"densified; {pt_cuda.pt_layout(60, PT_RUNGS, 100, 41).route})", phase=5))
+            del hv, out
+        elif label == "b":
             # K1 (SA) or K2 pair (BMS) at G=20 B=3 on the sweep's own step
             # QUBOs, against the plain version under host variates (S cut
             # to 100), with the layout the rule picks at that call
@@ -3508,6 +3749,7 @@ def main() -> None:
     # -- 6. kernel and plain times, generator mode -----------------------------
     clock(6)
     layout_times = chain_layout_times(dev, np.random.default_rng(18), smi)
+    pt_times = pt_layout_times(dev, np.random.default_rng(20), smi)
     g1 = torch.Generator().manual_seed(1)
     Qcli = random_qubo_batch(rng, 146, 3).to(dev)  # the flat CLI defaults' PT call, densified
     times = {}
@@ -3775,7 +4017,12 @@ def main() -> None:
          "cli_defaults_plain_ms": t("K3 CLI defaults")[1],
          "cli_defaults_bound_ms": bounds["pt_heatbath CLI defaults"]["bound_ms"],
          "bms_search_launches": search_launches("pt_heatbath"),
-         "bms_search_call": scripts_rec["search_calls"]["pt_heatbath"]},
+         "bms_search_call": scripts_rec["search_calls"]["pt_heatbath"],
+         "layout_checks": pt_rec, "users_calls": pt_times, "users_training": pt_users,
+         "cdqbm_b_launches": cdqbm_launches["b PT"]["pt_heatbath"],
+         "cdqbm_b_sweep_launches": csweep_rec["b PT"]["launches"],
+         "band_launches": {s_: band_rec["settings"][s_]["band"]["launches"]
+                           for s_ in ("flat_pt_h2", "flat_pt_h8", "cdqbm_b_pt")}},
         {"name": "anneal_wide", "route": "cuda", "source": "qbmx_torch/csrc/anneal_wide.cu",
          "replaces": "qbmx/samplers/sa_lane.py:144",
          "also_replaces": "qbmx/samplers/sa_pallas.py:196",

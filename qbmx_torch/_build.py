@@ -67,7 +67,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # vals, cols, offsets, units, h, hot, logr, init01, uniforms, out, fields_out, flips,
         # nnz_pad, G, B, R, n, S, inv_span, seed, rule, chains, stream
         "qbmx_anneal_wide_sparse": [p] * 12 + [i] * 6 + [f, u64, i, i, p],
-        # J, h, betas, dbeta, init01, uniforms, swap_u, out, B, M, R, n, S, seed, layout,
+        # J, h, betas, dbeta, init01, uniforms, swap_u, out, B, M, R, n, S, seed, lanes,
         # stream
         "qbmx_pt_heatbath": [p] * 8 + [i] * 5 + [u64, i, p],
         # J, row_nnz, h, betas, dbeta, init01, uniforms, swap_u, out, states_out,
@@ -93,7 +93,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         getattr(lib, name).restype = i
     lib.qbmx_anneal_wide_smem.argtypes = [i, i]  # n, chains
     lib.qbmx_anneal_wide_sparse_smem.argtypes = [i, i, i]  # n, chains, nnz_pad
-    lib.qbmx_pt_heatbath_smem.argtypes = [i, i, i]  # layout, n, M
+    lib.qbmx_pt_heatbath_smem.argtypes = [i, i, i]  # lanes, n, M
     lib.qbmx_pt_wide_smem.argtypes = [i, i]  # n, warps
     lib.qbmx_pt_wide_sparse_smem.argtypes = [i, i, i]  # n, warps, nnz_pad
     for name, argtypes in (("qbmx_pt_wide_max_rungs", [i]),  # n

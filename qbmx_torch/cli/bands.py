@@ -56,8 +56,10 @@ SETTINGS: dict[str, tuple[str, tuple[str, ...]]] = {
     "flat_pt_h2": ("qbm_main", _FLAT + ("-hn", "2", "-e", "4", "--solver", "PT")),
     "flat_sa_h8": ("qbm_main", _FLAT + ("-hn", "8", "-e", "4")),
     "flat_bms_h8": ("qbm_main", _FLAT + ("-hn", "8", "-e", "4", "--solver", "BMS")),
+    "flat_pt_h8": ("qbm_main", _FLAT + ("-hn", "8", "-e", "4", "--solver", "PT")),
     "cdqbm_b_sa": ("cdqbm_main", _CDQBM_B),
     "cdqbm_b_bms": ("cdqbm_main", _CDQBM_B + ("--solver", "BMS")),
+    "cdqbm_b_pt": ("cdqbm_main", _CDQBM_B + ("--solver", "PT")),
     "flat_sa_h300": ("qbm_main", _FLAT_H300 + ("-sc", "16", "--anneal", "20")),
     # PT costs about M = 8 times SA: cut to 8 reads of 10 sweeps to keep qbmx's
     # CPU reference under half an hour

@@ -3,8 +3,9 @@ on one GPU, in one process, in turns (old, new, new, old): K5
 (``pt_wide.cu``) and K4 (``anneal_wide.cu``) against commit 492df98 (K5
 streaming J_g in tiles, whole ladders a block; K4 before its per-row work
 counter), and K4's and K5's global-field layouts against commit 210c6d7
-(before their windows and sparse field pass); and K4's shared layout's
-two paths against each other.
+(before their windows and sparse field pass); K4's shared layout's two
+paths against each other; and the layouts of K1, K2 and K3 against each
+other.
 
     mkdir -p build/old && git archive 492df98 qbmx_torch/csrc | tar -x -C build/old
     python -m qbmx_torch.cli.compare_kernels --old build/old/qbmx_torch/csrc --parts k5 k4
@@ -12,6 +13,10 @@ two paths against each other.
     python -m qbmx_torch.cli.compare_kernels --parent build/old/210c6d7/qbmx_torch/csrc \
         --parts split global density split_new
     python -m qbmx_torch.cli.compare_kernels --parts sparse_shared sparse_density sparse_split
+    python -m qbmx_torch.cli.compare_kernels --parts pt_layouts --runs 3
+    mkdir -p build/old/2871102 && git archive 2871102 qbmx_torch/csrc | tar -x -C build/old/2871102
+    python -m qbmx_torch.cli.compare_kernels --pt_parent build/old/2871102/qbmx_torch/csrc \
+        --parts pt_parent
 
 Each old library is declared with its commit's C interface, so the tool
 compares against those commits' sources only; they are built with the
@@ -34,8 +39,18 @@ default):
   Philox mode), in turns (a rotation through the layouts and back), from a
   build of K1 and K2 whose THREAD layout reaches n = ``THREAD_WIDE``
   (``-DQBMX_THREAD_MAX_N``, into ``build/kernels_thread_wide/``): the
-  measurements ``kernel_call.chain_layout``'s boundaries rest on; then K3's
-  two layouts at the flagship PT call;
+  measurements ``kernel_call.chain_layout``'s boundaries rest on;
+* ``pt_layouts``: K3's layouts (a rung a thread, on 4, 8 or 16 lanes, a
+  rung a warp), each forced, at every n of ``PT_LAYOUT_NS`` and call of
+  ``PT_LAYOUT_CALLS`` (M = 8 at 4,800 to 960,000 rungs, and M = 4 and 16;
+  S = ``LAYOUT_S``, Philox mode), in turns: the measurements
+  ``pt_cuda.pt_layout``'s boundaries rest on, the fastest layout and the
+  rule's pick at each;
+* ``pt_parent``: K3 a rung a thread at n ≤ 8 from commit 2871102's
+  ``pt_heatbath.cu`` (before its layouts past n = 8) against this tree's,
+  in turns, at the flagship PT call, the flat CLI defaults', the search's
+  PT h5 call and the flagship sweep's (``PT_PARENT_CALLS``), with both
+  samples compared bit for bit on one seed;
 * ``k4_agreement``: K4's agreement with plain at ``tests/test_torch_cuda.py``'s
   deep shape (n = 301, S = 70, heat-bath at beta 1.5; G=1, B=4, R=500,
   three seeds), this K4 against this K4 built with
@@ -95,14 +110,24 @@ from qbmx_torch import _build
 from qbmx_torch.core.qubo import random_qubo_batch, split_qubo
 from qbmx_torch.models.cdqbm import cdqbm_a_qubos
 from qbmx_torch.models.dqbm import DiscQBM
-from qbmx_torch.samplers import gibbs, kernel_call, pt_cuda, pt_wide_cuda, sa_torch, wide_cuda
+from qbmx_torch.core.rng import draw_seed
+from qbmx_torch.samplers import (gibbs, kernel_call, pt_cuda, pt_wide_cuda, sa_torch, tempering,
+                                 wide_cuda)
 from qbmx_torch.utils.roofline import anneal_bound, heatbath_units
 
-PARTS = ("k5", "k4", "layouts", "k4_agreement", "split", "global", "density", "split_new",
-         "sparse_shared", "sparse_density", "sparse_split")
+PARTS = ("k5", "k4", "layouts", "pt_layouts", "pt_parent", "k4_agreement", "split", "global",
+         "density", "split_new", "sparse_shared", "sparse_density", "sparse_split")
 OLD_PARTS = ("k5", "k4", "k4_agreement")  # the parts that build 492df98's sources (--old)
 PARENT = "210c6d7"  # the global layouts before their redesign
 PARENT_PARTS = ("split", "global")  # the parts that build its sources (--parent)
+PT_PARENT = "2871102"  # K3 before its layouts past n = 8 (--pt_parent, part pt_parent)
+# the pt_parent part's calls, K3 a rung a thread at n ≤ 8 in both: label -> (B, M, R, n, S)
+PT_PARENT_CALLS = {
+    "the flagship PT call": (120, 8, 1000, 6, 1000),
+    "the flat CLI defaults' PT call": (146, 8, 100, 3, 1000),
+    "the search's PT h5 call": (400, 8, 1000, 6, 128),
+    "the flagship PT sweep call": (1200, 8, 1000, 6, 1000),
+}
 # the global part's shapes past the H=3400 calls: label -> (G, B, R, M, n, S), 256 chains
 GLOBAL_WIDE = {"n=4096": (1, 2, 128, 16, 4096, 5), "n=8192": (1, 2, 128, 16, 8192, 5)}
 DENSITIES = (0.005, 0.01, 0.02, 0.04, 0.08)  # the density part's J_g, at n = 3401
@@ -130,6 +155,16 @@ LAYOUT_CHAINS = {  # chains: (G, B, R) of the layouts part
 }
 LAYOUT_S = 100
 THREAD_WIDE = 48  # the layouts part's THREAD bound
+PT_LAYOUT_NS = (3, 6, 8, 9, 11, 12, 16, 24, 32, 41, 64)  # the pt_layouts part's widths
+PT_LAYOUT_CALLS = {  # (M, rungs): (B, R) of the pt_layouts part
+    (8, 4_800): (6, 100),  # the CDQBM (b) PT call
+    (8, 16_000): (20, 100),  # qm.main's PT call
+    (8, 48_000): (60, 100),  # the CDQBM (b) PT sweep's call
+    (8, 153_600): (1200, 16),  # a 10-seed flat sweep's call at the bands' reads
+    (8, 960_000): (120, 1000),  # the flat PT h8 call at the flagship's reads
+    (4, 16_000): (40, 100), (4, 48_000): (120, 100),
+    (16, 16_000): (10, 100), (16, 48_000): (30, 100),
+}
 K4_AGREE = dict(G=1, B=4, n=301, R=500, S=70, beta=1.5, seeds=(0, 1, 2))
 RULES = {"Metropolis": 0, "single": 1, "pair": 2, "quad": 4}
 
@@ -376,20 +411,99 @@ def time_layouts(runs, dev) -> dict:
             print(f"  n={n:3d}: " + " ".join(
                 f"{records[f'{kernel} n={n} chains={c}']['best_lanes']:>3d}"
                 for c in LAYOUT_CHAINS))
+    return records
+
+
+def pt_layouts_at(n: int, M: int) -> list[int]:
+    """K3's layouts (lanes a rung) that take width n and M rungs."""
+    return [L for L in pt_cuda.LAYOUTS
+            if n <= pt_cuda.max_n(L) and (L != pt_cuda.RUNG or M <= pt_cuda.RUNG_MAX_M)]
+
+
+def time_pt_layouts(runs, dev) -> dict:
+    """K3's layouts, each forced, at every n of ``PT_LAYOUT_NS`` and call
+    of ``PT_LAYOUT_CALLS`` (S = ``LAYOUT_S``, Philox mode, random QUBOs),
+    in turns (a rotation through the layouts and back): the measurements
+    ``pt_cuda.pt_layout``'s boundaries rest on, with the rule's pick beside
+    the fastest."""
+    records = {}
     gen = lambda: torch.Generator().manual_seed(7)
-    B, M, n, R, S = 120, 8, 6, 1000, 1000
-    Q = random_qubo_batch(np.random.default_rng(2024), B, n).to(dev)
-    run = {kind: (lambda kind=kind: pt_cuda.pt_sample_batch_cuda(
-        Q, R, S, num_replicas=M, generator=gen(), _layout=kind))
-        for kind in (pt_cuda.RUNG, pt_cuda.WARP)}
-    rung_ms, warp_ms = turns(run[pt_cuda.RUNG], run[pt_cuda.WARP], runs)
-    chosen = pt_cuda.pt_layout(B, M, R, n).kind
-    label = f"K3 flagship B={B} n={n} M={M} R={R} S={S}"
-    records[label] = {"rung_ms": rung_ms, "warp_ms": warp_ms, "chosen_kind": chosen}
-    print(f"{label}: a rung a thread {rung_ms[0]:.3f} / {rung_ms[1]:.3f} ms, a rung a warp "
-          f"{warp_ms[0]:.3f} / {warp_ms[1]:.3f} ms (CUDA events, median of {runs} each, turns "
-          f"rung warp warp rung); pt_layout chooses {'RUNG' if chosen == pt_cuda.RUNG else 'WARP'}",
-          flush=True)
+    for (M, rungs), (B, R) in PT_LAYOUT_CALLS.items():
+        for n in PT_LAYOUT_NS:
+            S = LAYOUT_S
+            Q = random_qubo_batch(np.random.default_rng(2024), B, n).to(dev)
+            order = pt_layouts_at(n, M)
+            run = {L: (lambda L=L: pt_cuda.pt_sample_batch_cuda(
+                Q, R, S, num_replicas=M, generator=gen(), _layout=L)) for L in order}
+            ms = {L: [] for L in order}
+            for L in [*order, *reversed(order)]:
+                ms[L].append(median_ms(run[L], runs))
+            chosen = pt_cuda.pt_layout(B, M, R, n).lanes
+            best = min(order, key=lambda L: sum(ms[L]))
+            ratio = sum(ms[chosen]) / sum(ms[best])
+            records[f"K3 M={M} rungs={rungs} n={n}"] = {
+                "n": n, "M": M, "rungs": rungs, "B": B, "R": R, "S": S,
+                "ms": {str(L): ms[L] for L in order}, "best_lanes": best,
+                "chosen_lanes": chosen, "chosen_over_best": ratio}
+            print(f"K3 M={M} rungs={rungs} n={n} (B={B} R={R} S={S}): "
+                  + ", ".join(f"{L} lanes {ms[L][0]:.3f}/{ms[L][1]:.3f}" for L in order)
+                  + f" ms; best {best}, pt_layout {chosen} ({ratio:.3f}x)", flush=True)
+            del Q
+    for M, rungs in PT_LAYOUT_CALLS:  # the best layout at each n and the rule's pick
+        print(f"K3 M={M} rungs={rungs}: best lanes a rung / pt_layout's, by n")
+        print("  " + " ".join(
+            f"n={n}:{records[f'K3 M={M} rungs={rungs} n={n}']['best_lanes']}"
+            f"/{records[f'K3 M={M} rungs={rungs} n={n}']['chosen_lanes']}" for n in PT_LAYOUT_NS))
+    worst = max(records.values(), key=lambda r: r["chosen_over_best"])
+    print(f"K3: the rule's pick is at most {worst['chosen_over_best']:.3f}x the fastest "
+          f"(M={worst['M']} rungs={worst['rungs']} n={worst['n']})", flush=True)
+    return records
+
+
+def time_pt_parent(parent_csrc: Path, runs: int, dev) -> dict:
+    """K3 a rung a thread from ``PT_PARENT``'s ``pt_heatbath.cu`` (its C
+    interface: the layout 0 for a rung a thread) against this tree's, both
+    launched alone on the same inputs, in turns (parent, new, new, parent),
+    Philox mode on one seed, at ``PT_PARENT_CALLS``; this tree's also
+    through the sampler's wrapper; and their samples, equal bit for bit."""
+    compile_, link = build("kernels_pt_parent", [parent_csrc / "pt_heatbath.cu"])
+    _build._run_all(compile_)
+    _build._run_all([link])
+    lib = ctypes.CDLL(link[link.index("-o") + 1])
+    p, i, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
+    lib.qbmx_pt_heatbath.argtypes = [p] * 8 + [i] * 5 + [u64, i, p]
+    lib.qbmx_pt_heatbath.restype = i
+    records = {}
+    for label, (B, M, R, n, S) in PT_PARENT_CALLS.items():
+        Q = random_qubo_batch(np.random.default_rng(2024), B, n).to(dev)
+        h, J = (t.contiguous() for t in split_qubo(Q))
+        betas, dbeta = tempering.ladder_betas(Q, M)
+        seed = draw_seed(torch.Generator().manual_seed(7))
+        old = torch.empty((B, R, n), device=dev)
+        run_old = lambda: kernel_call.check_rc("parent pt_heatbath", lib.qbmx_pt_heatbath(
+            J.data_ptr(), h.data_ptr(), betas.data_ptr(), dbeta.data_ptr(), None, None, None,
+            old.data_ptr(), B, M, R, n, S, seed, 0, kernel_call.stream(dev)))
+        lanes = pt_cuda.pt_layout(B, M, R, n).lanes
+        new = torch.empty_like(old)
+        run_new = lambda: kernel_call.check_rc("pt_heatbath", _build.load_kernels().qbmx_pt_heatbath(
+            J.data_ptr(), h.data_ptr(), betas.data_ptr(), dbeta.data_ptr(), None, None, None,
+            new.data_ptr(), B, M, R, n, S, seed, lanes, kernel_call.stream(dev)))
+        wrapper = lambda: pt_cuda.pt_sample_batch_cuda(
+            Q, R, S, num_replicas=M, generator=torch.Generator().manual_seed(7))
+        run_old()
+        run_new()
+        same = torch.equal(old, new) and torch.equal(new, wrapper())
+        old_ms, new_ms = turns(run_old, run_new, runs)
+        wrapper_ms = median_ms(wrapper, runs)
+        records[label] = {"B": B, "M": M, "R": R, "n": n, "S": S, "parent_ms": old_ms,
+                          "new_ms": new_ms, "new_lanes": lanes, "wrapper_ms": wrapper_ms,
+                          "samples_equal": same}
+        print(f"K3 {label} (B={B} M={M} R={R} n={n} S={S}): {PT_PARENT}'s a rung a thread "
+              f"{old_ms[0]:.3f} / {old_ms[1]:.3f} ms, this tree's ({lanes} lanes) "
+              f"{new_ms[0]:.3f} / {new_ms[1]:.3f} ms (the kernels alone; CUDA events, median of "
+              f"{runs} each, turns parent new new parent); through the sampler's wrapper "
+              f"{wrapper_ms:.3f} ms; samples equal bit for bit: {same}", flush=True)
+        del Q, h, J, old
     return records
 
 
@@ -943,10 +1057,13 @@ def main(argv=None) -> dict:
                     help=f"qbmx_torch/csrc directory of commit 492df98 (parts {OLD_PARTS})")
     ap.add_argument("--parent", type=Path,
                     help=f"qbmx_torch/csrc directory of commit {PARENT} (parts {PARENT_PARTS})")
+    ap.add_argument("--pt_parent", type=Path,
+                    help=f"qbmx_torch/csrc directory of commit {PT_PARENT} (part pt_parent)")
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--parts", nargs="+", choices=PARTS, default=list(PARTS))
     args = ap.parse_args(argv)
-    for flag, needed in (("old", OLD_PARTS), ("parent", PARENT_PARTS)):
+    for flag, needed in (("old", OLD_PARTS), ("parent", PARENT_PARTS),
+                         ("pt_parent", ("pt_parent",))):
         if getattr(args, flag) is None and set(needed) & set(args.parts):
             ap.error(f"--{flag} is needed for the parts {sorted(set(needed) & set(args.parts))}")
     if not torch.cuda.is_available():
@@ -963,6 +1080,8 @@ def main(argv=None) -> dict:
     for part, run in (("k5", lambda: time_k5(old, args.runs, dev)),
                       ("k4", lambda: time_k4(old, args.runs, dev)),
                       ("layouts", lambda: time_layouts(args.runs, dev)),
+                      ("pt_layouts", lambda: time_pt_layouts(args.runs, dev)),
+                      ("pt_parent", lambda: time_pt_parent(args.pt_parent, args.runs, dev)),
                       ("k4_agreement", lambda: k4_agreement(refresh1, dev)),
                       ("split", lambda: time_split(build_split(args.parent, SPLIT_PATCH, PARENT),
                                                    True, args.runs, dev)),

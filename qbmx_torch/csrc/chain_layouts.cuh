@@ -1,7 +1,9 @@
 // What K1 (sa_metropolis.cu) and K2 (sa_heatbath.cu) share for their chain
 // layouts (samplers/kernel_call.py::chain_layout): J_g's staging in shared
 // memory, a chain's initial bits, the THREAD layout's dot product and the
-// GROUP and LANES layouts' ballot words.
+// GROUP and LANES layouts' ballot words.  K3 (pt_heatbath.cuh) takes the
+// staging, the dot product and the ballot words for its layouts with a rung
+// for a chain (a rung a thread, GROUP, a rung a warp).
 
 #pragma once
 

@@ -73,15 +73,15 @@ def test_manifest_command_parses_alike_in_both_packages(setting):
     assert jax_ns["seed_sweep"] == list(range(10))
 
 
-@pytest.mark.parametrize("k", [1, 8, 24, 68, 72])
+@pytest.mark.parametrize("k", [1, 8, 24, 68, 72, 84])
 def test_bonferroni_z_is_the_normal_quantile(k):
     assert seed_bands.bonferroni_z(k) == pytest.approx(norm.ppf(1 - 0.025 / k), rel=1e-12)
 
 
 def test_z_all_counts_every_epoch_and_metric():
     k, z = bands.z_all(SETTINGS)
-    assert k == sum(2 * bands.epochs(s) for s in SETTINGS)
-    assert z == seed_bands.bonferroni_z(k)
+    assert k == sum(2 * bands.epochs(s) for s in SETTINGS) == 84
+    assert z == seed_bands.bonferroni_z(k) == pytest.approx(norm.ppf(1 - 0.025 / 84), rel=1e-12)
     assert bands.z_all(["flat_sa_h2"])[0] == 8
 
 

@@ -591,9 +591,9 @@ def test_geometry_rules_match_the_kernels(dev):
                 == lib.qbmx_pt_wide_global_smem(chains, sparse)
     assert (lib.qbmx_pt_heatbath_max_n(), lib.qbmx_pt_heatbath_max_rungs()) == \
         (pt_cuda.MAX_N, pt_cuda.MAX_RUNGS)
-    for kind in (pt_cuda.RUNG, pt_cuda.WARP):
-        for n, M in ((6, 8), (41, 32), (241, 15), (240, 64)):
-            assert lib.qbmx_pt_heatbath_smem(kind, n, M) == pt_cuda.smem_bytes(kind, n, M)
+    for lanes in pt_cuda.LAYOUTS:
+        for n, M in ((6, 8), (9, 8), (30, 2), (41, 32), (241, 15), (240, 64)):
+            assert lib.qbmx_pt_heatbath_smem(lanes, n, M) == pt_cuda.smem_bytes(lanes, n, M)
     assert lib.qbmx_pt_wide_max_n() == pt_wide_cuda.max_n() == wide_cuda.max_n()
     for n in (2, 241, 300, 717, 2400, pt_wide_cuda.max_n()):
         assert lib.qbmx_pt_wide_max_rungs(n) == pt_wide_cuda.max_rungs(n)
@@ -900,40 +900,82 @@ def test_k2_fields_stay_near_a_recompute(dev, lanes, width):
                        lanes=1, fields_out=fields[..., :6].contiguous())
 
 
-PT_LAYOUTS = {"rung": pt_cuda.RUNG, "warp": pt_cuda.WARP}
+PT_LAYOUTS = {"rung": pt_cuda.RUNG, "4 lanes": 4, "8 lanes": 8, "16 lanes": 16,
+              "warp": pt_cuda.WARP}
+# n ≤ 8 (RUNG's registers), past it to RUNG's widest (32) and 4 lanes', past
+# 8 lanes' (64) at the CDQBM (b) width, 16 lanes' (128) at 100; M from one
+# rung to 64, ladders within a warp and over warps at each L
+PT_SHAPES = [(3, 6, 8, 70, 12), (2, 5, 3, 33, 6), (1, 7, 1, 16, 3), (2, 8, 32, 9, 5),
+             (1, 4, 5, 13, 40), (3, 9, 8, 70, 20), (2, 9, 4, 33, 17), (2, 16, 16, 21, 18),
+             (1, 16, 2, 45, 20), (2, 32, 8, 19, 17), (1, 32, 32, 5, 6), (2, 41, 8, 23, 18),
+             (1, 41, 3, 30, 20), (1, 41, 64, 3, 4), (1, 100, 4, 9, 17), (1, 100, 13, 3, 6)]
 
 
-@pytest.mark.parametrize("layout", list(PT_LAYOUTS))
-@pytest.mark.parametrize("B,n,M,R,S", [(3, 6, 8, 70, 12), (2, 5, 3, 33, 6), (1, 7, 1, 16, 3),
-                                       (2, 8, 32, 9, 5), (1, 4, 5, 13, 40)])
+def _pt_holds(layout: str, n: int, M: int) -> bool:
+    """Whether K3's ``layout`` takes width n and M rungs."""
+    lanes = PT_LAYOUTS[layout]
+    return n <= pt_cuda.max_n(lanes) and (lanes != pt_cuda.RUNG or M <= pt_cuda.RUNG_MAX_M)
+
+
+@pytest.mark.parametrize("layout,B,n,M,R,S", [(layout, *shape) for layout in PT_LAYOUTS
+                                              for shape in PT_SHAPES
+                                              if _pt_holds(layout, shape[1], shape[2])])
 def test_pt_layouts_match_plain(dev, layout, B, n, M, R, S):
     """Each K3 layout, forced, against the plain version under host
-    variates; R is no multiple of a RUNG block's ladders, nor of a warp's."""
+    variates; R is no multiple of a block's ladders, nor of a warp's."""
     rng = np.random.default_rng(400 + n + M)
     Q = random_qubo_batch(rng, B, n).to(dev)
     hv = _pt_variates(rng, B, M, n, R, S, dev)
     got = pt_cuda.pt_sample_batch_cuda(Q, R, S, num_replicas=M, host_variates=hv,
                                        _layout=PT_LAYOUTS[layout])
     want = tempering.pt_sample_batch_plain(Q, R, S, num_replicas=M, host_variates=hv)
-    assert got.shape == (B, R, n)
+    assert got.shape == (B, R, n) and set(got.unique().tolist()) <= {0.0, 1.0}
     assert _differ(got, want) <= MAX_DIFF_FRAC
 
 
+@pytest.mark.parametrize("philox", [False, True])
+@pytest.mark.parametrize("lanes,B,n,M,R,S", [
+    (lanes, *shape) for lanes in pt_cuda.GROUP_LANES for shape in PT_SHAPES
+    if shape[1] <= pt_cuda.max_n(lanes) and shape[-1] > 1])
+def test_pt_group_equals_warp_bit_for_bit(dev, philox, lanes, B, n, M, R, S):
+    """GROUP (4, 8, 16 lanes a rung, its ladders within a warp or over
+    warps) against WARP (a rung a warp), both forced, on the same draws:
+    the same samples bit for bit, past a refresh of the fields wherever
+    S > 16."""
+    rng = np.random.default_rng(700 + n + M)
+    Q = random_qubo_batch(rng, B, n).to(dev)
+    hv = None if philox else _pt_variates(rng, B, M, n, R, S, dev)
+    got = [pt_cuda.pt_sample_batch_cuda(
+        Q, R, S, num_replicas=M, host_variates=hv, _layout=L,
+        generator=torch.Generator().manual_seed(23) if philox else None)
+        for L in (lanes, pt_cuda.WARP)]
+    assert torch.equal(got[0], got[1])
+
+
 @pytest.mark.parametrize("layout", list(PT_LAYOUTS))
-def test_pt_layouts_match_oracle(dev, layout):
+@pytest.mark.parametrize("n,M,reads", [(5, 4, 384), (12, 4, 1024), (9, 16, 512)])
+def test_pt_layouts_match_oracle(dev, layout, n, M, reads):
+    """Each layout's Philox streams against the exact marginals at beta 1
+    (tests/test_gibbs_pt_pallas_debug.py's problem at n = 5; RUNG past
+    n = 8; a GROUP ladder over warps at M = 16)."""
+    if not _pt_holds(layout, n, M):
+        pytest.skip(f"{layout} does not take n={n}, M={M}")
     rng = np.random.default_rng(3)
-    Q = torch.as_tensor(np.triu(rng.uniform(-1.5, 1.5, (1, 5, 5))).astype(np.float32),
+    Q = torch.as_tensor(np.triu(rng.uniform(-1.5, 1.5, (1, n, n))).astype(np.float32),
                         device=dev)
-    s = pt_cuda.pt_sample_batch_cuda(Q, 384, 24, num_replicas=4, _layout=PT_LAYOUTS[layout],
+    s = pt_cuda.pt_sample_batch_cuda(Q, reads, 24, num_replicas=M, _layout=PT_LAYOUTS[layout],
                                      generator=torch.Generator().manual_seed(0))[0]
     _, _, marg, _ = exact_boltzmann(Q[0], beta=1.0)
     assert set(s.unique().tolist()) <= {0.0, 1.0}
     assert torch.allclose(s.mean(0), marg, atol=0.08)
 
 
-@pytest.mark.parametrize("layout,B,n,M,R,S", [("rung", 3, 6, 5, 64, 8), ("warp", 3, 6, 5, 64, 8),
-                                              ("warp", 2, 41, 8, 16, 6),
-                                              ("warp", 1, 20, 40, 8, 4)])
+@pytest.mark.parametrize("layout,B,n,M,R,S", [
+    *[(layout, 3, 6, 5, 64, 8) for layout in PT_LAYOUTS],
+    *[(layout, 2, 41, 8, 16, 20) for layout in ("8 lanes", "16 lanes", "warp")],
+    *[(layout, 2, 9, 8, 40, 20) for layout in PT_LAYOUTS],
+    *[(layout, 1, 20, 40, 8, 4) for layout in ("4 lanes", "8 lanes", "16 lanes", "warp")],
+    *[(layout, 2, 32, 16, 9, 17) for layout in PT_LAYOUTS]])
 def test_pt_layouts_on_their_philox_draws(dev, layout, B, n, M, R, S):
     """Each layout draws the streams ``pt_philox_variates`` writes out."""
     Q = random_qubo_batch(np.random.default_rng(5 + n), B, n).to(dev)

@@ -3,8 +3,8 @@ choice K1 and K2 share (``kernel_call.chain_layout``: a thread a chain,
 4, 8 or 16 lanes a chain, or a warp a chain, at the main paths' calls, at
 its boundaries and within the card's limits at every shape), K4's geometry
 (``wide_cuda.wide_geometry``: chains per block, a warp each, and shared
-memory), K3's layout (``pt_cuda.pt_layout``: a rung a thread or a rung
-a warp, and the kernel's bounds), K5's geometry
+memory), K3's layout (``pt_cuda.pt_layout``: a rung a thread, on 4, 8 or 16
+lanes, or a rung a warp, each forced layout's bounds, and the kernel's), K5's geometry
 (``pt_wide_cuda.pt_wide_geometry``: its path, ladders a block or a ladder
 over a thread block cluster), its row lists (``pt_wide_cuda.row_lists``)
 and the rule that routes a PT call to
@@ -525,57 +525,115 @@ PT_SHAPES = {  # (B, M, R, n)
     "n=240 M=64": (1, 64, 10, 240),  # M·n = 15,360
     "n=241 M=8": (4, 8, 32, 241),
     "n=241 M=15": (1, 15, 4, 241),  # the widest ladder at n = 241
+    # the users' calls past n = 8
+    "flat PT h8": (120, 8, 1000, 9),  # qbm_main --solver PT -hn 8 at the flagship's reads
+    "flat PT h8 sweep": (1200, 8, 1000, 9),  # its --seed_sweep 0..9
+    "qm.main PT": (20, 8, 100, 11),  # qm.main()'s n_hidden_nodes=10
+    "CDQBM (b) PT": (6, 8, 100, 41),  # cdqbm_main --solver PT
+    "CDQBM (b) PT sweep": (60, 8, 100, 41),  # its --seed_sweep 0..9
+    "n=32 M=16": (4, 16, 20, 32),  # RUNG's widest
+    "n=33 M=4": (4, 4, 20, 33),
 }
+
+
+def _pt_takes(lanes: int, n: int, M: int) -> bool:
+    """Whether K3's layout of ``lanes`` lanes a rung holds n and M."""
+    return n <= pt_cuda.max_n(lanes) and (lanes != pt_cuda.RUNG or M <= pt_cuda.RUNG_MAX_M)
 
 
 @pytest.mark.parametrize("name", list(PT_SHAPES))
 def test_pt_layout_within_the_card_limits(name):
+    """The rule's layout and every layout forced that takes the shape:
+    within the card's limits, every ladder placed, a ladder within one warp
+    or one block; a forced layout that does not take the shape raises."""
     B, M, R, n = PT_SHAPES[name]
-    lay = pt_cuda.pt_layout(B, M, R, n)
-    _within_limits(lay.smem, lay.threads, lay.grid)
-    assert lay.grid[1] == B and lay.grid[0] * lay.ladders_per_block >= R  # every ladder placed
-    assert lay.smem == pt_cuda.smem_bytes(lay.kind, n, M)
-    if lay.kind == pt_cuda.RUNG:
-        assert n <= 8 and M <= 32 and lay.threads == 128 and lay.smem == 4 * n * n
-        assert lay.ladders_per_block == 4 * (32 // M)  # a ladder within one warp's lanes
-    else:
-        assert lay.rungs_per_warp == (1 if M <= 32 else 2) and lay.ladders_per_block == 1
-        assert lay.threads == 32 * math.ceil(M / lay.rungs_per_warp)
-        assert lay.smem == 4 * (n * n + 2 * M) and lay.grid == (R, B)
+    for lanes in (None, *pt_cuda.LAYOUTS):
+        if lanes is not None and not _pt_takes(lanes, n, M):
+            with pytest.raises(ValueError, match="no layout of"):
+                pt_cuda.pt_layout(B, M, R, n, lanes)
+            continue
+        lay = pt_cuda.pt_layout(B, M, R, n, lanes)
+        assert lanes in (None, lay.lanes)
+        _within_limits(lay.smem, lay.threads, lay.grid)
+        assert lay.grid[1] == B and lay.grid[0] * lay.ladders_per_block >= R  # every ladder placed
+        assert lay.smem == pt_cuda.smem_bytes(lay.lanes, n, M)
+        if lay.lanes == pt_cuda.RUNG or M * lay.lanes <= 32:  # ladders within a warp
+            stride = n if lay.lanes > 1 or n <= 8 else 4 * math.ceil(n / 4)
+            assert n <= pt_cuda.max_n(lay.lanes) and M <= 32 and lay.threads == 128
+            assert lay.smem == 4 * n * stride
+            assert lay.ladders_per_block == 4 * (32 // (M * lay.lanes))
+            assert lay.grid == (math.ceil(R / lay.ladders_per_block), B)
+        elif lay.lanes == pt_cuda.WARP:
+            assert lay.rungs_per_warp == (1 if M <= 32 else 2) and lay.ladders_per_block == 1
+            assert lay.threads == 32 * math.ceil(M / lay.rungs_per_warp)
+            assert lay.smem == 4 * (n * n + 2 * M) and lay.grid == (R, B)
+        else:  # a GROUP ladder over warps: a block
+            assert lay.threads == 32 * math.ceil(M * lay.lanes / 32) >= M * lay.lanes
+            assert lay.smem == 4 * (n * n + 2 * M) and lay.grid == (R, B)
+            assert lay.ladders_per_block == 1 and n <= 8 * lay.lanes
 
 
-@pytest.mark.parametrize("name,kind", [
+@pytest.mark.parametrize("name,lanes", [
     ("flagship PT", pt_cuda.RUNG), ("CLI defaults PT", pt_cuda.RUNG), ("one rung", pt_cuda.RUNG),
     ("odd ladder", pt_cuda.RUNG), ("32 rungs", pt_cuda.RUNG),
-    ("33 rungs", pt_cuda.WARP),  # more rungs than a warp has lanes
-    ("n=41", pt_cuda.WARP), ("n=100 M=32", pt_cuda.WARP), ("n=241 M=8", pt_cuda.WARP),
+    ("33 rungs", 4),  # more rungs than a warp has lanes: a GROUP ladder over 5 warps
+    ("n=41", 8), ("n=100 M=32", pt_cuda.WARP), ("n=241 M=8", pt_cuda.WARP),
+    ("flat PT h8", pt_cuda.RUNG), ("flat PT h8 sweep", pt_cuda.RUNG),
+    ("qm.main PT", pt_cuda.RUNG), ("CDQBM (b) PT", 16), ("CDQBM (b) PT sweep", 8),
+    ("n=32 M=16", 8),  # 1,280 rungs: 8 lanes, 4 slots
+    ("n=33 M=4", 16),  # 320 rungs
 ])
-def test_pt_layout_chosen(name, kind):
-    assert pt_cuda.pt_layout(*PT_SHAPES[name]).kind == kind
+def test_pt_layout_chosen(name, lanes):
+    assert pt_cuda.pt_layout(*PT_SHAPES[name]).lanes == lanes
+
+
+@pytest.mark.parametrize("lanes,route", [
+    (pt_cuda.RUNG, "a rung a thread"), (4, "4 lanes a rung"), (8, "8 lanes a rung"),
+    (16, "16 lanes a rung"), (pt_cuda.WARP, "a rung a warp")])
+def test_pt_layout_names_its_route(lanes, route):
+    assert pt_cuda.pt_layout(2, 4, 10, 9, lanes).route == route
 
 
 def test_pt_layout_bounds():
     """Every ladder the one-thread design took (n ≤ 241, M ≤ 64, M·n ≤
     2048) and more: M·n is not bounded, every M ≤ 64 up to n = 240 and
     M ≤ 15 at n = 241, where J_b and the exchanged energies fill shared
-    memory."""
+    memory; and each layout's own bounds (RUNG n ≤ 32, M ≤ 32; GROUP
+    n ≤ 8 lanes)."""
     for n in range(1, 242):
         for M in sorted({1, 2, 8, min(64, 2048 // n)}):
-            pt_cuda.pt_layout(2, M, 10, n)
-    for n in (9, 100, 240):
-        assert pt_cuda.pt_layout(1, 64, 1, n).kind == pt_cuda.WARP
+            lay = pt_cuda.pt_layout(2, M, 10, n)
+            assert n <= pt_cuda.max_n(lay.lanes)
+    for n in (100, 240):
+        assert pt_cuda.pt_layout(1, 64, 1, n).lanes == pt_cuda.WARP
+    assert pt_cuda.pt_layout(1, 64, 1, 9).lanes == 4  # a ladder of 64 rungs over 8 warps
     assert pt_cuda.pt_layout(1, 15, 1, 241).smem <= kernel_call.SMEM_BYTES
-    assert 241 * 9 > 2048 and pt_cuda.pt_layout(1, 9, 1, 241).kind == pt_cuda.WARP
+    assert 241 * 9 > 2048 and pt_cuda.pt_layout(1, 9, 1, 241).lanes == pt_cuda.WARP
     for n, M in ((242, 1), (4, 65), (241, 16), (0, 4), (4, 0)):
         with pytest.raises(ValueError, match="exceed its bound"):
             pt_cuda.pt_layout(1, M, 1, n)
     with pytest.raises(ValueError, match="grid"):
         pt_cuda.pt_layout(65536, 8, 1, 6)
     # a forced layout, as the checks of each layout ask for it
-    assert pt_cuda.pt_layout(120, 8, 1000, 6, pt_cuda.WARP).kind == pt_cuda.WARP
-    for n, M in ((9, 8), (6, 33)):
-        with pytest.raises(ValueError, match="no RUNG layout"):
-            pt_cuda.pt_layout(1, M, 1, n, pt_cuda.RUNG)
+    assert pt_cuda.pt_layout(120, 8, 1000, 6, pt_cuda.WARP).lanes == pt_cuda.WARP
+    assert [pt_cuda.max_n(L) for L in pt_cuda.LAYOUTS] == [32, 32, 64, 128, 241]
+    for n, M, lanes in ((33, 8, pt_cuda.RUNG), (6, 33, pt_cuda.RUNG), (33, 2, 4), (65, 2, 8),
+                        (129, 2, 16)):
+        with pytest.raises(ValueError, match="no layout of"):
+            pt_cuda.pt_layout(1, M, 1, n, lanes)
+    with pytest.raises(ValueError, match="unknown layout"):
+        pt_cuda.pt_layout(1, 2, 1, 6, 2)
+    # RUNG past n = 8 only for many rungs; the n ≤ 8 calls keep it at any count
+    assert pt_cuda.pt_layout(1, 8, 1, 8).lanes == pt_cuda.RUNG
+    assert pt_cuda.pt_layout(1, 8, 1, 9).lanes != pt_cuda.RUNG
+    for n in range(9, 33):
+        few = min(pt_cuda.RUNG_MIN_RUNGS, pt_cuda.RUNG_RUNGS_A_VARIABLE * n)
+        assert pt_cuda.pt_layout(1, 8, math.ceil(few / 8), n).lanes == pt_cuda.RUNG
+        assert pt_cuda.pt_layout(1, 8, math.ceil(few / 8) - 1, n).lanes in pt_cuda.GROUP_LANES
+    # GROUP: 4 slots a lane on an idle card, up to 8 where the rungs fill it
+    assert pt_cuda.pt_layout(6, 8, 100, 41).lanes == 16  # 4,800 rungs: 16 x 3 slots
+    assert pt_cuda.pt_layout(15, 8, 100, 41).lanes == 8  # 12,000: 8 x 6
+    assert pt_cuda.pt_layout(1, 8, 10, 100).lanes == pt_cuda.WARP  # 80 rungs at n = 100
 
 
 def test_k2_field_drift_limit_catches_one_lost_add():

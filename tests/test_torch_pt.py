@@ -42,6 +42,8 @@ def _problem(n, B, M, reads, sweeps):
     (20, 1, 8, 8, 5),
     (10, 3, 2, 8, 4),
     (6, 2, 8, 16, 1),   # one sweep: a single exchange round
+    (9, 2, 8, 8, 5),    # the flat PT h8 width (K3 a rung a thread past n = 8)
+    (41, 1, 8, 8, 3),   # the CDQBM (b) PT width (K3 on lanes)
 ])
 def test_matches_packed_kernel(n, B, M, reads, sweeps):
     Q, init01, uniforms, swap_u = _problem(n, B, M, reads, sweeps)
@@ -298,6 +300,75 @@ def test_swapping_temperatures_equals_swapping_states(n, B, M, reads, sweeps):
     assert torch.equal(rho.sort(1).values, torch.arange(M)[None, :, None].expand_as(rho))
     if M > 2:  # the emulation did move states between rungs
         assert not torch.equal(rho, torch.arange(M)[None, :, None].expand_as(rho))
+
+
+def _ladder_exchange(e, rho, inv, M, L, t, dbeta, usw):
+    """``pt_heatbath.cuh::ladder_exchange<L>`` on one warp, lane by lane:
+    the warp's 32 lanes hold ⌊32/(M·L)⌋ ladders of M groups of L lanes
+    (RUNG: L = 1), and lanes past them shadow a ladder.  ``e``, ``rho``,
+    ``inv`` (32,) by lane; ``dbeta`` (M,); ``usw`` (ladders, M) the swap
+    uniforms by ladder and lower rung.  Returns the new ``rho``, ``inv``."""
+    lane = np.arange(32)
+    sub, q, pos = lane % L, lane // L // M, lane // L % M
+    base, ladders = q * M, 32 // (M * L)
+    shfl = lambda x, src: x[src % 32]  # __shfl_sync: the source lane within the warp
+    down = lambda x, d: np.where(lane + d < 32, x[np.minimum(lane + d, 31)], x)
+    up = lambda x, d: np.where(lane >= d, x[np.maximum(lane - d, 0)], x)
+    e_rung = shfl(e, (base + inv) * L + sub)
+    e_next = down(e_rung, L)
+    swap = np.zeros(32, bool)
+    for k in range(32):
+        if q[k] < ladders and pos[k] < M - 1 and pos[k] % 2 == t % 2:
+            swap[k] = (dbeta[pos[k]] * (e_rung[k] - e_next[k])
+                       < -np.log(usw[q[k], pos[k]], dtype=np.float32))
+    inv_next, inv_prev = down(inv, L), up(inv, L)
+    new_inv = inv.copy()
+    for k in range(32):
+        if swap[k]:
+            new_inv[k] = inv_next[k]
+        elif pos[k] > 0 and swap[k - L]:
+            new_inv[k] = inv_prev[k]
+    new_rho = rho.copy()
+    for k in range(32):
+        at = ((base[k] + rho[k]) * L + sub[k]) & 31
+        if rho[k] < M - 1 and swap[at]:
+            new_rho[k] += 1
+        elif rho[k] > 0 and swap[(at + 32 - L) & 31]:
+            new_rho[k] -= 1
+    return new_rho, new_inv
+
+
+@pytest.mark.parametrize("M,L", [(8, 1), (5, 1), (32, 1), (3, 1), (8, 4), (4, 8), (2, 16),
+                                 (3, 4), (3, 8), (6, 4), (2, 4)])
+def test_ladder_exchange_at_a_stride_of_lanes_equals_swapping_states(M, L):
+    """K3's exchange for ladders within a warp (a rung a thread, L = 1, and
+    a rung on L lanes, M·L ≤ 32), emulated lane by lane: the states' rungs
+    move as the plain version's states do (``_pt_by_temperatures``'s
+    exchange of the states at rungs m and m + 1), every lane of a group
+    agreeing, over 40 sweeps of random energies, wherever the warp's
+    ladders stop."""
+    rng = np.random.default_rng(M * 100 + L)
+    lane = np.arange(32)
+    pos, q = lane // L % M, lane // L // M
+    ladders = 32 // (M * L)
+    rho, inv = pos.copy(), pos.copy()
+    dbeta = rng.uniform(0.05, 0.5, M).astype(np.float32)
+    at = np.tile(np.arange(M), (ladders, 1))  # at[q, m]: the position whose state sits at rung m
+    moved = False
+    for t in range(40):
+        E = rng.normal(0, 3, (ladders + 1, M)).astype(np.float32)  # by ladder (and shadow), position
+        usw = rng.uniform(1e-6, 1, (ladders, M)).astype(np.float32)
+        e = E[np.minimum(q, ladders), pos]
+        rho, inv = _ladder_exchange(e, rho, inv, M, L, t, dbeta, usw)
+        for w in range(ladders):  # the plain exchange of this sweep's links
+            for lo in range(t % 2, M - 1, 2):
+                a, b = at[w, lo], at[w, lo + 1]
+                if dbeta[lo] * (E[w, a] - E[w, b]) < -np.log(usw[w, lo], dtype=np.float32):
+                    at[w, lo], at[w, lo + 1] = b, a
+                    moved = True
+        for k in range(ladders * M * L):  # the live lanes: rho and inv as the plain rungs
+            assert at[q[k], rho[k]] == pos[k] and inv[k] == at[q[k], pos[k]]
+    assert moved or M == 1
 
 
 # -- the structured entry (K5's form) on the CPU -------------------------------
