@@ -19,14 +19,18 @@ settings, or the CLI defaults, each with its own batch size; pass
 for every seed; ``ms_per_seed_step`` is a step ÷ seeds, against a single
 model's ms/step) -- one warm-up epoch, then ``--epochs`` unprofiled
 epochs timed on the host clock after ``synchronize()`` (their median,
-divided by the steps, is ms/step), then on a GPU one more epoch under
-``torch.profiler``.  Its device events give the device's busy time (the
-union of their intervals), the solver kernel's time per launch and the
-device operations per step; idle share = 1 − busy ÷ the median
-unprofiled epoch.  The kernels' launch counters, zeroed just before that
-epoch and read just after (``launch_counts``), name the kernel and path
-that served it (``kernel``: K4's two shared paths and K5's two paths
-share a name prefix in the profiler).  On ``--device cpu`` the device
+divided by the steps, is ms/step), then one more epoch under
+``torch.profiler`` (host events; on a GPU the device's too).  Its
+``qbmx.*`` spans (``utils/spans.py``) give ``spans``, ``{name: [count,
+total_ms, self_ms]}``, a span's self time being its time less the part
+of it the spans inside it cover (``span_table``).  On a GPU its device
+events give the device's busy time (the union of their intervals), the
+solver kernel's time per launch and the device operations per step;
+idle share = 1 − busy ÷ the median unprofiled epoch.  The kernels'
+launch counters, zeroed just before that epoch and read just after
+(``launch_counts``), name the kernel and path that served it
+(``kernel``: K4's two shared paths and K5's two paths share a name
+prefix in the profiler).  On ``--device cpu`` the device
 columns are ``None``.
 
 ``--rbm`` times RBM epochs the same way (``profile_rbm``): CD-1
@@ -61,6 +65,7 @@ from qbmx_torch.models.dqbm import DiscQBM
 from qbmx_torch.samplers import launches
 from qbmx_torch.samplers.kernel_call import fits_shared
 from qbmx_torch.train.sweep import SeedParallelCDQBM, SeedParallelDQBM
+from qbmx_torch.utils.spans import PREFIX as SPAN_PREFIX
 
 #: the profiler's name prefix of the kernel each solver's sampler launches
 #: on a GPU while the QUBO's couplings fit shared memory (above: "anneal_wide"
@@ -99,34 +104,62 @@ def _union_us(intervals: list[tuple[float, float]]) -> float:
     return total
 
 
-def device_breakdown(epoch, kernel: str | None) -> dict:
-    """Run ``epoch()`` under ``torch.profiler`` and read its device events:
-    busy ms (union), the operations, and ``kernel``'s launches and ms
-    (none without a kernel); and the kernels' launch counters over it."""
+def span_table(events) -> dict:
+    """``{name: [count, total_ms, self_ms]}`` of the program's spans
+    (``qbmx.*``) among profiler events, by name; a span's self time is its
+    time less the union of the spans that lie inside it."""
+    spans = sorted((e.time_range.start, -e.time_range.end, e.name) for e in events
+                   if e.name.startswith(SPAN_PREFIX))
+    table = {}
+    for i, (s, neg_e, name) in enumerate(spans):
+        e = -neg_e
+        inside = []
+        for s2, neg_e2, _ in spans[i + 1:]:
+            if s2 >= e:
+                break
+            if -neg_e2 <= e:
+                inside.append((s2, -neg_e2))
+        row = table.setdefault(name, [0, 0.0, 0.0])
+        row[0] += 1
+        row[1] += (e - s) / 1e3
+        row[2] += (e - s - _union_us(inside)) / 1e3
+    return table
+
+
+def device_breakdown(epoch, kernel: str | None, dev: torch.device) -> dict:
+    """Run ``epoch()`` under ``torch.profiler`` and read its spans
+    (``span_table``); on a GPU also its device events: busy ms (union), the
+    operations, and ``kernel``'s launches and ms (none without a kernel);
+    and the kernels' launch counters over it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    on_card = dev.type == "cuda"
     launches.reset()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU]
+                 + ([ProfilerActivity.CUDA] if on_card else [])) as prof:
         epoch()
     counted = launches.counts()
+    out = {"spans": span_table(prof.events())}
+    if not on_card:
+        return out
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not events:
         raise RuntimeError("torch.profiler recorded no device events: time the device "
                            "with CUDA events instead")
     spans = [(e.time_range.start, e.time_range.end) for e in events]
     mine = [e.time_range.elapsed_us() for e in events if kernel and kernel in e.name]
-    return {"busy_ms": _union_us(spans) / 1e3, "device_ops": len(events),
-            "kernel_launches": len(mine), "kernel_ms": sum(mine) / 1e3,
-            "launch_counts": counted}
+    out.update(busy_ms=_union_us(spans) / 1e3, device_ops=len(events),
+               kernel_launches=len(mine), kernel_ms=sum(mine) / 1e3, launch_counts=counted)
+    return out
 
 
 def time_epochs(run, epochs: int, dev: torch.device, kernel: str | None = None):
-    """``(median ms, every run's ms, device breakdown)`` of epochs of
-    ``run()``: one warm-up (first launches, device copies of the batches),
-    ``epochs`` timed on the host clock after ``synchronize()``, then on a
-    GPU one more under ``torch.profiler`` (``device_breakdown``; ``None``
-    on the CPU)."""
+    """``(median ms, every run's ms, breakdown)`` of epochs of ``run()``:
+    one warm-up (first launches, device copies of the batches), ``epochs``
+    timed on the host clock after ``synchronize()``, then one more under
+    ``torch.profiler`` (``device_breakdown``: the spans, and on a GPU the
+    device's columns)."""
 
     def epoch():
         run()
@@ -138,8 +171,7 @@ def time_epochs(run, epochs: int, dev: torch.device, kernel: str | None = None):
         t0 = time.perf_counter()
         epoch()
         walls.append((time.perf_counter() - t0) * 1e3)
-    breakdown = device_breakdown(epoch, kernel) if dev.type == "cuda" else None
-    return statistics.median(walls), walls, breakdown
+    return statistics.median(walls), walls, device_breakdown(epoch, kernel, dev)
 
 
 def profile_solver(solver: str, train_X, train_y, *, hidden: int, reads: int, sweeps: int,
@@ -181,8 +213,8 @@ def profile_solver(solver: str, train_X, train_y, *, hidden: int, reads: int, sw
            "ms_per_seed_step": wall / steps / (len(seeds) if seeds else 1),
            "busy_ms": None, "idle_share": None, "ops_per_step": None,
            "kernel_ms_per_launch": None, "kernel_share": None, "kernel_launches": None,
-           "launch_counts": None}
-    if d is not None:
+           "launch_counts": None, "spans": d["spans"]}
+    if "busy_ms" in d:
         if len(d["launch_counts"]) == 1:  # the path that served, by its own counter
             rec["kernel"] = next(iter(d["launch_counts"]))
         rec.update(launch_counts=d["launch_counts"], busy_ms=d["busy_ms"], idle_share=1.0 - d["busy_ms"] / wall,
@@ -200,7 +232,7 @@ def _rbm_record(run, epochs: int, steps: int, images: int, dev: torch.device) ->
     rec = {"steps": steps, "epoch_ms": wall, "epoch_ms_runs": walls,
            "ms_per_step": wall / steps, "images_per_s": images / (wall / 1e3),
            "busy_ms": None, "idle_share": None, "ops_per_step": None}
-    if d is not None:
+    if "busy_ms" in d:
         rec.update(busy_ms=d["busy_ms"], idle_share=1.0 - d["busy_ms"] / wall,
                    ops_per_step=d["device_ops"] / steps)
     return rec

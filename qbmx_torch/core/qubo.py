@@ -16,6 +16,8 @@ import math
 import numpy as np
 import torch
 
+from qbmx_torch.utils.spans import span
+
 LOG2 = math.log(2.0)
 LOG100 = math.log(100.0)
 
@@ -68,7 +70,8 @@ def beta_range_from_parts(h: torch.Tensor, J: torch.Tensor,
     monotone (``cold ≥ hot·1.0001``)."""
     absJ = J.abs()
     max_delta = (h.abs() + absJ.sum(-1)).amax(-1)
-    inf = torch.tensor(float("inf"), dtype=h.dtype, device=h.device)
+    with span("sync.beta_inf"):  # a host scalar copied to the device
+        inf = torch.tensor(float("inf"), dtype=h.dtype, device=h.device)
     hmag = h.abs()
     h_min = torch.where(hmag > 0, hmag, inf).amin(-1)
     j_min = torch.where(absJ > 0, absJ, inf).flatten(-2).amin(-1)

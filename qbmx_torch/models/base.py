@@ -13,6 +13,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from qbmx_torch.utils.spans import span
+
 
 def resolve_device(device) -> torch.device:
     """``torch.device(device)``, refusing a CUDA device that is not there:
@@ -150,8 +152,9 @@ class EpochLaunchMixin:
         validation inputs), cached by identity of the host object."""
         x = self._cache_lookup("_predict_data", (X,), None)
         if x is None:
-            x = torch.as_tensor(self._prepare_inputs(np.asarray(X, dtype="float32")),
-                                device=self.device)
+            x = self._prepare_inputs(np.asarray(X, dtype="float32"))
+            with span("sync.upload_val"):
+                x = torch.as_tensor(x, device=self.device)
             self._cache_store("_predict_data", (X,), None, x)
         return x
 
@@ -168,11 +171,13 @@ class EpochLaunchMixin:
             nb = -(-len(xh) // batch_size)
             xp, yp, mask = _pad_batch(xh, np.asarray(y), nb * batch_size)
             dev = self.device
-            cached = (
-                torch.as_tensor(xp.reshape((nb, batch_size) + xh.shape[1:]), device=dev),
-                torch.as_tensor(yp.reshape(nb, batch_size), device=dev),
-                torch.as_tensor(mask.reshape(nb, batch_size), device=dev),
-            )
+            with span("sync.upload_x"):
+                xd = torch.as_tensor(xp.reshape((nb, batch_size) + xh.shape[1:]), device=dev)
+            with span("sync.upload_y"):
+                yd = torch.as_tensor(yp.reshape(nb, batch_size), device=dev)
+            with span("sync.upload_mask"):
+                maskd = torch.as_tensor(mask.reshape(nb, batch_size), device=dev)
+            cached = (xd, yd, maskd)
             self._cache_store("_epoch_data", (x, y), batch_size, cached)
         xb, yb, maskb = cached
         nlls, errs = [], []
@@ -180,4 +185,8 @@ class EpochLaunchMixin:
             nll, err = self._step(xb[i], yb[i], maskb[i], learning_rate)
             nlls.append(nll)
             errs.append(err)
-        return torch.stack(nlls).cpu().numpy(), torch.stack(errs).cpu().numpy()
+        with span("sync.epoch_nll"):
+            nlls = torch.stack(nlls).cpu().numpy()
+        with span("sync.epoch_err"):
+            errs = torch.stack(errs).cpu().numpy()
+        return nlls, errs

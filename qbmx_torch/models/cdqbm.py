@@ -55,6 +55,7 @@ from qbmx_torch.models.base import (
 from qbmx_torch.models.dqbm import SINGLE_DEVICE, StepSeams
 from qbmx_torch.models.geometry import StackGeometry, patch_index_grid
 from qbmx_torch.samplers.api import Sampler, get_sampler, sampler_sample_groups
+from qbmx_torch.utils.spans import span, spanned
 
 # Probabilistic pooling penalty strength, hard-coded in both reference
 # generations (``src/model/cdqbm.py:69``, ``src/qubo/builder.py:26-27``).
@@ -550,6 +551,7 @@ class CDQBM(EpochLaunchMixin, QBMModel):
         h2[1] = self.unclamped_fields(params, x_imgs, ctx)
         return Q2.flatten(0, len(lead)), h2.flatten(0, len(lead))
 
+    @spanned("step")
     @torch.no_grad()
     def _step(self, x_imgs, y, mask, lr, seams: StepSeams | None = None):
         """One fused two-phase update of ``self.params`` on images (B, H, W);
@@ -645,14 +647,18 @@ class CDQBM(EpochLaunchMixin, QBMModel):
         nll, err = self._step(x, y, mask, learning_rate)
         return err, nll
 
+    @spanned("predict")
     def predict_batch(self, X, chunk: int = 32):
         """(predictions, class probabilities) for inputs ``X``, ``chunk``
         examples per sampler call (the ragged tail zero-padded to ``chunk``,
         as in ``qbmx``)."""
         x = self._cached_device_input(X)
         n = x.shape[0]
-        outs = [self._predict_probs(pad_rows(x[i: i + chunk], chunk)).cpu().numpy()
-                for i in range(0, n, chunk)]
+        outs = []
+        for i in range(0, n, chunk):
+            probs = self._predict_probs(pad_rows(x[i: i + chunk], chunk))
+            with span("sync.val_fetch"):
+                outs.append(probs.cpu().numpy())
         probs = np.concatenate(outs, axis=0)[:n]
         return np.argmax(probs, axis=1), probs
 

@@ -39,6 +39,7 @@ from qbmx_torch.models.base import (
 )
 from qbmx_torch.samplers.api import (Sampler, get_sampler, sampler_sample_groups,
                                      with_dense_couplings)
+from qbmx_torch.utils.spans import span, spanned
 
 FIELDS = ("w_vh", "w_vo", "w_oo", "b_h", "b_o", "w_hh")
 
@@ -330,6 +331,7 @@ class DiscQBM(EpochLaunchMixin, QBMModel):
         one) both phases."""
         return 1 if self.use_linear_shortcut and self.step_seams.shortcut else 2
 
+    @spanned("step")
     @torch.no_grad()
     def _step(self, x, y, mask, lr, seams: StepSeams | None = None):
         """One fused two-phase update of ``self.params``; returns device
@@ -391,16 +393,20 @@ class DiscQBM(EpochLaunchMixin, QBMModel):
         nll, err = self._step(x, y, mask, learning_rate)
         return err, nll
 
+    @spanned("predict")
     def predict_batch(self, X):
         """(predictions, class probabilities) for inputs ``X`` (N, D):
         rounded (binary) or argmaxed (one-hot) unclamped output marginals."""
         marg, probs = self._predict_probs(self._cached_device_input(X))
-        marg = marg.cpu().numpy()
+        with span("sync.val_marg"):
+            marg = marg.cpu().numpy()
         if self.use_one_hot_encoding:
             preds = np.argmax(marg, axis=1)
         else:
             preds = np.round(marg[:, 0]).astype(int)
-        return preds, probs.cpu().numpy()
+        with span("sync.val_probs"):
+            probs = probs.cpu().numpy()
+        return preds, probs
 
     def get_result_distribution(self, samples_of_output_list, all_possible_patterns):
         """Empirical distribution over output-node bit patterns."""

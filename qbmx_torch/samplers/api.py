@@ -30,6 +30,7 @@ from qbmx_torch.samplers import exact as _exact
 from qbmx_torch.samplers import gibbs_cuda, pt_wide_cuda, sa_cuda, sa_torch
 from qbmx_torch.samplers.native import NativeSASampler
 from qbmx_torch.samplers.qpu import QPUSampler, StructuredQPUSampler
+from qbmx_torch.utils.spans import span, spanned
 
 
 class Sampler(Protocol):
@@ -42,13 +43,15 @@ class Sampler(Protocol):
 def sampler_sample_groups(sampler, generator, Q_shared, h_extra, num_reads):
     """Structured sampling → (G, B, num_reads, n): the sampler's own
     ``sample_groups`` when it has one, else ``sample_batch`` on the
-    densified batch."""
-    fn = getattr(sampler, "sample_groups", None)
-    if fn is not None:
-        return fn(generator, Q_shared, h_extra, num_reads)
-    G, B, n = h_extra.shape
-    flat = sampler.sample_batch(generator, densify_groups(Q_shared, h_extra), num_reads)
-    return flat.reshape(G, B, num_reads, n)
+    densified batch.  Every model reaches the sampler layer here, so the
+    ``sampler`` span is opened here."""
+    with span("sampler"):
+        fn = getattr(sampler, "sample_groups", None)
+        if fn is not None:
+            return fn(generator, Q_shared, h_extra, num_reads)
+        G, B, n = h_extra.shape
+        flat = sampler.sample_batch(generator, densify_groups(Q_shared, h_extra), num_reads)
+        return flat.reshape(G, B, num_reads, n)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,10 +65,12 @@ class SASampler:
     use_kernel: bool = True
     dense_couplings: bool = False
 
+    @spanned("sampler.wrapper")
     def sample_batch(self, generator, Q, num_reads):
         fn = sa_cuda.sa_sample_batch_cuda if self.use_kernel else sa_torch.sa_sample_batch_plain
         return fn(Q, num_reads, self.num_sweeps, generator=generator)
 
+    @spanned("sampler.wrapper")
     def sample_groups(self, generator, Q_shared, h_extra, num_reads):
         if not self.use_kernel:
             return sa_torch.sa_sample_groups_plain(Q_shared, h_extra, num_reads,
@@ -102,12 +107,14 @@ class GibbsSampler:
                              else bool(self.pair_updates))
         return pair, quad
 
+    @spanned("sampler.wrapper")
     def sample_batch(self, generator, Q, num_reads):
         pair, quad = self.widths(Q.device.type == "cuda")
         return gibbs_cuda.gibbs_sample_batch_cuda(
             Q, num_reads, self.num_warmup, generator=generator, beta=self.beta, pair=pair,
             quad=quad)
 
+    @spanned("sampler.wrapper")
     def sample_groups(self, generator, Q_shared, h_extra, num_reads):
         pair, quad = self.widths(Q_shared.device.type == "cuda")
         return gibbs_cuda.gibbs_sample_groups_cuda(
@@ -130,11 +137,13 @@ class PTSampler:
     num_replicas: int = 8
     beta_target: float = 1.0
 
+    @spanned("sampler.wrapper")
     def sample_batch(self, generator, Q, num_reads):
         return pt_wide_cuda.pt_sample_batch(
             Q, num_reads, self.num_sweeps, num_replicas=self.num_replicas,
             beta_target=self.beta_target, generator=generator)
 
+    @spanned("sampler.wrapper")
     def sample_groups(self, generator, Q_shared, h_extra, num_reads):
         return pt_wide_cuda.pt_sample_groups(
             Q_shared, h_extra, num_reads, self.num_sweeps, num_replicas=self.num_replicas,

@@ -3,7 +3,8 @@
 between the anneal kernels that hold a group's couplings in shared memory
 and the one that streams them, the layout rule of the two that hold them
 (K1 and K2, :func:`chain_layout`), the stream, and the launch's return
-code.  Each wrapper makes its own launch call and counts its own launches."""
+code.  Each wrapper makes its own launch call (through :func:`call`, which
+opens the ``sampler.launch`` span) and counts its own launches."""
 
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ import dataclasses
 import math
 
 import torch
+
+from qbmx_torch.utils.spans import span
 
 # one block's shared memory on Hopper (227 KB)
 SMEM_BYTES = 232_448
@@ -185,3 +188,11 @@ def stream(device: torch.device) -> int:
 def check_rc(kernel: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
+
+
+def call(kernel: str, fn, *args) -> None:
+    """The library's launch ``fn(*args)`` of ``kernel`` inside the
+    ``sampler.launch`` span, its return code checked."""
+    with span("sampler.launch"):
+        rc = fn(*args)
+    check_rc(kernel, rc)

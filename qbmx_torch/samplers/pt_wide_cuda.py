@@ -49,6 +49,7 @@ import torch.nn.functional as F
 from qbmx_torch.core.qubo import densify_groups, split_qubo
 from qbmx_torch.core.rng import draw_seed
 from qbmx_torch.samplers import kernel_call, pt_cuda, tempering, wide_cuda
+from qbmx_torch.utils.spans import span, spanned
 
 #: launches of K5 since the last reset (one per call that reached the GPU), by path
 launch_counts = {"pt_wide": 0, "pt_wide_sparse": 0, "pt_wide_global": 0,
@@ -195,16 +196,19 @@ def row_nnz(J: torch.Tensor) -> torch.Tensor:
 
 
 def group_nnz(counts: torch.Tensor) -> tuple:
-    """The nonzeros of each group from :func:`row_nnz`'s counts: the one
-    host sync of a sparse call (the largest group sizes the lists)."""
-    return tuple(counts.sum(-1).tolist())
+    """The nonzeros of each group from :func:`row_nnz`'s counts, fetched to
+    the host (the largest group sizes the lists)."""
+    with span("sync.rows_nnz"):
+        return tuple(counts.sum(-1).tolist())
 
 
+@spanned("row_lists")
 def row_lists(J: torch.Tensor, counts: torch.Tensor | None = None,
               nnz: tuple | None = None) -> RowLists:
     """J (G, n, n)'s nonzero rows, on J's device, by plain tensor code;
     ``counts`` (:func:`row_nnz`) and ``nnz`` (:func:`group_nnz`) where the
-    caller has them."""
+    caller has them.  Its host syncs (on a CUDA ``J``) are the ``sync.rows_*``
+    spans inside the ``row_lists`` span."""
     G, n, _ = J.shape
     mask = J != 0
     counts = row_nnz(J) if counts is None else counts  # (G, n)
@@ -217,13 +221,16 @@ def row_lists(J: torch.Tensor, counts: torch.Tensor | None = None,
     nnz_pad = padded(max(nnz))
     # the nonzeros as (g, i, j) in lexicographic order: row by row, columns
     # increasing; a group's k-th goes to column k of its padded list
-    idx = mask.nonzero()
+    with span("sync.rows_nonzero"):
+        idx = mask.nonzero()
     g = idx[:, 0]
-    sizes = torch.as_tensor(nnz, dtype=torch.int64, device=J.device)
+    with span("sync.rows_sizes"):
+        sizes = torch.as_tensor(nnz, dtype=torch.int64, device=J.device)
     k = torch.arange(idx.shape[0], device=J.device) - (sizes.cumsum(0) - sizes)[g]
     vals = torch.zeros((G, nnz_pad), dtype=torch.float32, device=J.device)
     cols = torch.zeros((G, nnz_pad), dtype=torch.int16, device=J.device)
-    vals[g, k] = J.to(torch.float32)[mask]
+    with span("sync.rows_values"):  # a boolean mask's index counts its entries
+        vals[g, k] = J.to(torch.float32)[mask]
     cols[g, k] = idx[:, 2].to(torch.int16)
     return RowLists(vals, cols, offsets, nnz)
 
@@ -408,21 +415,21 @@ def launch(J: torch.Tensor, h: torch.Tensor, betas: torch.Tensor, dbeta: torch.T
         rho = torch.empty((states,), dtype=torch.int32, device=dev)
         lists = (None, None, None, 0) if rows is None else (
             rows.vals.data_ptr(), rows.cols.data_ptr(), rows.offsets.data_ptr(), rows.nnz_pad)
-        kernel_call.check_rc("pt_wide_global", lib.qbmx_pt_wide_global(
+        kernel_call.call("pt_wide_global", lib.qbmx_pt_wide_global,
             Jp.data_ptr(), None if flips is None else counts.data_ptr(), *tail[:-7],
             fields.data_ptr(), state.data_ptr(), energies.data_ptr(), rho.data_ptr(), *lists,
-            *tail[-7:], geo.warps, var_shift(n), kernel_call.stream(dev)))
+            *tail[-7:], geo.warps, var_shift(n), kernel_call.stream(dev))
         launch_counts["pt_wide_global_sparse" if rows is not None else "pt_wide_global"] += 1
     elif geo.path == SPARSE:
-        kernel_call.check_rc("pt_wide_sparse", lib.qbmx_pt_wide_sparse(
+        kernel_call.call("pt_wide_sparse", lib.qbmx_pt_wide_sparse,
             rows.vals.data_ptr(), rows.cols.data_ptr(), rows.offsets.data_ptr(), *tail,
-            geo.nnz_pad, geo.ladders_per_block, geo.cluster, kernel_call.stream(dev)))
+            geo.nnz_pad, geo.ladders_per_block, geo.cluster, kernel_call.stream(dev))
         launch_counts["pt_wide_sparse"] += 1
     else:
         Jp = F.pad(J, (0, wide_cuda.row_floats(n) - n)).contiguous()  # 16-byte rows for cp.async
-        kernel_call.check_rc("pt_wide", lib.qbmx_pt_wide(
+        kernel_call.call("pt_wide", lib.qbmx_pt_wide,
             Jp.data_ptr(), None if flips is None else counts.data_ptr(), *tail,
-            geo.ladders_per_block, geo.cluster, kernel_call.stream(dev)))
+            geo.ladders_per_block, geo.cluster, kernel_call.stream(dev))
         launch_counts["pt_wide"] += 1
     return out
 

@@ -72,9 +72,9 @@ def launch(J, h, hot, logr, num_reads: int, num_sweeps: int, *, generator=None,
     fptr = kernel_call.optional_ptr(fields_out, "fields_out", (G, B, R, n), torch.float32,
                                     h.device)
     cptr = kernel_call.optional_ptr(flips, "flips", (1,), torch.int64, h.device)
-    kernel_call.check_rc("sa_metropolis", lib.qbmx_sa_metropolis(
+    kernel_call.call("sa_metropolis", lib.qbmx_sa_metropolis,
         *ptrs, out.data_ptr(), fptr, cptr, G, B, R, n, S, ctypes.c_float(inv_span(S)), seed,
-        layout.lanes, kernel_call.stream(h.device)))
+        layout.lanes, kernel_call.stream(h.device))
     launch_counts["sa_metropolis"] += 1
     return out
 

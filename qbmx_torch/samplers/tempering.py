@@ -26,6 +26,7 @@ import torch
 from qbmx_torch.core.qubo import default_beta_range, split_qubo
 from qbmx_torch.core.rng import rand
 from qbmx_torch.samplers.gibbs import heat_bath_sweep
+from qbmx_torch.utils.spans import span
 
 
 def ladder_betas(Q: torch.Tensor, num_replicas: int, beta_target: float = 1.0):
@@ -34,7 +35,8 @@ def ladder_betas(Q: torch.Tensor, num_replicas: int, beta_target: float = 1.0):
     last rung."""
     M = num_replicas
     hot0, _ = default_beta_range(Q.to(torch.float32))
-    bt = torch.tensor(beta_target, dtype=torch.float32, device=Q.device)
+    with span("sync.pt_betas"):  # a host scalar copied to the device
+        bt = torch.tensor(beta_target, dtype=torch.float32, device=Q.device)
     beta_hot = torch.minimum(hot0, bt * 0.5)
     # tensor / tensor: true division (a scalar divisor may become a reciprocal)
     t = torch.arange(M, dtype=torch.float32, device=Q.device) / torch.full(

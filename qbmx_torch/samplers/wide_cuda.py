@@ -341,9 +341,9 @@ def launch(J: torch.Tensor, h: torch.Tensor, hot: torch.Tensor, logr: torch.Tens
             kernel_call.stream(h.device))
     if sparse and not glob:
         units = unit_couplings(J)
-        kernel_call.check_rc("anneal_wide_sparse", lib.qbmx_anneal_wide_sparse(
+        kernel_call.call("anneal_wide_sparse", lib.qbmx_anneal_wide_sparse,
             rows.vals.data_ptr(), rows.cols.data_ptr(), rows.offsets.data_ptr(),
-            units.data_ptr(), *ptrs[1:], out.data_ptr(), fptr, cptr, rows.nnz_pad, *tail))
+            units.data_ptr(), *ptrs[1:], out.data_ptr(), fptr, cptr, rows.nnz_pad, *tail)
         launch_counts["anneal_wide_sparse"] += 1
         return out
     # rows padded to 16 bytes for cp.async (to 32 in the global-field layout)
@@ -356,10 +356,10 @@ def launch(J: torch.Tensor, h: torch.Tensor, hot: torch.Tensor, logr: torch.Tens
                            device=h.device)
     lists = (None, None, None, 0) if rows is None else (
         rows.vals.data_ptr(), rows.cols.data_ptr(), rows.offsets.data_ptr(), rows.nnz_pad)
-    kernel_call.check_rc("anneal_wide", lib.qbmx_anneal_wide(
+    kernel_call.call("anneal_wide", lib.qbmx_anneal_wide,
         Jp.data_ptr(), None if flips is None else counts.data_ptr(), *ptrs[1:], out.data_ptr(),
         fptr, cptr, None if fscr is None else fscr.data_ptr(),
-        None if sscr is None else sscr.data_ptr(), *lists, *tail))
+        None if sscr is None else sscr.data_ptr(), *lists, *tail)
     launch_counts["anneal_wide" if not glob else "anneal_wide_global_sparse" if sparse
                   else "anneal_wide_global"] += 1
     return out

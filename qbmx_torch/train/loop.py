@@ -22,6 +22,7 @@ import numpy as np
 from qbmx_torch.parallel.mesh import writes_files
 from qbmx_torch.utils.checkpoint import save_checkpoint
 from qbmx_torch.utils.metrics import History, get_metrics, prob_scored_auc, save_history
+from qbmx_torch.utils.spans import span, spanned
 
 #: examples sampled per epoch for ``track_distribution``
 _DISTRIBUTION_SAMPLE_EXAMPLES = 64
@@ -89,6 +90,7 @@ def _maybe_reinit(model, history, val_Y, window: int, verbose: bool) -> None:
               f"{maj:.3f} over the last {window} epochs)")
 
 
+@spanned("train")
 def train_model(
     model,
     train_X,
@@ -142,51 +144,53 @@ def train_model(
     num_batches = max(-(-len(train_X) // batch_size), 1)
 
     for epoch in range(start_epoch + 1, epochs + 1):
-        try:
-            # asked only when set: a model without a bar keeps its signature
-            nlls, errs = model.train_epoch(train_X, train_Y, batch_size, learning_rate,
-                                           **({"progress": True} if progress else {}))
-        except BaseException:  # incl. KeyboardInterrupt: save, then re-raise
+        with span("epoch"):
+            try:
+                # asked only when set: a model without a bar keeps its signature
+                nlls, errs = model.train_epoch(train_X, train_Y, batch_size, learning_rate,
+                                               **({"progress": True} if progress else {}))
+            except BaseException:  # incl. KeyboardInterrupt: save, then re-raise
+                if save_folder:
+                    model.save_weights(f"e{epoch}_crash", save_folder)
+                    save_history(f"{save_folder}/", history)
+                if checkpoint_path:
+                    save_checkpoint(f"{checkpoint_path}_crash", model, history, epoch - 1,
+                                    mid_epoch=True)
+                raise
+            history.errors_per_batch.extend(float(e) for e in errs)
+            history.nll_per_batch.extend(float(v) for v in nlls)
+            epoch_errors, epoch_nll = float(np.sum(errs)), float(np.sum(nlls))
             if save_folder:
-                model.save_weights(f"e{epoch}_crash", save_folder)
-                save_history(f"{save_folder}/", history)
-            if checkpoint_path:
-                save_checkpoint(f"{checkpoint_path}_crash", model, history, epoch - 1,
-                                mid_epoch=True)
-            raise
-        history.errors_per_batch.extend(float(e) for e in errs)
-        history.nll_per_batch.extend(float(v) for v in nlls)
-        epoch_errors, epoch_nll = float(np.sum(errs)), float(np.sum(nlls))
-        if save_folder:
-            model.save_weights(f"e{epoch}", save_folder)
+                model.save_weights(f"e{epoch}", save_folder)
 
-        if val_X is not None:
-            preds, probs = model.predict_batch(np.asarray(val_X, dtype="float32"))
-            acc, _, _, _, auc = get_metrics(val_Y, preds, list(class_titles))
-            history.acc_per_epoch.append(acc)
-            history.auc_per_epoch.append(auc)
-            history.combined_acc_auc_per_epoch.append(0.5 * acc + 0.5 * auc)
-            history.prob_auc_per_epoch.append(prob_scored_auc(val_Y, probs))
-            if verbose:
-                print(f"Epoch {epoch}/{epochs}  nll={epoch_nll / num_batches:.4f}  "
-                      f"val_acc={acc:.4f}  val_auc={auc:.4f}")
-            if (reinit_on_collapse and epoch % reinit_on_collapse == 0
-                    and epoch < epochs and hasattr(model, "reinit_params")):
-                _maybe_reinit(model, history, val_Y, reinit_on_collapse, verbose)
-        elif verbose:
-            print(f"Epoch {epoch}/{epochs}  nll={epoch_nll / num_batches:.4f}")
+            if val_X is not None:
+                with span("validate"):
+                    preds, probs = model.predict_batch(np.asarray(val_X, dtype="float32"))
+                    acc, _, _, _, auc = get_metrics(val_Y, preds, list(class_titles))
+                    history.acc_per_epoch.append(acc)
+                    history.auc_per_epoch.append(auc)
+                    history.combined_acc_auc_per_epoch.append(0.5 * acc + 0.5 * auc)
+                    history.prob_auc_per_epoch.append(prob_scored_auc(val_Y, probs))
+                if verbose:
+                    print(f"Epoch {epoch}/{epochs}  nll={epoch_nll / num_batches:.4f}  "
+                          f"val_acc={acc:.4f}  val_auc={auc:.4f}")
+                if (reinit_on_collapse and epoch % reinit_on_collapse == 0
+                        and epoch < epochs and hasattr(model, "reinit_params")):
+                    _maybe_reinit(model, history, val_Y, reinit_on_collapse, verbose)
+            elif verbose:
+                print(f"Epoch {epoch}/{epochs}  nll={epoch_nll / num_batches:.4f}")
 
-        if track_distribution and hasattr(model, "sample_output_patterns"):
-            src = val_X if val_X is not None else train_X
-            pats = model.sample_output_patterns(
-                np.asarray(src[:_DISTRIBUTION_SAMPLE_EXAMPLES], dtype="float32"))
-            history.distribution_per_epoch.append(
-                model.get_result_distribution(pats, output_patterns(model)))
+            if track_distribution and hasattr(model, "sample_output_patterns"):
+                src = val_X if val_X is not None else train_X
+                pats = model.sample_output_patterns(
+                    np.asarray(src[:_DISTRIBUTION_SAMPLE_EXAMPLES], dtype="float32"))
+                history.distribution_per_epoch.append(
+                    model.get_result_distribution(pats, output_patterns(model)))
 
-        history.error_per_epoch.append(epoch_errors / num_batches)
-        history.nll_per_epoch.append(epoch_nll / num_batches)
-        if checkpoint_every and checkpoint_path and epoch % checkpoint_every == 0:
-            save_checkpoint(checkpoint_path, model, history, epoch)
+            history.error_per_epoch.append(epoch_errors / num_batches)
+            history.nll_per_epoch.append(epoch_nll / num_batches)
+            if checkpoint_every and checkpoint_path and epoch % checkpoint_every == 0:
+                save_checkpoint(checkpoint_path, model, history, epoch)
 
     if save_folder:
         seed = getattr(model, "seed", 0)

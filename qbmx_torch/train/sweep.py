@@ -79,6 +79,7 @@ from qbmx_torch.samplers.api import (Sampler, get_sampler, sampler_sample_groups
                                      with_dense_couplings)
 from qbmx_torch.train.loop import _pad_batch, flatlined
 from qbmx_torch.utils.metrics import History, accuracy_and_auc, get_metrics, prob_scored_auc
+from qbmx_torch.utils.spans import span, spanned
 
 
 # ``dqbm.params_from_numpy`` and ``params_to_numpy`` take any leading axes,
@@ -116,9 +117,13 @@ def _pad_to_batches(x: np.ndarray, y: np.ndarray, batch_size: int, device):
     ``device``; the mask zeros the padded examples out of every statistic."""
     nb = -(-len(x) // batch_size)
     xp, yp, mask = _pad_batch(x, y, nb * batch_size)
-    return (torch.as_tensor(xp.reshape((nb, batch_size) + x.shape[1:]), device=device),
-            torch.as_tensor(yp.reshape(nb, batch_size), device=device),
-            torch.as_tensor(mask.reshape(nb, batch_size), device=device), nb)
+    with span("sync.upload_x"):
+        xb = torch.as_tensor(xp.reshape((nb, batch_size) + x.shape[1:]), device=device)
+    with span("sync.upload_y"):
+        yb = torch.as_tensor(yp.reshape(nb, batch_size), device=device)
+    with span("sync.upload_mask"):
+        maskb = torch.as_tensor(mask.reshape(nb, batch_size), device=device)
+    return xb, yb, maskb, nb
 
 
 def _seed_mean(tree, mask):
@@ -158,14 +163,19 @@ def _chunked(predict, x, chunk: int | None):
         parts = [predict(x)]
     else:
         parts = [predict(pad_rows(x[i: i + chunk], chunk)) for i in range(0, n, chunk)]
-    return [torch.cat(outs, dim=1)[:, :n].cpu().numpy() for outs in zip(*parts)]
+    fetched = []
+    for outs in zip(*parts):
+        with span("sync.val_fetch"):
+            fetched.append(torch.cat(outs, dim=1)[:, :n].cpu().numpy())
+    return fetched
 
 
 def _snapshot_best(best, params, improved: np.ndarray):
     """Where ``improved[s]``, seed s's parameters replace its row of the
     stacked best-epoch parameters (on the device; no host copy until they
     are saved)."""
-    imp = torch.as_tensor(improved, device=tree_leaves(params)[0].device)
+    with span("sync.best_mask"):
+        imp = torch.as_tensor(improved, device=tree_leaves(params)[0].device)
     return tree_map(lambda b, p: torch.where(imp.reshape((-1,) + (1,) * (p.dim() - 1)), p, b),
                     best, params)
 
@@ -276,6 +286,7 @@ class _SeedSweep:
         fresh = _seed_streams([self.seeds[i] for i in indices], self._init_params, attempt)
         self.params = tree_map(lambda a, f: a.index_copy(0, idx, f), self.params, fresh)
 
+    @spanned("train")
     def train(self, train_X, train_Y, val_X=None, val_Y=None, epochs: int = 1,
               batch_size: int = 8, learning_rate: float = 0.005,
               class_titles=("0", "1"), verbose: bool = True,
@@ -285,10 +296,14 @@ class _SeedSweep:
         epochs, re-draw each seed that ``train.loop.flatlined`` over them
         (never after the final epoch).  ``predict_chunk``: validation
         examples a sampler call (None: all of them in one call)."""
-        xb, yb, maskb, nb = _pad_to_batches(self._prepare(np.asarray(train_X, dtype="float32")),
-                                            np.asarray(train_Y), batch_size, self.device)
-        xv = (torch.as_tensor(self._prepare(np.asarray(val_X, dtype="float32")),
-                              device=self.device) if val_X is not None else None)
+        xb, yb, maskb, nb = _pad_to_batches(
+            self._prepare(np.asarray(train_X, dtype="float32")), np.asarray(train_Y),
+            batch_size, self.device)
+        xv = None
+        if val_X is not None:
+            xv = self._prepare(np.asarray(val_X, dtype="float32"))
+            with span("sync.upload_val"):
+                xv = torch.as_tensor(xv, device=self.device)
         rows = self.rows
         self.params = _rows_of(self.params, rows)
         if self.best_params is not None:
@@ -296,35 +311,41 @@ class _SeedSweep:
         self._held = rows
         histories = [History() for _ in rows]
         for epoch_i in range(1, epochs + 1):
-            nlls = torch.stack([self._step(xb[i], yb[i], maskb[i], learning_rate)
-                                for i in range(nb)], dim=1).cpu().numpy()  # (S, nb)
-            for s, h in enumerate(histories):
-                h.nll_per_batch.extend(float(v) for v in nlls[s])
-                h.nll_per_epoch.append(float(nlls[s].sum()) / nb)
-                h.errors_per_batch.extend(0.0 for _ in range(nb))
-                h.error_per_epoch.append(0.0)
-            if xv is None:
-                continue
-            preds, probs = self._validate(xv, predict_chunk)
-            for s, h in enumerate(histories):
-                acc, _, _, _, auc = get_metrics(val_Y, preds[s], list(class_titles))
-                h.acc_per_epoch.append(acc)
-                h.auc_per_epoch.append(auc)
-                h.combined_acc_auc_per_epoch.append(0.5 * acc + 0.5 * auc)
-                h.prob_auc_per_epoch.append(prob_scored_auc(val_Y, probs[s]))
-            _track_best(self, histories, epoch_i)
-            if verbose:
-                accs = [h.acc_per_epoch[-1] for h in histories]
-                print(f"Epoch {epoch_i}/{epochs}  val_acc mean {np.mean(accs):.4f} "
-                      f"[{np.min(accs):.4f}, {np.max(accs):.4f}]")
-            if reinit_on_collapse and epoch_i % reinit_on_collapse == 0 and epoch_i < epochs:
-                collapsed = [s for s, h in zip(rows, histories)
-                             if flatlined(h.acc_per_epoch, val_Y, reinit_on_collapse)]
-                for s in collapsed:
-                    self._reinit_attempts[s] += 1
-                    self.reinit_seeds([s], attempt=self._reinit_attempts[s])
-                if collapsed and verbose:
-                    print(f"re-initialized flatlined seeds {[self.seeds[s] for s in collapsed]}")
+            with span("epoch"):
+                nlls = torch.stack([self._step(xb[i], yb[i], maskb[i], learning_rate)
+                                    for i in range(nb)], dim=1)  # (S, nb)
+                with span("sync.epoch_nll"):
+                    nlls = nlls.cpu().numpy()
+                for s, h in enumerate(histories):
+                    h.nll_per_batch.extend(float(v) for v in nlls[s])
+                    h.nll_per_epoch.append(float(nlls[s].sum()) / nb)
+                    h.errors_per_batch.extend(0.0 for _ in range(nb))
+                    h.error_per_epoch.append(0.0)
+                if xv is None:
+                    continue
+                with span("validate"):
+                    preds, probs = self._validate(xv, predict_chunk)
+                    for s, h in enumerate(histories):
+                        acc, _, _, _, auc = get_metrics(val_Y, preds[s], list(class_titles))
+                        h.acc_per_epoch.append(acc)
+                        h.auc_per_epoch.append(auc)
+                        h.combined_acc_auc_per_epoch.append(0.5 * acc + 0.5 * auc)
+                        h.prob_auc_per_epoch.append(prob_scored_auc(val_Y, probs[s]))
+                _track_best(self, histories, epoch_i)
+                if verbose:
+                    accs = [h.acc_per_epoch[-1] for h in histories]
+                    print(f"Epoch {epoch_i}/{epochs}  val_acc mean {np.mean(accs):.4f} "
+                          f"[{np.min(accs):.4f}, {np.max(accs):.4f}]")
+                if (reinit_on_collapse and epoch_i % reinit_on_collapse == 0
+                        and epoch_i < epochs):
+                    collapsed = [s for s, h in zip(rows, histories)
+                                 if flatlined(h.acc_per_epoch, val_Y, reinit_on_collapse)]
+                    for s in collapsed:
+                        self._reinit_attempts[s] += 1
+                        self.reinit_seeds([s], attempt=self._reinit_attempts[s])
+                    if collapsed and verbose:
+                        print("re-initialized flatlined seeds "
+                              f"{[self.seeds[s] for s in collapsed]}")
         self._epochs_done += epochs
         self._held = range(self.S)
         if self.mesh is None:
@@ -436,6 +457,7 @@ class SeedParallelDQBM(_SeedSweep):
         h_all[S:] = unclamped_fields(p, x, beta)
         return Q_all, h_all
 
+    @spanned("step")
     @torch.no_grad()
     def _step(self, x, y, mask, lr):
         """One update of every seed's parameters from ONE sampler call;
@@ -474,6 +496,7 @@ class SeedParallelDQBM(_SeedSweep):
                                     self.predict_sample_count)  # (S, N, R, n_u)
         return s_u[..., :self.n_output_nodes].mean(dim=2), self._probs(s_u)
 
+    @spanned("predict")
     def _validate(self, x, chunk):
         marg, probs = _chunked(self._predict, x, chunk)
         preds = (np.argmax(marg, axis=2) if self.use_one_hot_encoding
@@ -539,6 +562,7 @@ class SeedParallelCDQBM(_SeedSweep):
         n_total))``."""
         return self.model.step_qubos(self.params, x, self.model._label_vec(y))
 
+    @spanned("step")
     @torch.no_grad()
     def _step(self, x, y, mask, lr):
         """One update of every seed's parameters from ONE sampler call;
@@ -571,6 +595,7 @@ class SeedParallelCDQBM(_SeedSweep):
                                     m.unclamped_fields(p, x), m.sample_count)
         return (m._probs_from_samples(s_u),)
 
+    @spanned("predict")
     def _validate(self, x, chunk):
         (probs,) = _chunked(self._predict, x, chunk)
         return np.argmax(probs, axis=2), probs

@@ -10,6 +10,7 @@ import pickle
 import re
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -168,7 +169,8 @@ def test_port_imports_no_jax_sklearn_or_qbmx():
 @pytest.mark.parametrize("solver", ["SA", "BMS", "PT"])
 def test_profile_steps_runs_each_solver_on_cpu(solver):
     """The step profiler times every solver; the device columns stay empty
-    where there is no device to profile."""
+    where there is no device to profile, and the profiled epoch's spans
+    count one step and one sampler call a batch and the epoch's fetches."""
     from qbmx_torch.cli import profile_steps
 
     (rec,) = profile_steps.main(["--device", "cpu", "--solver", solver, "--hidden", "2",
@@ -178,6 +180,13 @@ def test_profile_steps_runs_each_solver_on_cpu(solver):
     assert rec["ms_per_step"] > 0 and rec["epoch_ms"] == rec["epoch_ms_runs"][0]
     assert rec["kernel"] == profile_steps.SOLVER_KERNELS[solver]
     assert rec["busy_ms"] is None and rec["idle_share"] is None
+    spans = rec["spans"]
+    assert spans["qbmx.step"][0] == spans["qbmx.sampler"][0] == 3
+    assert spans["qbmx.sync.epoch_nll"][0] == spans["qbmx.sync.epoch_err"][0] == 1
+    for count, total_ms, self_ms in spans.values():
+        assert count > 0 and total_ms >= self_ms >= 0
+    # a step's own time leaves out its sampler call
+    assert spans["qbmx.step"][2] <= spans["qbmx.step"][1] - spans["qbmx.sampler"][1] + 1e-6
 
 
 @pytest.mark.parametrize("pooling,n,steps,kernel", [
@@ -206,6 +215,8 @@ def test_profile_steps_runs_a_seed_sweep_on_cpu():
     assert rec["model"] == "SeedParallelDQBM 3 seeds" and rec["seeds"] == 3
     assert rec["steps"] == 3 and rec["ms_per_seed_step"] == pytest.approx(rec["ms_per_step"] / 3)
     assert rec["kernel"] == "sa_metropolis" and rec["busy_ms"] is None
+    assert rec["spans"]["qbmx.train"][0] == rec["spans"]["qbmx.epoch"][0] == 1
+    assert rec["spans"]["qbmx.step"][0] == 3
     assert profile_steps.solver_kernel("PT", 717) == "pt_wide"
     assert profile_steps.solver_kernel("PT", 6) == "pt_heatbath"
 
@@ -215,6 +226,18 @@ def test_profile_steps_busy_time_is_the_union_of_spans():
 
     assert _union_us([(0, 2), (1, 3), (5, 6)]) == 4
     assert _union_us([(4, 5), (0, 10)]) == 10 and _union_us([]) == 0
+
+
+def test_profile_steps_span_table_takes_the_inner_spans_from_self_time():
+    from qbmx_torch.cli.profile_steps import span_table
+
+    ev = lambda name, s, e: types.SimpleNamespace(name=name,
+                                                  time_range=types.SimpleNamespace(start=s, end=e))
+    table = span_table([ev("qbmx.step", 0, 10e3), ev("qbmx.sampler", 2e3, 6e3),
+                        ev("qbmx.sync.beta_inf", 3e3, 4e3), ev("qbmx.step", 20e3, 25e3),
+                        ev("aten::add", 1e3, 9e3), ev("qbmx.sampler", 21e3, 22e3)])
+    assert table == {"qbmx.step": [2, 15.0, 10.0], "qbmx.sampler": [2, 5.0, 4.0],
+                     "qbmx.sync.beta_inf": [1, 1.0, 1.0]}
 
 
 def test_train_model_reinit_counter_persists_on_the_model():
