@@ -27,9 +27,23 @@
 //   * a change of variable i by d adds fmaf(d, J_ij, f_j) over row i's
 //     nonzeros only, lane l taking entries l, l+32, ... (distinct columns),
 //     a pair's or quad's rows in increasing order with a warp barrier
-//     between them;
+//     between them (commit_unit);
 //   * there is no block barrier after the lists are in place, and no tile:
 //     a chain waits on nothing but its own warp.
+//
+// Commit sweeps.  A sweep is a sequence of decisions in a fixed order, each
+// a shared load and a compare; taken one at a time by the chain's warp, 31
+// of its 32 lanes sit idle through every decision.  On J_g this sparse a
+// decision rarely reads a field that the change before it wrote, so outside
+// the refresh sweeps the warp decides a batch's units at once, a unit a
+// lane, and commits their changes in order, the units after each change
+// reading their fields and deciding again (commit_sweep): each unit still
+// decides on its fields after every earlier change of the sweep.  At CDQBM
+// (a) a batch of 32 decisions takes about 9 rounds.  A refresh sweep, the
+// units past n rounded down to the rule's width, and every quad sweep go
+// one unit at a time: a quad changes at nearly every decision, so its
+// commits would decide each later quad again (slower than one at a time at
+// CDQBM (a), PERF.md §6).
 //
 // Fields.  fmaf(d, 0, f) is f exactly, so skipping the zeros of a row leaves
 // every field the value the dense shared layout gives it; a refresh (every
@@ -121,13 +135,39 @@ struct PartClocks {
 };
 #endif
 
-// A unit of variables i..i+M-1 (M = 1, 2 or 4) of a chain's sweep: its
-// fields read from fr, or, in a REFRESH sweep, recomputed from the row lists
-// and written there; its states from `bits` (the batch of 32 that starts at
-// `base`); the decision on the unit table uc; a change written to bits and
-// the state bytes and added to the fields of each changed row's nonzeros,
-// rows in increasing order.  Returns the variables changed; where COUNT
-// adds the nonzeros of their rows to `work`.
+// The changes d of a unit of variables i..i+M-1 (the same on every lane of
+// the chain's warp) committed: lane `writer` writes each changed variable's
+// state byte, and each changed row's nonzeros take fmaf(d, J_ij, f_j), rows
+// in increasing order with a warp barrier after each, so that its adds land
+// before the next row's and before any field is read again.  Returns the
+// variables changed; where COUNT adds the nonzeros of their rows to `work`.
+template <int M, bool COUNT>
+__device__ __forceinline__ int commit_unit(const RowLists& rl, int i, const float d[M],
+                                           int writer, float* fr, unsigned char* sb, int lane,
+                                           unsigned& work) {
+  int changed = 0;
+#pragma unroll
+  for (int a = 0; a < M; ++a) {
+    if (d[a] == 0.0f) continue;
+    if (lane == writer) sb[i + a] = d[a] > 0.0f ? 0xFF : 0x00;
+    const int e0 = rl.offs[i + a], e1 = rl.offs[i + a + 1];
+    for (int e = e0 + lane; e < e1; e += kLanes) {
+      const int j = rl.cols[e];
+      fr[j] = fmaf(d[a], rl.vals[e], fr[j]);
+    }
+    if constexpr (COUNT) work += (unsigned)(e1 - e0);
+    ++changed;
+    __syncwarp();
+  }
+  return changed;
+}
+
+// A unit of variables i..i+M-1 (M = 1, 2 or 4) of a chain's sweep, decided
+// by the whole warp: its fields read from fr, or, in a REFRESH sweep,
+// recomputed from the row lists and written there; its states from `bits`
+// (the batch of 32 that starts at `base`); the decision on the unit table
+// uc; a change written to bits and committed (commit_unit).  Returns the
+// variables changed; where COUNT adds the nonzeros of their rows to `work`.
 template <int RULE, int M, bool COUNT, bool REFRESH>
 __device__ __forceinline__ int sparse_unit(const RowLists& rl, const float* uc, int i, int base,
                                            float beta, float v, float* fr, unsigned char* sb,
@@ -152,45 +192,56 @@ __device__ __forceinline__ int sparse_unit(const RowLists& rl, const float* uc, 
     changed += d[a] != 0.0f;
   }
   clk.lap(kDecide);
-  if constexpr (REFRESH) __syncwarp();  // every lane has read the state bytes
-  if (lane == 0) {
+  if constexpr (REFRESH) {
+    if (lane == 0) {
 #pragma unroll
-    for (int a = 0; a < M; ++a) {
-      if (REFRESH) fr[i + a] = f[a];
-      if (d[a] != 0.0f) sb[i + a] = o[a] != 0.0f ? 0xFF : 0x00;
+      for (int a = 0; a < M; ++a) fr[i + a] = f[a];
     }
   }
   if (changed == 0) {  // the same on the chain's lanes
-    if constexpr (REFRESH) __syncwarp();  // ... the refreshed fields in place for every lane
+    if constexpr (REFRESH) __syncwarp();  // the refreshed fields in place for every lane
     return 0;
   }
-  // every lane has read the unit's fields, and sees the refreshed ones and
-  // the state bytes, before any adds to them
+  // every lane has read the unit's fields and the state bytes, and sees the
+  // refreshed fields, before any adds to them
   __syncwarp();
 #pragma unroll
-  for (int a = 0; a < M; ++a) {
-    if (d[a] == 0.0f) continue;
-    bits ^= 1u << (i + a - base);
-    const int e0 = rl.offs[i + a], e1 = rl.offs[i + a + 1];
-    for (int e = e0 + lane; e < e1; e += kLanes) {
-      const int j = rl.cols[e];
-      fr[j] = fmaf(d[a], rl.vals[e], fr[j]);
-    }
-    if constexpr (COUNT) work += (unsigned)(e1 - e0);
-    __syncwarp();  // the row's adds land before the next row's and the next decision
-  }
+  for (int a = 0; a < M; ++a)
+    if (d[a] != 0.0f) bits ^= 1u << (i + a - base);
+  commit_unit<M, COUNT>(rl, i, d, 0, fr, sb, lane, work);
   clk.lap(kChange);
   return changed;
 }
 
-// One sweep of a chain (a warp) on the row lists rl and unit table uc:
-// batch by batch of 32 variables, lane l drawing variable base + l's
-// threshold (RULE 0, 1) or uniform (RULE 2, 4) and reading its state; then
-// the batch's units in anneal_wide.cu's order (tile_schedule's): singles
-// (RULE 0, 1); pairs, and a trailing single at odd n (RULE 2); quads, and
-// past n rounded down to 4 a pair and/or a single (RULE 4).  A unit never
-// straddles a batch.  One loop over the units of the rule's width keeps
-// one copy of a unit's code.  Returns the variables changed.
+// The units of a batch ending at `end` past n rounded down to the rule's
+// width, from variable i, one at a time by unit(i, Width<M>{}): a pair
+// and/or a single (RULE 4), a single (RULE 2), none (RULE 0, 1).  Returns
+// the variables changed.
+template <int RULE, typename Unit>
+__device__ __forceinline__ int trailing_units(int i, int end, Unit unit) {
+  int changed = 0;
+  if constexpr (RULE == 4) {
+    if (i + 2 <= end) {
+      changed += unit(i, Width<2>{});
+      i += 2;
+    }
+  }
+  if constexpr (RULE >= 2) {
+    if (i < end) changed += unit(i, Width<1>{});
+  }
+  return changed;
+}
+
+// One sweep of a chain (a warp) on the row lists rl and unit table uc, one
+// unit at a time (a refresh sweep, each unit's fields recomputed before its
+// decision; or a quad sweep): batch by batch of 32 variables, lane l drawing
+// variable base + l's threshold (RULE 0, 1) or uniform (RULE 2, 4) and
+// reading its state; then the batch's units in anneal_wide.cu's order
+// (tile_schedule's): singles (RULE 0, 1); pairs, and a trailing single at
+// odd n (RULE 2); quads, and past n rounded down to 4 a pair and/or a single
+// (RULE 4).  A unit never straddles a batch.  One loop over the units of the
+// rule's width keeps one copy of a unit's code.  Returns the variables
+// changed.
 template <int RULE, bool COUNT, bool REFRESH>
 __device__ __forceinline__ int sparse_sweep(const RowLists& rl, const float* uc, int n,
                                             float beta, SweepUniforms& u, float* fr,
@@ -219,14 +270,83 @@ __device__ __forceinline__ int sparse_sweep(const RowLists& rl, const float* uc,
     };
     int i = base;
     for (; i < min(end, units_end); i += W) changed += unit(i, Width<W>{});
-    if constexpr (RULE == 4) {
-      if (i + 2 <= end) {
-        changed += unit(i, Width<2>{});
-        i += 2;
-      }
+    changed += trailing_units<RULE>(i, end, unit);
+  }
+  return changed;
+}
+
+// A sweep of a chain (a warp) outside the refresh sweeps: a batch's units
+// decided at once, a unit a lane (lane t the unit of variables base + tW ..
+// base + tW + W - 1, W the rule's width), then committed in order.  The
+// first unit that changes is final (every unit before it decided, not to
+// change, on its fields after every earlier change); its change is
+// committed, and only the units after it read their fields and decide
+// again.  So
+// each unit decides on its fields after every earlier change of the sweep,
+// as in a sweep of one unit at a time, and a batch takes one round a change
+// where that sweep takes one a unit.  The units past n rounded down to W go
+// one at a time (trailing_units).  RULE 0, 1 and 2.  Returns the variables
+// changed.
+template <int RULE, bool COUNT>
+__device__ __forceinline__ int commit_sweep(const RowLists& rl, const float* uc, int n,
+                                            float beta, SweepUniforms& u, float* fr,
+                                            unsigned char* sb, int lane, const float* hp,
+                                            unsigned& work, PartClocks& clk) {
+  constexpr int W = RULE <= 1 ? 1 : RULE;
+  const int units_end = n & ~(W - 1);
+  int changed = 0;
+  for (int base = 0; base < n; base += kLanes) {
+    float mine = 0.0f;  // variable base + lane's threshold or uniform
+    if (base + lane < n) {
+      const float uu = u(base + lane);
+      mine = RULE == 0 ? metropolis_threshold(uu, beta)
+             : RULE == 1 ? heatbath_threshold(uu, beta) : uu;
     }
-    if constexpr (RULE >= 2) {
-      if (i < end) changed += unit(i, Width<1>{});
+    clk.lap(kDraw);
+    const int end = min(base + kLanes, n);
+    const int stop = min(end, units_end);
+    const int i = base + lane * W;  // this lane's unit
+    const bool mine_unit = i < stop;
+    const float v = __shfl_sync(kFull, mine, (lane * W) & (kLanes - 1));
+    float f[W], s[W], o[W];
+#pragma unroll
+    for (int a = 0; a < W; ++a) {
+      s[a] = mine_unit && sb[i + a] != 0 ? 1.0f : 0.0f;
+      f[a] = mine_unit ? fr[i + a] : 0.0f;
+      o[a] = s[a];
+    }
+    auto wants = [&]() {  // the unit's decision on its fields: whether it changes
+      if (!mine_unit) return false;
+      decide_with<RULE, W>(
+          f, s, [&](int a, int b) { return uc[(i + a) * kUnitStride + (b - a - 1)]; }, beta, v,
+          o);
+      bool w = false;
+#pragma unroll
+      for (int a = 0; a < W; ++a) w |= o[a] != s[a];
+      return w;
+    };
+    uint32_t pending = __ballot_sync(kFull, wants());
+    clk.lap(kDecide);
+    while (pending != 0) {
+      const int t = __ffs(pending) - 1;  // the first unit that changes
+      float d[W];
+#pragma unroll
+      for (int a = 0; a < W; ++a) d[a] = __shfl_sync(kFull, o[a] - s[a], t);
+      changed += commit_unit<W, COUNT>(rl, base + t * W, d, t, fr, sb, lane, work);
+      if (lane > t && mine_unit) {
+#pragma unroll
+        for (int a = 0; a < W; ++a) f[a] = fr[i + a];
+      }
+      pending = __ballot_sync(kFull, lane > t && wants());
+      clk.lap(kChange);
+    }
+    if (stop < end) {
+      uint32_t bits = __ballot_sync(kFull, base + lane < n && sb[base + lane] != 0);
+      changed += trailing_units<RULE>(stop, end, [&](int k, auto width) {
+        return sparse_unit<RULE, decltype(width)::value, COUNT, false>(
+            rl, uc, k, base, beta, __shfl_sync(kFull, mine, k - base), fr, sb, bits, lane, hp,
+            work, clk);
+      });
     }
   }
   return changed;
@@ -314,11 +434,15 @@ anneal_wide_sparse_kernel(const float* __restrict__ vals_g, const uint16_t* __re
     SweepUniforms u{host ? uniforms + (size_t)t * u_sweep + p * n * R + r : nullptr, R, key,
                     (uint32_t)r, (uint32_t)t, seed_hi};
     unsigned sweep_work = 0;  // at most n² a sweep
-    changed += t % kRefreshPeriod == 0
-                   ? sparse_sweep<RULE, COUNT, true>(rl, uc, n, beta, u, fr, sb, lane, hp,
-                                                     sweep_work, clk)
-                   : sparse_sweep<RULE, COUNT, false>(rl, uc, n, beta, u, fr, sb, lane, hp,
-                                                      sweep_work, clk);
+    if (t % kRefreshPeriod == 0)
+      changed += sparse_sweep<RULE, COUNT, true>(rl, uc, n, beta, u, fr, sb, lane, hp,
+                                                 sweep_work, clk);
+    else if constexpr (RULE == 4)  // a quad changes at nearly every decision
+      changed += sparse_sweep<RULE, COUNT, false>(rl, uc, n, beta, u, fr, sb, lane, hp,
+                                                  sweep_work, clk);
+    else
+      changed += commit_sweep<RULE, COUNT>(rl, uc, n, beta, u, fr, sb, lane, hp, sweep_work,
+                                           clk);
     work += sweep_work;
   }
   clk.flush(lane);

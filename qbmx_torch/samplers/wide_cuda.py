@@ -18,7 +18,9 @@ layout keeps each chain's fields and state in shared memory, at most
 ``anneal_wide.cu``) or, where :func:`shared_path` finds J_g sparse, beside
 J_g's row lists and a table of the couplings within a unit (the sparse
 path, ``anneal_wide_sparse.cu``: a change adds only its row's nonzeros,
-and no block barrier follows the lists' copy), counted apart; the
+no block barrier follows the lists' copy, and outside the refresh sweeps
+a chain's warp decides a batch's units at once and commits their changes
+in order), counted apart; the
 global-field layout keeps them in a scratch buffer in global memory that
 :func:`launch` allocates (a row of n rounded up to 8 floats and as many
 bytes a chain) and walks J_g in windows of :data:`WINDOW` rows, at any

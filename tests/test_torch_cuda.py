@@ -1771,6 +1771,35 @@ def test_wide_sparse_path_equals_the_dense_path(dev, n, rule):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("rule", [0, 1, 2, 4])
+def test_wide_sparse_commit_rounds_follow_each_change(dev, rule):
+    """A banded J_g (each variable coupled to the three on either side), so
+    that nearly every change moves the field of a later unit of its batch,
+    at a hot schedule (many changes, so many commit rounds a batch): the
+    sparse path, whose commit sweeps decide a batch's units at once and
+    decide again after each change, equals the dense path, one unit at a
+    time, bit for bit in samples, final fields and counters."""
+    G, B, R, S, n = 2, 2, 40, 70, 301
+    rng = np.random.default_rng(rule + 23)
+    idx = torch.arange(n, device=dev)
+    band = (idx[:, None] - idx[None, :]).abs() <= 3
+    Q = random_qubo_batch(rng, G, n, scale=2.0).to(dev) * band
+    h_extra = torch.as_tensor(rng.normal(size=(G, B, n)).astype(np.float32), device=dev)
+    hv = _variates(rng, (G, B), n, R, S, dev)
+    J, h, hot, logr = _structured_form(Q, h_extra, S, rule, 0.3)
+    res = []
+    for path in (wide_cuda.DENSE, wide_cuda.SPARSE):
+        fields = torch.empty((G, B, R, n), device=dev)
+        flips = torch.zeros(2, dtype=torch.int64, device=dev)
+        out = wide_cuda.launch(J, h, hot, logr, R, S, rule, host_variates=hv, fields_out=fields,
+                               flips=flips, field_pass=path)
+        torch.cuda.synchronize()
+        res.append((out, fields, flips))
+    assert res[0][2][0] > G * B * R * S * n // 50  # many changes, so many rounds, a batch
+    for a, b in zip(*res):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("solver", ["SA", "BMS"])
 def test_wide_dense_couplings_skip_the_count(dev, solver, monkeypatch):
     """The flat model with a dense ``w_hh`` (``qbm_main -hn 300 -r False``)
